@@ -1,0 +1,184 @@
+"""GOAT dual-scale cross-modal navigation model (counterpart of
+vln_goat_tpu/models/goat.py), the modes the greedy-decode rollout runs:
+`forward_text`, `forward_panorama`, `forward_text_kv` and
+`forward_navigation`.
+
+The front-door encoders, the critic and the CFP extraction heads are not
+ported yet; a config that needs them is refused at construction.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..config import GoatConfig
+from .backbone import LanguageEncoder, RobertaEmbeddings
+from .layers import BertPooler, ClsPrediction, CrossmodalEncoder
+from .panorama import CausalImageEmbeddings
+
+NEG_INF = float("-inf")
+
+
+class LocalVPEncoder(nn.Module):
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.vp_pos_embeddings = nn.Sequential(
+            nn.Linear(2 * (c.angle_feat_size + 3), c.hidden_size),
+            nn.LayerNorm(c.hidden_size, eps=1e-12))
+        self.encoder = CrossmodalEncoder(c)
+
+    def pos_embed(self, vp_pos_fts):
+        return self.vp_pos_embeddings(vp_pos_fts)
+
+
+class GlobalMapEncoder(nn.Module):
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.gmap_pos_embeddings = nn.Sequential(
+            nn.Linear(c.angle_feat_size + 3, c.hidden_size),
+            nn.LayerNorm(c.hidden_size, eps=1e-12))
+        self.gmap_step_embeddings = nn.Embedding(c.max_action_steps,
+                                                 c.hidden_size)
+        self.encoder = CrossmodalEncoder(c)
+        self.sprel_linear = nn.Linear(1, 1) if c.graph_sprels else None
+
+    def input_embed(self, gmap_img_embeds, gmap_step_ids, gmap_pos_fts):
+        return (gmap_img_embeds
+                + self.gmap_step_embeddings(gmap_step_ids)
+                + self.gmap_pos_embeddings(gmap_pos_fts))
+
+    def sprel_bias(self, gmap_pair_dists):
+        """graph_sprels additive attention bias [B, 1, G, G]."""
+        if self.sprel_linear is None:
+            return None
+        return self.sprel_linear(gmap_pair_dists[..., None]).squeeze(-1)[:, None]
+
+
+def fuse_logits(global_logits, local_logits, gmap_masks, gmap_visited_masks,
+                vp_nav_masks, local_to_gmap):
+    """Fuse the local branch's candidate scores into the global map's
+    (the JAX package's `fuse_logits`).  Each local candidate adds its score
+    to its gmap slot; a visited candidate's score goes to the backtrack sum
+    that every unvisited slot without a direct candidate receives.  The
+    scatter adds each value to zeros only, so it is exact in float32.
+
+    Returns (fused [B, G], masked_global [B, G], masked_local [B, L])."""
+    B, G = global_logits.shape
+    L = local_logits.shape[1]
+    dev = global_logits.device
+    slot = torch.arange(G, device=dev)[None, :]
+    lslot = torch.arange(L, device=dev)[None, :]
+    ninf = torch.tensor(NEG_INF, device=dev)
+
+    masked_global = torch.where(gmap_visited_masks, ninf, global_logits)
+    masked_global = torch.where(gmap_masks, masked_global, ninf)
+    masked_local = torch.where(vp_nav_masks, local_logits, ninf)
+
+    # local slots 0/1 are stop and MEM; gmap slots 0/1 likewise
+    is_cand = (lslot >= 2) & (local_to_gmap >= 0) & vp_nav_masks
+    zero = torch.zeros_like(local_logits)
+    lv = torch.where(is_cand, local_logits, zero)
+    tgt = local_to_gmap.clamp(0, G - 1).long()
+    cand_visited = torch.gather(gmap_visited_masks, 1, tgt) & is_cand
+    bw = torch.where(cand_visited, lv, zero).sum(dim=1)
+    direct = torch.zeros_like(global_logits).scatter_add_(
+        1, tgt, torch.where(cand_visited, zero, lv))
+    has_direct = torch.zeros_like(global_logits).scatter_add_(
+        1, tgt, (is_cand & ~cand_visited).to(lv.dtype)) > 0
+
+    unvis = (slot >= 2) & ~gmap_visited_masks & gmap_masks
+    fused = masked_global + torch.where(
+        unvis, torch.where(has_direct, direct, bw[:, None]),
+        torch.zeros_like(masked_global))
+    fused[:, 0] += local_logits[:, 0]
+    return fused, masked_global, masked_local
+
+
+class GoatModel(nn.Module):
+    """GlocalTextPathNavCMT equivalent, inference modes of the greedy
+    rollout."""
+
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        if (c.do_back_txt or c.do_front_txt or c.do_front_img
+                or c.do_front_his or c.obj_feat_size > 0
+                or c.mode == "extract_cfp_features"):
+            raise NotImplementedError(
+                "causal interventions, object grounding and CFP extraction "
+                "are not ported yet")
+        self.config = c
+        self.embeddings = RobertaEmbeddings(c)
+        self.lang_encoder = LanguageEncoder(c)
+        self.img_embeddings = CausalImageEmbeddings(c)
+        self.local_encoder = LocalVPEncoder(c)
+        self.global_encoder = GlobalMapEncoder(c)
+        self.global_sap_head = ClsPrediction(c)
+        self.local_sap_head = ClsPrediction(c)
+        self.sap_fuse_linear = ClsPrediction(
+            c, input_size=c.hidden_size * 2) if c.glocal_fuse else None
+        self.gmap_pooler = BertPooler(c)
+        self.vp_pooler = BertPooler(c)
+        self.txt_pooler = BertPooler(c)
+        self.local_his_map = nn.Linear(3 * c.hidden_size, c.hidden_size)
+        self.local_his_ln = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+
+    def forward_text(self, txt_ids, txt_masks):
+        return self.lang_encoder(self.embeddings(txt_ids), txt_masks)
+
+    def forward_panorama(self, view_img_fts, loc_fts, nav_types, view_masks):
+        return self.img_embeddings(view_img_fts, loc_fts, nav_types,
+                                   view_masks)
+
+    def forward_text_kv(self, txt_embeds):
+        """Per-layer cross-attention K/V projections of the instruction,
+        computed once per episode and fed to forward_navigation(txt_kv=)."""
+        return {"global": self.global_encoder.encoder.kv(txt_embeds),
+                "local": self.local_encoder.encoder.kv(txt_embeds)}
+
+    def forward_navigation(
+        self, txt_embeds, txt_masks,
+        gmap_img_embeds, gmap_step_ids, gmap_pos_fts, gmap_masks,
+        gmap_pair_dists, gmap_visited_masks,
+        vp_img_embeds, vp_pos_fts, vp_masks, vp_nav_masks,
+        local_to_gmap, txt_kv=None,
+    ) -> Dict[str, torch.Tensor]:
+        ge, le = self.global_encoder, self.local_encoder
+        gmap_embeds = ge.input_embed(gmap_img_embeds, gmap_step_ids,
+                                     gmap_pos_fts)
+        graph_sprels = ge.sprel_bias(gmap_pair_dists)
+        vp_embeds = vp_img_embeds + le.pos_embed(vp_pos_fts)
+
+        gmap_embeds = ge.encoder(
+            gmap_embeds, gmap_masks, txt_embeds, txt_masks,
+            graph_sprels=graph_sprels,
+            kv_caches=None if txt_kv is None else txt_kv["global"])
+        vp_embeds = le.encoder(
+            vp_embeds, vp_masks, txt_embeds, txt_masks,
+            kv_caches=None if txt_kv is None else txt_kv["local"])
+
+        if self.sap_fuse_linear is not None:
+            fuse_weights = torch.sigmoid(self.sap_fuse_linear(
+                torch.cat([gmap_embeds[:, 0], vp_embeds[:, 0]], dim=1)))
+        else:
+            fuse_weights = 0.5
+        global_logits = self.global_sap_head(gmap_embeds).squeeze(-1) \
+            * fuse_weights
+        local_logits = self.local_sap_head(vp_embeds).squeeze(-1) \
+            * (1.0 - fuse_weights)
+        fused_logits, global_logits, local_logits = fuse_logits(
+            global_logits, local_logits, gmap_masks, gmap_visited_masks,
+            vp_nav_masks, local_to_gmap)
+
+        cls_embeds = self.local_his_ln(self.local_his_map(torch.cat([
+            self.gmap_pooler(gmap_embeds), self.vp_pooler(vp_embeds),
+            self.txt_pooler(txt_embeds)], dim=-1)))
+        return {
+            "gmap_embeds": gmap_embeds,
+            "vp_embeds": vp_embeds,
+            "global_logits": global_logits,
+            "local_logits": local_logits,
+            "fused_logits": fused_logits,
+            "cls_embeds": cls_embeds,
+        }

@@ -1,0 +1,292 @@
+"""Transformer building blocks (counterpart of vln_goat_tpu/models/layers.py).
+
+Inference only in this slice: no dropout, float32.  Parity rules kept
+from the JAX package:
+- additive -10000 masks (ops/masks.py), softmax in float32;
+- erf GELU;
+- LayerNorm eps: config.layer_norm_eps inside BERT blocks, 1e-12 where the
+  reference hard-codes it, 1e-5 in the DETR pano encoder;
+- attribute names give the reference torch state-dict keys, so a JAX
+  parameter tree maps onto `state_dict()` mechanically
+  (train/checkpoint.py).
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..config import GoatConfig
+from ..ops.activations import ACT2FN
+from ..ops.attention import fused_qkv_mha
+from ..ops.masks import extend_neg_masks
+
+
+class AttentionCore(nn.Module):
+    """Scaled dot-product attention with q/k/v projections
+    (BertSelfAttention).  bias is an additive float mask broadcastable to
+    [B, H, Lq, Lk]; softmax in float32.
+
+    With `use_fused` the fused q/k/v + attention kernel serves query blocks
+    of at least `min_lq` tokens, as the JAX package's gate does
+    (layers.py:110-137); hoisted text K/V (`kv_cache`) stays on the eager
+    path."""
+
+    def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
+                 use_fused: bool = False, min_lq: int = 32):
+        super().__init__()
+        d = num_heads * head_dim
+        self.num_heads, self.head_dim = num_heads, head_dim
+        self.use_fused, self.min_lq = use_fused, min_lq
+        self.query = nn.Linear(hidden_size, d)
+        self.key = nn.Linear(hidden_size, d)
+        self.value = nn.Linear(hidden_size, d)
+
+    def kv(self, kv_in: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K/V projections alone (the hoisted text cache)."""
+        return self.key(kv_in), self.value(kv_in)
+
+    def forward(self, q_in, kv_in, bias=None, kv_cache=None):
+        if (self.use_fused and kv_cache is None
+                and q_in.shape[1] >= self.min_lq):
+            return fused_qkv_mha(
+                q_in.contiguous(), kv_in.contiguous(),
+                self.query.weight.t(), self.query.bias,
+                self.key.weight.t(), self.key.bias,
+                self.value.weight.t(), self.value.bias, bias,
+                num_heads=self.num_heads)
+        q = self.query(q_in)
+        k, v = kv_cache if kv_cache is not None else self.kv(kv_in)
+        B, Lq, Lk = q.shape[0], q.shape[1], k.shape[1]
+        H, dh = self.num_heads, self.head_dim
+        q = q.view(B, Lq, H, dh)
+        k = k.view(B, Lk, H, dh)
+        v = v.view(B, Lk, H, dh)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
+        if bias is not None:
+            scores = scores + bias.to(scores.dtype)
+        probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        return ctx.reshape(B, Lq, H * dh)
+
+
+class BertSelfOutput(nn.Module):
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.dense = nn.Linear(c.hidden_size, c.hidden_size)
+        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+
+    def forward(self, hidden, residual):
+        return self.LayerNorm(self.dense(hidden) + residual)
+
+
+class BertAttention(nn.Module):
+    """Self- or cross-attention block with post-LN output."""
+
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.self = AttentionCore(c.hidden_size, c.num_attention_heads,
+                                  c.head_dim, c.use_fused_attention,
+                                  c.fused_attn_min_lq)
+        self.output = BertSelfOutput(c)
+
+    def kv(self, kv_in):
+        return self.self.kv(kv_in)
+
+    def forward(self, hidden, kv=None, bias=None, kv_cache=None):
+        kv_in = hidden if kv is None else kv
+        ctx = self.self(hidden, kv_in, bias, kv_cache=kv_cache)
+        return self.output(ctx, hidden)
+
+
+class BertIntermediate(nn.Module):
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.dense = nn.Linear(c.hidden_size, c.intermediate_size)
+        self.act = ACT2FN[c.hidden_act]
+
+    def forward(self, hidden):
+        return self.act(self.dense(hidden))
+
+
+class BertOutput(nn.Module):
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.dense = nn.Linear(c.intermediate_size, c.hidden_size)
+        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+
+    def forward(self, hidden, residual):
+        return self.LayerNorm(self.dense(hidden) + residual)
+
+
+class BertLayer(nn.Module):
+    """RobertaLayer: self-attention -> FFN."""
+
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.attention = BertAttention(c)
+        self.intermediate = BertIntermediate(c)
+        self.output = BertOutput(c)
+
+    def forward(self, hidden, bias=None):
+        h = self.attention(hidden, None, bias)
+        return self.output(self.intermediate(h), h)
+
+
+class BertCrossLayer(nn.Module):
+    """Self-attention (graph_sprels added to its bias) -> cross-attention
+    -> FFN."""
+
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.attention = BertAttention(c)
+        self.crossattention = BertAttention(c)
+        self.intermediate = BertIntermediate(c)
+        self.output = BertOutput(c)
+
+    def kv(self, enc_hidden):
+        return self.crossattention.kv(enc_hidden)
+
+    def forward(self, hidden, enc_hidden, self_bias=None, cross_bias=None,
+                graph_sprels=None, kv_cache=None):
+        if graph_sprels is not None:
+            self_bias = graph_sprels if self_bias is None \
+                else self_bias + graph_sprels
+        h = self.attention(hidden, None, self_bias)
+        h = self.crossattention(h, enc_hidden, cross_bias, kv_cache=kv_cache)
+        return self.output(self.intermediate(h), h)
+
+
+class CrossmodalEncoder(nn.Module):
+    """Stack of BertCrossLayer; queries first, as the reference's
+    forward(q, q_masks, kv, kv_masks)."""
+
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.crossattention = nn.ModuleList(
+            BertCrossLayer(c) for _ in range(c.num_x_layers))
+
+    def kv(self, kv_embeds) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Per-layer (k, v) projections of kv_embeds (the `kv_only` call
+        of the JAX package), computed once per episode."""
+        return [layer.kv(kv_embeds) for layer in self.crossattention]
+
+    def forward(self, q_embeds, q_masks, kv_embeds, kv_masks,
+                graph_sprels=None, kv_caches=None):
+        self_bias = extend_neg_masks(q_masks) if q_masks is not None else None
+        cross_bias = extend_neg_masks(kv_masks) \
+            if kv_masks is not None else None
+        h = q_embeds
+        for i, layer in enumerate(self.crossattention):
+            h = layer(h, kv_embeds, self_bias, cross_bias, graph_sprels,
+                      kv_cache=None if kv_caches is None else kv_caches[i])
+        return h
+
+
+class TorchMultiheadAttention(nn.Module):
+    """torch.nn.MultiheadAttention's parameters (packed in_proj) with the
+    JAX package's arithmetic: key padding by float32 min, f32 softmax."""
+
+    def __init__(self, hidden_size: int, num_heads: int, head_dim: int):
+        super().__init__()
+        d = num_heads * head_dim
+        self.num_heads, self.head_dim = num_heads, head_dim
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d, hidden_size))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * d))
+        self.out_proj = nn.Linear(d, d)
+
+    def forward(self, q_in, k_in, v_in, key_padding_mask=None):
+        d = self.num_heads * self.head_dim
+        w, b = self.in_proj_weight, self.in_proj_bias
+        q = nn.functional.linear(q_in, w[:d], b[:d])
+        k = nn.functional.linear(k_in, w[d:2 * d], b[d:2 * d])
+        v = nn.functional.linear(v_in, w[2 * d:], b[2 * d:])
+        B, Lq, Lk = q.shape[0], q.shape[1], k.shape[1]
+        H, dh = self.num_heads, self.head_dim
+        q = q.view(B, Lq, H, dh)
+        k = k.view(B, Lk, H, dh)
+        v = v.view(B, Lk, H, dh)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
+        if key_padding_mask is not None:
+            scores = scores.masked_fill(key_padding_mask[:, None, None, :],
+                                        torch.finfo(torch.float32).min)
+        probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, Lq, d)
+        return self.out_proj(ctx)
+
+
+class PanoEncoderLayer(nn.Module):
+    """DETR pre-norm encoder layer: x += MHA(LN1(x)); x += FFN(LN2(x))."""
+
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        D = c.hidden_size
+        self.norm1 = nn.LayerNorm(D, eps=1e-5)
+        self.self_attn = TorchMultiheadAttention(D, c.num_attention_heads,
+                                                 c.head_dim)
+        self.norm2 = nn.LayerNorm(D, eps=1e-5)
+        self.linear1 = nn.Linear(D, c.intermediate_size)
+        self.linear2 = nn.Linear(c.intermediate_size, D)
+        self.act = ACT2FN[c.hidden_act]
+
+    def forward(self, src, key_padding_mask=None):
+        h = self.norm1(src)
+        src = src + self.self_attn(h, h, h, key_padding_mask)
+        h = self.linear2(self.act(self.linear1(self.norm2(src))))
+        return src + h
+
+
+class PanoEncoder(nn.Module):
+    """Pre-norm DETR encoder stack + final LayerNorm(eps=1e-12)."""
+
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            PanoEncoderLayer(c) for _ in range(c.num_pano_layers))
+        self.norm = nn.LayerNorm(c.hidden_size, eps=1e-12)
+
+    def forward(self, src, key_padding_mask=None):
+        h = src
+        for layer in self.layers:
+            h = layer(h, key_padding_mask)
+        return self.norm(h)
+
+
+class BertPooler(nn.Module):
+    """dense + tanh on one token."""
+
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.dense = nn.Linear(c.hidden_size, c.hidden_size)
+
+    def forward(self, hidden):
+        return torch.tanh(self.dense(hidden[:, 0]))
+
+
+class BertPredictionHeadTransform(nn.Module):
+    """dense -> act -> LayerNorm."""
+
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.dense = nn.Linear(c.hidden_size, c.hidden_size)
+        self.act = ACT2FN[c.hidden_act]
+        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+
+    def forward(self, hidden):
+        return self.LayerNorm(self.act(self.dense(hidden)))
+
+
+class ClsPrediction(nn.Module):
+    """Linear -> ReLU -> LN(1e-12) -> Linear (torch names net.0/.2/.3)."""
+
+    def __init__(self, c: GoatConfig, input_size: Optional[int] = None):
+        super().__init__()
+        D = c.hidden_size
+        self.net = nn.Sequential(
+            nn.Linear(input_size or D, D), nn.ReLU(),
+            nn.LayerNorm(D, eps=1e-12), nn.Linear(D, 1))
+
+    def forward(self, x):
+        return self.net(x)

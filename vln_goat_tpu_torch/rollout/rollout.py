@@ -1,0 +1,559 @@
+"""Greedy-decode episodic rollout (counterpart of
+vln_goat_tpu/rollout/rollout.py, `build_rollout(feedback="argmax")`).
+
+The JAX package compiles the episode into one `lax.while_loop`; here it is
+a Python loop over the horizon that leaves as soon as every episode has
+stopped, as the reference does (agent.py:693-694).  Each step encodes the
+panorama, maintains the topological map (node table, running node
+embeddings, episodic Floyd-Warshall tables), runs the navigation forward,
+takes the argmax action, records the path segment and updates the camera.
+The final stop-backtrack follows.
+
+State layout (fixed capacity; N = node capacity, slot N is a write
+trash-can for masked scatters):
+  node_vp   [B, N+1]      local viewpoint index of node i (-1 empty)
+  visited   [B, N+1]      True once the agent has stood on the node
+  step_id   [B, N+1]      1 + step of (latest) visit
+  embed_sum [B, N+1, D], embed_cnt [B, N+1]   running node embeddings
+  stop_prob [B, N+1]      per-node stop probability (for backtrack)
+  edist/ehops/enext [B, N+1, N+1]  episodic shortest-path tables
+Token layout of the global map: [stop, MEM, node_0..node_{N-1}] (G = N+2);
+slot 1 is the [MEM] token carrying the previous step's fused CLS embedding
+and is masked from attention.
+
+Every update builds new tensors rather than writing in place, so a
+recorded tensor never changes under a later step.  Gathers and scatters
+are plain indexing; the JAX package's one-hot contractions compute the
+same values exactly.  Teacher forcing, sampling, the nDTW expert and the
+object branch belong to later slices.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..core import geometry as G
+from ..models.goat import GoatModel
+from .world import INF_DIST, NavWorld
+
+
+@dataclass(frozen=True)
+class RolloutConfig:
+    num_nodes: int = 48        # episodic graph capacity (gmap tokens = +2)
+    horizon: int = 15          # max_action_len (r2r parser default)
+    seg_len: int = 12          # max hops recorded per move
+    back_len: int = 16         # max hops of the final stop-backtrack
+    feat_dim: int = 768
+    angle_feat_size: int = 4
+
+
+def pano_angle_table(angle_feat_size: int, device) -> torch.Tensor:
+    """[36, 36, A]: angle features of view v relative to base view b."""
+    rel_h = G.VIEW_HEADINGS[None, :] - G.VIEW_HEADINGS[:, None]
+    rel_e = G.VIEW_ELEVATIONS[None, :] - G.VIEW_ELEVATIONS[:, None]
+    return torch.as_tensor(G.angle_feature_np(rel_h, rel_e, angle_feat_size),
+                           device=device)
+
+
+def _row(x, idx):
+    """x[b, idx[b]] for x [B, N, ...], idx [B]."""
+    return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
+def _col(x, idx):
+    """x[b, :, idx[b]] for x [B, M, N], idx [B] -> [B, M]."""
+    return x[torch.arange(x.shape[0], device=x.device), :, idx]
+
+
+def _set_row(x, idx, val, act):
+    """Copy of x with x[b, idx[b]] = val[b] where act[b]."""
+    b = torch.arange(x.shape[0], device=x.device)
+    old = x[b, idx]
+    m = act.view((-1,) + (1,) * (old.dim() - 1))
+    return x.index_put((b, idx), torch.where(m, val.to(x.dtype), old))
+
+
+def _take(x, idx):
+    """x[b, idx[b, k]] for x [B, N], idx [B, K] -> [B, K]."""
+    return torch.gather(x, 1, idx)
+
+
+class NavRollout:
+    """Greedy rollout of a (model, world, config) triple."""
+
+    def __init__(self, model: GoatModel, world: NavWorld,
+                 rcfg: RolloutConfig):
+        self.model = model
+        self.world = world
+        self.rcfg = rcfg
+        self.mcfg = model.config
+        self.device = world.pos.device
+        self._ang_tab = pano_angle_table(rcfg.angle_feat_size, self.device)
+
+    # ------------------------------------------------------------------
+    def init_state(self, batch) -> Dict[str, torch.Tensor]:
+        r, dev = self.rcfg, self.device
+        B = batch["scan_idx"].shape[0]
+        N1 = r.num_nodes + 1
+        D = self.mcfg.hidden_size
+        eye = torch.eye(N1, device=dev, dtype=torch.bool)
+        jidx = torch.arange(N1, device=dev)
+        node_vp = torch.full((B, N1), -1, dtype=torch.int64, device=dev)
+        node_vp[:, 0] = batch["start_vp"]
+        st = dict(
+            node_vp=node_vp,
+            n_nodes=torch.ones(B, dtype=torch.int64, device=dev),
+            visited=torch.zeros(B, N1, dtype=torch.bool, device=dev),
+            step_id=torch.zeros(B, N1, dtype=torch.int64, device=dev),
+            embed_sum=torch.zeros(B, N1, D, device=dev),
+            embed_cnt=torch.zeros(B, N1, device=dev),
+            stop_prob=torch.full((B, N1), -math.inf, device=dev),
+            edist=torch.where(eye, 0.0, INF_DIST).float()
+                       .expand(B, N1, N1).clone(),
+            ehops=torch.zeros(B, N1, N1, device=dev),
+            enext=torch.where(eye, jidx[None, :], -1).expand(B, N1, N1)
+                       .clone(),
+            cur=torch.zeros(B, dtype=torch.int64, device=dev),
+            view_ix=batch["start_view"].clone(),
+            ended=torch.zeros(B, dtype=torch.bool, device=dev),
+            last_embeds=torch.zeros(B, D, device=dev),
+            overflow_n=torch.zeros(B, dtype=torch.int64, device=dev),
+            spilled_n=torch.zeros(B, dtype=torch.int64, device=dev),
+        )
+        return self._arrive(st, batch, st["cur"],
+                            torch.zeros(B, dtype=torch.bool, device=dev))
+
+    # ------------------------------------------------------------------
+    def _spill(self, st, arr, exists, idx_exist, need, cidx):
+        """Give candidates that do not fit the node table the slots of the
+        farthest-from-arrival evictable nodes (unvisited first), and clear
+        the evicted slots' routes.  Never evicted: the start node, the
+        arrival node, and slots matched by this step's candidates."""
+        r, dev = self.rcfg, self.device
+        N, N1, TRASH = r.num_nodes, r.num_nodes + 1, r.num_nodes
+        B = arr.shape[0]
+        bcol = torch.arange(B, device=dev)[:, None]
+        nslot = torch.arange(N, device=dev)[None, :]
+        matched = torch.zeros(B, N1, dtype=torch.bool, device=dev).index_put(
+            (bcol, torch.where(exists, idx_exist, TRASH)),
+            torch.ones((), dtype=torch.bool, device=dev))[:, :N]
+        evictable = (nslot < st["n_nodes"][:, None]) & (nslot != 0) \
+            & (nslot != arr[:, None]) & ~matched
+        d_arr = _row(st["edist"], arr)[:, :N]
+        vis = st["visited"][:, :N]
+        score = torch.where(
+            evictable, torch.where(vis, d_arr - 2.0 * INF_DIST, d_arr),
+            -math.inf)
+        order = torch.argsort(-score, dim=1, stable=True)
+        ov_rank = torch.cumsum(need, dim=1) - 1
+        n_evict = evictable.sum(dim=1)
+        slot_for = torch.gather(order, 1, ov_rank.clamp(0, N - 1))
+        ok_spill = need & (ov_rank < n_evict[:, None])
+        cidx = torch.where(ok_spill, slot_for, cidx)
+        need = need & ~ok_spill
+        spilled = ok_spill.sum(dim=1)
+
+        tgt_e = torch.where(ok_spill, slot_for, TRASH)
+        er = torch.zeros(B, N1, dtype=torch.bool, device=dev).index_put(
+            (bcol, tgt_e), ok_spill)
+        er[:, TRASH] = False
+        thru = torch.gather(er, 1, st["enext"].clamp(0, N1 - 1)
+                            .view(B, N1 * N1)).view(B, N1, N1)
+        cm = er[:, None, :] | er[:, :, None] | thru
+        eye = torch.eye(N1, device=dev, dtype=torch.bool)
+        jidx = torch.arange(N1, device=dev)
+        edist = torch.where(cm, torch.where(eye, 0.0, INF_DIST).float(),
+                            st["edist"])
+        ehops = torch.where(cm, 0.0, st["ehops"])
+        enext = torch.where(cm, torch.where(eye, jidx[None, :], -1),
+                            st["enext"])
+        return cidx, need, spilled, edist, ehops, enext, er
+
+    def _arrive(self, st, batch, arr, skip):
+        """Graph update on arrival at node `arr` (GraphMap.update_graph):
+        insert unseen candidates, add arr<->candidate edges when shorter,
+        one Floyd-Warshall relaxation through arr.  A candidate that finds
+        the node table full takes an evicted slot (the JAX package's
+        default 'spill' policy); one that finds nothing to evict is
+        dropped and counted in overflow_n."""
+        w, r, dev = self.world, self.rcfg, self.device
+        B = arr.shape[0]
+        N1, TRASH = r.num_nodes + 1, r.num_nodes
+        scan = batch["scan_idx"]
+        act = ~skip
+
+        cands = w.get_cands(scan, _row(st["node_vp"], arr))
+        cmask = cands["mask"] & act[:, None]
+
+        # --- insert unseen candidate nodes into the node table
+        slot_valid = torch.arange(N1, device=dev)[None, :] \
+            < st["n_nodes"][:, None]
+        known = torch.where(slot_valid, st["node_vp"], -2)
+        match = known[:, None, :] == cands["local"][:, :, None]   # [B,K,N1]
+        exists = match.any(-1) & cmask
+        idx_exist = match.int().argmax(-1)
+        isnew = cmask & ~exists
+        rank = torch.cumsum(isnew, dim=1) - 1
+        idx_new = st["n_nodes"][:, None] + rank
+        overflow = idx_new >= r.num_nodes
+        cidx = torch.where(exists, idx_exist,
+                           torch.where(isnew & ~overflow, idx_new, TRASH))
+
+        edist, ehops, enext = st["edist"], st["ehops"], st["enext"]
+        spilled = torch.zeros(B, dtype=torch.int64, device=dev)
+        emb_clear = None
+        need = isnew & overflow
+        if bool(need.any()):
+            cidx, need, spilled, edist, ehops, enext, emb_clear = \
+                self._spill(st, arr, exists, idx_exist, need, cidx)
+
+        write = cmask & (cidx != TRASH)
+        n_nodes = st["n_nodes"] + (isnew & ~overflow).sum(dim=1)
+        d_k = cands["dist"]
+        # at most one candidate writes each live slot; the trash slot only
+        # ever receives unwritten (old or zero) values
+        node_vp = st["node_vp"].scatter(
+            1, cidx, torch.where(write, cands["local"],
+                                 _take(st["node_vp"], cidx)))
+
+        # --- add edges arr<->cand (FloydGraph.add_edge: keep if shorter)
+        row_d = _row(edist, arr)
+        upd = write & (d_k < _take(row_d, cidx))
+        zb = torch.zeros(B, N1, dtype=torch.bool, device=dev)
+        m_row = zb.scatter(1, cidx, upd)
+        val_row = torch.zeros(B, N1, device=dev).scatter(
+            1, cidx, torch.where(upd, d_k, 0.0))
+        oh_arr = zb.scatter(1, arr[:, None], True)
+        upd3 = oh_arr[:, :, None] & m_row[:, None, :]       # (arr, j)
+        upd3t = m_row[:, :, None] & oh_arr[:, None, :]      # (j, arr)
+        edist = torch.where(upd3, val_row[:, None, :], edist)
+        edist = torch.where(upd3t, val_row[:, :, None], edist)
+        ehops = torch.where(upd3 | upd3t, 1.0, ehops)
+        jidx = torch.arange(N1, device=dev)
+        enext = torch.where(upd3, jidx[None, None, :], enext)
+        enext = torch.where(upd3t, arr[:, None, None], enext)
+
+        # --- one Floyd-Warshall relaxation through arr (FloydGraph.update)
+        dxc, dcy = _col(edist, arr), _row(edist, arr)
+        cand_d = dxc[:, :, None] + dcy[:, None, :]
+        better = (cand_d < edist) & act[:, None, None]
+        hxc, hcy = _col(ehops, arr), _row(ehops, arr)
+        nxc = _col(enext, arr)
+        edist = torch.where(better, cand_d, edist)
+        ehops = torch.where(better, hxc[:, :, None] + hcy[:, None, :], ehops)
+        enext = torch.where(better, nxc[:, :, None], enext)
+        visited = st["visited"] | (oh_arr & act[:, None])
+
+        out = {**st, "node_vp": node_vp,
+               "n_nodes": torch.where(act, n_nodes, st["n_nodes"]),
+               "visited": visited, "edist": edist, "ehops": ehops,
+               "enext": enext,
+               "overflow_n": st["overflow_n"] + need.sum(dim=1),
+               "spilled_n": st["spilled_n"] + spilled}
+        if emb_clear is not None:
+            # evicted slots start fresh: no inherited embeddings/bookkeeping
+            keep = ~emb_clear
+            out["embed_sum"] = st["embed_sum"] * keep[..., None]
+            out["embed_cnt"] = st["embed_cnt"] * keep
+            out["stop_prob"] = torch.where(emb_clear, -math.inf,
+                                           st["stop_prob"])
+            out["step_id"] = st["step_id"] * keep
+            out["visited"] = out["visited"] & keep
+        return out
+
+    # ------------------------------------------------------------------
+    def encode_text(self, batch):
+        """Instruction encoding + the hoisted per-layer cross-attention
+        K/V of both branches, computed once per rollout."""
+        embeds = self.model.forward_text(batch["txt_ids"], batch["txt_masks"])
+        return dict(embeds=embeds, kv=self.model.forward_text_kv(embeds))
+
+    # ------------------------------------------------------------------
+    def _pano_inputs(self, st, batch):
+        """Padded panorama tokens: [K candidate slots | 36 view slots]."""
+        w, r = self.world, self.rcfg
+        scan = batch["scan_idx"]
+        cur_vp = _row(st["node_vp"], st["cur"])
+        vi = st["view_ix"]
+        feats = w.get_feat(scan, cur_vp)                   # [B, 36, Df]
+        cands = w.get_cands(scan, cur_vp)
+        B, K = cands["local"].shape
+        cam_h = float(G.VIEW_HEADINGS[0]) \
+            + (vi % 12).float() * (math.pi / 6)
+        cam_e = ((vi // 12).float() - 1.0) * (math.pi / 6)
+
+        cand_img = torch.gather(
+            feats, 1, cands["ptid"][:, :, None].expand(B, K, feats.shape[2]))
+        cand_ang = G.angle_feature_t(cands["heading"] - cam_h[:, None],
+                                     cands["elev"] - cam_e[:, None],
+                                     r.angle_feat_size)
+        view_ang = self._ang_tab[vi]                       # [B, 36, A]
+        img = torch.cat([cand_img, feats], dim=1).float()
+        ang = torch.cat([cand_ang, view_ang], dim=1)
+        loc = torch.cat([ang, torch.ones(ang.shape[:-1] + (3,),
+                                         device=ang.device)], dim=-1)
+        # mask out the views claimed by candidates (used_viewidxs)
+        used = torch.zeros(B, 36, device=ang.device).scatter_add(
+            1, cands["ptid"], cands["mask"].float()) > 0
+        view_mask = torch.cat([cands["mask"], ~used], dim=1)
+        nav_types = torch.cat(
+            [cands["mask"].long(),
+             torch.zeros(B, 36, dtype=torch.int64, device=ang.device)], dim=1)
+        return dict(img=img, loc=loc, nav_types=nav_types, mask=view_mask,
+                    cands=cands, cam_h=cam_h, cam_e=cam_e, cur_vp=cur_vp)
+
+    # ------------------------------------------------------------------
+    def _nav_inputs(self, st, batch, pano, pano_embeds, cnode, has):
+        """Global-map + local-branch tensors (agent.py:151-304)."""
+        w, r = self.world, self.rcfg
+        B, dev = st["cur"].shape[0], self.device
+        N = r.num_nodes
+        A = r.angle_feat_size
+        scan = batch["scan_idx"]
+        D = self.mcfg.hidden_size
+
+        real = torch.arange(N, device=dev)[None, :] < st["n_nodes"][:, None]
+        node_vp = st["node_vp"][:, :N]
+        visited = st["visited"][:, :N] & real
+        cur_vp = pano["cur_vp"]
+        zeros_d = torch.zeros(B, 1, D, device=dev)
+        last = st["last_embeds"][:, None, :]
+
+        # node embeddings (sum/count average)
+        cnt = st["embed_cnt"][:, :N].clamp(min=1.0)
+        node_embeds = st["embed_sum"][:, :N] / cnt[:, :, None]
+        gmap_img_embeds = torch.cat([zeros_d, last, node_embeds], dim=1)
+
+        # positions & episodic metrics relative to the current node; `% V`
+        # keeps the -1 pad slots in range, as the JAX package's lookups do
+        V = w.pos.shape[1]
+        pos_scan = w.pos[scan]                             # [B, V, 3]
+        npos = torch.gather(pos_scan, 1,
+                            (node_vp % V)[:, :, None].expand(B, N, 3))
+        ed_row = _row(st["edist"], st["cur"])             # [B, N1]
+        eh_row = _row(st["ehops"], st["cur"])
+        cpos = w.pos[scan, cur_vp]
+        cam_h, cam_e = pano["cam_h"], pano["cam_e"]
+        node_pos_fts = G.pos_features_t(
+            cpos[:, None, :], npos, cam_h[:, None], cam_e[:, None],
+            ed_row[:, :N], eh_row[:, :N], A)
+        # None-token features: angle fts of (0,0), zero dists
+        null_ft = torch.tensor([0., 1., 0., 1., 0., 0., 0.],
+                               device=dev).expand(B, 2, 7)
+        gmap_pos_fts = torch.cat([null_ft, node_pos_fts], dim=1)
+
+        zl = torch.zeros(B, 2, dtype=torch.int64, device=dev)
+        ones1 = torch.ones(B, 1, dtype=torch.bool, device=dev)
+        gmap_step_ids = torch.cat([zl, st["step_id"][:, :N] * real], dim=1)
+        gmap_masks = torch.cat([ones1, ~ones1, real], dim=1)
+        gmap_visited = torch.cat([~ones1, ones1, visited], dim=1)
+
+        pair = st["edist"][:, :N, :N]
+        pair = torch.where(real[:, :, None] & real[:, None, :]
+                           & (pair < INF_DIST * 0.5), pair, 0.0)
+        gmap_pair_dists = torch.zeros(B, N + 2, N + 2, device=dev)
+        gmap_pair_dists[:, 2:, 2:] = pair
+
+        # ---- local branch ----
+        cands = pano["cands"]
+        K = cands["local"].shape[1]
+        L = 2 + pano["mask"].shape[1]
+        vp_img_embeds = torch.cat([zeros_d, last, pano_embeds], dim=1)
+        local_to_gmap = torch.full((B, L), -1, dtype=torch.int64, device=dev)
+        local_to_gmap[:, 2:2 + K] = torch.where(has, cnode + 2, -1)
+
+        # vp_pos_fts: [:, :7] start-node relative, [2:2+K, 7:] candidates
+        start_pos = w.pos[scan, batch["start_vp"]]
+        start_ft = G.pos_features_t(cpos, start_pos, cam_h, cam_e,
+                                    ed_row[:, 0], eh_row[:, 0], A)
+        cand_pos = torch.gather(
+            pos_scan, 1, (cands["local"] % V)[:, :, None].expand(B, K, 3))
+        cand_ft = G.pos_features_t(
+            cpos[:, None], cand_pos, cam_h[:, None], cam_e[:, None],
+            _take(ed_row, cnode), _take(eh_row, cnode), A)
+        cand_ft = torch.where(cands["mask"][..., None], cand_ft, 0.0)
+        A7 = A + 3
+        vp_pos_fts = torch.zeros(B, L, 2 * A7, device=dev)
+        vp_pos_fts[:, :, :A7] = start_ft[:, None, :]
+        vp_pos_fts[:, 2:2 + K, A7:] = cand_ft
+
+        vp_masks = torch.cat([ones1, ones1, pano["mask"]], dim=1)
+        vp_nav_masks = torch.cat(
+            [ones1, ~ones1, cands["mask"],
+             torch.zeros(B, 36, dtype=torch.bool, device=dev)], dim=1)
+        no_vp_left = ~torch.any(real & ~visited, dim=1)
+
+        nav_in = dict(
+            gmap_img_embeds=gmap_img_embeds, gmap_step_ids=gmap_step_ids,
+            gmap_pos_fts=gmap_pos_fts, gmap_masks=gmap_masks,
+            gmap_pair_dists=gmap_pair_dists,
+            gmap_visited_masks=gmap_visited,
+            vp_img_embeds=vp_img_embeds, vp_pos_fts=vp_pos_fts,
+            vp_masks=vp_masks, vp_nav_masks=vp_nav_masks,
+            local_to_gmap=local_to_gmap,
+        )
+        return nav_in, dict(no_vp_left=no_vp_left, node_vp=node_vp,
+                            visited=visited)
+
+    # ------------------------------------------------------------------
+    def _expand_path(self, st, tgt_node, max_len):
+        """Follow episodic next-hop pointers cur -> tgt (FloydGraph.path).
+        Returns the hop nodes [B, max_len] and the last-but-one node."""
+        ncol = _col(st["enext"], tgt_node)                 # [B, N1]
+        p = prev = st["cur"]
+        hops = []
+        for _ in range(max_len):
+            nxt = _take(ncol, p[:, None])[:, 0]
+            nxt = torch.where(nxt < 0, p, nxt)
+            hops.append(nxt)
+            prev = torch.where(nxt != p, p, prev)
+            p = nxt
+        return torch.stack(hops, dim=1), prev
+
+    # ------------------------------------------------------------------
+    def _step(self, st, batch, txt, t):
+        """One decision step for every episode; returns (state, record)."""
+        model, w, r = self.model, self.world, self.rcfg
+        N = r.num_nodes
+        act = ~st["ended"]
+        st = {**st, "step_id": _set_row(
+            st["step_id"], st["cur"],
+            torch.full_like(st["cur"], t + 1), act)}
+
+        pano = self._pano_inputs(st, batch)
+        pano_embeds, pano_masks, pano_fused = model.forward_panorama(
+            pano["img"], pano["loc"], pano["nav_types"], pano["mask"])
+        if pano_fused is None:  # average fallback (agent.py:550-552)
+            m = pano_masks[..., None].to(pano_embeds.dtype)
+            pano_fused = (pano_embeds * m).sum(1) / m.sum(1).clamp(min=1.0)
+
+        # node embedding updates: the current node takes the fused
+        # panorama embedding, unvisited candidates accumulate theirs
+        cands = pano["cands"]
+        K = cands["local"].shape[1]
+        st = {**st,
+              "embed_sum": _set_row(st["embed_sum"], st["cur"], pano_fused,
+                                    act),
+              "embed_cnt": _set_row(st["embed_cnt"], st["cur"],
+                                    torch.ones_like(pano_fused[:, 0]), act)}
+        known = torch.where(
+            torch.arange(N, device=self.device)[None, :]
+            < st["n_nodes"][:, None], st["node_vp"][:, :N], -2)
+        cmatch = known[:, None, :] == cands["local"][:, :, None]  # [B,K,N]
+        cnode = cmatch.int().argmax(-1)
+        found = cmatch.any(-1)
+        chas = found & cands["mask"]
+        add = chas & ~_take(st["visited"], cnode) & act[:, None]
+        tgt = torch.where(add, cnode, N)
+        addf = add.to(pano_embeds.dtype)
+        st = {**st,
+              "embed_sum": st["embed_sum"].scatter_add(
+                  1, tgt[:, :, None].expand(-1, -1, pano_embeds.shape[2]),
+                  pano_embeds[:, :K] * addf[..., None]),
+              "embed_cnt": st["embed_cnt"].scatter_add(1, tgt, addf)}
+
+        nav_in, aux = self._nav_inputs(st, batch, pano, pano_embeds,
+                                       cnode, chas)
+        outs = model.forward_navigation(txt["embeds"], batch["txt_masks"],
+                                        txt_kv=txt["kv"], **nav_in)
+        logits = outs["fused_logits"]
+        st = {**st, "last_embeds": torch.where(
+            act[:, None], outs["cls_embeds"], st["last_embeds"])}
+        probs = torch.softmax(logits, dim=1)
+        st = {**st, "stop_prob": _set_row(st["stop_prob"], st["cur"],
+                                          probs[:, 0], act)}
+
+        a = logits.argmax(dim=1)
+        just_ended = act & ((a == 0) | aux["no_vp_left"]
+                            | (t == r.horizon - 1))
+        moves = act & ~just_ended
+        tgt_node = (a - 2).clamp(0, N - 1)
+
+        # record the trajectory segment (episodic path cur -> action)
+        seg, prev = self._expand_path(st, tgt_node, r.seg_len)
+        seg = torch.where(moves[:, None], seg, -1)
+        seg_hops = torch.where(
+            moves, _take(_row(st["ehops"], st["cur"]), tgt_node[:, None])[:, 0],
+            0.0)
+
+        # camera update: view index of the arrival edge prev -> action;
+        # prev comes from the reverse next-hop so it holds even when the
+        # path is longer than seg_len
+        rev = _take(_row(st["enext"], tgt_node), st["cur"][:, None])[:, 0]
+        prev = torch.where(rev >= 0, rev, prev)
+        prev_vp = _row(st["node_vp"], prev)
+        tgt_vp = _row(st["node_vp"], tgt_node)
+        pc = w.get_cands(batch["scan_idx"], prev_vp)
+        pk = ((pc["local"] == tgt_vp[:, None]) & pc["mask"]).int().argmax(1)
+        new_view = _row(pc["ptid"], pk)
+        # segments record viewpoint ids resolved before the arrival update
+        # (a spilled slot may be reused by it)
+        seg_vp = torch.where(seg >= 0, _take(st["node_vp"], seg.clamp(0, N)),
+                             -1)
+        act_vp = torch.where(moves, tgt_vp, -1)
+
+        st = {**st,
+              "view_ix": torch.where(moves, new_view, st["view_ix"]),
+              "cur": torch.where(moves, tgt_node, st["cur"]),
+              "ended": st["ended"] | just_ended}
+        st = self._arrive(st, batch, st["cur"], skip=~moves)
+        rec = dict(action_node=act_vp, seg=seg_vp, seg_hops=seg_hops,
+                   logits=logits, active=act,
+                   node_vp_t=aux["node_vp"], visited_t=aux["visited"])
+        return st, rec
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def rollout(self, batch) -> Dict[str, torch.Tensor]:
+        """Greedy decode of one batch; outputs as the JAX package's
+        `build_rollout(feedback="argmax", record_logits=True)`, plus
+        `steps`, the number of decision steps run."""
+        r = self.rcfg
+        B = batch["scan_idx"].shape[0]
+        T, G = r.horizon, r.num_nodes + 2
+        dev = self.device
+        txt = self.encode_text(batch)
+        st = self.init_state(batch)
+        recs = dict(
+            action_node=torch.full((T, B), -1, dtype=torch.int64, device=dev),
+            seg=torch.full((T, B, r.seg_len), -1, dtype=torch.int64,
+                           device=dev),
+            seg_hops=torch.zeros(T, B, device=dev),
+            logits=torch.full((T, B, G), -math.inf, device=dev),
+            active=torch.zeros(T, B, dtype=torch.bool, device=dev),
+            node_vp_t=torch.full((T, B, r.num_nodes), -1, dtype=torch.int64,
+                                 device=dev),
+            visited_t=torch.zeros(T, B, r.num_nodes, dtype=torch.bool,
+                                  device=dev),
+        )
+        t = 0
+        while t < T and not bool(st["ended"].all()):
+            st, rec = self._step(st, batch, txt, t)
+            for k, v in rec.items():
+                recs[k][t] = v
+            t += 1
+
+        # final stop-node backtrack (agent.py:666-681)
+        best_stop = st["stop_prob"][:, :r.num_nodes].argmax(dim=1)
+        back, _ = self._expand_path(st, best_stop, r.back_len)
+        back = torch.where((best_stop != st["cur"])[:, None], back, -1)
+        return dict(
+            actions=recs["action_node"], segs=recs["seg"],
+            seg_hops=recs["seg_hops"], logits=recs["logits"],
+            active=recs["active"],
+            node_vp_t=recs["node_vp_t"], visited_t=recs["visited_t"],
+            node_vp=st["node_vp"], stop_node=best_stop, back_seg=back,
+            back_hops=_take(_row(st["ehops"], st["cur"]),
+                            best_stop[:, None])[:, 0],
+            final_cur=st["cur"], n_nodes=st["n_nodes"],
+            overflow_n=st["overflow_n"], spilled_n=st["spilled_n"],
+            steps=torch.tensor(t),
+        )
+
+
+def to_numpy(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in tree.items()}

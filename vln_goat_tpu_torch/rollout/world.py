@@ -1,0 +1,107 @@
+"""NavWorld: packed navigation tables of a set of scans, as tensors on one
+device (counterpart of vln_goat_tpu/rollout/world.py, view features only).
+
+Scans are padded to Vmax viewpoints; features are flattened to a global
+[Vtot, 36, Df] tensor addressed by vp_offset[scan] + local index.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve
+from ..sim.graph_sim import ScanGraph
+
+INF_DIST = 9.5e5  # sentinel for "no path yet" (FloydGraph uses 95959595)
+
+
+@dataclass
+class NavWorld:
+    pos: torch.Tensor           # [S, Vmax, 3] f32
+    cand_local: torch.Tensor    # [S, Vmax, K] int64 (-1 pad)
+    cand_ptid: torch.Tensor     # [S, Vmax, K] int64
+    cand_heading: torch.Tensor  # [S, Vmax, K] f32 (absolute direction)
+    cand_elev: torch.Tensor     # [S, Vmax, K] f32
+    cand_dist: torch.Tensor     # [S, Vmax, K] f32
+    cand_mask: torch.Tensor     # [S, Vmax, K] bool
+    dist: torch.Tensor          # [S, Vmax, Vmax] f32 full-graph shortest dist
+    hops: torch.Tensor          # [S, Vmax, Vmax] int64
+    nexthop: torch.Tensor       # [S, Vmax, Vmax] int64 full-graph first hop
+    n_vps: torch.Tensor         # [S] int64
+    vp_offset: torch.Tensor     # [S] int64 into feat
+    feat: torch.Tensor          # [Vtot, 36, Df]
+
+    @classmethod
+    def build(cls, scans: Sequence[ScanGraph],
+              features: Optional[np.ndarray] = None, feat_dim: int = 768,
+              seed: int = 0, device="cuda",
+              feat_dtype: torch.dtype = torch.float32) -> "NavWorld":
+        """Pack ScanGraphs (+ per-viewpoint 36-view features) onto `device`.
+
+        features: [sum(V_s), 36, Df] in scan order, or None for random
+        synthetic features drawn with numpy from `seed` (the same draws as
+        the JAX package's NavWorld.build)."""
+        device = resolve(device)
+        S = len(scans)
+        Vmax = max(g.num_vps for g in scans)
+
+        def pad2(x, fill):
+            out = np.full((S, Vmax) + x[0].shape[1:], fill, x[0].dtype)
+            for s, a in enumerate(x):
+                out[s, :a.shape[0]] = a
+            return out
+
+        dist = np.full((S, Vmax, Vmax), INF_DIST, np.float32)
+        hops = np.zeros((S, Vmax, Vmax), np.int64)
+        nexthop = np.full((S, Vmax, Vmax), -1, np.int64)
+        for s, g in enumerate(scans):
+            V = g.num_vps
+            dist[s, :V, :V] = np.where(np.isinf(g.dist), INF_DIST, g.dist)
+            hops[s, :V, :V] = g.hops
+            nexthop[s, :V, :V] = g.nexthop
+
+        n_vps = np.array([g.num_vps for g in scans], np.int64)
+        vp_offset = np.concatenate([[0], np.cumsum(n_vps)[:-1]]).astype(np.int64)
+        vtot = int(n_vps.sum())
+        if features is None:
+            rng = np.random.default_rng(seed)
+            features = rng.standard_normal(
+                (vtot, 36, feat_dim)).astype(np.float32)
+        if features.shape[0] != vtot:
+            raise ValueError(f"features for {features.shape[0]} viewpoints, "
+                             f"scans have {vtot}")
+
+        def t(a, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=device)
+
+        return cls(
+            pos=t(pad2([g.pos for g in scans], 0.0)),
+            cand_local=t(pad2([g.cand_local for g in scans], -1), torch.int64),
+            cand_ptid=t(pad2([g.cand_ptid for g in scans], 0), torch.int64),
+            cand_heading=t(pad2([g.cand_heading for g in scans], 0.0)),
+            cand_elev=t(pad2([g.cand_elev for g in scans], 0.0)),
+            cand_dist=t(pad2([g.cand_dist for g in scans], 0.0)),
+            cand_mask=t(pad2([g.cand_mask for g in scans], False)),
+            dist=t(dist), hops=t(hops), nexthop=t(nexthop),
+            n_vps=t(n_vps), vp_offset=t(vp_offset),
+            feat=t(features, feat_dtype),
+        )
+
+    # gathers used by the rollout (scan = [B] scan index, vp = [B] local idx)
+    def get_feat(self, scan, vp):
+        return self.feat[self.vp_offset[scan] + vp]
+
+    def get_cands(self, scan, vp):
+        """All candidate tables for (scan, vp): each [B, K]."""
+        return dict(
+            local=self.cand_local[scan, vp],
+            ptid=self.cand_ptid[scan, vp],
+            heading=self.cand_heading[scan, vp],
+            elev=self.cand_elev[scan, vp],
+            dist=self.cand_dist[scan, vp],
+            mask=self.cand_mask[scan, vp],
+        )
