@@ -5,16 +5,32 @@
 Phases, each printing a flushed line as it ends:
   1. device: the card's `name, power.limit` (as nvidia-smi prints them),
      torch and CUDA versions;
-  2. build: every CUDA kernel of the port compiled with nvcc, with seconds
-     and the ptxas register/spill report;
+  2. build: every CUDA kernel of the port compiled with nvcc, one process
+     per source, all at once, with seconds and the ptxas register/spill
+     report;
   3. kernel check: each kernel against its plain PyTorch version on the
-     card at the shapes the R2R rollout gives it, with its time, the plain
-     version's, one PyTorch library call's, and the least time the card
-     could take (float32 matmuls without TF32);
-  4. full run: the full-width R2R greedy-decode rollout through the
-     kernels (launch counts reset just before, read just after), then the
-     same batch with every attention on the eager PyTorch path; actions
-     must be identical and the logits' masks as the model defines them.
+     card, with its time, the plain version's, one PyTorch library call's,
+     and the least time the card could take (float32 without TF32):
+     the forward at the decode rollout's five shapes (batch 8) without and
+     with dropout 0.1 (same seeds; the kernel's keep share within 4
+     binomial standard deviations of 0.9), the two backward kernels against
+     autograd of the plain version at the same shapes at dropout 0 and 0.1
+     (two launches bitwise equal), and all three at the train step's shapes
+     (batch 64, dropout 0.1), whose times make the kernel line;
+  4. decode: the full-width R2R greedy-decode rollout through the kernels
+     (launch counts reset just before, read just after), then the same
+     batch with every attention on the eager PyTorch path; actions must be
+     identical and the logits' masks as the model defines them;
+  5. train: (a) one R2R DAgger step at batch 8, every dropout probability
+     0, through the kernels and through the eager path from the same
+     weights, batch and generator: sampled actions identical, losses to a
+     relative 1e-4, every parameter's gradient within 1e-3 of its largest
+     magnitude; (b) the bench's step (batch 64, dropout 0.1 / 0.1 /
+     features 0.4): one warm-up step per gt-length bucket, then 3 timed
+     steps, loss and grad norm finite, the parameters moved, and the
+     kernels' launches equal to the count the config and the steps each
+     rollout ran give; peak memory of the warm-up and of the timed steps;
+     then the same on the eager path, timed for comparison.
 The line before the last is one JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}.  Any failure raises: there is
 no CPU fallback, and without a card the script exits non-zero before
@@ -31,10 +47,15 @@ import time
 import torch
 import torch.nn.functional as F
 
-from vln_goat_tpu_torch.entry import build_flagship, greedy_rollout
+from vln_goat_tpu_torch.entry import (build_flagship, build_train_flagship,
+                                      greedy_rollout, train_steps)
 from vln_goat_tpu_torch.ops import _build
-from vln_goat_tpu_torch.ops.attention import (fused_qkv_mha,
-                                              fused_qkv_mha_plain)
+from vln_goat_tpu_torch.ops.attention import (attend_plain,
+                                              attention_backward,
+                                              fused_qkv_mha,
+                                              fused_qkv_mha_plain,
+                                              project_plain,
+                                              projection_backward)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and dense
 # float32 outside the tensor cores, the type these kernels compute in
@@ -43,6 +64,8 @@ PEAK_F32_FLOP_PER_S = 67e12
 ATOL, RTOL = 1e-4, 1e-3   # float32, sums taken in another order than cuBLAS
 
 D, H, DH, B = 768, 12, 64, 8
+B_TRAIN = 64              # bench_train's default batch
+RATE = 0.1                # attention_probs_dropout_prob of the R2R config
 # Seed of the random weights.  With seed 0 (build_flagship's default)
 # every episode of the first batch stops at its first step, which leaves
 # the per-step path (moves, path expansion, arrivals) idle; with seed 4
@@ -59,6 +82,9 @@ SHAPES = (("text60", 60, 60, "key", "linear"),
           ("gmap50", 50, 50, "full", "linear"),
           ("local54", 54, 54, "key", "linear"),
           ("gmap50_per_head_bias", 50, 50, "heads", "dense"))
+TRAIN_SHAPES = ("text60", "gmap50", "local54")
+# names of the grads that the backward returns, in argument order
+GRADS = ("dx", "dy", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dbias")
 
 
 def say(*parts):
@@ -86,41 +112,68 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def make_case(g, Lq, Lk, bias_kind, layout):
+def make_case(g, Lq, Lk, bias_kind, layout, batch=B):
+    """(args, seed): inputs of one fused attention call; the weights and
+    a graph or per-head bias require grad, a key mask does not."""
     dev = "cuda"
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
 
-    x, y = randn(B, Lq, D), randn(B, Lk, D)
+    x, y = randn(batch, Lq, D), randn(batch, Lk, D)
     ws, bs = [], []
     for _ in range(3):
         w = randn(H * DH, D, scale=1.0 / math.sqrt(D))  # Linear [out, in]
-        ws.append(w.t() if layout == "linear" else w.t().contiguous())
-        bs.append(randn(H * DH, scale=0.02))
-    keep = torch.rand(B, Lk, generator=g, device=dev) < 0.85
+        w = w.requires_grad_() if layout == "linear" \
+            else w.t().contiguous().requires_grad_()
+        ws.append(w.t() if layout == "linear" else w)
+        bs.append(randn(H * DH, scale=0.02).requires_grad_())
+    keep = torch.rand(batch, Lk, generator=g, device=dev) < 0.85
     keep[:, 0] = True
     key = (1.0 - keep.float())[:, None, None, :] * -10000.0
     if bias_kind == "key":
         bias = key
     elif bias_kind == "full":
-        bias = key + randn(B, 1, Lq, Lk)
+        bias = (key + randn(batch, 1, Lq, Lk)).requires_grad_()
     else:
-        bias = key + randn(B, H, Lq, Lk)
-    args = (x, y, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], bias)
-    return args
+        bias = (key + randn(batch, H, Lq, Lk)).requires_grad_()
+    x.requires_grad_()
+    y.requires_grad_()
+    seed = torch.randint(0, 2 ** 31 - 1, (batch,), generator=g, device=dev,
+                         dtype=torch.int32)
+    return (x, y, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], bias), seed
 
 
-def bound(args):
-    """(ms by operations, ms by bytes): float32 operations over the float32
-    peak, and bytes over the memory rate with each input read once and the
-    output written once."""
-    x, y, wq, _, _, _, _, _, bias = args
+def _bytes(*ts):
+    return 4 * sum(t.numel() for t in ts if t is not None)
+
+
+def bound(args, kind="fwd", with_ds=False):
+    """(ms by operations, ms by bytes) of one kernel call: float32
+    operations over the float32 peak, and bytes over the memory rate with
+    each input read once and each output written once.  fwd: projections
+    and the two attention products; attn (backward (a)): the recomputed
+    projections and scores plus dp, dq, dk and dv; proj (backward (b)):
+    dx, dy and the three weight gradients."""
+    x, y, wq, bq, wk, bk, wv, bv, bias = args
     Bx, Lq, Dx = x.shape
     Lk, HD = y.shape[1], wq.shape[1]
-    nbytes = 4 * (x.numel() + y.numel() + 3 * (Dx * HD + HD)
-                  + bias.numel() + Bx * Lq * HD)
-    flops = 2 * Bx * (Lq + 2 * Lk) * Dx * HD + 2 * 2 * Bx * Lq * Lk * HD
+    proj = 2 * Bx * (Lq + 2 * Lk) * Dx * HD
+    att = 2 * Bx * Lq * Lk * HD                 # one [Lq x Lk x dh] product
+    out_q, out_k = Bx * Lq * HD, Bx * Lk * HD
+    ds = Bx * H * Lq * Lk if with_ds else 0
+    weights = _bytes(wq, bq, wk, bk, wv, bv)
+    if kind == "fwd":
+        flops = proj + 2 * att
+        nbytes = _bytes(x, y, bias) + weights + 4 * out_q
+    elif kind == "attn":
+        flops = proj + 5 * att
+        nbytes = _bytes(x, y, bias) + weights + 4 * (2 * out_q + 2 * out_k
+                                                      + ds)
+    else:
+        flops = 2 * proj
+        nbytes = 2 * (_bytes(x, y) + weights) + 4 * (out_q + 2 * out_k) \
+            + 4 * (ds + ds // H)
     return (flops / PEAK_F32_FLOP_PER_S * 1e3,
             nbytes / PEAK_BYTES_PER_S * 1e3)
 
@@ -138,35 +191,234 @@ def library_call(args):
     return o.transpose(1, 2).reshape(Bx, Lq, H * DH)
 
 
-def check_kernel():
-    g = torch.Generator(device="cuda").manual_seed(0)
-    rows = {}
-    for name, Lq, Lk, bias_kind, layout in SHAPES:
-        args = make_case(g, Lq, Lk, bias_kind, layout)
-        out = fused_qkv_mha(*args, num_heads=H)
+def grad_scales(ref):
+    """Tolerance scale of each gradient: its largest magnitude; the key
+    bias's is at least its weight's (its gradient is zero up to rounding:
+    softmax ignores a constant added to a row of scores)."""
+    scales = []
+    for i, r in enumerate(ref):
+        s = 0.0 if r is None else float(r.abs().max())
+        if GRADS[i] == "dbk":
+            s = max(s, scales[-1])
+        scales.append(s)
+    return scales
+
+
+def check_grads(got, ref, what):
+    """Largest |got - ref| over the gradients; raises beyond atol 1e-4 /
+    rtol 1e-3 scaled by each gradient's largest magnitude."""
+    worst = 0.0
+    for name, g, r, s in zip(GRADS, got, ref, grad_scales(ref)):
+        if r is None:
+            if g is not None:
+                raise AssertionError(f"{what}: {name} should be None")
+            continue
+        torch.testing.assert_close(g, r, atol=ATOL * s, rtol=RTOL,
+                                   msg=lambda m: f"{what} {name}: {m}")
+        worst = max(worst, float((g - r).abs().max()))
+    return worst
+
+
+def leaves(args):
+    return [a if a is not None and a.requires_grad else None for a in args]
+
+
+def grads_of(out, args, dout):
+    """Gradients of <out, dout> for every argument that requires grad
+    (None for the others)."""
+    lv = leaves(args)
+    got = torch.autograd.grad(out, [a for a in lv if a is not None], dout)
+    it = iter(got)
+    return [None if a is None else next(it) for a in lv]
+
+
+def keep_share(Lq, Lk):
+    """Share of the probabilities the forward kernel keeps at RATE: with
+    zero query weights the probabilities are uniform, and with values of
+    one every output column is (kept count / Lk) / (1 - RATE)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(B, Lq, D, generator=g, device="cuda")
+    y = torch.randn(B, Lk, D, generator=g, device="cuda")
+    zeros = torch.zeros(D, device="cuda")
+    w0 = torch.zeros(D, D, device="cuda")
+    seed = torch.randint(0, 2 ** 31 - 1, (B,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    with torch.no_grad():
+        out = fused_qkv_mha(x, y, w0, zeros, w0, zeros, w0, zeros + 1.0,
+                            None, num_heads=H, dropout_rate=RATE, seed=seed)
+    share = float(out[..., ::DH].mean()) * (1.0 - RATE)
+    sd = math.sqrt(RATE * (1.0 - RATE) / (B * H * Lq * Lk))
+    if abs(share - (1.0 - RATE)) > 4 * sd:
+        raise AssertionError(f"keep share {share} at {Lq}x{Lk}: more than "
+                             f"4 sd ({sd:.2e}) from {1 - RATE}")
+    return share, sd
+
+
+def backward_kernels(args, seed, dout, rate):
+    """Both backward kernels on one call's inputs, as FusedQKVMHA runs
+    them: ((dq, dk, dv, ds), (dx, dy, dW*, db*, dbias) in GRADS order)."""
+    x, y, wq, bq, wk, bk, wv, bv, bias = args
+    need_ds = bias is not None and bias.requires_grad
+    det = [None if a is None else a.detach() for a in args]
+    dq, dk, dv, ds = attention_backward(*det, seed, dout, H, rate,
+                                        need_ds=need_ds)
+    per_head = need_ds and bias.shape[1] == H
+    dx, dy, dws, dbs, dbias = projection_backward(
+        det[0], det[1], det[2], det[4], det[6], dq, dk, dv,
+        ds if need_ds and not per_head else None, H)
+    if per_head:
+        dbias = ds
+    return (dq, dk, dv, ds), [dx, dy, dws[0], dbs[0], dws[1], dbs[1],
+                              dws[2], dbs[2], dbias]
+
+
+def check_shape(g, name, Lq, Lk, bias_kind, layout, batch, timed):
+    """Phase 3 for one shape; returns its row of numbers."""
+    row = {}
+    args, seed = make_case(g, Lq, Lk, bias_kind, layout, batch)
+    det = [None if a is None else a.detach() for a in args]
+    rates = (0.0, RATE) if not timed else (RATE,)
+    for rate in rates:
+        with torch.no_grad():
+            out = fused_qkv_mha(*det, num_heads=H, dropout_rate=rate,
+                                seed=seed)
         torch.cuda.synchronize()
-        ref = fused_qkv_mha_plain(*args, num_heads=H)
+        ref = fused_qkv_mha_plain(*det, num_heads=H, dropout_rate=rate,
+                                  seed=seed)
         torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
-        row = dict(
-            max_abs_err=float((out - ref).abs().max()),
-            library_err=float((library_call(args) - ref).abs().max()),
-            ms=cuda_ms(lambda: fused_qkv_mha(*args, num_heads=H)),
-            plain_ms=cuda_ms(lambda: fused_qkv_mha_plain(*args,
-                                                         num_heads=H)),
-            library_ms=cuda_ms(lambda: library_call(args)))
-        row["ops_ms"], row["bytes_ms"] = bound(args)
-        row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
-        row["bound_by"] = "operations" \
-            if row["ops_ms"] >= row["bytes_ms"] else "bytes"
-        rows[name] = row
+        row[f"fwd_err_{rate}"] = float((out - ref).abs().max())
+
+        # backward: FusedQKVMHA's gradients against the plain autograd
+        dout = torch.randn(batch, Lq, H * DH, generator=g, device="cuda")
+        got = grads_of(fused_qkv_mha(*args, num_heads=H, dropout_rate=rate,
+                                     seed=seed), args, dout)
+        plain = grads_of(fused_qkv_mha_plain(*args, num_heads=H,
+                                             dropout_rate=rate, seed=seed),
+                         args, dout)
+        row[f"proj_err_{rate}"] = check_grads(got, plain,
+                                              f"{name} rate {rate}")
+        # backward (a) alone: dq, dk, dv against autograd of the plain
+        # attention over the plain projections
+        qkv = [t.detach().requires_grad_()
+               for t in project_plain(*det[:8])]
+        att = attend_plain(*qkv, det[8], H, rate, seed)
+        pq = torch.autograd.grad(att, qkv, dout)
+        (dq, dk, dv, _), first = backward_kernels(args, seed, dout, rate)
+        for a, b_, n in zip((dq, dk, dv), pq, ("dq", "dk", "dv")):
+            torch.testing.assert_close(
+                a, b_, atol=ATOL * float(b_.abs().max()), rtol=RTOL,
+                msg=lambda m: f"{name} rate {rate} {n}: {m}")
+        row[f"attn_err_{rate}"] = max(float((a - b_).abs().max())
+                                      for a, b_ in zip((dq, dk, dv), pq))
+        # two launches on the same inputs: bitwise equal
+        again = backward_kernels(args, seed, dout, rate)
+        pairs = list(zip((dq, dk, dv), again[0][:3])) + \
+            list(zip(first, again[1]))
+        if not all(a is None and b_ is None or torch.equal(a, b_)
+                   for a, b_ in pairs):
+            raise AssertionError(f"{name}: two backward launches differ")
+    if bias_kind == "key" and not timed:
+        row["keep_share"], row["keep_sd"] = keep_share(Lq, Lk)
+
+    rate = RATE if timed else 0.0
+    dout = torch.randn(batch, Lq, H * DH, generator=g, device="cuda")
+    row["ms"] = cuda_ms(lambda: fused_qkv_mha(*det, num_heads=H,
+                                              dropout_rate=rate, seed=seed))
+    row["plain_ms"] = cuda_ms(lambda: fused_qkv_mha_plain(
+        *det, num_heads=H, dropout_rate=rate, seed=seed))
+    row["library_ms"] = cuda_ms(lambda: library_call(det))
+    row["library_err"] = float((library_call(det) - fused_qkv_mha_plain(
+        *det, num_heads=H)).abs().max())
+    fb = bound(det)
+    row["bound_ms"], row["bound_by"] = max(fb), \
+        "operations" if fb[0] >= fb[1] else "bytes"
+    if not timed:
+        return row
+
+    # backward times: each kernel alone, against the backward of the
+    # matching part of the plain version and of the library call
+    need_ds = args[8] is not None and args[8].requires_grad
+    x, y, wq, bq, wk, bk, wv, bv, bias = det
+    dq, dk, dv, ds = attention_backward(*det, seed, dout, H, rate,
+                                        need_ds=need_ds)
+    row["attn_ms"] = cuda_ms(lambda: attention_backward(
+        *det, seed, dout, H, rate, need_ds=need_ds))
+    hsum = ds if need_ds and bias.shape[1] == 1 else None
+    row["projb_ms"] = cuda_ms(lambda: projection_backward(
+        x, y, wq, wk, wv, dq, dk, dv, hsum, H))
+    qkv = [t.detach().requires_grad_() for t in project_plain(*det[:8])]
+    att_in = qkv + ([args[8]] if need_ds else [])
+    att = attend_plain(*qkv, args[8], H, rate, seed)
+    row["attn_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        att, att_in, dout, retain_graph=True))
+    lv = [a for a in leaves(args)[:8] if a is not None]
+    pq = project_plain(*args[:8])
+    row["projb_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        pq, lv, (dq, dk, dv), retain_graph=True))
+    q4, k4, v4 = (t.detach().view(batch, -1, H, DH).transpose(1, 2)
+                  .contiguous().requires_grad_()
+                  for t in project_plain(*det[:8]))
+    lo = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias)
+    do4 = dout.view(batch, Lq, H, DH).transpose(1, 2)
+    row["attn_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        lo, (q4, k4, v4), do4, retain_graph=True))
+    lq = (torch.addmm(args[3], args[0].view(-1, D), args[2]),
+          torch.addmm(args[5], args[1].view(-1, D), args[4]),
+          torch.addmm(args[7], args[1].view(-1, D), args[6]))
+    row["projb_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        lq, lv, (dq.view(-1, H * DH), dk.view(-1, H * DH),
+                 dv.view(-1, H * DH)), retain_graph=True))
+    for kind, key in (("attn", "attn"), ("proj", "projb")):
+        ob = bound(det, kind, with_ds=need_ds)
+        row[f"{key}_bound_ms"] = max(ob)
+        row[f"{key}_bound_by"] = "operations" if ob[0] >= ob[1] \
+            else "bytes"
+    return row
+
+
+def check_kernels():
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows, train_rows = {}, {}
+    for name, Lq, Lk, bias_kind, layout in SHAPES:
+        row = rows[name] = check_shape(g, name, Lq, Lk, bias_kind, layout,
+                                       B, timed=False)
         say(f"kernel fused_qkv_mha {name}: B={B} Lq={Lq} Lk={Lk} "
             f"bias={bias_kind} weights={layout} "
-            f"max_abs_err={row['max_abs_err']:.3e} ms={row['ms']:.4f} "
-            f"plain_ms={row['plain_ms']:.4f} "
+            f"max_abs_err={row['fwd_err_0.0']:.3e} "
+            f"(dropout {RATE}: {row[f'fwd_err_{RATE}']:.3e}"
+            + (f", keep share {row['keep_share']:.5f} sd "
+               f"{row['keep_sd']:.1e}" if "keep_share" in row else "")
+            + f") ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"library_ms={row['library_ms']:.4f} "
             f"(library max_abs_err={row['library_err']:.3e}) "
-            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
-    return rows
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); "
+            f"backward max_abs_err attn {row['attn_err_0.0']:.3e} / "
+            f"{row[f'attn_err_{RATE}']:.3e}, grads "
+            f"{row['proj_err_0.0']:.3e} / {row[f'proj_err_{RATE}']:.3e} "
+            f"(dropout 0 / {RATE}), two launches bitwise equal")
+    for name, Lq, Lk, bias_kind, layout in SHAPES:
+        if name not in TRAIN_SHAPES:
+            continue
+        row = train_rows[name] = check_shape(g, name, Lq, Lk, bias_kind,
+                                             layout, B_TRAIN, timed=True)
+        say(f"train {name}: B={B_TRAIN} Lq={Lq} Lk={Lk} bias={bias_kind} "
+            f"dropout {RATE}; forward max_abs_err="
+            f"{row[f'fwd_err_{RATE}']:.3e} ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); "
+            f"attention backward max_abs_err={row[f'attn_err_{RATE}']:.3e} "
+            f"ms={row['attn_ms']:.4f} plain_ms={row['attn_plain_ms']:.4f} "
+            f"library_ms={row['attn_library_ms']:.4f} "
+            f"bound_ms={row['attn_bound_ms']:.4f} "
+            f"({row['attn_bound_by']}); projection backward "
+            f"max_abs_err={row[f'proj_err_{RATE}']:.3e} "
+            f"ms={row['projb_ms']:.4f} "
+            f"plain_ms={row['projb_plain_ms']:.4f} "
+            f"library_ms={row['projb_library_ms']:.4f} "
+            f"bound_ms={row['projb_bound_ms']:.4f} "
+            f"({row['projb_bound_by']})")
+    return rows, train_rows
 
 
 def check_logit_masks(out):
@@ -188,6 +440,17 @@ def check_logit_masks(out):
         raise AssertionError("a visited or empty node logit is not -inf")
 
 
+def reset_counts():
+    fused_qkv_mha.launches = 0
+    attention_backward.launches = 0
+    projection_backward.launches = 0
+
+
+def counts():
+    return (fused_qkv_mha.launches, attention_backward.launches,
+            projection_backward.launches)
+
+
 def run_rollouts(card):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -196,7 +459,7 @@ def run_rollouts(card):
     greedy_rollout(ro, batch)                            # warm-up
     torch.cuda.synchronize()
 
-    fused_qkv_mha.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = greedy_rollout(ro, batch)
     torch.cuda.synchronize()
@@ -205,9 +468,10 @@ def run_rollouts(card):
     steps = int(out["steps"])
     mix = launch_mix(model.config, steps)
     expect = sum(mix.values())
-    if launches != expect:
-        raise AssertionError(f"fused_qkv_mha launched {launches} times, "
-                             f"expected {expect} ({steps} steps)")
+    if counts() != (expect, 0, 0):
+        raise AssertionError(f"decode launched {counts()} (forward, "
+                             f"backward a, b), expected ({expect}, 0, 0) "
+                             f"({steps} steps)")
     check_logit_masks(out)
     moves = int((out["actions"] >= 0).sum())
     say(f"rollout fused: {steps} steps, {moves} moves, "
@@ -220,14 +484,14 @@ def run_rollouts(card):
                                       seed=WEIGHT_SEED)
     p_model.load_state_dict(model.state_dict())
     greedy_rollout(p_ro, batch)                          # warm-up
-    fused_qkv_mha.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = greedy_rollout(p_ro, batch)
     torch.cuda.synchronize()
     p_dt = time.perf_counter() - t0
-    if fused_qkv_mha.launches != 0:
-        raise AssertionError("the eager run launched the fused kernel")
+    if counts() != (0, 0, 0):
+        raise AssertionError("the eager run launched a fused kernel")
     if not torch.equal(out["actions"], ref["actions"]):
         raise AssertionError(f"actions differ:\n{out['actions']}\n"
                              f"{ref['actions']}")
@@ -243,7 +507,7 @@ def run_rollouts(card):
     say(f"rollout eager: {int(ref['steps'])} steps, {B / p_dt:.2f} "
         f"episodes/s ({p_dt * 1e3:.1f} ms per batch); actions and "
         f"trajectories identical, fused logits max |diff| {dmax:.3e}")
-    return mix, launches
+    return launches
 
 
 def launch_mix(cfg, steps):
@@ -252,6 +516,158 @@ def launch_mix(cfg, steps):
     layer and step."""
     return {"text60": cfg.num_l_layers, "gmap50": cfg.num_x_layers * steps,
             "local54": cfg.num_x_layers * steps}
+
+
+def train_mix(cfg, metrics):
+    """Forward launches of the fused kernel in the DAgger steps whose
+    metrics are given: the text encoder once per step, and per teacher and
+    per sample step the global-map and local self-attention of every cross
+    layer.  Each forward has its backward."""
+    steps = sum(int(m["teacher_steps"]) + int(m["sample_steps"])
+                for m in metrics)
+    return {"text60": cfg.num_l_layers * len(metrics),
+            "gmap50": cfg.num_x_layers * steps,
+            "local54": cfg.num_x_layers * steps}
+
+
+def run_train(card):
+    """Phase 5."""
+    # (a) kernel path against the eager path, dropout off, batch 8
+    k_state, batcher = build_train_flagship("cuda", batch_size=B,
+                                            dropout=False)
+    e_state, _ = build_train_flagship("cuda", batch_size=B, dropout=False,
+                                      use_fused_attention=False)
+    e_state.model.load_state_dict(k_state.model.state_dict())
+    _, batch = batcher.next_batch()
+    reset_counts()
+    k_m, k_grads, k_outs = k_state.step_fn(
+        k_state, batch, torch.Generator(device="cuda").manual_seed(0),
+        keep=True)
+    torch.cuda.synchronize()
+    k_counts = counts()
+    mix = train_mix(k_state.model.config, [k_m])
+    n = sum(mix.values())
+    if k_counts != (n, n, n):
+        raise AssertionError(f"kernel step launched {k_counts}, expected "
+                             f"{(n, n, n)}")
+    reset_counts()
+    e_m, e_grads, e_outs = e_state.step_fn(
+        e_state, batch, torch.Generator(device="cuda").manual_seed(0),
+        keep=True)
+    if counts() != (0, 0, 0):
+        raise AssertionError("the eager step launched a fused kernel")
+    for r in ("teacher", "sample"):
+        if not torch.equal(k_outs[r]["actions"], e_outs[r]["actions"]):
+            raise AssertionError(f"{r} actions differ")
+    if not bool((k_outs["sample"]["actions"] >= 0).any()):
+        raise AssertionError("the sampled rollout never moved")
+    for key in ("loss", "il_loss", "sample_loss"):
+        a, b_ = float(k_m[key]), float(e_m[key])
+        if abs(a - b_) > 1e-4 * abs(b_):
+            raise AssertionError(f"{key}: {a} vs {b_}")
+    if set(k_grads) != set(e_grads):
+        raise AssertionError("the two steps give different parameters a "
+                             "gradient")
+    worst = 0.0
+    for name, ge in e_grads.items():
+        scale = float(ge.abs().max())
+        if name.endswith((".key.bias", "sprel_linear.bias")):
+            # zero up to rounding: each adds one constant to a whole row
+            # of scores, which softmax ignores; held at the scale of its
+            # weight's gradient, as phase 3 holds the key bias
+            scale = max(scale, float(e_grads[name[:-4] + "weight"]
+                                     .abs().max()))
+        err = float((k_grads[name] - ge).abs().max())
+        if err > 1e-3 * scale:
+            raise AssertionError(f"grad {name}: |diff| {err} > 1e-3 x "
+                                 f"{scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    if float(k_grads["global_encoder.sprel_linear.weight"].abs().max()) == 0:
+        raise AssertionError("sprel_linear got no gradient")
+    say(f"train (a) batch {B}, dropout 0: kernel vs eager DAgger step: "
+        f"teacher {int(k_outs['teacher']['steps'])} + sample "
+        f"{int(k_outs['sample']['steps'])} steps, actions identical, loss "
+        f"{float(k_m['loss']):.6f} vs {float(e_m['loss']):.6f}, "
+        f"{len(e_grads)} "
+        f"gradients within {worst:.2e} of their max (limit 1e-3), "
+        f"launches {k_counts} (forward, backward a, backward b)")
+    del k_state, e_state, k_grads, e_grads, k_outs, e_outs
+
+    # (b) the bench's step: batch 64, dropout on, 3 timed steps, through
+    # the kernels and then through the eager path
+    state, metrics, got, dt, warm_peak, peak, before = bench_steps(True)
+    mix = train_mix(state.model.config, metrics)
+    n = sum(mix.values())
+    if got != (n, n, n):
+        raise AssertionError(f"train steps launched {got}, expected "
+                             f"{(n, n, n)}")
+    for m in metrics:
+        if not (math.isfinite(float(m["loss"]))
+                and math.isfinite(float(m["grad_norm"]))):
+            raise AssertionError(f"non-finite step: {m}")
+    moved = sum(not torch.equal(p.detach(), before[n_])
+                for n_, p in state.model.named_parameters())
+    if moved < 0.9 * len(before):
+        raise AssertionError(f"only {moved} of {len(before)} parameters "
+                             "moved")
+    say(f"train (b) batch {B_TRAIN}, dropout {RATE}/{RATE}/feat 0.4, "
+        f"kernels: 3 DAgger steps (teacher, sample steps "
+        f"{rollout_steps(metrics)}), loss "
+        f"{[round(float(m['loss']), 4) for m in metrics]}, grad_norm "
+        f"{[round(float(m['grad_norm']), 3) for m in metrics]}, "
+        f"{moved}/{len(before)} parameters moved, launches {got}, peak "
+        f"memory {warm_peak:.2f} GiB in the warm-up (one step per bucket), "
+        f"{peak:.2f} GiB in the timed steps; {B_TRAIN * 3 / dt:.2f} "
+        f"episodes/s ({dt / 3 * 1e3:.1f} ms per step) on {card}")
+    del state, metrics, before
+    torch.cuda.empty_cache()
+    _, e_metrics, e_got, e_dt, e_warm, e_peak, _ = bench_steps(False)
+    if e_got != (0, 0, 0):
+        raise AssertionError("the eager step launched a fused kernel")
+    if not all(math.isfinite(float(m["loss"])) for m in e_metrics):
+        raise AssertionError(f"non-finite eager step: {e_metrics}")
+    say(f"train (b) eager path, same settings: 3 DAgger steps (teacher, "
+        f"sample steps {rollout_steps(e_metrics)}), peak memory "
+        f"{e_warm:.2f} GiB in the warm-up, {e_peak:.2f} GiB in the timed "
+        f"steps; {B_TRAIN * 3 / e_dt:.2f} episodes/s ({e_dt / 3 * 1e3:.1f} "
+        f"ms per step) on {card}")
+    torch.cuda.empty_cache()
+    return mix, got
+
+
+def rollout_steps(metrics):
+    return [(int(m["teacher_steps"]), int(m["sample_steps"]))
+            for m in metrics]
+
+
+def bench_steps(fused: bool, n: int = 3):
+    """The bench's DAgger step (batch 64, dropout on) through the kernels
+    or the eager path: one warm-up step per gt-length bucket, then n timed
+    steps with the launch counts reset just before.  Returns the state,
+    the timed steps' metrics, their launch counts and seconds, the peak
+    memory (GiB) of the warm-up and of the timed steps, and the parameters
+    before the timed steps."""
+    state, batcher = build_train_flagship("cuda", batch_size=B_TRAIN,
+                                          use_fused_attention=fused)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for cap in batcher.bucket_caps:
+        bb = batcher.make_batch(batcher.next_minibatch(), gt_cap=cap)
+        state.step_fn(state, bb, g)
+    torch.cuda.synchronize()
+    warm_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    before = {n_: p.detach().clone()
+              for n_, p in state.model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = train_steps(state, batcher, n, g)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return state, metrics, got, dt, warm_peak, peak, before
 
 
 def main() -> int:
@@ -265,36 +681,60 @@ def main() -> int:
         f", CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    for name in _build.KERNELS:
-        _build.load(name)
+    _build.load_all()
     say(f"build: {', '.join(_build.KERNELS)} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (in parallel)")
     for name, rec in _build.build_log.items():
         for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry" in line:
                 say(f"  ptxas {name}: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows = check_kernel()
-    mix, launches = run_rollouts(card)
+    rows, train_rows = check_kernels()
+    decode_launches = run_rollouts(card)
+    mix, (n_fwd, n_attn, n_proj) = run_train(card)
 
-    # one row per kernel, its times weighted by the rollout's launch mix
-    n = sum(mix.values())
+    # one row per kernel, its times weighted by the train step's launch mix
+    total = sum(mix.values())
 
     def avg(key):
-        return sum(rows[s][key] * w for s, w in mix.items()) / n
+        return sum(train_rows[s][key] * w for s, w in mix.items()) / total
 
-    kernels = [dict(
-        name="fused_qkv_mha", route="cuda",
-        source="vln_goat_tpu_torch/ops/csrc/fused_qkv_mha.cu",
-        replaces="vln_goat_tpu/ops/attention.py:169",
-        launches=launches,
-        max_abs_err=max(r["max_abs_err"] for r in rows.values()),
-        ms=avg("ms"), plain_ms=avg("plain_ms"), bound_ms=avg("bound_ms"),
-        bound_by="operations" if avg("ops_ms") >= avg("bytes_ms")
-        else "bytes",
-        library_ms=avg("library_ms"))]
+    def by(key):
+        return "operations" if all(train_rows[s][key] == "operations"
+                                   for s in mix) else "bytes"
+
+    def err(key):
+        return max([r[f"{key}_{rate}"] for r in rows.values()
+                    for rate in (0.0, RATE)]
+                   + [r[f"{key}_{RATE}"] for r in train_rows.values()])
+
+    src = "vln_goat_tpu_torch/ops/csrc/"
+    kernels = [
+        dict(name="fused_qkv_mha", route="cuda", source=src + "fused_qkv_mha.cu",
+             replaces="vln_goat_tpu/ops/attention.py:169",
+             launches=n_fwd,
+             launches_by_path={"decode": decode_launches, "train": n_fwd},
+             max_abs_err=err("fwd_err"),
+             ms=avg("ms"), plain_ms=avg("plain_ms"),
+             bound_ms=avg("bound_ms"), bound_by=by("bound_by"),
+             library_ms=avg("library_ms")),
+        dict(name="fused_qkv_mha_bwd_attn", route="cuda",
+             source=src + "fused_qkv_mha_bwd.cu",
+             replaces="vln_goat_tpu/ops/attention.py:181",
+             launches=n_attn, max_abs_err=err("attn_err"),
+             ms=avg("attn_ms"), plain_ms=avg("attn_plain_ms"),
+             bound_ms=avg("attn_bound_ms"), bound_by=by("attn_bound_by"),
+             library_ms=avg("attn_library_ms")),
+        dict(name="fused_qkv_mha_bwd_proj", route="cuda",
+             source=src + "fused_qkv_mha_bwd.cu",
+             replaces="vln_goat_tpu/ops/attention.py:181",
+             launches=n_proj, max_abs_err=err("proj_err"),
+             ms=avg("projb_ms"), plain_ms=avg("projb_plain_ms"),
+             bound_ms=avg("projb_bound_ms"), bound_by=by("projb_bound_by"),
+             library_ms=avg("projb_library_ms")),
+    ]
     say(f"wall: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)

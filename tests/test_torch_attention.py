@@ -65,13 +65,6 @@ def test_plain_matches_pallas_interpret(rng, Lq, Lk, kind):
     assert fused_qkv_mha.launches == before
 
 
-def test_wrapper_refuses_dropout():
-    x = torch.zeros(1, 4, D)
-    w, b = torch.zeros(D, H * DH), torch.zeros(H * DH)
-    with pytest.raises(NotImplementedError):
-        fused_qkv_mha(x, x, w, b, w, b, w, b, num_heads=H, dropout_rate=0.1)
-
-
 def _jax_core_params(rng, hidden):
     d = H * DH
     p = {}

@@ -52,6 +52,9 @@ def test_blocker_blocks():
 def test_port_and_smoke_import_without_jax():
     mods = _port_modules()
     assert len(mods) > 15
+    # the training slice's modules are among those imported
+    assert {"vln_goat_tpu_torch.ops.dropout",
+            "vln_goat_tpu_torch.train.trainer"} <= set(mods)
     code = "import importlib\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in mods) + \
         "import chip_smoke\nprint('ok')\n"
@@ -77,13 +80,16 @@ def no_card():
 
 
 def test_entry_points_default_to_cuda(no_card):
-    from vln_goat_tpu_torch.entry import build_flagship, build_model
+    from vln_goat_tpu_torch.entry import (build_flagship, build_model,
+                                          build_train_flagship)
     from vln_goat_tpu_torch.config import GoatConfig
     from vln_goat_tpu_torch.rollout.world import NavWorld
     from vln_goat_tpu_torch.sim.graph_sim import make_synthetic_scan
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_flagship(tiny=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_train_flagship(tiny=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(GoatConfig(num_l_layers=1, hidden_size=32,
                                num_attention_heads=2))

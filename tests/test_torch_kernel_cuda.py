@@ -1,17 +1,28 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, at small shapes (chip_smoke.py checks the rollout's shapes).  Needs
-an NVIDIA card and nvcc; run there with
+card, at small shapes (chip_smoke.py checks the rollout's and the train
+step's shapes).  Needs an NVIDIA card and nvcc; run there with
 
     python -m pytest tests/test_torch_kernel_cuda.py -m cuda
 
-float32 without TF32; atol 1e-4 / rtol 1e-3 (sums in another order)."""
+float32 without TF32; atol 1e-4 / rtol 1e-3 (sums in another order), the
+gradients at atol 1e-4 times each gradient's largest magnitude.  A
+projection bias's gradient is the column sum of the same rows whose
+products make its weight's gradient, so it is held at its weight's scale:
+the key bias's gradient is zero up to rounding (softmax ignores a constant
+added to a row of scores), which no scale of its own would bound."""
+import math
+
 import pytest
 import torch
 
-from vln_goat_tpu_torch.ops.attention import (fused_qkv_mha,
-                                              fused_qkv_mha_plain)
+from vln_goat_tpu_torch.ops.attention import (attention_backward,
+                                              fused_qkv_mha,
+                                              fused_qkv_mha_plain,
+                                              projection_backward)
 
 pytestmark = pytest.mark.cuda
+
+D, H = 768, 12
 
 
 @pytest.fixture
@@ -22,28 +33,128 @@ def card():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _assert_grads(got, ref):
+    """got/ref: gradients of (x, y, wq, bq, wk, bk, wv, bv[, bias])."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape
+        scale = float(r.abs().max())
+        if i == 5:
+            # the key bias's gradient is zero up to rounding (softmax
+            # ignores a constant added to a row): held at dWk's scale
+            scale = max(scale, float(ref[4].abs().max()))
+        torch.testing.assert_close(g, r, atol=1e-4 * scale, rtol=1e-3)
+
+
+def _case(g, B, Lq, Lk, hb, linear, grad=False):
+    dev = "cuda"
+    x = torch.randn(B, Lq, D, generator=g, device=dev)
+    y = torch.randn(B, Lk, D, generator=g, device=dev)
+    ws, bs = [], []
+    for _ in range(3):
+        w = torch.randn(D, D, generator=g, device=dev) / D ** 0.5
+        w = w.requires_grad_(grad)
+        ws.append(w.t() if linear else w.t().contiguous().detach()
+                  .requires_grad_(grad))
+        bs.append((torch.randn(D, generator=g, device=dev) * 0.02)
+                  .requires_grad_(grad))
+    bias = None if hb is None else \
+        torch.randn(B, hb, Lq, Lk, generator=g, device=dev) \
+        .requires_grad_(grad)
+    x.requires_grad_(grad)
+    y.requires_grad_(grad)
+    seed = torch.randint(0, 2 ** 31 - 1, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    return (x, y, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], bias), seed
+
+
 @pytest.mark.parametrize("Lq,Lk,hb,linear", [
     (1, 1, None, True), (40, 40, 1, True), (70, 130, 1, False),
     (64, 256, 12, True), (33, 17, 12, False)])
-def test_fused_qkv_mha_matches_plain(card, Lq, Lk, hb, linear):
-    B, D, H = 3, 768, 12
-    dev = "cuda"
-    x = torch.randn(B, Lq, D, generator=card, device=dev)
-    y = torch.randn(B, Lk, D, generator=card, device=dev)
-    ws, bs = [], []
-    for _ in range(3):
-        w = torch.randn(D * 1, D, generator=card, device=dev) / D ** 0.5
-        ws.append(w.t() if linear else w.t().contiguous())
-        bs.append(torch.randn(D, generator=card, device=dev) * 0.02)
-    bias = None if hb is None else \
-        torch.randn(B, hb, Lq, Lk, generator=card, device=dev)
-    args = (x, y, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], bias)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_qkv_mha_matches_plain(card, Lq, Lk, hb, linear, rate):
+    args, seed = _case(card, 3, Lq, Lk, hb, linear)
     before = fused_qkv_mha.launches
-    out = fused_qkv_mha(*args, num_heads=H)
+    with torch.no_grad():
+        out = fused_qkv_mha(*args, num_heads=H, dropout_rate=rate, seed=seed)
     torch.cuda.synchronize()
     assert fused_qkv_mha.launches == before + 1
-    ref = fused_qkv_mha_plain(*args, num_heads=H)
+    ref = fused_qkv_mha_plain(*args, num_heads=H, dropout_rate=rate,
+                              seed=seed)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("Lq,Lk,hb,linear", [
+    (40, 40, None, True), (50, 50, 1, True), (70, 130, 1, False),
+    (33, 200, 12, True), (60, 60, 12, False)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_backward_matches_plain_autograd(card, Lq, Lk, hb, linear, rate):
+    args, seed = _case(card, 2, Lq, Lk, hb, linear, grad=True)
+    leaves = [a for a in args if a is not None]
+    dout = torch.randn(2, Lq, D, generator=card, device="cuda")
+    out = fused_qkv_mha(*args, num_heads=H, dropout_rate=rate, seed=seed)
+    got = torch.autograd.grad(out, leaves, dout)
+    ref = torch.autograd.grad(
+        fused_qkv_mha_plain(*args, num_heads=H, dropout_rate=rate,
+                            seed=seed), leaves, dout)
+    _assert_grads(got, ref)
+
+
+def test_self_attention_grad_reaches_every_input(card):
+    """x == y (self-attention through `lin.weight.t()` weights) and a
+    [B,1,Lq,Lk] graph bias: the output has a grad_fn and the backward
+    kernels give x, all six weight/bias tensors and the bias a gradient."""
+    args, seed = _case(card, 2, 50, 50, 1, True, grad=True)
+    x, _, wq, bq, wk, bk, wv, bv, bias = args
+    out = fused_qkv_mha(x, x, wq, bq, wk, bk, wv, bv, bias, num_heads=H,
+                        dropout_rate=0.1, seed=seed)
+    assert out.grad_fn is not None
+    n_attn, n_proj = attention_backward.launches, projection_backward.launches
+    leaves = (x, wq, bq, wk, bk, wv, bv, bias)
+    got = torch.autograd.grad(out.square().sum(), leaves)
+    assert attention_backward.launches == n_attn + 1
+    assert projection_backward.launches == n_proj + 1
+    ref = torch.autograd.grad(
+        fused_qkv_mha_plain(x, x, wq, bq, wk, bk, wv, bv, bias, num_heads=H,
+                            dropout_rate=0.1, seed=seed).square().sum(),
+        leaves)
+    assert all(float(g.abs().max()) > 0 for g in got)
+    # x stands for both x and y here
+    _assert_grads(got[:1] + got[:1] + got[1:], ref[:1] + ref[:1] + ref[1:])
+
+
+def test_backward_is_bitwise_repeatable(card):
+    args, seed = _case(card, 4, 60, 60, 1, True)
+    dout = torch.randn(4, 60, D, generator=card, device="cuda")
+    runs = []
+    for _ in range(2):
+        dq, dk, dv, ds = attention_backward(*args, seed, dout, H, 0.1,
+                                            need_ds=True)
+        x, y, wq, _, wk, _, wv, _, _ = args
+        runs.append((dq, dk, dv, ds) + tuple(
+            t for part in projection_backward(x, y, wq, wk, wv, dq, dk, dv,
+                                              ds, H)
+            for t in (part if isinstance(part, list) else [part])))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_dropout_keep_share(card):
+    """Share of probabilities the kernel keeps at rate 0.1, from a value
+    matrix of ones per key: out = sum of the kept, rescaled probabilities."""
+    B, L = 8, 60
+    args, seed = _case(card, B, L, L, None, True)
+    x, y = args[0], args[1]
+    zeros = torch.zeros(D, device="cuda")
+    eye = torch.eye(D, device="cuda")
+    wv = torch.zeros(D, D, device="cuda")
+    wq = torch.zeros(D, D, device="cuda")        # uniform probabilities
+    with torch.no_grad():
+        out = fused_qkv_mha(x, y, wq, zeros, eye, zeros, wv, zeros + 1.0,
+                            None, num_heads=H, dropout_rate=0.1, seed=seed)
+    kept = out[..., ::64] * 0.9                  # share kept per row/head
+    share = float(kept.mean())
+    n = B * H * L * L
+    assert abs(share - 0.9) < 4 * math.sqrt(0.9 * 0.1 / n)
 
 
 def test_fused_qkv_mha_refuses_long_keys(card):

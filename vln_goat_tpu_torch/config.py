@@ -1,7 +1,8 @@
 """Model configuration of the PyTorch port.
 
-A copy of the JAX package's `GoatConfig` (vln_goat_tpu/config.py), kept
-here so the port imports nothing of that package.  Two fields differ:
+A copy of the JAX package's `GoatConfig` and of the fields of its
+`TrainConfig` that the train step uses (vln_goat_tpu/config.py), kept here
+so the port imports nothing of that package.  Two fields differ:
 `use_pallas_attention` is `use_fused_attention`, and the query-length gate
 that the JAX package reads from the GOAT_PALLAS_MIN_LQ environment
 variable is the field `fused_attn_min_lq`.
@@ -145,3 +146,16 @@ class GoatConfig:
             raise ValueError(f"unknown dataset {dataset}")
         base.update(kw)
         return cls(**base)
+
+
+@dataclass
+class TrainConfig:
+    """Fine-tuning recipe (reference: map_nav_src/r2r/parser.py + run
+    scripts): the fields of the JAX package's TrainConfig
+    (vln_goat_tpu/config.py:148-169) that the port's train step reads."""
+
+    lr: float = 2e-5
+    weight_decay: float = 0.0
+    train_alg: str = "dagger"      # imitation | dagger
+    ml_weight: float = 0.2
+    grad_clip: float = 40.0

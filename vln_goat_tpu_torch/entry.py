@@ -1,5 +1,7 @@
-"""Entry points of the port: the R2R greedy-decode rollout that the JAX
-package's `__graft_entry__.entry()` compiles, built and run with PyTorch.
+"""Entry points of the port, built and run with PyTorch.
+
+Greedy decode, the R2R rollout that the JAX package's
+`__graft_entry__.entry()` compiles:
 
     model, ro, batcher = build_flagship("cuda")
     out = greedy_rollout(ro, batcher.next_batch()[1])
@@ -8,14 +10,21 @@ package's `__graft_entry__.entry()` compiles, built and run with PyTorch.
 synthetic scan, RolloutConfig(num_nodes=48, horizon=15, feat_dim=768),
 batches of 8 episodes with instructions of 60 tokens, the full-width R2R
 model with seeded random weights (`tiny=True`: the small test config).
+
+Training, the R2R DAgger step that the JAX package's `bench.py
+bench_train` times:
+
+    state, batcher = build_train_flagship("cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    metrics = train_steps(state, batcher, 3, g)
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 
-from .config import GoatConfig
+from .config import GoatConfig, TrainConfig
 from .device import resolve
 from .models.goat import GoatModel
 from .rollout.env import EpisodeBatcher, make_synthetic_dataset
@@ -24,6 +33,7 @@ from .rollout.trajectory import assemble_trajectories
 from .rollout.world import NavWorld
 from .sim.graph_sim import make_synthetic_scan
 from .train.params import init_goat_params
+from .train.trainer import TrainState, init_train_state
 
 TINY = dict(num_l_layers=1, num_x_layers=1, num_pano_layers=1,
             hidden_size=32, num_attention_heads=2, intermediate_size=64,
@@ -80,3 +90,67 @@ def greedy_rollout(ro: NavRollout, batch: Dict[str, torch.Tensor]) -> dict:
         to_numpy({k: out[k] for k in ("segs", "seg_hops", "node_vp",
                                       "back_seg", "back_hops")}))
     return out
+
+
+def build_train_flagship(device="cuda", tiny: bool = False,
+                         batch_size: int = 64,
+                         use_fused_attention: bool = True,
+                         dropout: bool = True,
+                         tcfg: Optional[TrainConfig] = None,
+                         teacher_horizon="auto"):
+    """(TrainState, batcher) of the R2R DAgger step of `bench.py`
+    `bench_train` (its `build` for R2R, :78-140): the full-width R2R model
+    in float32 with seeded random weights, 4 synthetic scans of 120
+    viewpoints at degree 4, RolloutConfig(num_nodes=48, horizon=15,
+    feat_dim=768), 512 episodes with 60-token instructions and gt paths of
+    4-7 hops capped at 8, gt-length buckets (5, 8); AdamW at lr 2e-5 and
+    weight decay 0.01 (`make_optimizer`'s defaults), global-norm clip 40;
+    train_alg 'dagger', ml_weight 0.2 (tcfg's), teacher_horizon 'auto'.
+    Weights drawn from seed 0.  `dropout=False` sets every dropout
+    probability to 0.  `tiny=True`: the
+    JAX package's train-step test configuration (one 12-viewpoint scan,
+    hidden 32, 16 node slots, horizon 6, buckets (4, 6))."""
+    dev = resolve(device)
+    tcfg = tcfg or TrainConfig(weight_decay=0.01)
+    drop = {} if dropout else dict(hidden_dropout_prob=0.0,
+                                   attention_probs_dropout_prob=0.0,
+                                   feat_dropout=0.0)
+    if tiny:
+        cfg = GoatConfig(use_fused_attention=use_fused_attention,
+                         **{**TINY, "feat_dropout": 0.1, **drop})
+        rcfg = RolloutConfig(num_nodes=16, horizon=6, feat_dim=16)
+        scans = [make_synthetic_scan("s0", num_vps=12, seed=0)]
+        n_items, instr, plen, gt_cap, caps = 16, 24, (3, 4), 6, (4, 6)
+    else:
+        cfg = GoatConfig.for_dataset(
+            "r2r", use_fused_attention=use_fused_attention, **drop)
+        rcfg = RolloutConfig(num_nodes=48, horizon=15, feat_dim=768)
+        scans = [make_synthetic_scan(f"s{i}", num_vps=120, degree=4, seed=i)
+                 for i in range(4)]
+        n_items, instr, plen, gt_cap, caps = 512, 60, (4, 7), 8, (5, 8)
+    world = NavWorld.build(scans, feat_dim=rcfg.feat_dim, seed=0, device=dev)
+    model = build_model(cfg, dev)
+    ro = NavRollout(model, world, rcfg)
+    graphs = {g.scan_id: g for g in scans}
+    data = make_synthetic_dataset(graphs, n_items, vocab_size=cfg.vocab_size,
+                                  path_len=plen, seed=1,
+                                  max_instr_len=instr)
+    batcher = EpisodeBatcher(data, graphs, [g.scan_id for g in scans],
+                             batch_size=batch_size, max_instr_len=instr,
+                             max_gt_len=gt_cap, bucket_caps=caps,
+                             device=dev)
+    state = init_train_state(model, ro, lr=tcfg.lr,
+                             weight_decay=tcfg.weight_decay,
+                             grad_clip=tcfg.grad_clip,
+                             train_alg=tcfg.train_alg,
+                             ml_weight=tcfg.ml_weight,
+                             teacher_horizon=teacher_horizon)
+    return state, batcher
+
+
+def train_steps(state: TrainState, batcher: EpisodeBatcher, n: int,
+                generator: torch.Generator) -> List[dict]:
+    """n updates of state on the batcher's next n batches; the metrics of
+    each step (tensors on the model's device)."""
+    return [state.step_fn(state, batcher.next_batch()[1], generator)
+            for _ in range(n)]

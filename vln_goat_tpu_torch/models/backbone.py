@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ..config import GoatConfig
+from ..ops.dropout import Dropout
 from ..ops.masks import extend_neg_masks
 from .layers import BertLayer
 
@@ -23,6 +24,7 @@ class RobertaEmbeddings(nn.Module):
         self.position_embeddings = nn.Embedding(c.max_position_embeddings, D)
         self.token_type_embeddings = nn.Embedding(c.type_vocab_size, D)
         self.LayerNorm = nn.LayerNorm(D, eps=c.layer_norm_eps)
+        self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, input_ids):
         B, L = input_ids.shape
@@ -31,7 +33,7 @@ class RobertaEmbeddings(nn.Module):
         h = (self.word_embeddings(input_ids)
              + self.token_type_embeddings(torch.zeros_like(input_ids))
              + self.position_embeddings(position_ids))
-        return self.LayerNorm(h)
+        return self.dropout(self.LayerNorm(h))
 
 
 class LanguageEncoder(nn.Module):
@@ -40,10 +42,11 @@ class LanguageEncoder(nn.Module):
     def __init__(self, c: GoatConfig):
         super().__init__()
         self.layer = nn.ModuleList(BertLayer(c) for _ in range(c.num_l_layers))
+        self.update_lang_bert = c.update_lang_bert
 
     def forward(self, txt_embeds, txt_masks):
         bias = extend_neg_masks(txt_masks)
         h = txt_embeds
         for layer in self.layer:
             h = layer(h, bias)
-        return h
+        return h if self.update_lang_bert else h.detach()

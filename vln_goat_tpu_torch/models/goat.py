@@ -1,7 +1,8 @@
 """GOAT dual-scale cross-modal navigation model (counterpart of
-vln_goat_tpu/models/goat.py), the modes the greedy-decode rollout runs:
-`forward_text`, `forward_panorama`, `forward_text_kv` and
-`forward_navigation`.
+vln_goat_tpu/models/goat.py), the modes the rollouts run: `forward_text`,
+`forward_panorama`, `forward_text_kv` and `forward_navigation`.  In
+train() mode every dropout of the JAX package is on, drawing from the
+generator that `ops.dropout.set_generator` hands the model.
 
 The front-door encoders, the critic and the CFP extraction heads are not
 ported yet; a config that needs them is refused at construction.
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 
 from ..config import GoatConfig
+from ..ops.dropout import Dropout
 from .backbone import LanguageEncoder, RobertaEmbeddings
 from .layers import BertPooler, ClsPrediction, CrossmodalEncoder
 from .panorama import CausalImageEmbeddings
@@ -97,8 +99,8 @@ def fuse_logits(global_logits, local_logits, gmap_masks, gmap_visited_masks,
 
 
 class GoatModel(nn.Module):
-    """GlocalTextPathNavCMT equivalent, inference modes of the greedy
-    rollout."""
+    """GlocalTextPathNavCMT equivalent, the modes of the decode and
+    training rollouts."""
 
     def __init__(self, c: GoatConfig):
         super().__init__()
@@ -123,13 +125,16 @@ class GoatModel(nn.Module):
         self.txt_pooler = BertPooler(c)
         self.local_his_map = nn.Linear(3 * c.hidden_size, c.hidden_size)
         self.local_his_ln = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        # env-feature dropout on the raw view features
+        # (vln_goat_tpu/models/goat.py:195, :245)
+        self.drop_env = Dropout(c.feat_dropout)
 
     def forward_text(self, txt_ids, txt_masks):
         return self.lang_encoder(self.embeddings(txt_ids), txt_masks)
 
     def forward_panorama(self, view_img_fts, loc_fts, nav_types, view_masks):
-        return self.img_embeddings(view_img_fts, loc_fts, nav_types,
-                                   view_masks)
+        return self.img_embeddings(self.drop_env(view_img_fts), loc_fts,
+                                   nav_types, view_masks)
 
     def forward_text_kv(self, txt_embeds):
         """Per-layer cross-attention K/V projections of the instruction,

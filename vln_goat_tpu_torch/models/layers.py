@@ -1,7 +1,10 @@
 """Transformer building blocks (counterpart of vln_goat_tpu/models/layers.py).
 
-Inference only in this slice: no dropout, float32.  Parity rules kept
-from the JAX package:
+Float32.  Dropout sits at every site of the JAX package (attention
+probabilities, hidden states, the DETR pano encoder's residual and FFN
+branches); it is active in train() mode and draws from the generator that
+`ops.dropout.set_generator` gives the model.  Parity rules kept from the
+JAX package:
 - additive -10000 masks (ops/masks.py), softmax in float32;
 - erf GELU;
 - LayerNorm eps: config.layer_norm_eps inside BERT blocks, 1e-12 where the
@@ -21,6 +24,7 @@ from torch import nn
 from ..config import GoatConfig
 from ..ops.activations import ACT2FN
 from ..ops.attention import fused_qkv_mha
+from ..ops.dropout import Dropout
 from ..ops.masks import extend_neg_masks
 
 
@@ -32,10 +36,14 @@ class AttentionCore(nn.Module):
     With `use_fused` the fused q/k/v + attention kernel serves query blocks
     of at least `min_lq` tokens, as the JAX package's gate does
     (layers.py:110-137); hoisted text K/V (`kv_cache`) stays on the eager
-    path."""
+    path.  In training the fused kernel applies the probability dropout
+    itself, from int32 per-row seeds drawn from the dropout generator
+    (layers.py:127-133); the eager path drops the probabilities with
+    `prob_dropout`."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
-                 use_fused: bool = False, min_lq: int = 32):
+                 use_fused: bool = False, min_lq: int = 32,
+                 dropout_rate: float = 0.0):
         super().__init__()
         d = num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
@@ -43,6 +51,7 @@ class AttentionCore(nn.Module):
         self.query = nn.Linear(hidden_size, d)
         self.key = nn.Linear(hidden_size, d)
         self.value = nn.Linear(hidden_size, d)
+        self.prob_dropout = Dropout(dropout_rate)
 
     def kv(self, kv_in: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """K/V projections alone (the hoisted text cache)."""
@@ -51,12 +60,23 @@ class AttentionCore(nn.Module):
     def forward(self, q_in, kv_in, bias=None, kv_cache=None):
         if (self.use_fused and kv_cache is None
                 and q_in.shape[1] >= self.min_lq):
+            drop = self.prob_dropout
+            rate = drop.rate if drop.training else 0.0
+            seed = None
+            if rate > 0.0:
+                if drop.generator is None:
+                    raise ValueError("attention dropout needs a generator: "
+                                     "call set_generator(model, g)")
+                seed = torch.randint(
+                    0, torch.iinfo(torch.int32).max, (q_in.shape[0],),
+                    generator=drop.generator, device=q_in.device,
+                    dtype=torch.int32)
             return fused_qkv_mha(
                 q_in.contiguous(), kv_in.contiguous(),
                 self.query.weight.t(), self.query.bias,
                 self.key.weight.t(), self.key.bias,
                 self.value.weight.t(), self.value.bias, bias,
-                num_heads=self.num_heads)
+                num_heads=self.num_heads, dropout_rate=rate, seed=seed)
         q = self.query(q_in)
         k, v = kv_cache if kv_cache is not None else self.kv(kv_in)
         B, Lq, Lk = q.shape[0], q.shape[1], k.shape[1]
@@ -68,6 +88,7 @@ class AttentionCore(nn.Module):
         if bias is not None:
             scores = scores + bias.to(scores.dtype)
         probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+        probs = self.prob_dropout(probs)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         return ctx.reshape(B, Lq, H * dh)
 
@@ -77,9 +98,10 @@ class BertSelfOutput(nn.Module):
         super().__init__()
         self.dense = nn.Linear(c.hidden_size, c.hidden_size)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, hidden, residual):
-        return self.LayerNorm(self.dense(hidden) + residual)
+        return self.LayerNorm(self.dropout(self.dense(hidden)) + residual)
 
 
 class BertAttention(nn.Module):
@@ -89,7 +111,8 @@ class BertAttention(nn.Module):
         super().__init__()
         self.self = AttentionCore(c.hidden_size, c.num_attention_heads,
                                   c.head_dim, c.use_fused_attention,
-                                  c.fused_attn_min_lq)
+                                  c.fused_attn_min_lq,
+                                  c.attention_probs_dropout_prob)
         self.output = BertSelfOutput(c)
 
     def kv(self, kv_in):
@@ -116,9 +139,10 @@ class BertOutput(nn.Module):
         super().__init__()
         self.dense = nn.Linear(c.intermediate_size, c.hidden_size)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, hidden, residual):
-        return self.LayerNorm(self.dense(hidden) + residual)
+        return self.LayerNorm(self.dropout(self.dense(hidden)) + residual)
 
 
 class BertLayer(nn.Module):
@@ -189,13 +213,15 @@ class TorchMultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention's parameters (packed in_proj) with the
     JAX package's arithmetic: key padding by float32 min, f32 softmax."""
 
-    def __init__(self, hidden_size: int, num_heads: int, head_dim: int):
+    def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         d = num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d, hidden_size))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d))
         self.out_proj = nn.Linear(d, d)
+        self.prob_dropout = Dropout(dropout_rate)
 
     def forward(self, q_in, k_in, v_in, key_padding_mask=None):
         d = self.num_heads * self.head_dim
@@ -212,30 +238,37 @@ class TorchMultiheadAttention(nn.Module):
         if key_padding_mask is not None:
             scores = scores.masked_fill(key_padding_mask[:, None, None, :],
                                         torch.finfo(torch.float32).min)
-        probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+        probs = self.prob_dropout(
+            torch.softmax(scores.float(), dim=-1).to(v.dtype))
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, Lq, d)
         return self.out_proj(ctx)
 
 
 class PanoEncoderLayer(nn.Module):
-    """DETR pre-norm encoder layer: x += MHA(LN1(x)); x += FFN(LN2(x))."""
+    """DETR pre-norm encoder layer: x += MHA(LN1(x)); x += FFN(LN2(x)),
+    with dropout on the attention probabilities, both residual branches
+    and the FFN's hidden layer (all at hidden_dropout_prob)."""
 
     def __init__(self, c: GoatConfig):
         super().__init__()
         D = c.hidden_size
+        p = c.hidden_dropout_prob
         self.norm1 = nn.LayerNorm(D, eps=1e-5)
         self.self_attn = TorchMultiheadAttention(D, c.num_attention_heads,
-                                                 c.head_dim)
+                                                 c.head_dim, p)
         self.norm2 = nn.LayerNorm(D, eps=1e-5)
         self.linear1 = nn.Linear(D, c.intermediate_size)
         self.linear2 = nn.Linear(c.intermediate_size, D)
         self.act = ACT2FN[c.hidden_act]
+        self.dropout1 = Dropout(p)
+        self.dropout = Dropout(p)
+        self.dropout2 = Dropout(p)
 
     def forward(self, src, key_padding_mask=None):
         h = self.norm1(src)
-        src = src + self.self_attn(h, h, h, key_padding_mask)
-        h = self.linear2(self.act(self.linear1(self.norm2(src))))
-        return src + h
+        src = src + self.dropout1(self.self_attn(h, h, h, key_padding_mask))
+        h = self.dropout(self.act(self.linear1(self.norm2(src))))
+        return src + self.dropout2(self.linear2(h))
 
 
 class PanoEncoder(nn.Module):

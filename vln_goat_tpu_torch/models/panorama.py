@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ..config import GoatConfig
+from ..ops.dropout import Dropout
 from .layers import PanoEncoder
 
 _NEG = -1e9
@@ -38,6 +39,7 @@ class CausalImageEmbeddings(nn.Module):
         self.img_layer_norm = nn.LayerNorm(D, eps=1e-12)
         self.loc_linear = nn.Linear(c.angle_feat_size + 3, D)
         self.loc_layer_norm = nn.LayerNorm(D, eps=1e-12)
+        self.dropout = Dropout(c.hidden_dropout_prob)
         self.img_self_encoder = PanoEncoder(c)
         self.adaptive_pano_attn = nn.Linear(D, 1) \
             if c.adaptive_pano_fusion else None
@@ -48,6 +50,7 @@ class CausalImageEmbeddings(nn.Module):
         or None).  nav_types is unused on the view-only path."""
         view = self.img_layer_norm(self.img_linear(view_img_fts))
         view = view + self.loc_layer_norm(self.loc_linear(loc_fts))
+        view = self.dropout(view)
         embeds = self.img_self_encoder(view,
                                        key_padding_mask=~view_masks)
         fused = None

@@ -1,15 +1,24 @@
-"""Fused q/k/v projections + multi-head attention.
+"""Fused q/k/v projections + multi-head attention, forward and backward.
 
-`fused_qkv_mha` is the port of the TPU kernel behind the JAX package's
-`pallas_fused_qkv_mha` (vln_goat_tpu/ops/attention.py:347; kernel body
-`_fa_fwd_kernel` :169, launched by `_fa_call` :251).  On a CUDA tensor it
-launches the hand-written CUDA kernel `csrc/fused_qkv_mha.cu` or raises;
-on a CPU tensor it computes `fused_qkv_mha_plain`, the same function in
-plain PyTorch, which the CPU tests hold against the JAX package and the
-chip smoke test holds the kernel against.
+`fused_qkv_mha` is the port of the TPU kernels behind the JAX package's
+`pallas_fused_qkv_mha` (vln_goat_tpu/ops/attention.py:347):
 
-Forward only and deterministic: in-kernel attention-prob dropout and the
-backward kernel belong to the training slice.
+- the forward `_fa_fwd_kernel` (:169, launched by `_fa_call` :251) is the
+  hand-written CUDA kernel `csrc/fused_qkv_mha.cu`, with the in-kernel
+  attention-probability dropout of `_fa_probs` (:149-166);
+- the backward `_fa_bwd_kernel` (:181, custom-VJP rule `_fa_bwd_rule`
+  :316) is `csrc/fused_qkv_mha_bwd.cu`: `attention_backward` (recompute,
+  softmax and dropout backward -> dq, dk, dv, ds) and
+  `projection_backward` (dx, dy, weight and bias gradients, dbias).
+
+On a CUDA tensor `fused_qkv_mha` runs `FusedQKVMHA`, an autograd Function
+whose forward launches the forward kernel and whose backward launches the
+two backward kernels; it saves its inputs and the per-row seeds, never the
+probabilities, as the JAX rule does (:273-277).  On a CPU tensor it
+computes `fused_qkv_mha_plain`, the same function in plain PyTorch, whose
+autograd is the reference the CPU tests hold against the JAX package and
+the chip smoke test holds the kernels against.  The dropout mask of both is
+`ops.dropout.keep_mask`, a hash of (seed[b], b, h, q, k).
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .dropout import keep_mask, keep_threshold
 
 
 def _split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -27,39 +37,74 @@ def _split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     return t.view(B, L, num_heads, HD // num_heads)
 
 
-def fused_qkv_mha_plain(x, y, wq, bq, wk, bk, wv, bv, bias=None,
-                        num_heads: int = 12):
-    """x [B, Lq, D] (query side), y [B, Lk, D] (key/value side),
-    projection weights [D, H*dh] with biases [H*dh], additive bias
-    broadcastable to [B, {1,H}, Lq, Lk] -> [B, Lq, H*dh].  Softmax in
-    float32."""
-    B, Lq, _ = x.shape
+def project_plain(x, y, wq, bq, wk, bk, wv, bv):
+    """The three projections: q [B, Lq, H*dh], k and v [B, Lk, H*dh]."""
+    return x @ wq + bq, y @ wk + bk, y @ wv + bv
+
+
+def attend_plain(q, k, v, bias=None, num_heads: int = 12,
+                 dropout_rate: float = 0.0,
+                 seed: Optional[torch.Tensor] = None):
+    """Attention over projected q [B, Lq, H*dh], k/v [B, Lk, H*dh]:
+    softmax(q k^T / sqrt(dh) + bias) in float32, the keep mask of
+    `keep_mask(seed, ...)` at `dropout_rate`, times v -> [B, Lq, H*dh]."""
+    B, Lq, HD = q.shape
     H = num_heads
-    dh = wq.shape[1] // H
-    q = _split_heads(x @ wq + bq, H)
-    k = _split_heads(y @ wk + bk, H)
-    v = _split_heads(y @ wv + bv, H)
+    dh = HD // H
+    q, k, v = (_split_heads(t, H) for t in (q, k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(dh))
     if bias is not None:
         s = s + bias.to(s.dtype)
     p = torch.softmax(s.float(), dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, Lq, H * dh)
+    if dropout_rate > 0.0:
+        keep = keep_mask(seed, p.shape, dropout_rate)
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)),
+                        torch.zeros_like(p))
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, Lq, HD)
 
 
-_VP, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
-    ctypes.c_float
+def fused_qkv_mha_plain(x, y, wq, bq, wk, bk, wv, bv, bias=None,
+                        num_heads: int = 12, dropout_rate: float = 0.0,
+                        seed: Optional[torch.Tensor] = None):
+    """x [B, Lq, D] (query side), y [B, Lk, D] (key/value side),
+    projection weights [D, H*dh] with biases [H*dh], additive bias
+    broadcastable to [B, {1,H}, Lq, Lk], per-row int32 seeds [B] (needed
+    when dropout_rate > 0) -> [B, Lq, H*dh].  Softmax in float32."""
+    return attend_plain(*project_plain(x, y, wq, bq, wk, bk, wv, bv), bias,
+                        num_heads, dropout_rate, seed)
 
 
-def _kernel_lib() -> ctypes.CDLL:
+_VP, _LL, _I, _U, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
+    ctypes.c_uint, ctypes.c_float
+_W = [_VP, _LL, _LL]                    # weight pointer and its two strides
+
+
+def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("fused_qkv_mha")
     fn = lib.fused_qkv_mha_fwd
     if fn.argtypes is None:
-        w = [_VP, _LL, _LL, _VP]
-        fn.argtypes = ([_VP, _VP] + w * 3 + [_VP, _LL, _LL, _LL, _LL, _VP]
-                       + [_I] * 5 + [_F, _VP])
+        fn.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3
+                       + [_VP, _LL, _LL, _LL, _LL, _VP] + [_I] * 5
+                       + [_F, _VP, _U, _F, _VP])
         fn.restype = _I
         lib.fused_qkv_mha_head_dim.restype = _I
         lib.fused_qkv_mha_max_lk.restype = _I
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_qkv_mha_bwd")
+    fa, fp = lib.fused_qkv_mha_bwd_attn, lib.fused_qkv_mha_bwd_proj
+    if fa.argtypes is None:
+        fa.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3
+                       + [_VP, _LL, _LL, _LL, _LL] + [_VP, _U, _F]
+                       + [_VP] * 5 + [_I] * 5 + [_F, _VP])
+        fa.restype = _I
+        fp.argtypes = ([_VP, _VP] + _W * 3 + [_VP] * 5 + _W * 3
+                       + [_VP] * 5 + [_I] * 5 + [_VP])
+        fp.restype = _I
+        lib.fused_qkv_mha_bwd_head_dim.restype = _I
+        lib.fused_qkv_mha_bwd_max_lk.restype = _I
     return lib
 
 
@@ -78,76 +123,256 @@ def _check_weight(name, w, b, D, HD, dev):
         raise ValueError(f"{name}: bias must be contiguous")
 
 
+class _Call:
+    """Checked shapes and kernel arguments of one fused attention call on
+    the card, shared by the forward and the backward launches."""
+
+    def __init__(self, x, y, wq, bq, wk, bk, wv, bv, bias, seed,
+                 num_heads: int, dropout_rate: float, lib, head_dim: int,
+                 max_lk: int):
+        dev = x.device
+        if dev.type != "cuda":
+            raise ValueError(f"fused_qkv_mha kernels: unsupported device "
+                             f"{dev}")
+        B, Lq, D = x.shape
+        if y.dim() != 3 or y.shape[0] != B or y.shape[2] != D:
+            raise ValueError(f"y {tuple(y.shape)} does not match x "
+                             f"{tuple(x.shape)}")
+        Lk = y.shape[1]
+        H = num_heads
+        HD = wq.shape[1]
+        if HD % H:
+            raise ValueError(f"{HD} columns do not split into {H} heads")
+        dh = HD // H
+        for t, name in ((x, "x"), (y, "y")):
+            if t.device != dev or t.dtype != torch.float32 or \
+                    not t.is_contiguous():
+                raise ValueError(f"{name}: needs contiguous float32 on {dev}")
+        for name, w, b in (("q", wq, bq), ("k", wk, bk), ("v", wv, bv)):
+            _check_weight(name, w, b, D, HD, dev)
+        if dh != head_dim:
+            raise ValueError(f"the kernel is built for head width "
+                             f"{head_dim}, got {dh}")
+        if Lk > max_lk or D % 32:
+            raise ValueError(f"the kernel takes Lk <= {max_lk} and "
+                             f"D % 32 == 0, got Lk={Lk}, D={D}")
+        if not 0.0 <= dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate {dropout_rate} not in [0, 1)")
+
+        if bias is None:
+            self.bias4, self.bias_strides = None, (0, 0, 0, 0)
+        else:
+            if bias.device != dev:
+                raise ValueError(f"bias: needs {dev}, got {bias.device}")
+            hb = H if (bias.dim() == 4 and bias.shape[1] == H) else 1
+            self.bias4 = bias.to(torch.float32).expand(B, hb, Lq, Lk)
+            st = self.bias4.stride()
+            self.bias_strides = (st[0], 0 if hb == 1 else st[1], st[2],
+                                 st[3])
+        self.seed = None
+        if dropout_rate > 0.0:
+            if seed is None or seed.shape != (B,) or seed.device != dev:
+                raise ValueError(f"dropout needs int32 seeds [{B}] on {dev}")
+            self.seed = seed.to(torch.int32).contiguous()
+        self.rate = dropout_rate
+        self.thresh = keep_threshold(dropout_rate) if dropout_rate > 0 else 0
+        self.inv_keep = 1.0 / (1.0 - dropout_rate)
+        self.dev, self.lib = dev, lib
+        self.B, self.Lq, self.Lk, self.D, self.H, self.HD = B, Lq, Lk, D, H, HD
+        self.scale = 1.0 / math.sqrt(dh)
+        self.ws = ((wq, bq), (wk, bk), (wv, bv))
+
+    def weight_args(self, with_bias: bool = True):
+        out = []
+        for w, b in self.ws:
+            out += [w.data_ptr(), w.stride(0), w.stride(1)]
+            if with_bias:
+                out.append(b.data_ptr())
+        return out
+
+    def bias_args(self):
+        return [None if self.bias4 is None else self.bias4.data_ptr(),
+                *self.bias_strides]
+
+    def seed_args(self):
+        return [None if self.seed is None else self.seed.data_ptr(),
+                self.thresh, self.inv_keep]
+
+    def stream(self):
+        return torch.cuda.current_stream(self.dev).cuda_stream
+
+    def check(self, rc: int, what: str):
+        if rc != 0:
+            raise RuntimeError(
+                f"{what} kernel launch failed: CUDA error {rc} (B={self.B}, "
+                f"Lq={self.Lq}, Lk={self.Lk}, D={self.D}, H={self.H})")
+
+
+def _fwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
+              dropout_rate) -> _Call:
+    lib = _fwd_lib()
+    return _Call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
+                 dropout_rate, lib, lib.fused_qkv_mha_head_dim(),
+                 lib.fused_qkv_mha_max_lk())
+
+
+def _bwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
+              dropout_rate) -> _Call:
+    lib = _bwd_lib()
+    return _Call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
+                 dropout_rate, lib, lib.fused_qkv_mha_bwd_head_dim(),
+                 lib.fused_qkv_mha_bwd_max_lk())
+
+
+def forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias=None,
+                   num_heads: int = 12, dropout_rate: float = 0.0,
+                   seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the forward kernel on CUDA tensors (no autograd)."""
+    c = _fwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
+                  dropout_rate)
+    out = torch.empty((c.B, c.Lq, c.HD), device=c.dev, dtype=torch.float32)
+    with torch.cuda.device(c.dev):
+        rc = c.lib.fused_qkv_mha_fwd(
+            x.data_ptr(), y.data_ptr(), *c.weight_args(), *c.bias_args(),
+            out.data_ptr(), c.B, c.Lq, c.Lk, c.D, c.H, c.scale,
+            *c.seed_args(), c.stream())
+    fused_qkv_mha.launches += 1
+    c.check(rc, "fused_qkv_mha")
+    return out
+
+
+def attention_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout,
+                       num_heads: int = 12, dropout_rate: float = 0.0,
+                       need_ds: bool = False):
+    """Kernel (a) of the backward on CUDA tensors: from the forward's
+    inputs and dO [B, Lq, H*dh], the gradients of the projected
+    q [B, Lq, H*dh], k and v [B, Lk, H*dh], and ds [B, H, Lq, Lk] (the
+    gradient of the scores, which is the bias's per head) when `need_ds`."""
+    c = _bwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
+                  dropout_rate)
+    dout = dout.contiguous()
+    if dout.shape != (c.B, c.Lq, c.HD) or dout.dtype != torch.float32:
+        raise ValueError(f"dO {tuple(dout.shape)} {dout.dtype}, expected "
+                         f"float32 {(c.B, c.Lq, c.HD)}")
+    f32 = dict(device=c.dev, dtype=torch.float32)
+    dq = torch.empty((c.B, c.Lq, c.HD), **f32)
+    dk = torch.empty((c.B, c.Lk, c.HD), **f32)
+    dv = torch.empty((c.B, c.Lk, c.HD), **f32)
+    ds = torch.empty((c.B, c.H, c.Lq, c.Lk), **f32) if need_ds else None
+    with torch.cuda.device(c.dev):
+        rc = c.lib.fused_qkv_mha_bwd_attn(
+            x.data_ptr(), y.data_ptr(), *c.weight_args(), *c.bias_args(),
+            *c.seed_args(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), None if ds is None else ds.data_ptr(),
+            c.B, c.Lq, c.Lk, c.D, c.H, c.scale, c.stream())
+    attention_backward.launches += 1
+    c.check(rc, "fused_qkv_mha_bwd_attn")
+    return dq, dk, dv, ds
+
+
+def projection_backward(x, y, wq, wk, wv, dq, dk, dv, ds=None,
+                        num_heads: int = 12):
+    """Kernel (b) of the backward on CUDA tensors: dx = dq Wq^T,
+    dy = dk Wk^T + dv Wv^T, the weight gradients (each in the layout of its
+    weight argument, so a `lin.weight.t()` argument gets the transposed
+    view of a contiguous [H*dh, D] gradient), the bias gradients, and,
+    given ds, its sum over the heads [B, 1, Lq, Lk]."""
+    B, Lq, D = x.shape
+    Lk, HD = y.shape[1], wq.shape[1]
+    dev = x.device
+    lib = _bwd_lib()
+    for t in (dq, dk, dv):
+        if t.dtype != torch.float32 or not t.is_contiguous() or \
+                t.device != dev or t.shape[0] != B or t.shape[2] != HD:
+            raise ValueError("dq/dk/dv: need contiguous float32 "
+                             f"[{B}, L, {HD}] on {dev}")
+    f32 = dict(device=dev, dtype=torch.float32)
+    dx, dy = torch.empty_like(x), torch.empty_like(y)
+    dws = [torch.empty_strided(w.shape, w.stride(), **f32)
+           for w in (wq, wk, wv)]
+    dbs = [torch.empty(HD, **f32) for _ in range(3)]
+    dbias = None
+    if ds is not None:
+        if ds.shape != (B, num_heads, Lq, Lk) or not ds.is_contiguous():
+            raise ValueError(f"ds {tuple(ds.shape)}, expected contiguous "
+                             f"{(B, num_heads, Lq, Lk)}")
+        dbias = torch.empty((B, 1, Lq, Lk), **f32)
+    wargs = []
+    for w in (wq, wk, wv):
+        wargs += [w.data_ptr(), w.stride(0), w.stride(1)]
+    dwargs = []
+    for w in dws:
+        dwargs += [w.data_ptr(), w.stride(0), w.stride(1)]
+    with torch.cuda.device(dev):
+        rc = lib.fused_qkv_mha_bwd_proj(
+            x.data_ptr(), y.data_ptr(), *wargs, dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dx.data_ptr(), dy.data_ptr(), *dwargs,
+            *[b.data_ptr() for b in dbs],
+            None if ds is None else ds.data_ptr(),
+            None if dbias is None else dbias.data_ptr(),
+            B, Lq, Lk, D, num_heads, torch.cuda.current_stream(dev)
+            .cuda_stream)
+    projection_backward.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"fused_qkv_mha_bwd_proj kernel launch failed: "
+                           f"CUDA error {rc} (B={B}, Lq={Lq}, Lk={Lk}, "
+                           f"D={D})")
+    return dx, dy, dws, dbs, dbias
+
+
+class FusedQKVMHA(torch.autograd.Function):
+    """Forward kernel, and the two backward kernels as its gradient.  The
+    bias gradient is computed only when autograd asks for it, and summed
+    down to the caller's broadcast shape."""
+
+    @staticmethod
+    def forward(ctx, x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
+                dropout_rate):
+        out = forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias, num_heads,
+                             dropout_rate, seed)
+        ctx.save_for_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed)
+        ctx.num_heads, ctx.dropout_rate = num_heads, dropout_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, y, wq, bq, wk, bk, wv, bv, bias, seed = ctx.saved_tensors
+        H = ctx.num_heads
+        need_bias = bias is not None and ctx.needs_input_grad[8]
+        dq, dk, dv, ds = attention_backward(
+            x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout, H,
+            ctx.dropout_rate, need_ds=need_bias)
+        per_head = need_bias and bias.dim() == 4 and bias.shape[1] == H
+        dx, dy, (dwq, dwk, dwv), (dbq, dbk, dbv), dbias = \
+            projection_backward(x, y, wq, wk, wv, dq, dk, dv,
+                                ds if need_bias and not per_head else None,
+                                H)
+        if need_bias:
+            dbias = (ds if per_head else dbias).sum_to_size(bias.shape) \
+                .to(bias.dtype)
+        return (dx, dy, dwq, dbq, dwk, dbk, dwv, dbv, dbias, None, None,
+                None)
+
+
 def fused_qkv_mha(x, y, wq, bq, wk, bk, wv, bv, bias=None,
-                  num_heads: int = 12, dropout_rate: float = 0.0):
+                  num_heads: int = 12, dropout_rate: float = 0.0,
+                  seed: Optional[torch.Tensor] = None):
     """Signature and layout of `pallas_fused_qkv_mha`: x [B, Lq, D],
     y [B, Lk, D], weights [D, H*dh] (+ biases [H*dh]), additive bias
-    broadcastable to [B, {1,H}, Lq, Lk] -> [B, Lq, H*dh].
+    broadcastable to [B, {1,H}, Lq, Lk], per-row int32 seeds [B] for the
+    attention-probability dropout at `dropout_rate` -> [B, Lq, H*dh].
+    Differentiable in every tensor input but the seeds.
 
     A weight may be the transposed view of a torch Linear weight
-    (`lin.weight.t()`): the kernel reads it through its strides."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "in-kernel attention dropout is not ported yet (training slice)")
+    (`lin.weight.t()`): the kernels read it through its strides."""
     if x.device.type == "cpu":
         return fused_qkv_mha_plain(x, y, wq, bq, wk, bk, wv, bv, bias,
-                                   num_heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_qkv_mha: unsupported device {x.device}")
-
-    dev = x.device
-    B, Lq, D = x.shape
-    if y.dim() != 3 or y.shape[0] != B or y.shape[2] != D:
-        raise ValueError(f"y {tuple(y.shape)} does not match x {tuple(x.shape)}")
-    Lk = y.shape[1]
-    H = num_heads
-    HD = wq.shape[1]
-    if HD % H:
-        raise ValueError(f"{HD} columns do not split into {H} heads")
-    dh = HD // H
-    for t, name in ((x, "x"), (y, "y")):
-        if t.device != dev or t.dtype != torch.float32 or \
-                not t.is_contiguous():
-            raise ValueError(f"{name}: needs contiguous float32 on {dev}")
-    for name, w, b in (("q", wq, bq), ("k", wk, bk), ("v", wv, bv)):
-        _check_weight(name, w, b, D, HD, dev)
-
-    lib = _kernel_lib()
-    if dh != lib.fused_qkv_mha_head_dim():
-        raise ValueError(f"the kernel is built for head width "
-                         f"{lib.fused_qkv_mha_head_dim()}, got {dh}")
-    if Lk > lib.fused_qkv_mha_max_lk() or D % 32:
-        raise ValueError(f"the kernel takes Lk <= "
-                         f"{lib.fused_qkv_mha_max_lk()} and D % 32 == 0, "
-                         f"got Lk={Lk}, D={D}")
-
-    if bias is None:
-        bias4, strides = None, (0, 0, 0, 0)
-    else:
-        if bias.device != dev:
-            raise ValueError(f"bias: needs {dev}, got {bias.device}")
-        hb = H if (bias.dim() == 4 and bias.shape[1] == H) else 1
-        bias4 = bias.to(torch.float32).expand(B, hb, Lq, Lk)
-        strides = bias4.stride()
-        if hb == 1:
-            strides = (strides[0], 0, strides[2], strides[3])
-
-    out = torch.empty((B, Lq, HD), device=dev, dtype=torch.float32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fused_qkv_mha_fwd(
-            x.data_ptr(), y.data_ptr(),
-            wq.data_ptr(), wq.stride(0), wq.stride(1), bq.data_ptr(),
-            wk.data_ptr(), wk.stride(0), wk.stride(1), bk.data_ptr(),
-            wv.data_ptr(), wv.stride(0), wv.stride(1), bv.data_ptr(),
-            None if bias4 is None else bias4.data_ptr(), *strides,
-            out.data_ptr(), B, Lq, Lk, D, H, 1.0 / math.sqrt(dh), stream)
-    fused_qkv_mha.launches += 1
-    if rc != 0:
-        raise RuntimeError(f"fused_qkv_mha kernel launch failed: CUDA error "
-                           f"{rc} (B={B}, Lq={Lq}, Lk={Lk}, D={D}, H={H})")
-    return out
+                                   num_heads, dropout_rate, seed)
+    return FusedQKVMHA.apply(x, y, wq, bq, wk, bk, wv, bv, bias, seed,
+                             num_heads, float(dropout_rate))
 
 
 # kernel launches since the last reset; the plain path does not count
 fused_qkv_mha.launches = 0
+attention_backward.launches = 0
+projection_backward.launches = 0

@@ -7,6 +7,7 @@
 //   q = x[b] Wq[:, h] + bq[h]    k = y[b] Wk[:, h] + bk[h]    v = y[b] Wv[:, h] + bv[h]
 //   s = q k^T / sqrt(dh) + bias[b, h or 0]
 //   p = softmax(s) along the keys (row max subtracted, float32)
+//   p = keep(b, h, q, k) ? p / (1 - rate) : 0      (training dropout)
 //   out[b, :, h*dh:(h+1)*dh] = p v
 //
 // Layouts: x [B, Lq, D] and y [B, Lk, D] contiguous; each weight is the
@@ -24,6 +25,12 @@
 // writes two of the 64 output columns.  Lk <= 256, so K and V of one head
 // fit in shared memory (about 170 KB at Lk = 256).
 //
+// Dropout (`_fa_probs` :149-166): with per-row seeds the normalised
+// probabilities pass through the counter-based keep mask of
+// dropout_hash.cuh, keyed by seed[b] with the counter (b, h, q, k), so the
+// backward kernel (fused_qkv_mha_bwd.cu) regenerates the same mask.  With
+// no seeds the deterministic instantiation runs, without the mask code.
+//
 // What bounds it on an H100.  The projections dominate: at the text call
 // of the R2R rollout (B = 8, L = 60, D = 768, H = 12) they are 3 * 2 * 8 *
 // 60 * 768 * 768 = 1.7 GFLOP against 7 MB of weights and 3 MB of
@@ -34,6 +41,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -117,6 +126,9 @@ __device__ void project_tile(const float* __restrict__ src, int nrows,
           acc[i][j] + bias[col0 + tx + 16 * j];
 }
 
+// DROP: the dropout variant; the deterministic one (DROP = false) is
+// compiled without the mask code, so it stays the kernel it was before.
+template <bool DROP>
 __global__ void __launch_bounds__(THREADS)
 fused_qkv_mha_fwd_kernel(const float* __restrict__ x,
                          const float* __restrict__ y,
@@ -129,7 +141,8 @@ fused_qkv_mha_fwd_kernel(const float* __restrict__ x,
                          const float* __restrict__ bias, long long sb,
                          long long sh, long long sq, long long sk,
                          float* __restrict__ out, int Lq, int Lk, int D,
-                         int H, float scale) {
+                         int H, float scale, const int* __restrict__ seeds,
+                         unsigned int thresh, float inv_keep) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * TILE;
   const int lp = lk_padded(Lk);
@@ -196,10 +209,22 @@ fused_qkv_mha_fwd_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int off = 16; off > 0; off /= 2)
       sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (!DROP) {
 #pragma unroll
-    for (int jj = 0; jj < MAX_LK / 32; ++jj) {
-      const int j = lane + 32 * jj;
-      if (j < Lk) P[j] = s[jj] / sum;
+      for (int jj = 0; jj < MAX_LK / 32; ++jj) {
+        const int j = lane + 32 * jj;
+        if (j < Lk) P[j] = s[jj] / sum;
+      }
+    } else {
+      const uint32_t seed = (uint32_t)seeds[b];
+#pragma unroll
+      for (int jj = 0; jj < MAX_LK / 32; ++jj) {
+        const int j = lane + 32 * jj;
+        if (j < Lk) {
+          const bool keep = dropout_bits(seed, b, h, qi, j) >= thresh;
+          P[j] = keep ? (s[jj] / sum) * inv_keep : 0.f;
+        }
+      }
     }
     __syncwarp();
     float o0 = 0.f, o1 = 0.f;
@@ -221,7 +246,9 @@ extern "C" {
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when
 // the launch was accepted).  Shapes it does not take return
-// cudaErrorInvalidValue without launching.
+// cudaErrorInvalidValue without launching.  `seeds` (int32 [B]) turns on
+// dropout: keep iff bits >= thresh, kept probabilities times inv_keep;
+// null runs the deterministic kernel.
 int fused_qkv_mha_fwd(const void* x, const void* y,
                       const void* wq, long long wq_sd, long long wq_so,
                       const void* bq,
@@ -232,26 +259,30 @@ int fused_qkv_mha_fwd(const void* x, const void* y,
                       const void* bias, long long sb, long long sh,
                       long long sq, long long sk,
                       void* out, int B, int Lq, int Lk, int D, int H,
-                      float scale, void* stream) {
+                      float scale, const void* seeds, unsigned int thresh,
+                      float inv_keep, void* stream) {
   if (B < 1 || Lq < 1 || Lk < 1 || Lk > MAX_LK || H < 1 || D < TD ||
       D % TD != 0)
     return (int)cudaErrorInvalidValue;
   // The attribute is per device, so it is set on every call (on the
   // current device), at the size the largest Lk needs: no state is kept
   // between calls or shared between threads.
+  auto kernel = seeds != nullptr ? fused_qkv_mha_fwd_kernel<true>
+                                 : fused_qkv_mha_fwd_kernel<false>;
   const cudaError_t e = cudaFuncSetAttribute(
-      fused_qkv_mha_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)(smem_floats(MAX_LK) * sizeof(float)));
   if (e != cudaSuccess) return (int)e;
   const size_t bytes = smem_floats(Lk) * sizeof(float);
   const dim3 grid(B, H, (Lq + TILE - 1) / TILE);
-  fused_qkv_mha_fwd_kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
+  kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)y,
       (const float*)wq, wq_sd, wq_so, (const float*)bq,
       (const float*)wk, wk_sd, wk_so, (const float*)bk,
       (const float*)wv, wv_sd, wv_so, (const float*)bv,
       (const float*)bias, sb, sh, sq, sk,
-      (float*)out, Lq, Lk, D, H, scale);
+      (float*)out, Lq, Lk, D, H, scale, (const int*)seeds, thresh,
+      inv_keep);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,18 @@
-"""Greedy-decode episodic rollout (counterpart of
-vln_goat_tpu/rollout/rollout.py, `build_rollout(feedback="argmax")`).
+"""Episodic rollouts (counterpart of vln_goat_tpu/rollout/rollout.py
+`build_rollout`): greedy decode (`feedback="argmax"`) and the two training
+feedbacks of the DAgger step, teacher forcing and sampling
+(`feedback in {"teacher", "sample"}`, `train_ml=True`).
 
-The JAX package compiles the episode into one `lax.while_loop`; here it is
-a Python loop over the horizon that leaves as soon as every episode has
-stopped, as the reference does (agent.py:693-694).  Each step encodes the
-panorama, maintains the topological map (node table, running node
-embeddings, episodic Floyd-Warshall tables), runs the navigation forward,
-takes the argmax action, records the path segment and updates the camera.
-The final stop-backtrack follows.
+The JAX package compiles the episode into one `lax.while_loop` (decode) or
+`lax.scan` (training); here it is a Python loop over the horizon that
+leaves as soon as every episode has stopped, as the reference does
+(agent.py:693-694).  An ended episode changes nothing and adds nothing to
+the loss, so leaving early is loss-identical to the JAX scan.  Each step
+encodes the panorama, maintains the topological map (node table, running
+node embeddings, episodic Floyd-Warshall tables), runs the navigation
+forward, picks the action (argmax, the expert's, or a Gumbel-max sample),
+records the path segment and updates the camera.  The final stop-backtrack
+follows.
 
 State layout (fixed capacity; N = node capacity, slot N is a write
 trash-can for masked scatters):
@@ -22,16 +27,18 @@ slot 1 is the [MEM] token carrying the previous step's fused CLS embedding
 and is masked from attention.
 
 Every update builds new tensors rather than writing in place, so a
-recorded tensor never changes under a later step.  Gathers and scatters
-are plain indexing; the JAX package's one-hot contractions compute the
-same values exactly.  Teacher forcing, sampling, the nDTW expert and the
-object branch belong to later slices.
+recorded tensor never changes under a later step and autograd can carry
+the imitation loss back across steps through the node-embedding tables
+(embed_sum, last_embeds), as the JAX scan does.  Gathers and scatters are
+plain indexing; the JAX package's one-hot contractions compute the same
+values exactly.  The nDTW expert, `expl_sample`, the fused-DAgger feedback
+and the object branch are not ported.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -39,6 +46,10 @@ import torch
 from ..core import geometry as G
 from ..models.goat import GoatModel
 from .world import INF_DIST, NavWorld
+
+IGNORE_ID = -100           # target of a step without supervision
+# salt of the sampled action's draw (vln_goat_tpu/rollout/rollout.py:1265)
+SAMPLE_SALT = 7
 
 
 @dataclass(frozen=True)
@@ -82,8 +93,17 @@ def _take(x, idx):
     return torch.gather(x, 1, idx)
 
 
+def gumbel_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Standard Gumbel noise of `shape` from `generator`: the sampled
+    action is argmax(logits + noise), a categorical draw from the policy
+    (the trick jax.random.categorical uses)."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(shape, generator=generator, device=device).clamp_min(tiny)
+    return -torch.log(-torch.log(u))
+
+
 class NavRollout:
-    """Greedy rollout of a (model, world, config) triple."""
+    """Decode and training rollouts of a (model, world, config) triple."""
 
     def __init__(self, model: GoatModel, world: NavWorld,
                  rcfg: RolloutConfig):
@@ -121,6 +141,7 @@ class NavRollout:
             view_ix=batch["start_view"].clone(),
             ended=torch.zeros(B, dtype=torch.bool, device=dev),
             last_embeds=torch.zeros(B, D, device=dev),
+            uid=torch.arange(B, device=dev),
             overflow_n=torch.zeros(B, dtype=torch.int64, device=dev),
             spilled_n=torch.zeros(B, dtype=torch.int64, device=dev),
         )
@@ -397,7 +418,42 @@ class NavRollout:
             local_to_gmap=local_to_gmap,
         )
         return nav_in, dict(no_vp_left=no_vp_left, node_vp=node_vp,
-                            visited=visited)
+                            visited=visited, real=real)
+
+    # ------------------------------------------------------------------
+    def _teacher(self, st, batch, aux, t, imitation):
+        """Expert action in gmap-token space (agent.py:306-349; the JAX
+        package's `_teacher` :835-925): with `imitation` the next node of
+        the gt path (stop at its end), else the SPL expert, the unvisited
+        node nearest to the goal by dist(cur, node) + dist(node, goal) over
+        the full scan graph (stop at the goal).  IGNORE_ID where nothing
+        qualifies and for ended episodes."""
+        w = self.world
+        B = st["cur"].shape[0]
+        bidx = torch.arange(B, device=self.device)
+        cur_vp = _row(st["node_vp"], st["cur"])
+        gl = batch["gt_len"]
+        goal = batch["gt_path"][bidx, gl - 1]
+        ignore = torch.full_like(st["cur"], IGNORE_ID)
+        if imitation:
+            is_last = t >= gl - 1
+            nxt = batch["gt_path"][bidx, (gl - 1).clamp(max=t + 1)]
+            match = (aux["node_vp"] == nxt[:, None]) & aux["real"]
+            slot = match.int().argmax(dim=1) + 2
+            a = torch.where(is_last, 0,
+                            torch.where(match.any(dim=1), slot, ignore))
+        else:
+            scan = batch["scan_idx"][:, None]
+            node = aux["node_vp"] % w.dist.shape[1]
+            d_goal = w.dist[scan, node, goal[:, None]]
+            d_cur = w.dist[scan, cur_vp[:, None], node]
+            cand = aux["real"] & ~aux["visited"]
+            cost = torch.where(cand, d_goal + d_cur, math.inf)
+            best = cost.argmin(dim=1) + 2
+            any_cand = torch.isfinite(cost).any(dim=1)
+            a = torch.where(cur_vp == goal, 0,
+                            torch.where(any_cand, best, ignore))
+        return torch.where(st["ended"], ignore, a)
 
     # ------------------------------------------------------------------
     def _expand_path(self, st, tgt_node, max_len):
@@ -415,9 +471,12 @@ class NavRollout:
         return torch.stack(hops, dim=1), prev
 
     # ------------------------------------------------------------------
-    def _step(self, st, batch, txt, t):
-        """One decision step for every episode; returns (state, record)."""
+    def _step(self, st, batch, txt, t, feedback, horizon, noise_key):
+        """One decision step for every episode; returns (state, record).
+        Every feedback but "argmax" trains: the record's `loss` is then the
+        step's imitation loss per episode (zero in decode)."""
         model, w, r = self.model, self.world, self.rcfg
+        train_ml = feedback != "argmax"
         N = r.num_nodes
         act = ~st["ended"]
         st = {**st, "step_id": _set_row(
@@ -463,13 +522,44 @@ class NavRollout:
         logits = outs["fused_logits"]
         st = {**st, "last_embeds": torch.where(
             act[:, None], outs["cls_embeds"], st["last_embeds"])}
-        probs = torch.softmax(logits, dim=1)
+        probs = torch.softmax(logits.detach(), dim=1)
         st = {**st, "stop_prob": _set_row(st["stop_prob"], st["cur"],
                                           probs[:, 0], act)}
 
-        a = logits.argmax(dim=1)
-        just_ended = act & ((a == 0) | aux["no_vp_left"]
-                            | (t == r.horizon - 1))
+        # supervision: expert target and f32 cross-entropy
+        # (vln_goat_tpu/rollout/rollout.py:1232-1248)
+        B0 = logits.shape[0]
+        target = torch.full_like(st["cur"], IGNORE_ID)
+        step_loss = torch.zeros(B0, device=logits.device)
+        if train_ml:
+            target = self._teacher(st, batch, aux, t,
+                                   imitation=(feedback == "teacher"))
+            logp = torch.log_softmax(logits.float(), dim=1)
+            li = logp.gather(1, target.clamp(min=0)[:, None])[:, 0]
+            step_loss = -torch.where(target >= 0, li, torch.zeros_like(li))
+
+        # action selection (vln_goat_tpu/rollout/rollout.py:1251-1295):
+        # Gumbel-max samples drawn for every episode uid and gathered by
+        # uid, from a generator seeded by (rollout key, step, salt)
+        if feedback == "teacher":
+            a = target.clamp(min=0)
+        elif feedback == "sample":
+            g = torch.Generator(device=self.device).manual_seed(
+                (noise_key * 1000003 + t * 1009 + SAMPLE_SALT) % 2 ** 63)
+            noise = gumbel_noise(g, (B0, logits.shape[1]), self.device)
+            a = (logits.detach() + noise[st["uid"]]).argmax(dim=1)
+        else:
+            a = logits.argmax(dim=1)
+
+        # stop: teacher and sample also stop at the goal (agent.py:649-662)
+        a_stop = a == 0
+        if train_ml:
+            gl = batch["gt_len"]
+            goal = batch["gt_path"][torch.arange(B0, device=self.device),
+                                    gl - 1]
+            a_stop = a_stop | (pano["cur_vp"] == goal)
+        just_ended = act & (a_stop | aux["no_vp_left"]
+                            | (t == horizon - 1))
         moves = act & ~just_ended
         tgt_node = (a - 2).clamp(0, N - 1)
 
@@ -502,21 +592,19 @@ class NavRollout:
               "ended": st["ended"] | just_ended}
         st = self._arrive(st, batch, st["cur"], skip=~moves)
         rec = dict(action_node=act_vp, seg=seg_vp, seg_hops=seg_hops,
-                   logits=logits, active=act,
-                   node_vp_t=aux["node_vp"], visited_t=aux["visited"])
+                   logits=logits.detach(), active=act, target=target,
+                   node_vp_t=aux["node_vp"], visited_t=aux["visited"],
+                   loss=step_loss)
         return st, rec
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def rollout(self, batch) -> Dict[str, torch.Tensor]:
-        """Greedy decode of one batch; outputs as the JAX package's
-        `build_rollout(feedback="argmax", record_logits=True)`, plus
-        `steps`, the number of decision steps run."""
+    def _run(self, batch, txt, feedback, horizon, noise_key):
+        """The step loop and the final stop-backtrack; records are kept
+        detached, the per-step losses as they are."""
         r = self.rcfg
         B = batch["scan_idx"].shape[0]
-        T, G = r.horizon, r.num_nodes + 2
+        T, G = horizon or r.horizon, r.num_nodes + 2
         dev = self.device
-        txt = self.encode_text(batch)
         st = self.init_state(batch)
         recs = dict(
             action_node=torch.full((T, B), -1, dtype=torch.int64, device=dev),
@@ -525,14 +613,18 @@ class NavRollout:
             seg_hops=torch.zeros(T, B, device=dev),
             logits=torch.full((T, B, G), -math.inf, device=dev),
             active=torch.zeros(T, B, dtype=torch.bool, device=dev),
+            target=torch.full((T, B), IGNORE_ID, dtype=torch.int64,
+                              device=dev),
             node_vp_t=torch.full((T, B, r.num_nodes), -1, dtype=torch.int64,
                                  device=dev),
             visited_t=torch.zeros(T, B, r.num_nodes, dtype=torch.bool,
                                   device=dev),
         )
+        losses = []
         t = 0
         while t < T and not bool(st["ended"].all()):
-            st, rec = self._step(st, batch, txt, t)
+            st, rec = self._step(st, batch, txt, t, feedback, T, noise_key)
+            losses.append(rec.pop("loss"))
             for k, v in rec.items():
                 recs[k][t] = v
             t += 1
@@ -541,10 +633,13 @@ class NavRollout:
         best_stop = st["stop_prob"][:, :r.num_nodes].argmax(dim=1)
         back, _ = self._expand_path(st, best_stop, r.back_len)
         back = torch.where((best_stop != st["cur"])[:, None], back, -1)
+        loss_per_ep = torch.stack(losses).sum(dim=0) if losses \
+            else torch.zeros(B, device=dev)
         return dict(
+            ml_loss=loss_per_ep.sum() / B, loss_per_ep=loss_per_ep,
             actions=recs["action_node"], segs=recs["seg"],
             seg_hops=recs["seg_hops"], logits=recs["logits"],
-            active=recs["active"],
+            active=recs["active"], targets=recs["target"],
             node_vp_t=recs["node_vp_t"], visited_t=recs["visited_t"],
             node_vp=st["node_vp"], stop_node=best_stop, back_seg=back,
             back_hops=_take(_row(st["ehops"], st["cur"]),
@@ -553,6 +648,37 @@ class NavRollout:
             overflow_n=st["overflow_n"], spilled_n=st["spilled_n"],
             steps=torch.tensor(t),
         )
+
+    @torch.no_grad()
+    def rollout(self, batch) -> Dict[str, torch.Tensor]:
+        """Greedy decode of one batch; outputs as the JAX package's
+        `build_rollout(feedback="argmax", record_logits=True)`, plus
+        `steps`, the number of decision steps run."""
+        return self._run(batch, self.encode_text(batch), "argmax", None, 0)
+
+    def train_rollout(self, batch, feedback: str,
+                      generator: torch.Generator,
+                      txt: Optional[dict] = None,
+                      horizon: Optional[int] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """Training rollout with the imitation loss (the JAX package's
+        `build_rollout(feedback, train_ml=True, deterministic=False)`):
+        `feedback="teacher"` follows the gt path, `"sample"` samples from
+        the policy with the SPL expert as target.  `ml_loss` is the summed
+        cross-entropy over steps and episodes divided by B (JAX :1574),
+        differentiable in the model's parameters.  `txt` is an
+        `encode_text` result to share between rollouts on one batch;
+        `horizon` shortens the scan (the trainer's teacher_horizon).
+        Dropout draws come from the generator the caller gave the model
+        (`set_generator`); the sampled actions' noise from `generator`."""
+        if txt is None:
+            txt = self.encode_text(batch)
+        noise_key = int(torch.randint(0, 2 ** 62, (1,),
+                                      generator=generator,
+                                      device=generator.device))
+        if feedback not in ("teacher", "sample"):
+            raise ValueError(f"training feedback {feedback!r} is not ported")
+        return self._run(batch, txt, feedback, horizon, noise_key)
 
 
 def to_numpy(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

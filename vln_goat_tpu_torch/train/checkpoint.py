@@ -35,7 +35,12 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX parameters (flat "a/b/kernel" keys, or the nested tree, with or
-    without its top-level "params") -> the port's state_dict."""
+    without its top-level "params") -> the port's state_dict.
+
+    Every rule is a transpose, a copy or a concatenation, so the same call
+    maps a JAX gradient tree (the same structure as the parameters) onto
+    the port's parameter names and layouts, which is how the train-step
+    tests compare gradients."""
     if any(isinstance(v, Mapping) for v in params.values()):
         params = flatten(params)
     out: Dict[str, torch.Tensor] = {}

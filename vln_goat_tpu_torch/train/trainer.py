@@ -1,0 +1,260 @@
+"""Fine-tuning train step: IL / DAgger over the port's rollouts
+(counterpart of vln_goat_tpu/train/trainer.py).
+
+Reference semantics (map_nav_src/r2r/agent.py:422-445,
+agent_base.py:154-203):
+- 'imitation': one teacher-forced rollout, weight 1;
+- 'dagger': the teacher rollout at ml_weight (0.2) plus the on-policy
+  sampled rollout at weight 1, both imitation loss only, on the same
+  minibatch, sharing one instruction encoding (as the JAX package does);
+- loss: summed cross-entropy over steps and episodes divided by B;
+- global-norm clip 40, AdamW (optax's update: clip_by_global_norm, then
+  adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay), in optax's arithmetic).
+
+The teacher is the per-step rollout (the JAX package's
+`vectorized_teacher=False`, loss-identical to its vectorized teacher
+without dropout).  The backward is autograd's through the whole rollout;
+the fused attention calls on the card run the backward kernels of
+ops/attention.py.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Iterable, List, Optional, Union
+
+import torch
+
+from ..ops.dropout import set_generator
+from ..rollout.rollout import NavRollout
+
+
+def make_lr_schedule(name: str, lr: float, warmup_steps: int,
+                     total_steps: int, lr_end: float = 1e-8
+                     ) -> Callable[[int], float]:
+    """The reference's --lr_sch options as a function of the update count
+    (the JAX package's optax schedules: linear warm-up from 0, then
+    'constant_with_warmup', 'linear' to 0, 'polynomial' (power 1) to
+    lr_end or 'cosine' to 0 over total_steps - warmup_steps)."""
+    if name not in ("constant", "constant_with_warmup", "linear",
+                    "polynomial", "cosine"):
+        raise ValueError(f"unknown lr_sch {name!r}")
+    decay = max(1, total_steps - warmup_steps)
+
+    def tail(n: int) -> float:
+        n = min(max(n, 0), decay)
+        if name == "linear":
+            return lr * (1.0 - n / decay)
+        if name == "polynomial":
+            return (lr - lr_end) * (1.0 - n / decay) + lr_end
+        if name == "cosine":
+            return lr * 0.5 * (1.0 + math.cos(math.pi * n / decay))
+        return lr
+
+    def sched(count: int) -> float:
+        if name == "constant":
+            return lr
+        if warmup_steps and count < warmup_steps:
+            return lr * count / warmup_steps
+        return tail(count - warmup_steps)
+
+    return sched
+
+
+class AdamW(torch.optim.Optimizer):
+    """optax.adamw(lr, b1, b2, eps, weight_decay) in optax's arithmetic
+    order, in the parameters' dtype:
+
+        mu = (1 - b1) g + b1 mu            nu = (1 - b2) g^2 + b2 nu
+        u = (mu / (1 - b1^n)) / (sqrt(nu / (1 - b2^n)) + eps)
+        p = p + (-lr) (u + weight_decay p)
+
+    torch.optim.AdamW takes the same step in exact arithmetic but applies
+    the decay as a separate multiply, which rounds differently: its
+    parameters drift from optax's by a unit in the last place per step."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, b1, b2 = group["lr"], group["b1"], group["b2"]
+            eps, wd = group["eps"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                st["step"] += 1
+                g = p.grad
+                st["mu"] = (1 - b1) * g + b1 * st["mu"]
+                st["nu"] = (1 - b2) * (g * g) + b2 * st["nu"]
+                one = torch.ones((), dtype=p.dtype, device=p.device)
+                bc1 = one - (one * b1) ** st["step"]
+                bc2 = one - (one * b2) ** st["step"]
+                u = (st["mu"] / bc1) / (torch.sqrt(st["nu"] / bc2) + eps)
+                p.add_((-lr) * (u + wd * p))
+
+
+def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 2e-5,
+                   weight_decay: float = 0.01,
+                   lr_sch: Optional[str] = None, warmup_steps: int = 0,
+                   total_steps: Optional[int] = None):
+    """(AdamW, LambdaLR): optax's adamw(b1=0.9, b2=0.999, eps=1e-8,
+    weight_decay) at `lr` or at the named schedule, counted in updates as
+    optax counts them.  The global-norm clip is the train step's
+    (`clip_by_global_norm`)."""
+    opt = AdamW(params, lr=lr, weight_decay=weight_decay)
+    sched = make_lr_schedule(lr_sch, lr, warmup_steps, total_steps or 1) \
+        if lr_sch is not None else (lambda count: lr)
+    return opt, torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda count: sched(count) / lr)
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient (optax.global_norm)."""
+    return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: torch.Tensor) -> None:
+    """optax.clip_by_global_norm in place: g * (max / |g|) when |g| > max
+    (torch's clip_grad_norm_ adds 1e-6 to the norm; optax does not)."""
+    if float(norm) > max_norm:
+        for g in grads:
+            g.copy_((g / norm) * max_norm)
+
+
+@dataclass
+class TrainState:
+    """The model, its optimizer and schedule, the update count, and the
+    step function that advances them (`make_train_step`)."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    grad_clip: float = 40.0
+    step: int = 0
+    step_fn: Optional[Callable] = field(default=None, repr=False)
+
+
+def apply_update(state: TrainState) -> torch.Tensor:
+    """Clip the gradients in `state.model`'s .grad by their global norm,
+    take one optimizer and schedule step, count it; returns the norm before
+    clipping."""
+    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+    norm = global_norm(grads)
+    clip_by_global_norm(grads, state.grad_clip, norm)
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    return norm
+
+
+def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
+                 ml_weight: float = 0.2,
+                 teacher_horizon: Union[int, str, None] = None):
+    """loss_fn(batch, generator) -> (loss, metrics, outs): the imitation
+    loss of `train_alg` and its rollouts' outputs.  teacher_horizon: None
+    keeps the rollout's horizon, an int caps the teacher scan, "auto"
+    takes min(gt_path width, horizon) per batch (JAX :150-156): teacher
+    episodes end once their gt path is exhausted, so the cap is
+    loss-identical while skipping the dead tail."""
+    if train_alg not in ("imitation", "dagger"):
+        raise ValueError(f"train_alg {train_alg!r} is not ported")
+    full = rollout.rcfg.horizon
+
+    def teacher_h(batch) -> int:
+        h = teacher_horizon
+        if h == "auto":
+            h = min(int(batch["gt_path"].shape[1]), full)
+        return full if h is None else min(int(h), full)
+
+    def loss_fn(batch, generator: torch.Generator):
+        metrics: Dict[str, torch.Tensor] = {}
+        outs: Dict[str, dict] = {}
+        if train_alg == "imitation":
+            out = rollout.train_rollout(batch, "teacher", generator,
+                                        horizon=teacher_h(batch))
+            loss = out["ml_loss"]
+            metrics["il_loss"] = out["ml_loss"]
+            metrics["node_overflow"] = out["overflow_n"].sum()
+            outs["teacher"] = out
+        else:
+            txt = rollout.encode_text(batch)
+            loss = torch.zeros((), device=rollout.device)
+            if ml_weight != 0:
+                out_t = rollout.train_rollout(batch, "teacher", generator,
+                                              txt=txt,
+                                              horizon=teacher_h(batch))
+                loss = loss + ml_weight * out_t["ml_loss"]
+                metrics["il_loss"] = out_t["ml_loss"]
+                outs["teacher"] = out_t
+            out_s = rollout.train_rollout(batch, "sample", generator,
+                                          txt=txt)
+            loss = loss + out_s["ml_loss"]
+            metrics["sample_loss"] = out_s["ml_loss"]
+            metrics["node_overflow"] = out_s["overflow_n"].sum()
+            metrics["node_spilled"] = out_s["spilled_n"].sum()
+            outs["sample"] = out_s
+        return loss, metrics, outs
+
+    return loss_fn
+
+
+def make_train_step(rollout: NavRollout, train_alg: str = "dagger",
+                    ml_weight: float = 0.2,
+                    teacher_horizon: Union[int, str, None] = None):
+    """train_step(state, batch, generator) -> metrics: one update of
+    state.model.  Dropout and the sampled actions draw from `generator`
+    (on the model's device).  Metrics: loss, il_loss / sample_loss,
+    grad_norm (before clipping), node_overflow, node_spilled, and the
+    decision steps each rollout ran (teacher_steps, sample_steps).
+    keep=True returns (metrics, grads, outs) instead, to compare two
+    steps: grads {name: gradient before clipping}, outs the rollouts'
+    outputs by feedback."""
+    loss_fn = make_loss_fn(rollout, train_alg, ml_weight, teacher_horizon)
+
+    def train_step(state: TrainState, batch, generator: torch.Generator,
+                   keep: bool = False):
+        model = state.model
+        model.train()
+        set_generator(model, generator)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics, outs = loss_fn(batch, generator)
+        loss.backward()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                 if p.grad is not None} if keep else None
+        norm = apply_update(state)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        metrics["grad_norm"] = norm.detach()
+        for name, out in outs.items():
+            metrics[f"{name}_steps"] = out["steps"]
+        return (metrics, grads, outs) if keep else metrics
+
+    return train_step
+
+
+def init_train_state(model: torch.nn.Module, rollout: NavRollout,
+                     lr: float = 2e-5, weight_decay: float = 0.01,
+                     grad_clip: float = 40.0, train_alg: str = "dagger",
+                     ml_weight: float = 0.2,
+                     teacher_horizon: Union[int, str, None] = None,
+                     **sched) -> TrainState:
+    """TrainState of `model` with AdamW (make_optimizer) and the step
+    function of `train_alg` over `rollout`."""
+    opt, scheduler = make_optimizer(
+        [p for p in model.parameters() if p.requires_grad], lr,
+        weight_decay, **sched)
+    return TrainState(model, opt, scheduler, grad_clip, 0,
+                      make_train_step(rollout, train_alg, ml_weight,
+                                      teacher_horizon))
