@@ -16,21 +16,34 @@ Phases, each printing a flushed line as it ends:
      binomial standard deviations of 0.9), the two backward kernels against
      autograd of the plain version at the same shapes at dropout 0 and 0.1
      (two launches bitwise equal), and all three at the train step's shapes
-     (batch 64, dropout 0.1), whose times make the kernel line;
+     (batch 64, dropout 0.1), whose times make the kernel line; the same
+     for the causal configuration's shapes (cross-attention to 36, 47 and
+     24 bank rows with no bias, the front-door self-attention under a key
+     mask); and the attention-only kernel (`mha`, forward only) against
+     its plain version at the cases of the JAX package's test and at the
+     cross-attention over hoisted text it is kept to compare with (batch 8
+     and 64), beside scaled_dot_product_attention as a yardstick;
   4. decode: the full-width R2R greedy-decode rollout through the kernels
      (launch counts reset just before, read just after), then the same
      batch with every attention on the eager PyTorch path; actions must be
-     identical and the logits' masks as the model defines them;
+     identical and the logits' masks as the model defines them; then the
+     same for GOAT's causal configuration with its seeded banks;
   5. train: (a) one R2R DAgger step at batch 8, every dropout probability
      0, through the kernels and through the eager path from the same
      weights, batch and generator: sampled actions identical, losses to a
      relative 1e-4, every parameter's gradient within 1e-3 of its largest
-     magnitude; (b) the bench's step (batch 64, dropout 0.1 / 0.1 /
-     features 0.4): one warm-up step per gt-length bucket, then 3 timed
-     steps, loss and grad norm finite, the parameters moved, and the
-     kernels' launches equal to the count the config and the steps each
-     rollout ran give; peak memory of the warm-up and of the timed steps;
-     then the same on the eager path, timed for comparison.
+     magnitude (the biases of NOISE_GRAD_BIASES, whose gradients are zero
+     up to rounding, within 1e-3 of their weight's); (b) the bench's step
+     (batch 64, dropout 0.1 / 0.1 / features 0.4): one warm-up step per
+     gt-length bucket, then 3 timed steps, loss and grad norm finite,
+     the parameters moved, and the kernels' launches equal to the count
+     the config and the steps each rollout ran give; peak memory of the
+     warm-up and of the timed steps; then the same on the eager path,
+     timed for comparison; (c) and (d):
+     (a) and (b) for the causal configuration (the eager timing is left
+     out, and a line says so, when its predicted peak would pass 76 GiB).
+Every path is driven with the launch counts set to 0 just before it and
+read just after.
 The line before the last is one JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}.  Any failure raises: there is
 no CPU fallback, and without a card the script exits non-zero before
@@ -53,8 +66,8 @@ from vln_goat_tpu_torch.ops import _build
 from vln_goat_tpu_torch.ops.attention import (attend_plain,
                                               attention_backward,
                                               fused_qkv_mha,
-                                              fused_qkv_mha_plain,
-                                              project_plain,
+                                              fused_qkv_mha_plain, mha,
+                                              mha_plain, project_plain,
                                               projection_backward)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and dense
@@ -71,6 +84,11 @@ RATE = 0.1                # attention_probs_dropout_prob of the R2R config
 # the per-step path (moves, path expansion, arrivals) idle; with seed 4
 # every episode of the batch moves for the whole 15-step horizon.
 WEIGHT_SEED = 4
+# the eager train step's peak over the kernel path's in the plain
+# configuration, whose rollout step makes 6 attention calls (chip run,
+# H100 80GB HBM3), and the most the causal eager step may be predicted
+# to take before its timing is left out
+EAGER_EXCESS_GIB, EAGER_LIMIT_GIB = 6.7, 76.0
 # (name, Lq, Lk, bias kind, weight layout) at the rollout's shapes:
 # text self-attention over a 60-token instruction (200 is R2R's cap),
 # global-map self-attention (48 nodes + stop + MEM) with the key mask plus
@@ -82,7 +100,37 @@ SHAPES = (("text60", 60, 60, "key", "linear"),
           ("gmap50", 50, 50, "full", "linear"),
           ("local54", 54, 54, "key", "linear"),
           ("gmap50_per_head_bias", 50, 50, "heads", "dense"))
-TRAIN_SHAPES = ("text60", "gmap50", "local54")
+# the causal configuration's: text cross-attention to the direction (36),
+# landmark (47) and front-door (24) banks, map and local cross-attention
+# to their front-door banks (24), all without a bias, and the map's
+# front-door self-attention under its key mask alone
+CAUSAL_SHAPES = (("text60x36", 60, 36, "none", "linear"),
+                 ("text60x47", 60, 47, "none", "linear"),
+                 ("text60x24", 60, 24, "none", "linear"),
+                 ("gmap50x24", 50, 24, "none", "linear"),
+                 ("local54x24", 54, 24, "none", "linear"),
+                 ("gmap50_front_self", 50, 50, "key", "linear"))
+TRAIN_SHAPES = ("text60", "gmap50", "local54") + tuple(
+    s[0] for s in CAUSAL_SHAPES)
+# the attention-only kernel: the three cases of the JAX package's
+# tests/test_pallas_attention.py, then the cross-attention over the
+# hoisted text K/V it is kept to compare with (map and local queries
+# against a 60-token instruction under its key mask), at batch 8 and 64
+MHA_CASES = (("case16x16", 16, 16, "none", B),
+             ("case24x40_key", 24, 40, "key", B),
+             ("case12x12_full", 12, 12, "heads", B),
+             ("gmap50xtext60", 50, 60, "key", B),
+             ("local54xtext60", 54, 60, "key", B),
+             ("gmap50xtext60_b64", 50, 60, "key", B_TRAIN),
+             ("local54xtext60_b64", 54, 60, "key", B_TRAIN))
+MHA_LINE = ("gmap50xtext60_b64", "local54xtext60_b64")
+# parameters whose gradient is analytically zero: a key projection's bias
+# and the graph bias's bias add one constant to a whole row of attention
+# scores; the global head's LayerNorm bias and last bias add one constant
+# (times the row's fuse weight) to every finite fused logit
+NOISE_GRAD_BIASES = (".key.bias", "sprel_linear.bias",
+                     "global_sap_head.net.2.bias",
+                     "global_sap_head.net.3.bias")
 # names of the grads that the backward returns, in argument order
 GRADS = ("dx", "dy", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dbias")
 
@@ -131,7 +179,9 @@ def make_case(g, Lq, Lk, bias_kind, layout, batch=B):
     keep = torch.rand(batch, Lk, generator=g, device=dev) < 0.85
     keep[:, 0] = True
     key = (1.0 - keep.float())[:, None, None, :] * -10000.0
-    if bias_kind == "key":
+    if bias_kind == "none":
+        bias = None
+    elif bias_kind == "key":
         bias = key
     elif bias_kind == "full":
         bias = (key + randn(batch, 1, Lq, Lk)).requires_grad_()
@@ -379,7 +429,7 @@ def check_shape(g, name, Lq, Lk, bias_kind, layout, batch, timed):
 def check_kernels():
     g = torch.Generator(device="cuda").manual_seed(0)
     rows, train_rows = {}, {}
-    for name, Lq, Lk, bias_kind, layout in SHAPES:
+    for name, Lq, Lk, bias_kind, layout in SHAPES + CAUSAL_SHAPES:
         row = rows[name] = check_shape(g, name, Lq, Lk, bias_kind, layout,
                                        B, timed=False)
         say(f"kernel fused_qkv_mha {name}: B={B} Lq={Lq} Lk={Lk} "
@@ -396,7 +446,7 @@ def check_kernels():
             f"{row[f'attn_err_{RATE}']:.3e}, grads "
             f"{row['proj_err_0.0']:.3e} / {row[f'proj_err_{RATE}']:.3e} "
             f"(dropout 0 / {RATE}), two launches bitwise equal")
-    for name, Lq, Lk, bias_kind, layout in SHAPES:
+    for name, Lq, Lk, bias_kind, layout in SHAPES + CAUSAL_SHAPES:
         if name not in TRAIN_SHAPES:
             continue
         row = train_rows[name] = check_shape(g, name, Lq, Lk, bias_kind,
@@ -419,6 +469,69 @@ def check_kernels():
             f"bound_ms={row['projb_bound_ms']:.4f} "
             f"({row['projb_bound_by']})")
     return rows, train_rows
+
+
+def mha_case(g, Lq, Lk, bias_kind, batch):
+    """q [B, Lq, H, dh], and k / v [B, Lk, H, dh] as views of one packed
+    [B, Lk, H, 3, dh] tensor (the kernel reads them through their
+    strides), and a key mask or a per-head bias."""
+    qkv = torch.randn(batch, Lk, H, 3, DH, generator=g, device="cuda")
+    q = torch.randn(batch, Lq, H, DH, generator=g, device="cuda")
+    k, v = qkv[..., 1, :], qkv[..., 2, :]
+    if bias_kind == "none":
+        return q, k, v, None
+    if bias_kind == "key":
+        keep = torch.rand(batch, Lk, generator=g, device="cuda") < 0.85
+        keep[:, 0] = True
+        return q, k, v, (1.0 - keep.float())[:, None, None, :] * -10000.0
+    return q, k, v, torch.randn(batch, H, Lq, Lk, generator=g,
+                                device="cuda")
+
+
+def mha_library(q, k, v, bias):
+    """scaled_dot_product_attention over the same heads: a yardstick timed
+    here only; the port never calls it."""
+    o = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=bias)
+    return o.transpose(1, 2).reshape(q.shape[0], q.shape[1], H * DH)
+
+
+def check_mha():
+    """Phase 3 for the attention-only kernel: rows of numbers by case."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for name, Lq, Lk, bias_kind, batch in MHA_CASES:
+        q, k, v, bias = mha_case(g, Lq, Lk, bias_kind, batch)
+        out = mha(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref = mha_plain(q, k, v, bias)
+        torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+        lib_err = float((mha_library(q, k, v, bias) - ref).abs().max())
+        # both float32 versions against the function in float64
+        ref64 = mha_plain(*(None if a is None else a.double()
+                            for a in (q, k, v, bias)))
+        err64 = float((out.double() - ref64).abs().max())
+        plain64 = float((ref.double() - ref64).abs().max())
+        ops = 4 * batch * H * Lq * Lk * DH
+        nbytes = _bytes(q, k, v, bias) + 4 * out.numel()
+        fb = (ops / PEAK_F32_FLOP_PER_S * 1e3,
+              nbytes / PEAK_BYTES_PER_S * 1e3)
+        row = rows[name] = dict(
+            err=float((out - ref).abs().max()),
+            ms=cuda_ms(lambda: mha(q, k, v, bias)),
+            plain_ms=cuda_ms(lambda: mha_plain(q, k, v, bias)),
+            library_ms=cuda_ms(lambda: mha_library(q, k, v, bias)),
+            bound_ms=max(fb),
+            bound_by="operations" if fb[0] >= fb[1] else "bytes")
+        say(f"kernel mha {name}: B={batch} Lq={Lq} Lk={Lk} bias={bias_kind} "
+            f"max_abs_err={row['err']:.3e} (against float64: kernel "
+            f"{err64:.3e}, plain {plain64:.3e}) ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} (library max_abs_err="
+            f"{lib_err:.3e}) bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']})")
+    return rows
 
 
 def check_logit_masks(out):
@@ -444,17 +557,21 @@ def reset_counts():
     fused_qkv_mha.launches = 0
     attention_backward.launches = 0
     projection_backward.launches = 0
+    mha.launches = 0
 
 
 def counts():
+    """Launches (forward, backward a, backward b, attention-only)."""
     return (fused_qkv_mha.launches, attention_backward.launches,
-            projection_backward.launches)
+            projection_backward.launches, mha.launches)
 
 
-def run_rollouts(card):
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    model, ro, batcher = build_flagship("cuda", seed=WEIGHT_SEED)
+def run_rollouts(card, causal=False):
+    """Phase 4 for the plain or the causal configuration; returns the
+    forward kernel's launches in the run through the kernels."""
+    what = "causal " if causal else ""
+    model, ro, batcher = build_flagship("cuda", seed=WEIGHT_SEED,
+                                        causal=causal)
     _, batch = batcher.next_batch()
     greedy_rollout(ro, batch)                            # warm-up
     torch.cuda.synchronize()
@@ -468,20 +585,20 @@ def run_rollouts(card):
     steps = int(out["steps"])
     mix = launch_mix(model.config, steps)
     expect = sum(mix.values())
-    if counts() != (expect, 0, 0):
-        raise AssertionError(f"decode launched {counts()} (forward, "
-                             f"backward a, b), expected ({expect}, 0, 0) "
-                             f"({steps} steps)")
+    if counts() != (expect, 0, 0, 0):
+        raise AssertionError(f"{what}decode launched {counts()} (forward, "
+                             f"backward a, b, attention-only), expected "
+                             f"({expect}, 0, 0, 0) ({steps} steps)")
     check_logit_masks(out)
     moves = int((out["actions"] >= 0).sum())
-    say(f"rollout fused: {steps} steps, {moves} moves, "
+    say(f"{what}rollout fused: {steps} steps, {moves} moves, "
         f"{int(out['spilled_n'].sum())} spilled nodes, "
-        f"fused_qkv_mha launches={launches}, "
-        f"{B / dt:.2f} episodes/s ({dt * 1e3:.1f} ms per batch of {B}) "
-        f"on {card}")
+        f"fused_qkv_mha launches={launches} ({mix_text(mix)}), mha "
+        f"launches=0, {B / dt:.2f} episodes/s ({dt * 1e3:.1f} ms per "
+        f"batch of {B}) on {card}")
 
     p_model, p_ro, _ = build_flagship("cuda", use_fused_attention=False,
-                                      seed=WEIGHT_SEED)
+                                      seed=WEIGHT_SEED, causal=causal)
     p_model.load_state_dict(model.state_dict())
     greedy_rollout(p_ro, batch)                          # warm-up
     reset_counts()
@@ -490,8 +607,8 @@ def run_rollouts(card):
     ref = greedy_rollout(p_ro, batch)
     torch.cuda.synchronize()
     p_dt = time.perf_counter() - t0
-    if counts() != (0, 0, 0):
-        raise AssertionError("the eager run launched a fused kernel")
+    if counts() != (0, 0, 0, 0):
+        raise AssertionError("the eager run launched a kernel")
     if not torch.equal(out["actions"], ref["actions"]):
         raise AssertionError(f"actions differ:\n{out['actions']}\n"
                              f"{ref['actions']}")
@@ -504,39 +621,83 @@ def run_rollouts(card):
                  .abs().max())
     if dmax > 1e-3:
         raise AssertionError(f"fused logits differ by {dmax}")
-    say(f"rollout eager: {int(ref['steps'])} steps, {B / p_dt:.2f} "
-        f"episodes/s ({p_dt * 1e3:.1f} ms per batch); actions and "
-        f"trajectories identical, fused logits max |diff| {dmax:.3e}")
+    say(f"{what}rollout eager: {int(ref['steps'])} steps, "
+        f"{B / p_dt:.2f} episodes/s ({p_dt * 1e3:.1f} ms per batch); "
+        f"actions and trajectories identical, fused logits max |diff| "
+        f"{dmax:.3e}")
+    del model, ro, p_model, p_ro, out, ref
+    torch.cuda.empty_cache()
     return launches
 
 
+def mix_text(mix):
+    return ", ".join(f"{k} {v}" for k, v in mix.items() if v)
+
+
+def text_mix(cfg):
+    """Forward-kernel launches of one instruction encoding, by shape: the
+    self-attention of every language layer, and with the causal text
+    flags the cross-attention to each bank (type_2 back door: direction
+    and landmark; front door: the text bank)."""
+    mix = {"text60": cfg.num_l_layers}
+    if cfg.do_back_txt and cfg.do_back_txt_type == "type_2":
+        mix["text60x36"] = mix["text60x47"] = 1
+    if cfg.do_front_txt:
+        mix["text60x24"] = 1
+    return mix
+
+
+def step_mix(cfg, steps):
+    """Forward-kernel launches of `steps` rollout steps, by shape: the
+    global-map and local self-attention of every cross layer (the text
+    cross-attention reads the hoisted K/V and stays off the kernel), and
+    with the front-door flags each FrontDoorEncoder's self-attention under
+    the key mask and cross-attention to its bank."""
+    mix = {"gmap50": cfg.num_x_layers * steps,
+           "local54": cfg.num_x_layers * steps}
+    if cfg.do_front_his:
+        mix["gmap50_front_self"] = mix["gmap50x24"] = steps
+    if cfg.do_front_img:
+        mix["local54"] += steps
+        mix["local54x24"] = steps
+    return mix
+
+
+def add_mix(*mixes):
+    out = {}
+    for m in mixes:
+        for k, v in m.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def launch_mix(cfg, steps):
-    """Launches of the fused kernel in one rollout, by shape: the text call
-    once per language layer, the global-map and local calls once per cross
-    layer and step."""
-    return {"text60": cfg.num_l_layers, "gmap50": cfg.num_x_layers * steps,
-            "local54": cfg.num_x_layers * steps}
+    """Launches of the forward kernel in one decode rollout, by shape."""
+    return add_mix(text_mix(cfg), step_mix(cfg, steps))
 
 
 def train_mix(cfg, metrics):
     """Forward launches of the fused kernel in the DAgger steps whose
-    metrics are given: the text encoder once per step, and per teacher and
-    per sample step the global-map and local self-attention of every cross
-    layer.  Each forward has its backward."""
+    metrics are given: the instruction encoding once per step (shared by
+    the teacher and the sampled rollout), and every teacher and sample
+    step's.  Each forward has its two backward launches."""
     steps = sum(int(m["teacher_steps"]) + int(m["sample_steps"])
                 for m in metrics)
-    return {"text60": cfg.num_l_layers * len(metrics),
-            "gmap50": cfg.num_x_layers * steps,
-            "local54": cfg.num_x_layers * steps}
+    return add_mix(*([text_mix(cfg)] * len(metrics)),
+                   step_mix(cfg, steps))
 
 
-def run_train(card):
-    """Phase 5."""
+def run_train(card, causal=False):
+    """Phase 5: (a) and (b), or (c) and (d) for the causal
+    configuration.  Returns the timed steps' launch mix and counts."""
+    what = "causal " if causal else ""
+    pa, pb = ("c", "d") if causal else ("a", "b")
     # (a) kernel path against the eager path, dropout off, batch 8
     k_state, batcher = build_train_flagship("cuda", batch_size=B,
-                                            dropout=False)
+                                            dropout=False, causal=causal)
     e_state, _ = build_train_flagship("cuda", batch_size=B, dropout=False,
-                                      use_fused_attention=False)
+                                      use_fused_attention=False,
+                                      causal=causal)
     e_state.model.load_state_dict(k_state.model.state_dict())
     _, batch = batcher.next_batch()
     reset_counts()
@@ -547,15 +708,15 @@ def run_train(card):
     k_counts = counts()
     mix = train_mix(k_state.model.config, [k_m])
     n = sum(mix.values())
-    if k_counts != (n, n, n):
-        raise AssertionError(f"kernel step launched {k_counts}, expected "
-                             f"{(n, n, n)}")
+    if k_counts != (n, n, n, 0):
+        raise AssertionError(f"{what}kernel step launched {k_counts}, "
+                             f"expected {(n, n, n, 0)}")
     reset_counts()
     e_m, e_grads, e_outs = e_state.step_fn(
         e_state, batch, torch.Generator(device="cuda").manual_seed(0),
         keep=True)
-    if counts() != (0, 0, 0):
-        raise AssertionError("the eager step launched a fused kernel")
+    if counts() != (0, 0, 0, 0):
+        raise AssertionError("the eager step launched a kernel")
     for r in ("teacher", "sample"):
         if not torch.equal(k_outs[r]["actions"], e_outs[r]["actions"]):
             raise AssertionError(f"{r} actions differ")
@@ -571,10 +732,11 @@ def run_train(card):
     worst = 0.0
     for name, ge in e_grads.items():
         scale = float(ge.abs().max())
-        if name.endswith((".key.bias", "sprel_linear.bias")):
+        if name.endswith(NOISE_GRAD_BIASES):
             # zero up to rounding: each adds one constant to a whole row
-            # of scores, which softmax ignores; held at the scale of its
-            # weight's gradient, as phase 3 holds the key bias
+            # of scores or to every finite fused logit, which softmax
+            # ignores; held at the scale of its weight's gradient, as
+            # phase 3 holds the key bias
             scale = max(scale, float(e_grads[name[:-4] + "weight"]
                                      .abs().max()))
         err = float((k_grads[name] - ge).abs().max())
@@ -584,23 +746,27 @@ def run_train(card):
         worst = max(worst, err / scale if scale else 0.0)
     if float(k_grads["global_encoder.sprel_linear.weight"].abs().max()) == 0:
         raise AssertionError("sprel_linear got no gradient")
-    say(f"train (a) batch {B}, dropout 0: kernel vs eager DAgger step: "
-        f"teacher {int(k_outs['teacher']['steps'])} + sample "
+    say(f"{what}train ({pa}) batch {B}, dropout 0: kernel vs eager DAgger "
+        f"step: teacher {int(k_outs['teacher']['steps'])} + sample "
         f"{int(k_outs['sample']['steps'])} steps, actions identical, loss "
         f"{float(k_m['loss']):.6f} vs {float(e_m['loss']):.6f}, "
         f"{len(e_grads)} "
         f"gradients within {worst:.2e} of their max (limit 1e-3), "
-        f"launches {k_counts} (forward, backward a, backward b)")
+        f"launches {k_counts} (forward, backward a, backward b, "
+        f"attention-only; {mix_text(mix)})")
     del k_state, e_state, k_grads, e_grads, k_outs, e_outs
+    torch.cuda.empty_cache()
 
     # (b) the bench's step: batch 64, dropout on, 3 timed steps, through
     # the kernels and then through the eager path
-    state, metrics, got, dt, warm_peak, peak, before = bench_steps(True)
-    mix = train_mix(state.model.config, metrics)
+    state, metrics, got, dt, warm_peak, peak, before = bench_steps(
+        True, causal)
+    cfg = state.model.config
+    mix = train_mix(cfg, metrics)
     n = sum(mix.values())
-    if got != (n, n, n):
-        raise AssertionError(f"train steps launched {got}, expected "
-                             f"{(n, n, n)}")
+    if got != (n, n, n, 0):
+        raise AssertionError(f"{what}train steps launched {got}, expected "
+                             f"{(n, n, n, 0)}")
     for m in metrics:
         if not (math.isfinite(float(m["loss"]))
                 and math.isfinite(float(m["grad_norm"]))):
@@ -610,24 +776,37 @@ def run_train(card):
     if moved < 0.9 * len(before):
         raise AssertionError(f"only {moved} of {len(before)} parameters "
                              "moved")
-    say(f"train (b) batch {B_TRAIN}, dropout {RATE}/{RATE}/feat 0.4, "
-        f"kernels: 3 DAgger steps (teacher, sample steps "
+    say(f"{what}train ({pb}) batch {B_TRAIN}, dropout {RATE}/{RATE}/feat "
+        f"0.4, kernels: 3 DAgger steps (teacher, sample steps "
         f"{rollout_steps(metrics)}), loss "
         f"{[round(float(m['loss']), 4) for m in metrics]}, grad_norm "
         f"{[round(float(m['grad_norm']), 3) for m in metrics]}, "
-        f"{moved}/{len(before)} parameters moved, launches {got}, peak "
+        f"{moved}/{len(before)} parameters moved, launches {got} "
+        f"({mix_text(mix)}), peak "
         f"memory {warm_peak:.2f} GiB in the warm-up (one step per bucket), "
         f"{peak:.2f} GiB in the timed steps; {B_TRAIN * 3 / dt:.2f} "
         f"episodes/s ({dt / 3 * 1e3:.1f} ms per step) on {card}")
     del state, metrics, before
     torch.cuda.empty_cache()
-    _, e_metrics, e_got, e_dt, e_warm, e_peak, _ = bench_steps(False)
-    if e_got != (0, 0, 0):
-        raise AssertionError("the eager step launched a fused kernel")
+    # the eager path keeps every call's probabilities and mask: its excess
+    # over the kernel path, scaled from the plain configuration's by the
+    # attention calls per rollout step
+    calls = sum(step_mix(cfg, 1).values())
+    excess = EAGER_EXCESS_GIB * calls / 6
+    if causal and warm_peak + excess > EAGER_LIMIT_GIB:
+        say(f"{what}train ({pb}) eager path not timed: the kernel path's "
+            f"warm-up peak {warm_peak:.2f} GiB plus the eager path's "
+            f"predicted excess of {excess:.2f} GiB ({calls} attention "
+            f"calls per rollout step) passes {EAGER_LIMIT_GIB} GiB")
+        return mix, got
+    _, e_metrics, e_got, e_dt, e_warm, e_peak, _ = bench_steps(False,
+                                                               causal)
+    if e_got != (0, 0, 0, 0):
+        raise AssertionError("the eager step launched a kernel")
     if not all(math.isfinite(float(m["loss"])) for m in e_metrics):
         raise AssertionError(f"non-finite eager step: {e_metrics}")
-    say(f"train (b) eager path, same settings: 3 DAgger steps (teacher, "
-        f"sample steps {rollout_steps(e_metrics)}), peak memory "
+    say(f"{what}train ({pb}) eager path, same settings: 3 DAgger steps "
+        f"(teacher, sample steps {rollout_steps(e_metrics)}), peak memory "
         f"{e_warm:.2f} GiB in the warm-up, {e_peak:.2f} GiB in the timed "
         f"steps; {B_TRAIN * 3 / e_dt:.2f} episodes/s ({e_dt / 3 * 1e3:.1f} "
         f"ms per step) on {card}")
@@ -640,15 +819,17 @@ def rollout_steps(metrics):
             for m in metrics]
 
 
-def bench_steps(fused: bool, n: int = 3):
+def bench_steps(fused: bool, causal: bool = False, n: int = 3):
     """The bench's DAgger step (batch 64, dropout on) through the kernels
-    or the eager path: one warm-up step per gt-length bucket, then n timed
-    steps with the launch counts reset just before.  Returns the state,
-    the timed steps' metrics, their launch counts and seconds, the peak
-    memory (GiB) of the warm-up and of the timed steps, and the parameters
-    before the timed steps."""
+    or the eager path, in the plain or the causal configuration: one
+    warm-up step per gt-length bucket, then n timed steps with the launch
+    counts reset just before.  Returns the state, the timed steps'
+    metrics, their launch counts and seconds, the peak memory (GiB) of the
+    warm-up and of the timed steps, and the parameters before the timed
+    steps."""
     state, batcher = build_train_flagship("cuda", batch_size=B_TRAIN,
-                                          use_fused_attention=fused)
+                                          use_fused_attention=fused,
+                                          causal=causal)
     g = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -692,11 +873,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows, train_rows = check_kernels()
-    decode_launches = run_rollouts(card)
-    mix, (n_fwd, n_attn, n_proj) = run_train(card)
+    mha_rows = check_mha()
+    decode = run_rollouts(card)
+    mix, train = run_train(card)
+    c_decode = run_rollouts(card, causal=True)
+    c_mix, c_train = run_train(card, causal=True)
 
-    # one row per kernel, its times weighted by the train step's launch mix
+    # one row per kernel: launches by path (decode counts the forward
+    # only), and times weighted by the launch mix of both train paths
+    mix = add_mix(mix, c_mix)
     total = sum(mix.values())
+    by_path = [dict(decode=decode, train=train[i], causal_decode=c_decode,
+                    causal_train=c_train[i]) for i in range(3)]
+    for i in (1, 2):
+        by_path[i].update(decode=0, causal_decode=0)
 
     def avg(key):
         return sum(train_rows[s][key] * w for s, w in mix.items()) / total
@@ -710,12 +900,15 @@ def main() -> int:
                     for rate in (0.0, RATE)]
                    + [r[f"{key}_{RATE}"] for r in train_rows.values()])
 
+    def mha_avg(key):
+        return sum(mha_rows[s][key] for s in MHA_LINE) / len(MHA_LINE)
+
     src = "vln_goat_tpu_torch/ops/csrc/"
     kernels = [
         dict(name="fused_qkv_mha", route="cuda", source=src + "fused_qkv_mha.cu",
              replaces="vln_goat_tpu/ops/attention.py:169",
-             launches=n_fwd,
-             launches_by_path={"decode": decode_launches, "train": n_fwd},
+             launches=sum(by_path[0].values()),
+             launches_by_path=by_path[0],
              max_abs_err=err("fwd_err"),
              ms=avg("ms"), plain_ms=avg("plain_ms"),
              bound_ms=avg("bound_ms"), bound_by=by("bound_by"),
@@ -723,17 +916,30 @@ def main() -> int:
         dict(name="fused_qkv_mha_bwd_attn", route="cuda",
              source=src + "fused_qkv_mha_bwd.cu",
              replaces="vln_goat_tpu/ops/attention.py:181",
-             launches=n_attn, max_abs_err=err("attn_err"),
+             launches=sum(by_path[1].values()),
+             launches_by_path=by_path[1], max_abs_err=err("attn_err"),
              ms=avg("attn_ms"), plain_ms=avg("attn_plain_ms"),
              bound_ms=avg("attn_bound_ms"), bound_by=by("attn_bound_by"),
              library_ms=avg("attn_library_ms")),
         dict(name="fused_qkv_mha_bwd_proj", route="cuda",
              source=src + "fused_qkv_mha_bwd.cu",
              replaces="vln_goat_tpu/ops/attention.py:181",
-             launches=n_proj, max_abs_err=err("proj_err"),
+             launches=sum(by_path[2].values()),
+             launches_by_path=by_path[2], max_abs_err=err("proj_err"),
              ms=avg("projb_ms"), plain_ms=avg("projb_plain_ms"),
              bound_ms=avg("projb_bound_ms"), bound_by=by("projb_bound_by"),
              library_ms=avg("projb_library_ms")),
+        # on no path, in either package: the JAX package keeps pallas_mha
+        # for A/B comparisons; times at the hoisted-text cross-attention
+        dict(name="mha", route="cuda", source=src + "mha.cu",
+             replaces="vln_goat_tpu/ops/attention.py:49", launches=0,
+             launches_by_path=dict(decode=0, train=0, causal_decode=0,
+                                   causal_train=0),
+             max_abs_err=max(r["err"] for r in mha_rows.values()),
+             ms=mha_avg("ms"), plain_ms=mha_avg("plain_ms"),
+             bound_ms=mha_avg("bound_ms"),
+             bound_by=mha_rows[MHA_LINE[0]]["bound_by"],
+             library_ms=mha_avg("library_ms")),
     ]
     say(f"wall: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

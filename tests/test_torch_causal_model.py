@@ -1,0 +1,184 @@
+"""The causal modules of the port against the JAX package's, at the tiny
+test widths (hidden 32, 2 heads, one layer per stack) with the banks at
+the row counts a real run holds (`make_causal_banks`): LanguageEncoderDo
+for each back-door type and merge the JAX package defines, the image
+back door for type_1 and type_2 with each merge, FrontDoorEncoder, and
+`forward_text` / `forward_panorama` / `forward_navigation` under the
+causal configuration.  The port's seeded weights go to the JAX model
+through the JAX package's `torch_to_flax`.
+
+Tolerance atol 5e-5 / rtol 1e-4: float32 on both sides, sums in another
+order, and flax's LayerNorm takes the variance as E[x^2] - E[x]^2 where
+torch's subtracts the mean first."""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from vln_goat_tpu.config import GoatConfig as JaxConfig
+from vln_goat_tpu.models.goat import FrontDoorEncoder as JaxFrontDoor
+from vln_goat_tpu.models.goat import GoatModel as JaxModel
+from vln_goat_tpu.train.checkpoint import torch_to_flax
+from vln_goat_tpu_torch.config import GoatConfig
+from vln_goat_tpu_torch.entry import CAUSAL, TINY, build_model, \
+    make_causal_banks
+from test_torch_model import _nav_inputs, _text_inputs
+
+TOL = dict(atol=5e-5, rtol=1e-4)
+B = 3
+NO_CAUSAL = dict(do_back_txt=False, do_back_img=False, do_front_txt=False,
+                 do_front_img=False, do_front_his=False)
+
+
+def _pair(**flags):
+    """(JAX model, its params, port model, banks [B, ...] as numpy) of the
+    tiny config with `flags`, from the port's seeded weights."""
+    kw = {**TINY, **NO_CAUSAL, **flags}
+    tm = build_model(GoatConfig(**kw), "cpu", seed=3)
+    params = torch_to_flax({k: v.numpy() for k, v in
+                            tm.state_dict().items()})
+    banks = {}
+    for k, v in make_causal_banks(tm.config, seed=1).items():
+        v = v[:, None] if v.ndim == 1 else v
+        banks[k] = np.broadcast_to(v[None], (B,) + v.shape)
+    return JaxModel(JaxConfig(**kw)), params, tm, banks
+
+
+def _close(out, ref):
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
+
+
+TEXT_KEYS = (("instr_z_direction_features", "z_direc_embeds"),
+             ("instr_z_direction_pzs", "z_direc_pzs"),
+             ("instr_z_landmark_features", "z_landm_embeds"),
+             ("instr_z_landmark_pzs", "z_landm_pzs"),
+             ("front_txt_feats", "front_txt_embeds"))
+
+
+def _forward_text(jm, params, tm, banks, rng):
+    ids, masks = _text_inputs(rng)
+    kw = {dst: banks[src] for src, dst in TEXT_KEYS if src in banks}
+    ref = jm.apply(params, jnp.asarray(ids), jnp.asarray(masks),
+                   method=JaxModel.forward_text,
+                   **{k: jnp.asarray(v) for k, v in kw.items()})
+    with torch.no_grad():
+        out = tm.forward_text(torch.from_numpy(ids), torch.from_numpy(masks),
+                              **{k: torch.from_numpy(np.ascontiguousarray(v))
+                                 for k, v in kw.items()})
+    return out, ref
+
+
+@pytest.mark.parametrize("txt_type,method,back,front", [
+    ("type_1", "door", True, True),
+    ("type_1", "door", True, False),
+    ("type_2", "door", True, True),
+    ("type_2", "add", True, True),
+    ("type_2", "concat", True, True),
+    ("type_2", "door", False, True),
+    ("type_2", "add", False, True),
+])
+def test_language_encoder_do(rng, txt_type, method, back, front):
+    jm, params, tm, banks = _pair(do_back_txt=back, do_front_txt=front,
+                                  do_back_txt_type=txt_type,
+                                  do_add_method=method)
+    _close(*_forward_text(jm, params, tm, banks, rng))
+
+
+def _pano_inputs(rng):
+    LP = 16 + 36
+    img = rng.standard_normal((B, LP, TINY["image_feat_size"])).astype(
+        np.float32)
+    loc = rng.standard_normal((B, LP, 7)).astype(np.float32)
+    nav_types = rng.integers(0, 2, (B, LP))
+    masks = rng.random((B, LP)) < 0.7
+    masks[:, 0] = True
+    return img, loc, nav_types, masks
+
+
+def _forward_panorama(jm, params, tm, banks, rng):
+    args = _pano_inputs(rng)
+    zk = dict(z_img_features=banks["img_z_features"],
+              z_img_pzs=banks["img_z_pzs"])
+    ref = jm.apply(params, *map(jnp.asarray, args),
+                   method=JaxModel.forward_panorama,
+                   **{k: jnp.asarray(v) for k, v in zk.items()})
+    with torch.no_grad():
+        out = tm.forward_panorama(
+            *map(torch.from_numpy, args),
+            **{k: torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in zk.items()})
+    return out, ref
+
+
+@pytest.mark.parametrize("img_type,method", [
+    ("type_1", "door"), ("type_2", "door"), ("type_2", "add"),
+    ("type_2", "concat")])
+def test_image_backdoor(rng, img_type, method):
+    jm, params, tm, banks = _pair(do_back_img=True,
+                                  do_back_img_type=img_type,
+                                  do_add_method=method)
+    out, ref = _forward_panorama(jm, params, tm, banks, rng)
+    for o, r in zip((out[0], out[2]), (ref[0], ref[2])):
+        _close(o, r)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_front_door_encoder(rng, masked):
+    jm, params, tm, banks = _pair(**CAUSAL)
+    D = TINY["hidden_size"]
+    local = rng.standard_normal((B, 14, D)).astype(np.float32)
+    masks = np.arange(14)[None, :] < np.array([14, 9, 4])[:, None]
+    bank = banks["front_gmap_feats"]
+    m = masks if masked else None
+    ref = JaxFrontDoor(jm.config).apply(
+        {"params": params["params"]["front_global_encoder"]},
+        jnp.asarray(local), jnp.asarray(bank),
+        None if m is None else jnp.asarray(m))
+    with torch.no_grad():
+        out = tm.front_global_encoder(
+            torch.from_numpy(local),
+            torch.from_numpy(np.ascontiguousarray(bank)),
+            None if m is None else torch.from_numpy(m))
+    _close(out, ref)
+
+
+@pytest.fixture(scope="module")
+def causal_pair():
+    return _pair(**CAUSAL)
+
+
+def test_causal_forward_text(causal_pair, rng):
+    _close(*_forward_text(*causal_pair, rng))
+
+
+def test_causal_forward_panorama(causal_pair, rng):
+    out, ref = _forward_panorama(*causal_pair, rng)
+    for o, r in zip((out[0], out[2]), (ref[0], ref[2])):
+        _close(o, r)
+    assert np.array_equal(out[1].numpy(), np.asarray(ref[1]))
+
+
+@pytest.mark.parametrize("hoisted_kv", [False, True])
+def test_causal_forward_navigation(causal_pair, rng, hoisted_kv):
+    jm, params, tm, banks = causal_pair
+    nav = _nav_inputs(rng)
+    nav.update(front_vp_feats=banks["front_vp_feats"],
+               front_gmap_feats=banks["front_gmap_feats"])
+    jnav = {k: jnp.asarray(v) for k, v in nav.items()}
+    tnav = {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in nav.items()}
+    if hoisted_kv:
+        jnav["txt_kv"] = jm.apply(params, jnav["txt_embeds"],
+                                  method=JaxModel.forward_text_kv)
+        with torch.no_grad():
+            tnav["txt_kv"] = tm.forward_text_kv(tnav["txt_embeds"])
+    ref = jm.apply(params, method=JaxModel.forward_navigation, **jnav)
+    with torch.no_grad():
+        out = tm.forward_navigation(**tnav)
+    for k in ("gmap_embeds", "vp_embeds", "global_logits", "local_logits",
+              "fused_logits", "cls_embeds"):
+        r, o = np.asarray(ref[k]), out[k].numpy()
+        fin = np.isfinite(r)
+        assert np.array_equal(fin, np.isfinite(o)), k
+        np.testing.assert_allclose(o[fin], r[fin], err_msg=k, **TOL)
+        assert np.array_equal(o[~fin], r[~fin]), k

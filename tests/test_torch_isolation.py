@@ -52,9 +52,11 @@ def test_blocker_blocks():
 def test_port_and_smoke_import_without_jax():
     mods = _port_modules()
     assert len(mods) > 15
-    # the training slice's modules are among those imported
+    # the training and causal slices' modules are among those imported
     assert {"vln_goat_tpu_torch.ops.dropout",
-            "vln_goat_tpu_torch.train.trainer"} <= set(mods)
+            "vln_goat_tpu_torch.train.trainer",
+            "vln_goat_tpu_torch.tools.kmeans",
+            "vln_goat_tpu_torch.tools.zdict"} <= set(mods)
     code = "import importlib\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in mods) + \
         "import chip_smoke\nprint('ok')\n"
@@ -90,6 +92,10 @@ def test_entry_points_default_to_cuda(no_card):
         build_flagship(tiny=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_train_flagship(tiny=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_flagship(tiny=True, causal=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_train_flagship(tiny=True, causal=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(GoatConfig(num_l_layers=1, hidden_size=32,
                                num_attention_heads=2))

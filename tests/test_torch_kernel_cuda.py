@@ -17,7 +17,8 @@ import torch
 
 from vln_goat_tpu_torch.ops.attention import (attention_backward,
                                               fused_qkv_mha,
-                                              fused_qkv_mha_plain,
+                                              fused_qkv_mha_plain, mha,
+                                              mha_plain,
                                               projection_backward)
 
 pytestmark = pytest.mark.cuda
@@ -163,3 +164,78 @@ def test_fused_qkv_mha_refuses_long_keys(card):
     w, b = torch.zeros(768, 768, device="cuda"), torch.zeros(768, device="cuda")
     with pytest.raises(ValueError, match="Lk <="):
         fused_qkv_mha(x, y, w, b, w, b, w, b, num_heads=12)
+
+
+# the causal configuration's attention shapes: text cross-attention to the
+# direction (36), landmark (47) and front-door (24) banks, map and local
+# front-door cross-attention (24 rows), all without a bias; the map's
+# front-door self-attention under its key mask alone
+CAUSAL_SHAPES = [(60, 36, False), (60, 47, False), (60, 24, False),
+                 (50, 24, False), (54, 24, False), (50, 50, True)]
+
+
+@pytest.mark.parametrize("Lq,Lk,masked", CAUSAL_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_causal_shapes_match_plain(card, Lq, Lk, masked, rate):
+    """Forward, and both backward kernels through autograd, against the
+    plain version at Lq != Lk < 32 keys and with no bias."""
+    args, seed = _case(card, 8, Lq, Lk, None, True, grad=True)
+    if masked:
+        keep = torch.rand(8, Lk, generator=card, device="cuda") < 0.85
+        keep[:, 0] = True
+        args = args[:8] + ((1.0 - keep.float())[:, None, None, :]
+                           * -10000.0,)
+    leaves = [a for a in args if a is not None and a.requires_grad]
+    out = fused_qkv_mha(*args, num_heads=H, dropout_rate=rate, seed=seed)
+    ref = fused_qkv_mha_plain(*args, num_heads=H, dropout_rate=rate,
+                              seed=seed)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-3)
+    dout = torch.randn(8, Lq, D, generator=card, device="cuda")
+    _assert_grads(torch.autograd.grad(out, leaves, dout),
+                  torch.autograd.grad(ref, leaves, dout))
+
+
+def _mha_case(g, B, Lq, Lk, bias_kind):
+    q, k, v = (torch.randn(B, L, H, 64, generator=g, device="cuda")
+               for L in (Lq, Lk, Lk))
+    if bias_kind is None:
+        return q, k, v, None
+    if bias_kind == "key":
+        keep = torch.rand(B, Lk, generator=g, device="cuda") < 0.8
+        keep[:, 0] = True
+        return q, k, v, (1.0 - keep.float())[:, None, None, :] * -10000.0
+    return q, k, v, torch.randn(B, H, Lq, Lk, generator=g, device="cuda")
+
+
+@pytest.mark.parametrize("Lq,Lk,bias_kind", [
+    (16, 16, None), (24, 40, "key"), (12, 12, "full"), (50, 60, "key"),
+    (130, 256, "full")])
+def test_mha_matches_plain(card, Lq, Lk, bias_kind):
+    args = _mha_case(card, 3, Lq, Lk, bias_kind)
+    before = mha.launches
+    out = mha(*args)
+    torch.cuda.synchronize()
+    assert mha.launches == before + 1
+    torch.testing.assert_close(out, mha_plain(*args), atol=1e-4, rtol=1e-3)
+    # and against the same function in float64, which shares no rounding
+    # with either float32 version
+    ref64 = mha_plain(*(None if a is None else a.double() for a in args))
+    torch.testing.assert_close(out.double(), ref64, atol=1e-5, rtol=1e-4)
+
+
+def test_mha_reads_strided_views(card):
+    """Heads sliced out of a packed [B, L, 3, H, dh] tensor, as views."""
+    qkv = torch.randn(2, 40, 3, H, 64, generator=card, device="cuda")
+    q, k, v = qkv.unbind(2)
+    torch.testing.assert_close(mha(q, k, v), mha_plain(q, k, v),
+                               atol=1e-4, rtol=1e-3)
+
+
+def test_mha_refuses_what_it_does_not_take(card):
+    q = torch.zeros(1, 4, H, 32, device="cuda")
+    with pytest.raises(ValueError, match="head width"):
+        mha(q, q, q)
+    q = torch.zeros(1, 4, H, 64, device="cuda")
+    k = torch.zeros(1, 257, H, 64, device="cuda")
+    with pytest.raises(ValueError, match="Lk <="):
+        mha(q, k, k)

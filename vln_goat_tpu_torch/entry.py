@@ -17,11 +17,18 @@ bench_train` times:
     state, batcher = build_train_flagship("cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     metrics = train_steps(state, batcher, 3, g)
+
+`causal=True` builds either with GOAT's causal configuration (`CAUSAL`:
+BACL back-door text type_2 and image type_1, FACL front-door on text,
+panorama and map, "door" merges; the set the JAX package's key audit
+checks, tests/test_ckpt_audit.py) and its banks made from a seed
+(`make_causal_banks`), which the batcher attaches to every batch.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .config import GoatConfig, TrainConfig
@@ -32,12 +39,67 @@ from .rollout.rollout import NavRollout, RolloutConfig, to_numpy
 from .rollout.trajectory import assemble_trajectories
 from .rollout.world import NavWorld
 from .sim.graph_sim import make_synthetic_scan
+from .tools.kmeans import FrontDoorPicker
+from .tools.zdict import (DIRECTION_WORDS, FALLBACK_LANDMARKS, front_banks,
+                          instr_bank_names)
 from .train.params import init_goat_params
 from .train.trainer import TrainState, init_train_state
 
 TINY = dict(num_l_layers=1, num_x_layers=1, num_pano_layers=1,
             hidden_size=32, num_attention_heads=2, intermediate_size=64,
             vocab_size=64, max_position_embeddings=64, image_feat_size=16)
+
+# GOAT's causal configuration (the JAX package's key audit,
+# tests/test_ckpt_audit.py:40-44)
+CAUSAL = dict(do_back_txt=True, do_back_img=True, do_back_txt_type="type_2",
+              do_back_img_type="type_1", do_add_method="door",
+              do_front_txt=True, do_front_img=True, do_front_his=True)
+# rows of the image room-type bank (the reference's image_z_dict_clip_50),
+# of each front-door bank (front_n_clusters) and of the CFP feature pool
+# each front-door bank is picked from
+IMG_Z_ROWS, FRONT_CLUSTERS, CFP_ROWS = 50, 24, 2048
+
+
+def make_causal_banks(cfg: GoatConfig, seed: int = 0,
+                      device="cpu") -> Dict[str, np.ndarray]:
+    """Seeded banks of the causal configuration at the sizes a real run
+    holds, under their batch keys: the instruction direction bank
+    (len(DIRECTION_WORDS) = 36 rows) and landmark bank
+    (len(FALLBACK_LANDMARKS) = 47 rows) at the hidden width, the image
+    room-type bank (50 rows at the image feature width), each with p(z)
+    summing to 1; and the front-door banks, each picked by FrontDoorPicker
+    (k-means on `device`) from 2048 CFP-like rows (tanh of a mixture of 24
+    Gaussian clusters) into 24 rows.  Only the banks `cfg` reads."""
+    rng = np.random.default_rng(seed)
+    D = cfg.hidden_size
+
+    def bank(n, width):
+        return (rng.standard_normal((n, width)).astype(np.float32),
+                rng.dirichlet(np.ones(n)).astype(np.float32))
+
+    banks: Dict[str, np.ndarray] = {}
+    if cfg.do_back_txt:
+        instr = {}
+        for kind, n in (("direction", len(DIRECTION_WORDS)),
+                        ("landmark", len(FALLBACK_LANDMARKS))):
+            instr[f"instr_{kind}_features"], instr[f"instr_{kind}_pzs"] = \
+                bank(n, D)
+        banks.update(instr_bank_names(instr))
+    if cfg.do_back_img:
+        banks["img_z_features"], banks["img_z_pzs"] = \
+            bank(IMG_Z_ROWS, cfg.image_feat_size)
+    if cfg.do_front_txt or cfg.do_front_img or cfg.do_front_his:
+        pools = {}
+        for key in ("txt_feats", "vp_feats", "gmap_feats"):
+            centers = rng.standard_normal((FRONT_CLUSTERS, D))
+            member = rng.integers(0, FRONT_CLUSTERS, CFP_ROWS)
+            pools[key] = np.tanh(
+                centers[member] + 0.5 * rng.standard_normal((CFP_ROWS, D))
+            ).astype(np.float32)
+        picker = FrontDoorPicker(pools, FRONT_CLUSTERS, seed=seed,
+                                 device=device)
+        banks.update(front_banks(picker.random_pick(), cfg))
+    return banks
 
 
 def build_model(cfg: GoatConfig, device="cuda", seed: int = 0) -> GoatModel:
@@ -51,18 +113,22 @@ def build_model(cfg: GoatConfig, device="cuda", seed: int = 0) -> GoatModel:
 
 
 def build_flagship(device="cuda", tiny: bool = False,
-                   use_fused_attention: bool = True, seed: int = 0):
+                   use_fused_attention: bool = True, seed: int = 0,
+                   causal: bool = False):
     """(model, rollout, batcher) of the flagship R2R configuration.
     use_fused_attention=False routes every attention to the eager PyTorch
-    path instead of the fused kernel."""
+    path instead of the fused kernel.  causal=True: the CAUSAL flags, and
+    the batcher attaches make_causal_banks(cfg, seed 0) to every batch."""
     dev = resolve(device)
+    flags = CAUSAL if causal else {}
     if tiny:
-        cfg = GoatConfig(use_fused_attention=use_fused_attention, **TINY)
+        cfg = GoatConfig(use_fused_attention=use_fused_attention, **TINY,
+                         **flags)
         rcfg = RolloutConfig(num_nodes=12, horizon=3, feat_dim=16)
         n_vps, n_items, instr = 10, 16, 16
     else:
         cfg = GoatConfig.for_dataset(
-            "r2r", use_fused_attention=use_fused_attention)
+            "r2r", use_fused_attention=use_fused_attention, **flags)
         rcfg = RolloutConfig(num_nodes=48, horizon=15, feat_dim=768)
         n_vps, n_items, instr = 60, 16, 60
 
@@ -75,7 +141,9 @@ def build_flagship(device="cuda", tiny: bool = False,
                                   path_len=(3, min(6, rcfg.horizon)), seed=1)
     batcher = EpisodeBatcher(data, graphs, ["s0"], batch_size=8,
                              max_instr_len=instr,
-                             max_gt_len=rcfg.horizon + 1, device=dev)
+                             max_gt_len=rcfg.horizon + 1, device=dev,
+                             banks=make_causal_banks(cfg, 0, dev)
+                             if causal else None)
     return model, ro, batcher
 
 
@@ -97,7 +165,7 @@ def build_train_flagship(device="cuda", tiny: bool = False,
                          use_fused_attention: bool = True,
                          dropout: bool = True,
                          tcfg: Optional[TrainConfig] = None,
-                         teacher_horizon="auto"):
+                         teacher_horizon="auto", causal: bool = False):
     """(TrainState, batcher) of the R2R DAgger step of `bench.py`
     `bench_train` (its `build` for R2R, :78-140): the full-width R2R model
     in float32 with seeded random weights, 4 synthetic scans of 120
@@ -109,21 +177,24 @@ def build_train_flagship(device="cuda", tiny: bool = False,
     Weights drawn from seed 0.  `dropout=False` sets every dropout
     probability to 0.  `tiny=True`: the
     JAX package's train-step test configuration (one 12-viewpoint scan,
-    hidden 32, 16 node slots, horizon 6, buckets (4, 6))."""
+    hidden 32, 16 node slots, horizon 6, buckets (4, 6)).  causal=True:
+    the CAUSAL flags, and the batcher attaches make_causal_banks(cfg,
+    seed 0) to every batch."""
     dev = resolve(device)
     tcfg = tcfg or TrainConfig(weight_decay=0.01)
-    drop = {} if dropout else dict(hidden_dropout_prob=0.0,
-                                   attention_probs_dropout_prob=0.0,
-                                   feat_dropout=0.0)
+    over = dict(CAUSAL) if causal else {}
+    if not dropout:
+        over.update(hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0, feat_dropout=0.0)
     if tiny:
         cfg = GoatConfig(use_fused_attention=use_fused_attention,
-                         **{**TINY, "feat_dropout": 0.1, **drop})
+                         **{**TINY, "feat_dropout": 0.1, **over})
         rcfg = RolloutConfig(num_nodes=16, horizon=6, feat_dim=16)
         scans = [make_synthetic_scan("s0", num_vps=12, seed=0)]
         n_items, instr, plen, gt_cap, caps = 16, 24, (3, 4), 6, (4, 6)
     else:
         cfg = GoatConfig.for_dataset(
-            "r2r", use_fused_attention=use_fused_attention, **drop)
+            "r2r", use_fused_attention=use_fused_attention, **over)
         rcfg = RolloutConfig(num_nodes=48, horizon=15, feat_dim=768)
         scans = [make_synthetic_scan(f"s{i}", num_vps=120, degree=4, seed=i)
                  for i in range(4)]
@@ -138,7 +209,9 @@ def build_train_flagship(device="cuda", tiny: bool = False,
     batcher = EpisodeBatcher(data, graphs, [g.scan_id for g in scans],
                              batch_size=batch_size, max_instr_len=instr,
                              max_gt_len=gt_cap, bucket_caps=caps,
-                             device=dev)
+                             device=dev,
+                             banks=make_causal_banks(cfg, 0, dev)
+                             if causal else None)
     state = init_train_state(model, ro, lr=tcfg.lr,
                              weight_decay=tcfg.weight_decay,
                              grad_clip=tcfg.grad_clip,

@@ -1,11 +1,12 @@
 """GOAT dual-scale cross-modal navigation model (counterpart of
 vln_goat_tpu/models/goat.py), the modes the rollouts run: `forward_text`,
-`forward_panorama`, `forward_text_kv` and `forward_navigation`.  In
-train() mode every dropout of the JAX package is on, drawing from the
+`forward_panorama`, `forward_text_kv` and `forward_navigation`, with the
+BACL back-door and FACL front-door modules of the causal configuration.
+In train() mode every dropout of the JAX package is on, drawing from the
 generator that `ops.dropout.set_generator` hands the model.
 
-The front-door encoders, the critic and the CFP extraction heads are not
-ported yet; a config that needs them is refused at construction.
+The object branch, the critic and the CFP extraction heads are not ported
+yet; a config that needs them is refused at construction.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ from torch import nn
 
 from ..config import GoatConfig
 from ..ops.dropout import Dropout
-from .backbone import LanguageEncoder, RobertaEmbeddings
-from .layers import BertPooler, ClsPrediction, CrossmodalEncoder
+from ..ops.masks import extend_neg_masks
+from .backbone import LanguageEncoder, LanguageEncoderDo, RobertaEmbeddings
+from .layers import BertAttention, BertPooler, ClsPrediction, CrossmodalEncoder
 from .panorama import CausalImageEmbeddings
 
 NEG_INF = float("-inf")
@@ -98,21 +100,46 @@ def fuse_logits(global_logits, local_logits, gmap_masks, gmap_visited_masks,
     return fused, masked_global, masked_local
 
 
+class FrontDoorEncoder(nn.Module):
+    """FACL front-door encoder (the JAX package's goat.py:427-448):
+    self-attention over the tokens under their key mask, cross-attention
+    from them to the cluster bank, LayerNorm(1e-12) of the sum, and a
+    per-token sigmoid gate of Dense(1) on it and on the input that mixes
+    the two."""
+
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        D = c.hidden_size
+        self.ll_self_attn = BertAttention(c)
+        self.lg_cross_attn = BertAttention(c)
+        self.ln = nn.LayerNorm(D, eps=1e-12)
+        self.aug_linear = nn.Linear(D, 1)
+        self.ori_linear = nn.Linear(D, 1)
+
+    def forward(self, local_feats, global_feats, local_feats_masks=None):
+        bias = None if local_feats_masks is None \
+            else extend_neg_masks(local_feats_masks)
+        ll = self.ll_self_attn(local_feats, None, bias)
+        lg = self.lg_cross_attn(local_feats, global_feats)
+        out = self.ln(ll + lg)
+        w = torch.sigmoid(self.aug_linear(out)
+                          + self.ori_linear(local_feats))
+        return w * out + (1.0 - w) * local_feats
+
+
 class GoatModel(nn.Module):
     """GlocalTextPathNavCMT equivalent, the modes of the decode and
     training rollouts."""
 
     def __init__(self, c: GoatConfig):
         super().__init__()
-        if (c.do_back_txt or c.do_front_txt or c.do_front_img
-                or c.do_front_his or c.obj_feat_size > 0
-                or c.mode == "extract_cfp_features"):
+        if c.obj_feat_size > 0 or c.mode == "extract_cfp_features":
             raise NotImplementedError(
-                "causal interventions, object grounding and CFP extraction "
-                "are not ported yet")
+                "object grounding and CFP extraction are not ported yet")
         self.config = c
         self.embeddings = RobertaEmbeddings(c)
-        self.lang_encoder = LanguageEncoder(c)
+        self.lang_encoder = LanguageEncoderDo(c) \
+            if c.do_back_txt or c.do_front_txt else LanguageEncoder(c)
         self.img_embeddings = CausalImageEmbeddings(c)
         self.local_encoder = LocalVPEncoder(c)
         self.global_encoder = GlobalMapEncoder(c)
@@ -128,13 +155,35 @@ class GoatModel(nn.Module):
         # env-feature dropout on the raw view features
         # (vln_goat_tpu/models/goat.py:195, :245)
         self.drop_env = Dropout(c.feat_dropout)
+        # FACL front-door encoders (goat.py:211-219).  front_txt_encoder is
+        # built as the reference builds it, and like it never called: the
+        # text's front-door bank goes to the language encoder's
+        # z_front_cross_attn.  Its parameters get no gradient; AdamW decays
+        # them, as optax decays leaves whose gradient is zero.
+        if c.do_front_img:
+            self.front_local_encoder = FrontDoorEncoder(c)
+        if c.do_front_his:
+            self.front_global_encoder = FrontDoorEncoder(c)
+        if c.do_front_txt:
+            self.front_txt_encoder = FrontDoorEncoder(c)
 
-    def forward_text(self, txt_ids, txt_masks):
-        return self.lang_encoder(self.embeddings(txt_ids), txt_masks)
+    def forward_text(self, txt_ids, txt_masks, z_direc_embeds=None,
+                     z_direc_pzs=None, z_landm_embeds=None, z_landm_pzs=None,
+                     front_txt_embeds=None):
+        """Instruction encoding [B, Lt, D]; with the causal text flags the
+        banks (each [B, N, D], p(z) [B, N, 1]) go to LanguageEncoderDo."""
+        h = self.embeddings(txt_ids)
+        if isinstance(self.lang_encoder, LanguageEncoderDo):
+            return self.lang_encoder(h, txt_masks, z_direc_embeds,
+                                     z_direc_pzs, z_landm_embeds,
+                                     z_landm_pzs, front_txt_embeds)
+        return self.lang_encoder(h, txt_masks)
 
-    def forward_panorama(self, view_img_fts, loc_fts, nav_types, view_masks):
+    def forward_panorama(self, view_img_fts, loc_fts, nav_types, view_masks,
+                         z_img_features=None, z_img_pzs=None):
         return self.img_embeddings(self.drop_env(view_img_fts), loc_fts,
-                                   nav_types, view_masks)
+                                   nav_types, view_masks, z_img_features,
+                                   z_img_pzs)
 
     def forward_text_kv(self, txt_embeds):
         """Per-layer cross-attention K/V projections of the instruction,
@@ -147,13 +196,20 @@ class GoatModel(nn.Module):
         gmap_img_embeds, gmap_step_ids, gmap_pos_fts, gmap_masks,
         gmap_pair_dists, gmap_visited_masks,
         vp_img_embeds, vp_pos_fts, vp_masks, vp_nav_masks,
-        local_to_gmap, txt_kv=None,
+        local_to_gmap, front_vp_feats=None, front_gmap_feats=None,
+        txt_kv=None,
     ) -> Dict[str, torch.Tensor]:
         ge, le = self.global_encoder, self.local_encoder
         gmap_embeds = ge.input_embed(gmap_img_embeds, gmap_step_ids,
                                      gmap_pos_fts)
         graph_sprels = ge.sprel_bias(gmap_pair_dists)
+        if front_gmap_feats is not None:
+            gmap_embeds = self.front_global_encoder(
+                gmap_embeds, front_gmap_feats, gmap_masks)
         vp_embeds = vp_img_embeds + le.pos_embed(vp_pos_fts)
+        if front_vp_feats is not None:
+            vp_embeds = self.front_local_encoder(vp_embeds, front_vp_feats,
+                                                 vp_masks)
 
         gmap_embeds = ge.encoder(
             gmap_embeds, gmap_masks, txt_embeds, txt_masks,

@@ -1,6 +1,7 @@
 """Panorama branch (counterpart of vln_goat_tpu/models/panorama.py), per-step
-path for the view-only datasets (R2R/RxR) with the back-door image
-intervention off.
+path for the view-only datasets (R2R/RxR), with the BACL back-door image
+intervention (`do_back_img`) between the image projection and the
+location features, as the reference's per-step path orders them.
 
 The adaptive-fusion softmax is masked to valid views, the JAX package's
 deliberate divergence from the reference (README "Numerics parity notes").
@@ -12,7 +13,7 @@ from torch import nn
 
 from ..config import GoatConfig
 from ..ops.dropout import Dropout
-from .layers import PanoEncoder
+from .layers import BertAttention, PanoEncoder
 
 _NEG = -1e9
 
@@ -30,10 +31,8 @@ class CausalImageEmbeddings(nn.Module):
 
     def __init__(self, c: GoatConfig):
         super().__init__()
-        if c.is_objnav or c.do_back_img:
-            raise NotImplementedError(
-                "object tokens and the back-door image intervention are "
-                "not ported yet")
+        if c.is_objnav:
+            raise NotImplementedError("object tokens are not ported yet")
         D = c.hidden_size
         self.img_linear = nn.Linear(c.image_feat_size, D)
         self.img_layer_norm = nn.LayerNorm(D, eps=1e-12)
@@ -43,12 +42,60 @@ class CausalImageEmbeddings(nn.Module):
         self.img_self_encoder = PanoEncoder(c)
         self.adaptive_pano_attn = nn.Linear(D, 1) \
             if c.adaptive_pano_fusion else None
+        self.back = c.do_back_img
+        if self.back:
+            self.back_type, self.add_method = c.do_back_img_type, \
+                c.do_add_method
+            if self.back_type not in ("type_1", "type_2") or \
+                    self.add_method not in ("door", "add", "concat"):
+                raise ValueError(f"do_back_img_type {self.back_type!r} / "
+                                 f"do_add_method {self.add_method!r}")
+            self.do_img_before_linear = nn.Linear(c.image_feat_size, D)
+            self.do_img_layer_norm = nn.LayerNorm(D, eps=1e-12)
+            if self.back_type == "type_2":
+                self.do_img_attn = BertAttention(c)
+            if self.back_type == "type_1" or self.add_method == "door":
+                self.img_after_linear = nn.Linear(D, D)
+                self.do_img_after_linear = nn.Linear(D, D)
+            elif self.add_method == "concat":
+                self.do_concat_img_linear = nn.Linear(2 * D, D)
+            self.do_img_concat_layernorm = nn.LayerNorm(D, eps=1e-12)
 
-    def forward(self, view_img_fts, loc_fts, nav_types, view_masks):
+    def _backdoor(self, view, z_img_features, z_img_pzs):
+        """Back-door image adjustment (the JAX package's panorama.py:49-73)
+        of the projected views [B, Lv, D] with the room-type bank
+        z_img_features [B, N, Dimg] and its p(z) [B, N, 1].  type_1: a
+        p(z)-weighted sum of the projected bank added through two Linears;
+        type_2: cross-attention from the views to the projected bank,
+        merged by a sigmoid gate of Dense(D) ("door"), a sum ("add") or a
+        Linear over the concatenation ("concat").  LayerNorms at 1e-12."""
+        z = self.do_img_layer_norm(self.do_img_before_linear(z_img_features))
+        if self.back_type == "type_1":
+            sum_z = (z * z_img_pzs.float()).sum(1, keepdim=True)
+            view = self.img_after_linear(view) \
+                + self.do_img_after_linear(sum_z)
+        else:
+            z = self.do_img_attn(view, z)
+            if self.add_method == "door":
+                w = torch.sigmoid(self.img_after_linear(view)
+                                  + self.do_img_after_linear(z))
+                view = w * view + (1.0 - w) * z
+            elif self.add_method == "add":
+                view = view + z
+            else:
+                view = self.do_concat_img_linear(torch.cat([view, z], -1))
+        return self.do_img_concat_layernorm(view)
+
+    def forward(self, view_img_fts, loc_fts, nav_types, view_masks,
+                z_img_features=None, z_img_pzs=None):
         """view_img_fts [B, Lv, Dimg], loc_fts [B, Lv, angle+3],
-        view_masks [B, Lv] bool -> (embeds [B, Lv, D], masks, fused [B, D]
-        or None).  nav_types is unused on the view-only path."""
+        view_masks [B, Lv] bool, with `do_back_img` the room-type bank
+        z_img_features [B, N, Dimg] and p(z) z_img_pzs [B, N, 1] ->
+        (embeds [B, Lv, D], masks, fused [B, D] or None).  nav_types is
+        unused on the view-only path."""
         view = self.img_layer_norm(self.img_linear(view_img_fts))
+        if self.back and z_img_features is not None:
+            view = self._backdoor(view, z_img_features, z_img_pzs)
         view = view + self.loc_layer_norm(self.loc_linear(loc_fts))
         view = self.dropout(view)
         embeds = self.img_self_encoder(view,

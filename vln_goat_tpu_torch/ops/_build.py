@@ -25,7 +25,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-KERNELS = ("fused_qkv_mha", "fused_qkv_mha_bwd")
+KERNELS = ("fused_qkv_mha", "fused_qkv_mha_bwd", "mha")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

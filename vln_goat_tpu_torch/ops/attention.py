@@ -1,4 +1,5 @@
-"""Fused q/k/v projections + multi-head attention, forward and backward.
+"""Fused q/k/v projections + multi-head attention, forward and backward,
+and attention over projected heads.
 
 `fused_qkv_mha` is the port of the TPU kernels behind the JAX package's
 `pallas_fused_qkv_mha` (vln_goat_tpu/ops/attention.py:347):
@@ -19,6 +20,12 @@ computes `fused_qkv_mha_plain`, the same function in plain PyTorch, whose
 autograd is the reference the CPU tests hold against the JAX package and
 the chip smoke test holds the kernels against.  The dropout mask of both is
 `ops.dropout.keep_mask`, a hash of (seed[b], b, h, q, k).
+
+`mha` is the port of `pallas_mha` (:104, kernel `_mha_kernel` :49): the
+attention alone, forward only, over q / k / v that are already projected
+and split into heads.  On a CUDA tensor it launches `csrc/mha.cu`; on a
+CPU tensor it computes `mha_plain`.  As in the JAX package, no model path
+calls it: it is a public op for A/B comparisons.
 """
 from __future__ import annotations
 
@@ -74,6 +81,18 @@ def fused_qkv_mha_plain(x, y, wq, bq, wk, bk, wv, bv, bias=None,
                         num_heads, dropout_rate, seed)
 
 
+def mha_plain(q, k, v, bias=None):
+    """q [B, Lq, H, dh], k / v [B, Lk, H, dh], additive bias
+    broadcastable to [B, H, Lq, Lk] -> [B, Lq, H*dh]: softmax(q k^T /
+    sqrt(dh) + bias) v with the softmax in float32."""
+    B, Lq, H, dh = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(dh))
+    if bias is not None:
+        s = s + bias.to(s.dtype)
+    p = torch.softmax(s.float(), dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, Lq, H * dh)
+
+
 _VP, _LL, _I, _U, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_uint, ctypes.c_float
 _W = [_VP, _LL, _LL]                    # weight pointer and its two strides
@@ -106,6 +125,72 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.fused_qkv_mha_bwd_head_dim.restype = _I
         lib.fused_qkv_mha_bwd_max_lk.restype = _I
     return lib
+
+
+def _mha_lib() -> ctypes.CDLL:
+    lib = _build.load("mha")
+    fn = lib.mha_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([_VP, _LL, _LL, _LL, _LL] * 3
+                       + [_VP, _LL, _LL, _LL, _LL, _VP] + [_I] * 4
+                       + [_F, _VP])
+        fn.restype = _I
+        lib.mha_head_dim.restype = _I
+        lib.mha_max_lk.restype = _I
+    return lib
+
+
+def mha(q, k, v, bias=None):
+    """Signature and layout of `pallas_mha`: q [B, Lq, H, dh], k / v
+    [B, Lk, H, dh], additive bias broadcastable to [B, H, Lq, Lk] ->
+    [B, Lq, H*dh], softmax in float32.  Forward only (no autograd), as the
+    TPU kernel has no VJP.
+
+    On the card the kernel reads q, k, v and the bias through their
+    strides; it takes head width 64, Lk up to 256 and float32, and raises
+    on anything else."""
+    if q.device.type == "cpu":
+        return mha_plain(q, k, v, bias)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"mha kernel: unsupported device {dev}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
+            k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: expected [B, Lq, H, dh] and "
+                         "[B, Lk, H, dh]")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{name}: needs float32 on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    lib = _mha_lib()
+    B, Lq, H, dh = q.shape
+    Lk = k.shape[1]
+    if dh != lib.mha_head_dim():
+        raise ValueError(f"the kernel is built for head width "
+                         f"{lib.mha_head_dim()}, got {dh}")
+    if Lk > lib.mha_max_lk():
+        raise ValueError(f"the kernel takes Lk <= {lib.mha_max_lk()}, got "
+                         f"{Lk}")
+    bias4, bst = None, (0, 0, 0, 0)
+    if bias is not None:
+        if bias.device != dev:
+            raise ValueError(f"bias: needs {dev}, got {bias.device}")
+        bias4 = bias.to(torch.float32).expand(B, H, Lq, Lk)
+        bst = bias4.stride()
+    out = torch.empty((B, Lq, H * dh), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        rc = lib.mha_fwd(
+            q.data_ptr(), *q.stride(), k.data_ptr(), *k.stride(),
+            v.data_ptr(), *v.stride(),
+            None if bias4 is None else bias4.data_ptr(), *bst,
+            out.data_ptr(), B, Lq, Lk, H, 1.0 / math.sqrt(dh),
+            torch.cuda.current_stream(dev).cuda_stream)
+    mha.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"mha kernel launch failed: CUDA error {rc} "
+                           f"(B={B}, Lq={Lq}, Lk={Lk}, H={H})")
+    return out
 
 
 def _check_weight(name, w, b, D, HD, dev):
@@ -376,3 +461,4 @@ def fused_qkv_mha(x, y, wq, bq, wk, bk, wv, bv, bias=None,
 fused_qkv_mha.launches = 0
 attention_backward.launches = 0
 projection_backward.launches = 0
+mha.launches = 0

@@ -22,6 +22,7 @@ import torch
 from ..core.geometry import view_index
 from ..device import resolve
 from ..sim.graph_sim import ScanGraph
+from ..tools.zdict import causal_batch
 
 
 class EpisodeBatcher:
@@ -33,7 +34,8 @@ class EpisodeBatcher:
                  max_instr_len: int = 200, max_gt_len: int = 20,
                  seed: int = 0,
                  bucket_caps: Optional[Sequence[int]] = None,
-                 device="cuda"):
+                 device="cuda",
+                 banks: Optional[Dict[str, np.ndarray]] = None):
         """bucket_caps: optional increasing gt-length caps (e.g. (5, 8)).
         When set, minibatches are length-homogeneous — each item goes to
         the smallest cap >= its gt length (longer paths to the largest cap,
@@ -43,7 +45,11 @@ class EpisodeBatcher:
         teacher_horizon), so short buckets run a proportionally shorter
         teacher scan; one compile per cap.  Batches are drawn from a
         bucket chosen ~ proportional to its pending count, so epoch order
-        stays shuffled across buckets."""
+        stays shuffled across buckets.
+
+        banks: the causal configuration's banks ({batch key: [N, D] or
+        p(z) [N]}, `tools.zdict`), attached to every batch as views shared
+        by its episodes (`causal_batch`)."""
         self.data = list(data)
         self.scan_graphs = scan_graphs
         self.scan_index = {s: i for i, s in enumerate(scan_order)}
@@ -57,6 +63,7 @@ class EpisodeBatcher:
         self.bucket_caps = tuple(sorted(bucket_caps)) if bucket_caps else None
         self._queues: Optional[Dict[int, List[dict]]] = None
         self._gt_cap = max_gt_len  # cap used by the LAST make_batch
+        self.banks = banks
 
     def next_minibatch(self, batch_size: Optional[int] = None) -> List[dict]:
         bs = batch_size or self.batch_size
@@ -140,7 +147,7 @@ class EpisodeBatcher:
         def t(a):
             return torch.as_tensor(a, device=self.device)
 
-        return dict(
+        batch = dict(
             scan_idx=t(scan_idx.astype(np.int64)),
             start_vp=t(start_vp.astype(np.int64)),
             start_view=t(start_view.astype(np.int64)),
@@ -148,6 +155,7 @@ class EpisodeBatcher:
             gt_len=t(gt_len.astype(np.int64)),
             txt_ids=t(txt_ids), txt_masks=t(txt_masks),
         )
+        return causal_batch(self.banks, batch) if self.banks else batch
 
     def next_batch(self) -> tuple:
         items = self.next_minibatch()

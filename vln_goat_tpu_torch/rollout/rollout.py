@@ -33,6 +33,10 @@ the imitation loss back across steps through the node-embedding tables
 plain indexing; the JAX package's one-hot contractions compute the same
 values exactly.  The nDTW expert, `expl_sample`, the fused-DAgger feedback
 and the object branch are not ported.
+
+The causal banks (`tools.zdict.SHARED_BANKS`) ride the batch as [B, N, ...]
+views of one copy, shared by every episode; nothing here slices or
+reorders a batch by episode, so they reach the model whole.
 """
 from __future__ import annotations
 
@@ -50,6 +54,18 @@ from .world import INF_DIST, NavWorld
 IGNORE_ID = -100           # target of a step without supervision
 # salt of the sampled action's draw (vln_goat_tpu/rollout/rollout.py:1265)
 SAMPLE_SALT = 7
+
+
+# batch keys of the causal banks -> the model argument each feeds
+_TEXT_BANKS = (("instr_z_direction_features", "z_direc_embeds"),
+               ("instr_z_direction_pzs", "z_direc_pzs"),
+               ("instr_z_landmark_features", "z_landm_embeds"),
+               ("instr_z_landmark_pzs", "z_landm_pzs"),
+               ("front_txt_feats", "front_txt_embeds"))
+_PANO_BANKS = (("img_z_features", "z_img_features"),
+               ("img_z_pzs", "z_img_pzs"))
+_NAV_BANKS = (("front_vp_feats", "front_vp_feats"),
+              ("front_gmap_feats", "front_gmap_feats"))
 
 
 @dataclass(frozen=True)
@@ -289,8 +305,12 @@ class NavRollout:
     # ------------------------------------------------------------------
     def encode_text(self, batch):
         """Instruction encoding + the hoisted per-layer cross-attention
-        K/V of both branches, computed once per rollout."""
-        embeds = self.model.forward_text(batch["txt_ids"], batch["txt_masks"])
+        K/V of both branches, computed once per rollout.  The BACL / FACL
+        text banks ride the batch when the config uses them
+        (`tools.zdict.causal_batch`)."""
+        tkw = {dst: batch[src] for src, dst in _TEXT_BANKS if src in batch}
+        embeds = self.model.forward_text(batch["txt_ids"], batch["txt_masks"],
+                                         **tkw)
         return dict(embeds=embeds, kv=self.model.forward_text_kv(embeds))
 
     # ------------------------------------------------------------------
@@ -485,7 +505,8 @@ class NavRollout:
 
         pano = self._pano_inputs(st, batch)
         pano_embeds, pano_masks, pano_fused = model.forward_panorama(
-            pano["img"], pano["loc"], pano["nav_types"], pano["mask"])
+            pano["img"], pano["loc"], pano["nav_types"], pano["mask"],
+            **{dst: batch[src] for src, dst in _PANO_BANKS if src in batch})
         if pano_fused is None:  # average fallback (agent.py:550-552)
             m = pano_masks[..., None].to(pano_embeds.dtype)
             pano_fused = (pano_embeds * m).sum(1) / m.sum(1).clamp(min=1.0)
@@ -517,6 +538,8 @@ class NavRollout:
 
         nav_in, aux = self._nav_inputs(st, batch, pano, pano_embeds,
                                        cnode, chas)
+        nav_in.update({dst: batch[src] for src, dst in _NAV_BANKS
+                       if src in batch})
         outs = model.forward_navigation(txt["embeds"], batch["txt_masks"],
                                         txt_kv=txt["kv"], **nav_in)
         logits = outs["fused_logits"]

@@ -9,7 +9,8 @@ agent_base.py:154-203):
   minibatch, sharing one instruction encoding (as the JAX package does);
 - loss: summed cross-entropy over steps and episodes divided by B;
 - global-norm clip 40, AdamW (optax's update: clip_by_global_norm, then
-  adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay), in optax's arithmetic).
+  adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay), in optax's arithmetic),
+  which decays every parameter, including one that got no gradient.
 
 The teacher is the per-step rollout (the JAX package's
 `vectorized_teacher=False`, loss-identical to its vectorized teacher
@@ -61,6 +62,28 @@ def make_lr_schedule(name: str, lr: float, warmup_steps: int,
     return sched
 
 
+def warmup_cosine_schedule(lr: float, warmup_steps: int, total_steps: int
+                           ) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule(0, lr, warmup_steps, total_steps,
+    end_value=lr * 0.01): linear from 0 to lr over warmup_steps, then a
+    cosine from lr to lr * 0.01 over the remaining total_steps -
+    warmup_steps updates, and lr * 0.01 after them."""
+    decay = total_steps - warmup_steps
+    if decay <= 0:
+        raise ValueError(f"total_steps {total_steps} must exceed "
+                         f"warmup_steps {warmup_steps}")
+    alpha = 0.01
+
+    def sched(count: int) -> float:
+        if count < warmup_steps:
+            return lr * count / warmup_steps
+        n = min(count - warmup_steps, decay)
+        cos = 0.5 * (1.0 + math.cos(math.pi * n / decay))
+        return lr * ((1.0 - alpha) * cos + alpha)
+
+    return sched
+
+
 class AdamW(torch.optim.Optimizer):
     """optax.adamw(lr, b1, b2, eps, weight_decay) in optax's arithmetic
     order, in the parameters' dtype:
@@ -71,7 +94,13 @@ class AdamW(torch.optim.Optimizer):
 
     torch.optim.AdamW takes the same step in exact arithmetic but applies
     the decay as a separate multiply, which rounds differently: its
-    parameters drift from optax's by a unit in the last place per step."""
+    parameters drift from optax's by a unit in the last place per step.
+
+    A parameter without a gradient (`grad` None: detached, as the frozen
+    language tower is, or never used, as `front_txt_encoder` is) steps
+    with a zero gradient, as optax steps a leaf whose JAX gradient is
+    zero: its moments decay and the weight decay shrinks it.
+    torch.optim.AdamW would skip it."""
 
     def __init__(self, params, lr: float, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
@@ -85,15 +114,13 @@ class AdamW(torch.optim.Optimizer):
             lr, b1, b2 = group["lr"], group["b1"], group["b2"]
             eps, wd = group["eps"], group["weight_decay"]
             for p in group["params"]:
-                if p.grad is None:
-                    continue
                 st = self.state[p]
                 if not st:
                     st["step"] = 0
                     st["mu"] = torch.zeros_like(p)
                     st["nu"] = torch.zeros_like(p)
                 st["step"] += 1
-                g = p.grad
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
                 st["mu"] = (1 - b1) * g + b1 * st["mu"]
                 st["nu"] = (1 - b2) * (g * g) + b2 * st["nu"]
                 one = torch.ones((), dtype=p.dtype, device=p.device)
@@ -108,12 +135,18 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 2e-5,
                    lr_sch: Optional[str] = None, warmup_steps: int = 0,
                    total_steps: Optional[int] = None):
     """(AdamW, LambdaLR): optax's adamw(b1=0.9, b2=0.999, eps=1e-8,
-    weight_decay) at `lr` or at the named schedule, counted in updates as
-    optax counts them.  The global-norm clip is the train step's
-    (`clip_by_global_norm`)."""
+    weight_decay) at the named schedule; without one, at
+    `warmup_cosine_schedule` when both warmup_steps and total_steps are
+    given, else at the constant `lr` (the JAX package's make_optimizer,
+    trainer.py:86-90).  Counted in updates as optax counts them.  The
+    global-norm clip is the train step's (`clip_by_global_norm`)."""
     opt = AdamW(params, lr=lr, weight_decay=weight_decay)
-    sched = make_lr_schedule(lr_sch, lr, warmup_steps, total_steps or 1) \
-        if lr_sch is not None else (lambda count: lr)
+    if lr_sch is not None:
+        sched = make_lr_schedule(lr_sch, lr, warmup_steps, total_steps or 1)
+    elif warmup_steps and total_steps:
+        sched = warmup_cosine_schedule(lr, warmup_steps, total_steps)
+    else:
+        sched = lambda count: lr  # noqa: E731
     return opt, torch.optim.lr_scheduler.LambdaLR(
         opt, lambda count: sched(count) / lr)
 
