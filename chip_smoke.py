@@ -10,7 +10,10 @@ Phases, each printing a flushed line as it ends:
      report;
   3. kernel check: each kernel against its plain PyTorch version on the
      card, with its time, the plain version's, one PyTorch library call's,
-     and the least time the card could take (float32 without TF32):
+     and the least time the card could take (K1, K3: float32 on the CUDA
+     cores; K2: the 3xTF32 tensor-core rate, with the float32 bound
+     beside it), the projection backward's time by part (dx / dy GEMMs,
+     split-K weight gradients, the pass adding their slices, head sum):
      the forward at the decode rollout's five shapes (batch 8) without and
      with dropout 0.1 (same seeds; the kernel's keep share within 4
      binomial standard deviations of 0.9), the two backward kernels against
@@ -51,6 +54,7 @@ printing a result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -68,12 +72,16 @@ from vln_goat_tpu_torch.ops.attention import (attend_plain,
                                               fused_qkv_mha,
                                               fused_qkv_mha_plain, mha,
                                               mha_plain, project_plain,
-                                              projection_backward)
+                                              projection_backward,
+                                              PROJ_PARTS, ProjectionBackward)
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and dense
-# float32 outside the tensor cores, the type these kernels compute in
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, dense
+# float32 outside the tensor cores (K1 and K3 compute there) and dense TF32
+# on the tensor cores (K2 computes there in the 3xTF32 split: three TF32
+# products per float32-accurate one)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 ATOL, RTOL = 1e-4, 1e-3   # float32, sums taken in another order than cuBLAS
 
 D, H, DH, B = 768, 12, 64, 8
@@ -160,6 +168,22 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of fn: `reps` calls captured in a CUDA
+    graph and the graph timed by cuda_ms, so no host work sits between the
+    launches (a part of a kernel can take less time than its launch)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay) / reps
+
+
 def make_case(g, Lq, Lk, bias_kind, layout, batch=B):
     """(args, seed): inputs of one fused attention call; the weights and
     a graph or per-head bias require grad, a key mask does not."""
@@ -198,13 +222,15 @@ def _bytes(*ts):
     return 4 * sum(t.numel() for t in ts if t is not None)
 
 
-def bound(args, kind="fwd", with_ds=False):
-    """(ms by operations, ms by bytes) of one kernel call: float32
-    operations over the float32 peak, and bytes over the memory rate with
-    each input read once and each output written once.  fwd: projections
-    and the two attention products; attn (backward (a)): the recomputed
-    projections and scores plus dp, dq, dk and dv; proj (backward (b)):
-    dx, dy and the three weight gradients."""
+def bound(args, kind="fwd", with_ds=False, tf32x3=False):
+    """(ms by operations, ms by bytes) of one kernel call: the operations
+    over the float32 peak, or with `tf32x3` three times the operations over
+    the TF32 tensor-core peak (the float32-accurate rate of the 3xTF32
+    split), and bytes over the memory rate with each input read once and
+    each output written once.  fwd: projections and the two attention
+    products; attn (backward (a)): the recomputed projections and scores
+    plus dp, dq, dk and dv; proj (backward (b)): dx, dy and the three
+    weight gradients."""
     x, y, wq, bq, wk, bk, wv, bv, bias = args
     Bx, Lq, Dx = x.shape
     Lk, HD = y.shape[1], wq.shape[1]
@@ -224,8 +250,9 @@ def bound(args, kind="fwd", with_ds=False):
         flops = 2 * proj
         nbytes = 2 * (_bytes(x, y) + weights) + 4 * (out_q + 2 * out_k) \
             + 4 * (ds + ds // H)
-    return (flops / PEAK_F32_FLOP_PER_S * 1e3,
-            nbytes / PEAK_BYTES_PER_S * 1e3)
+    ops_ms = 3 * flops / PEAK_TF32_FLOP_PER_S if tf32x3 \
+        else flops / PEAK_F32_FLOP_PER_S
+    return ops_ms * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
 
 
 def library_call(args):
@@ -396,33 +423,55 @@ def check_shape(g, name, Lq, Lk, bias_kind, layout, batch, timed):
     hsum = ds if need_ds and bias.shape[1] == 1 else None
     row["projb_ms"] = cuda_ms(lambda: projection_backward(
         x, y, wq, wk, wv, dq, dk, dv, hsum, H))
-    qkv = [t.detach().requires_grad_() for t in project_plain(*det[:8])]
-    att_in = qkv + ([args[8]] if need_ds else [])
-    att = attend_plain(*qkv, args[8], H, rate, seed)
-    row["attn_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
-        att, att_in, dout, retain_graph=True))
+    # (a)'s yardsticks recompute the projections, as the kernel does:
+    # the plain projections (no grad) then the plain attention's forward and
+    # its backward to q, k, v (and the bias); three addmm then SDPA's
+    # forward and its backward to q, k, v
+
+    def attn_plain():
+        with torch.no_grad():
+            qkv = project_plain(*det[:8])
+        qkv = [t.requires_grad_() for t in qkv]
+        att = attend_plain(*qkv, args[8], H, rate, seed)
+        return torch.autograd.grad(att, qkv + ([args[8]] if need_ds
+                                               else []), dout)
+
+    row["attn_plain_ms"] = cuda_ms(attn_plain)
     lv = [a for a in leaves(args)[:8] if a is not None]
     pq = project_plain(*args[:8])
     row["projb_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
         pq, lv, (dq, dk, dv), retain_graph=True))
-    q4, k4, v4 = (t.detach().view(batch, -1, H, DH).transpose(1, 2)
-                  .contiguous().requires_grad_()
-                  for t in project_plain(*det[:8]))
-    lo = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias)
     do4 = dout.view(batch, Lq, H, DH).transpose(1, 2)
-    row["attn_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-        lo, (q4, k4, v4), do4, retain_graph=True))
+
+    def attn_library():
+        with torch.no_grad():
+            q4, k4, v4 = (torch.addmm(b_, s_.view(-1, D), w_)
+                          .view(batch, -1, H, DH).transpose(1, 2)
+                          for s_, w_, b_ in ((x, wq, bq), (y, wk, bk),
+                                             (y, wv, bv)))
+        qkv = [t.requires_grad_() for t in (q4, k4, v4)]
+        lo = F.scaled_dot_product_attention(*qkv, attn_mask=bias)
+        return torch.autograd.grad(lo, qkv, do4)
+
+    row["attn_library_ms"] = cuda_ms(attn_library)
     lq = (torch.addmm(args[3], args[0].view(-1, D), args[2]),
           torch.addmm(args[5], args[1].view(-1, D), args[4]),
           torch.addmm(args[7], args[1].view(-1, D), args[6]))
     row["projb_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
         lq, lv, (dq.view(-1, H * DH), dk.view(-1, H * DH),
                  dv.view(-1, H * DH)), retain_graph=True))
+    # (b) by part: the dx and dy GEMMs, the split-K weight gradients, the
+    # pass that adds their slices, and the head sum of ds
+    call = ProjectionBackward(x, y, wq, wk, wv, dq, dk, dv, hsum, H)
+    for part in PROJ_PARTS:
+        if part != "hsum" or hsum is not None:
+            row[f"projb_{part}_ms"] = graph_ms(lambda: call.launch(part))
     for kind, key in (("attn", "attn"), ("proj", "projb")):
-        ob = bound(det, kind, with_ds=need_ds)
+        ob = bound(det, kind, with_ds=need_ds, tf32x3=True)
         row[f"{key}_bound_ms"] = max(ob)
         row[f"{key}_bound_by"] = "operations" if ob[0] >= ob[1] \
             else "bytes"
+        row[f"{key}_bound_f32_ms"] = max(bound(det, kind, with_ds=need_ds))
     return row
 
 
@@ -461,13 +510,17 @@ def check_kernels():
             f"ms={row['attn_ms']:.4f} plain_ms={row['attn_plain_ms']:.4f} "
             f"library_ms={row['attn_library_ms']:.4f} "
             f"bound_ms={row['attn_bound_ms']:.4f} "
-            f"({row['attn_bound_by']}); projection backward "
+            f"({row['attn_bound_by']}; float32 "
+            f"{row['attn_bound_f32_ms']:.4f}); projection backward "
             f"max_abs_err={row[f'proj_err_{RATE}']:.3e} "
             f"ms={row['projb_ms']:.4f} "
             f"plain_ms={row['projb_plain_ms']:.4f} "
             f"library_ms={row['projb_library_ms']:.4f} "
             f"bound_ms={row['projb_bound_ms']:.4f} "
-            f"({row['projb_bound_by']})")
+            f"({row['projb_bound_by']}; float32 "
+            f"{row['projb_bound_f32_ms']:.4f}), by part "
+            + ", ".join(f"{p} {row[f'projb_{p}_ms']:.4f}"
+                        for p in PROJ_PARTS if f"projb_{p}_ms" in row))
     return rows, train_rows
 
 
@@ -869,6 +922,11 @@ def main() -> int:
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 say(f"  ptxas {name}: {line.strip()}")
+    lib = _build.load("fused_qkv_mha_bwd")
+    smem = (ctypes.c_int * 2)()
+    lib.fused_qkv_mha_bwd_smem(smem)
+    say(f"  fused_qkv_mha_bwd dynamic shared memory: GEMM jobs "
+        f"{smem[0]} bytes, attn_bwd_kernel {smem[1]} bytes a block")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -941,6 +999,11 @@ def main() -> int:
              bound_by=mha_rows[MHA_LINE[0]]["bound_by"],
              library_ms=mha_avg("library_ms")),
     ]
+    # K2's float32 CUDA-core bound (PR 6's), beside the 3xTF32 one the
+    # kernels line carries; K1 and K3 compute there, so theirs is the same
+    say(f"K2 float32 CUDA-core bound over the train mix: attention "
+        f"backward {avg('attn_bound_f32_ms'):.4f} ms, projection backward "
+        f"{avg('projb_bound_f32_ms'):.4f} ms")
     say(f"wall: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -15,11 +15,13 @@ import math
 import pytest
 import torch
 
+from vln_goat_tpu_torch.ops import attention as attention_mod
 from vln_goat_tpu_torch.ops.attention import (attention_backward,
                                               fused_qkv_mha,
-                                              fused_qkv_mha_plain, mha,
-                                              mha_plain,
+                                              fused_qkv_mha_plain,
+                                              gemm_tf32x3, mha, mha_plain,
                                               projection_backward)
+from vln_goat_tpu_torch.ops.bwd_plan import split_depth
 
 pytestmark = pytest.mark.cuda
 
@@ -239,3 +241,86 @@ def test_mha_refuses_what_it_does_not_take(card):
     k = torch.zeros(1, 257, H, 64, device="cuda")
     with pytest.raises(ValueError, match="Lk <="):
         mha(q, k, k)
+
+
+def _operand(g, rows, cols, how):
+    """A [rows, cols] float32 operand: contiguous, a transposed view, or a
+    column slice of a wider matrix (row stride above its width, an odd
+    offset, so 4-byte copies)."""
+    if how == "t":
+        return torch.randn(cols, rows, generator=g, device="cuda").t()
+    if how == "slice":
+        return torch.randn(rows, cols + 7, generator=g,
+                           device="cuda")[:, 3:3 + cols]
+    return torch.randn(rows, cols, generator=g, device="cuda")
+
+
+@pytest.mark.parametrize("M,N,K,a_how,b_how,splits", [
+    (1, 1, 1, "c", "c", 1), (130, 70, 45, "c", "c", 1),
+    (257, 131, 99, "t", "c", 1), (100, 64, 200, "c", "t", 3),
+    (77, 50, 33, "slice", "slice", 2), (768, 768, 3840, "t", "c", 2),
+    (200, 768, 3840, "t", "t", 5)])
+def test_gemm_core_matches_float64(card, M, N, K, a_how, b_how, splits):
+    """The 3xTF32 GEMM core against a float64 matmul: each slice, the sum
+    of the slices, the bias in the epilogue and the column sums of B, at
+    ragged M, N and K, with strided and transposed operands, and split-K
+    over 3840 rows as the weight gradients take it; float32 accuracy
+    (the bound of a float32 sum over K terms, 1e-5 relative)."""
+    a, b = _operand(card, M, K, a_how), _operand(card, K, N, b_how)
+    bias = torch.randn(N, generator=card, device="cuda")
+    before = gemm_tf32x3.launches
+    c, colsum = gemm_tf32x3(a, b, bias, splits)
+    torch.cuda.synchronize()
+    assert gemm_tf32x3.launches == before + 1
+    S, kc = split_depth(K, splits)
+    assert c.shape == (S, M, N) and colsum.shape == (S, N)
+    a64, b64 = a.double(), b.double()
+    scale = float((a64.abs() @ b64.abs()).max())
+    for s in range(S):
+        ref = a64[:, s * kc:(s + 1) * kc] @ b64[s * kc:(s + 1) * kc] \
+            + bias.double()
+        assert float((c[s].double() - ref).abs().max()) <= 1e-5 * scale
+        torch.testing.assert_close(
+            colsum[s].double(), b64[s * kc:(s + 1) * kc].sum(0),
+            atol=1e-5 * float(b64.abs().sum(0).max()), rtol=0)
+    total = (c.double() - bias.double()).sum(0)
+    assert float((total - a64 @ b64).abs().max()) <= 1e-5 * scale
+    again = gemm_tf32x3(a, b, bias, splits)
+    assert torch.equal(c, again[0]) and torch.equal(colsum, again[1])
+
+
+@pytest.mark.parametrize("need_x", [True, False])
+def test_backward_skips_unasked_input_grads(card, monkeypatch, need_x):
+    """A key/value side that needs no gradient (a causal bank) gets no dy
+    job: FusedQKVMHA's backward asks projection_backward for none, which
+    returns None for it; likewise x.  Every other gradient still matches
+    the plain autograd."""
+    args, seed = _case(card, 4, 60, 24, None, True, grad=True)
+    args = (args[0].detach().requires_grad_(need_x), args[1].detach()) \
+        + args[2:]
+    asked = []
+
+    def spy(*a, **kw):
+        out = projection_backward(*a, **kw)
+        asked.append((kw["need_dx"], kw["need_dy"], out[0], out[1]))
+        return out
+
+    spy.launches = 0    # the wrapper counts through its module-level name
+    monkeypatch.setattr(attention_mod, "projection_backward", spy)
+    names = [n for n, a in zip(("x", "y", "wq", "bq", "wk", "bk", "wv",
+                                "bv"), args) if a.requires_grad]
+    leaves = [a for a in args if a is not None and a.requires_grad]
+    dout = torch.randn(4, 60, D, generator=card, device="cuda")
+    out = fused_qkv_mha(*args, num_heads=H, dropout_rate=0.1, seed=seed)
+    got = torch.autograd.grad(out, leaves, dout)
+    ((nx, ny, dx, dy),) = asked
+    assert (nx, ny) == (need_x, False)
+    assert dy is None and (dx is not None) == need_x
+    ref = torch.autograd.grad(
+        fused_qkv_mha_plain(*args, num_heads=H, dropout_rate=0.1,
+                            seed=seed), leaves, dout)
+    for n, g_, r in zip(names, got, ref):
+        scale = float(r.abs().max())
+        if n == "bk":   # zero up to rounding: held at dWk's scale
+            scale = max(scale, float(ref[names.index("wk")].abs().max()))
+        torch.testing.assert_close(g_, r, atol=1e-4 * scale, rtol=1e-3)

@@ -8,9 +8,11 @@ and attention over projected heads.
   hand-written CUDA kernel `csrc/fused_qkv_mha.cu`, with the in-kernel
   attention-probability dropout of `_fa_probs` (:149-166);
 - the backward `_fa_bwd_kernel` (:181, custom-VJP rule `_fa_bwd_rule`
-  :316) is `csrc/fused_qkv_mha_bwd.cu`: `attention_backward` (recompute,
-  softmax and dropout backward -> dq, dk, dv, ds) and
-  `projection_backward` (dx, dy, weight and bias gradients, dbias).
+  :316) is `csrc/fused_qkv_mha_bwd.cu` on the tensor-core GEMM core
+  `csrc/gemm_tf32x3.cuh`: `attention_backward` (recompute, softmax and
+  dropout backward -> dq, dk, dv, ds) and `projection_backward` (dx, dy,
+  weight and bias gradients split over the rows as `bwd_plan.proj_plan`
+  lays them out, dbias).
 
 On a CUDA tensor `fused_qkv_mha` runs `FusedQKVMHA`, an autograd Function
 whose forward launches the forward kernel and whose backward launches the
@@ -36,6 +38,8 @@ from typing import Optional
 import torch
 
 from . import _build
+from .bwd_plan import (JOB_IDS, TILE_K, TILE_M, TILE_N, proj_plan,
+                       split_depth)
 from .dropout import keep_mask, keep_threshold
 
 
@@ -117,14 +121,31 @@ def _bwd_lib() -> ctypes.CDLL:
     if fa.argtypes is None:
         fa.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3
                        + [_VP, _LL, _LL, _LL, _LL] + [_VP, _U, _F]
-                       + [_VP] * 5 + [_I] * 5 + [_F, _VP])
+                       + [_VP] * 7 + [_I] * 5 + [_F, _VP])
         fa.restype = _I
-        fp.argtypes = ([_VP, _VP] + _W * 3 + [_VP] * 5 + _W * 3
-                       + [_VP] * 5 + [_I] * 5 + [_VP])
+        fp.argtypes = ([_VP, _VP] + _W * 3 + [_VP] * 6 + [_VP] * 9
+                       + [_I] * 7 + [_VP])
         fp.restype = _I
+        lib.fused_qkv_mha_bwd_reduce.argtypes = [_VP] * 10 + [_I] * 2 + [_VP]
+        lib.fused_qkv_mha_bwd_reduce.restype = _I
+        lib.fused_qkv_mha_bwd_gemm.argtypes = ([_VP, _LL, _LL] * 2
+                                               + [_VP] * 3 + [_I] * 5
+                                               + [_VP])
+        lib.fused_qkv_mha_bwd_gemm.restype = _I
         lib.fused_qkv_mha_bwd_head_dim.restype = _I
         lib.fused_qkv_mha_bwd_max_lk.restype = _I
+        lib.fused_qkv_mha_bwd_tile.argtypes = [_VP]
+        lib.fused_qkv_mha_bwd_tile.restype = None
+        tile = (_I * 3)()
+        lib.fused_qkv_mha_bwd_tile(tile)
+        if tuple(tile) != (TILE_M, TILE_N, TILE_K):
+            raise RuntimeError(f"the backward kernel tiles by {tuple(tile)}, "
+                               f"its plan by {(TILE_M, TILE_N, TILE_K)}")
     return lib
+
+
+def _ints(ctype, values):
+    return (ctype * len(values))(*values)
 
 
 def _mha_lib() -> ctypes.CDLL:
@@ -326,13 +347,20 @@ def forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias=None,
     return out
 
 
+# keys per chunk of the attention backward (csrc/fused_qkv_mha_bwd.cu KC)
+ATTN_KEY_CHUNK = 64
+
+
 def attention_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout,
                        num_heads: int = 12, dropout_rate: float = 0.0,
                        need_ds: bool = False):
     """Kernel (a) of the backward on CUDA tensors: from the forward's
     inputs and dO [B, Lq, H*dh], the gradients of the projected
     q [B, Lq, H*dh], k and v [B, Lk, H*dh], and ds [B, H, Lq, Lk] (the
-    gradient of the scores, which is the bias's per head) when `need_ds`."""
+    gradient of the scores, which is the bias's per head) when `need_ds`.
+    Two launches: the q / k / v recompute into scratch of
+    B (Lq + 2 Lk) H*dh floats, freed on return, then the attention
+    backward over it."""
     c = _bwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
                   dropout_rate)
     dout = dout.contiguous()
@@ -344,71 +372,185 @@ def attention_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout,
     dk = torch.empty((c.B, c.Lk, c.HD), **f32)
     dv = torch.empty((c.B, c.Lk, c.HD), **f32)
     ds = torch.empty((c.B, c.H, c.Lq, c.Lk), **f32) if need_ds else None
+    qkv = torch.empty(c.B * (c.Lq + 2 * c.Lk) * c.HD, **f32)
+    # softmax statistics of each row, when the keys span several chunks
+    stats = torch.empty(c.B * c.H * c.Lq * 3, **f32) \
+        if c.Lk > ATTN_KEY_CHUNK else None
     with torch.cuda.device(c.dev):
         rc = c.lib.fused_qkv_mha_bwd_attn(
             x.data_ptr(), y.data_ptr(), *c.weight_args(), *c.bias_args(),
             *c.seed_args(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if ds is None else ds.data_ptr(),
+            qkv.data_ptr(), None if stats is None else stats.data_ptr(),
             c.B, c.Lq, c.Lk, c.D, c.H, c.scale, c.stream())
     attention_backward.launches += 1
     c.check(rc, "fused_qkv_mha_bwd_attn")
     return dq, dk, dv, ds
 
 
+# the parts of the projection backward that `ProjectionBackward.launch`
+# can run alone, for timing: the dx and dy GEMMs, the split-K weight
+# gradients, the pass adding their slices, the head sum of ds
+PROJ_PARTS = ("dx", "dy", "dw", "reduce", "hsum")
+
+
+class ProjectionBackward:
+    """Checked inputs, outputs, scratch and kernel arguments of one call of
+    kernel (b); `launch()` runs it (two launches: the GEMM jobs as
+    `bwd_plan.proj_plan` orders them, then the pass adding the weight
+    gradients' slices), `launch(part)` one part of it for timing, leaving
+    the other outputs unwritten.  `projection_backward` is the wrapper."""
+
+    def __init__(self, x, y, wq, wk, wv, dq, dk, dv, ds=None,
+                 num_heads: int = 12, need_dx: bool = True,
+                 need_dy: bool = True):
+        B, Lq, D = x.shape
+        Lk, HD = y.shape[1], wq.shape[1]
+        dev = x.device
+        self.lib = _bwd_lib()
+        for t in (dq, dk, dv):
+            if t.dtype != torch.float32 or not t.is_contiguous() or \
+                    t.device != dev or t.shape[0] != B or t.shape[2] != HD:
+                raise ValueError("dq/dk/dv: need contiguous float32 "
+                                 f"[{B}, L, {HD}] on {dev}")
+        for name, w in (("wq", wq), ("wk", wk), ("wv", wv)):
+            if w.shape != (D, HD) or not (w.is_contiguous()
+                                          or w.t().is_contiguous()):
+                raise ValueError(f"{name}: weight must be [D, H*dh] "
+                                 "contiguous or the transpose of a "
+                                 "contiguous [H*dh, D]")
+        f32 = dict(device=dev, dtype=torch.float32)
+        self.dx = torch.empty_like(x) if need_dx else None
+        self.dy = torch.empty_like(y) if need_dy else None
+        self.dws = [torch.empty_strided(w.shape, w.stride(), **f32)
+                    for w in (wq, wk, wv)]
+        self.dbs = [torch.empty(HD, **f32) for _ in range(3)]
+        self.dbias = None
+        if ds is not None:
+            if ds.shape != (B, num_heads, Lq, Lk) or not ds.is_contiguous():
+                raise ValueError(f"ds {tuple(ds.shape)}, expected "
+                                 f"contiguous {(B, num_heads, Lq, Lk)}")
+            self.dbias = torch.empty((B, 1, Lq, Lk), **f32)
+        self.plan = plan = proj_plan(B, Lq, Lk, D, HD, need_dx, need_dy,
+                                     ds is not None)
+        self.scratch = torch.empty(plan.scratch_floats, **f32)
+        self.dev, self.shape = dev, (B, Lq, Lk, D, num_heads)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        wargs = []
+        for w in (wq, wk, wv):
+            wargs += [w.data_ptr(), w.stride(0), w.stride(1)]
+        self.proj_args = (
+            [x.data_ptr(), y.data_ptr(), *wargs, dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), ptr(self.dx), ptr(self.dy),
+             self.scratch.data_ptr(),
+             _ints(_LL, [w.stride(0) for w in self.dws]),
+             _ints(_LL, [w.stride(1) for w in self.dws]),
+             _ints(_I, plan.splits), _ints(_I, plan.kc),
+             _ints(_LL, plan.wofs), _ints(_LL, plan.bofs), ptr(ds),
+             ptr(self.dbias)], [B, Lq, Lk, D, num_heads])
+        self.reduce_args = [
+            self.scratch.data_ptr(),
+            *[t.data_ptr() for t in self.dws + self.dbs],
+            _ints(_I, plan.splits), _ints(_LL, plan.wofs),
+            _ints(_LL, plan.bofs), D, num_heads]
+
+    def launch(self, part: Optional[str] = None) -> None:
+        if part is not None and part not in PROJ_PARTS:
+            raise ValueError(f"part: one of {PROJ_PARTS}, got {part!r}")
+        with torch.cuda.device(self.dev):
+            stream = torch.cuda.current_stream(self.dev).cuda_stream
+            rc = 0
+            if part != "reduce":
+                group = {"dwq": "dw", "dwk": "dw", "dwv": "dw"}
+                jobs = [j for j in self.plan.jobs
+                        if part in (None, group.get(j.name, j.name))]
+                head, dims = self.proj_args
+                rc = self.lib.fused_qkv_mha_bwd_proj(
+                    *head, _ints(_I, [JOB_IDS[j.name] for j in jobs]),
+                    len(jobs), sum(j.blocks for j in jobs), *dims, stream)
+            if rc == 0 and part in (None, "reduce"):
+                rc = self.lib.fused_qkv_mha_bwd_reduce(*self.reduce_args,
+                                                       stream)
+        if rc != 0:
+            B, Lq, Lk, D, _ = self.shape
+            raise RuntimeError(f"fused_qkv_mha_bwd_proj kernel launch "
+                               f"failed: CUDA error {rc} (B={B}, Lq={Lq}, "
+                               f"Lk={Lk}, D={D})")
+
+
 def projection_backward(x, y, wq, wk, wv, dq, dk, dv, ds=None,
-                        num_heads: int = 12):
+                        num_heads: int = 12, need_dx: bool = True,
+                        need_dy: bool = True):
     """Kernel (b) of the backward on CUDA tensors: dx = dq Wq^T,
     dy = dk Wk^T + dv Wv^T, the weight gradients (each in the layout of its
     weight argument, so a `lin.weight.t()` argument gets the transposed
     view of a contiguous [H*dh, D] gradient), the bias gradients, and,
-    given ds, its sum over the heads [B, 1, Lq, Lk]."""
-    B, Lq, D = x.shape
-    Lk, HD = y.shape[1], wq.shape[1]
-    dev = x.device
+    given ds, its sum over the heads [B, 1, Lq, Lk].  dx (dy) is None when
+    `need_dx` (`need_dy`) is false."""
+    call = ProjectionBackward(x, y, wq, wk, wv, dq, dk, dv, ds, num_heads,
+                              need_dx, need_dy)
+    try:
+        call.launch()
+    finally:
+        projection_backward.launches += 1
+    return call.dx, call.dy, call.dws, call.dbs, call.dbias
+
+
+def gemm_tf32x3(a, b, bias=None, splits: int = 1):
+    """The backward's GEMM core alone: a [M, K] and b [K, N] float32 in any
+    strides, the depth cut as `bwd_plan.split_depth(K, splits)` does ->
+    (c [S, M, N], colsum [S, N]): slice s's share of a b (+ bias [N]) and of
+    the column sums of b.  On the card one launch of
+    `fused_qkv_mha_bwd_gemm` (3xTF32 tensor-core products).  Card only:
+    nothing in the package calls it, so it has no plain version."""
+    if a.device.type != "cuda":
+        raise ValueError("gemm_tf32x3: needs CUDA tensors")
+    M, K = a.shape
+    N = b.shape[1]
+    S, kc = split_depth(K, splits)
+    for t in (a, b) + (() if bias is None else (bias,)):
+        if t.device != a.device or t.dtype != torch.float32:
+            raise ValueError("gemm_tf32x3: needs float32 on one card")
+    if bias is not None and not bias.is_contiguous():
+        raise ValueError("gemm_tf32x3: bias must be contiguous")
     lib = _bwd_lib()
-    for t in (dq, dk, dv):
-        if t.dtype != torch.float32 or not t.is_contiguous() or \
-                t.device != dev or t.shape[0] != B or t.shape[2] != HD:
-            raise ValueError("dq/dk/dv: need contiguous float32 "
-                             f"[{B}, L, {HD}] on {dev}")
-    f32 = dict(device=dev, dtype=torch.float32)
-    dx, dy = torch.empty_like(x), torch.empty_like(y)
-    dws = [torch.empty_strided(w.shape, w.stride(), **f32)
-           for w in (wq, wk, wv)]
-    dbs = [torch.empty(HD, **f32) for _ in range(3)]
-    dbias = None
-    if ds is not None:
-        if ds.shape != (B, num_heads, Lq, Lk) or not ds.is_contiguous():
-            raise ValueError(f"ds {tuple(ds.shape)}, expected contiguous "
-                             f"{(B, num_heads, Lq, Lk)}")
-        dbias = torch.empty((B, 1, Lq, Lk), **f32)
-    wargs = []
-    for w in (wq, wk, wv):
-        wargs += [w.data_ptr(), w.stride(0), w.stride(1)]
-    dwargs = []
-    for w in dws:
-        dwargs += [w.data_ptr(), w.stride(0), w.stride(1)]
-    with torch.cuda.device(dev):
-        rc = lib.fused_qkv_mha_bwd_proj(
-            x.data_ptr(), y.data_ptr(), *wargs, dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dx.data_ptr(), dy.data_ptr(), *dwargs,
-            *[b.data_ptr() for b in dbs],
-            None if ds is None else ds.data_ptr(),
-            None if dbias is None else dbias.data_ptr(),
-            B, Lq, Lk, D, num_heads, torch.cuda.current_stream(dev)
-            .cuda_stream)
-    projection_backward.launches += 1
+    f32 = dict(device=a.device, dtype=torch.float32)
+    c = torch.empty((S, M, N), **f32)
+    colsum = torch.empty((S, N), **f32)
+    with torch.cuda.device(a.device):
+        rc = lib.fused_qkv_mha_bwd_gemm(
+            a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(),
+            None if bias is None else bias.data_ptr(), c.data_ptr(),
+            colsum.data_ptr(), M, N, K, S, kc,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    gemm_tf32x3.launches += 1
     if rc != 0:
-        raise RuntimeError(f"fused_qkv_mha_bwd_proj kernel launch failed: "
-                           f"CUDA error {rc} (B={B}, Lq={Lq}, Lk={Lk}, "
-                           f"D={D})")
-    return dx, dy, dws, dbs, dbias
+        raise RuntimeError(f"fused_qkv_mha_bwd_gemm launch failed: CUDA "
+                           f"error {rc} (M={M}, N={N}, K={K}, S={S})")
+    return c, colsum
+
+
+def backward_needs(needs_input_grad, bias, num_heads: int):
+    """What the backward computes, from autograd's `needs_input_grad` over
+    FusedQKVMHA's inputs (x, y, wq, bq, wk, bk, wv, bv, bias, ...):
+    (need_dx, need_dy, need_bias, per_head).  dx (dy) only when x (y)
+    needs a gradient, so a stride-0 bank of the causal configuration gets
+    none; the bias gradient only for a bias that needs one, per head when
+    the bias has a head dimension of num_heads, else summed over them."""
+    need_bias = bias is not None and bool(needs_input_grad[8])
+    per_head = need_bias and bias.dim() == 4 and bias.shape[1] == num_heads
+    return (bool(needs_input_grad[0]), bool(needs_input_grad[1]), need_bias,
+            per_head)
 
 
 class FusedQKVMHA(torch.autograd.Function):
-    """Forward kernel, and the two backward kernels as its gradient.  The
-    bias gradient is computed only when autograd asks for it, and summed
-    down to the caller's broadcast shape."""
+    """Forward kernel, and the two backward kernels as its gradient.  dx,
+    dy and the bias gradient are computed only when autograd asks for them
+    (None otherwise), the bias gradient summed down to the caller's
+    broadcast shape."""
 
     @staticmethod
     def forward(ctx, x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
@@ -423,15 +565,15 @@ class FusedQKVMHA(torch.autograd.Function):
     def backward(ctx, dout):
         x, y, wq, bq, wk, bk, wv, bv, bias, seed = ctx.saved_tensors
         H = ctx.num_heads
-        need_bias = bias is not None and ctx.needs_input_grad[8]
+        need_dx, need_dy, need_bias, per_head = backward_needs(
+            ctx.needs_input_grad, bias, H)
         dq, dk, dv, ds = attention_backward(
             x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout, H,
             ctx.dropout_rate, need_ds=need_bias)
-        per_head = need_bias and bias.dim() == 4 and bias.shape[1] == H
         dx, dy, (dwq, dwk, dwv), (dbq, dbk, dbv), dbias = \
             projection_backward(x, y, wq, wk, wv, dq, dk, dv,
                                 ds if need_bias and not per_head else None,
-                                H)
+                                H, need_dx=need_dx, need_dy=need_dy)
         if need_bias:
             dbias = (ds if per_head else dbias).sum_to_size(bias.shape) \
                 .to(bias.dtype)
@@ -459,6 +601,7 @@ def fused_qkv_mha(x, y, wq, bq, wk, bk, wv, bv, bias=None,
 
 # kernel launches since the last reset; the plain path does not count
 fused_qkv_mha.launches = 0
+gemm_tf32x3.launches = 0
 attention_backward.launches = 0
 projection_backward.launches = 0
 mha.launches = 0

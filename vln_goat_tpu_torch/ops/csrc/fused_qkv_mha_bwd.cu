@@ -13,128 +13,176 @@
 //   dW = x^T dq (y^T dk, y^T dv) and db = column sums, over all B*L rows
 //   dbias = ds per head, or its sum over the heads for a [B,1,Lq,Lk] bias
 //
-// in two kernels, one launch each:
+// What bounds it on an H100.  Operations: at the train step's shapes
+// (B = 64, L = 50-60, D = H*dh = 768) the three recomputed projections and
+// the six projection-backward products (dx, dy twice, dW three times) are
+// 3.8-4.5 GFLOP each, against about
+// 7 MB of weights and 10-35 MB of activations; the attention products are
+// a tenth of that.  Every product runs on the tensor cores through
+// gemm_tf32x3.cuh in the float32-accurate 3xTF32 split, whose peak is a
+// third of the 495 TFLOP/s of TF32: the GEMMs on wgmma (m64n128k8, A split
+// in registers, B split once per chunk into shared memory), the attention
+// products on mma.sync m16n8k8 fragments.  On the card the GEMM core
+// reaches a fraction of that peak (PERF.md §5): its operand loads from L2
+// and its per-chunk conversion run in turn with the products inside a
+// block, and two blocks per SM overlap them; TMA loads and a deeper,
+// warp-specialised pipeline are the next step.
 //
-// (a) attn_bwd_kernel, one block per (batch row, head).  The block projects
-//     its head's K and V for all Lk <= 256 keys into shared memory (as the
-//     forward does), then walks the queries in tiles of 32 rows: it
-//     projects the tile's q, loads its dO, and each warp recomputes one
-//     query row's scores, softmax, mask and ds (one key per lane and 32-key
-//     group), writing pd and ds for the tile to shared memory.  Two small
-//     block-wide products follow: dq for the tile, and the tile's share of
-//     dk and dv, which the block adds into its own rows of dk / dv in
-//     device memory (written by the first tile, added by the later ones, in
-//     tile order).  Shared memory: K, V (Lk x 65 floats each), q and dO
-//     tiles, pd and ds tiles: 215 KB at Lk = 256.  Outputs dq, dk, dv
-//     [B, L, H*dh] and, only when the bias needs a gradient, ds
-//     [B, H, Lq, Lk].
-// (b) proj_bwd_kernel, one launch over a table of jobs: five tiled GEMMs
-//     (dx, dy as one two-term sum, dWq, dWk, dWv; 64 x 64 output tiles, a
-//     4 x 4 register tile per thread, depth chunks of 32), the three bias
-//     column sums, and the sum of ds over the heads for a [B,1,Lq,Lk] bias.
-//     The TPU kernel accumulates the weight gradients across its sequential
-//     grid; here every output element belongs to one thread of one block,
-//     which loops over all B*L rows itself in a fixed order.  No atomics:
-//     two launches on the same inputs give bitwise-equal outputs.
-//
-// What bounds it on an H100.  Like the forward, operations: the recomputed
-// projections plus five GEMMs of the same size (dx, dy twice, dW three
-// times) against a few MB of activations and 7 MB of weights.  This first
-// version runs them on the float32 CUDA cores (no tensor cores, no
-// TMA/wgmma), and (a) recomputes its head's K and V in every block.
+// (a) attention backward, two kernels per call:
+//   1. the recompute: q = x Wq + bq, k = y Wk + bk, v = y Wv + bv as three
+//      jobs of one GEMM launch (128 x 128 tiles, a cp.async ring), into
+//      scratch of B (Lq + 2 Lk) H dh floats that the wrapper frees on
+//      return.  Recomputing inside each (batch row, head) block instead
+//      would re-read the weights' head slice for every batch row and keep
+//      the attention blocks on the small 64-wide products; one GEMM over all
+//      rows keeps the tensor cores on 128 x 128 tiles.
+//   2. attn_bwd_kernel, one block per (batch row, head) over that scratch.
+//      Keys go in chunks of 64, queries in tiles of 64; K, V, Q and dO are
+//      staged into shared memory by cp.async.  For each (key chunk, query
+//      tile) the block computes s = q k^T and dpd = dO v^T, a warp per row
+//      turns them into pd and ds, and then dq = ds k, dk += ds^T q and
+//      dv += pd^T dO, all five on 3xTF32 fragments (8 warps of 16 x 32).
+//      dk and dv stay in registers across the query tiles and are written
+//      once per key chunk.  With one key chunk (Lk <= 64, every train
+//      shape) a query tile holds whole rows, so the softmax statistics come
+//      from the tile itself; with more, a first sweep over the chunks keeps
+//      each row's running max, sum and rowsum(dp * p) online and leaves them
+//      in a small scratch [B, H, Lq, 3], and dq is added chunk after chunk
+//      by the one block that owns it.  Shared memory: 105 KB, two blocks
+//      per SM.
+// (b) projection backward, two kernels per call:
+//   1. one GEMM launch over a table of jobs whose order and depth split the
+//      wrapper plans (ops/bwd_plan.py `proj_plan`): dx = dq Wq^T, dy as one
+//      two-segment sum, and dWq, dWk, dWv split over the B*L rows into S
+//      slices each (split-K, S = 3 at the train shapes), so that the weight
+//      gradients' 3 x 36 tiles fill two waves of 132 SMs instead of each
+//      walking 3840 rows alone.  Each slice writes its partial tile, and
+//      the column sums of its dq (dk, dv) rows, the bias gradient's share,
+//      to scratch; the longest jobs come first, and the sum of ds over the
+//      heads for a [B,1,Lq,Lk] bias comes last, a coalesced elementwise job.
+//   2. splitk_reduce_kernel adds the S partial tiles and bias sums of each
+//      weight in ascending slice order, elementwise in the gradient's own
+//      memory order.
+// No atomics anywhere: two launches on the same inputs give bitwise-equal
+// outputs.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "gemm_tf32x3.cuh"
 
 namespace {
 
+using tf32x3::GemmJob;
+using tf32x3::make_operand;
+
 constexpr int DH = 64;          // head width the kernel is written for
-constexpr int TQ = 32;          // query rows per tile in (a)
-constexpr int TILE = 64;        // rows per projection tile / GEMM tile edge
-constexpr int TD = 32;          // depth of one projection / GEMM chunk
+constexpr int KC = 64;          // keys per chunk in (a)
+constexpr int TQ = 64;          // query rows per tile in (a)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_LK = 256;
-constexpr int KSTR = DH + 1;    // padded row strides in shared memory
-constexpr int ASTR = TILE + 1;
+constexpr int LDS = DH + 4;     // row stride of the (a) tiles in shared memory
+constexpr int ATTN_SMEM_FLOATS = 6 * TQ * LDS;
+constexpr int MAX_JOBS = 5;
 
-__host__ __device__ inline int lk_padded(int Lk) {
-  return ((Lk + TILE - 1) / TILE) * TILE;
-}
+// ---------------------------------------------------------------------------
+// GEMM launch: a table of jobs, then the head sum of ds.
 
-// floats of dynamic shared memory that attn_bwd_kernel needs for Lk keys:
-// Ks, Vs [lp][KSTR]; Qs, dOs [TQ][KSTR]; then one region that holds the
-// pd and ds tiles [TQ][lp] or, while projecting, the operand chunks
-__host__ inline size_t attn_smem_floats(int Lk) {
-  const size_t lp = lk_padded(Lk);
-  const size_t pds = 2 * TQ * lp;
-  const size_t proj = 2 * (size_t)TD * ASTR;
-  return 2 * lp * KSTR + 2 * (size_t)TQ * KSTR + (pds > proj ? pds : proj);
-}
+struct Jobs {
+  GemmJob job[MAX_JOBS];
+  int njobs;
+  int gemm_blocks;
+  // dbias[b, 0, q, k] = sum over h of ds[b, h, q, k] (fixed order)
+  const float* ds;
+  float* dbias;
+  int H;
+  long long hsum_qk;  // Lq * Lk
+  long long hsum_n;   // B * Lq * Lk (0: none)
+};
 
-// dst[r * dstr + c] = src[row0 + r, :] . W[:, col0 + c] + bias[col0 + c]
-// for r < 16 * RI, c < 64; rows at or past nrows read as zero.  W[d, o]
-// lies at w[d * sd + o * so].  The forward kernel's projection, for 32
-// (RI = 2) or 64 (RI = 4) rows.  Ends with a block-wide barrier.
-template <int RI>
-__device__ void project_tile(const float* __restrict__ src, int nrows,
-                             int row0, int D, const float* __restrict__ w,
-                             long long sd, long long so,
-                             const float* __restrict__ bias, int col0,
-                             float* As, float* Bs, float* dst, int dstr) {
-  constexpr int ROWS = 16 * RI;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[RI][4];
+__global__ void __launch_bounds__(THREADS, 2) gemm_jobs_kernel(const Jobs J) {
+  extern __shared__ float smem[];
+  __shared__ GemmJob job;
+  const int blk = blockIdx.x;
+  if (blk < J.gemm_blocks) {
+    int jj = 0;
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int d0 = 0; d0 < D; d0 += TD) {
-    for (int i = tid; i < ROWS * TD; i += THREADS) {
-      const int r = i / TD, k = i % TD;
-      const int row = row0 + r;
-      As[k * ASTR + r] =
-          row < nrows ? src[(long long)row * D + d0 + k] : 0.f;
-    }
-    if (sd == 1) {
-      for (int i = tid; i < TILE * TD; i += THREADS) {
-        const int c = i / TD, k = i % TD;
-        Bs[k * ASTR + c] = w[(long long)(d0 + k) + (long long)(col0 + c) * so];
-      }
-    } else {
-      for (int i = tid; i < TILE * TD; i += THREADS) {
-        const int k = i / TILE, c = i % TILE;
-        Bs[k * ASTR + c] =
-            w[(long long)(d0 + k) * sd + (long long)(col0 + c) * so];
-      }
-    }
+    for (int i = 1; i < MAX_JOBS; ++i)
+      if (i < J.njobs && blk >= J.job[i].block0) jj = i;
+    if (threadIdx.x == 0) job = J.job[jj];
     __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < TD; ++k) {
-      float a[RI], b[4];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) a[i] = As[k * ASTR + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k * ASTR + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    const int local = blk - job.block0;
+    const int tiles = job.tiles_m * job.tiles_n;
+    tf32x3::gemm_block(job, local / tiles, local % tiles, smem);
+    return;
   }
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      dst[(ty + 16 * i) * dstr + tx + 16 * j] =
-          acc[i][j] + bias[col0 + tx + 16 * j];
+  const long long e =
+      (long long)(blk - J.gemm_blocks) * THREADS + threadIdx.x;
+  if (e >= J.hsum_n) return;
+  // e = b * QK + qk; ds[b, h, q, k] lies at (b * H + h) * QK + qk
+  const long long QK = J.hsum_qk;
+  const float* src = J.ds + (e / QK) * J.H * QK + e % QK;
+  float acc = 0.f;
+  for (int h = 0; h < J.H; ++h) acc += src[h * QK];
+  J.dbias[e] = acc;
 }
+
+int launch_jobs(Jobs& J, cudaStream_t stream) {
+  int blocks = 0;
+  for (int i = 0; i < J.njobs; ++i) {
+    J.job[i].block0 = blocks;
+    blocks += J.job[i].blocks;
+  }
+  J.gemm_blocks = blocks;
+  blocks += (int)((J.hsum_n + THREADS - 1) / THREADS);
+  if (blocks == 0) return 0;
+  // once, so that no call made while a CUDA graph is captured sets it
+  static const cudaError_t e = cudaFuncSetAttribute(
+      gemm_jobs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)tf32x3::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  gemm_jobs_kernel<<<blocks, THREADS, tf32x3::SMEM_BYTES, stream>>>(J);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// (b) second pass: out[i] = sum over s < splits of part[s * n + i]
+
+struct Reduce {
+  const float* part[6];
+  float* out[6];
+  int n[6];
+  int splits[6];
+  int block0[6];
+  int count;
+};
+
+__global__ void __launch_bounds__(THREADS) splitk_reduce_kernel(
+    const Reduce R) {
+  int r = 0;
+#pragma unroll
+  for (int i = 1; i < 6; ++i)
+    if (i < R.count && (int)blockIdx.x >= R.block0[i]) r = i;
+  const int i4 = ((blockIdx.x - R.block0[r]) * THREADS + threadIdx.x) * 4;
+  const int n = R.n[r];
+  if (i4 >= n) return;
+  const float4* p = reinterpret_cast<const float4*>(R.part[r] + i4);
+  float4 acc = p[0];
+  for (int s = 1; s < R.splits[r]; ++s) {
+    const float4 v = p[(long long)s * (n / 4)];
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  *reinterpret_cast<float4*>(R.out[r] + i4) = acc;
+}
+
+// ---------------------------------------------------------------------------
+// (a) attention backward over projected q, k, v
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -150,350 +198,273 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                const float* __restrict__ wq, long long wq_sd,
-                long long wq_so, const float* __restrict__ bq,
-                const float* __restrict__ wk, long long wk_sd,
-                long long wk_so, const float* __restrict__ bk,
-                const float* __restrict__ wv, long long wv_sd,
-                long long wv_so, const float* __restrict__ bv,
-                const float* __restrict__ bias, long long sb, long long sh,
-                long long sq, long long sk, const int* __restrict__ seeds,
-                unsigned int thresh, float inv_keep,
-                const float* __restrict__ dout, float* __restrict__ dq,
-                float* __restrict__ dk, float* __restrict__ dv,
-                float* __restrict__ ds_out, int Lq, int Lk, int D, int H,
-                float scale) {
+// s[r * LDS + c] = base[(r0 + r) * stride + c] for r < 64, c < 64; rows at
+// or past lim are zero.  Asynchronous: the caller commits and waits.
+__device__ __forceinline__ void load_rows(float* s, const float* base,
+                                          long long stride, int r0,
+                                          int lim) {
+  const bool vec = ((uintptr_t)base & 15) == 0 && stride % 4 == 0;
+  for (int c = threadIdx.x; c < 64 * 16; c += THREADS) {
+    const int r = c / 16, k = (c % 16) * 4;
+    const bool ok = r0 + r < lim;
+    const float* src = ok ? base + (long long)(r0 + r) * stride + k : base;
+    float* d = s + r * LDS + k;
+    if (vec) {
+      tf32x3::cp_async16(d, src, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tf32x3::cp_async4(d + e, ok ? src + e : base, ok ? 4 : 0);
+    }
+  }
+}
+
+struct AttnArgs {
+  const float* q;     // [B, Lq, H*dh]
+  const float* k;     // [B, Lk, H*dh]
+  const float* v;
+  const float* bias;  // through (sb, sh, sq, sk), or null
+  long long sb, sh, sq, sk;
+  const int* seeds;   // [B], or null: no dropout
+  unsigned int thresh;
+  float inv_keep;
+  const float* dout;  // [B, Lq, H*dh]
+  float* dq;
+  float* dk;
+  float* dv;
+  float* ds;          // [B, H, Lq, Lk], or null
+  float* stats;       // [B, H, Lq, 3] when Lk > KC
+  int Lq, Lk, H;
+  float scale;
+};
+
+__global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
+    const AttnArgs A) {
   extern __shared__ float smem[];
+  float* Ks = smem;                 // [KC][LDS]  key chunk
+  float* Vs = Ks + KC * LDS;        // [KC][LDS]
+  float* Qs = Vs + KC * LDS;        // [TQ][LDS]  query tile
+  float* Os = Qs + TQ * LDS;        // [TQ][LDS]  dO tile
+  float* Ps = Os + TQ * LDS;        // [TQ][LDS]  scores, then pd
+  float* Ss = Ps + TQ * LDS;        // [TQ][LDS]  dpd, then ds
+
   const int b = blockIdx.x, h = blockIdx.y;
-  const int lp = lk_padded(Lk);
-  float* Ks = smem;                    // [lp][KSTR]
-  float* Vs = Ks + lp * KSTR;          // [lp][KSTR]
-  float* Qs = Vs + lp * KSTR;          // [TQ][KSTR]
-  float* Os = Qs + TQ * KSTR;          // [TQ][KSTR]  dO tile
-  float* Pd = Os + TQ * KSTR;          // [TQ][lp]    dropped probabilities
-  float* Ss = Pd + TQ * lp;            // [TQ][lp]    ds
-  float* As = Pd;                      // projection chunks (alias Pd/Ss)
-  float* Bs = As + TD * ASTR;
-
-  const float* xb = x + (long long)b * Lq * D;
-  const float* yb = y + (long long)b * Lk * D;
-  const int col0 = h * DH;
+  const int Lq = A.Lq, Lk = A.Lk, H = A.H;
   const long long HD = (long long)H * DH;
+  const int col0 = h * DH;
+  const float* qb = A.q + (long long)b * Lq * HD + col0;
+  const float* kb = A.k + (long long)b * Lk * HD + col0;
+  const float* vb = A.v + (long long)b * Lk * HD + col0;
+  const float* ob = A.dout + (long long)b * Lq * HD + col0;
+  const float* bias_bh = A.bias != nullptr
+      ? A.bias + (long long)b * A.sb + (long long)h * A.sh : nullptr;
+  const uint32_t seed = A.seeds != nullptr ? (uint32_t)A.seeds[b] : 0u;
+  float* stats = A.stats != nullptr
+      ? A.stats + ((long long)b * H + h) * Lq * 3 : nullptr;
 
-  for (int r0 = 0; r0 < Lk; r0 += TILE) {
-    project_tile<4>(yb, Lk, r0, D, wk, wk_sd, wk_so, bk, col0, As, Bs,
-                    Ks + r0 * KSTR, KSTR);
-    project_tile<4>(yb, Lk, r0, D, wv, wv_sd, wv_so, bv, col0, As, Bs,
-                    Vs + r0 * KSTR, KSTR);
-  }
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
+  const int nch = (Lk + KC - 1) / KC, ntile = (Lq + TQ - 1) / TQ;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const float* bias_bh =
-      bias != nullptr ? bias + (long long)b * sb + (long long)h * sh : nullptr;
-  const uint32_t seed = seeds != nullptr ? (uint32_t)seeds[b] : 0u;
-
-  for (int q0 = 0; q0 < Lq; q0 += TQ) {
-    // the epilogue writes of the K/V projections, and the previous tile's
-    // reads of Qs/Os/Pd/Ss, are behind this barrier
-    __syncthreads();
-    project_tile<2>(xb, Lq, q0, D, wq, wq_sd, wq_so, bq, col0, As, Bs, Qs,
-                    KSTR);
-    for (int i = tid; i < TQ * DH; i += THREADS) {
-      const int r = i / DH, c = i % DH;
-      const int qi = q0 + r;
-      Os[r * KSTR + c] =
-          qi < Lq ? dout[((long long)b * Lq + qi) * HD + col0 + c] : 0.f;
-    }
-    __syncthreads();
-
-    for (int r = warp; r < TQ; r += WARPS) {
-      const int qi = q0 + r;
-      float* prow = Pd + r * lp;
-      float* srow = Ss + r * lp;
-      if (qi >= Lq) {                    // uniform across the warp
-        for (int j = lane; j < Lk; j += 32) prow[j] = srow[j] = 0.f;
-        continue;
-      }
-      float s[MAX_LK / 32], g[MAX_LK / 32];
-      float m = -INFINITY;
+  auto rowmajor = [](const float* s) {
+    return [s](int r, int c) { return s[r * LDS + c]; };
+  };
+  auto transposed = [](const float* s) {
+    return [s](int r, int c) { return s[c * LDS + r]; };
+  };
+  // Ps <- q k^T (raw), Ss <- dO v^T, for the staged tile and chunk
+  auto scores = [&]() {
+    float a1[4][4] = {}, a2[4][4] = {};
+    tf32x3::warp_mma_16x32(a1, rowmajor(Qs), transposed(Ks), wm, wn);
+    tf32x3::warp_mma_16x32(a2, rowmajor(Os), transposed(Vs), wm, wn);
 #pragma unroll
-      for (int jj = 0; jj < MAX_LK / 32; ++jj) {
-        const int j = lane + 32 * jj;
-        float v = -INFINITY, dpd = 0.f;
-        if (j < Lk) {
-          float acc = 0.f;
-#pragma unroll 16
-          for (int d = 0; d < DH; ++d) {
-            acc = fmaf(Qs[r * KSTR + d], Ks[j * KSTR + d], acc);
-            dpd = fmaf(Os[r * KSTR + d], Vs[j * KSTR + d], dpd);
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wm + g + (e >= 2 ? 8 : 0);
+        const int c = wn + 8 * ni + 2 * t + (e & 1);
+        Ps[r * LDS + c] = a1[ni][e];
+        Ss[r * LDS + c] = a2[ni][e];
+      }
+  };
+  // lane's two keys of row r at chunk c0: scaled score (-inf past Lk) and
+  // dp (dropout applied), and the keep flags
+  auto row_vals = [&](int r, int qi, int c0, float s[2], float dp[2],
+                      bool keep[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int jl = lane + 32 * i, j = c0 + jl;
+      keep[i] = true;
+      s[i] = -INFINITY;
+      dp[i] = 0.f;
+      if (j < Lk) {
+        s[i] = Ps[r * LDS + jl] * A.scale;
+        if (bias_bh != nullptr)
+          s[i] += bias_bh[(long long)qi * A.sq + (long long)j * A.sk];
+        dp[i] = Ss[r * LDS + jl];
+        if (A.seeds != nullptr) {
+          keep[i] = dropout_bits(seed, b, h, qi, j) >= A.thresh;
+          dp[i] = keep[i] ? dp[i] * A.inv_keep : 0.f;
+        }
+      }
+    }
+  };
+
+  // first sweep, only with more than one key chunk: per row the running
+  // max m, sum l of exp(s - m) and sum of exp(s - m) dp, left in stats as
+  // (m, l, rowsum(p dp))
+  if (nch > 1) {
+    for (int it = 0; it < ntile; ++it) {
+      const int q0 = it * TQ;
+      float rm[TQ / WARPS], rl[TQ / WARPS], rd[TQ / WARPS];
+#pragma unroll
+      for (int i = 0; i < TQ / WARPS; ++i) {
+        rm[i] = -INFINITY;
+        rl[i] = 0.f;
+        rd[i] = 0.f;
+      }
+      for (int c = 0; c < nch; ++c) {
+        __syncthreads();
+        if (c == 0) {
+          load_rows(Qs, qb, HD, q0, Lq);
+          load_rows(Os, ob, HD, q0, Lq);
+        }
+        load_rows(Ks, kb, HD, c * KC, Lk);
+        load_rows(Vs, vb, HD, c * KC, Lk);
+        tf32x3::cp_async_commit();
+        tf32x3::cp_async_wait<0>();
+        __syncthreads();
+        scores();
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < TQ / WARPS; ++i) {
+          const int r = warp * (TQ / WARPS) + i, qi = q0 + r;
+          if (qi >= Lq) continue;
+          float s[2], dp[2];
+          bool keep[2];
+          row_vals(r, qi, c * KC, s, dp, keep);
+          const float m = fmaxf(rm[i], warp_max(fmaxf(s[0], s[1])));
+          const float f = rm[i] == -INFINITY ? 0.f : expf(rm[i] - m);
+          const float e0 = expf(s[0] - m), e1 = expf(s[1] - m);
+          rl[i] = rl[i] * f + warp_sum(e0 + e1);
+          rd[i] = rd[i] * f + warp_sum(e0 * dp[0] + e1 * dp[1]);
+          rm[i] = m;
+        }
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int i = 0; i < TQ / WARPS; ++i) {
+          const int qi = q0 + warp * (TQ / WARPS) + i;
+          if (qi < Lq) {
+            stats[qi * 3] = rm[i];
+            stats[qi * 3 + 1] = rl[i];
+            stats[qi * 3 + 2] = rd[i] / rl[i];
           }
-          v = acc * scale;
-          if (bias_bh != nullptr)
-            v += bias_bh[(long long)qi * sq + (long long)j * sk];
         }
-        s[jj] = v;
-        g[jj] = dpd;
-        m = fmaxf(m, v);
-      }
-      m = warp_max(m);
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < MAX_LK / 32; ++jj) {
-        const int j = lane + 32 * jj;
-        const float e = j < Lk ? expf(s[jj] - m) : 0.f;
-        s[jj] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      // s <- p (undropped), g <- dp, and the row's sum of dp * p
-      float dot = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < MAX_LK / 32; ++jj) {
-        const int j = lane + 32 * jj;
-        if (j < Lk) {
-          const float p = s[jj] / sum;
-          float pd = p, dp = g[jj];
-          if (seeds != nullptr) {
-            const bool keep = dropout_bits(seed, b, h, qi, j) >= thresh;
-            pd = keep ? p * inv_keep : 0.f;
-            dp = keep ? dp * inv_keep : 0.f;
-          }
-          s[jj] = p;
-          g[jj] = dp;
-          prow[j] = pd;
-          dot = fmaf(dp, p, dot);
-        }
-      }
-      dot = warp_sum(dot);
-#pragma unroll
-      for (int jj = 0; jj < MAX_LK / 32; ++jj) {
-        const int j = lane + 32 * jj;
-        if (j < Lk) {
-          const float dsv = s[jj] * (g[jj] - dot);
-          srow[j] = dsv;
-          if (ds_out != nullptr)
-            ds_out[(((long long)b * H + h) * Lq + qi) * Lk + j] = dsv;
-        }
-      }
-    }
-    __syncthreads();
-
-    // dq for the tile's rows: scale * ds K
-    for (int i = tid; i < TQ * DH; i += THREADS) {
-      const int r = i / DH, c = i % DH;
-      const int qi = q0 + r;
-      if (qi >= Lq) continue;
-      const float* srow = Ss + r * lp;
-      float acc = 0.f;
-      for (int j = 0; j < Lk; ++j) acc = fmaf(srow[j], Ks[j * KSTR + c], acc);
-      dq[((long long)b * Lq + qi) * HD + col0 + c] = acc * scale;
-    }
-    // the tile's share of dv = pd^T dO and dk = scale ds^T q
-    for (int i = tid; i < Lk * DH; i += THREADS) {
-      const int j = i / DH, c = i % DH;
-      float av = 0.f, ak = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < TQ; ++r) {
-        av = fmaf(Pd[r * lp + j], Os[r * KSTR + c], av);
-        ak = fmaf(Ss[r * lp + j], Qs[r * KSTR + c], ak);
-      }
-      const long long o = ((long long)b * Lk + j) * HD + col0 + c;
-      if (q0 == 0) {
-        dv[o] = av;
-        dk[o] = ak * scale;
-      } else {
-        dv[o] += av;
-        dk[o] += ak * scale;
       }
     }
   }
-}
 
-// ---------------------------------------------------------------------------
-// (b) projection backward: a table of jobs, one launch.
-
-constexpr int MAX_GEMMS = 5;
-
-// C[m, n] = sum over segments s of sum_k A_s[m, k] B_s[k, n], each operand
-// read through element strides; C written through (c_sm, c_sn).
-struct Gemm {
-  const float* a[2];
-  long long a_sm[2], a_sk[2];
-  const float* b[2];
-  long long b_sk[2], b_sn[2];
-  int k[2];
-  int nseg;
-  float* c;
-  long long c_sm, c_sn;
-  int m, n;
-  int tiles_n;       // output tiles along n
-  int tile0;         // first block of this job
-};
-
-struct Jobs {
-  Gemm g[MAX_GEMMS];
-  int ngemm;
-  // bias gradients: dst[i][o] = sum over rows[i] rows of src[i][row, o]
-  const float* col_src[3];
-  float* col_dst[3];
-  int col_rows[3];
-  int ncols;         // H*dh
-  int col_tile0;     // first block of the column sums (ceil(ncols/THREADS) per bias)
-  // dbias[b, 0, q, k] = sum over h of ds[b, h, q, k] (fixed order)
-  const float* ds;
-  float* dbias;
-  int H;
-  long long hsum_qk;  // Lq * Lk
-  long long hsum_n;   // B * Lq * Lk (0: no bias gradient)
-  int hsum_tile0;
-  int blocks;
-};
-
-__device__ void gemm_tile(const Gemm& G, int tile, float* As, float* Bs) {
-  const int tm = tile / G.tiles_n, tn = tile % G.tiles_n;
-  const int m0 = tm * TILE, n0 = tn * TILE;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int s = 0; s < G.nseg; ++s) {
-    const float* A = G.a[s];
-    const float* Bm = G.b[s];
-    const long long asm_ = G.a_sm[s], ask = G.a_sk[s];
-    const long long bsk = G.b_sk[s], bsn = G.b_sn[s];
-    const int K = G.k[s];
-    for (int k0 = 0; k0 < K; k0 += TD) {
-      // A chunk [TILE m][TD k] -> As[k][m]; walk the unit stride
-      if (ask == 1) {
-        for (int i = tid; i < TILE * TD; i += THREADS) {
-          const int r = i / TD, k = i % TD;
-          const int gm = m0 + r, gk = k0 + k;
-          As[k * ASTR + r] = (gm < G.m && gk < K)
-              ? A[(long long)gm * asm_ + gk] : 0.f;
-        }
-      } else {
-        for (int i = tid; i < TILE * TD; i += THREADS) {
-          const int k = i / TILE, r = i % TILE;
-          const int gm = m0 + r, gk = k0 + k;
-          As[k * ASTR + r] = (gm < G.m && gk < K)
-              ? A[(long long)gm * asm_ + (long long)gk * ask] : 0.f;
-        }
+  for (int c = 0; c < nch; ++c) {
+    const int c0 = c * KC;
+    float dka[4][4] = {}, dva[4][4] = {};
+    for (int it = 0; it < ntile; ++it) {
+      const int q0 = it * TQ;
+      __syncthreads();
+      if (it == 0) {
+        load_rows(Ks, kb, HD, c0, Lk);
+        load_rows(Vs, vb, HD, c0, Lk);
       }
-      // B chunk [TD k][TILE n] -> Bs[k][n]
-      if (bsn == 1) {
-        for (int i = tid; i < TILE * TD; i += THREADS) {
-          const int k = i / TILE, c = i % TILE;
-          const int gk = k0 + k, gn = n0 + c;
-          Bs[k * ASTR + c] = (gk < K && gn < G.n)
-              ? Bm[(long long)gk * bsk + gn] : 0.f;
+      load_rows(Qs, qb, HD, q0, Lq);
+      load_rows(Os, ob, HD, q0, Lq);
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<0>();
+      __syncthreads();
+      scores();
+      __syncthreads();
+      // a warp per row: Ps <- pd, Ss <- ds
+#pragma unroll 1
+      for (int i = 0; i < TQ / WARPS; ++i) {
+        const int r = warp * (TQ / WARPS) + i, qi = q0 + r;
+        if (qi >= Lq) {
+          Ps[r * LDS + lane] = Ps[r * LDS + lane + 32] = 0.f;
+          Ss[r * LDS + lane] = Ss[r * LDS + lane + 32] = 0.f;
+          continue;
         }
-      } else {
-        for (int i = tid; i < TILE * TD; i += THREADS) {
-          const int c = i / TD, k = i % TD;
-          const int gk = k0 + k, gn = n0 + c;
-          Bs[k * ASTR + c] = (gk < K && gn < G.n)
-              ? Bm[(long long)gk * bsk + (long long)gn * bsn] : 0.f;
+        float s[2], dp[2];
+        bool keep[2];
+        row_vals(r, qi, c0, s, dp, keep);
+        float m, l, dsum;
+        if (nch == 1) {
+          m = warp_max(fmaxf(s[0], s[1]));
+          const float e0 = expf(s[0] - m), e1 = expf(s[1] - m);
+          l = warp_sum(e0 + e1);
+          dsum = warp_sum(e0 * dp[0] + e1 * dp[1]) / l;
+        } else {
+          m = stats[qi * 3];
+          l = stats[qi * 3 + 1];
+          dsum = stats[qi * 3 + 2];
+        }
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const int jl = lane + 32 * i2, j = c0 + jl;
+          const float p = expf(s[i2] - m) / l;
+          const float pd =
+              A.seeds != nullptr ? (keep[i2] ? p * A.inv_keep : 0.f) : p;
+          const float dsv = p * (dp[i2] - dsum);
+          Ps[r * LDS + jl] = j < Lk ? pd : 0.f;
+          Ss[r * LDS + jl] = j < Lk ? dsv : 0.f;
+          if (A.ds != nullptr && j < Lk)
+            A.ds[(((long long)b * H + h) * Lq + qi) * Lk + j] = dsv;
         }
       }
       __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < TD; ++k) {
-        float a[4], bb[4];
+      // dq (tile rows) = scale ds k, added over the key chunks
+      float dqa[4][4] = {};
+      tf32x3::warp_mma_16x32(dqa, rowmajor(Ss), rowmajor(Ks), wm, wn);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[k * ASTR + ty + 16 * i];
+      for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) bb[j] = Bs[k * ASTR + tx + 16 * j];
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + wm + g + (e >= 2 ? 8 : 0);
+          const int col = wn + 8 * ni + 2 * t + (e & 1);
+          if (qi < Lq) {
+            float* o = A.dq + ((long long)b * Lq + qi) * HD + col0 + col;
+            const float v = dqa[ni][e] * A.scale;
+            *o = c == 0 ? v : *o + v;
+          }
+        }
+      // the tile's share of dv = pd^T dO and dk = ds^T q (keys x dh)
+      tf32x3::warp_mma_16x32(dva, transposed(Ps), rowmajor(Os), wm, wn);
+      tf32x3::warp_mma_16x32(dka, transposed(Ss), rowmajor(Qs), wm, wn);
+    }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const int j = c0 + wm + g + (e >= 2 ? 8 : 0);
+        const int col = wn + 8 * ni + 2 * t + (e & 1);
+        if (j < Lk) {
+          const long long o = ((long long)b * Lk + j) * HD + col0 + col;
+          A.dk[o] = dka[ni][e] * A.scale;
+          A.dv[o] = dva[ni][e];
+        }
       }
-      __syncthreads();
-    }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= G.m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < G.n) G.c[(long long)gm * G.c_sm + (long long)gn * G.c_sn] =
-          acc[i][j];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) proj_bwd_kernel(const Jobs J) {
-  __shared__ float As[TD * ASTR];
-  __shared__ float Bs[TD * ASTR];
-  const int blk = blockIdx.x;
-  if (blk < J.col_tile0) {
-    int g = 0;
-    while (g + 1 < J.ngemm && blk >= J.g[g + 1].tile0) ++g;
-    gemm_tile(J.g[g], blk - J.g[g].tile0, As, Bs);
-  } else if (blk < J.hsum_tile0) {
-    const int per = (J.ncols + THREADS - 1) / THREADS;
-    const int which = (blk - J.col_tile0) / per;
-    const int o = ((blk - J.col_tile0) % per) * THREADS + threadIdx.x;
-    if (o >= J.ncols) return;
-    const float* src = J.col_src[which];
-    float acc = 0.f;
-    for (int r = 0; r < J.col_rows[which]; ++r)
-      acc += src[(long long)r * J.ncols + o];
-    J.col_dst[which][o] = acc;
-  } else {
-    const long long e =
-        (long long)(blk - J.hsum_tile0) * THREADS + threadIdx.x;
-    if (e >= J.hsum_n) return;
-    // e = b * QK + qk; ds[b, h, q, k] lies at (b * H + h) * QK + qk
-    const long long QK = J.hsum_qk;
-    const float* src = J.ds + (e / QK) * J.H * QK + e % QK;
-    float acc = 0.f;
-    for (int h = 0; h < J.H; ++h) acc += src[h * QK];
-    J.dbias[e] = acc;
-  }
-}
-
-void set_gemm(Gemm& g, int m, int n, float* c, long long c_sm,
-              long long c_sn) {
-  g.m = m;
-  g.n = n;
-  g.c = c;
-  g.c_sm = c_sm;
-  g.c_sn = c_sn;
-  g.nseg = 0;
-  g.tiles_n = (n + TILE - 1) / TILE;
-}
-
-void add_segment(Gemm& g, const void* a, long long a_sm, long long a_sk,
-                 const void* b, long long b_sk, long long b_sn, int k) {
-  const int s = g.nseg++;
-  g.a[s] = (const float*)a;
-  g.a_sm[s] = a_sm;
-  g.a_sk[s] = a_sk;
-  g.b[s] = (const float*)b;
-  g.b_sk[s] = b_sk;
-  g.b_sn[s] = b_sn;
-  g.k[s] = k;
 }
 
 }  // namespace
 
 extern "C" {
 
-// (a) Launches attn_bwd_kernel on `stream` and returns cudaGetLastError().
-// x [B, Lq, D], y [B, Lk, D], weights [D, H*dh] through strides, biases
-// [H*dh], additive bias through four strides (null: none), seeds int32
-// [B] (null: no dropout), dO [B, Lq, H*dh]; writes dq [B, Lq, H*dh],
-// dk, dv [B, Lk, H*dh] and, if ds is not null, ds [B, H, Lq, Lk].
+// (a) Launches the recompute GEMM and attn_bwd_kernel on `stream`; returns
+// the first CUDA error.  x [B, Lq, D], y [B, Lk, D], weights [D, H*dh]
+// through strides, biases [H*dh], additive bias through four strides (null:
+// none), seeds int32 [B] (null: no dropout), dO [B, Lq, H*dh]; scratch qkv
+// of B (Lq + 2 Lk) H*dh floats and, when Lk > 64, stats of B H Lq 3 floats;
+// writes dq [B, Lq, H*dh], dk, dv [B, Lk, H*dh] and, if ds is not null,
+// ds [B, H, Lq, Lk].
 int fused_qkv_mha_bwd_attn(
     const void* x, const void* y,
     const void* wq, long long wq_sd, long long wq_so, const void* bq,
@@ -501,91 +472,208 @@ int fused_qkv_mha_bwd_attn(
     const void* wv, long long wv_sd, long long wv_so, const void* bv,
     const void* bias, long long sb, long long sh, long long sq, long long sk,
     const void* seeds, unsigned int thresh, float inv_keep,
-    const void* dout, void* dq, void* dk, void* dv, void* ds,
-    int B, int Lq, int Lk, int D, int H, float scale, void* stream) {
-  if (B < 1 || Lq < 1 || Lk < 1 || Lk > MAX_LK || H < 1 || D < TD ||
-      D % TD != 0)
+    const void* dout, void* dq, void* dk, void* dv, void* ds, void* qkv,
+    void* stats, int B, int Lq, int Lk, int D, int H, float scale,
+    void* stream) {
+  if (B < 1 || Lq < 1 || Lk < 1 || Lk > MAX_LK || H < 1 || D < 1 ||
+      (Lk > KC && stats == nullptr))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int HD = H * DH;
+  float* qs = (float*)qkv;
+  float* ks = qs + (long long)B * Lq * HD;
+  float* vs = ks + (long long)B * Lk * HD;
+  Jobs J = {};
+  J.njobs = 3;
+  const void* src[3] = {x, y, y};
+  const int rows[3] = {B * Lq, B * Lk, B * Lk};
+  const void* w[3] = {wq, wk, wv};
+  const long long sd[3] = {wq_sd, wk_sd, wv_sd}, so[3] = {wq_so, wk_so, wv_so};
+  const void* bb[3] = {bq, bk, bv};
+  float* out[3] = {qs, ks, vs};
+  for (int i = 0; i < 3; ++i) {
+    GemmJob& j = J.job[i];
+    tf32x3::set_job(j, rows[i], HD, D, 1, 0, out[i], HD, 1, 0);
+    tf32x3::add_seg(j, make_operand(src[i], D, 1),
+                    make_operand(w[i], so[i], sd[i]), D);
+    j.bias = (const float*)bb[i];
+  }
+  int rc = launch_jobs(J, st);
+  if (rc != 0) return rc;
+
+  AttnArgs A;
+  A.q = qs;
+  A.k = ks;
+  A.v = vs;
+  A.bias = (const float*)bias;
+  A.sb = sb;
+  A.sh = sh;
+  A.sq = sq;
+  A.sk = sk;
+  A.seeds = (const int*)seeds;
+  A.thresh = thresh;
+  A.inv_keep = inv_keep;
+  A.dout = (const float*)dout;
+  A.dq = (float*)dq;
+  A.dk = (float*)dk;
+  A.dv = (float*)dv;
+  A.ds = (float*)ds;
+  A.stats = Lk > KC ? (float*)stats : nullptr;
+  A.Lq = Lq;
+  A.Lk = Lk;
+  A.H = H;
+  A.scale = scale;
+  const size_t bytes = ATTN_SMEM_FLOATS * sizeof(float);
+  static const cudaError_t e = cudaFuncSetAttribute(
       attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(attn_smem_floats(MAX_LK) * sizeof(float)));
+      (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  const size_t bytes = attn_smem_floats(Lk) * sizeof(float);
-  const dim3 grid(B, H);
-  attn_bwd_kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)y,
-      (const float*)wq, wq_sd, wq_so, (const float*)bq,
-      (const float*)wk, wk_sd, wk_so, (const float*)bk,
-      (const float*)wv, wv_sd, wv_so, (const float*)bv,
-      (const float*)bias, sb, sh, sq, sk, (const int*)seeds, thresh,
-      inv_keep, (const float*)dout, (float*)dq, (float*)dk, (float*)dv,
-      (float*)ds, Lq, Lk, D, H, scale);
+  attn_bwd_kernel<<<dim3(B, H), THREADS, bytes, st>>>(A);
   return (int)cudaGetLastError();
 }
 
-// (b) Launches proj_bwd_kernel on `stream` and returns cudaGetLastError().
-// From dq [B, Lq, H*dh] and dk, dv [B, Lk, H*dh] (written by (a)), x, y and
-// the weights (through strides): dx [B, Lq, D], dy [B, Lk, D], the weight
-// gradients (through the strides given for them), the bias gradients
-// [H*dh] and, if dbias is not null, dbias [B, 1, Lq, Lk] = the sum over
-// heads of ds [B, H, Lq, Lk].
+// (b) Launches the projection-backward GEMM jobs on `stream` and returns
+// cudaGetLastError().  From dq [B, Lq, H*dh] and dk, dv [B, Lk, H*dh]
+// (written by (a)), x, y and the weights (through strides).  `order` lists
+// `njobs` job ids, longest first: 0 dx [B, Lq, D] = dq Wq^T, 1 dy [B, Lk, D]
+// = dk Wk^T + dv Wv^T, 2-4 the partial weight gradients of q, k, v, 5 the
+// head sum dbias [B, 1, Lq, Lk] of ds [B, H, Lq, Lk] (last).  Weight g
+// splits its rows into splits[g] slices of kc[g] rows; slice s writes its
+// partial gradient, in the memory order of the weight's gradient (strides
+// dw_sd[g], dw_so[g]), at scratch + wofs[g] + s D H*dh, and its column sums
+// at scratch + bofs[g] + s H*dh.  `blocks` is the launch's block count as
+// the plan has it: the call fails when the table gives another.
 int fused_qkv_mha_bwd_proj(
     const void* x, const void* y,
     const void* wq, long long wq_sd, long long wq_so,
     const void* wk, long long wk_sd, long long wk_so,
     const void* wv, long long wv_sd, long long wv_so,
     const void* dq, const void* dk, const void* dv,
-    void* dx, void* dy,
-    void* dwq, long long dwq_sd, long long dwq_so,
-    void* dwk, long long dwk_sd, long long dwk_so,
-    void* dwv, long long dwv_sd, long long dwv_so,
-    void* dbq, void* dbk, void* dbv, const void* ds, void* dbias,
-    int B, int Lq, int Lk, int D, int H, void* stream) {
-  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 1)
+    void* dx, void* dy, void* scratch, const long long* dw_sd,
+    const long long* dw_so, const int* splits, const int* kc,
+    const long long* wofs, const long long* bofs, const void* ds,
+    void* dbias, const int* order, int njobs, int blocks, int B, int Lq,
+    int Lk, int D, int H, void* stream) {
+  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 1 || njobs < 0 ||
+      njobs > MAX_JOBS + 1)
     return (int)cudaErrorInvalidValue;
   const int HD = H * DH;
   const int Mq = B * Lq, Mk = B * Lk;
-  Jobs J;
-  Gemm* g = J.g;
-  set_gemm(g[0], Mq, D, (float*)dx, D, 1);                    // dx = dq Wq^T
-  add_segment(g[0], dq, HD, 1, wq, wq_so, wq_sd, HD);
-  set_gemm(g[1], Mk, D, (float*)dy, D, 1);                    // dy
-  add_segment(g[1], dk, HD, 1, wk, wk_so, wk_sd, HD);
-  add_segment(g[1], dv, HD, 1, wv, wv_so, wv_sd, HD);
-  set_gemm(g[2], D, HD, (float*)dwq, dwq_sd, dwq_so);         // x^T dq
-  add_segment(g[2], x, 1, D, dq, HD, 1, Mq);
-  set_gemm(g[3], D, HD, (float*)dwk, dwk_sd, dwk_so);         // y^T dk
-  add_segment(g[3], y, 1, D, dk, HD, 1, Mk);
-  set_gemm(g[4], D, HD, (float*)dwv, dwv_sd, dwv_so);         // y^T dv
-  add_segment(g[4], y, 1, D, dv, HD, 1, Mk);
-  J.ngemm = MAX_GEMMS;
-  int blocks = 0;
-  for (int i = 0; i < J.ngemm; ++i) {
-    g[i].tile0 = blocks;
-    blocks += ((g[i].m + TILE - 1) / TILE) * g[i].tiles_n;
+  const void* src[3] = {x, y, y};
+  const void* grad[3] = {dq, dk, dv};
+  const int rows[3] = {Mq, Mk, Mk};
+  float* sc = (float*)scratch;
+  Jobs J = {};
+  for (int i = 0; i < njobs; ++i) {
+    const int id = order[i];
+    if (id == 5) {
+      if (i != njobs - 1 || ds == nullptr || dbias == nullptr)
+        return (int)cudaErrorInvalidValue;
+      J.ds = (const float*)ds;
+      J.dbias = (float*)dbias;
+      J.H = H;
+      J.hsum_qk = (long long)Lq * Lk;
+      J.hsum_n = (long long)B * Lq * Lk;
+      continue;
+    }
+    if (id < 0 || id > 4 || J.njobs == MAX_JOBS)
+      return (int)cudaErrorInvalidValue;
+    GemmJob& j = J.job[J.njobs++];
+    if (id == 0) {
+      tf32x3::set_job(j, Mq, D, HD, 1, 0, (float*)dx, D, 1, 0);
+      tf32x3::add_seg(j, make_operand(dq, HD, 1),
+                      make_operand(wq, wq_sd, wq_so), HD);
+    } else if (id == 1) {
+      tf32x3::set_job(j, Mk, D, 2 * HD, 1, 0, (float*)dy, D, 1, 0);
+      if (HD % tf32x3::BK != 0) return (int)cudaErrorInvalidValue;
+      tf32x3::add_seg(j, make_operand(dk, HD, 1),
+                      make_operand(wk, wk_sd, wk_so), HD);
+      tf32x3::add_seg(j, make_operand(dv, HD, 1),
+                      make_operand(wv, wv_sd, wv_so), HD);
+    } else {
+      const int g = id - 2;
+      if (kc[g] % tf32x3::BK != 0 || kc[g] < tf32x3::BK ||
+          (long long)splits[g] * kc[g] < rows[g] ||
+          (long long)(splits[g] - 1) * kc[g] >= rows[g])
+        return (int)cudaErrorInvalidValue;
+      // dW[d, o] = sum over rows r of src[r, d] grad[r, o]
+      tf32x3::set_job(j, D, HD, rows[g], splits[g], kc[g], sc + wofs[g],
+                      dw_sd[g], dw_so[g], (long long)D * HD);
+      tf32x3::add_seg(j, make_operand(src[g], 1, D),
+                      make_operand(grad[g], 1, HD), rows[g]);
+      j.colsum = sc + bofs[g];
+    }
   }
-  J.col_tile0 = blocks;
-  J.col_src[0] = (const float*)dq;
-  J.col_src[1] = (const float*)dk;
-  J.col_src[2] = (const float*)dv;
-  J.col_dst[0] = (float*)dbq;
-  J.col_dst[1] = (float*)dbk;
-  J.col_dst[2] = (float*)dbv;
-  J.col_rows[0] = Mq;
-  J.col_rows[1] = Mk;
-  J.col_rows[2] = Mk;
-  J.ncols = HD;
-  blocks += 3 * ((HD + THREADS - 1) / THREADS);
-  J.hsum_tile0 = blocks;
-  J.ds = (const float*)ds;
-  J.dbias = (float*)dbias;
-  J.H = H;
-  J.hsum_qk = (long long)Lq * Lk;
-  J.hsum_n = dbias != nullptr ? (long long)B * Lq * Lk : 0;
-  blocks += (int)((J.hsum_n + THREADS - 1) / THREADS);
-  J.blocks = blocks;
-  proj_bwd_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(J);
+  int total = 0;
+  for (int i = 0; i < J.njobs; ++i) total += J.job[i].blocks;
+  total += (int)((J.hsum_n + THREADS - 1) / THREADS);
+  if (total != blocks) return (int)cudaErrorInvalidConfiguration;
+  return launch_jobs(J, (cudaStream_t)stream);
+}
+
+// (b) second pass: for each weight g with splits[g] > 0, dW_g (D * H*dh
+// floats in its own memory order) and db_g (H*dh) = the sums over the
+// slices, in ascending order, of the partials that fused_qkv_mha_bwd_proj
+// left at scratch + wofs[g] and + bofs[g].
+int fused_qkv_mha_bwd_reduce(
+    const void* scratch, void* dwq, void* dwk, void* dwv, void* dbq,
+    void* dbk, void* dbv, const int* splits, const long long* wofs,
+    const long long* bofs, int D, int H, void* stream) {
+  const int HD = H * DH;
+  const float* sc = (const float*)scratch;
+  void* dw[3] = {dwq, dwk, dwv};
+  void* db[3] = {dbq, dbk, dbv};
+  Reduce R = {};
+  int blocks = 0;
+  auto add = [&](const float* part, void* out, int n, int s) {
+    if (n % 4 != 0 || ((uintptr_t)part & 15) || ((uintptr_t)out & 15))
+      return false;
+    R.part[R.count] = part;
+    R.out[R.count] = (float*)out;
+    R.n[R.count] = n;
+    R.splits[R.count] = s;
+    R.block0[R.count] = blocks;
+    blocks += (n / 4 + THREADS - 1) / THREADS;
+    ++R.count;
+    return true;
+  };
+  for (int g = 0; g < 3; ++g) {
+    if (splits[g] <= 0) continue;
+    if (!add(sc + wofs[g], dw[g], D * HD, splits[g]) ||
+        !add(sc + bofs[g], db[g], HD, splits[g]))
+      return (int)cudaErrorInvalidValue;
+  }
+  if (blocks == 0) return 0;
+  splitk_reduce_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(R);
   return (int)cudaGetLastError();
+}
+
+// The GEMM core alone, for its tests: slice s < splits of C = A B (+ bias)
+// over depth [s kc, min((s+1) kc, k)) into c [splits, m, n] and the column
+// sums of B over the slice into colsum [splits, n] (null: none).  A(m, k) at
+// a[m a_sm + k a_sk], B(k, n) at b[k b_sk + n b_sn].
+int fused_qkv_mha_bwd_gemm(const void* a, long long a_sm, long long a_sk,
+                           const void* b, long long b_sk, long long b_sn,
+                           const void* bias, void* c, void* colsum, int m,
+                           int n, int k, int splits, int kc, void* stream) {
+  if (m < 1 || n < 1 || k < 1 || splits < 1 || kc % tf32x3::BK != 0 ||
+      (long long)splits * kc < k || (long long)(splits - 1) * kc >= k)
+    return (int)cudaErrorInvalidValue;
+  Jobs J = {};
+  J.njobs = 1;
+  GemmJob& j = J.job[0];
+  tf32x3::set_job(j, m, n, k, splits, kc, (float*)c, n, 1, (long long)m * n);
+  tf32x3::add_seg(j, make_operand(a, a_sm, a_sk), make_operand(b, b_sn, b_sk),
+                  k);
+  j.bias = (const float*)bias;
+  j.colsum = (float*)colsum;
+  return launch_jobs(J, (cudaStream_t)stream);
+}
+
+// Dynamic shared memory of the GEMM launch and of attn_bwd_kernel, bytes.
+void fused_qkv_mha_bwd_smem(int* out) {
+  out[0] = (int)tf32x3::SMEM_BYTES;
+  out[1] = (int)(ATTN_SMEM_FLOATS * sizeof(float));
 }
 
 // Head width the kernels are compiled for, so the wrapper can check it.
@@ -593,5 +681,13 @@ int fused_qkv_mha_bwd_head_dim(void) { return DH; }
 
 // Largest key length the attention backward takes.
 int fused_qkv_mha_bwd_max_lk(void) { return MAX_LK; }
+
+// GEMM tile (rows, columns, depth chunk), so the wrapper's plan can check
+// that it tiles as the kernel does.
+void fused_qkv_mha_bwd_tile(int* out) {
+  out[0] = tf32x3::BM;
+  out[1] = tf32x3::BN;
+  out[2] = tf32x3::BK;
+}
 
 }  // extern "C"
