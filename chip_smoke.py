@@ -10,10 +10,12 @@ Phases, each printing a flushed line as it ends:
      report;
   3. kernel check: each kernel against its plain PyTorch version on the
      card, with its time, the plain version's, one PyTorch library call's,
-     and the least time the card could take (K1, K3: float32 on the CUDA
-     cores; K2: the 3xTF32 tensor-core rate, with the float32 bound
-     beside it), the projection backward's time by part (dx / dy GEMMs,
-     split-K weight gradients, the pass adding their slices, head sum):
+     and the least time the card could take (every kernel computes on the
+     tensor cores in the 3xTF32 split, so its bound is at that rate, with
+     the float32 CUDA-core bound beside it), the forward's time by part
+     (projection GEMM, attention) and the projection backward's (dx / dy
+     GEMMs, split-K weight gradients, the pass adding their slices, head
+     sum):
      the forward at the decode rollout's five shapes (batch 8) without and
      with dropout 0.1 (same seeds; the kernel's keep share within 4
      binomial standard deviations of 0.9), the two backward kernels against
@@ -32,29 +34,41 @@ Phases, each printing a flushed line as it ends:
      identical and the logits' masks as the model defines them; then the
      same for GOAT's causal configuration with its seeded banks;
   5. train: (a) one R2R DAgger step at batch 8, every dropout probability
-     0, through the kernels and through the eager path from the same
+     0, through the eager path and through the kernels from the same
      weights, batch and generator: sampled actions identical, losses to a
      relative 1e-4, every parameter's gradient within 1e-3 of its largest
-     magnitude (the biases of NOISE_GRAD_BIASES, whose gradients are zero
-     up to rounding, within 1e-3 of their weight's); (b) the bench's step
+     magnitude (the biases of gate_witness.NOISE_GRAD_BIASES, whose
+     gradients are zero up to rounding, within 1e-3 of their weight's).
+     A ReLU of a ClsPrediction head whose input lies within KINK_BAND
+     (the forward's ATOL) of 0 may decide either way within the kernels'
+     tolerated error, and its decision moves that unit's whole gradient:
+     the kernel step takes the eager step's decision at every unit where
+     its own differs (gate_witness.pin_relus), and fails if one of those
+     lies farther from the kink;
+     (b) the bench's step
      (batch 64, dropout 0.1 / 0.1 / features 0.4): one warm-up step per
      gt-length bucket, then 3 timed steps, loss and grad norm finite,
      the parameters moved, and the kernels' launches equal to the count
      the config and the steps each rollout ran give; peak memory of the
-     warm-up and of the timed steps; then the same on the eager path,
+     warm-up and of the timed steps, with what earlier phases left
+     allocated freed first (and printed); then the same on the eager path,
      timed for comparison; (c) and (d):
      (a) and (b) for the causal configuration (the eager timing is left
      out, and a line says so, when its predicted peak would pass 76 GiB).
 Every path is driven with the launch counts set to 0 just before it and
 read just after.
 The line before the last is one JSON object with every kernel's numbers;
-the last is {"ok": true, "device": {...}}.  Any failure raises: there is
-no CPU fallback, and without a card the script exits non-zero before
+the last is {"ok": true, "device": {...}}.  Any failure raises, but for
+the comparison of phase 5 (a) / (c): it prints its failure, the later
+phases run and print their numbers, and the script then prints the
+failures instead of the last two lines and exits non-zero.  There is no
+CPU fallback, and without a card the script exits non-zero before
 printing a result.
 """
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import math
 import subprocess
@@ -69,20 +83,29 @@ from vln_goat_tpu_torch.entry import (build_flagship, build_train_flagship,
 from vln_goat_tpu_torch.ops import _build
 from vln_goat_tpu_torch.ops.attention import (attend_plain,
                                               attention_backward,
+                                              forward_projection,
                                               fused_qkv_mha,
                                               fused_qkv_mha_plain, mha,
                                               mha_plain, project_plain,
                                               projection_backward,
                                               PROJ_PARTS, ProjectionBackward)
+from vln_goat_tpu_torch.tools.gate_witness import (pin_relus,
+                                                    record_relus,
+                                                    worst_grad)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, dense
-# float32 outside the tensor cores (K1 and K3 compute there) and dense TF32
-# on the tensor cores (K2 computes there in the 3xTF32 split: three TF32
-# products per float32-accurate one)
+# float32 outside the tensor cores (the bound printed beside) and dense
+# TF32 on the tensor cores (every kernel computes there in the 3xTF32
+# split: three TF32 products per float32-accurate one)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
 ATOL, RTOL = 1e-4, 1e-3   # float32, sums taken in another order than cuBLAS
+# Phase 5 (a) / (c): a ReLU pre-activation of a ClsPrediction head within
+# this of 0 may fall on either side of the kink within the forward's
+# tolerated error (ATOL); the kernel step takes the eager step's decision
+# there, and a decision that differs farther from the kink fails
+KINK_BAND = ATOL
 
 D, H, DH, B = 768, 12, 64, 8
 B_TRAIN = 64              # bench_train's default batch
@@ -132,13 +155,6 @@ MHA_CASES = (("case16x16", 16, 16, "none", B),
              ("gmap50xtext60_b64", 50, 60, "key", B_TRAIN),
              ("local54xtext60_b64", 54, 60, "key", B_TRAIN))
 MHA_LINE = ("gmap50xtext60_b64", "local54xtext60_b64")
-# parameters whose gradient is analytically zero: a key projection's bias
-# and the graph bias's bias add one constant to a whole row of attention
-# scores; the global head's LayerNorm bias and last bias add one constant
-# (times the row's fuse weight) to every finite fused logit
-NOISE_GRAD_BIASES = (".key.bias", "sprel_linear.bias",
-                     "global_sap_head.net.2.bias",
-                     "global_sap_head.net.3.bias")
 # names of the grads that the backward returns, in argument order
 GRADS = ("dx", "dy", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dbias")
 
@@ -406,11 +422,21 @@ def check_shape(g, name, Lq, Lk, bias_kind, layout, batch, timed):
     row["library_ms"] = cuda_ms(lambda: library_call(det))
     row["library_err"] = float((library_call(det) - fused_qkv_mha_plain(
         *det, num_heads=H)).abs().max())
-    fb = bound(det)
+    fb = bound(det, tf32x3=True)
     row["bound_ms"], row["bound_by"] = max(fb), \
         "operations" if fb[0] >= fb[1] else "bytes"
+    row["bound_f32_ms"] = max(bound(det))
     if not timed:
         return row
+
+    # the forward by part: its q / k / v projection GEMM alone, and the
+    # attention core over that GEMM's output through `mha` (the same core,
+    # without dropout)
+    qkv = forward_projection(*det[:8], num_heads=H)
+    row["fwd_proj_ms"] = graph_ms(
+        lambda: forward_projection(*det[:8], num_heads=H))
+    row["fwd_attn_ms"] = graph_ms(lambda: mha(*qkv, det[8]))
+    del qkv
 
     # backward times: each kernel alone, against the backward of the
     # matching part of the plain version and of the library call
@@ -490,8 +516,9 @@ def check_kernels():
             + f") ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"library_ms={row['library_ms']:.4f} "
             f"(library max_abs_err={row['library_err']:.3e}) "
-            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); "
-            f"backward max_abs_err attn {row['attn_err_0.0']:.3e} / "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; float32 "
+            f"{row['bound_f32_ms']:.4f}); backward max_abs_err attn "
+            f"{row['attn_err_0.0']:.3e} / "
             f"{row[f'attn_err_{RATE}']:.3e}, grads "
             f"{row['proj_err_0.0']:.3e} / {row[f'proj_err_{RATE}']:.3e} "
             f"(dropout 0 / {RATE}), two launches bitwise equal")
@@ -505,8 +532,11 @@ def check_kernels():
             f"{row[f'fwd_err_{RATE}']:.3e} ms={row['ms']:.4f} "
             f"plain_ms={row['plain_ms']:.4f} "
             f"library_ms={row['library_ms']:.4f} "
-            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); "
-            f"attention backward max_abs_err={row[f'attn_err_{RATE}']:.3e} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; float32 "
+            f"{row['bound_f32_ms']:.4f}), by part proj "
+            f"{row['fwd_proj_ms']:.4f}, attn (no dropout) "
+            f"{row['fwd_attn_ms']:.4f}; attention backward max_abs_err="
+            f"{row[f'attn_err_{RATE}']:.3e} "
             f"ms={row['attn_ms']:.4f} plain_ms={row['attn_plain_ms']:.4f} "
             f"library_ms={row['attn_library_ms']:.4f} "
             f"bound_ms={row['attn_bound_ms']:.4f} "
@@ -568,7 +598,7 @@ def check_mha():
         plain64 = float((ref.double() - ref64).abs().max())
         ops = 4 * batch * H * Lq * Lk * DH
         nbytes = _bytes(q, k, v, bias) + 4 * out.numel()
-        fb = (ops / PEAK_F32_FLOP_PER_S * 1e3,
+        fb = (3 * ops / PEAK_TF32_FLOP_PER_S * 1e3,
               nbytes / PEAK_BYTES_PER_S * 1e3)
         row = rows[name] = dict(
             err=float((out - ref).abs().max()),
@@ -576,14 +606,15 @@ def check_mha():
             plain_ms=cuda_ms(lambda: mha_plain(q, k, v, bias)),
             library_ms=cuda_ms(lambda: mha_library(q, k, v, bias)),
             bound_ms=max(fb),
-            bound_by="operations" if fb[0] >= fb[1] else "bytes")
+            bound_by="operations" if fb[0] >= fb[1] else "bytes",
+            bound_f32_ms=max(ops / PEAK_F32_FLOP_PER_S * 1e3, fb[1]))
         say(f"kernel mha {name}: B={batch} Lq={Lq} Lk={Lk} bias={bias_kind} "
             f"max_abs_err={row['err']:.3e} (against float64: kernel "
             f"{err64:.3e}, plain {plain64:.3e}) ms={row['ms']:.4f} "
             f"plain_ms={row['plain_ms']:.4f} "
             f"library_ms={row['library_ms']:.4f} (library max_abs_err="
             f"{lib_err:.3e}) bound_ms={row['bound_ms']:.4f} "
-            f"({row['bound_by']})")
+            f"({row['bound_by']}; float32 {row['bound_f32_ms']:.4f})")
     return rows
 
 
@@ -740,36 +771,20 @@ def train_mix(cfg, metrics):
                    step_mix(cfg, steps))
 
 
-def run_train(card, causal=False):
-    """Phase 5: (a) and (b), or (c) and (d) for the causal
-    configuration.  Returns the timed steps' launch mix and counts."""
-    what = "causal " if causal else ""
-    pa, pb = ("c", "d") if causal else ("a", "b")
-    # (a) kernel path against the eager path, dropout off, batch 8
-    k_state, batcher = build_train_flagship("cuda", batch_size=B,
-                                            dropout=False, causal=causal)
-    e_state, _ = build_train_flagship("cuda", batch_size=B, dropout=False,
-                                      use_fused_attention=False,
-                                      causal=causal)
-    e_state.model.load_state_dict(k_state.model.state_dict())
-    _, batch = batcher.next_batch()
-    reset_counts()
-    k_m, k_grads, k_outs = k_state.step_fn(
-        k_state, batch, torch.Generator(device="cuda").manual_seed(0),
-        keep=True)
-    torch.cuda.synchronize()
-    k_counts = counts()
-    mix = train_mix(k_state.model.config, [k_m])
-    n = sum(mix.values())
-    if k_counts != (n, n, n, 0):
-        raise AssertionError(f"{what}kernel step launched {k_counts}, "
-                             f"expected {(n, n, n, 0)}")
-    reset_counts()
-    e_m, e_grads, e_outs = e_state.step_fn(
-        e_state, batch, torch.Generator(device="cuda").manual_seed(0),
-        keep=True)
-    if counts() != (0, 0, 0, 0):
-        raise AssertionError("the eager step launched a kernel")
+def compare_steps(k, e, pinned):
+    """Phase 5 (a) / (c): the kernel step k and the eager step e, each
+    (metrics, grads, rollouts), agree: every ReLU decision of the kernel
+    step that differed from the eager step's (`pinned`, as
+    gate_witness.pin_relus counts them) within KINK_BAND of its kink,
+    actions identical, the rollout moved, losses to a relative 1e-4,
+    every gradient within 1e-3 of its largest magnitude, sprel_linear's
+    nonzero.  Returns the worst gradient's (ratio, name); raises
+    AssertionError."""
+    (k_m, k_grads, k_outs), (e_m, e_grads, e_outs) = k, e
+    if pinned["dist"] > KINK_BAND:
+        raise AssertionError(
+            f"a ReLU decision differs from the eager step's with |z - "
+            f"z_eager| {pinned['dist']:.3e} > {KINK_BAND}")
     for r in ("teacher", "sample"):
         if not torch.equal(k_outs[r]["actions"], e_outs[r]["actions"]):
             raise AssertionError(f"{r} actions differ")
@@ -782,37 +797,89 @@ def run_train(card, causal=False):
     if set(k_grads) != set(e_grads):
         raise AssertionError("the two steps give different parameters a "
                              "gradient")
-    worst = 0.0
-    for name, ge in e_grads.items():
-        scale = float(ge.abs().max())
-        if name.endswith(NOISE_GRAD_BIASES):
-            # zero up to rounding: each adds one constant to a whole row
-            # of scores or to every finite fused logit, which softmax
-            # ignores; held at the scale of its weight's gradient, as
-            # phase 3 holds the key bias
-            scale = max(scale, float(e_grads[name[:-4] + "weight"]
-                                     .abs().max()))
-        err = float((k_grads[name] - ge).abs().max())
-        if err > 1e-3 * scale:
-            raise AssertionError(f"grad {name}: |diff| {err} > 1e-3 x "
-                                 f"{scale}")
-        worst = max(worst, err / scale if scale else 0.0)
+    worst, name = worst_grad(k_grads, e_grads)
+    if worst > 1e-3:
+        raise AssertionError(f"grad {name}: |diff| {worst:.3e} of its "
+                             f"scale > 1e-3")
     if float(k_grads["global_encoder.sprel_linear.weight"].abs().max()) == 0:
         raise AssertionError("sprel_linear got no gradient")
-    say(f"{what}train ({pa}) batch {B}, dropout 0: kernel vs eager DAgger "
-        f"step: teacher {int(k_outs['teacher']['steps'])} + sample "
-        f"{int(k_outs['sample']['steps'])} steps, actions identical, loss "
-        f"{float(k_m['loss']):.6f} vs {float(e_m['loss']):.6f}, "
-        f"{len(e_grads)} "
-        f"gradients within {worst:.2e} of their max (limit 1e-3), "
-        f"launches {k_counts} (forward, backward a, backward b, "
-        f"attention-only; {mix_text(mix)})")
+    return worst, name
+
+
+def run_train(card, causal=False):
+    """Phase 5: (a) and (b), or (c) and (d) for the causal
+    configuration.  Returns the timed steps' launch mix and counts, and
+    the failure of (a) / (c)'s comparison (None when it passed), which
+    (b) / (d) do not wait on."""
+    what = "causal " if causal else ""
+    pa, pb = ("c", "d") if causal else ("a", "b")
+    # (a) kernel path against the eager path, dropout off, batch 8
+    k_state, batcher = build_train_flagship("cuda", batch_size=B,
+                                            dropout=False, causal=causal)
+    e_state, _ = build_train_flagship("cuda", batch_size=B, dropout=False,
+                                      use_fused_attention=False,
+                                      causal=causal)
+    e_state.model.load_state_dict(k_state.model.state_dict())
+    _, batch = batcher.next_batch()
+    # the eager step first, keeping the inputs of its ClsPrediction heads'
+    # ReLUs (the model's only kinks); the kernel step takes its decisions
+    # where its own differ, within KINK_BAND of the kink (compare_steps)
+    seen, hooks = record_relus(e_state.model)
+    reset_counts()
+    e_m, e_grads, e_outs = e_state.step_fn(
+        e_state, batch, torch.Generator(device="cuda").manual_seed(0),
+        keep=True)
+    for h in hooks:
+        h.remove()
+    if counts() != (0, 0, 0, 0):
+        raise AssertionError("the eager step launched a kernel")
+    pinned, hooks = pin_relus(k_state.model, seen)
+    reset_counts()
+    k_m, k_grads, k_outs = k_state.step_fn(
+        k_state, batch, torch.Generator(device="cuda").manual_seed(0),
+        keep=True)
+    torch.cuda.synchronize()
+    k_counts = counts()
+    for h in hooks:
+        h.remove()
+    if pinned["calls"] != sum(len(c) for c in seen.values()):
+        raise AssertionError(f"{what}kernel step made {pinned['calls']} "
+                             "ReLU calls, the eager step "
+                             f"{sum(len(c) for c in seen.values())}")
+    del seen
+    mix = train_mix(k_state.model.config, [k_m])
+    n = sum(mix.values())
+    if k_counts != (n, n, n, 0):
+        raise AssertionError(f"{what}kernel step launched {k_counts}, "
+                             f"expected {(n, n, n, 0)}")
+    head = (f"{what}train ({pa}) batch {B}, dropout 0: kernel vs eager "
+            f"DAgger step")
+    failed = None
+    try:
+        worst, name = compare_steps((k_m, k_grads, k_outs),
+                                    (e_m, e_grads, e_outs), pinned)
+    except AssertionError as exc:
+        failed = f"{what}train ({pa}): {exc}"
+        say(f"{head}: FAILED: {exc} (the script goes on, and fails at its "
+            f"end)")
+    else:
+        say(f"{head}: teacher {int(k_outs['teacher']['steps'])} + sample "
+            f"{int(k_outs['sample']['steps'])} steps, actions identical, "
+            f"loss {float(k_m['loss']):.6f} vs {float(e_m['loss']):.6f}, "
+            f"{len(e_grads)} gradients within {worst:.2e} of their max "
+            f"(limit 1e-3), launches {k_counts} (forward, backward a, "
+            f"backward b, attention-only; {mix_text(mix)}); worst {name}; "
+            f"the heads' ReLU inputs within {pinned['dev']:.2e} of eager's, "
+            f"{pinned['flips']} of the kernel step's ReLU decisions "
+            f"differed from eager's, each within "
+            f"{pinned['dist']:.2e} of its kink (limit {KINK_BAND}), and "
+            f"took eager's")
     del k_state, e_state, k_grads, e_grads, k_outs, e_outs
     torch.cuda.empty_cache()
 
     # (b) the bench's step: batch 64, dropout on, 3 timed steps, through
     # the kernels and then through the eager path
-    state, metrics, got, dt, warm_peak, peak, before = bench_steps(
+    state, metrics, got, dt, warm_peak, peak, before, left = bench_steps(
         True, causal)
     cfg = state.model.config
     mix = train_mix(cfg, metrics)
@@ -837,7 +904,8 @@ def run_train(card, causal=False):
         f"{moved}/{len(before)} parameters moved, launches {got} "
         f"({mix_text(mix)}), peak "
         f"memory {warm_peak:.2f} GiB in the warm-up (one step per bucket), "
-        f"{peak:.2f} GiB in the timed steps; {B_TRAIN * 3 / dt:.2f} "
+        f"{peak:.2f} GiB in the timed steps ({left:.2f} GiB left by earlier "
+        f"phases, freed first); {B_TRAIN * 3 / dt:.2f} "
         f"episodes/s ({dt / 3 * 1e3:.1f} ms per step) on {card}")
     del state, metrics, before
     torch.cuda.empty_cache()
@@ -851,9 +919,9 @@ def run_train(card, causal=False):
             f"warm-up peak {warm_peak:.2f} GiB plus the eager path's "
             f"predicted excess of {excess:.2f} GiB ({calls} attention "
             f"calls per rollout step) passes {EAGER_LIMIT_GIB} GiB")
-        return mix, got
-    _, e_metrics, e_got, e_dt, e_warm, e_peak, _ = bench_steps(False,
-                                                               causal)
+        return mix, got, failed
+    _, e_metrics, e_got, e_dt, e_warm, e_peak, _, e_left = bench_steps(
+        False, causal)
     if e_got != (0, 0, 0, 0):
         raise AssertionError("the eager step launched a kernel")
     if not all(math.isfinite(float(m["loss"])) for m in e_metrics):
@@ -861,10 +929,11 @@ def run_train(card, causal=False):
     say(f"{what}train ({pb}) eager path, same settings: 3 DAgger steps "
         f"(teacher, sample steps {rollout_steps(e_metrics)}), peak memory "
         f"{e_warm:.2f} GiB in the warm-up, {e_peak:.2f} GiB in the timed "
-        f"steps; {B_TRAIN * 3 / e_dt:.2f} episodes/s ({e_dt / 3 * 1e3:.1f} "
+        f"steps ({e_left:.2f} GiB left by earlier phases, freed first); "
+        f"{B_TRAIN * 3 / e_dt:.2f} episodes/s ({e_dt / 3 * 1e3:.1f} "
         f"ms per step) on {card}")
     torch.cuda.empty_cache()
-    return mix, got
+    return mix, got, failed
 
 
 def rollout_steps(metrics):
@@ -878,8 +947,13 @@ def bench_steps(fused: bool, causal: bool = False, n: int = 3):
     warm-up step per gt-length bucket, then n timed steps with the launch
     counts reset just before.  Returns the state, the timed steps'
     metrics, their launch counts and seconds, the peak memory (GiB) of the
-    warm-up and of the timed steps, and the parameters before the timed
-    steps."""
+    warm-up and of the timed steps, the parameters before the timed steps,
+    and the memory (GiB) earlier phases had left allocated, which is freed
+    first (a train state holds reference cycles, which only the cyclic
+    collector frees), so that the peaks are this step's own."""
+    left = torch.cuda.memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
     state, batcher = build_train_flagship("cuda", batch_size=B_TRAIN,
                                           use_fused_attention=fused,
                                           causal=causal)
@@ -901,7 +975,7 @@ def bench_steps(fused: bool, causal: bool = False, n: int = 3):
     dt = time.perf_counter() - t0
     got = counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    return state, metrics, got, dt, warm_peak, peak, before
+    return state, metrics, got, dt, warm_peak, peak, before, left
 
 
 def main() -> int:
@@ -933,9 +1007,9 @@ def main() -> int:
     rows, train_rows = check_kernels()
     mha_rows = check_mha()
     decode = run_rollouts(card)
-    mix, train = run_train(card)
+    mix, train, failed = run_train(card)
     c_decode = run_rollouts(card, causal=True)
-    c_mix, c_train = run_train(card, causal=True)
+    c_mix, c_train, c_failed = run_train(card, causal=True)
 
     # one row per kernel: launches by path (decode counts the forward
     # only), and times weighted by the launch mix of both train paths
@@ -999,13 +1073,22 @@ def main() -> int:
              bound_by=mha_rows[MHA_LINE[0]]["bound_by"],
              library_ms=mha_avg("library_ms")),
     ]
-    # K2's float32 CUDA-core bound (PR 6's), beside the 3xTF32 one the
-    # kernels line carries; K1 and K3 compute there, so theirs is the same
-    say(f"K2 float32 CUDA-core bound over the train mix: attention "
-        f"backward {avg('attn_bound_f32_ms'):.4f} ms, projection backward "
-        f"{avg('projb_bound_f32_ms'):.4f} ms")
+    # the float32 CUDA-core bounds, beside the 3xTF32 ones
+    # the kernels line carries, and the forward by part
+    say(f"float32 CUDA-core bound over the train mix: forward "
+        f"{avg('bound_f32_ms'):.4f} ms, attention backward "
+        f"{avg('attn_bound_f32_ms'):.4f} ms, projection backward "
+        f"{avg('projb_bound_f32_ms'):.4f} ms; attention-only "
+        f"{mha_avg('bound_f32_ms'):.4f} ms")
+    say(f"forward by part over the train mix: proj "
+        f"{avg('fwd_proj_ms'):.4f} ms, attn (no dropout) "
+        f"{avg('fwd_attn_ms'):.4f} ms")
     say(f"wall: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
+    failures = [f for f in (failed, c_failed) if f is not None]
+    if failures:
+        say("FAILED: " + "; ".join(failures))
+        return 1
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

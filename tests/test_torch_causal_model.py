@@ -7,6 +7,12 @@ back door for type_1 and type_2 with each merge, FrontDoorEncoder, and
 causal configuration.  The port's seeded weights go to the JAX model
 through the JAX package's `torch_to_flax`.
 
+The cases are spread over three files, so that the test workers build
+the JAX models apart: this one holds the language encoder's and the
+helpers; test_torch_causal_image.py the image back door and
+FrontDoorEncoder; test_torch_causal_forward.py the model's forwards
+under the causal configuration.
+
 Tolerance atol 5e-5 / rtol 1e-4: float32 on both sides, sums in another
 order, and flax's LayerNorm takes the variance as E[x^2] - E[x]^2 where
 torch's subtracts the mean first."""
@@ -16,13 +22,11 @@ import jax.numpy as jnp
 import torch
 
 from vln_goat_tpu.config import GoatConfig as JaxConfig
-from vln_goat_tpu.models.goat import FrontDoorEncoder as JaxFrontDoor
 from vln_goat_tpu.models.goat import GoatModel as JaxModel
 from vln_goat_tpu.train.checkpoint import torch_to_flax
 from vln_goat_tpu_torch.config import GoatConfig
-from vln_goat_tpu_torch.entry import CAUSAL, TINY, build_model, \
-    make_causal_banks
-from test_torch_model import _nav_inputs, _text_inputs
+from vln_goat_tpu_torch.entry import TINY, build_model, make_causal_banks
+from test_torch_model import _text_inputs
 
 TOL = dict(atol=5e-5, rtol=1e-4)
 B = 3
@@ -110,75 +114,3 @@ def _forward_panorama(jm, params, tm, banks, rng):
     return out, ref
 
 
-@pytest.mark.parametrize("img_type,method", [
-    ("type_1", "door"), ("type_2", "door"), ("type_2", "add"),
-    ("type_2", "concat")])
-def test_image_backdoor(rng, img_type, method):
-    jm, params, tm, banks = _pair(do_back_img=True,
-                                  do_back_img_type=img_type,
-                                  do_add_method=method)
-    out, ref = _forward_panorama(jm, params, tm, banks, rng)
-    for o, r in zip((out[0], out[2]), (ref[0], ref[2])):
-        _close(o, r)
-
-
-@pytest.mark.parametrize("masked", [True, False])
-def test_front_door_encoder(rng, masked):
-    jm, params, tm, banks = _pair(**CAUSAL)
-    D = TINY["hidden_size"]
-    local = rng.standard_normal((B, 14, D)).astype(np.float32)
-    masks = np.arange(14)[None, :] < np.array([14, 9, 4])[:, None]
-    bank = banks["front_gmap_feats"]
-    m = masks if masked else None
-    ref = JaxFrontDoor(jm.config).apply(
-        {"params": params["params"]["front_global_encoder"]},
-        jnp.asarray(local), jnp.asarray(bank),
-        None if m is None else jnp.asarray(m))
-    with torch.no_grad():
-        out = tm.front_global_encoder(
-            torch.from_numpy(local),
-            torch.from_numpy(np.ascontiguousarray(bank)),
-            None if m is None else torch.from_numpy(m))
-    _close(out, ref)
-
-
-@pytest.fixture(scope="module")
-def causal_pair():
-    return _pair(**CAUSAL)
-
-
-def test_causal_forward_text(causal_pair, rng):
-    _close(*_forward_text(*causal_pair, rng))
-
-
-def test_causal_forward_panorama(causal_pair, rng):
-    out, ref = _forward_panorama(*causal_pair, rng)
-    for o, r in zip((out[0], out[2]), (ref[0], ref[2])):
-        _close(o, r)
-    assert np.array_equal(out[1].numpy(), np.asarray(ref[1]))
-
-
-@pytest.mark.parametrize("hoisted_kv", [False, True])
-def test_causal_forward_navigation(causal_pair, rng, hoisted_kv):
-    jm, params, tm, banks = causal_pair
-    nav = _nav_inputs(rng)
-    nav.update(front_vp_feats=banks["front_vp_feats"],
-               front_gmap_feats=banks["front_gmap_feats"])
-    jnav = {k: jnp.asarray(v) for k, v in nav.items()}
-    tnav = {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in nav.items()}
-    if hoisted_kv:
-        jnav["txt_kv"] = jm.apply(params, jnav["txt_embeds"],
-                                  method=JaxModel.forward_text_kv)
-        with torch.no_grad():
-            tnav["txt_kv"] = tm.forward_text_kv(tnav["txt_embeds"])
-    ref = jm.apply(params, method=JaxModel.forward_navigation, **jnav)
-    with torch.no_grad():
-        out = tm.forward_navigation(**tnav)
-    for k in ("gmap_embeds", "vp_embeds", "global_logits", "local_logits",
-              "fused_logits", "cls_embeds"):
-        r, o = np.asarray(ref[k]), out[k].numpy()
-        fin = np.isfinite(r)
-        assert np.array_equal(fin, np.isfinite(o)), k
-        np.testing.assert_allclose(o[fin], r[fin], err_msg=k, **TOL)
-        assert np.array_equal(o[~fin], r[~fin]), k

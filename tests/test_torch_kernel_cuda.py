@@ -22,6 +22,7 @@ from vln_goat_tpu_torch.ops.attention import (attention_backward,
                                               gemm_tf32x3, mha, mha_plain,
                                               projection_backward)
 from vln_goat_tpu_torch.ops.bwd_plan import split_depth
+from vln_goat_tpu_torch.ops.dropout import keep_mask
 
 pytestmark = pytest.mark.cuda
 
@@ -72,7 +73,8 @@ def _case(g, B, Lq, Lk, hb, linear, grad=False):
 
 @pytest.mark.parametrize("Lq,Lk,hb,linear", [
     (1, 1, None, True), (40, 40, 1, True), (70, 130, 1, False),
-    (64, 256, 12, True), (33, 17, 12, False)])
+    (64, 256, 12, True), (33, 17, 12, False), (1, 200, 1, True),
+    (63, 255, None, False), (65, 200, 12, True), (130, 64, 1, True)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_fused_qkv_mha_matches_plain(card, Lq, Lk, hb, linear, rate):
     args, seed = _case(card, 3, Lq, Lk, hb, linear)
@@ -160,6 +162,70 @@ def test_dropout_keep_share(card):
     assert abs(share - 0.9) < 4 * math.sqrt(0.9 * 0.1 / n)
 
 
+def test_forward_is_bitwise_repeatable(card):
+    """Two launches of each forward on the same inputs give the same bits
+    (no atomics, a fixed order of sums), with dropout for the fused one."""
+    args, seed = _case(card, 4, 65, 200, 1, True)
+    with torch.no_grad():
+        runs = [fused_qkv_mha(*args, num_heads=H, dropout_rate=0.1,
+                              seed=seed) for _ in range(2)]
+    assert torch.equal(*runs)
+    q, k, v, bias = _mha_case(card, 3, 70, 130, "full")
+    assert torch.equal(mha(q, k, v, bias), mha(q, k, v, bias))
+
+
+def test_forward_parts_compose(card):
+    """The forward's projection launched alone and `mha` over its q, k
+    and v (as the smoke test times the forward's two parts) give what one
+    forward call without dropout gives, bit for bit (the same attention
+    core), and the projection holds q, k and v within the GEMM core's
+    bound against a float64 product (test_gemm_core_matches_float64's:
+    1e-5 of the largest sum of absolute products)."""
+    args, _ = _case(card, 3, 50, 60, 1, True)
+    x, y, wq, bq, wk, bk, wv, bv, bias = args
+    whole = attention_mod.forward_kernel(*args, num_heads=H)
+    q, k, v = attention_mod.forward_projection(*args[:8], num_heads=H)
+    assert torch.equal(whole, mha(q, k, v, bias))
+    for t, src, w, b in zip((q, k, v), (x, y, y), (wq, wk, wv),
+                            (bq, bk, bv)):
+        src = src.reshape(-1, D).double()
+        ref = src @ w.double() + b.double()
+        scale = float((src.abs() @ w.double().abs()).max())
+        assert float((t.reshape(-1, D).double() - ref).abs().max()) \
+            <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("Lq,Lk", [(60, 60), (65, 40), (1, 64)])
+def test_forward_drops_what_the_plain_version_drops(card, Lq, Lk):
+    """With one-hot values (v[k] = e_k in every head) the forward's output
+    is the dropped probability matrix itself: its zeros lie exactly where
+    the plain version's keep mask drops, and the kept entries match."""
+    B = 3
+    g = card
+    x = torch.randn(B, Lq, D, generator=g, device="cuda")
+    y = torch.zeros(B, Lk, D, device="cuda")
+    y[:, torch.arange(Lk), torch.arange(Lk)] = 1.0
+    wq = torch.randn(D, D, generator=g, device="cuda") / D ** 0.5
+    wk = torch.randn(D, D, generator=g, device="cuda")
+    wv = torch.zeros(D, D, device="cuda")
+    for h in range(H):
+        wv[torch.arange(Lk), h * 64 + torch.arange(Lk)] = 1.0
+    zeros = torch.zeros(D, device="cuda")
+    seed = torch.randint(0, 2 ** 31 - 1, (B,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    args = (x, y, wq, zeros, wk, zeros, wv, zeros)
+    with torch.no_grad():
+        out = fused_qkv_mha(*args, num_heads=H, dropout_rate=0.1, seed=seed)
+    ref = fused_qkv_mha_plain(*args, num_heads=H, dropout_rate=0.1,
+                              seed=seed)
+    pd = out.view(B, Lq, H, 64)[..., :Lk].transpose(1, 2)
+    pd_ref = ref.view(B, Lq, H, 64)[..., :Lk].transpose(1, 2)
+    keep = keep_mask(seed, (B, H, Lq, Lk), 0.1)
+    assert torch.equal(pd == 0, ~keep)
+    assert torch.equal(pd_ref == 0, ~keep)
+    torch.testing.assert_close(pd, pd_ref, atol=1e-4, rtol=1e-3)
+
+
 def test_fused_qkv_mha_refuses_long_keys(card):
     x = torch.zeros(1, 4, 768, device="cuda")
     y = torch.zeros(1, 257, 768, device="cuda")
@@ -211,7 +277,7 @@ def _mha_case(g, B, Lq, Lk, bias_kind):
 
 @pytest.mark.parametrize("Lq,Lk,bias_kind", [
     (16, 16, None), (24, 40, "key"), (12, 12, "full"), (50, 60, "key"),
-    (130, 256, "full")])
+    (130, 256, "full"), (1, 200, "key"), (65, 63, None), (63, 255, "key")])
 def test_mha_matches_plain(card, Lq, Lk, bias_kind):
     args = _mha_case(card, 3, Lq, Lk, bias_kind)
     before = mha.launches
@@ -230,6 +296,21 @@ def test_mha_reads_strided_views(card):
     qkv = torch.randn(2, 40, 3, H, 64, generator=card, device="cuda")
     q, k, v = qkv.unbind(2)
     torch.testing.assert_close(mha(q, k, v), mha_plain(q, k, v),
+                               atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("Lk", [40, 200])
+def test_mha_reads_transposed_views(card, Lk):
+    """q, k, v as views whose column stride is not 1 ([B, H, dh, L]
+    permuted) and at an odd offset: the kernel takes them through 4-byte
+    copies."""
+    def view(L):
+        t = torch.randn(2, H, 64, L + 1, generator=card, device="cuda")
+        return t[..., 1:].permute(0, 3, 1, 2)
+    q, k, v = view(70), view(Lk), view(Lk)
+    assert q.stride(3) != 1
+    bias = torch.randn(2, 1, 70, Lk, generator=card, device="cuda")
+    torch.testing.assert_close(mha(q, k, v, bias), mha_plain(q, k, v, bias),
                                atol=1e-4, rtol=1e-3)
 
 

@@ -4,8 +4,11 @@ and attention over projected heads.
 `fused_qkv_mha` is the port of the TPU kernels behind the JAX package's
 `pallas_fused_qkv_mha` (vln_goat_tpu/ops/attention.py:347):
 
-- the forward `_fa_fwd_kernel` (:169, launched by `_fa_call` :251) is the
-  hand-written CUDA kernel `csrc/fused_qkv_mha.cu`, with the in-kernel
+- the forward `_fa_fwd_kernel` (:169, launched by `_fa_call` :251) is
+  `csrc/fused_qkv_mha.cu`: the q / k / v projection GEMM of
+  `csrc/qkv_proj.cuh` (the same jobs the backward recomputes through) on
+  the tensor-core GEMM core `csrc/gemm_tf32x3.cuh`, then the attention
+  core `csrc/attn_fwd.cuh` on 3xTF32 fragments, with the in-kernel
   attention-probability dropout of `_fa_probs` (:149-166);
 - the backward `_fa_bwd_kernel` (:181, custom-VJP rule `_fa_bwd_rule`
   :316) is `csrc/fused_qkv_mha_bwd.cu` on the tensor-core GEMM core
@@ -27,7 +30,8 @@ the chip smoke test holds the kernels against.  The dropout mask of both is
 attention alone, forward only, over q / k / v that are already projected
 and split into heads.  On a CUDA tensor it launches `csrc/mha.cu`; on a
 CPU tensor it computes `mha_plain`.  As in the JAX package, no model path
-calls it: it is a public op for A/B comparisons.
+calls it: it is a public op for A/B comparisons.  It runs the same
+attention core as the fused forward, without dropout.
 """
 from __future__ import annotations
 
@@ -107,9 +111,12 @@ def _fwd_lib() -> ctypes.CDLL:
     fn = lib.fused_qkv_mha_fwd
     if fn.argtypes is None:
         fn.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3
-                       + [_VP, _LL, _LL, _LL, _LL, _VP] + [_I] * 5
+                       + [_VP, _LL, _LL, _LL, _LL, _VP, _VP] + [_I] * 5
                        + [_F, _VP, _U, _F, _VP])
         fn.restype = _I
+        lib.fused_qkv_mha_proj.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3
+                                           + [_VP] + [_I] * 5 + [_VP])
+        lib.fused_qkv_mha_proj.restype = _I
         lib.fused_qkv_mha_head_dim.restype = _I
         lib.fused_qkv_mha_max_lk.restype = _I
     return lib
@@ -333,18 +340,41 @@ def _bwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
 def forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias=None,
                    num_heads: int = 12, dropout_rate: float = 0.0,
                    seed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of the forward kernel on CUDA tensors (no autograd)."""
+    """One call of the forward on CUDA tensors (no autograd), counted as
+    one launch: the q / k / v projection GEMM into scratch of
+    B (Lq + 2 Lk) H*dh floats, freed on return, then the attention."""
     c = _fwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
                   dropout_rate)
-    out = torch.empty((c.B, c.Lq, c.HD), device=c.dev, dtype=torch.float32)
+    f32 = dict(device=c.dev, dtype=torch.float32)
+    out = torch.empty((c.B, c.Lq, c.HD), **f32)
+    qkv = torch.empty(c.B * (c.Lq + 2 * c.Lk) * c.HD, **f32)
     with torch.cuda.device(c.dev):
         rc = c.lib.fused_qkv_mha_fwd(
             x.data_ptr(), y.data_ptr(), *c.weight_args(), *c.bias_args(),
-            out.data_ptr(), c.B, c.Lq, c.Lk, c.D, c.H, c.scale,
-            *c.seed_args(), c.stream())
+            out.data_ptr(), qkv.data_ptr(), c.B, c.Lq, c.Lk, c.D, c.H,
+            c.scale, *c.seed_args(), c.stream())
     fused_qkv_mha.launches += 1
     c.check(rc, "fused_qkv_mha")
     return out
+
+
+def forward_projection(x, y, wq, bq, wk, bk, wv, bv, num_heads: int = 12):
+    """The forward's first launch alone, for timing it apart from the
+    attention (`mha` over its views runs the same attention core): q
+    [B, Lq, H, dh], k and v [B, Lk, H, dh] as the forward projects them,
+    views of one scratch.  Not counted in `fused_qkv_mha.launches`."""
+    c = _fwd_call(x, y, wq, bq, wk, bk, wv, bv, None, None, num_heads, 0.0)
+    qkv = torch.empty(c.B * (c.Lq + 2 * c.Lk) * c.HD, device=c.dev,
+                      dtype=torch.float32)
+    with torch.cuda.device(c.dev):
+        rc = c.lib.fused_qkv_mha_proj(
+            x.data_ptr(), y.data_ptr(), *c.weight_args(), qkv.data_ptr(),
+            c.B, c.Lq, c.Lk, c.D, c.H, c.stream())
+    c.check(rc, "fused_qkv_mha projection")
+    dh = c.HD // c.H
+    q, k, v = qkv.split([c.B * c.Lq * c.HD] + [c.B * c.Lk * c.HD] * 2)
+    return (q.view(c.B, c.Lq, c.H, dh), k.view(c.B, c.Lk, c.H, dh),
+            v.view(c.B, c.Lk, c.H, dh))
 
 
 # keys per chunk of the attention backward (csrc/fused_qkv_mha_bwd.cu KC)

@@ -32,9 +32,11 @@
 //   1. the recompute: q = x Wq + bq, k = y Wk + bk, v = y Wv + bv as three
 //      jobs of one GEMM launch (128 x 128 tiles, a cp.async ring), into
 //      scratch of B (Lq + 2 Lk) H dh floats that the wrapper frees on
-//      return.  Recomputing inside each (batch row, head) block instead
-//      would re-read the weights' head slice for every batch row and keep
-//      the attention blocks on the small 64-wide products; one GEMM over all
+//      return: the jobs of qkv_proj.cuh through which the forward
+//      (fused_qkv_mha.cu) projects, so both see the same q, k, v.
+//      Recomputing inside each (batch row, head) block instead would
+//      re-read the weights' head slice for every batch row and keep the
+//      attention blocks on the small 64-wide products; one GEMM over all
 //      rows keeps the tensor cores on 128 x 128 tiles.
 //   2. attn_bwd_kernel, one block per (batch row, head) over that scratch.
 //      Keys go in chunks of 64, queries in tiles of 64; K, V, Q and dO are
@@ -72,9 +74,13 @@
 
 #include "dropout_hash.cuh"
 #include "gemm_tf32x3.cuh"
+#include "qkv_proj.cuh"
 
 namespace {
 
+using qkv_proj::Jobs;
+using qkv_proj::launch_jobs;
+using qkv_proj::MAX_JOBS;
 using tf32x3::GemmJob;
 using tf32x3::make_operand;
 
@@ -86,67 +92,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int MAX_LK = 256;
 constexpr int LDS = DH + 4;     // row stride of the (a) tiles in shared memory
 constexpr int ATTN_SMEM_FLOATS = 6 * TQ * LDS;
-constexpr int MAX_JOBS = 5;
-
-// ---------------------------------------------------------------------------
-// GEMM launch: a table of jobs, then the head sum of ds.
-
-struct Jobs {
-  GemmJob job[MAX_JOBS];
-  int njobs;
-  int gemm_blocks;
-  // dbias[b, 0, q, k] = sum over h of ds[b, h, q, k] (fixed order)
-  const float* ds;
-  float* dbias;
-  int H;
-  long long hsum_qk;  // Lq * Lk
-  long long hsum_n;   // B * Lq * Lk (0: none)
-};
-
-__global__ void __launch_bounds__(THREADS, 2) gemm_jobs_kernel(const Jobs J) {
-  extern __shared__ float smem[];
-  __shared__ GemmJob job;
-  const int blk = blockIdx.x;
-  if (blk < J.gemm_blocks) {
-    int jj = 0;
-#pragma unroll
-    for (int i = 1; i < MAX_JOBS; ++i)
-      if (i < J.njobs && blk >= J.job[i].block0) jj = i;
-    if (threadIdx.x == 0) job = J.job[jj];
-    __syncthreads();
-    const int local = blk - job.block0;
-    const int tiles = job.tiles_m * job.tiles_n;
-    tf32x3::gemm_block(job, local / tiles, local % tiles, smem);
-    return;
-  }
-  const long long e =
-      (long long)(blk - J.gemm_blocks) * THREADS + threadIdx.x;
-  if (e >= J.hsum_n) return;
-  // e = b * QK + qk; ds[b, h, q, k] lies at (b * H + h) * QK + qk
-  const long long QK = J.hsum_qk;
-  const float* src = J.ds + (e / QK) * J.H * QK + e % QK;
-  float acc = 0.f;
-  for (int h = 0; h < J.H; ++h) acc += src[h * QK];
-  J.dbias[e] = acc;
-}
-
-int launch_jobs(Jobs& J, cudaStream_t stream) {
-  int blocks = 0;
-  for (int i = 0; i < J.njobs; ++i) {
-    J.job[i].block0 = blocks;
-    blocks += J.job[i].blocks;
-  }
-  J.gemm_blocks = blocks;
-  blocks += (int)((J.hsum_n + THREADS - 1) / THREADS);
-  if (blocks == 0) return 0;
-  // once, so that no call made while a CUDA graph is captured sets it
-  static const cudaError_t e = cudaFuncSetAttribute(
-      gemm_jobs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)tf32x3::SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  gemm_jobs_kernel<<<blocks, THREADS, tf32x3::SMEM_BYTES, stream>>>(J);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // (b) second pass: out[i] = sum over s < splits of part[s * n + i]
@@ -483,21 +428,11 @@ int fused_qkv_mha_bwd_attn(
   float* qs = (float*)qkv;
   float* ks = qs + (long long)B * Lq * HD;
   float* vs = ks + (long long)B * Lk * HD;
-  Jobs J = {};
-  J.njobs = 3;
-  const void* src[3] = {x, y, y};
-  const int rows[3] = {B * Lq, B * Lk, B * Lk};
   const void* w[3] = {wq, wk, wv};
   const long long sd[3] = {wq_sd, wk_sd, wv_sd}, so[3] = {wq_so, wk_so, wv_so};
   const void* bb[3] = {bq, bk, bv};
-  float* out[3] = {qs, ks, vs};
-  for (int i = 0; i < 3; ++i) {
-    GemmJob& j = J.job[i];
-    tf32x3::set_job(j, rows[i], HD, D, 1, 0, out[i], HD, 1, 0);
-    tf32x3::add_seg(j, make_operand(src[i], D, 1),
-                    make_operand(w[i], so[i], sd[i]), D);
-    j.bias = (const float*)bb[i];
-  }
+  Jobs J;
+  qkv_proj::qkv_jobs(J, x, y, w, sd, so, bb, qs, B, Lq, Lk, D, HD);
   int rc = launch_jobs(J, st);
   if (rc != 0) return rc;
 
@@ -524,9 +459,7 @@ int fused_qkv_mha_bwd_attn(
   A.H = H;
   A.scale = scale;
   const size_t bytes = ATTN_SMEM_FLOATS * sizeof(float);
-  static const cudaError_t e = cudaFuncSetAttribute(
-      attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  const cudaError_t e = tf32x3::smem_limit<attn_bwd_kernel>((int)bytes);
   if (e != cudaSuccess) return (int)e;
   attn_bwd_kernel<<<dim3(B, H), THREADS, bytes, st>>>(A);
   return (int)cudaGetLastError();

@@ -1,4 +1,4 @@
-// Tensor-core GEMM core of the fused attention backward, float32-accurate.
+// Tensor-core GEMM core of the fused attention, float32-accurate.
 //
 // Products run on the tensor cores with TF32 operands in the 3xTF32
 // split: each operand x is cut into big = cvt.rna.tf32(x) and
@@ -8,12 +8,13 @@
 // times the tensor-core work (495 TFLOP/s of TF32 on an H100 SXM is 165
 // TFLOP/s of float32-accurate products, against 67 on the CUDA cores).
 //
-// Two levels, both used by fused_qkv_mha_bwd.cu:
+// Two levels:
 //
 // - fragment level: `split_tf32`, `mma3` and `warp_mma_16x32`, a warp's
 //   16 x 32 tile over a depth of 64 on `mma.sync.aligned.m16n8k8`, with
 //   operands read from shared memory through accessors (the attention
-//   backward's five products);
+//   backward's five products in fused_qkv_mha_bwd.cu, the attention
+//   forward's two in attn_fwd.cuh);
 // - block level: `gemm_block`, one 128 x 128 output tile of a job
 //   C = A B (+ bias) over a range of the depth, two warpgroups of 64 x 128
 //   on `wgmma.mma_async.m64n128k8` (A from registers, B from shared
@@ -29,13 +30,41 @@
 //   second pass), may take its depth from two segments with their own
 //   operands (dy = dk Wk^T + dv Wv^T), may add a bias in the epilogue, and
 //   may write the column sums of B over its slice (the bias gradient
-//   db = 1^T dq beside dW = x^T dq).
+//   db = 1^T dq beside dW = x^T dq).  qkv_proj.cuh launches tables of jobs
+//   (the q / k / v projections of the forward and of the backward's
+//   recompute, the backward's dx, dy and dW).
+//
+// The tensor cores round the sums inside a wgmma toward zero: over a depth
+// of 768 in one accumulator (288 wgmma steps) the block-level products
+// drift about 1e-5 relative, ten times a float32 GEMM's error, inside
+// every gate the kernels are held to.  Summing each 32-deep chunk in an
+// accumulator of its own and adding it in float32 brings that to float32's
+// error, but takes 64 more registers a thread, one block per SM instead
+// of two, and a third more time (PERF.md §6).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tf32x3 {
+
+// Raises Kernel's dynamic shared-memory limit to `bytes` on the current
+// device, once per device: the attribute holds per device, and setting it
+// at a device's first launch keeps the call out of the CUDA graphs
+// captured after.  A race sets it twice, which is harmless.
+template <auto Kernel>
+__host__ inline cudaError_t smem_limit(int bytes) {
+  constexpr int MAX_DEVICES = 64;
+  static bool set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 0 && dev < MAX_DEVICES && set[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && dev >= 0 && dev < MAX_DEVICES) set[dev] = true;
+  return e;
+}
 
 // ---------------------------------------------------------------------------
 // PTX helpers
@@ -101,7 +130,11 @@ __device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4],
 }
 
 // acc[ni] += A[m0 : m0+16, 0:64] B[0:64, n0 + 8 ni : n0 + 8 ni + 8] for
-// ni < 4, A(m, k) and B(k, n) read through the accessors.  Fragment
+// ni < 4, A(m, k) and B(k, n) read through the accessors.  Each 8-deep
+// step's three products start from zero and are added into acc in
+// float32, rounding to nearest: the tensor cores' own sums round toward
+// zero, and over the depth of a score row (64) or of p v (up to 256 keys)
+// that drift would be several times float32's error.  Fragment
 // layout of m16n8k8 (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g+8, t),
 // a2 (g, t+4), a3 (g+8, t+4); b0 (t, g), b1 (t+4, g); c0, c1 (g, 2t, 2t+1),
 // c2, c3 (g+8, 2t, 2t+1).
@@ -122,7 +155,10 @@ __device__ __forceinline__ void warp_mma_16x32(float acc[4][4], AF a, BF b,
       uint32_t bb[2], bs[2];
       split_tf32(b(k0 + t, n0 + 8 * ni + g), bb[0], bs[0]);
       split_tf32(b(k0 + t + 4, n0 + 8 * ni + g), bb[1], bs[1]);
-      mma3(acc[ni], ab, as, bb, bs);
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      mma3(part, ab, as, bb, bs);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[ni][e] += part[e];
     }
   }
 }
