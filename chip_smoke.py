@@ -47,7 +47,8 @@ Phases, each printing a flushed line as it ends:
      lies farther from the kink;
      (b) the bench's step
      (batch 64, dropout 0.1 / 0.1 / features 0.4): one warm-up step per
-     gt-length bucket, then 3 timed steps, loss and grad norm finite,
+     gt-length bucket, then EARLIER_STEPS timed steps (2; 3 before the
+     bf16 phases came), loss and grad norm finite,
      the parameters moved, and the kernels' launches equal to the count
      the config and the steps each rollout ran give; peak memory of the
      warm-up and of the timed steps, with what earlier phases left
@@ -55,12 +56,40 @@ Phases, each printing a flushed line as it ends:
      timed for comparison; (c) and (d):
      (a) and (b) for the causal configuration (the eager timing is left
      out, and a line says so, when its predicted peak would pass 76 GiB).
+bf16 (the JAX package's bench trains its model in bf16 with remat
+"model"):
+  3 (bf16): the kernels' bf16 builds against the plain version in bf16
+     and both against float64 on the same bf16-rounded inputs (output and
+     every gradient scaled by its largest float64 magnitude: the kernel's
+     error at most 2x the plain version's + 1e-3), at the decode shapes
+     (batch 8, dropout 0; keep share within 4 binomial sd of 0.9 at the
+     bf16-rounded kept probability) and at the train shapes (batch 64,
+     dropout 0.1, timed beside the plain version, `addmm` x3 + SDPA in
+     bf16 with their autograd, and the bound at 989 TFLOP/s / 3.35 TB/s);
+     two backward launches bitwise equal;
+  4 (bf16): greedy decode in bf16 through the kernels and on the eager
+     path from the same weights, against the float32 kernel route's first
+     step (each route's logits, the kernels' distance at most 2x the
+     eager route's + 1e-3; in the plain configuration the two bf16 routes
+     within 3e-2 of each other), masks as the model defines them;
+  5 (e): remat "model" against "none" through the kernels, two batch-8
+     DAgger steps at dropout 0.1: actions, losses, gradients (1e-6 of
+     their scale) and the generator's state equal;
+  5 (f): one batch-8 imitation step without dropout on float32 eager,
+     bf16 eager and bf16 kernels: each bf16 route's loss and global
+     gradient error against float32, the kernels' at most 2x eager's +
+     1e-3 (plain and causal);
+  5 (g): the bench build (bf16, remat "model", batch 64, dropout on),
+     plain and causal, one warm-up per bucket and 3 timed steps, and a
+     float32 remat "model" warm-up whose peak must be under half of (b) /
+     (d)'s.
 Every path is driven with the launch counts set to 0 just before it and
 read just after.
-The line before the last is one JSON object with every kernel's numbers;
-the last is {"ok": true, "device": {...}}.  Any failure raises, but for
-the comparison of phase 5 (a) / (c): it prints its failure, the later
-phases run and print their numbers, and the script then prints the
+The line before the last is one JSON object with every kernel's numbers
+(the bf16 builds as rows of their own); the last is {"ok": true,
+"device": {...}}.  Any failure raises, but for the comparisons of phases
+4 (bf16) and 5 (a), (c), (e), (f), (g): each prints its failure, the
+later phases run and print their numbers, and the script then prints the
 failures instead of the last two lines and exits non-zero.  There is no
 CPU fallback, and without a card the script exits non-zero before
 printing a result.
@@ -78,6 +107,7 @@ import time
 import torch
 import torch.nn.functional as F
 
+from vln_goat_tpu_torch.config import TrainConfig
 from vln_goat_tpu_torch.entry import (build_flagship, build_train_flagship,
                                       greedy_rollout, train_steps)
 from vln_goat_tpu_torch.ops import _build
@@ -100,6 +130,8 @@ from vln_goat_tpu_torch.tools.gate_witness import (pin_relus,
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
+# dense bf16 on the tensor cores: the bf16 builds of the kernels' rate
+PEAK_BF16_FLOP_PER_S = 989e12
 ATOL, RTOL = 1e-4, 1e-3   # float32, sums taken in another order than cuBLAS
 # Phase 5 (a) / (c): a ReLU pre-activation of a ClsPrediction head within
 # this of 0 may fall on either side of the kink within the forward's
@@ -109,6 +141,9 @@ KINK_BAND = ATOL
 
 D, H, DH, B = 768, 12, 64, 8
 B_TRAIN = 64              # bench_train's default batch
+# timed steps of the float32 train paths 5 (b) and (d), cut from 3 to keep
+# the script's time with the bf16 phases; the bench build 5 (g) times 3
+EARLIER_STEPS = 2
 RATE = 0.1                # attention_probs_dropout_prob of the R2R config
 # Seed of the random weights.  With seed 0 (build_flagship's default)
 # every episode of the first batch stops at its first step, which leaves
@@ -235,21 +270,23 @@ def make_case(g, Lq, Lk, bias_kind, layout, batch=B):
 
 
 def _bytes(*ts):
-    return 4 * sum(t.numel() for t in ts if t is not None)
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def bound(args, kind="fwd", with_ds=False, tf32x3=False):
     """(ms by operations, ms by bytes) of one kernel call: the operations
     over the float32 peak, or with `tf32x3` three times the operations over
     the TF32 tensor-core peak (the float32-accurate rate of the 3xTF32
-    split), and bytes over the memory rate with each input read once and
-    each output written once.  fwd: projections and the two attention
-    products; attn (backward (a)): the recomputed projections and scores
-    plus dp, dq, dk and dv; proj (backward (b)): dx, dy and the three
-    weight gradients."""
+    split), or for bf16 arguments the operations over the bf16
+    tensor-core peak; and bytes over the memory rate with each input read
+    once and each output written once (in the arguments' dtype, ds in
+    float32).  fwd: projections and the two attention products; attn
+    (backward (a)): the recomputed projections and scores plus dp, dq, dk
+    and dv; proj (backward (b)): dx, dy and the three weight gradients."""
     x, y, wq, bq, wk, bk, wv, bv, bias = args
     Bx, Lq, Dx = x.shape
     Lk, HD = y.shape[1], wq.shape[1]
+    es = x.element_size()
     proj = 2 * Bx * (Lq + 2 * Lk) * Dx * HD
     att = 2 * Bx * Lq * Lk * HD                 # one [Lq x Lk x dh] product
     out_q, out_k = Bx * Lq * HD, Bx * Lk * HD
@@ -257,17 +294,21 @@ def bound(args, kind="fwd", with_ds=False, tf32x3=False):
     weights = _bytes(wq, bq, wk, bk, wv, bv)
     if kind == "fwd":
         flops = proj + 2 * att
-        nbytes = _bytes(x, y, bias) + weights + 4 * out_q
+        nbytes = _bytes(x, y, bias) + weights + es * out_q
     elif kind == "attn":
         flops = proj + 5 * att
-        nbytes = _bytes(x, y, bias) + weights + 4 * (2 * out_q + 2 * out_k
-                                                      + ds)
+        nbytes = _bytes(x, y, bias) + weights \
+            + es * (2 * out_q + 2 * out_k) + 4 * ds
     else:
         flops = 2 * proj
-        nbytes = 2 * (_bytes(x, y) + weights) + 4 * (out_q + 2 * out_k) \
+        nbytes = 2 * (_bytes(x, y) + weights) + es * (out_q + 2 * out_k) \
             + 4 * (ds + ds // H)
-    ops_ms = 3 * flops / PEAK_TF32_FLOP_PER_S if tf32x3 \
-        else flops / PEAK_F32_FLOP_PER_S
+    if x.dtype == torch.bfloat16:
+        ops_ms = flops / PEAK_BF16_FLOP_PER_S
+    elif tf32x3:
+        ops_ms = 3 * flops / PEAK_TF32_FLOP_PER_S
+    else:
+        ops_ms = flops / PEAK_F32_FLOP_PER_S
     return ops_ms * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
 
 
@@ -280,7 +321,8 @@ def library_call(args):
     q = torch.addmm(bq, x.view(-1, D), wq).view(Bx, Lq, H, DH).transpose(1, 2)
     k = torch.addmm(bk, y.view(-1, D), wk).view(Bx, Lk, H, DH).transpose(1, 2)
     v = torch.addmm(bv, y.view(-1, D), wv).view(Bx, Lk, H, DH).transpose(1, 2)
-    o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    o = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=None if bias is None else bias.to(x.dtype))
     return o.transpose(1, 2).reshape(Bx, Lq, H * DH)
 
 
@@ -325,21 +367,32 @@ def grads_of(out, args, dout):
     return [None if a is None else next(it) for a in lv]
 
 
-def keep_share(Lq, Lk):
+def kept_unit(Lk, dtype):
+    """The value one kept uniform probability adds to an output column
+    of values one: 1 / (Lk (1 - RATE)) as the kernel computes it in
+    float32, rounded to bf16 for a bf16 call (the cast of p before p v;
+    the same value for every key, so the rounding does not average out)."""
+    f32 = torch.float32
+    unit = (torch.tensor(1.0, dtype=f32) / Lk) \
+        * torch.tensor(1.0 / (1.0 - RATE), dtype=f32)
+    return float(unit.to(dtype))
+
+
+def keep_share(Lq, Lk, dtype=torch.float32):
     """Share of the probabilities the forward kernel keeps at RATE: with
     zero query weights the probabilities are uniform, and with values of
-    one every output column is (kept count / Lk) / (1 - RATE)."""
+    one every output column is kept count x kept_unit(Lk)."""
     g = torch.Generator(device="cuda").manual_seed(7)
-    x = torch.randn(B, Lq, D, generator=g, device="cuda")
-    y = torch.randn(B, Lk, D, generator=g, device="cuda")
-    zeros = torch.zeros(D, device="cuda")
-    w0 = torch.zeros(D, D, device="cuda")
+    x = torch.randn(B, Lq, D, generator=g, device="cuda").to(dtype)
+    y = torch.randn(B, Lk, D, generator=g, device="cuda").to(dtype)
+    zeros = torch.zeros(D, device="cuda", dtype=dtype)
+    w0 = torch.zeros(D, D, device="cuda", dtype=dtype)
     seed = torch.randint(0, 2 ** 31 - 1, (B,), generator=g, device="cuda",
                          dtype=torch.int32)
     with torch.no_grad():
         out = fused_qkv_mha(x, y, w0, zeros, w0, zeros, w0, zeros + 1.0,
                             None, num_heads=H, dropout_rate=RATE, seed=seed)
-    share = float(out[..., ::DH].mean()) * (1.0 - RATE)
+    share = float(out[..., ::DH].float().mean()) / (Lk * kept_unit(Lk, dtype))
     sd = math.sqrt(RATE * (1.0 - RATE) / (B * H * Lq * Lk))
     if abs(share - (1.0 - RATE)) > 4 * sd:
         raise AssertionError(f"keep share {share} at {Lq}x{Lk}: more than "
@@ -438,6 +491,14 @@ def check_shape(g, name, Lq, Lk, bias_kind, layout, batch, timed):
     row["fwd_attn_ms"] = graph_ms(lambda: mha(*qkv, det[8]))
     del qkv
 
+    time_backward(row, args, det, seed, dout, batch, rate, parts=True)
+    return row
+
+
+def time_backward(row, args, det, seed, dout, batch, rate, parts):
+    """Times of both backward kernels at one call's inputs (float32 or
+    bf16), beside the plain version's and the library's backward and their
+    bounds, into `row`; with `parts`, the projection backward by part."""
     # backward times: each kernel alone, against the backward of the
     # matching part of the plain version and of the library call
     need_ds = args[8] is not None and args[8].requires_grad
@@ -458,16 +519,20 @@ def check_shape(g, name, Lq, Lk, bias_kind, layout, batch, timed):
         with torch.no_grad():
             qkv = project_plain(*det[:8])
         qkv = [t.requires_grad_() for t in qkv]
-        att = attend_plain(*qkv, args[8], H, rate, seed)
+        att = attend_plain(*qkv, args[8], H, rate, seed, dtype=x.dtype)
         return torch.autograd.grad(att, qkv + ([args[8]] if need_ds
                                                else []), dout)
 
     row["attn_plain_ms"] = cuda_ms(attn_plain)
     lv = [a for a in leaves(args)[:8] if a is not None]
     pq = project_plain(*args[:8])
+    # in bf16 the plain projections are float32 (bf16 products summed in
+    # float32), so their cotangents are too
+    dqkv = [t.to(p_.dtype) for t, p_ in zip((dq, dk, dv), pq)]
     row["projb_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
-        pq, lv, (dq, dk, dv), retain_graph=True))
-    do4 = dout.view(batch, Lq, H, DH).transpose(1, 2)
+        pq, lv, dqkv, retain_graph=True))
+    do4 = dout.view(batch, -1, H, DH).transpose(1, 2)
+    mask = None if bias is None else bias.to(x.dtype)
 
     def attn_library():
         with torch.no_grad():
@@ -476,7 +541,7 @@ def check_shape(g, name, Lq, Lk, bias_kind, layout, batch, timed):
                           for s_, w_, b_ in ((x, wq, bq), (y, wk, bk),
                                              (y, wv, bv)))
         qkv = [t.requires_grad_() for t in (q4, k4, v4)]
-        lo = F.scaled_dot_product_attention(*qkv, attn_mask=bias)
+        lo = F.scaled_dot_product_attention(*qkv, attn_mask=mask)
         return torch.autograd.grad(lo, qkv, do4)
 
     row["attn_library_ms"] = cuda_ms(attn_library)
@@ -486,19 +551,21 @@ def check_shape(g, name, Lq, Lk, bias_kind, layout, batch, timed):
     row["projb_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
         lq, lv, (dq.view(-1, H * DH), dk.view(-1, H * DH),
                  dv.view(-1, H * DH)), retain_graph=True))
-    # (b) by part: the dx and dy GEMMs, the split-K weight gradients, the
-    # pass that adds their slices, and the head sum of ds
-    call = ProjectionBackward(x, y, wq, wk, wv, dq, dk, dv, hsum, H)
-    for part in PROJ_PARTS:
-        if part != "hsum" or hsum is not None:
-            row[f"projb_{part}_ms"] = graph_ms(lambda: call.launch(part))
+    if parts:
+        # (b) by part: the dx and dy GEMMs, the split-K weight gradients,
+        # the pass that adds their slices, and the head sum of ds
+        call = ProjectionBackward(x, y, wq, wk, wv, dq, dk, dv, hsum, H)
+        for part in PROJ_PARTS:
+            if part != "hsum" or hsum is not None:
+                row[f"projb_{part}_ms"] = graph_ms(lambda: call.launch(part))
     for kind, key in (("attn", "attn"), ("proj", "projb")):
         ob = bound(det, kind, with_ds=need_ds, tf32x3=True)
         row[f"{key}_bound_ms"] = max(ob)
         row[f"{key}_bound_by"] = "operations" if ob[0] >= ob[1] \
             else "bytes"
-        row[f"{key}_bound_f32_ms"] = max(bound(det, kind, with_ds=need_ds))
-    return row
+        if det[0].dtype == torch.float32:
+            row[f"{key}_bound_f32_ms"] = max(bound(det, kind,
+                                                   with_ds=need_ds))
 
 
 def check_kernels():
@@ -551,6 +618,167 @@ def check_kernels():
             f"{row['projb_bound_f32_ms']:.4f}), by part "
             + ", ".join(f"{p} {row[f'projb_{p}_ms']:.4f}"
                         for p in PROJ_PARTS if f"projb_{p}_ms" in row))
+    return rows, train_rows
+
+# ---------------------------------------------------------------------------
+# Phase 3 in bf16: the bf16 builds of K1, K2 (a) and K2 (b) against the
+# plain version in bf16 (the JAX kernel's cast points), both held to a
+# float64 evaluation of the same bf16-rounded inputs.  Gate, for the
+# output and every gradient scaled by its largest float64 magnitude (the
+# key bias's at its weight's): the kernel's error at most twice the plain
+# bf16 version's plus BF16_ATOL.
+BF16_ATOL = 1e-3
+BF16 = torch.bfloat16
+
+
+def to_bf16(args):
+    """The inputs of one call in bf16, each in its own layout (a
+    `lin.weight.t()` view stays a view of a contiguous [H*dh, D]), with
+    the float32 inputs' requires_grad."""
+    out = []
+    for a in args:
+        if a is None:
+            out.append(None)
+            continue
+        t = a.detach()
+        t = t.t().to(BF16).t() if t.dim() == 2 and t.stride(0) == 1 \
+            else t.to(BF16)
+        out.append(t.requires_grad_(a.requires_grad))
+    return tuple(out)
+
+
+def in_float64(args):
+    return tuple(None if a is None else
+                 a.detach().double().requires_grad_(a.requires_grad)
+                 for a in args)
+
+
+def bf16_gate(what, got, plain, ref, scale=None):
+    """(kernel error, plain error) against the float64 ref, scaled by
+    the ref's largest magnitude (or `scale`); raises past the gate."""
+    scale = float(ref.abs().max()) if scale is None else scale
+    scale = scale if scale > 0 else 1.0
+    err = float((got.double() - ref).abs().max()) / scale
+    err_plain = float((plain.double() - ref).abs().max()) / scale
+    if err > 2 * err_plain + BF16_ATOL:
+        raise AssertionError(f"{what}: bf16 kernel error {err:.3e} of the "
+                             f"scale > 2 x plain {err_plain:.3e} + "
+                             f"{BF16_ATOL}")
+    return err, err_plain
+
+
+def check_shape_bf16(g, name, Lq, Lk, bias_kind, layout, batch, timed):
+    """Phase 3 (bf16) for one shape: gates, and with `timed` the times of
+    the three kernels; returns its row."""
+    args32, seed = make_case(g, Lq, Lk, bias_kind, layout, batch)
+    args, args64 = to_bf16(args32), in_float64(to_bf16(args32))
+    del args32
+    det = [None if a is None else a.detach() for a in args]
+    det64 = [None if a is None else a.detach() for a in args64]
+    rate = RATE if timed else 0.0
+    kw = dict(num_heads=H, dropout_rate=rate, seed=seed)
+    row = {}
+    with torch.no_grad():
+        out = fused_qkv_mha(*det, **kw)
+        plain = fused_qkv_mha_plain(*det, **kw)
+        ref = fused_qkv_mha_plain(*det64, **kw)
+    torch.cuda.synchronize()
+    if out.dtype != BF16:
+        raise AssertionError(f"{name}: bf16 forward returned {out.dtype}")
+    gates = {"out": bf16_gate(f"{name} forward", out, plain, ref)}
+    del ref
+
+    # FusedQKVMHA's gradients (K2 a + b) against the plain bf16 autograd,
+    # both against the float64 autograd
+    dout = torch.randn(batch, Lq, H * DH, generator=g, device="cuda").to(BF16)
+    got = grads_of(fused_qkv_mha(*args, **kw), args, dout)
+    pl = grads_of(fused_qkv_mha_plain(*args, **kw), args, dout)
+    r64 = grads_of(fused_qkv_mha_plain(*args64, **kw), args64,
+                   dout.double())
+    scales = grad_scales(r64)
+    for n_, a, p_, r, sc in zip(GRADS, got, pl, r64, scales):
+        if r is None:
+            continue
+        if a.dtype != BF16:
+            raise AssertionError(f"{name} {n_}: {a.dtype}, not bf16")
+        gates[n_] = bf16_gate(f"{name} {n_}", a, p_, r, sc)
+    del got, pl, r64
+    # K2 (a) alone: dq, dk, dv against the plain attention's autograd
+    # over the plain projections, both against float64
+    qkv = [t.detach().requires_grad_() for t in project_plain(*det[:8])]
+    pq = torch.autograd.grad(
+        attend_plain(*qkv, det[8], H, rate, seed, dtype=BF16), qkv, dout)
+    qkv64 = [t.detach().requires_grad_() for t in project_plain(*det64[:8])]
+    pq64 = torch.autograd.grad(attend_plain(*qkv64, det64[8], H, rate, seed),
+                               qkv64, dout.double())
+    (dq, dk, dv, _), first = backward_kernels(args, seed, dout, rate)
+    for n_, a, p_, r in zip(("dq", "dk", "dv"), (dq, dk, dv), pq, pq64):
+        gates[n_] = bf16_gate(f"{name} {n_}", a, p_, r)
+    # the rows' errors: the kernel's against float64, of each result's
+    # scale (bf16 rounds relative to the magnitude)
+    row["fwd_err"] = gates["out"][0]
+    row["attn_err"] = max(gates[n_][0] for n_ in ("dq", "dk", "dv"))
+    row["proj_err"] = max(v[0] for k, v in gates.items()
+                          if k in GRADS)
+    again = backward_kernels(args, seed, dout, rate)
+    pairs = list(zip((dq, dk, dv), again[0][:3])) + \
+        list(zip(first, again[1]))
+    if not all(a is None and b_ is None or torch.equal(a, b_)
+               for a, b_ in pairs):
+        raise AssertionError(f"{name}: two bf16 backward launches differ")
+    del qkv, qkv64, pq, pq64, again, first
+    row["gates"] = gates
+    if bias_kind == "key" and not timed:
+        row["keep_share"], row["keep_sd"] = keep_share(Lq, Lk, BF16)
+    if not timed:
+        return row
+
+    row["ms"] = cuda_ms(lambda: fused_qkv_mha(*det, **kw))
+    row["plain_ms"] = cuda_ms(lambda: fused_qkv_mha_plain(*det, **kw))
+    row["library_ms"] = cuda_ms(lambda: library_call(det))
+    fb = bound(det)
+    row["bound_ms"], row["bound_by"] = max(fb), \
+        "operations" if fb[0] >= fb[1] else "bytes"
+    time_backward(row, args, det, seed, dout, batch, rate, parts=False)
+    return row
+
+
+def check_kernels_bf16():
+    """Phase 3 (bf16): the decode shapes at batch 8 without dropout, then
+    the train shapes at batch 64 with dropout (timed); rows by shape."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows, train_rows = {}, {}
+    for name, Lq, Lk, bias_kind, layout in SHAPES + CAUSAL_SHAPES:
+        row = rows[name] = check_shape_bf16(g, name, Lq, Lk, bias_kind,
+                                            layout, B, timed=False)
+        say(f"bf16 kernel {name}: B={B} Lq={Lq} Lk={Lk} bias={bias_kind} "
+            f"dropout 0; against float64 (kernel / plain bf16, of the "
+            f"scale): " + ", ".join(f"{k} {a:.2e}/{p:.2e}" for k, (a, p)
+                                    in row["gates"].items())
+            + (f"; keep share {row['keep_share']:.5f} sd "
+               f"{row['keep_sd']:.1e}" if "keep_share" in row else "")
+            + "; two backward launches bitwise equal")
+    for name, Lq, Lk, bias_kind, layout in SHAPES + CAUSAL_SHAPES:
+        if name not in TRAIN_SHAPES:
+            continue
+        row = train_rows[name] = check_shape_bf16(
+            g, name, Lq, Lk, bias_kind, layout, B_TRAIN, timed=True)
+        worst = max(row["gates"].items(), key=lambda kv: kv[1][0])
+        say(f"bf16 train {name}: B={B_TRAIN} dropout {RATE}; worst gate "
+            f"{worst[0]} {worst[1][0]:.2e} (plain {worst[1][1]:.2e}); "
+            f"forward ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); "
+            f"attention backward ms={row['attn_ms']:.4f} "
+            f"plain_ms={row['attn_plain_ms']:.4f} "
+            f"library_ms={row['attn_library_ms']:.4f} "
+            f"bound_ms={row['attn_bound_ms']:.4f} "
+            f"({row['attn_bound_by']}); projection backward "
+            f"ms={row['projb_ms']:.4f} "
+            f"plain_ms={row['projb_plain_ms']:.4f} "
+            f"library_ms={row['projb_library_ms']:.4f} "
+            f"bound_ms={row['projb_bound_ms']:.4f} "
+            f"({row['projb_bound_by']})")
     return rows, train_rows
 
 
@@ -714,6 +942,93 @@ def run_rollouts(card, causal=False):
     return launches
 
 
+def run_rollouts_bf16(card, causal=False):
+    """Phase 4 (bf16): greedy decode at batch 8 in bf16 compute through
+    the kernels and on the eager path from the same weights: launches as
+    the config gives them, the logits' masks as the model defines them on
+    both; the first step's logits of both routes against the float32
+    kernel route's on the same weights, the kernels' distance at most
+    twice the eager bf16 route's plus 1e-3, and in the plain
+    configuration the two bf16 routes within 3e-2 of the scale of each
+    other (in the causal one both routes sit 4-6e-2 from float32, so
+    their distance from each other is printed, not held to 3e-2).  The
+    actions' agreement is printed.  Returns the forward kernel's launches
+    and the failure of the comparison, or None."""
+    what = "causal " if causal else ""
+    model, ro, batcher = build_flagship("cuda", seed=WEIGHT_SEED,
+                                        causal=causal,
+                                        compute_dtype="bfloat16")
+    e_model, e_ro, _ = build_flagship("cuda", use_fused_attention=False,
+                                      seed=WEIGHT_SEED, causal=causal,
+                                      compute_dtype="bfloat16")
+    e_model.load_state_dict(model.state_dict())
+    f_model, f_ro, _ = build_flagship("cuda", seed=WEIGHT_SEED,
+                                      causal=causal)
+    f_model.load_state_dict(model.state_dict())
+    _, batch = batcher.next_batch()
+    greedy_rollout(ro, batch)                            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = greedy_rollout(ro, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = fused_qkv_mha.launches
+    steps = int(out["steps"])
+    mix = launch_mix(model.config, steps)
+    if counts() != (sum(mix.values()), 0, 0, 0):
+        raise AssertionError(f"{what}bf16 decode launched {counts()}, "
+                             f"expected ({sum(mix.values())}, 0, 0, 0)")
+    reset_counts()
+    ref = greedy_rollout(e_ro, batch)
+    torch.cuda.synchronize()
+    if counts() != (0, 0, 0, 0):
+        raise AssertionError("the eager bf16 run launched a kernel")
+    check_logit_masks(out)
+    check_logit_masks(ref)
+    first, first_ref = out["fused_logits"][0], ref["fused_logits"][0]
+    fin = torch.isfinite(first_ref)
+    if not torch.equal(fin, torch.isfinite(first)):
+        raise AssertionError(f"{what}bf16 first-step finite pattern differs")
+    scale = float(first_ref[fin].abs().max())
+    diff = float((first[fin] - first_ref[fin]).abs().max()) / scale
+    f32 = greedy_rollout(f_ro, batch)["fused_logits"][0]
+    if not torch.equal(fin, torch.isfinite(f32)):
+        raise AssertionError(f"{what}float32 first-step finite pattern "
+                             "differs from bf16's")
+    f_scale = float(f32[fin].abs().max())
+    to32 = [float((t[fin] - f32[fin]).abs().max()) / f_scale
+            for t in (first, first_ref)]
+    say(f"{what}rollout bf16: first-step logits against float32's on the "
+        f"same weights (of their scale): kernels {to32[0]:.3e}, eager "
+        f"{to32[1]:.3e}; kernels against eager {diff:.3e}")
+    failed = None
+    if to32[0] > 2 * to32[1] + 1e-3:
+        failed = (f"{what}bf16 decode: the kernels' first-step logits "
+                  f"{to32[0]:.3e} from float32's, more than 2 x the eager "
+                  f"bf16 route's {to32[1]:.3e} + 1e-3")
+    elif not causal and diff > 3e-2:
+        failed = (f"{what}bf16 decode: first-step logits differ by "
+                  f"{diff:.3e} of their scale (limit 3e-2)")
+    if failed:
+        say(f"{what}rollout bf16: FAILED: {failed} (the script goes on, "
+            f"and fails at its end)")
+    acted = out["active"] & ref["active"]
+    traj_same = out["trajectories"] == ref["trajectories"]
+    same = int((out["actions"] == ref["actions"])[acted].sum())
+    say(f"{what}rollout bf16: kernels {steps} steps, fused_qkv_mha "
+        f"launches={launches} ({mix_text(mix)}), {B / dt:.2f} episodes/s "
+        f"({dt * 1e3:.1f} ms per batch); eager {int(ref['steps'])} steps; "
+        f"logit masks as defined on both, first-step logits within "
+        f"{diff:.2e} of each other's scale"
+        f"{'' if causal else ' (limit 3e-2)'}; actions identical at "
+        f"{same} of {int(acted.sum())} steps both paths acted, "
+        f"trajectories {'identical' if traj_same else 'differ'} on {card}")
+    del model, ro, e_model, e_ro, f_model, f_ro, out, ref
+    torch.cuda.empty_cache()
+    return launches, failed
+
+
 def mix_text(mix):
     return ", ".join(f"{k} {v}" for k, v in mix.items() if v)
 
@@ -808,9 +1123,10 @@ def compare_steps(k, e, pinned):
 
 def run_train(card, causal=False):
     """Phase 5: (a) and (b), or (c) and (d) for the causal
-    configuration.  Returns the timed steps' launch mix and counts, and
-    the failure of (a) / (c)'s comparison (None when it passed), which
-    (b) / (d) do not wait on."""
+    configuration.  Returns the timed steps' launch mix and counts, the
+    failure of (a) / (c)'s comparison (None when it passed), which (b) /
+    (d) do not wait on, and the warm-up's peak memory (GiB) of (b) / (d)
+    through the kernels."""
     what = "causal " if causal else ""
     pa, pb = ("c", "d") if causal else ("a", "b")
     # (a) kernel path against the eager path, dropout off, batch 8
@@ -877,10 +1193,11 @@ def run_train(card, causal=False):
     del k_state, e_state, k_grads, e_grads, k_outs, e_outs
     torch.cuda.empty_cache()
 
-    # (b) the bench's step: batch 64, dropout on, 3 timed steps, through
-    # the kernels and then through the eager path
+    # (b) the bench's step: batch 64, dropout on, EARLIER_STEPS timed
+    # steps, through the kernels and then through the eager path
+    n_steps = EARLIER_STEPS
     state, metrics, got, dt, warm_peak, peak, before, left = bench_steps(
-        True, causal)
+        True, causal, n=n_steps)
     cfg = state.model.config
     mix = train_mix(cfg, metrics)
     n = sum(mix.values())
@@ -897,7 +1214,7 @@ def run_train(card, causal=False):
         raise AssertionError(f"only {moved} of {len(before)} parameters "
                              "moved")
     say(f"{what}train ({pb}) batch {B_TRAIN}, dropout {RATE}/{RATE}/feat "
-        f"0.4, kernels: 3 DAgger steps (teacher, sample steps "
+        f"0.4, kernels: {n_steps} DAgger steps (teacher, sample steps "
         f"{rollout_steps(metrics)}), loss "
         f"{[round(float(m['loss']), 4) for m in metrics]}, grad_norm "
         f"{[round(float(m['grad_norm']), 3) for m in metrics]}, "
@@ -905,8 +1222,8 @@ def run_train(card, causal=False):
         f"({mix_text(mix)}), peak "
         f"memory {warm_peak:.2f} GiB in the warm-up (one step per bucket), "
         f"{peak:.2f} GiB in the timed steps ({left:.2f} GiB left by earlier "
-        f"phases, freed first); {B_TRAIN * 3 / dt:.2f} "
-        f"episodes/s ({dt / 3 * 1e3:.1f} ms per step) on {card}")
+        f"phases, freed first); {B_TRAIN * n_steps / dt:.2f} "
+        f"episodes/s ({dt / n_steps * 1e3:.1f} ms per step) on {card}")
     del state, metrics, before
     torch.cuda.empty_cache()
     # the eager path keeps every call's probabilities and mask: its excess
@@ -919,21 +1236,241 @@ def run_train(card, causal=False):
             f"warm-up peak {warm_peak:.2f} GiB plus the eager path's "
             f"predicted excess of {excess:.2f} GiB ({calls} attention "
             f"calls per rollout step) passes {EAGER_LIMIT_GIB} GiB")
-        return mix, got, failed
+        return mix, got, failed, warm_peak
     _, e_metrics, e_got, e_dt, e_warm, e_peak, _, e_left = bench_steps(
-        False, causal)
+        False, causal, n=n_steps)
     if e_got != (0, 0, 0, 0):
         raise AssertionError("the eager step launched a kernel")
     if not all(math.isfinite(float(m["loss"])) for m in e_metrics):
         raise AssertionError(f"non-finite eager step: {e_metrics}")
-    say(f"{what}train ({pb}) eager path, same settings: 3 DAgger steps "
-        f"(teacher, sample steps {rollout_steps(e_metrics)}), peak memory "
-        f"{e_warm:.2f} GiB in the warm-up, {e_peak:.2f} GiB in the timed "
-        f"steps ({e_left:.2f} GiB left by earlier phases, freed first); "
-        f"{B_TRAIN * 3 / e_dt:.2f} episodes/s ({e_dt / 3 * 1e3:.1f} "
-        f"ms per step) on {card}")
+    say(f"{what}train ({pb}) eager path, same settings: {n_steps} DAgger "
+        f"steps (teacher, sample steps {rollout_steps(e_metrics)}), peak "
+        f"memory {e_warm:.2f} GiB in the warm-up, {e_peak:.2f} GiB in the "
+        f"timed steps ({e_left:.2f} GiB left by earlier phases, freed "
+        f"first); {B_TRAIN * n_steps / e_dt:.2f} episodes/s "
+        f"({e_dt / n_steps * 1e3:.1f} ms per step) on {card}")
     torch.cuda.empty_cache()
-    return mix, got, failed
+    return mix, got, failed, warm_peak
+
+
+def grad_vector(grads, ref):
+    """The gradients of every parameter `ref` has one for (zeros where
+    `grads` has none), in one float64 vector."""
+    return torch.cat([grads.get(n_, torch.zeros_like(r)).double().flatten()
+                      for n_, r in sorted(ref.items())])
+
+
+def remat_gate(card):
+    """Phase 5 (e): two consecutive batch-8 DAgger steps at dropout 0.1
+    through the kernels, from one set of weights, the same batches and one
+    generator seed, under remat "model" and then "none": sampled actions
+    identical, losses equal, every gradient within 1e-6 of its largest
+    magnitude (bitwise expected), the generator in the same state after
+    each step; the forward kernel's launches exceed "none"'s by the
+    recomputed rollout steps' (the text encoding is not checkpointed), the
+    backward kernels' equal.  Returns a failure or None."""
+    runs, sd = {}, None
+    for remat in ("model", "none"):
+        state, batcher = build_train_flagship("cuda", batch_size=B,
+                                              remat=remat)
+        if sd is None:
+            sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+        else:
+            state.model.load_state_dict(sd)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        steps = []
+        for _ in range(2):
+            batch = batcher.next_batch()[1]
+            reset_counts()
+            m, grads, outs = state.step_fn(state, batch, g, keep=True)
+            torch.cuda.synchronize()
+            steps.append(dict(
+                loss=float(m["loss"]), grads=grads, counts=counts(),
+                actions={r: o["actions"] for r, o in outs.items()},
+                n_steps=int(m["teacher_steps"]) + int(m["sample_steps"]),
+                gen=g.get_state()))
+        runs[remat] = steps
+        cfg = state.model.config
+        del state, batcher
+    torch.cuda.empty_cache()
+    try:
+        worst, bitwise = 0.0, True
+        for i, (a, b_) in enumerate(zip(runs["model"], runs["none"])):
+            for r in a["actions"]:
+                if not torch.equal(a["actions"][r], b_["actions"][r]):
+                    raise AssertionError(f"step {i}: {r} actions differ")
+            if a["loss"] != b_["loss"]:
+                raise AssertionError(f"step {i}: loss {a['loss']} vs "
+                                     f"{b_['loss']}")
+            if set(a["grads"]) != set(b_["grads"]):
+                raise AssertionError(f"step {i}: other parameters have "
+                                     "a gradient")
+            for n_, r in b_["grads"].items():
+                d = float((a["grads"][n_] - r).abs().max())
+                sc = float(r.abs().max())
+                bitwise &= d == 0.0
+                if d > 1e-6 * sc:
+                    raise AssertionError(f"step {i}: grad {n_} |diff| "
+                                         f"{d:.3e} > 1e-6 x {sc:.3e}")
+                worst = max(worst, d / sc if sc else 0.0)
+            if not torch.equal(a["gen"], b_["gen"]):
+                raise AssertionError(f"step {i}: generator states differ")
+            rec = sum(step_mix(cfg, a["n_steps"]).values())
+            want = (b_["counts"][0] + rec,) + b_["counts"][1:]
+            if a["counts"] != want:
+                raise AssertionError(f"step {i}: remat launched "
+                                     f"{a['counts']}, expected {want}")
+    except AssertionError as exc:
+        say(f"train (e) remat gate: FAILED: {exc} (the script goes on, and "
+            f"fails at its end)")
+        return f"train (e): {exc}"
+    grads_text = "bitwise equal" if bitwise \
+        else f"within {worst:.2e} of their max"
+    say(f"train (e) batch {B}, dropout {RATE}/{RATE}/feat 0.4, kernels: two "
+        f"consecutive DAgger steps under remat model vs none: actions "
+        f"identical, losses equal ({runs['model'][0]['loss']:.6f}, "
+        f"{runs['model'][1]['loss']:.6f}), gradients "
+        f"{grads_text}, generator states equal; launches model "
+        f"{runs['model'][0]['counts']} / none {runs['none'][0]['counts']} "
+        f"(step 1) on {card}")
+    return None
+
+
+def bf16_gate_step(card, causal=False):
+    """Phase 5 (f): one batch-8 imitation step, every dropout at 0, from
+    one set of weights and one batch on three routes: float32 eager (the
+    reference), bf16 eager, bf16 through the kernels.  Teacher forcing
+    fixes the trajectory, so the actions are identical.  Each bf16 route's
+    relative loss error and global gradient error |g - g32| / |g32|; the
+    kernels' at most twice the eager bf16 route's plus 1e-3.  Returns a
+    failure or None."""
+    what = "causal " if causal else ""
+    tcfg = TrainConfig(train_alg="imitation", weight_decay=0.01)
+    kw = dict(batch_size=B, dropout=False, tcfg=tcfg, causal=causal)
+    res, sd, batch = {}, None, None
+    for route, fused, dtype in (("float32 eager", False, "float32"),
+                                ("bf16 eager", False, "bfloat16"),
+                                ("bf16 kernels", True, "bfloat16")):
+        state, batcher = build_train_flagship(
+            "cuda", use_fused_attention=fused, compute_dtype=dtype, **kw)
+        if sd is None:
+            sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+            batch = batcher.next_batch()[1]
+        else:
+            state.model.load_state_dict(sd)
+        reset_counts()
+        m, grads, outs = state.step_fn(
+            state, batch, torch.Generator(device="cuda").manual_seed(0),
+            keep=True)
+        torch.cuda.synchronize()
+        res[route] = dict(loss=float(m["loss"]), grads=grads,
+                          counts=counts(),
+                          actions=outs["teacher"]["actions"],
+                          steps=int(m["teacher_steps"]))
+        cfg = state.model.config
+        del state, batcher
+    torch.cuda.empty_cache()
+    ref = res["float32 eager"]
+    g32 = grad_vector(ref["grads"], ref["grads"])
+    errs = {}
+    for route in ("bf16 eager", "bf16 kernels"):
+        r = res[route]
+        errs[route] = (abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
+                       float((grad_vector(r["grads"], ref["grads"]) - g32)
+                             .norm()
+                             / g32.norm()))
+    k_n = sum(add_mix(text_mix(cfg), step_mix(cfg, ref["steps"])).values())
+    try:
+        for route, r in res.items():
+            if not torch.equal(r["actions"], ref["actions"]):
+                raise AssertionError(f"{route} actions differ")
+        if res["bf16 kernels"]["counts"] != (k_n, k_n, k_n, 0) or \
+                res["bf16 eager"]["counts"] != (0, 0, 0, 0):
+            raise AssertionError(
+                f"launches {res['bf16 kernels']['counts']} (kernels), "
+                f"{res['bf16 eager']['counts']} (eager), expected "
+                f"{(k_n, k_n, k_n, 0)} and none")
+        for i, what_err in enumerate(("loss", "gradient")):
+            k_e, e_e = errs["bf16 kernels"][i], errs["bf16 eager"][i]
+            if k_e > 2 * e_e + 1e-3:
+                raise AssertionError(f"{what_err} error {k_e:.3e} > 2 x "
+                                     f"eager bf16 {e_e:.3e} + 1e-3")
+    except AssertionError as exc:
+        say(f"{what}train (f) bf16 gate: FAILED: {exc} (the script goes "
+            f"on, and fails at its end)")
+        return f"{what}train (f): {exc}"
+    say(f"{what}train (f) batch {B}, dropout 0, imitation "
+        f"({ref['steps']} steps), actions identical on the three routes; "
+        f"against float32 eager (loss {ref['loss']:.6f}): bf16 eager loss "
+        f"{errs['bf16 eager'][0]:.3e}, gradients "
+        f"{errs['bf16 eager'][1]:.3e}; bf16 kernels loss "
+        f"{errs['bf16 kernels'][0]:.3e}, gradients "
+        f"{errs['bf16 kernels'][1]:.3e} (limit 2 x eager + 1e-3); kernel "
+        f"launches {res['bf16 kernels']['counts']} on {card}")
+    return None
+
+
+def bench_config(card, causal, none_peak):
+    """Phase 5 (g): the bench's train build, bf16 compute with remat
+    "model" (`build_train_flagship(compute_dtype="bfloat16",
+    remat="model")`), batch 64, dropout 0.1 / 0.1 / features 0.4: one
+    warm-up per bucket, 3 timed steps; loss and grad norm finite,
+    parameters moved, launches as the config gives them (the recomputed
+    rollout steps' forwards on top); then one float32 remat "model"
+    warm-up, whose peak must be under half of `none_peak`, (b) / (d)'s.
+    Returns (forward launch mix, launch counts, failure or None)."""
+    what = "causal " if causal else ""
+    state, metrics, got, dt, warm_peak, peak, before, left = bench_steps(
+        True, causal, compute_dtype="bfloat16", remat="model")
+    cfg = state.model.config
+    mix = train_mix(cfg, metrics)
+    n = sum(mix.values())
+    rec = sum(step_mix(cfg, sum(int(m["teacher_steps"])
+                                + int(m["sample_steps"])
+                                for m in metrics)).values())
+    failed = None
+    try:
+        if got != (n + rec, n, n, 0):
+            raise AssertionError(f"launched {got}, expected "
+                                 f"{(n + rec, n, n, 0)}")
+        for m in metrics:
+            if not (math.isfinite(float(m["loss"]))
+                    and math.isfinite(float(m["grad_norm"]))):
+                raise AssertionError(f"non-finite step: {m}")
+        moved = sum(not torch.equal(p.detach(), before[n_])
+                    for n_, p in state.model.named_parameters())
+        if moved < 0.9 * len(before):
+            raise AssertionError(f"only {moved} of {len(before)} "
+                                 "parameters moved")
+    except AssertionError as exc:
+        failed = f"{what}train (g): {exc}"
+        say(f"{what}train (g): FAILED: {exc} (the script goes on, and "
+            f"fails at its end)")
+        moved = -1
+    say(f"{what}train (g) bench build, bf16 compute, remat model, batch "
+        f"{B_TRAIN}, dropout {RATE}/{RATE}/feat 0.4, kernels: 3 DAgger steps "
+        f"(teacher, sample steps {rollout_steps(metrics)}), loss "
+        f"{[round(float(m['loss']), 4) for m in metrics]}, grad_norm "
+        f"{[round(float(m['grad_norm']), 3) for m in metrics]}, "
+        f"{moved}/{len(before)} parameters moved, launches {got} "
+        f"({mix_text(mix)}; {rec} recomputed), peak memory "
+        f"{warm_peak:.2f} GiB in the warm-up, {peak:.2f} GiB in the timed "
+        f"steps ({left:.2f} GiB left by earlier phases, freed first); "
+        f"{B_TRAIN * 3 / dt:.2f} episodes/s ({dt / 3 * 1e3:.1f} ms per "
+        f"step) on {card}")
+    del state, metrics, before
+    torch.cuda.empty_cache()
+    _, _, _, _, f32_peak, _, _, _ = bench_steps(True, causal, n=0,
+                                                remat="model")
+    torch.cuda.empty_cache()
+    ok = f32_peak < 0.5 * none_peak
+    say(f"{what}train (g) float32, remat model: warm-up peak "
+        f"{f32_peak:.2f} GiB against {none_peak:.2f} GiB under remat none "
+        f"({'under' if ok else 'NOT under'} half)")
+    if not ok and failed is None:
+        failed = (f"{what}train (g): float32 remat model peak "
+                  f"{f32_peak:.2f} GiB not under half of {none_peak:.2f}")
+    return mix, got, failed, dt
 
 
 def rollout_steps(metrics):
@@ -941,11 +1478,13 @@ def rollout_steps(metrics):
             for m in metrics]
 
 
-def bench_steps(fused: bool, causal: bool = False, n: int = 3):
+def bench_steps(fused: bool, causal: bool = False, n: int = 3,
+                compute_dtype: str = "float32", remat: str = "none"):
     """The bench's DAgger step (batch 64, dropout on) through the kernels
-    or the eager path, in the plain or the causal configuration: one
-    warm-up step per gt-length bucket, then n timed steps with the launch
-    counts reset just before.  Returns the state, the timed steps'
+    or the eager path, in the plain or the causal configuration, in
+    `compute_dtype` under the rollouts' `remat` policy: one warm-up step
+    per gt-length bucket, then n timed steps with the launch counts reset
+    just before.  Returns the state, the timed steps'
     metrics, their launch counts and seconds, the peak memory (GiB) of the
     warm-up and of the timed steps, the parameters before the timed steps,
     and the memory (GiB) earlier phases had left allocated, which is freed
@@ -956,7 +1495,9 @@ def bench_steps(fused: bool, causal: bool = False, n: int = 3):
     torch.cuda.empty_cache()
     state, batcher = build_train_flagship("cuda", batch_size=B_TRAIN,
                                           use_fused_attention=fused,
-                                          causal=causal)
+                                          causal=causal,
+                                          compute_dtype=compute_dtype,
+                                          remat=remat)
     g = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -997,19 +1538,44 @@ def main() -> int:
             if "registers" in line or "spill" in line or "entry" in line:
                 say(f"  ptxas {name}: {line.strip()}")
     lib = _build.load("fused_qkv_mha_bwd")
-    smem = (ctypes.c_int * 2)()
+    smem = (ctypes.c_int * 4)()
     lib.fused_qkv_mha_bwd_smem(smem)
     say(f"  fused_qkv_mha_bwd dynamic shared memory: GEMM jobs "
-        f"{smem[0]} bytes, attn_bwd_kernel {smem[1]} bytes a block")
+        f"{smem[0]} bytes, attn_bwd_kernel {smem[1]} bytes a block; bf16 "
+        f"builds {smem[2]} and {smem[3]} bytes")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     rows, train_rows = check_kernels()
     mha_rows = check_mha()
+    say(f"wall: phase 3 (float32) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    b_rows, b_train_rows = check_kernels_bf16()
+    say(f"wall: phase 3 (bf16) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     decode = run_rollouts(card)
-    mix, train, failed = run_train(card)
+    b_decode, d_failed = run_rollouts_bf16(card)
+    say(f"wall: phase 4 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mix, train, failed, none_peak = run_train(card)
+    say(f"wall: phase 5 (a, b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    e_failed = remat_gate(card)
+    f_failed = bf16_gate_step(card)
+    say(f"wall: phase 5 (e, f) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     c_decode = run_rollouts(card, causal=True)
-    c_mix, c_train, c_failed = run_train(card, causal=True)
+    c_b_decode, cd_failed = run_rollouts_bf16(card, causal=True)
+    say(f"wall: causal phase 4 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    c_mix, c_train, c_failed, c_none_peak = run_train(card, causal=True)
+    say(f"wall: phase 5 (c, d) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cf_failed = bf16_gate_step(card, causal=True)
+    g_mix, g_train, g_failed, _ = bench_config(card, False, none_peak)
+    cg_mix, cg_train, cg_failed, _ = bench_config(card, True, c_none_peak)
+    say(f"wall: phase 5 (f causal, g) {time.perf_counter() - t0:.1f} s")
 
     # one row per kernel: launches by path (decode counts the forward
     # only), and times weighted by the launch mix of both train paths
@@ -1034,6 +1600,30 @@ def main() -> int:
 
     def mha_avg(key):
         return sum(mha_rows[s][key] for s in MHA_LINE) / len(MHA_LINE)
+
+    # the bf16 rows: launches by bf16 path (decode counts the forward
+    # only; the bench build's forward count includes the recomputed
+    # rollout steps' launches), times weighted by the bench build's launch
+    # mix, errors against float64 of each result's scale (phase 3 bf16)
+    b_mix = add_mix(g_mix, cg_mix)
+    b_total = sum(b_mix.values())
+    b_by_path = [dict(decode=b_decode, train=g_train[i],
+                      causal_decode=c_b_decode, causal_train=cg_train[i])
+                 for i in range(3)]
+    for i in (1, 2):
+        b_by_path[i].update(decode=0, causal_decode=0)
+
+    def b_avg(key):
+        return sum(b_train_rows[s][key] * w for s, w in b_mix.items()) \
+            / b_total
+
+    def b_by(key):
+        return "operations" if all(b_train_rows[s][key] == "operations"
+                                   for s in b_mix) else "bytes"
+
+    def b_err(key):
+        return max(r[key] for r in list(b_rows.values())
+                   + list(b_train_rows.values()))
 
     src = "vln_goat_tpu_torch/ops/csrc/"
     kernels = [
@@ -1072,6 +1662,31 @@ def main() -> int:
              bound_ms=mha_avg("bound_ms"),
              bound_by=mha_rows[MHA_LINE[0]]["bound_by"],
              library_ms=mha_avg("library_ms")),
+        dict(name="fused_qkv_mha_bf16", route="cuda",
+             source=src + "fused_qkv_mha.cu",
+             replaces="vln_goat_tpu/ops/attention.py:169",
+             launches=sum(b_by_path[0].values()),
+             launches_by_path=b_by_path[0], max_abs_err=b_err("fwd_err"),
+             ms=b_avg("ms"), plain_ms=b_avg("plain_ms"),
+             bound_ms=b_avg("bound_ms"), bound_by=b_by("bound_by"),
+             library_ms=b_avg("library_ms")),
+        dict(name="fused_qkv_mha_bwd_attn_bf16", route="cuda",
+             source=src + "fused_qkv_mha_bwd.cu",
+             replaces="vln_goat_tpu/ops/attention.py:181",
+             launches=sum(b_by_path[1].values()),
+             launches_by_path=b_by_path[1], max_abs_err=b_err("attn_err"),
+             ms=b_avg("attn_ms"), plain_ms=b_avg("attn_plain_ms"),
+             bound_ms=b_avg("attn_bound_ms"), bound_by=b_by("attn_bound_by"),
+             library_ms=b_avg("attn_library_ms")),
+        dict(name="fused_qkv_mha_bwd_proj_bf16", route="cuda",
+             source=src + "fused_qkv_mha_bwd.cu",
+             replaces="vln_goat_tpu/ops/attention.py:181",
+             launches=sum(b_by_path[2].values()),
+             launches_by_path=b_by_path[2], max_abs_err=b_err("proj_err"),
+             ms=b_avg("projb_ms"), plain_ms=b_avg("projb_plain_ms"),
+             bound_ms=b_avg("projb_bound_ms"),
+             bound_by=b_by("projb_bound_by"),
+             library_ms=b_avg("projb_library_ms")),
     ]
     # the float32 CUDA-core bounds, beside the 3xTF32 ones
     # the kernels line carries, and the forward by part
@@ -1085,7 +1700,9 @@ def main() -> int:
         f"{avg('fwd_attn_ms'):.4f} ms")
     say(f"wall: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
-    failures = [f for f in (failed, c_failed) if f is not None]
+    failures = [f for f in (d_failed, cd_failed, failed, c_failed, e_failed,
+                            f_failed, cf_failed, g_failed, cg_failed)
+                if f is not None]
     if failures:
         say("FAILED: " + "; ".join(failures))
         return 1

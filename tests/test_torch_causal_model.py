@@ -42,7 +42,7 @@ def _pair(**flags):
     params = torch_to_flax({k: v.numpy() for k, v in
                             tm.state_dict().items()})
     banks = {}
-    for k, v in make_causal_banks(tm.config, seed=1).items():
+    for k, v in make_causal_banks(tm.config, seed=1, device="cpu").items():
         v = v[:, None] if v.ndim == 1 else v
         banks[k] = np.broadcast_to(v[None], (B,) + v.shape)
     return JaxModel(JaxConfig(**kw)), params, tm, banks

@@ -56,7 +56,8 @@ def test_port_and_smoke_import_without_jax():
     assert {"vln_goat_tpu_torch.ops.dropout",
             "vln_goat_tpu_torch.train.trainer",
             "vln_goat_tpu_torch.tools.kmeans",
-            "vln_goat_tpu_torch.tools.zdict"} <= set(mods)
+            "vln_goat_tpu_torch.tools.zdict",
+            "vln_goat_tpu_torch.utils.guard"} <= set(mods)
     code = "import importlib\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in mods) + \
         "import chip_smoke\nprint('ok')\n"
@@ -83,7 +84,8 @@ def no_card():
 
 def test_entry_points_default_to_cuda(no_card):
     from vln_goat_tpu_torch.entry import (build_flagship, build_model,
-                                          build_train_flagship)
+                                          build_train_flagship,
+                                          make_causal_banks)
     from vln_goat_tpu_torch.config import GoatConfig
     from vln_goat_tpu_torch.rollout.world import NavWorld
     from vln_goat_tpu_torch.sim.graph_sim import make_synthetic_scan
@@ -101,3 +103,9 @@ def test_entry_points_default_to_cuda(no_card):
                                num_attention_heads=2))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         NavWorld.build([make_synthetic_scan("s", num_vps=6)], feat_dim=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_causal_banks(GoatConfig(hidden_size=32, num_attention_heads=2,
+                                     do_front_txt=True))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_train_flagship(tiny=True, compute_dtype="bfloat16",
+                             remat="model")

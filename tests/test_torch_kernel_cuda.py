@@ -9,7 +9,9 @@ gradients at atol 1e-4 times each gradient's largest magnitude.  A
 projection bias's gradient is the column sum of the same rows whose
 products make its weight's gradient, so it is held at its weight's scale:
 the key bias's gradient is zero up to rounding (softmax ignores a constant
-added to a row of scores), which no scale of its own would bound."""
+added to a row of scores), which no scale of its own would bound.  The
+bf16 builds (the `test_bf16_*` and `test_gemm_bf16_*` cases) are held to
+float64 beside the plain bf16 version, as their section says."""
 import math
 
 import pytest
@@ -19,7 +21,8 @@ from vln_goat_tpu_torch.ops import attention as attention_mod
 from vln_goat_tpu_torch.ops.attention import (attention_backward,
                                               fused_qkv_mha,
                                               fused_qkv_mha_plain,
-                                              gemm_tf32x3, mha, mha_plain,
+                                              gemm_bf16, gemm_tf32x3, mha,
+                                              mha_plain,
                                               projection_backward)
 from vln_goat_tpu_torch.ops.bwd_plan import split_depth
 from vln_goat_tpu_torch.ops.dropout import keep_mask
@@ -405,3 +408,190 @@ def test_backward_skips_unasked_input_grads(card, monkeypatch, need_x):
         if n == "bk":   # zero up to rounding: held at dWk's scale
             scale = max(scale, float(ref[names.index("wk")].abs().max()))
         torch.testing.assert_close(g_, r, atol=1e-4 * scale, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# bf16: the kernels against a float64 evaluation of the same bf16 inputs,
+# beside the plain version's bf16 arithmetic (both round where the JAX
+# package's bf16 kernel casts).  Gate, for the output and every gradient
+# scaled by its largest magnitude: the kernel's error is at most twice the
+# plain bf16 version's plus 1e-3.  The plain version rounds fewer
+# intermediates (its autograd keeps ds unrounded), so it sets the scale of
+# bf16 rounding; 1e-3 absorbs the chance of a small plain error.
+
+
+def _bf16_case(g, B, Lq, Lk, hb, linear, grad=False):
+    args, seed = _case(g, B, Lq, Lk, hb, linear)
+    out = []
+    for a in args:
+        if a is None:
+            out.append(None)
+            continue
+        t = a.detach().to(torch.bfloat16)
+        if a.dim() == 2 and linear:      # keep the lin.weight.t() layout
+            t = a.detach().t().contiguous().to(torch.bfloat16).t()
+        out.append(t.requires_grad_(grad))
+    return tuple(out), seed
+
+
+def _rel(got, ref):
+    return float((got.double() - ref).abs().max()) \
+        / max(float(ref.abs().max()), 1e-30)
+
+
+def _assert_bf16_gate(got, plain, ref, scale_ref=None):
+    """got, plain: kernel and plain bf16 results; ref: float64."""
+    scale = float(ref.abs().max() if scale_ref is None
+                  else max(ref.abs().max(), scale_ref.abs().max()))
+    err = float((got.double() - ref).abs().max()) / scale
+    err_plain = float((plain.double() - ref).abs().max()) / scale
+    assert err <= 2 * err_plain + 1e-3, (err, err_plain)
+
+
+def _operand_bf16(g, rows, cols, how):
+    """_operand's three layouts in bf16 (the slice at an offset of 3
+    elements, so element loads)."""
+    if how == "t":
+        return torch.randn(cols, rows, generator=g, device="cuda").to(
+            torch.bfloat16).t()
+    if how == "slice":
+        return torch.randn(rows, cols + 7, generator=g, device="cuda").to(
+            torch.bfloat16)[:, 3:3 + cols]
+    return torch.randn(rows, cols, generator=g, device="cuda").to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("M,N,K,a_how,b_how,splits", [
+    (1, 1, 1, "c", "c", 1), (130, 70, 45, "c", "c", 1),
+    (257, 131, 99, "t", "c", 1), (100, 64, 200, "c", "t", 3),
+    (77, 50, 33, "slice", "slice", 2), (768, 768, 3840, "t", "c", 2),
+    (200, 768, 3840, "t", "t", 5)])
+def test_gemm_bf16_core_matches_float64(card, M, N, K, a_how, b_how,
+                                        splits):
+    """The bf16 GEMM core against a float64 matmul of the same bf16
+    values, at the float32 core's cases: bf16 products are exact in
+    float32, so the bound is the float32 sum's (1e-5 of the largest sum of
+    absolute products), and the column sums of B likewise."""
+    a, b = _operand_bf16(card, M, K, a_how), _operand_bf16(card, K, N, b_how)
+    bias = torch.randn(N, generator=card, device="cuda").to(torch.bfloat16)
+    before = gemm_bf16.launches
+    c, colsum = gemm_bf16(a, b, bias, splits)
+    torch.cuda.synchronize()
+    assert gemm_bf16.launches == before + 1
+    S, kc = split_depth(K, splits)
+    assert c.shape == (S, M, N) and c.dtype == torch.float32
+    a64, b64 = a.double(), b.double()
+    scale = float((a64.abs() @ b64.abs()).max())
+    for s in range(S):
+        ref = a64[:, s * kc:(s + 1) * kc] @ b64[s * kc:(s + 1) * kc] \
+            + bias.double()
+        assert float((c[s].double() - ref).abs().max()) <= 1e-5 * scale
+        torch.testing.assert_close(
+            colsum[s].double(), b64[s * kc:(s + 1) * kc].sum(0),
+            atol=1e-5 * float(b64.abs().sum(0).max()), rtol=0)
+    again = gemm_bf16(a, b, bias, splits)
+    assert torch.equal(c, again[0]) and torch.equal(colsum, again[1])
+
+
+@pytest.mark.parametrize("Lq,Lk,hb,linear", [
+    (1, 1, None, True), (40, 40, 1, True), (70, 130, 1, False),
+    (33, 17, 12, False), (63, 255, None, True), (60, 24, None, True)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_forward_matches_plain(card, Lq, Lk, hb, linear, rate):
+    """K1 in bf16: bf16 output, within the gate of the float64 value."""
+    args, seed = _bf16_case(card, 3, Lq, Lk, hb, linear)
+    before = fused_qkv_mha.launches
+    with torch.no_grad():
+        out = fused_qkv_mha(*args, num_heads=H, dropout_rate=rate, seed=seed)
+        plain = fused_qkv_mha_plain(*args, num_heads=H, dropout_rate=rate,
+                                    seed=seed)
+        ref = fused_qkv_mha_plain(
+            *(None if a is None else a.double() for a in args), num_heads=H,
+            dropout_rate=rate, seed=seed)
+    torch.cuda.synchronize()
+    assert fused_qkv_mha.launches == before + 1
+    assert out.dtype == torch.bfloat16 and plain.dtype == torch.bfloat16
+    _assert_bf16_gate(out, plain, ref)
+
+
+@pytest.mark.parametrize("Lq,Lk,hb,linear", [
+    (40, 40, None, True), (50, 50, 1, True), (70, 130, 1, False),
+    (60, 60, 12, False), (60, 47, None, True)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_backward_matches_plain(card, Lq, Lk, hb, linear, rate):
+    """K2 (a) and (b) in bf16 through autograd: every gradient in its
+    input's dtype (bf16), within the gate of the float64 gradient; the key
+    bias's gradient (zero up to rounding) at dWk's scale."""
+    args, seed = _bf16_case(card, 2, Lq, Lk, hb, linear, grad=True)
+    leaves = [a for a in args if a is not None]
+    dout = torch.randn(2, Lq, D, generator=card, device="cuda").to(
+        torch.bfloat16)
+    n_attn, n_proj = attention_backward.launches, projection_backward.launches
+    got = torch.autograd.grad(
+        fused_qkv_mha(*args, num_heads=H, dropout_rate=rate, seed=seed),
+        leaves, dout)
+    assert attention_backward.launches == n_attn + 1
+    assert projection_backward.launches == n_proj + 1
+    plain = torch.autograd.grad(
+        fused_qkv_mha_plain(*args, num_heads=H, dropout_rate=rate,
+                            seed=seed), leaves, dout)
+    leaves64 = [a.detach().double().requires_grad_() for a in leaves]
+    it = iter(leaves64)
+    args64 = [None if a is None else next(it) for a in args]
+    ref = torch.autograd.grad(
+        fused_qkv_mha_plain(*args64, num_heads=H, dropout_rate=rate,
+                            seed=seed), leaves64, dout.double())
+    for i, (g_, p_, r) in enumerate(zip(got, plain, ref)):
+        assert g_.dtype == torch.bfloat16 and g_.shape == r.shape
+        _assert_bf16_gate(g_, p_, r, ref[4] if i == 5 else None)
+
+
+def test_bf16_backward_is_bitwise_repeatable(card):
+    args, seed = _bf16_case(card, 4, 60, 60, 1, True)
+    dout = torch.randn(4, 60, D, generator=card, device="cuda").to(
+        torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        dq, dk, dv, ds = attention_backward(*args, seed, dout, H, 0.1,
+                                            need_ds=True)
+        x, y, wq, _, wk, _, wv, _, _ = args
+        runs.append((dq, dk, dv, ds) + tuple(
+            t for part in projection_backward(x, y, wq, wk, wv, dq, dk, dv,
+                                              ds, H)
+            for t in (part if isinstance(part, list) else [part])))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_bf16_keep_share(card):
+    """The bf16 forward keeps the float32 forward's share at rate 0.1."""
+    B, L = 8, 60
+    args, seed = _bf16_case(card, B, L, L, None, True)
+    x, y = args[0], args[1]
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    zeros = torch.zeros(D, **bf)
+    eye = torch.eye(D, **bf)
+    wv = torch.zeros(D, D, **bf)
+    wq = torch.zeros(D, D, **bf)                 # uniform probabilities
+    with torch.no_grad():
+        out = fused_qkv_mha(x, y, wq, zeros, eye, zeros, wv, zeros + 1.0,
+                            None, num_heads=H, dropout_rate=0.1, seed=seed)
+    # the kernel rounds the kept probability 1 / (L 0.9), the same for
+    # every key, to bf16 before p v: one kept key adds that value
+    unit = float(((torch.tensor(1.0) / L) * torch.tensor(1.0 / 0.9))
+                 .to(torch.bfloat16))
+    share = float(out[..., ::64].float().mean()) / (L * unit)
+    n = B * H * L * L
+    assert abs(share - 0.9) < 4 * math.sqrt(0.9 * 0.1 / n)
+
+
+def test_kernels_refuse_mixed_dtypes(card):
+    """One call's tensors share one dtype: a bf16 x with float32 weights
+    raises on the card; nothing falls back to the plain version."""
+    args, seed = _case(card, 2, 40, 40, None, True)
+    x = args[0].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="like x"):
+        fused_qkv_mha(x, x, *args[2:], num_heads=H)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_qkv_mha(*(a.half() if a is not None else None for a in args),
+                      num_heads=H)

@@ -15,6 +15,8 @@ from vln_goat_tpu.tools import kmeans as jk
 from vln_goat_tpu.tools import zdict as jz
 from vln_goat_tpu_torch.tools import kmeans as pk
 from vln_goat_tpu_torch.tools import zdict as pz
+# torch on one thread: under xdist the workers share the cores
+from test_torch_gate_witness import one_thread  # noqa: F401
 
 
 def _clustered(rng, n=300, d=16, k=6):
@@ -93,3 +95,14 @@ def test_broadcast_and_causal_batch(rng):
     assert out["txt_ids"] is batch["txt_ids"]
     assert out["img_z_pzs"].shape == (3, 5, 1)
     assert set(zd) <= pz.SHARED_BANKS
+
+
+def test_step_calls_count_the_host_work_of_each_setting():
+    """tools.step_calls on the CPU test configuration: bf16 adds calls
+    (the per-call casts) and remat "model" adds more (the recompute)."""
+    from vln_goat_tpu_torch.tools.step_calls import SETTINGS, step_calls
+    counts = [step_calls("cpu", True, dtype, remat)
+              for dtype, remat in SETTINGS]
+    assert len({c["rollout_steps"] for c in counts}) == 1
+    calls = [c["aten_calls"] for c in counts]
+    assert calls[0] < calls[1] < calls[2]

@@ -48,14 +48,15 @@ NO_DROP = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
 B = 8
 
 
-def _jax_rig(state_dict):
+def _jax_rig(state_dict, dtype=jnp.float32):
     """The JAX side of build_train_flagship(tiny=True, dropout=False), with
     the port's seeded weights moved over by the JAX package's
-    `torch_to_flax` (the same tree and shapes as its own init gives)."""
+    `torch_to_flax` (the same tree and shapes as its own init gives); the
+    model computes in `dtype`."""
     cfg = JaxConfig(**TINY, **NO_DROP)
     scans = [jax_scan("s0", num_vps=12, seed=0)]
     world = JaxWorld.build(scans, feat_dim=16, seed=0)
-    model = JaxModel(cfg)
+    model = JaxModel(cfg, dtype=dtype)
     params = torch_to_flax({k: v.numpy() for k, v in state_dict.items()})
     ro = JaxRollout(model, world, JaxRolloutConfig(num_nodes=16, horizon=6,
                                                    feat_dim=16))

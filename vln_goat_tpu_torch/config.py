@@ -14,6 +14,8 @@ import json
 from dataclasses import dataclass
 from typing import Optional
 
+import torch
+
 
 @dataclass
 class GoatConfig:
@@ -96,6 +98,15 @@ class GoatConfig:
     # fused_attn_min_lq tokens
     use_fused_attention: bool = False
     fused_attn_min_lq: int = 32
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        """`compute_dtype` as a torch dtype."""
+        dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+        if self.compute_dtype not in dtypes:
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: one of "
+                             f"{sorted(dtypes)}")
+        return dtypes[self.compute_dtype]
 
     @property
     def head_dim(self) -> int:

@@ -18,6 +18,12 @@ bench_train` times:
     g = torch.Generator(device="cuda").manual_seed(0)
     metrics = train_steps(state, batcher, 3, g)
 
+`compute_dtype="bfloat16"` builds either in bf16 compute (float32
+parameters; the fused kernels' bf16 builds), and `remat="model"` has the
+train step's rollouts recompute each model call in the backward:
+`build_train_flagship(compute_dtype="bfloat16", remat="model")` is
+`bench.py`'s train build for R2R (`bench.py:78`, `:123`, `:200`).
+
 `causal=True` builds either with GOAT's causal configuration (`CAUSAL`:
 BACL back-door text type_2 and image type_1, FACL front-door on text,
 panorama and map, "door" merges; the set the JAX package's key audit
@@ -61,7 +67,7 @@ IMG_Z_ROWS, FRONT_CLUSTERS, CFP_ROWS = 50, 24, 2048
 
 
 def make_causal_banks(cfg: GoatConfig, seed: int = 0,
-                      device="cpu") -> Dict[str, np.ndarray]:
+                      device="cuda") -> Dict[str, np.ndarray]:
     """Seeded banks of the causal configuration at the sizes a real run
     holds, under their batch keys: the instruction direction bank
     (len(DIRECTION_WORDS) = 36 rows) and landmark bank
@@ -69,7 +75,9 @@ def make_causal_banks(cfg: GoatConfig, seed: int = 0,
     room-type bank (50 rows at the image feature width), each with p(z)
     summing to 1; and the front-door banks, each picked by FrontDoorPicker
     (k-means on `device`) from 2048 CFP-like rows (tanh of a mixture of 24
-    Gaussian clusters) into 24 rows.  Only the banks `cfg` reads."""
+    Gaussian clusters) into 24 rows.  Only the banks `cfg` reads.  Runs
+    on the card unless `device` says otherwise."""
+    device = resolve(device)
     rng = np.random.default_rng(seed)
     D = cfg.hidden_size
 
@@ -114,13 +122,14 @@ def build_model(cfg: GoatConfig, device="cuda", seed: int = 0) -> GoatModel:
 
 def build_flagship(device="cuda", tiny: bool = False,
                    use_fused_attention: bool = True, seed: int = 0,
-                   causal: bool = False):
+                   causal: bool = False, compute_dtype: str = "float32"):
     """(model, rollout, batcher) of the flagship R2R configuration.
     use_fused_attention=False routes every attention to the eager PyTorch
     path instead of the fused kernel.  causal=True: the CAUSAL flags, and
-    the batcher attaches make_causal_banks(cfg, seed 0) to every batch."""
+    the batcher attaches make_causal_banks(cfg, seed 0) to every batch.
+    compute_dtype: "float32" or "bfloat16" (GoatConfig.compute_dtype)."""
     dev = resolve(device)
-    flags = CAUSAL if causal else {}
+    flags = dict(CAUSAL if causal else {}, compute_dtype=compute_dtype)
     if tiny:
         cfg = GoatConfig(use_fused_attention=use_fused_attention, **TINY,
                          **flags)
@@ -165,7 +174,9 @@ def build_train_flagship(device="cuda", tiny: bool = False,
                          use_fused_attention: bool = True,
                          dropout: bool = True,
                          tcfg: Optional[TrainConfig] = None,
-                         teacher_horizon="auto", causal: bool = False):
+                         teacher_horizon="auto", causal: bool = False,
+                         compute_dtype: str = "float32",
+                         remat: str = "none"):
     """(TrainState, batcher) of the R2R DAgger step of `bench.py`
     `bench_train` (its `build` for R2R, :78-140): the full-width R2R model
     in float32 with seeded random weights, 4 synthetic scans of 120
@@ -175,14 +186,16 @@ def build_train_flagship(device="cuda", tiny: bool = False,
     weight decay 0.01 (`make_optimizer`'s defaults), global-norm clip 40;
     train_alg 'dagger', ml_weight 0.2 (tcfg's), teacher_horizon 'auto'.
     Weights drawn from seed 0.  `dropout=False` sets every dropout
-    probability to 0.  `tiny=True`: the
+    probability to 0.  compute_dtype: "float32" or "bfloat16" (bench.py
+    trains in bf16); remat: the rollouts' rematerialisation policy, "none"
+    or "model" (bench.py's GOAT_BENCH_REMAT default).  `tiny=True`: the
     JAX package's train-step test configuration (one 12-viewpoint scan,
     hidden 32, 16 node slots, horizon 6, buckets (4, 6)).  causal=True:
     the CAUSAL flags, and the batcher attaches make_causal_banks(cfg,
     seed 0) to every batch."""
     dev = resolve(device)
     tcfg = tcfg or TrainConfig(weight_decay=0.01)
-    over = dict(CAUSAL) if causal else {}
+    over = dict(CAUSAL if causal else {}, compute_dtype=compute_dtype)
     if not dropout:
         over.update(hidden_dropout_prob=0.0,
                     attention_probs_dropout_prob=0.0, feat_dropout=0.0)
@@ -217,7 +230,7 @@ def build_train_flagship(device="cuda", tiny: bool = False,
                              grad_clip=tcfg.grad_clip,
                              train_alg=tcfg.train_alg,
                              ml_weight=tcfg.ml_weight,
-                             teacher_horizon=teacher_horizon)
+                             teacher_horizon=teacher_horizon, remat=remat)
     return state, batcher
 
 

@@ -14,17 +14,20 @@ from torch import nn
 from ..config import GoatConfig
 from ..ops.dropout import Dropout
 from ..ops.masks import extend_neg_masks
-from .layers import BertAttention, BertLayer
+from .layers import (BertAttention, BertLayer, Embedding, LayerNorm, Linear,
+                     cast_dtype)
 
 
 class RobertaEmbeddings(nn.Module):
     def __init__(self, c: GoatConfig):
         super().__init__()
+        dt = cast_dtype(c)
         D = c.hidden_size
-        self.word_embeddings = nn.Embedding(c.vocab_size, D)
-        self.position_embeddings = nn.Embedding(c.max_position_embeddings, D)
-        self.token_type_embeddings = nn.Embedding(c.type_vocab_size, D)
-        self.LayerNorm = nn.LayerNorm(D, eps=c.layer_norm_eps)
+        self.word_embeddings = Embedding(c.vocab_size, D, dt)
+        self.position_embeddings = Embedding(c.max_position_embeddings, D,
+                                             dt)
+        self.token_type_embeddings = Embedding(c.type_vocab_size, D, dt)
+        self.LayerNorm = LayerNorm(D, c.layer_norm_eps, dt)
         self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, input_ids):
@@ -68,6 +71,7 @@ class LanguageEncoderDo(LanguageEncoder):
 
     def __init__(self, c: GoatConfig):
         super().__init__(c)
+        dt = cast_dtype(c)
         self.back, self.front = c.do_back_txt, c.do_front_txt
         self.type = c.do_back_txt_type
         self.add_method = c.do_add_method
@@ -81,25 +85,25 @@ class LanguageEncoderDo(LanguageEncoder):
             raise ValueError("the concat merge needs do_back_txt")
         if self.back:
             if self.type == "type_1":
-                self.z_txt_linear = nn.Linear(D, D)
+                self.z_txt_linear = Linear(D, D, dt)
             else:
                 self.z_direc_cross_attn = BertAttention(c)
-                self.z_direct_ln = nn.LayerNorm(D, eps=eps)
+                self.z_direct_ln = LayerNorm(D, eps, dt)
                 self.z_landm_cross_attn = BertAttention(c)
-                self.z_landm_ln = nn.LayerNorm(D, eps=eps)
-            self.z_direct_linear = nn.Linear(D, D)
-            self.z_landm_linear = nn.Linear(D, D)
+                self.z_landm_ln = LayerNorm(D, eps, dt)
+            self.z_direct_linear = Linear(D, D, dt)
+            self.z_landm_linear = Linear(D, D, dt)
         if self.front:
             self.z_front_cross_attn = BertAttention(c)
-            self.z_front_linear = nn.Linear(D, D)
-            self.z_front_ln = nn.LayerNorm(D, eps=eps)
+            self.z_front_linear = Linear(D, D, dt)
+            self.z_front_ln = LayerNorm(D, eps, dt)
         if self.type == "type_2":
             if self.add_method == "door":
-                self.instr_aug_linear = nn.Linear(D, 1)
-                self.instr_ori_linear = nn.Linear(D, 1)
+                self.instr_aug_linear = Linear(D, 1, dt)
+                self.instr_ori_linear = Linear(D, 1, dt)
             elif self.add_method == "concat":
-                self.concat_linear = nn.Linear(3 * D, D)
-        self.z_concat_layernorm = nn.LayerNorm(D, eps=eps)
+                self.concat_linear = Linear(3 * D, D, dt)
+        self.z_concat_layernorm = LayerNorm(D, eps, dt)
 
     @staticmethod
     def _branch(attn, linear, ln, h, bank):

@@ -19,7 +19,9 @@ from ..config import GoatConfig
 from ..ops.dropout import Dropout
 from ..ops.masks import extend_neg_masks
 from .backbone import LanguageEncoder, LanguageEncoderDo, RobertaEmbeddings
-from .layers import BertAttention, BertPooler, ClsPrediction, CrossmodalEncoder
+from .layers import (BertAttention, BertPooler, ClsPrediction,
+                     CrossmodalEncoder, Embedding, LayerNorm, Linear,
+                     cast_dtype)
 from .panorama import CausalImageEmbeddings
 
 NEG_INF = float("-inf")
@@ -28,9 +30,10 @@ NEG_INF = float("-inf")
 class LocalVPEncoder(nn.Module):
     def __init__(self, c: GoatConfig):
         super().__init__()
+        dt = cast_dtype(c)
         self.vp_pos_embeddings = nn.Sequential(
-            nn.Linear(2 * (c.angle_feat_size + 3), c.hidden_size),
-            nn.LayerNorm(c.hidden_size, eps=1e-12))
+            Linear(2 * (c.angle_feat_size + 3), c.hidden_size, dt),
+            LayerNorm(c.hidden_size, 1e-12, dt))
         self.encoder = CrossmodalEncoder(c)
 
     def pos_embed(self, vp_pos_fts):
@@ -40,13 +43,14 @@ class LocalVPEncoder(nn.Module):
 class GlobalMapEncoder(nn.Module):
     def __init__(self, c: GoatConfig):
         super().__init__()
+        dt = cast_dtype(c)
         self.gmap_pos_embeddings = nn.Sequential(
-            nn.Linear(c.angle_feat_size + 3, c.hidden_size),
-            nn.LayerNorm(c.hidden_size, eps=1e-12))
-        self.gmap_step_embeddings = nn.Embedding(c.max_action_steps,
-                                                 c.hidden_size)
+            Linear(c.angle_feat_size + 3, c.hidden_size, dt),
+            LayerNorm(c.hidden_size, 1e-12, dt))
+        self.gmap_step_embeddings = Embedding(c.max_action_steps,
+                                              c.hidden_size, dt)
         self.encoder = CrossmodalEncoder(c)
-        self.sprel_linear = nn.Linear(1, 1) if c.graph_sprels else None
+        self.sprel_linear = Linear(1, 1, dt) if c.graph_sprels else None
 
     def input_embed(self, gmap_img_embeds, gmap_step_ids, gmap_pos_fts):
         return (gmap_img_embeds
@@ -109,12 +113,13 @@ class FrontDoorEncoder(nn.Module):
 
     def __init__(self, c: GoatConfig):
         super().__init__()
+        dt = cast_dtype(c)
         D = c.hidden_size
         self.ll_self_attn = BertAttention(c)
         self.lg_cross_attn = BertAttention(c)
-        self.ln = nn.LayerNorm(D, eps=1e-12)
-        self.aug_linear = nn.Linear(D, 1)
-        self.ori_linear = nn.Linear(D, 1)
+        self.ln = LayerNorm(D, 1e-12, dt)
+        self.aug_linear = Linear(D, 1, dt)
+        self.ori_linear = Linear(D, 1, dt)
 
     def forward(self, local_feats, global_feats, local_feats_masks=None):
         bias = None if local_feats_masks is None \
@@ -133,6 +138,7 @@ class GoatModel(nn.Module):
 
     def __init__(self, c: GoatConfig):
         super().__init__()
+        dt = cast_dtype(c)
         if c.obj_feat_size > 0 or c.mode == "extract_cfp_features":
             raise NotImplementedError(
                 "object grounding and CFP extraction are not ported yet")
@@ -150,8 +156,8 @@ class GoatModel(nn.Module):
         self.gmap_pooler = BertPooler(c)
         self.vp_pooler = BertPooler(c)
         self.txt_pooler = BertPooler(c)
-        self.local_his_map = nn.Linear(3 * c.hidden_size, c.hidden_size)
-        self.local_his_ln = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.local_his_map = Linear(3 * c.hidden_size, c.hidden_size, dt)
+        self.local_his_ln = LayerNorm(c.hidden_size, c.layer_norm_eps, dt)
         # env-feature dropout on the raw view features
         # (vln_goat_tpu/models/goat.py:195, :245)
         self.drop_env = Dropout(c.feat_dropout)

@@ -1,6 +1,11 @@
 """Transformer building blocks (counterpart of vln_goat_tpu/models/layers.py).
 
-Float32.  Dropout sits at every site of the JAX package (attention
+Float32, or bfloat16 compute with float32 parameters (the config's
+`compute_dtype`, as Flax's `dtype=`): `Linear`, `LayerNorm` and
+`Embedding` cast per call, so autograd hands the float32 parameters their
+gradients through the casts; LayerNorm statistics and every softmax are
+taken in float32.  In float32 they are torch's own layers, unchanged.
+Dropout sits at every site of the JAX package (attention
 probabilities, hidden states, the DETR pano encoder's residual and FFN
 branches); it is active in train() mode and draws from the generator that
 `ops.dropout.set_generator` gives the model.  Parity rules kept from the
@@ -20,12 +25,74 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..config import GoatConfig
 from ..ops.activations import ACT2FN
 from ..ops.attention import fused_qkv_mha
 from ..ops.dropout import Dropout
 from ..ops.masks import extend_neg_masks
+
+
+def cast_dtype(c: GoatConfig) -> Optional[torch.dtype]:
+    """The dtype the layers of config `c` cast to per call: None in float32,
+    where they cast nothing (so a float64 copy of a model stays float64)."""
+    dt = c.torch_dtype
+    return None if dt == torch.float32 else dt
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in `compute_dtype` (Flax's Dense(dtype=...), the
+    JAX package's `_ProjWeights`, layers.py:67-80): input, weight and bias
+    cast per call, the parameters float32.  None: nn.Linear itself."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm; with `compute_dtype` Flax's LayerNorm(dtype=...) and
+    the JAX package's `_LNWeights` (layers.py:170-184): statistics in
+    float32 with the one-pass variance max(E[x^2] - E[x]^2, 0), the output
+    cast to the dtype."""
+
+    def __init__(self, normalized_shape: int, eps: float,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(normalized_shape, eps=eps)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        x32 = x.float()
+        mu = x32.mean(-1, keepdim=True)
+        var = ((x32 * x32).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+        y = (x32 - mu) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+        return y.to(self.compute_dtype)
+
+
+class Embedding(nn.Embedding):
+    """nn.Embedding whose rows come in `compute_dtype` (Flax's
+    Embed(dtype=...)); None: nn.Embedding itself."""
+
+    def __init__(self, num: int, dim: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(num, dim)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, ids):
+        out = super().forward(ids)
+        return out if self.compute_dtype is None \
+            else out.to(self.compute_dtype)
 
 
 class AttentionCore(nn.Module):
@@ -39,18 +106,21 @@ class AttentionCore(nn.Module):
     path.  In training the fused kernel applies the probability dropout
     itself, from int32 per-row seeds drawn from the dropout generator
     (layers.py:127-133); the eager path drops the probabilities with
-    `prob_dropout`."""
+    `prob_dropout`.  With `compute_dtype` the fused call takes its inputs,
+    weights and biases cast to it (layers.py:134-137)."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
                  use_fused: bool = False, min_lq: int = 32,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         d = num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
         self.use_fused, self.min_lq = use_fused, min_lq
-        self.query = nn.Linear(hidden_size, d)
-        self.key = nn.Linear(hidden_size, d)
-        self.value = nn.Linear(hidden_size, d)
+        self.compute_dtype = compute_dtype
+        self.query = Linear(hidden_size, d, compute_dtype)
+        self.key = Linear(hidden_size, d, compute_dtype)
+        self.value = Linear(hidden_size, d, compute_dtype)
         self.prob_dropout = Dropout(dropout_rate)
 
     def kv(self, kv_in: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,11 +141,16 @@ class AttentionCore(nn.Module):
                     0, torch.iinfo(torch.int32).max, (q_in.shape[0],),
                     generator=drop.generator, device=q_in.device,
                     dtype=torch.int32)
+            dt = self.compute_dtype
+
+            def cast(t):
+                return t if dt is None else t.to(dt)
+
             return fused_qkv_mha(
-                q_in.contiguous(), kv_in.contiguous(),
-                self.query.weight.t(), self.query.bias,
-                self.key.weight.t(), self.key.bias,
-                self.value.weight.t(), self.value.bias, bias,
+                cast(q_in).contiguous(), cast(kv_in).contiguous(),
+                cast(self.query.weight).t(), cast(self.query.bias),
+                cast(self.key.weight).t(), cast(self.key.bias),
+                cast(self.value.weight).t(), cast(self.value.bias), bias,
                 num_heads=self.num_heads, dropout_rate=rate, seed=seed)
         q = self.query(q_in)
         k, v = kv_cache if kv_cache is not None else self.kv(kv_in)
@@ -96,8 +171,9 @@ class AttentionCore(nn.Module):
 class BertSelfOutput(nn.Module):
     def __init__(self, c: GoatConfig):
         super().__init__()
-        self.dense = nn.Linear(c.hidden_size, c.hidden_size)
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        dt = cast_dtype(c)
+        self.dense = Linear(c.hidden_size, c.hidden_size, dt)
+        self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dt)
         self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, hidden, residual):
@@ -112,7 +188,8 @@ class BertAttention(nn.Module):
         self.self = AttentionCore(c.hidden_size, c.num_attention_heads,
                                   c.head_dim, c.use_fused_attention,
                                   c.fused_attn_min_lq,
-                                  c.attention_probs_dropout_prob)
+                                  c.attention_probs_dropout_prob,
+                                  cast_dtype(c))
         self.output = BertSelfOutput(c)
 
     def kv(self, kv_in):
@@ -127,7 +204,8 @@ class BertAttention(nn.Module):
 class BertIntermediate(nn.Module):
     def __init__(self, c: GoatConfig):
         super().__init__()
-        self.dense = nn.Linear(c.hidden_size, c.intermediate_size)
+        self.dense = Linear(c.hidden_size, c.intermediate_size,
+                            cast_dtype(c))
         self.act = ACT2FN[c.hidden_act]
 
     def forward(self, hidden):
@@ -137,8 +215,9 @@ class BertIntermediate(nn.Module):
 class BertOutput(nn.Module):
     def __init__(self, c: GoatConfig):
         super().__init__()
-        self.dense = nn.Linear(c.intermediate_size, c.hidden_size)
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        dt = cast_dtype(c)
+        self.dense = Linear(c.intermediate_size, c.hidden_size, dt)
+        self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dt)
         self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, hidden, residual):
@@ -211,21 +290,29 @@ class CrossmodalEncoder(nn.Module):
 
 class TorchMultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention's parameters (packed in_proj) with the
-    JAX package's arithmetic: key padding by float32 min, f32 softmax."""
+    JAX package's arithmetic: key padding by float32 min (the scores
+    promoted to at least float32 there, as the JAX package's numpy float32
+    constant promotes them), f32 softmax."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         d = num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.compute_dtype = compute_dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d, hidden_size))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d))
-        self.out_proj = nn.Linear(d, d)
+        self.out_proj = Linear(d, d, compute_dtype)
         self.prob_dropout = Dropout(dropout_rate)
 
     def forward(self, q_in, k_in, v_in, key_padding_mask=None):
         d = self.num_heads * self.head_dim
         w, b = self.in_proj_weight, self.in_proj_bias
+        dt = self.compute_dtype
+        if dt is not None:
+            w, b = w.to(dt), b.to(dt)
+            q_in, k_in, v_in = q_in.to(dt), k_in.to(dt), v_in.to(dt)
         q = nn.functional.linear(q_in, w[:d], b[:d])
         k = nn.functional.linear(k_in, w[d:2 * d], b[d:2 * d])
         v = nn.functional.linear(v_in, w[2 * d:], b[2 * d:])
@@ -236,8 +323,10 @@ class TorchMultiheadAttention(nn.Module):
         v = v.view(B, Lk, H, dh)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
         if key_padding_mask is not None:
-            scores = scores.masked_fill(key_padding_mask[:, None, None, :],
-                                        torch.finfo(torch.float32).min)
+            scores = scores.to(torch.promote_types(
+                scores.dtype, torch.float32)).masked_fill(
+                    key_padding_mask[:, None, None, :],
+                    torch.finfo(torch.float32).min)
         probs = self.prob_dropout(
             torch.softmax(scores.float(), dim=-1).to(v.dtype))
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, Lq, d)
@@ -253,12 +342,13 @@ class PanoEncoderLayer(nn.Module):
         super().__init__()
         D = c.hidden_size
         p = c.hidden_dropout_prob
-        self.norm1 = nn.LayerNorm(D, eps=1e-5)
+        dt = cast_dtype(c)
+        self.norm1 = LayerNorm(D, 1e-5, dt)
         self.self_attn = TorchMultiheadAttention(D, c.num_attention_heads,
-                                                 c.head_dim, p)
-        self.norm2 = nn.LayerNorm(D, eps=1e-5)
-        self.linear1 = nn.Linear(D, c.intermediate_size)
-        self.linear2 = nn.Linear(c.intermediate_size, D)
+                                                 c.head_dim, p, dt)
+        self.norm2 = LayerNorm(D, 1e-5, dt)
+        self.linear1 = Linear(D, c.intermediate_size, dt)
+        self.linear2 = Linear(c.intermediate_size, D, dt)
         self.act = ACT2FN[c.hidden_act]
         self.dropout1 = Dropout(p)
         self.dropout = Dropout(p)
@@ -278,7 +368,7 @@ class PanoEncoder(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(
             PanoEncoderLayer(c) for _ in range(c.num_pano_layers))
-        self.norm = nn.LayerNorm(c.hidden_size, eps=1e-12)
+        self.norm = LayerNorm(c.hidden_size, 1e-12, cast_dtype(c))
 
     def forward(self, src, key_padding_mask=None):
         h = src
@@ -292,7 +382,7 @@ class BertPooler(nn.Module):
 
     def __init__(self, c: GoatConfig):
         super().__init__()
-        self.dense = nn.Linear(c.hidden_size, c.hidden_size)
+        self.dense = Linear(c.hidden_size, c.hidden_size, cast_dtype(c))
 
     def forward(self, hidden):
         return torch.tanh(self.dense(hidden[:, 0]))
@@ -303,9 +393,10 @@ class BertPredictionHeadTransform(nn.Module):
 
     def __init__(self, c: GoatConfig):
         super().__init__()
-        self.dense = nn.Linear(c.hidden_size, c.hidden_size)
+        dt = cast_dtype(c)
+        self.dense = Linear(c.hidden_size, c.hidden_size, dt)
         self.act = ACT2FN[c.hidden_act]
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dt)
 
     def forward(self, hidden):
         return self.LayerNorm(self.act(self.dense(hidden)))
@@ -317,9 +408,10 @@ class ClsPrediction(nn.Module):
     def __init__(self, c: GoatConfig, input_size: Optional[int] = None):
         super().__init__()
         D = c.hidden_size
+        dt = cast_dtype(c)
         self.net = nn.Sequential(
-            nn.Linear(input_size or D, D), nn.ReLU(),
-            nn.LayerNorm(D, eps=1e-12), nn.Linear(D, 1))
+            Linear(input_size or D, D, dt), nn.ReLU(),
+            LayerNorm(D, 1e-12, dt), Linear(D, 1, dt))
 
     def forward(self, x):
         return self.net(x)

@@ -13,7 +13,8 @@ from torch import nn
 
 from ..config import GoatConfig
 from ..ops.dropout import Dropout
-from .layers import BertAttention, PanoEncoder
+from .layers import (BertAttention, LayerNorm, Linear, PanoEncoder,
+                     cast_dtype)
 
 _NEG = -1e9
 
@@ -31,16 +32,17 @@ class CausalImageEmbeddings(nn.Module):
 
     def __init__(self, c: GoatConfig):
         super().__init__()
+        dt = cast_dtype(c)
         if c.is_objnav:
             raise NotImplementedError("object tokens are not ported yet")
         D = c.hidden_size
-        self.img_linear = nn.Linear(c.image_feat_size, D)
-        self.img_layer_norm = nn.LayerNorm(D, eps=1e-12)
-        self.loc_linear = nn.Linear(c.angle_feat_size + 3, D)
-        self.loc_layer_norm = nn.LayerNorm(D, eps=1e-12)
+        self.img_linear = Linear(c.image_feat_size, D, dt)
+        self.img_layer_norm = LayerNorm(D, 1e-12, dt)
+        self.loc_linear = Linear(c.angle_feat_size + 3, D, dt)
+        self.loc_layer_norm = LayerNorm(D, 1e-12, dt)
         self.dropout = Dropout(c.hidden_dropout_prob)
         self.img_self_encoder = PanoEncoder(c)
-        self.adaptive_pano_attn = nn.Linear(D, 1) \
+        self.adaptive_pano_attn = Linear(D, 1, dt) \
             if c.adaptive_pano_fusion else None
         self.back = c.do_back_img
         if self.back:
@@ -50,16 +52,16 @@ class CausalImageEmbeddings(nn.Module):
                     self.add_method not in ("door", "add", "concat"):
                 raise ValueError(f"do_back_img_type {self.back_type!r} / "
                                  f"do_add_method {self.add_method!r}")
-            self.do_img_before_linear = nn.Linear(c.image_feat_size, D)
-            self.do_img_layer_norm = nn.LayerNorm(D, eps=1e-12)
+            self.do_img_before_linear = Linear(c.image_feat_size, D, dt)
+            self.do_img_layer_norm = LayerNorm(D, 1e-12, dt)
             if self.back_type == "type_2":
                 self.do_img_attn = BertAttention(c)
             if self.back_type == "type_1" or self.add_method == "door":
-                self.img_after_linear = nn.Linear(D, D)
-                self.do_img_after_linear = nn.Linear(D, D)
+                self.img_after_linear = Linear(D, D, dt)
+                self.do_img_after_linear = Linear(D, D, dt)
             elif self.add_method == "concat":
-                self.do_concat_img_linear = nn.Linear(2 * D, D)
-            self.do_img_concat_layernorm = nn.LayerNorm(D, eps=1e-12)
+                self.do_concat_img_linear = Linear(2 * D, D, dt)
+            self.do_img_concat_layernorm = LayerNorm(D, 1e-12, dt)
 
     def _backdoor(self, view, z_img_features, z_img_pzs):
         """Back-door image adjustment (the JAX package's panorama.py:49-73)

@@ -17,6 +17,15 @@ and attention over projected heads.
   weight and bias gradients split over the rows as `bwd_plan.proj_plan`
   lays them out, dbias).
 
+Both run in float32 or, for bf16 inputs (the JAX package's bf16 model,
+`_bdot(..., dt=x.dtype)` :120-137), in bf16: bf16 operands of every
+product with float32 sums, on the bf16 core `csrc/gemm_bf16.cuh` and bf16
+fragments of the attention; scores, softmax, dropout and the score
+gradients in float32; q, k, v, p, ds and the projection gradients rounded
+to bf16 where the JAX kernel casts them; outputs and gradients in their
+input's dtype.  x, y, the weights and biases of one call share one dtype;
+a mix raises.
+
 On a CUDA tensor `fused_qkv_mha` runs `FusedQKVMHA`, an autograd Function
 whose forward launches the forward kernel and whose backward launches the
 two backward kernels; it saves its inputs and the per-row seeds, never the
@@ -52,30 +61,58 @@ def _split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     return t.view(B, L, num_heads, HD // num_heads)
 
 
+def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the plain version sums in for inputs of `dtype`: float32
+    for bf16, whose values it multiplies exactly in float32 (the products of
+    the JAX kernel's bf16 operands with float32 sums), else `dtype`."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def project_plain(x, y, wq, bq, wk, bk, wv, bv):
-    """The three projections: q [B, Lq, H*dh], k and v [B, Lk, H*dh]."""
+    """The three projections: q [B, Lq, H*dh], k and v [B, Lk, H*dh].  In
+    bf16 they are float32 (`_fa_qkv`: bf16 products summed in float32, plus
+    the bias)."""
+    acc = _sum_dtype(x.dtype)
+    if acc != x.dtype:
+        x, y, wq, bq, wk, bk, wv, bv = (t.to(acc) for t in (
+            x, y, wq, bq, wk, bk, wv, bv))
     return x @ wq + bq, y @ wk + bk, y @ wv + bv
 
 
 def attend_plain(q, k, v, bias=None, num_heads: int = 12,
                  dropout_rate: float = 0.0,
-                 seed: Optional[torch.Tensor] = None):
+                 seed: Optional[torch.Tensor] = None,
+                 dtype: Optional[torch.dtype] = None):
     """Attention over projected q [B, Lq, H*dh], k/v [B, Lk, H*dh]:
     softmax(q k^T / sqrt(dh) + bias) in float32, the keep mask of
-    `keep_mask(seed, ...)` at `dropout_rate`, times v -> [B, Lq, H*dh]."""
+    `keep_mask(seed, ...)` at `dropout_rate`, times v -> [B, Lq, H*dh].
+
+    `dtype` (default q's) is the call's compute dtype.  bf16: q, k, v, the
+    bias and p are rounded to bf16 where the JAX kernel casts them (before
+    q k^T, at the bias's cast to x.dtype, before p v), every product sums
+    in float32, and the output is bf16."""
     B, Lq, HD = q.shape
     H = num_heads
     dh = HD // H
-    q, k, v = (_split_heads(t, H) for t in (q, k, v))
+    dt = q.dtype if dtype is None else dtype
+    acc = _sum_dtype(dt)
+    if acc != dt:
+        def rd(t):
+            return t.to(dt).to(acc)
+    else:
+        def rd(t):
+            return t
+    q, k, v = (_split_heads(rd(t), H) for t in (q, k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(dh))
     if bias is not None:
-        s = s + bias.to(s.dtype)
+        s = s + rd(bias).to(s.dtype)
     p = torch.softmax(s.float(), dim=-1).to(v.dtype)
     if dropout_rate > 0.0:
         keep = keep_mask(seed, p.shape, dropout_rate)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)),
                         torch.zeros_like(p))
-    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, Lq, HD)
+    out = torch.einsum("bhqk,bkhd->bqhd", rd(p), v).reshape(B, Lq, HD)
+    return out.to(dt)
 
 
 def fused_qkv_mha_plain(x, y, wq, bq, wk, bk, wv, bv, bias=None,
@@ -84,9 +121,10 @@ def fused_qkv_mha_plain(x, y, wq, bq, wk, bk, wv, bv, bias=None,
     """x [B, Lq, D] (query side), y [B, Lk, D] (key/value side),
     projection weights [D, H*dh] with biases [H*dh], additive bias
     broadcastable to [B, {1,H}, Lq, Lk], per-row int32 seeds [B] (needed
-    when dropout_rate > 0) -> [B, Lq, H*dh].  Softmax in float32."""
+    when dropout_rate > 0) -> [B, Lq, H*dh] in x's dtype.  Softmax in
+    float32; bf16 inputs take the cast points of `attend_plain`."""
     return attend_plain(*project_plain(x, y, wq, bq, wk, bk, wv, bv), bias,
-                        num_heads, dropout_rate, seed)
+                        num_heads, dropout_rate, seed, dtype=x.dtype)
 
 
 def mha_plain(q, k, v, bias=None):
@@ -106,17 +144,28 @@ _VP, _LL, _I, _U, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
 _W = [_VP, _LL, _LL]                    # weight pointer and its two strides
 
 
+# the dtypes the kernels take, and the suffix of their C entries
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def _entry(lib: ctypes.CDLL, name: str, dtype: torch.dtype):
+    """The C entry `name` of `lib` for `dtype` (float32 or bf16)."""
+    return getattr(lib, name + _SUFFIX[dtype])
+
+
 def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("fused_qkv_mha")
-    fn = lib.fused_qkv_mha_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3
-                       + [_VP, _LL, _LL, _LL, _LL, _VP, _VP] + [_I] * 5
-                       + [_F, _VP, _U, _F, _VP])
-        fn.restype = _I
-        lib.fused_qkv_mha_proj.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3
-                                           + [_VP] + [_I] * 5 + [_VP])
-        lib.fused_qkv_mha_proj.restype = _I
+    if lib.fused_qkv_mha_fwd.argtypes is None:
+        for sfx in _SUFFIX.values():
+            fn = getattr(lib, "fused_qkv_mha_fwd" + sfx)
+            fn.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3
+                           + [_VP, _LL, _LL, _LL, _LL, _VP, _VP] + [_I] * 5
+                           + [_F, _VP, _U, _F, _VP])
+            fn.restype = _I
+            fn = getattr(lib, "fused_qkv_mha_proj" + sfx)
+            fn.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3 + [_VP] + [_I] * 5
+                           + [_VP])
+            fn.restype = _I
         lib.fused_qkv_mha_head_dim.restype = _I
         lib.fused_qkv_mha_max_lk.restype = _I
     return lib
@@ -124,21 +173,25 @@ def _fwd_lib() -> ctypes.CDLL:
 
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("fused_qkv_mha_bwd")
-    fa, fp = lib.fused_qkv_mha_bwd_attn, lib.fused_qkv_mha_bwd_proj
-    if fa.argtypes is None:
-        fa.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3
-                       + [_VP, _LL, _LL, _LL, _LL] + [_VP, _U, _F]
-                       + [_VP] * 7 + [_I] * 5 + [_F, _VP])
-        fa.restype = _I
-        fp.argtypes = ([_VP, _VP] + _W * 3 + [_VP] * 6 + [_VP] * 9
-                       + [_I] * 7 + [_VP])
-        fp.restype = _I
-        lib.fused_qkv_mha_bwd_reduce.argtypes = [_VP] * 10 + [_I] * 2 + [_VP]
-        lib.fused_qkv_mha_bwd_reduce.restype = _I
-        lib.fused_qkv_mha_bwd_gemm.argtypes = ([_VP, _LL, _LL] * 2
-                                               + [_VP] * 3 + [_I] * 5
-                                               + [_VP])
-        lib.fused_qkv_mha_bwd_gemm.restype = _I
+    if lib.fused_qkv_mha_bwd_attn.argtypes is None:
+        for sfx in _SUFFIX.values():
+            fa = getattr(lib, "fused_qkv_mha_bwd_attn" + sfx)
+            fa.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3
+                           + [_VP, _LL, _LL, _LL, _LL] + [_VP, _U, _F]
+                           + [_VP] * 7 + [_I] * 5 + [_F, _VP])
+            fa.restype = _I
+            fp = getattr(lib, "fused_qkv_mha_bwd_proj" + sfx)
+            fp.argtypes = ([_VP, _VP] + _W * 3 + [_VP] * 6 + [_VP] * 9
+                           + [_I] * 7 + [_VP])
+            fp.restype = _I
+            fr = getattr(lib, "fused_qkv_mha_bwd_reduce" + sfx)
+            fr.argtypes = [_VP] * 10 + [_I] * 2 + [_VP]
+            fr.restype = _I
+            fg = getattr(lib, "fused_qkv_mha_bwd_gemm" + sfx)
+            fg.argtypes = [_VP, _LL, _LL] * 2 + [_VP] * 3 + [_I] * 5 + [_VP]
+            fg.restype = _I
+        lib.fused_qkv_mha_bwd_smem.argtypes = [_VP]
+        lib.fused_qkv_mha_bwd_smem.restype = None
         lib.fused_qkv_mha_bwd_head_dim.restype = _I
         lib.fused_qkv_mha_bwd_max_lk.restype = _I
         lib.fused_qkv_mha_bwd_tile.argtypes = [_VP]
@@ -221,13 +274,13 @@ def mha(q, k, v, bias=None):
     return out
 
 
-def _check_weight(name, w, b, D, HD, dev):
+def _check_weight(name, w, b, D, HD, dev, dtype):
     if w.shape != (D, HD) or b.shape != (HD,):
         raise ValueError(f"{name}: weight {tuple(w.shape)} / bias "
                          f"{tuple(b.shape)}, expected ({D}, {HD}) / ({HD},)")
     for t in (w, b):
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"{name}: needs float32 on {dev}, got "
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: needs {dtype} on {dev} like x, got "
                              f"{t.dtype} on {t.device}")
     if not (w.is_contiguous() or w.t().is_contiguous()):
         raise ValueError(f"{name}: weight must be [D, H*dh] contiguous or "
@@ -257,12 +310,16 @@ class _Call:
         if HD % H:
             raise ValueError(f"{HD} columns do not split into {H} heads")
         dh = HD // H
+        dtype = x.dtype
+        if dtype not in _SUFFIX:
+            raise ValueError(f"x: the kernels take float32 or bfloat16, got "
+                             f"{dtype}")
         for t, name in ((x, "x"), (y, "y")):
-            if t.device != dev or t.dtype != torch.float32 or \
-                    not t.is_contiguous():
-                raise ValueError(f"{name}: needs contiguous float32 on {dev}")
+            if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+                raise ValueError(f"{name}: needs contiguous {dtype} on {dev} "
+                                 f"like x, got {t.dtype} on {t.device}")
         for name, w, b in (("q", wq, bq), ("k", wk, bk), ("v", wv, bv)):
-            _check_weight(name, w, b, D, HD, dev)
+            _check_weight(name, w, b, D, HD, dev, dtype)
         if dh != head_dim:
             raise ValueError(f"the kernel is built for head width "
                              f"{head_dim}, got {dh}")
@@ -278,7 +335,8 @@ class _Call:
             if bias.device != dev:
                 raise ValueError(f"bias: needs {dev}, got {bias.device}")
             hb = H if (bias.dim() == 4 and bias.shape[1] == H) else 1
-            self.bias4 = bias.to(torch.float32).expand(B, hb, Lq, Lk)
+            # in x's dtype, as pallas_fused_qkv_mha casts it (:372-375)
+            self.bias4 = bias.to(dtype).expand(B, hb, Lq, Lk)
             st = self.bias4.stride()
             self.bias_strides = (st[0], 0 if hb == 1 else st[1], st[2],
                                  st[3])
@@ -290,7 +348,7 @@ class _Call:
         self.rate = dropout_rate
         self.thresh = keep_threshold(dropout_rate) if dropout_rate > 0 else 0
         self.inv_keep = 1.0 / (1.0 - dropout_rate)
-        self.dev, self.lib = dev, lib
+        self.dev, self.lib, self.dtype = dev, lib, dtype
         self.B, self.Lq, self.Lk, self.D, self.H, self.HD = B, Lq, Lk, D, H, HD
         self.scale = 1.0 / math.sqrt(dh)
         self.ws = ((wq, bq), (wk, bk), (wv, bv))
@@ -313,6 +371,10 @@ class _Call:
 
     def stream(self):
         return torch.cuda.current_stream(self.dev).cuda_stream
+
+    def entry(self, name: str):
+        """The C entry `name` for this call's dtype."""
+        return _entry(self.lib, name, self.dtype)
 
     def check(self, rc: int, what: str):
         if rc != 0:
@@ -342,14 +404,15 @@ def forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias=None,
                    seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One call of the forward on CUDA tensors (no autograd), counted as
     one launch: the q / k / v projection GEMM into scratch of
-    B (Lq + 2 Lk) H*dh floats, freed on return, then the attention."""
+    B (Lq + 2 Lk) H*dh elements of x's dtype, freed on return, then the
+    attention."""
     c = _fwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
                   dropout_rate)
-    f32 = dict(device=c.dev, dtype=torch.float32)
-    out = torch.empty((c.B, c.Lq, c.HD), **f32)
-    qkv = torch.empty(c.B * (c.Lq + 2 * c.Lk) * c.HD, **f32)
+    like = dict(device=c.dev, dtype=c.dtype)
+    out = torch.empty((c.B, c.Lq, c.HD), **like)
+    qkv = torch.empty(c.B * (c.Lq + 2 * c.Lk) * c.HD, **like)
     with torch.cuda.device(c.dev):
-        rc = c.lib.fused_qkv_mha_fwd(
+        rc = c.entry("fused_qkv_mha_fwd")(
             x.data_ptr(), y.data_ptr(), *c.weight_args(), *c.bias_args(),
             out.data_ptr(), qkv.data_ptr(), c.B, c.Lq, c.Lk, c.D, c.H,
             c.scale, *c.seed_args(), c.stream())
@@ -365,9 +428,9 @@ def forward_projection(x, y, wq, bq, wk, bk, wv, bv, num_heads: int = 12):
     views of one scratch.  Not counted in `fused_qkv_mha.launches`."""
     c = _fwd_call(x, y, wq, bq, wk, bk, wv, bv, None, None, num_heads, 0.0)
     qkv = torch.empty(c.B * (c.Lq + 2 * c.Lk) * c.HD, device=c.dev,
-                      dtype=torch.float32)
+                      dtype=c.dtype)
     with torch.cuda.device(c.dev):
-        rc = c.lib.fused_qkv_mha_proj(
+        rc = c.entry("fused_qkv_mha_proj")(
             x.data_ptr(), y.data_ptr(), *c.weight_args(), qkv.data_ptr(),
             c.B, c.Lq, c.Lk, c.D, c.H, c.stream())
     c.check(rc, "fused_qkv_mha projection")
@@ -389,25 +452,27 @@ def attention_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout,
     q [B, Lq, H*dh], k and v [B, Lk, H*dh], and ds [B, H, Lq, Lk] (the
     gradient of the scores, which is the bias's per head) when `need_ds`.
     Two launches: the q / k / v recompute into scratch of
-    B (Lq + 2 Lk) H*dh floats, freed on return, then the attention
-    backward over it."""
+    B (Lq + 2 Lk) H*dh elements of x's dtype, freed on return, then the
+    attention backward over it.  dq, dk, dv come in x's dtype (dO's), ds in
+    float32."""
     c = _bwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
                   dropout_rate)
     dout = dout.contiguous()
-    if dout.shape != (c.B, c.Lq, c.HD) or dout.dtype != torch.float32:
+    if dout.shape != (c.B, c.Lq, c.HD) or dout.dtype != c.dtype:
         raise ValueError(f"dO {tuple(dout.shape)} {dout.dtype}, expected "
-                         f"float32 {(c.B, c.Lq, c.HD)}")
+                         f"{c.dtype} {(c.B, c.Lq, c.HD)}")
     f32 = dict(device=c.dev, dtype=torch.float32)
-    dq = torch.empty((c.B, c.Lq, c.HD), **f32)
-    dk = torch.empty((c.B, c.Lk, c.HD), **f32)
-    dv = torch.empty((c.B, c.Lk, c.HD), **f32)
+    like = dict(device=c.dev, dtype=c.dtype)
+    dq = torch.empty((c.B, c.Lq, c.HD), **like)
+    dk = torch.empty((c.B, c.Lk, c.HD), **like)
+    dv = torch.empty((c.B, c.Lk, c.HD), **like)
     ds = torch.empty((c.B, c.H, c.Lq, c.Lk), **f32) if need_ds else None
-    qkv = torch.empty(c.B * (c.Lq + 2 * c.Lk) * c.HD, **f32)
+    qkv = torch.empty(c.B * (c.Lq + 2 * c.Lk) * c.HD, **like)
     # softmax statistics of each row, when the keys span several chunks
     stats = torch.empty(c.B * c.H * c.Lq * 3, **f32) \
         if c.Lk > ATTN_KEY_CHUNK else None
     with torch.cuda.device(c.dev):
-        rc = c.lib.fused_qkv_mha_bwd_attn(
+        rc = c.entry("fused_qkv_mha_bwd_attn")(
             x.data_ptr(), y.data_ptr(), *c.weight_args(), *c.bias_args(),
             *c.seed_args(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if ds is None else ds.data_ptr(),
@@ -436,25 +501,29 @@ class ProjectionBackward:
                  need_dy: bool = True):
         B, Lq, D = x.shape
         Lk, HD = y.shape[1], wq.shape[1]
-        dev = x.device
+        dev, dtype = x.device, x.dtype
         self.lib = _bwd_lib()
+        if dtype not in _SUFFIX or y.dtype != dtype:
+            raise ValueError(f"x, y: need one of float32 and bfloat16, got "
+                             f"{x.dtype}, {y.dtype}")
         for t in (dq, dk, dv):
-            if t.dtype != torch.float32 or not t.is_contiguous() or \
+            if t.dtype != dtype or not t.is_contiguous() or \
                     t.device != dev or t.shape[0] != B or t.shape[2] != HD:
-                raise ValueError("dq/dk/dv: need contiguous float32 "
+                raise ValueError(f"dq/dk/dv: need contiguous {dtype} "
                                  f"[{B}, L, {HD}] on {dev}")
         for name, w in (("wq", wq), ("wk", wk), ("wv", wv)):
-            if w.shape != (D, HD) or not (w.is_contiguous()
-                                          or w.t().is_contiguous()):
-                raise ValueError(f"{name}: weight must be [D, H*dh] "
+            if w.shape != (D, HD) or w.dtype != dtype or \
+                    not (w.is_contiguous() or w.t().is_contiguous()):
+                raise ValueError(f"{name}: weight must be {dtype} [D, H*dh] "
                                  "contiguous or the transpose of a "
                                  "contiguous [H*dh, D]")
         f32 = dict(device=dev, dtype=torch.float32)
+        like = dict(device=dev, dtype=dtype)
         self.dx = torch.empty_like(x) if need_dx else None
         self.dy = torch.empty_like(y) if need_dy else None
-        self.dws = [torch.empty_strided(w.shape, w.stride(), **f32)
+        self.dws = [torch.empty_strided(w.shape, w.stride(), **like)
                     for w in (wq, wk, wv)]
-        self.dbs = [torch.empty(HD, **f32) for _ in range(3)]
+        self.dbs = [torch.empty(HD, **like) for _ in range(3)]
         self.dbias = None
         if ds is not None:
             if ds.shape != (B, num_heads, Lq, Lk) or not ds.is_contiguous():
@@ -465,6 +534,8 @@ class ProjectionBackward:
                                      ds is not None)
         self.scratch = torch.empty(plan.scratch_floats, **f32)
         self.dev, self.shape = dev, (B, Lq, Lk, D, num_heads)
+        self.proj_fn = _entry(self.lib, "fused_qkv_mha_bwd_proj", dtype)
+        self.reduce_fn = _entry(self.lib, "fused_qkv_mha_bwd_reduce", dtype)
 
         def ptr(t):
             return None if t is None else t.data_ptr()
@@ -498,12 +569,11 @@ class ProjectionBackward:
                 jobs = [j for j in self.plan.jobs
                         if part in (None, group.get(j.name, j.name))]
                 head, dims = self.proj_args
-                rc = self.lib.fused_qkv_mha_bwd_proj(
+                rc = self.proj_fn(
                     *head, _ints(_I, [JOB_IDS[j.name] for j in jobs]),
                     len(jobs), sum(j.blocks for j in jobs), *dims, stream)
             if rc == 0 and part in (None, "reduce"):
-                rc = self.lib.fused_qkv_mha_bwd_reduce(*self.reduce_args,
-                                                       stream)
+                rc = self.reduce_fn(*self.reduce_args, stream)
         if rc != 0:
             B, Lq, Lk, D, _ = self.shape
             raise RuntimeError(f"fused_qkv_mha_bwd_proj kernel launch "
@@ -529,6 +599,35 @@ def projection_backward(x, y, wq, wk, wv, dq, dk, dv, ds=None,
     return call.dx, call.dy, call.dws, call.dbs, call.dbias
 
 
+def _gemm_core(name, dtype, a, b, bias, splits):
+    """One launch of the GEMM core of `dtype` alone (the C entry
+    `fused_qkv_mha_bwd_gemm` or its `_bf16`), for `gemm_tf32x3` and
+    `gemm_bf16`."""
+    if a.device.type != "cuda":
+        raise ValueError(f"{name}: needs CUDA tensors")
+    M, K = a.shape
+    N = b.shape[1]
+    S, kc = split_depth(K, splits)
+    for t in (a, b) + (() if bias is None else (bias,)):
+        if t.device != a.device or t.dtype != dtype:
+            raise ValueError(f"{name}: needs {dtype} on one card")
+    if bias is not None and not bias.is_contiguous():
+        raise ValueError(f"{name}: bias must be contiguous")
+    f32 = dict(device=a.device, dtype=torch.float32)
+    c = torch.empty((S, M, N), **f32)
+    colsum = torch.empty((S, N), **f32)
+    with torch.cuda.device(a.device):
+        rc = _entry(_bwd_lib(), "fused_qkv_mha_bwd_gemm", dtype)(
+            a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(),
+            None if bias is None else bias.data_ptr(), c.data_ptr(),
+            colsum.data_ptr(), M, N, K, S, kc,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} (M={M}, "
+                           f"N={N}, K={K}, S={S})")
+    return c, colsum
+
+
 def gemm_tf32x3(a, b, bias=None, splits: int = 1):
     """The backward's GEMM core alone: a [M, K] and b [K, N] float32 in any
     strides, the depth cut as `bwd_plan.split_depth(K, splits)` does ->
@@ -536,31 +635,17 @@ def gemm_tf32x3(a, b, bias=None, splits: int = 1):
     the column sums of b.  On the card one launch of
     `fused_qkv_mha_bwd_gemm` (3xTF32 tensor-core products).  Card only:
     nothing in the package calls it, so it has no plain version."""
-    if a.device.type != "cuda":
-        raise ValueError("gemm_tf32x3: needs CUDA tensors")
-    M, K = a.shape
-    N = b.shape[1]
-    S, kc = split_depth(K, splits)
-    for t in (a, b) + (() if bias is None else (bias,)):
-        if t.device != a.device or t.dtype != torch.float32:
-            raise ValueError("gemm_tf32x3: needs float32 on one card")
-    if bias is not None and not bias.is_contiguous():
-        raise ValueError("gemm_tf32x3: bias must be contiguous")
-    lib = _bwd_lib()
-    f32 = dict(device=a.device, dtype=torch.float32)
-    c = torch.empty((S, M, N), **f32)
-    colsum = torch.empty((S, N), **f32)
-    with torch.cuda.device(a.device):
-        rc = lib.fused_qkv_mha_bwd_gemm(
-            a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(),
-            None if bias is None else bias.data_ptr(), c.data_ptr(),
-            colsum.data_ptr(), M, N, K, S, kc,
-            torch.cuda.current_stream(a.device).cuda_stream)
+    out = _gemm_core("gemm_tf32x3", torch.float32, a, b, bias, splits)
     gemm_tf32x3.launches += 1
-    if rc != 0:
-        raise RuntimeError(f"fused_qkv_mha_bwd_gemm launch failed: CUDA "
-                           f"error {rc} (M={M}, N={N}, K={K}, S={S})")
-    return c, colsum
+    return out
+
+
+def gemm_bf16(a, b, bias=None, splits: int = 1):
+    """`gemm_tf32x3` for the bf16 core: a, b and the bias in bf16, c and
+    colsum in float32 (bf16 products, float32 sums).  Card only."""
+    out = _gemm_core("gemm_bf16", torch.bfloat16, a, b, bias, splits)
+    gemm_bf16.launches += 1
+    return out
 
 
 def backward_needs(needs_input_grad, bias, num_heads: int):
@@ -632,6 +717,7 @@ def fused_qkv_mha(x, y, wq, bq, wk, bk, wv, bv, bias=None,
 # kernel launches since the last reset; the plain path does not count
 fused_qkv_mha.launches = 0
 gemm_tf32x3.launches = 0
+gemm_bf16.launches = 0
 attention_backward.launches = 0
 projection_backward.launches = 0
 mha.launches = 0

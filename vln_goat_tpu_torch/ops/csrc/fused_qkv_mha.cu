@@ -1,4 +1,5 @@
-// Fused q/k/v projections + multi-head attention, forward, float32.
+// Fused q/k/v projections + multi-head attention, forward, in float32 and
+// in bf16.
 //
 // Replaces the TPU kernel `_fa_fwd_kernel` (vln_goat_tpu/ops/attention.py:169),
 // launched by `_fa_call` (:251) behind `pallas_fused_qkv_mha` (:347).  It
@@ -38,6 +39,18 @@
 //      row, head), K and V staged once per head, both products on 3xTF32
 //      mma.sync fragments.
 //
+// bf16 (the JAX package's bf16 model, whose kernel takes bf16 operands and
+// sums in float32: `_bdot(..., dt=x.dtype)` :120-137): the `_bf16` entries
+// take x, y, the weights, the biases and the additive bias in bf16 and
+// return the output in bf16.  The projections run on the bf16 core
+// (gemm_bf16.cuh: one wgmma m64n128k16 per 16-deep step, the weights
+// copied straight into wgmma's layout) with float32 sums plus the bias,
+// rounded to bf16 into a scratch of half the float32 size (the JAX kernel
+// casts q, k and v to bf16 before its products); the attention core takes
+// bf16 m16n8k16 fragments for q k^T and p v, float32 scores, softmax and
+// dropout, and p rounded to bf16 before p v.  Bound: the same operations
+// at the 989 TFLOP/s of bf16, about 0.012 ms a launch on the train mix.
+//
 // Dropout (`_fa_probs` :149-166): with per-row seeds the normalised
 // probabilities pass through the counter-based keep mask of
 // dropout_hash.cuh, keyed by seed[b] with the counter (b, h, q, k), so the
@@ -48,69 +61,53 @@
 #include "attn_fwd.cuh"
 #include "qkv_proj.cuh"
 
-extern "C" {
+namespace {
 
-// The forward's first launch alone: q, k and v into `qkv` (laid out as
-// fused_qkv_mha_fwd's).  Returns cudaGetLastError().  Exported for timing the
-// projection apart from the attention; the wrapper calls the whole
-// forward.
-int fused_qkv_mha_proj(const void* x, const void* y,
-                       const void* wq, long long wq_sd, long long wq_so,
-                       const void* bq,
-                       const void* wk, long long wk_sd, long long wk_so,
-                       const void* bk,
-                       const void* wv, long long wv_sd, long long wv_so,
-                       const void* bv, void* qkv, int B, int Lq, int Lk,
-                       int D, int H, void* stream) {
+template <class Core>
+int proj(const void* x, const void* y, const void* wq, long long wq_sd,
+         long long wq_so, const void* bq, const void* wk, long long wk_sd,
+         long long wk_so, const void* bk, const void* wv, long long wv_sd,
+         long long wv_so, const void* bv, void* qkv, int B, int Lq, int Lk,
+         int D, int H, void* stream) {
   if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 1)
     return (int)cudaErrorInvalidValue;
   const void* w[3] = {wq, wk, wv};
   const long long sd[3] = {wq_sd, wk_sd, wv_sd};
   const long long so[3] = {wq_so, wk_so, wv_so};
   const void* b[3] = {bq, bk, bv};
-  qkv_proj::Jobs J;
-  qkv_proj::qkv_jobs(J, x, y, w, sd, so, b, (float*)qkv, B, Lq, Lk, D,
+  qkv_proj::Jobs<Core> J;
+  qkv_proj::qkv_jobs(J, x, y, w, sd, so, b, qkv, B, Lq, Lk, D,
                      H * attn_fwd::DH);
   return qkv_proj::launch_jobs(J, (cudaStream_t)stream);
 }
 
-// Launches the forward on `stream` and returns the first CUDA error (0
-// when every launch was accepted).  Shapes it does not take return
-// cudaErrorInvalidValue without launching.  `seeds` (int32 [B]) turns on
-// dropout: keep iff bits >= thresh, kept probabilities times inv_keep;
-// null: no dropout.  `qkv` is scratch of B (Lq + 2 Lk) H*dh floats:
-// q [B*Lq, H*dh], then k and v [B*Lk, H*dh].
-int fused_qkv_mha_fwd(const void* x, const void* y,
-                      const void* wq, long long wq_sd, long long wq_so,
-                      const void* bq,
-                      const void* wk, long long wk_sd, long long wk_so,
-                      const void* bk,
-                      const void* wv, long long wv_sd, long long wv_so,
-                      const void* bv,
-                      const void* bias, long long sb, long long sh,
-                      long long sq, long long sk,
-                      void* out, void* qkv, int B, int Lq, int Lk, int D,
-                      int H, float scale, const void* seeds,
-                      unsigned int thresh, float inv_keep, void* stream) {
+template <class Core>
+int fwd(const void* x, const void* y, const void* wq, long long wq_sd,
+        long long wq_so, const void* bq, const void* wk, long long wk_sd,
+        long long wk_so, const void* bk, const void* wv, long long wv_sd,
+        long long wv_so, const void* bv, const void* bias, long long sb,
+        long long sh, long long sq, long long sk, void* out, void* qkv,
+        int B, int Lq, int Lk, int D, int H, float scale, const void* seeds,
+        unsigned int thresh, float inv_keep, void* stream) {
+  using T = typename Core::T;
   if (B < 1 || Lq < 1 || Lk < 1 || Lk > attn_fwd::MAX_LK || H < 1 || D < 1)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
   const int HD = H * attn_fwd::DH;
-  const int rc = fused_qkv_mha_proj(x, y, wq, wq_sd, wq_so, bq, wk, wk_sd,
-                                    wk_so, bk, wv, wv_sd, wv_so, bv, qkv, B,
-                                    Lq, Lk, D, H, stream);
+  const int rc = proj<Core>(x, y, wq, wq_sd, wq_so, bq, wk, wk_sd, wk_so, bk,
+                            wv, wv_sd, wv_so, bv, qkv, B, Lq, Lk, D, H,
+                            stream);
   if (rc != 0) return rc;
-  float* qs = (float*)qkv;
-  float* ks = qs + (long long)B * Lq * HD;
-  float* vs = ks + (long long)B * Lk * HD;
-  attn_fwd::Args A;
+  T* qs = (T*)qkv;
+  T* ks = qs + (long long)B * Lq * HD;
+  T* vs = ks + (long long)B * Lk * HD;
+  attn_fwd::Args<T> A;
   A.q = qs;
   A.qs = {(long long)Lq * HD, HD, attn_fwd::DH, 1};
   A.k = ks;
   A.ks = {(long long)Lk * HD, HD, attn_fwd::DH, 1};
   A.v = vs;
   A.vs = A.ks;
-  A.bias = (const float*)bias;
+  A.bias = (const T*)bias;
   A.sb = sb;
   A.sh = sh;
   A.sq = sq;
@@ -118,13 +115,60 @@ int fused_qkv_mha_fwd(const void* x, const void* y,
   A.seeds = (const int*)seeds;
   A.thresh = thresh;
   A.inv_keep = inv_keep;
-  A.out = (float*)out;
+  A.out = (T*)out;
   A.Lq = Lq;
   A.Lk = Lk;
   A.H = H;
   A.scale = scale;
-  return attn_fwd::launch(A, B, st);
+  return attn_fwd::launch(A, B, (cudaStream_t)stream);
 }
+
+}  // namespace
+
+extern "C" {
+
+#define PROJ_ARGS                                                            \
+  const void *x, const void *y, const void *wq, long long wq_sd,            \
+      long long wq_so, const void *bq, const void *wk, long long wk_sd,      \
+      long long wk_so, const void *bk, const void *wv, long long wv_sd,      \
+      long long wv_so, const void *bv
+#define PROJ_NAMES \
+  x, y, wq, wq_sd, wq_so, bq, wk, wk_sd, wk_so, bk, wv, wv_sd, wv_so, bv
+#define FWD_ARGS                                                             \
+  PROJ_ARGS, const void *bias, long long sb, long long sh, long long sq,     \
+      long long sk, void *out, void *qkv, int B, int Lq, int Lk, int D,      \
+      int H, float scale, const void *seeds, unsigned int thresh,            \
+      float inv_keep, void *stream
+#define FWD_NAMES                                                            \
+  PROJ_NAMES, bias, sb, sh, sq, sk, out, qkv, B, Lq, Lk, D, H, scale, seeds, \
+      thresh, inv_keep, stream
+
+// The forward's first launch alone: q, k and v into `qkv` (laid out as
+// fused_qkv_mha_fwd's).  Returns cudaGetLastError().  Exported for timing the
+// projection apart from the attention; the wrapper calls the whole
+// forward.  Weights [D, H*dh] through strides (W[d, o] at w[d sd + o so]).
+int fused_qkv_mha_proj(PROJ_ARGS, void* qkv, int B, int Lq, int Lk, int D,
+                       int H, void* stream) {
+  return proj<qkv_proj::Tf32x3>(PROJ_NAMES, qkv, B, Lq, Lk, D, H, stream);
+}
+
+int fused_qkv_mha_proj_bf16(PROJ_ARGS, void* qkv, int B, int Lq, int Lk,
+                            int D, int H, void* stream) {
+  return proj<qkv_proj::Bf16>(PROJ_NAMES, qkv, B, Lq, Lk, D, H, stream);
+}
+
+// Launches the forward on `stream` and returns the first CUDA error (0
+// when every launch was accepted).  Shapes it does not take return
+// cudaErrorInvalidValue without launching.  `seeds` (int32 [B]) turns on
+// dropout: keep iff bits >= thresh, kept probabilities times inv_keep;
+// null: no dropout.  `qkv` is scratch of B (Lq + 2 Lk) H*dh elements:
+// q [B*Lq, H*dh], then k and v [B*Lk, H*dh].  float32 throughout; the
+// `_bf16` entry takes every tensor (scratch and output too) in bf16.
+int fused_qkv_mha_fwd(FWD_ARGS) {
+  return fwd<qkv_proj::Tf32x3>(FWD_NAMES);
+}
+
+int fused_qkv_mha_fwd_bf16(FWD_ARGS) { return fwd<qkv_proj::Bf16>(FWD_NAMES); }
 
 // Head width the kernel is compiled for, so the wrapper can check it.
 int fused_qkv_mha_head_dim(void) { return attn_fwd::DH; }

@@ -1,4 +1,5 @@
-// Fused q/k/v projections + multi-head attention, backward, float32.
+// Fused q/k/v projections + multi-head attention, backward, in float32 and
+// in bf16.
 //
 // Replaces the TPU kernel `_fa_bwd_kernel` (vln_goat_tpu/ops/attention.py:181),
 // launched by the custom-VJP rule `_fa_bwd_rule` (:316) of `_fused_attn`
@@ -67,22 +68,38 @@
 //      memory order.
 // No atomics anywhere: two launches on the same inputs give bitwise-equal
 // outputs.
+//
+// bf16 (the `_bf16` entries; the JAX kernel at x.dtype = bf16, whose
+// products take bf16 operands with float32 sums, `_bdot(dt=dt)` :200-225):
+// x, y, the weights, the biases, the additive bias and dO in bf16.  (a)
+// recomputes q, k, v through the bf16 projection jobs (bf16 scratch, as the
+// forward), stages q, k, v and dO in bf16, and runs its five products on
+// bf16 m16n8k16 fragments; p, dp and ds stay float32 and are rounded to
+// bf16 where they enter a product (pd before pd^T dO, ds before ds k and
+// ds^T q); dq, dk and dv are written in bf16, the operands of every product
+// after them (past 64 keys dq is added chunk by chunk in bf16, one rounding
+// more than the JAX kernel's); ds is written in float32.  (b) runs dx, dy
+// and the split-K weight gradients on the bf16 core with float32 partial
+// sums and the same fixed-order reduction, which rounds dW and db to bf16
+// (the weights' dtype, :338-341); dx and dy are rounded to bf16 (x.dtype).
+// db sums the bf16 dq (dk, dv), where the JAX kernel sums its float32 dq.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 #include "qkv_proj.cuh"
 
 namespace {
 
+using bf16 = gemm_bf16::bf16;
 using qkv_proj::Jobs;
 using qkv_proj::launch_jobs;
 using qkv_proj::MAX_JOBS;
-using tf32x3::GemmJob;
-using tf32x3::make_operand;
 
 constexpr int DH = 64;          // head width the kernel is written for
 constexpr int KC = 64;          // keys per chunk in (a)
@@ -90,21 +107,46 @@ constexpr int TQ = 64;          // query rows per tile in (a)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_LK = 256;
-constexpr int LDS = DH + 4;     // row stride of the (a) tiles in shared memory
-constexpr int ATTN_SMEM_FLOATS = 6 * TQ * LDS;
+constexpr int LDS = DH + 4;     // row stride of the (a) float tiles
+// row stride of the (a) tiles of q, k, v and dO: LDS in float, 72 in bf16
+// (a 16-byte multiple for the copies)
+template <class T>
+constexpr int LDT = sizeof(T) == 4 ? LDS : DH + 8;
+// K, V, Q and dO tiles in T, the two score tiles in float
+template <class T>
+constexpr size_t ATTN_SMEM_BYTES =
+    4 * TQ * LDT<T> * sizeof(T) + 2 * TQ * LDS * sizeof(float);
+
+using gemm_bf16::to_f;
+using gemm_bf16::warp_mma;
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
 
 // ---------------------------------------------------------------------------
-// (b) second pass: out[i] = sum over s < splits of part[s * n + i]
+// (b) second pass: out[i] = sum over s < splits of part[s * n + i], written
+// as T
 
 struct Reduce {
   const float* part[6];
-  float* out[6];
+  void* out[6];
   int n[6];
   int splits[6];
   int block0[6];
   int count;
 };
 
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  reinterpret_cast<__nv_bfloat162*>(p)[0] = __floats2bfloat162_rn(v.x, v.y);
+  reinterpret_cast<__nv_bfloat162*>(p)[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+template <class T>
 __global__ void __launch_bounds__(THREADS) splitk_reduce_kernel(
     const Reduce R) {
   int r = 0;
@@ -123,7 +165,7 @@ __global__ void __launch_bounds__(THREADS) splitk_reduce_kernel(
     acc.z += v.z;
     acc.w += v.w;
   }
-  *reinterpret_cast<float4*>(R.out[r] + i4) = acc;
+  store4(static_cast<T*>(R.out[r]) + i4, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -143,65 +185,74 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// s[r * LDS + c] = base[(r0 + r) * stride + c] for r < 64, c < 64; rows at
-// or past lim are zero.  Asynchronous: the caller commits and waits.
-__device__ __forceinline__ void load_rows(float* s, const float* base,
+// s[r * LDT + c] = base[(r0 + r) * stride + c] for r < 64, c < 64; rows at
+// or past lim are zero.  Asynchronous: the caller commits and waits.  In
+// bf16 a stride that allows no 16-byte copy is loaded element by element.
+template <class T>
+__device__ __forceinline__ void load_rows(T* s, const T* base,
                                           long long stride, int r0,
                                           int lim) {
-  const bool vec = ((uintptr_t)base & 15) == 0 && stride % 4 == 0;
-  for (int c = threadIdx.x; c < 64 * 16; c += THREADS) {
-    const int r = c / 16, k = (c % 16) * 4;
+  constexpr int V = 16 / sizeof(T);      // elements per 16-byte copy
+  const bool vec = ((uintptr_t)base & 15) == 0 && stride % V == 0;
+  for (int c = threadIdx.x; c < 64 * (DH / V); c += THREADS) {
+    const int r = c / (DH / V), k = (c % (DH / V)) * V;
     const bool ok = r0 + r < lim;
-    const float* src = ok ? base + (long long)(r0 + r) * stride + k : base;
-    float* d = s + r * LDS + k;
+    const T* src = ok ? base + (long long)(r0 + r) * stride + k : base;
+    T* d = s + r * LDT<T> + k;
     if (vec) {
       tf32x3::cp_async16(d, src, ok ? 16 : 0);
-    } else {
+    } else if constexpr (sizeof(T) == 4) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         tf32x3::cp_async4(d + e, ok ? src + e : base, ok ? 4 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) d[e] = ok ? src[e] : T(0.f);
     }
   }
 }
 
+template <class T>
 struct AttnArgs {
-  const float* q;     // [B, Lq, H*dh]
-  const float* k;     // [B, Lk, H*dh]
-  const float* v;
-  const float* bias;  // through (sb, sh, sq, sk), or null
+  const T* q;         // [B, Lq, H*dh]
+  const T* k;         // [B, Lk, H*dh]
+  const T* v;
+  const T* bias;      // through (sb, sh, sq, sk), or null
   long long sb, sh, sq, sk;
   const int* seeds;   // [B], or null: no dropout
   unsigned int thresh;
   float inv_keep;
-  const float* dout;  // [B, Lq, H*dh]
-  float* dq;
-  float* dk;
-  float* dv;
+  const T* dout;      // [B, Lq, H*dh]
+  T* dq;
+  T* dk;
+  T* dv;
   float* ds;          // [B, H, Lq, Lk], or null
   float* stats;       // [B, H, Lq, 3] when Lk > KC
   int Lq, Lk, H;
   float scale;
 };
 
+template <class T>
 __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
-    const AttnArgs A) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                 // [KC][LDS]  key chunk
-  float* Vs = Ks + KC * LDS;        // [KC][LDS]
-  float* Qs = Vs + KC * LDS;        // [TQ][LDS]  query tile
-  float* Os = Qs + TQ * LDS;        // [TQ][LDS]  dO tile
-  float* Ps = Os + TQ * LDS;        // [TQ][LDS]  scores, then pd
-  float* Ss = Ps + TQ * LDS;        // [TQ][LDS]  dpd, then ds
+    const AttnArgs<T> A) {
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  constexpr int L = LDT<T>;
+  T* Ks = reinterpret_cast<T*>(attn_smem);   // [KC][L]  key chunk
+  T* Vs = Ks + KC * L;                       // [KC][L]
+  T* Qs = Vs + KC * L;                       // [TQ][L]  query tile
+  T* Os = Qs + TQ * L;                       // [TQ][L]  dO tile
+  float* Ps = reinterpret_cast<float*>(Os + TQ * L);  // [TQ][LDS] s, then pd
+  float* Ss = Ps + TQ * LDS;                 // [TQ][LDS]  dpd, then ds
 
   const int b = blockIdx.x, h = blockIdx.y;
   const int Lq = A.Lq, Lk = A.Lk, H = A.H;
   const long long HD = (long long)H * DH;
   const int col0 = h * DH;
-  const float* qb = A.q + (long long)b * Lq * HD + col0;
-  const float* kb = A.k + (long long)b * Lk * HD + col0;
-  const float* vb = A.v + (long long)b * Lk * HD + col0;
-  const float* ob = A.dout + (long long)b * Lq * HD + col0;
-  const float* bias_bh = A.bias != nullptr
+  const T* qb = A.q + (long long)b * Lq * HD + col0;
+  const T* kb = A.k + (long long)b * Lk * HD + col0;
+  const T* vb = A.v + (long long)b * Lk * HD + col0;
+  const T* ob = A.dout + (long long)b * Lq * HD + col0;
+  const T* bias_bh = A.bias != nullptr
       ? A.bias + (long long)b * A.sb + (long long)h * A.sh : nullptr;
   const uint32_t seed = A.seeds != nullptr ? (uint32_t)A.seeds[b] : 0u;
   float* stats = A.stats != nullptr
@@ -212,17 +263,25 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
   const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
   const int nch = (Lk + KC - 1) / KC, ntile = (Lq + TQ - 1) / TQ;
 
-  auto rowmajor = [](const float* s) {
+  // accessors of a staged tile (T, stride L) and of a score tile (float,
+  // stride LDS), row-major or transposed
+  auto rowmajor = [](const T* s) {
+    return [s](int r, int c) { return to_f(s[r * L + c]); };
+  };
+  auto transposed = [](const T* s) {
+    return [s](int r, int c) { return to_f(s[c * L + r]); };
+  };
+  auto rowmajor_f = [](const float* s) {
     return [s](int r, int c) { return s[r * LDS + c]; };
   };
-  auto transposed = [](const float* s) {
+  auto transposed_f = [](const float* s) {
     return [s](int r, int c) { return s[c * LDS + r]; };
   };
   // Ps <- q k^T (raw), Ss <- dO v^T, for the staged tile and chunk
   auto scores = [&]() {
     float a1[4][4] = {}, a2[4][4] = {};
-    tf32x3::warp_mma_16x32(a1, rowmajor(Qs), transposed(Ks), wm, wn);
-    tf32x3::warp_mma_16x32(a2, rowmajor(Os), transposed(Vs), wm, wn);
+    warp_mma<T>(a1, rowmajor(Qs), transposed(Ks), wm, wn);
+    warp_mma<T>(a2, rowmajor(Os), transposed(Vs), wm, wn);
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
@@ -246,7 +305,7 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
       if (j < Lk) {
         s[i] = Ps[r * LDS + jl] * A.scale;
         if (bias_bh != nullptr)
-          s[i] += bias_bh[(long long)qi * A.sq + (long long)j * A.sk];
+          s[i] += to_f(bias_bh[(long long)qi * A.sq + (long long)j * A.sk]);
         dp[i] = Ss[r * LDS + jl];
         if (A.seeds != nullptr) {
           keep[i] = dropout_bits(seed, b, h, qi, j) >= A.thresh;
@@ -367,7 +426,7 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
       __syncthreads();
       // dq (tile rows) = scale ds k, added over the key chunks
       float dqa[4][4] = {};
-      tf32x3::warp_mma_16x32(dqa, rowmajor(Ss), rowmajor(Ks), wm, wn);
+      warp_mma<T>(dqa, rowmajor_f(Ss), rowmajor(Ks), wm, wn);
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
@@ -375,14 +434,14 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
           const int qi = q0 + wm + g + (e >= 2 ? 8 : 0);
           const int col = wn + 8 * ni + 2 * t + (e & 1);
           if (qi < Lq) {
-            float* o = A.dq + ((long long)b * Lq + qi) * HD + col0 + col;
+            T* o = A.dq + ((long long)b * Lq + qi) * HD + col0 + col;
             const float v = dqa[ni][e] * A.scale;
-            *o = c == 0 ? v : *o + v;
+            put(o, c == 0 ? v : to_f(*o) + v);
           }
         }
       // the tile's share of dv = pd^T dO and dk = ds^T q (keys x dh)
-      tf32x3::warp_mma_16x32(dva, transposed(Ps), rowmajor(Os), wm, wn);
-      tf32x3::warp_mma_16x32(dka, transposed(Ss), rowmajor(Qs), wm, wn);
+      warp_mma<T>(dva, transposed_f(Ps), rowmajor(Os), wm, wn);
+      warp_mma<T>(dka, transposed_f(Ss), rowmajor(Qs), wm, wn);
     }
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
@@ -392,8 +451,8 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
         const int col = wn + 8 * ni + 2 * t + (e & 1);
         if (j < Lk) {
           const long long o = ((long long)b * Lk + j) * HD + col0 + col;
-          A.dk[o] = dka[ni][e] * A.scale;
-          A.dv[o] = dva[ni][e];
+          put(A.dk + o, dka[ni][e] * A.scale);
+          put(A.dv + o, dva[ni][e]);
         }
       }
   }
@@ -401,46 +460,39 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
 
 }  // namespace
 
-extern "C" {
+namespace {
 
-// (a) Launches the recompute GEMM and attn_bwd_kernel on `stream`; returns
-// the first CUDA error.  x [B, Lq, D], y [B, Lk, D], weights [D, H*dh]
-// through strides, biases [H*dh], additive bias through four strides (null:
-// none), seeds int32 [B] (null: no dropout), dO [B, Lq, H*dh]; scratch qkv
-// of B (Lq + 2 Lk) H*dh floats and, when Lk > 64, stats of B H Lq 3 floats;
-// writes dq [B, Lq, H*dh], dk, dv [B, Lk, H*dh] and, if ds is not null,
-// ds [B, H, Lq, Lk].
-int fused_qkv_mha_bwd_attn(
-    const void* x, const void* y,
-    const void* wq, long long wq_sd, long long wq_so, const void* bq,
-    const void* wk, long long wk_sd, long long wk_so, const void* bk,
-    const void* wv, long long wv_sd, long long wv_so, const void* bv,
-    const void* bias, long long sb, long long sh, long long sq, long long sk,
-    const void* seeds, unsigned int thresh, float inv_keep,
-    const void* dout, void* dq, void* dk, void* dv, void* ds, void* qkv,
-    void* stats, int B, int Lq, int Lk, int D, int H, float scale,
-    void* stream) {
+template <class Core>
+int bwd_attn(const void* x, const void* y, const void* wq, long long wq_sd,
+             long long wq_so, const void* bq, const void* wk, long long wk_sd,
+             long long wk_so, const void* bk, const void* wv, long long wv_sd,
+             long long wv_so, const void* bv, const void* bias, long long sb,
+             long long sh, long long sq, long long sk, const void* seeds,
+             unsigned int thresh, float inv_keep, const void* dout, void* dq,
+             void* dk, void* dv, void* ds, void* qkv, void* stats, int B,
+             int Lq, int Lk, int D, int H, float scale, void* stream) {
+  using T = typename Core::T;
   if (B < 1 || Lq < 1 || Lk < 1 || Lk > MAX_LK || H < 1 || D < 1 ||
       (Lk > KC && stats == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int HD = H * DH;
-  float* qs = (float*)qkv;
-  float* ks = qs + (long long)B * Lq * HD;
-  float* vs = ks + (long long)B * Lk * HD;
+  T* qs = (T*)qkv;
+  T* ks = qs + (long long)B * Lq * HD;
+  T* vs = ks + (long long)B * Lk * HD;
   const void* w[3] = {wq, wk, wv};
   const long long sd[3] = {wq_sd, wk_sd, wv_sd}, so[3] = {wq_so, wk_so, wv_so};
   const void* bb[3] = {bq, bk, bv};
-  Jobs J;
+  Jobs<Core> J;
   qkv_proj::qkv_jobs(J, x, y, w, sd, so, bb, qs, B, Lq, Lk, D, HD);
   int rc = launch_jobs(J, st);
   if (rc != 0) return rc;
 
-  AttnArgs A;
+  AttnArgs<T> A;
   A.q = qs;
   A.k = ks;
   A.v = vs;
-  A.bias = (const float*)bias;
+  A.bias = (const T*)bias;
   A.sb = sb;
   A.sh = sh;
   A.sq = sq;
@@ -448,45 +500,35 @@ int fused_qkv_mha_bwd_attn(
   A.seeds = (const int*)seeds;
   A.thresh = thresh;
   A.inv_keep = inv_keep;
-  A.dout = (const float*)dout;
-  A.dq = (float*)dq;
-  A.dk = (float*)dk;
-  A.dv = (float*)dv;
+  A.dout = (const T*)dout;
+  A.dq = (T*)dq;
+  A.dk = (T*)dk;
+  A.dv = (T*)dv;
   A.ds = (float*)ds;
   A.stats = Lk > KC ? (float*)stats : nullptr;
   A.Lq = Lq;
   A.Lk = Lk;
   A.H = H;
   A.scale = scale;
-  const size_t bytes = ATTN_SMEM_FLOATS * sizeof(float);
-  const cudaError_t e = tf32x3::smem_limit<attn_bwd_kernel>((int)bytes);
+  const size_t bytes = ATTN_SMEM_BYTES<T>;
+  const cudaError_t e = tf32x3::smem_limit<attn_bwd_kernel<T>>((int)bytes);
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_kernel<<<dim3(B, H), THREADS, bytes, st>>>(A);
+  attn_bwd_kernel<T><<<dim3(B, H), THREADS, bytes, st>>>(A);
   return (int)cudaGetLastError();
 }
 
-// (b) Launches the projection-backward GEMM jobs on `stream` and returns
-// cudaGetLastError().  From dq [B, Lq, H*dh] and dk, dv [B, Lk, H*dh]
-// (written by (a)), x, y and the weights (through strides).  `order` lists
-// `njobs` job ids, longest first: 0 dx [B, Lq, D] = dq Wq^T, 1 dy [B, Lk, D]
-// = dk Wk^T + dv Wv^T, 2-4 the partial weight gradients of q, k, v, 5 the
-// head sum dbias [B, 1, Lq, Lk] of ds [B, H, Lq, Lk] (last).  Weight g
-// splits its rows into splits[g] slices of kc[g] rows; slice s writes its
-// partial gradient, in the memory order of the weight's gradient (strides
-// dw_sd[g], dw_so[g]), at scratch + wofs[g] + s D H*dh, and its column sums
-// at scratch + bofs[g] + s H*dh.  `blocks` is the launch's block count as
-// the plan has it: the call fails when the table gives another.
-int fused_qkv_mha_bwd_proj(
-    const void* x, const void* y,
-    const void* wq, long long wq_sd, long long wq_so,
-    const void* wk, long long wk_sd, long long wk_so,
-    const void* wv, long long wv_sd, long long wv_so,
-    const void* dq, const void* dk, const void* dv,
-    void* dx, void* dy, void* scratch, const long long* dw_sd,
-    const long long* dw_so, const int* splits, const int* kc,
-    const long long* wofs, const long long* bofs, const void* ds,
-    void* dbias, const int* order, int njobs, int blocks, int B, int Lq,
-    int Lk, int D, int H, void* stream) {
+template <class Core>
+int bwd_proj(const void* x, const void* y, const void* wq, long long wq_sd,
+             long long wq_so, const void* wk, long long wk_sd,
+             long long wk_so, const void* wv, long long wv_sd,
+             long long wv_so, const void* dq, const void* dk, const void* dv,
+             void* dx, void* dy, void* scratch, const long long* dw_sd,
+             const long long* dw_so, const int* splits, const int* kc,
+             const long long* wofs, const long long* bofs, const void* ds,
+             void* dbias, const int* order, int njobs, int blocks, int B,
+             int Lq, int Lk, int D, int H, void* stream) {
+  constexpr int BK = tf32x3::BK;
+  static_assert(BK == gemm_bf16::BK, "one plan for both cores");
   if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 1 || njobs < 0 ||
       njobs > MAX_JOBS + 1)
     return (int)cudaErrorInvalidValue;
@@ -496,7 +538,7 @@ int fused_qkv_mha_bwd_proj(
   const void* grad[3] = {dq, dk, dv};
   const int rows[3] = {Mq, Mk, Mk};
   float* sc = (float*)scratch;
-  Jobs J = {};
+  Jobs<Core> J = {};
   for (int i = 0; i < njobs; ++i) {
     const int id = order[i];
     if (id == 5) {
@@ -511,29 +553,29 @@ int fused_qkv_mha_bwd_proj(
     }
     if (id < 0 || id > 4 || J.njobs == MAX_JOBS)
       return (int)cudaErrorInvalidValue;
-    GemmJob& j = J.job[J.njobs++];
+    typename Core::Job& j = J.job[J.njobs++];
     if (id == 0) {
-      tf32x3::set_job(j, Mq, D, HD, 1, 0, (float*)dx, D, 1, 0);
-      tf32x3::add_seg(j, make_operand(dq, HD, 1),
-                      make_operand(wq, wq_sd, wq_so), HD);
+      Core::job(j, Mq, D, HD, 1, 0, dx, D, 1, 0);
+      add_seg(j, Core::operand(dq, HD, 1), Core::operand(wq, wq_sd, wq_so),
+              HD);
     } else if (id == 1) {
-      tf32x3::set_job(j, Mk, D, 2 * HD, 1, 0, (float*)dy, D, 1, 0);
-      if (HD % tf32x3::BK != 0) return (int)cudaErrorInvalidValue;
-      tf32x3::add_seg(j, make_operand(dk, HD, 1),
-                      make_operand(wk, wk_sd, wk_so), HD);
-      tf32x3::add_seg(j, make_operand(dv, HD, 1),
-                      make_operand(wv, wv_sd, wv_so), HD);
+      Core::job(j, Mk, D, 2 * HD, 1, 0, dy, D, 1, 0);
+      if (HD % BK != 0) return (int)cudaErrorInvalidValue;
+      add_seg(j, Core::operand(dk, HD, 1), Core::operand(wk, wk_sd, wk_so),
+              HD);
+      add_seg(j, Core::operand(dv, HD, 1), Core::operand(wv, wv_sd, wv_so),
+              HD);
     } else {
       const int g = id - 2;
-      if (kc[g] % tf32x3::BK != 0 || kc[g] < tf32x3::BK ||
+      if (kc[g] % BK != 0 || kc[g] < BK ||
           (long long)splits[g] * kc[g] < rows[g] ||
           (long long)(splits[g] - 1) * kc[g] >= rows[g])
         return (int)cudaErrorInvalidValue;
-      // dW[d, o] = sum over rows r of src[r, d] grad[r, o]
-      tf32x3::set_job(j, D, HD, rows[g], splits[g], kc[g], sc + wofs[g],
-                      dw_sd[g], dw_so[g], (long long)D * HD);
-      tf32x3::add_seg(j, make_operand(src[g], 1, D),
-                      make_operand(grad[g], 1, HD), rows[g]);
+      // dW[d, o] = sum over rows r of src[r, d] grad[r, o], float32 slices
+      Core::job(j, D, HD, rows[g], splits[g], kc[g], sc + wofs[g], dw_sd[g],
+                dw_so[g], (long long)D * HD, 0);
+      add_seg(j, Core::operand(src[g], 1, D), Core::operand(grad[g], 1, HD),
+              rows[g]);
       j.colsum = sc + bofs[g];
     }
   }
@@ -544,14 +586,11 @@ int fused_qkv_mha_bwd_proj(
   return launch_jobs(J, (cudaStream_t)stream);
 }
 
-// (b) second pass: for each weight g with splits[g] > 0, dW_g (D * H*dh
-// floats in its own memory order) and db_g (H*dh) = the sums over the
-// slices, in ascending order, of the partials that fused_qkv_mha_bwd_proj
-// left at scratch + wofs[g] and + bofs[g].
-int fused_qkv_mha_bwd_reduce(
-    const void* scratch, void* dwq, void* dwk, void* dwv, void* dbq,
-    void* dbk, void* dbv, const int* splits, const long long* wofs,
-    const long long* bofs, int D, int H, void* stream) {
+template <class T>
+int bwd_reduce(const void* scratch, void* dwq, void* dwk, void* dwv,
+               void* dbq, void* dbk, void* dbv, const int* splits,
+               const long long* wofs, const long long* bofs, int D, int H,
+               void* stream) {
   const int HD = H * DH;
   const float* sc = (const float*)scratch;
   void* dw[3] = {dwq, dwk, dwv};
@@ -559,10 +598,11 @@ int fused_qkv_mha_bwd_reduce(
   Reduce R = {};
   int blocks = 0;
   auto add = [&](const float* part, void* out, int n, int s) {
-    if (n % 4 != 0 || ((uintptr_t)part & 15) || ((uintptr_t)out & 15))
+    if (n % 4 != 0 || ((uintptr_t)part & 15) ||
+        ((uintptr_t)out & (4 * sizeof(T) - 1)))
       return false;
     R.part[R.count] = part;
-    R.out[R.count] = (float*)out;
+    R.out[R.count] = out;
     R.n[R.count] = n;
     R.splits[R.count] = s;
     R.block0[R.count] = blocks;
@@ -577,36 +617,141 @@ int fused_qkv_mha_bwd_reduce(
       return (int)cudaErrorInvalidValue;
   }
   if (blocks == 0) return 0;
-  splitk_reduce_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(R);
+  splitk_reduce_kernel<T><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(R);
   return (int)cudaGetLastError();
+}
+
+template <class Core>
+int bwd_gemm(const void* a, long long a_sm, long long a_sk, const void* b,
+             long long b_sk, long long b_sn, const void* bias, void* c,
+             void* colsum, int m, int n, int k, int splits, int kc,
+             void* stream) {
+  if (m < 1 || n < 1 || k < 1 || splits < 1 || kc % tf32x3::BK != 0 ||
+      (long long)splits * kc < k || (long long)(splits - 1) * kc >= k)
+    return (int)cudaErrorInvalidValue;
+  Jobs<Core> J = {};
+  J.njobs = 1;
+  typename Core::Job& j = J.job[0];
+  Core::job(j, m, n, k, splits, kc, c, n, 1, (long long)m * n, 0);
+  add_seg(j, Core::operand(a, a_sm, a_sk), Core::operand(b, b_sn, b_sk), k);
+  j.bias = (const typename Core::T*)bias;
+  j.colsum = (float*)colsum;
+  return launch_jobs(J, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+#define ATTN_ARGS                                                            \
+  const void *x, const void *y, const void *wq, long long wq_sd,            \
+      long long wq_so, const void *bq, const void *wk, long long wk_sd,      \
+      long long wk_so, const void *bk, const void *wv, long long wv_sd,      \
+      long long wv_so, const void *bv, const void *bias, long long sb,       \
+      long long sh, long long sq, long long sk, const void *seeds,           \
+      unsigned int thresh, float inv_keep, const void *dout, void *dq,       \
+      void *dk, void *dv, void *ds, void *qkv, void *stats, int B, int Lq,   \
+      int Lk, int D, int H, float scale, void *stream
+#define ATTN_NAMES                                                           \
+  x, y, wq, wq_sd, wq_so, bq, wk, wk_sd, wk_so, bk, wv, wv_sd, wv_so, bv,    \
+      bias, sb, sh, sq, sk, seeds, thresh, inv_keep, dout, dq, dk, dv, ds,   \
+      qkv, stats, B, Lq, Lk, D, H, scale, stream
+#define PROJ_ARGS                                                            \
+  const void *x, const void *y, const void *wq, long long wq_sd,            \
+      long long wq_so, const void *wk, long long wk_sd, long long wk_so,     \
+      const void *wv, long long wv_sd, long long wv_so, const void *dq,      \
+      const void *dk, const void *dv, void *dx, void *dy, void *scratch,     \
+      const long long *dw_sd, const long long *dw_so, const int *splits,     \
+      const int *kc, const long long *wofs, const long long *bofs,           \
+      const void *ds, void *dbias, const int *order, int njobs, int blocks,  \
+      int B, int Lq, int Lk, int D, int H, void *stream
+#define PROJ_NAMES                                                           \
+  x, y, wq, wq_sd, wq_so, wk, wk_sd, wk_so, wv, wv_sd, wv_so, dq, dk, dv,    \
+      dx, dy, scratch, dw_sd, dw_so, splits, kc, wofs, bofs, ds, dbias,      \
+      order, njobs, blocks, B, Lq, Lk, D, H, stream
+#define REDUCE_ARGS                                                          \
+  const void *scratch, void *dwq, void *dwk, void *dwv, void *dbq,          \
+      void *dbk, void *dbv, const int *splits, const long long *wofs,        \
+      const long long *bofs, int D, int H, void *stream
+#define REDUCE_NAMES \
+  scratch, dwq, dwk, dwv, dbq, dbk, dbv, splits, wofs, bofs, D, H, stream
+#define GEMM_ARGS                                                            \
+  const void *a, long long a_sm, long long a_sk, const void *b,             \
+      long long b_sk, long long b_sn, const void *bias, void *c,             \
+      void *colsum, int m, int n, int k, int splits, int kc, void *stream
+#define GEMM_NAMES \
+  a, a_sm, a_sk, b, b_sk, b_sn, bias, c, colsum, m, n, k, splits, kc, stream
+
+// (a) Launches the recompute GEMM and attn_bwd_kernel on `stream`; returns
+// the first CUDA error.  x [B, Lq, D], y [B, Lk, D], weights [D, H*dh]
+// through strides, biases [H*dh], additive bias through four strides (null:
+// none), seeds int32 [B] (null: no dropout), dO [B, Lq, H*dh]; scratch qkv
+// of B (Lq + 2 Lk) H*dh elements and, when Lk > 64, stats of B H Lq 3
+// floats; writes dq [B, Lq, H*dh], dk, dv [B, Lk, H*dh] and, if ds is not
+// null, ds [B, H, Lq, Lk] (float32).  The `_bf16` entry takes every tensor
+// but ds and stats in bf16.
+int fused_qkv_mha_bwd_attn(ATTN_ARGS) {
+  return bwd_attn<qkv_proj::Tf32x3>(ATTN_NAMES);
+}
+
+int fused_qkv_mha_bwd_attn_bf16(ATTN_ARGS) {
+  return bwd_attn<qkv_proj::Bf16>(ATTN_NAMES);
+}
+
+// (b) Launches the projection-backward GEMM jobs on `stream` and returns
+// cudaGetLastError().  From dq [B, Lq, H*dh] and dk, dv [B, Lk, H*dh]
+// (written by (a)), x, y and the weights (through strides).  `order` lists
+// `njobs` job ids, longest first: 0 dx [B, Lq, D] = dq Wq^T, 1 dy [B, Lk, D]
+// = dk Wk^T + dv Wv^T, 2-4 the partial weight gradients of q, k, v, 5 the
+// head sum dbias [B, 1, Lq, Lk] of ds [B, H, Lq, Lk] (last).  Weight g
+// splits its rows into splits[g] slices of kc[g] rows; slice s writes its
+// partial gradient, in the memory order of the weight's gradient (strides
+// dw_sd[g], dw_so[g]), at scratch + wofs[g] + s D H*dh, and its column sums
+// at scratch + bofs[g] + s H*dh (float32 floats).  `blocks` is the launch's
+// block count as the plan has it: the call fails when the table gives
+// another.  The `_bf16` entry takes x, y, the weights, dq, dk, dv, dx and
+// dy in bf16 (scratch, ds and dbias stay float32).
+int fused_qkv_mha_bwd_proj(PROJ_ARGS) {
+  return bwd_proj<qkv_proj::Tf32x3>(PROJ_NAMES);
+}
+
+int fused_qkv_mha_bwd_proj_bf16(PROJ_ARGS) {
+  return bwd_proj<qkv_proj::Bf16>(PROJ_NAMES);
+}
+
+// (b) second pass: for each weight g with splits[g] > 0, dW_g (D * H*dh
+// elements in its own memory order) and db_g (H*dh) = the sums over the
+// slices, in ascending order, of the partials that fused_qkv_mha_bwd_proj
+// left at scratch + wofs[g] and + bofs[g]; float32, or rounded to bf16 by
+// the `_bf16` entry.
+int fused_qkv_mha_bwd_reduce(REDUCE_ARGS) {
+  return bwd_reduce<float>(REDUCE_NAMES);
+}
+
+int fused_qkv_mha_bwd_reduce_bf16(REDUCE_ARGS) {
+  return bwd_reduce<bf16>(REDUCE_NAMES);
 }
 
 // The GEMM core alone, for its tests: slice s < splits of C = A B (+ bias)
 // over depth [s kc, min((s+1) kc, k)) into c [splits, m, n] and the column
-// sums of B over the slice into colsum [splits, n] (null: none).  A(m, k) at
-// a[m a_sm + k a_sk], B(k, n) at b[k b_sk + n b_sn].
-int fused_qkv_mha_bwd_gemm(const void* a, long long a_sm, long long a_sk,
-                           const void* b, long long b_sk, long long b_sn,
-                           const void* bias, void* c, void* colsum, int m,
-                           int n, int k, int splits, int kc, void* stream) {
-  if (m < 1 || n < 1 || k < 1 || splits < 1 || kc % tf32x3::BK != 0 ||
-      (long long)splits * kc < k || (long long)(splits - 1) * kc >= k)
-    return (int)cudaErrorInvalidValue;
-  Jobs J = {};
-  J.njobs = 1;
-  GemmJob& j = J.job[0];
-  tf32x3::set_job(j, m, n, k, splits, kc, (float*)c, n, 1, (long long)m * n);
-  tf32x3::add_seg(j, make_operand(a, a_sm, a_sk), make_operand(b, b_sn, b_sk),
-                  k);
-  j.bias = (const float*)bias;
-  j.colsum = (float*)colsum;
-  return launch_jobs(J, (cudaStream_t)stream);
+// sums of B over the slice into colsum [splits, n] (null: none), both
+// float32.  A(m, k) at a[m a_sm + k a_sk], B(k, n) at b[k b_sk + n b_sn];
+// A, B and the bias float32 (3xTF32 core) or, for `_bf16`, bf16 (bf16
+// core).
+int fused_qkv_mha_bwd_gemm(GEMM_ARGS) {
+  return bwd_gemm<qkv_proj::Tf32x3>(GEMM_NAMES);
+}
+
+int fused_qkv_mha_bwd_gemm_bf16(GEMM_ARGS) {
+  return bwd_gemm<qkv_proj::Bf16>(GEMM_NAMES);
 }
 
 // Dynamic shared memory of the GEMM launch and of attn_bwd_kernel, bytes.
 void fused_qkv_mha_bwd_smem(int* out) {
   out[0] = (int)tf32x3::SMEM_BYTES;
-  out[1] = (int)(ATTN_SMEM_FLOATS * sizeof(float));
+  out[1] = (int)ATTN_SMEM_BYTES<float>;
+  out[2] = (int)gemm_bf16::SMEM_BYTES;
+  out[3] = (int)ATTN_SMEM_BYTES<bf16>;
 }
 
 // Head width the kernels are compiled for, so the wrapper can check it.

@@ -48,7 +48,7 @@ int mha_fwd(const void* q, long long q_sb, long long q_sl, long long q_sh,
             const void* bias, long long sb, long long sh, long long sq,
             long long sk, void* out, int B, int Lq, int Lk, int H,
             float scale, void* stream) {
-  attn_fwd::Args A;
+  attn_fwd::Args<float> A;
   A.q = (const float*)q;
   A.qs = {q_sb, q_sl, q_sh, q_sd};
   A.k = (const float*)k;

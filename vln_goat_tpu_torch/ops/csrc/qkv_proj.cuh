@@ -1,19 +1,24 @@
-// One launch of GEMM jobs on the 3xTF32 core (gemm_tf32x3.cuh), and the
-// q / k / v projection built from it.
+// One launch of GEMM jobs on a tensor-core GEMM core, and the q / k / v
+// projection built from it.
 //
-// `gemm_jobs_kernel` runs a table of up to MAX_JOBS GEMM jobs in one
+// `gemm_jobs_kernel<Core>` runs a table of up to MAX_JOBS GEMM jobs in one
 // launch, each block one tile (or one split-K slice of a tile) of one job,
 // and after them an elementwise job: the sum over the heads of ds, the
-// bias gradient of a [B, 1, Lq, Lk] bias.  `qkv_jobs` fills the table with
-// the three projections q = x Wq + bq, k = y Wk + bk, v = y Wv + bv over
-// all B*L rows at once, each [rows, H*dh] written contiguously into one
-// scratch of B (Lq + 2 Lk) H*dh floats: the forward (fused_qkv_mha.cu)
-// projects through it, and the backward (fused_qkv_mha_bwd.cu) recomputes
-// through the same jobs, so both see the same q, k and v bit for bit.
+// bias gradient of a [B, 1, Lq, Lk] bias.  `Core` is the float32-accurate
+// 3xTF32 core (gemm_tf32x3.cuh, `Tf32x3`) or the bf16 core (gemm_bf16.cuh,
+// `Bf16`).  `qkv_jobs` fills the table with the three projections
+// q = x Wq + bq, k = y Wk + bk, v = y Wv + bv over all B*L rows at once,
+// each [rows, H*dh] written contiguously into one scratch of B (Lq + 2 Lk)
+// H*dh elements of the core's type (bf16 for the bf16 core: the JAX
+// package's cast of q, k and v before its products): the forward
+// (fused_qkv_mha.cu) projects through it, and the backward
+// (fused_qkv_mha_bwd.cu) recomputes through the same jobs, so both see the
+// same q, k and v bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 
 namespace qkv_proj {
@@ -22,9 +27,51 @@ namespace {
 
 constexpr int MAX_JOBS = 5;
 constexpr int THREADS = tf32x3::THREADS;
+static_assert(THREADS == gemm_bf16::THREADS, "one block size for both cores");
 
+// the float32-accurate core: float operands and results
+struct Tf32x3 {
+  using T = float;
+  using Job = tf32x3::GemmJob;
+  static constexpr size_t SMEM_BYTES = tf32x3::SMEM_BYTES;
+  __device__ static void block(const Job& j, int s, int tile, void* smem) {
+    tf32x3::gemm_block(j, s, tile, static_cast<float*>(smem));
+  }
+  // C float32 always (the last argument, bf16 C, is the bf16 core's)
+  static void job(Job& j, int m, int n, int k, int splits, int kc, void* c,
+                  long long c_sm, long long c_sn, long long c_split,
+                  int = 0) {
+    tf32x3::set_job(j, m, n, k, splits, kc, (float*)c, c_sm, c_sn, c_split);
+  }
+  static tf32x3::Operand operand(const void* p, long long sr, long long sk) {
+    return tf32x3::make_operand(p, sr, sk);
+  }
+};
+
+// the bf16 core: bf16 operands, C rounded to bf16 unless `job` is told
+// otherwise (the split-K weight-gradient slices and the tests' C are float)
+struct Bf16 {
+  using T = gemm_bf16::bf16;
+  using Job = gemm_bf16::GemmJob;
+  static constexpr size_t SMEM_BYTES = gemm_bf16::SMEM_BYTES;
+  __device__ static void block(const Job& j, int s, int tile, void* smem) {
+    gemm_bf16::gemm_block(j, s, tile, static_cast<unsigned char*>(smem));
+  }
+  static void job(Job& j, int m, int n, int k, int splits, int kc, void* c,
+                  long long c_sm, long long c_sn, long long c_split,
+                  int c_bf16 = 1) {
+    gemm_bf16::set_job(j, m, n, k, splits, kc, c, c_bf16, c_sm, c_sn,
+                       c_split);
+  }
+  static gemm_bf16::Operand operand(const void* p, long long sr,
+                                    long long sk) {
+    return gemm_bf16::make_operand(p, sr, sk);
+  }
+};
+
+template <class Core>
 struct Jobs {
-  tf32x3::GemmJob job[MAX_JOBS];
+  typename Core::Job job[MAX_JOBS];
   int njobs;
   int gemm_blocks;
   // dbias[b, 0, q, k] = sum over h of ds[b, h, q, k] (fixed order)
@@ -35,9 +82,11 @@ struct Jobs {
   long long hsum_n;   // B * Lq * Lk (0: none)
 };
 
-__global__ void __launch_bounds__(THREADS, 2) gemm_jobs_kernel(const Jobs J) {
-  extern __shared__ float smem[];
-  __shared__ tf32x3::GemmJob job;
+template <class Core>
+__global__ void __launch_bounds__(THREADS, 2) gemm_jobs_kernel(
+    const Jobs<Core> J) {
+  extern __shared__ __align__(16) unsigned char jobs_smem[];
+  __shared__ typename Core::Job job;
   const int blk = blockIdx.x;
   if (blk < J.gemm_blocks) {
     int jj = 0;
@@ -48,7 +97,7 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_jobs_kernel(const Jobs J) {
     __syncthreads();
     const int local = blk - job.block0;
     const int tiles = job.tiles_m * job.tiles_n;
-    tf32x3::gemm_block(job, local / tiles, local % tiles, smem);
+    Core::block(job, local / tiles, local % tiles, jobs_smem);
     return;
   }
   const long long e =
@@ -64,7 +113,8 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_jobs_kernel(const Jobs J) {
 
 // Numbers the jobs' blocks, launches the table on `stream` and returns
 // cudaGetLastError() (0: nothing to launch).
-inline int launch_jobs(Jobs& J, cudaStream_t stream) {
+template <class Core>
+inline int launch_jobs(Jobs<Core>& J, cudaStream_t stream) {
   int blocks = 0;
   for (int i = 0; i < J.njobs; ++i) {
     J.job[i].block0 = blocks;
@@ -74,30 +124,32 @@ inline int launch_jobs(Jobs& J, cudaStream_t stream) {
   blocks += (int)((J.hsum_n + THREADS - 1) / THREADS);
   if (blocks == 0) return 0;
   const cudaError_t e =
-      tf32x3::smem_limit<gemm_jobs_kernel>((int)tf32x3::SMEM_BYTES);
+      tf32x3::smem_limit<gemm_jobs_kernel<Core>>((int)Core::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  gemm_jobs_kernel<<<blocks, THREADS, tf32x3::SMEM_BYTES, stream>>>(J);
+  gemm_jobs_kernel<Core><<<blocks, THREADS, Core::SMEM_BYTES, stream>>>(J);
   return (int)cudaGetLastError();
 }
 
 // The three projection jobs: x [B*Lq, D] and y [B*Lk, D] contiguous, each
 // weight [D, HD] read through its strides (W[d, o] at w[d * sd + o * so]),
-// biases [HD]; q, k and v [rows, HD] one after the other in qkv.
-inline void qkv_jobs(Jobs& J, const void* x, const void* y,
+// biases [HD]; q, k and v [rows, HD] one after the other in qkv, all of
+// the core's element type.
+template <class Core>
+inline void qkv_jobs(Jobs<Core>& J, const void* x, const void* y,
                      const void* const w[3], const long long sd[3],
                      const long long so[3], const void* const bias[3],
-                     float* qkv, int B, int Lq, int Lk, int D, int HD) {
-  J = Jobs{};
+                     void* qkv, int B, int Lq, int Lk, int D, int HD) {
+  J = Jobs<Core>{};
   J.njobs = 3;
   const void* src[3] = {x, y, y};
   const int rows[3] = {B * Lq, B * Lk, B * Lk};
-  float* out = qkv;
+  typename Core::T* out = static_cast<typename Core::T*>(qkv);
   for (int i = 0; i < 3; ++i) {
-    tf32x3::GemmJob& j = J.job[i];
-    tf32x3::set_job(j, rows[i], HD, D, 1, 0, out, HD, 1, 0);
-    tf32x3::add_seg(j, tf32x3::make_operand(src[i], D, 1),
-                    tf32x3::make_operand(w[i], so[i], sd[i]), D);
-    j.bias = (const float*)bias[i];
+    typename Core::Job& j = J.job[i];
+    Core::job(j, rows[i], HD, D, 1, 0, out, HD, 1, 0);
+    add_seg(j, Core::operand(src[i], D, 1), Core::operand(w[i], so[i], sd[i]),
+            D);
+    j.bias = static_cast<const typename Core::T*>(bias[i]);
     out += (long long)rows[i] * HD;
   }
 }

@@ -13,16 +13,24 @@ Two kinds of draws:
   hands one generator to every `Dropout` of a model.
 
 Both keep with probability 1 - rate and scale what they keep by
-1 / (1 - rate), as the JAX package does.  Their draws differ from JAX's
+1 / (1 - rate), as the JAX package does.
+
+`checkpoint(module, fn, ...)` is torch.utils.checkpoint with the draws of
+`module`'s generators replayed when the backward recomputes `fn`:
+torch's checkpoint restores only the default generators, so a recompute
+would draw other attention seeds and masks from these and give other
+gradients without any error.  Their draws differ from JAX's
 (the TPU PRNG in-kernel, threefry elsewhere): stochastic paths are compared
 by distribution, deterministic ones exactly.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 _M32 = 0xFFFFFFFF
 
@@ -116,3 +124,45 @@ def set_generator(module: nn.Module,
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def generators(module: nn.Module) -> List[torch.Generator]:
+    """The distinct generators of `module`'s `Dropout`s."""
+    seen = {}
+    for m in module.modules():
+        if isinstance(m, Dropout) and m.generator is not None:
+            seen[id(m.generator)] = m.generator
+    return list(seen.values())
+
+
+@contextlib.contextmanager
+def _replay(gens: List[torch.Generator], states: List[torch.Tensor]):
+    """Sets each generator to its recorded state for the body, and back to
+    the state it had on entry after it."""
+    now = [g.get_state() for g in gens]
+    for g, s in zip(gens, states):
+        g.set_state(s)
+    try:
+        yield
+    finally:
+        for g, s in zip(gens, now):
+            g.set_state(s)
+
+
+def checkpoint(module: nn.Module, fn, *args, **kwargs):
+    """`fn(*args, **kwargs)` under torch.utils.checkpoint (non-reentrant):
+    its activations are dropped after the forward and recomputed in the
+    backward, the JAX package's `jax.checkpoint` of one model call.  The
+    states of `module`'s dropout generators at the call are recorded and
+    set again for the recompute, which therefore draws the forward's seeds
+    and masks; after it each generator is put back to the state it had
+    before the recompute, so a step leaves them as it would without the
+    checkpoint."""
+    gens = generators(module)
+
+    def contexts():
+        states = [g.get_state() for g in gens]
+        return contextlib.nullcontext(), _replay(gens, states)
+
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                            context_fn=contexts, **kwargs)

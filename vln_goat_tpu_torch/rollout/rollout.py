@@ -31,8 +31,18 @@ recorded tensor never changes under a later step and autograd can carry
 the imitation loss back across steps through the node-embedding tables
 (embed_sum, last_embeds), as the JAX scan does.  Gathers and scatters are
 plain indexing; the JAX package's one-hot contractions compute the same
-values exactly.  The nDTW expert, `expl_sample`, the fused-DAgger feedback
-and the object branch are not ported.
+values exactly.
+
+Training rollouts take a rematerialisation policy (`REMAT`): "none"
+keeps every step's activations for the backward; "model" checkpoints each
+step's `forward_panorama` and `forward_navigation` call
+(`ops.dropout.checkpoint`, the JAX package's per-call `jax.checkpoint`,
+rollout.py:1006-1040), so the backward recomputes the model forwards and
+keeps only their inputs and outputs; the text encoding is not
+checkpointed, as in the JAX package.
+
+The nDTW expert, `expl_sample`, the fused-DAgger feedback and the object
+branch are not ported.
 
 The causal banks (`tools.zdict.SHARED_BANKS`) ride the batch as [B, N, ...]
 views of one copy, shared by every episode; nothing here slices or
@@ -49,11 +59,26 @@ import torch
 
 from ..core import geometry as G
 from ..models.goat import GoatModel
+from ..ops.dropout import checkpoint
 from .world import INF_DIST, NavWorld
 
 IGNORE_ID = -100           # target of a step without supervision
 # salt of the sampled action's draw (vln_goat_tpu/rollout/rollout.py:1265)
 SAMPLE_SALT = 7
+# rematerialisation policies of the training rollouts, and those of the JAX
+# package's `build_rollout` (rollout.py:1424-1470) not ported yet
+REMAT = ("none", "model")
+REMAT_NOT_PORTED = ("full", "dots", "ffn", "bounds", "probs", "wide",
+                    "model_probs", "model_wide")
+
+
+def check_remat(remat: str) -> None:
+    """Raises ValueError for a policy the port does not run."""
+    if remat in REMAT_NOT_PORTED:
+        raise ValueError(f"remat policy {remat!r} is not ported (ported: "
+                         f"{REMAT})")
+    if remat not in REMAT:
+        raise ValueError(f"unknown remat policy {remat!r}")
 
 
 # batch keys of the causal banks -> the model argument each feeds
@@ -491,12 +516,18 @@ class NavRollout:
         return torch.stack(hops, dim=1), prev
 
     # ------------------------------------------------------------------
-    def _step(self, st, batch, txt, t, feedback, horizon, noise_key):
+    def _step(self, st, batch, txt, t, feedback, horizon, noise_key,
+              remat="none"):
         """One decision step for every episode; returns (state, record).
         Every feedback but "argmax" trains: the record's `loss` is then the
         step's imitation loss per episode (zero in decode)."""
         model, w, r = self.model, self.world, self.rcfg
         train_ml = feedback != "argmax"
+
+        def call(fn, *args, **kwargs):
+            if train_ml and remat == "model":
+                return checkpoint(model, fn, *args, **kwargs)
+            return fn(*args, **kwargs)
         N = r.num_nodes
         act = ~st["ended"]
         st = {**st, "step_id": _set_row(
@@ -504,8 +535,9 @@ class NavRollout:
             torch.full_like(st["cur"], t + 1), act)}
 
         pano = self._pano_inputs(st, batch)
-        pano_embeds, pano_masks, pano_fused = model.forward_panorama(
-            pano["img"], pano["loc"], pano["nav_types"], pano["mask"],
+        pano_embeds, pano_masks, pano_fused = call(
+            model.forward_panorama, pano["img"], pano["loc"],
+            pano["nav_types"], pano["mask"],
             **{dst: batch[src] for src, dst in _PANO_BANKS if src in batch})
         if pano_fused is None:  # average fallback (agent.py:550-552)
             m = pano_masks[..., None].to(pano_embeds.dtype)
@@ -529,7 +561,9 @@ class NavRollout:
         chas = found & cands["mask"]
         add = chas & ~_take(st["visited"], cnode) & act[:, None]
         tgt = torch.where(add, cnode, N)
-        addf = add.to(pano_embeds.dtype)
+        # accumulated in the table's float32, as the JAX package's one-hot
+        # contractions do for a bf16 model (rollout.py:191-210, :445-460)
+        addf = add.to(st["embed_sum"].dtype)
         st = {**st,
               "embed_sum": st["embed_sum"].scatter_add(
                   1, tgt[:, :, None].expand(-1, -1, pano_embeds.shape[2]),
@@ -540,8 +574,8 @@ class NavRollout:
                                        cnode, chas)
         nav_in.update({dst: batch[src] for src, dst in _NAV_BANKS
                        if src in batch})
-        outs = model.forward_navigation(txt["embeds"], batch["txt_masks"],
-                                        txt_kv=txt["kv"], **nav_in)
+        outs = call(model.forward_navigation, txt["embeds"],
+                    batch["txt_masks"], txt_kv=txt["kv"], **nav_in)
         logits = outs["fused_logits"]
         st = {**st, "last_embeds": torch.where(
             act[:, None], outs["cls_embeds"], st["last_embeds"])}
@@ -621,7 +655,8 @@ class NavRollout:
         return st, rec
 
     # ------------------------------------------------------------------
-    def _run(self, batch, txt, feedback, horizon, noise_key):
+    def _run(self, batch, txt, feedback, horizon, noise_key,
+             remat="none"):
         """The step loop and the final stop-backtrack; records are kept
         detached, the per-step losses as they are."""
         r = self.rcfg
@@ -646,7 +681,8 @@ class NavRollout:
         losses = []
         t = 0
         while t < T and not bool(st["ended"].all()):
-            st, rec = self._step(st, batch, txt, t, feedback, T, noise_key)
+            st, rec = self._step(st, batch, txt, t, feedback, T, noise_key,
+                                 remat)
             losses.append(rec.pop("loss"))
             for k, v in rec.items():
                 recs[k][t] = v
@@ -682,8 +718,8 @@ class NavRollout:
     def train_rollout(self, batch, feedback: str,
                       generator: torch.Generator,
                       txt: Optional[dict] = None,
-                      horizon: Optional[int] = None
-                      ) -> Dict[str, torch.Tensor]:
+                      horizon: Optional[int] = None,
+                      remat: str = "none") -> Dict[str, torch.Tensor]:
         """Training rollout with the imitation loss (the JAX package's
         `build_rollout(feedback, train_ml=True, deterministic=False)`):
         `feedback="teacher"` follows the gt path, `"sample"` samples from
@@ -691,9 +727,11 @@ class NavRollout:
         cross-entropy over steps and episodes divided by B (JAX :1574),
         differentiable in the model's parameters.  `txt` is an
         `encode_text` result to share between rollouts on one batch;
-        `horizon` shortens the scan (the trainer's teacher_horizon).
-        Dropout draws come from the generator the caller gave the model
-        (`set_generator`); the sampled actions' noise from `generator`."""
+        `horizon` shortens the scan (the trainer's teacher_horizon);
+        `remat` is one of `REMAT`.  Dropout draws come from the generator
+        the caller gave the model (`set_generator`); the sampled actions'
+        noise from `generator`."""
+        check_remat(remat)
         if txt is None:
             txt = self.encode_text(batch)
         noise_key = int(torch.randint(0, 2 ** 62, (1,),
@@ -701,7 +739,7 @@ class NavRollout:
                                       device=generator.device))
         if feedback not in ("teacher", "sample"):
             raise ValueError(f"training feedback {feedback!r} is not ported")
-        return self._run(batch, txt, feedback, horizon, noise_key)
+        return self._run(batch, txt, feedback, horizon, noise_key, remat)
 
 
 def to_numpy(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

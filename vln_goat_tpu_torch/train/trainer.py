@@ -10,7 +10,14 @@ agent_base.py:154-203):
 - loss: summed cross-entropy over steps and episodes divided by B;
 - global-norm clip 40, AdamW (optax's update: clip_by_global_norm, then
   adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay), in optax's arithmetic),
-  which decays every parameter, including one that got no gradient.
+  which decays every parameter, including one that got no gradient;
+- optionally, as the JAX package's `make_optimizer` orders them
+  (MultiSteps(apply_if_finite(chain(clip, adamw)))): the mean of k
+  mini-batch gradients taken as one update (`accumulate_steps`, optax's
+  MultiSteps) and a guard that skips an update with a non-finite gradient
+  (`finite_guard`, optax's apply_if_finite);
+- the rollouts' rematerialisation policy `remat` ("none" or "model",
+  rollout.REMAT).
 
 The teacher is the per-step rollout (the JAX package's
 `vectorized_teacher=False`, loss-identical to its vectorized teacher
@@ -27,7 +34,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Union
 import torch
 
 from ..ops.dropout import set_generator
-from ..rollout.rollout import NavRollout
+from ..rollout.rollout import NavRollout, check_remat
+from ..utils.guard import FiniteGuard
 
 
 def make_lr_schedule(name: str, lr: float, warmup_steps: int,
@@ -100,13 +108,22 @@ class AdamW(torch.optim.Optimizer):
     language tower is, or never used, as `front_txt_encoder` is) steps
     with a zero gradient, as optax steps a leaf whose JAX gradient is
     zero: its moments decay and the weight decay shrinks it.
-    torch.optim.AdamW would skip it."""
+    torch.optim.AdamW would skip it.
+
+    `accumulator` and `guard` (None unless `make_optimizer` asks for them)
+    are the accumulation and the finite guard that `apply_update` runs
+    before the clip and this step."""
 
     def __init__(self, params, lr: float, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
                                       weight_decay=weight_decay))
+        self.accumulator: Optional[GradAccumulator] = None
+        self.guard: Optional[FiniteGuard] = None
+
+    def params(self) -> List[torch.Tensor]:
+        return [p for group in self.param_groups for p in group["params"]]
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -130,17 +147,58 @@ class AdamW(torch.optim.Optimizer):
                 p.add_((-lr) * (u + wd * p))
 
 
+class GradAccumulator:
+    """optax.MultiSteps(every_k_schedule=k, use_grad_mean=True) over the
+    optimizer's parameters: the running mean acc + (g - acc) / (n + 1) of
+    k mini-batch gradients (a missing gradient counts as zero), handed on
+    at the k-th.  After it the mean is reset as optax resets it,
+    (1 - emit) * acc: a non-finite entry stays non-finite."""
+
+    def __init__(self, params: List[torch.Tensor], k: int):
+        if k < 2:
+            raise ValueError(f"accumulate_steps {k}: accumulation needs 2 "
+                             "or more")
+        self.k, self.mini_step = k, 0
+        self.acc = [torch.zeros_like(p) for p in params]
+
+    @torch.no_grad()
+    def add(self, params: List[torch.Tensor]) -> bool:
+        """Adds the parameters' gradients to the mean; True at the k-th,
+        when their .grad now holds the mean of the k and the mean restarts."""
+        n = self.mini_step
+        for a, p in zip(self.acc, params):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            a.copy_(a + (g - a) / (n + 1))
+        self.mini_step = (n + 1) % self.k
+        if n != self.k - 1:
+            return False
+        for a, p in zip(self.acc, params):
+            p.grad = a.clone()
+            a.mul_(0)
+        return True
+
+
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 2e-5,
                    weight_decay: float = 0.01,
                    lr_sch: Optional[str] = None, warmup_steps: int = 0,
-                   total_steps: Optional[int] = None):
+                   total_steps: Optional[int] = None,
+                   accumulate_steps: int = 1, finite_guard: bool = False):
     """(AdamW, LambdaLR): optax's adamw(b1=0.9, b2=0.999, eps=1e-8,
     weight_decay) at the named schedule; without one, at
     `warmup_cosine_schedule` when both warmup_steps and total_steps are
     given, else at the constant `lr` (the JAX package's make_optimizer,
-    trainer.py:86-90).  Counted in updates as optax counts them.  The
-    global-norm clip is the train step's (`clip_by_global_norm`)."""
+    trainer.py:74-100).  Counted in updates as optax counts them.  The
+    global-norm clip is the train step's (`clip_by_global_norm`).
+    accumulate_steps > 1: the mean of that many mini-batch gradients makes
+    one update (`GradAccumulator`, MultiSteps); finite_guard: an update
+    with a non-finite gradient is skipped (`FiniteGuard`,
+    apply_if_finite(max_consecutive_errors=10)); `apply_update` runs them
+    in the JAX package's order, accumulation, guard, clip, AdamW."""
     opt = AdamW(params, lr=lr, weight_decay=weight_decay)
+    if accumulate_steps > 1:
+        opt.accumulator = GradAccumulator(opt.params(), accumulate_steps)
+    if finite_guard:
+        opt.guard = FiniteGuard()
     if lr_sch is not None:
         sched = make_lr_schedule(lr_sch, lr, warmup_steps, total_steps or 1)
     elif warmup_steps and total_steps:
@@ -181,12 +239,25 @@ class TrainState:
 
 def apply_update(state: TrainState) -> torch.Tensor:
     """Clip the gradients in `state.model`'s .grad by their global norm,
-    take one optimizer and schedule step, count it; returns the norm before
-    clipping."""
+    take one optimizer and schedule step, count it; returns the norm of
+    the gradients before clipping.  With the optimizer's accumulator the
+    gradients join the mean, and the update (of the mean, clipped by its
+    own norm) comes at every k-th call only; with its guard a non-finite
+    update is skipped.  Skipped or not yet due, the parameters, the
+    optimizer, the schedule and `state.step` stay as they were."""
+    opt = state.optimizer
     grads = [p.grad for p in state.model.parameters() if p.grad is not None]
     norm = global_norm(grads)
-    clip_by_global_norm(grads, state.grad_clip, norm)
-    state.optimizer.step()
+    clip_norm = norm
+    if opt.accumulator is not None:
+        if not opt.accumulator.add(opt.params()):
+            return norm
+        grads = [p.grad for p in opt.params()]
+        clip_norm = global_norm(grads)
+    if opt.guard is not None and not opt.guard.allow(grads):
+        return norm
+    clip_by_global_norm(grads, state.grad_clip, clip_norm)
+    opt.step()
     state.scheduler.step()
     state.step += 1
     return norm
@@ -194,15 +265,18 @@ def apply_update(state: TrainState) -> torch.Tensor:
 
 def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
                  ml_weight: float = 0.2,
-                 teacher_horizon: Union[int, str, None] = None):
+                 teacher_horizon: Union[int, str, None] = None,
+                 remat: str = "none"):
     """loss_fn(batch, generator) -> (loss, metrics, outs): the imitation
-    loss of `train_alg` and its rollouts' outputs.  teacher_horizon: None
+    loss of `train_alg` and its rollouts' outputs, under the rollouts'
+    rematerialisation policy `remat`.  teacher_horizon: None
     keeps the rollout's horizon, an int caps the teacher scan, "auto"
     takes min(gt_path width, horizon) per batch (JAX :150-156): teacher
     episodes end once their gt path is exhausted, so the cap is
     loss-identical while skipping the dead tail."""
     if train_alg not in ("imitation", "dagger"):
         raise ValueError(f"train_alg {train_alg!r} is not ported")
+    check_remat(remat)
     full = rollout.rcfg.horizon
 
     def teacher_h(batch) -> int:
@@ -216,7 +290,8 @@ def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
         outs: Dict[str, dict] = {}
         if train_alg == "imitation":
             out = rollout.train_rollout(batch, "teacher", generator,
-                                        horizon=teacher_h(batch))
+                                        horizon=teacher_h(batch),
+                                        remat=remat)
             loss = out["ml_loss"]
             metrics["il_loss"] = out["ml_loss"]
             metrics["node_overflow"] = out["overflow_n"].sum()
@@ -227,12 +302,13 @@ def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
             if ml_weight != 0:
                 out_t = rollout.train_rollout(batch, "teacher", generator,
                                               txt=txt,
-                                              horizon=teacher_h(batch))
+                                              horizon=teacher_h(batch),
+                                              remat=remat)
                 loss = loss + ml_weight * out_t["ml_loss"]
                 metrics["il_loss"] = out_t["ml_loss"]
                 outs["teacher"] = out_t
             out_s = rollout.train_rollout(batch, "sample", generator,
-                                          txt=txt)
+                                          txt=txt, remat=remat)
             loss = loss + out_s["ml_loss"]
             metrics["sample_loss"] = out_s["ml_loss"]
             metrics["node_overflow"] = out_s["overflow_n"].sum()
@@ -245,7 +321,8 @@ def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
 
 def make_train_step(rollout: NavRollout, train_alg: str = "dagger",
                     ml_weight: float = 0.2,
-                    teacher_horizon: Union[int, str, None] = None):
+                    teacher_horizon: Union[int, str, None] = None,
+                    remat: str = "none"):
     """train_step(state, batch, generator) -> metrics: one update of
     state.model.  Dropout and the sampled actions draw from `generator`
     (on the model's device).  Metrics: loss, il_loss / sample_loss,
@@ -253,8 +330,10 @@ def make_train_step(rollout: NavRollout, train_alg: str = "dagger",
     decision steps each rollout ran (teacher_steps, sample_steps).
     keep=True returns (metrics, grads, outs) instead, to compare two
     steps: grads {name: gradient before clipping}, outs the rollouts'
-    outputs by feedback."""
-    loss_fn = make_loss_fn(rollout, train_alg, ml_weight, teacher_horizon)
+    outputs by feedback.  `remat`: the rollouts' rematerialisation policy
+    (rollout.REMAT); the JAX package's default, "full", is not ported."""
+    loss_fn = make_loss_fn(rollout, train_alg, ml_weight, teacher_horizon,
+                           remat)
 
     def train_step(state: TrainState, batch, generator: torch.Generator,
                    keep: bool = False):
@@ -282,12 +361,15 @@ def init_train_state(model: torch.nn.Module, rollout: NavRollout,
                      grad_clip: float = 40.0, train_alg: str = "dagger",
                      ml_weight: float = 0.2,
                      teacher_horizon: Union[int, str, None] = None,
-                     **sched) -> TrainState:
-    """TrainState of `model` with AdamW (make_optimizer) and the step
-    function of `train_alg` over `rollout`."""
+                     remat: str = "none", accumulate_steps: int = 1,
+                     finite_guard: bool = False, **sched) -> TrainState:
+    """TrainState of `model` with AdamW (make_optimizer, with its
+    accumulation and finite guard) and the step function of `train_alg`
+    over `rollout` under the rematerialisation policy `remat`."""
     opt, scheduler = make_optimizer(
         [p for p in model.parameters() if p.requires_grad], lr,
-        weight_decay, **sched)
+        weight_decay, accumulate_steps=accumulate_steps,
+        finite_guard=finite_guard, **sched)
     return TrainState(model, opt, scheduler, grad_clip, 0,
                       make_train_step(rollout, train_alg, ml_weight,
-                                      teacher_horizon))
+                                      teacher_horizon, remat))
