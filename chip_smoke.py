@@ -65,8 +65,12 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      (batch 8, dropout 0; keep share within 4 binomial sd of 0.9 at the
      bf16-rounded kept probability) and at the train shapes (batch 64,
      dropout 0.1, timed beside the plain version, `addmm` x3 + SDPA in
-     bf16 with their autograd, and the bound at 989 TFLOP/s / 3.35 TB/s);
-     two backward launches bitwise equal;
+     bf16 with their autograd, and the bound at 989 TFLOP/s / 3.35 TB/s;
+     K1 and its library call also by device time, from CUDA graphs; K1
+     and K2 (b) by part, each GEMM part's TFLOP/s, the host time of one C
+     call); two backward launches bitwise equal; K2 (a)'s dq past 64 keys
+     (Lk 130 and 200) within one rounding of its exact sum over all keys
+     and within DQ_LONG_RATIO of the plain version's error;
   4 (bf16): greedy decode in bf16 through the kernels and on the eager
      path from the same weights, against the float32 kernel route's first
      step (each route's logits, the kernels' distance at most 2x the
@@ -80,9 +84,13 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      gradient error against float32, the kernels' at most 2x eager's +
      1e-3 (plain and causal);
   5 (g): the bench build (bf16, remat "model", batch 64, dropout on),
-     plain and causal, one warm-up per bucket and 3 timed steps, and a
+     causal then plain, one warm-up per bucket and 3 timed steps, and a
      float32 remat "model" warm-up whose peak must be under half of (b) /
-     (d)'s.
+     (d)'s; then one more plain step under torch.profiler (the device-busy
+     share, the ten kernels with the most device time, the bf16 K1 / K2
+     kernels' share), after every timed step.
+Every bf16 decode and train path's launches of the bf16 GEMM core must
+all have taken its TMA route (`ops.attention.bf16_core_routes`).
 Every path is driven with the launch counts set to 0 just before it and
 read just after.
 The line before the last is one JSON object with every kernel's numbers
@@ -111,8 +119,9 @@ from vln_goat_tpu_torch.config import TrainConfig
 from vln_goat_tpu_torch.entry import (build_flagship, build_train_flagship,
                                       greedy_rollout, train_steps)
 from vln_goat_tpu_torch.ops import _build
-from vln_goat_tpu_torch.ops.attention import (attend_plain,
+from vln_goat_tpu_torch.ops.attention import (_fwd_call, attend_plain,
                                               attention_backward,
+                                              bf16_core_routes,
                                               forward_projection,
                                               fused_qkv_mha,
                                               fused_qkv_mha_plain, mha,
@@ -555,6 +564,8 @@ def time_backward(row, args, det, seed, dout, batch, rate, parts):
         # (b) by part: the dx and dy GEMMs, the split-K weight gradients,
         # the pass that adds their slices, and the head sum of ds
         call = ProjectionBackward(x, y, wq, wk, wv, dq, dk, dv, hsum, H)
+        if x.dtype == BF16:
+            row["projb_device_ms"] = graph_ms(call.launch)
         for part in PROJ_PARTS:
             if part != "hsum" or hsum is not None:
                 row[f"projb_{part}_ms"] = graph_ms(lambda: call.launch(part))
@@ -739,8 +750,174 @@ def check_shape_bf16(g, name, Lq, Lk, bias_kind, layout, batch, timed):
     fb = bound(det)
     row["bound_ms"], row["bound_by"] = max(fb), \
         "operations" if fb[0] >= fb[1] else "bytes"
-    time_backward(row, args, det, seed, dout, batch, rate, parts=False)
+    time_backward(row, args, det, seed, dout, batch, rate, parts=True)
+    bf16_parts(row, det, kw)
     return row
+
+
+def gemm_flops(det):
+    """Operations of each GEMM part of K1 and K2 (b) at one call's inputs:
+    the forward's q / k / v projection, dx, dy and the weight gradients."""
+    x, y, wq = det[0], det[1], det[2]
+    Bx, Lq, Dx = x.shape
+    Lk, HD = y.shape[1], wq.shape[1]
+    return dict(proj=2 * Bx * (Lq + 2 * Lk) * Dx * HD,
+                dx=2 * Bx * Lq * HD * Dx, dy=2 * Bx * Lk * 2 * HD * Dx,
+                dw=2 * Dx * HD * Bx * (Lq + 2 * Lk))
+
+
+def host_us(fn, n=200):
+    """Host microseconds of one call of fn (enqueue only: no synchronise
+    inside the loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def bf16_parts(row, det, kw):
+    """K1 bf16's device time and its library call's (each from a CUDA
+    graph of ten calls, so no host work sits between them) and K1 by part
+    (the projection GEMM alone, and the attention as the whole forward's
+    device time less it: the attention-only kernel takes float32 only),
+    each GEMM part's TFLOP/s, and the host time of one C call of the
+    projection and of the projection backward."""
+    proj = forward_projection(*det[:8], num_heads=H)
+    del proj
+    row["fwd_proj_ms"] = graph_ms(
+        lambda: forward_projection(*det[:8], num_heads=H))
+    row["device_ms"] = graph_ms(lambda: fused_qkv_mha(*det, **kw))
+    row["library_device_ms"] = graph_ms(lambda: library_call(det))
+    row["fwd_attn_ms"] = row["device_ms"] - row["fwd_proj_ms"]
+    flops = gemm_flops(det)
+    row["tflops"] = {p: flops[p] / (row[key] * 1e-3) / 1e12
+                     for p, key in (("proj", "fwd_proj_ms"),
+                                    ("dx", "projb_dx_ms"),
+                                    ("dy", "projb_dy_ms"),
+                                    ("dw", "projb_dw_ms"))}
+    c = _fwd_call(*det[:8], None, None, H, 0.0)
+    qkv = torch.empty(c.B * (c.Lq + 2 * c.Lk) * c.HD, device=c.dev,
+                      dtype=c.dtype)
+    fn = c.entry("fused_qkv_mha_proj")
+    cargs = [det[0].data_ptr(), det[1].data_ptr(), *c.weight_args(),
+             qkv.data_ptr(), c.B, c.Lq, c.Lk, c.D, c.H, c.stream()]
+    row["proj_host_us"] = host_us(lambda: fn(*cargs))
+    with torch.no_grad():
+        row["fwd_host_us"] = host_us(lambda: fused_qkv_mha(*det, **kw))
+    x, y, wq, _, wk, _, wv, _, _ = det
+    dq, dk, dv = (torch.randn(t.shape[0], t.shape[1], H * DH, device="cuda")
+                  .to(BF16) for t in (x, y, y))
+    call = ProjectionBackward(x, y, wq, wk, wv, dq, dk, dv, None, H)
+    row["projb_host_us"] = host_us(call.launch)
+    del qkv
+
+
+# K2 (a)'s dq past 64 keys: its error against float64 at most this many
+# times the plain bf16 version's: the largest ratio the one-chunk shapes
+# (Lk <= 64) show, 1.345 (phase 3 bf16 at the decode shapes, NVIDIA H100
+# 80GB HBM3, 700 W), and 11.5% more
+DQ_LONG_RATIO = 1.5
+
+
+def dq_rounding_excess(dq, ds, k, scale):
+    """How far the bf16 kernel's dq lies from one rounding of its exact
+    sum over all keys: the reference is the float64 product of the
+    kernel's own ds (rounded to bf16, as it enters the product) with the
+    projected k [B, Lk, H, dh], times `scale`; each element may differ from
+    it by one bf16 ulp of the reference plus 2^-16 of the product's
+    absolute sum (the float32 sum's own error).  Returns (the largest
+    |dq - ref| over that allowance, the elements beyond it).  A dq added
+    up in bf16 chunk by chunk rounds several times and lands beyond it."""
+    B, _, Lq, _ = ds.shape
+    d, kk = ds.to(BF16).double(), k.double()
+    ref = torch.einsum("bhqk,bkhd->bqhd", d, kk).reshape(B, Lq, -1) * scale
+    mag = torch.einsum("bhqk,bkhd->bqhd", d.abs(), kk.abs()).reshape(
+        B, Lq, -1) * scale
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    excess = (dq.double() - ref).abs() / (ulp + 2.0 ** -16 * mag)
+    return float(excess.max()), int((excess > 1).sum())
+
+
+def check_dq_long(g, rows):
+    """K2 (a)'s dq at Lk 130 and 200 (batch 8, several key chunks): within
+    one rounding of the float64 sum of its own ds times k
+    (`dq_rounding_excess` at most 1), and against the plain attention's
+    autograd over the plain projections, both held to float64: the
+    kernel's error at most DQ_LONG_RATIO times the plain version's;
+    printed beside the largest kernel / plain ratio of the one-chunk
+    decode shapes in `rows`."""
+    res = []
+    for Lq, Lk in ((70, 130), (60, 200)):
+        args32, seed = make_case(g, Lq, Lk, "key", "linear", B)
+        det = [None if a is None else a.detach() for a in to_bf16(args32)]
+        det64 = [None if a is None else a.double() for a in det]
+        dout = torch.randn(B, Lq, H * DH, generator=g, device="cuda").to(BF16)
+        dq, _, _, ds = attention_backward(*det, seed, dout, H, 0.0,
+                                          need_ds=True)
+        k = forward_projection(*det[:8], num_heads=H)[1]
+        excess, over = dq_rounding_excess(dq, ds, k, DH ** -0.5)
+        del ds, k
+        if excess > 1:
+            raise AssertionError(
+                f"dq at Lk {Lk}: {over} elements beyond one rounding of the "
+                f"sum over all keys (largest {excess:.2f} x the allowance)")
+        grads = []
+        for src, do in ((det, dout), (det64, dout.double())):
+            qkv = [t.detach().requires_grad_()
+                   for t in project_plain(*src[:8])]
+            grads += torch.autograd.grad(
+                attend_plain(*qkv, src[8], H, 0.0, seed,
+                             dtype=src[0].dtype), qkv[:1], do)
+        err, plain = bf16_gate(f"dq at Lk {Lk}", dq, grads[0], grads[1])
+        if err > DQ_LONG_RATIO * plain:
+            raise AssertionError(f"dq at Lk {Lk}: bf16 kernel error {err:.3e}"
+                                 f" > {DQ_LONG_RATIO} x plain {plain:.3e}")
+        res.append((Lq, Lk, err, plain, excess))
+    one = max(rows[name]["gates"]["dq"][0] / rows[name]["gates"]["dq"][1]
+              for name, Lq, Lk, _, _ in SHAPES + CAUSAL_SHAPES if Lk <= 64)
+    say("bf16 dq past 64 keys (batch 8, against float64, kernel / plain): "
+        + ", ".join(f"Lq {lq} Lk {lk} {e:.3e} / {p:.3e} (ratio {e / p:.3f}"
+                    f"; from one rounding of its own ds k: {x:.3f} of the "
+                    f"allowance)" for lq, lk, e, p, x in res)
+        + f"; the one-chunk decode shapes' largest ratio {one:.3f}; limit "
+        f"{DQ_LONG_RATIO}")
+
+
+def bf16_part_line(train_rows, mix):
+    """K1 bf16 and K2 (b) bf16 by part over a launch mix: each part's
+    ms, each GEMM part's TFLOP/s (its operations over its time, both
+    summed over the mix) against the 989 TFLOP/s peak, and the host time
+    of one C call."""
+    total = sum(mix.values())
+
+    def avg(key):
+        return sum(train_rows[s][key] * w for s, w in mix.items()) / total
+
+    keys = ["fwd_proj_ms", "fwd_attn_ms"] + [
+        f"projb_{p}_ms" for p in PROJ_PARTS if p != "hsum"]
+    rates = []
+    for p, key in (("proj", "fwd_proj_ms"), ("dx", "projb_dx_ms"),
+                   ("dy", "projb_dy_ms"), ("dw", "projb_dw_ms")):
+        ops = sum(train_rows[s]["tflops"][p] * train_rows[s][key] * w
+                  for s, w in mix.items())
+        ms = sum(train_rows[s][key] * w for s, w in mix.items())
+        rates.append(f"{p} {ops / ms:.1f} ({ops / ms / 989 * 100:.1f}%)")
+    hsum = [r["projb_hsum_ms"] for r in train_rows.values()
+            if "projb_hsum_ms" in r]
+    return ("bf16 by part over the bench build's mix: "
+            + ", ".join(f"{k[:-3]} {avg(k):.4f} ms" for k in keys)
+            + (f", hsum {sum(hsum) / len(hsum):.4f} ms (shapes with a "
+               f"summed bias)" if hsum else "")
+            + "; TFLOP/s of 989: " + ", ".join(rates)
+            + f"; host us per C call: proj {avg('proj_host_us'):.1f}, "
+            f"projection backward launch() {avg('projb_host_us'):.1f}; "
+            f"host us per forward wrapper call (no grad) "
+            f"{avg('fwd_host_us'):.1f}")
 
 
 def check_kernels_bf16():
@@ -758,6 +935,7 @@ def check_kernels_bf16():
             + (f"; keep share {row['keep_share']:.5f} sd "
                f"{row['keep_sd']:.1e}" if "keep_share" in row else "")
             + "; two backward launches bitwise equal")
+    check_dq_long(g, rows)
     for name, Lq, Lk, bias_kind, layout in SHAPES + CAUSAL_SHAPES:
         if name not in TRAIN_SHAPES:
             continue
@@ -779,6 +957,23 @@ def check_kernels_bf16():
             f"library_ms={row['projb_library_ms']:.4f} "
             f"bound_ms={row['projb_bound_ms']:.4f} "
             f"({row['projb_bound_by']})")
+        say(f"bf16 train {name} device time (CUDA graphs): forward "
+            f"{row['device_ms']:.4f} ms, its library call "
+            f"{row['library_device_ms']:.4f} "
+            f"({row['device_ms'] / row['library_device_ms']:.2f}x); "
+            f"projection backward {row['projb_device_ms']:.4f} ms")
+        say(f"bf16 train {name} by part: forward proj "
+            f"{row['fwd_proj_ms']:.4f} ms, attn (forward less proj) "
+            f"{row['fwd_attn_ms']:.4f}; projection backward "
+            + ", ".join(f"{p} {row[f'projb_{p}_ms']:.4f}"
+                        for p in PROJ_PARTS if f"projb_{p}_ms" in row)
+            + "; TFLOP/s (of 989) "
+            + ", ".join(f"{p} {v:.1f} ({v / 989 * 100:.1f}%)"
+                        for p, v in row["tflops"].items())
+            + f"; host us per C call: proj {row['proj_host_us']:.1f}, "
+            f"whole forward wrapper {row['fwd_host_us']:.1f}, "
+            f"projection backward launch() (GEMM + reduce) "
+            f"{row['projb_host_us']:.1f}")
     return rows, train_rows
 
 
@@ -870,6 +1065,15 @@ def reset_counts():
     attention_backward.launches = 0
     projection_backward.launches = 0
     mha.launches = 0
+    bf16_core_routes.update(tma=0, direct=0)
+
+
+def check_routes(routes, want):
+    """Every bf16 core launch of a path (`want` of them) took the TMA
+    route; raises AssertionError."""
+    if routes != {"tma": want, "direct": 0}:
+        raise AssertionError(f"bf16 core launches by route {routes}, "
+                             f"expected {want} by TMA and none direct")
 
 
 def counts():
@@ -979,11 +1183,14 @@ def run_rollouts_bf16(card, causal=False):
     if counts() != (sum(mix.values()), 0, 0, 0):
         raise AssertionError(f"{what}bf16 decode launched {counts()}, "
                              f"expected ({sum(mix.values())}, 0, 0, 0)")
+    routes = dict(bf16_core_routes)
+    check_routes(routes, launches)
     reset_counts()
     ref = greedy_rollout(e_ro, batch)
     torch.cuda.synchronize()
     if counts() != (0, 0, 0, 0):
         raise AssertionError("the eager bf16 run launched a kernel")
+    check_routes(dict(bf16_core_routes), 0)
     check_logit_masks(out)
     check_logit_masks(ref)
     first, first_ref = out["fused_logits"][0], ref["fused_logits"][0]
@@ -1017,7 +1224,8 @@ def run_rollouts_bf16(card, causal=False):
     traj_same = out["trajectories"] == ref["trajectories"]
     same = int((out["actions"] == ref["actions"])[acted].sum())
     say(f"{what}rollout bf16: kernels {steps} steps, fused_qkv_mha "
-        f"launches={launches} ({mix_text(mix)}), {B / dt:.2f} episodes/s "
+        f"launches={launches} ({mix_text(mix)}; bf16 core launches by "
+        f"route {routes}), {B / dt:.2f} episodes/s "
         f"({dt * 1e3:.1f} ms per batch); eager {int(ref['steps'])} steps; "
         f"logit masks as defined on both, first-step logits within "
         f"{diff:.2e} of each other's scale"
@@ -1196,7 +1404,7 @@ def run_train(card, causal=False):
     # (b) the bench's step: batch 64, dropout on, EARLIER_STEPS timed
     # steps, through the kernels and then through the eager path
     n_steps = EARLIER_STEPS
-    state, metrics, got, dt, warm_peak, peak, before, left = bench_steps(
+    state, metrics, got, dt, warm_peak, peak, before, left, _ = bench_steps(
         True, causal, n=n_steps)
     cfg = state.model.config
     mix = train_mix(cfg, metrics)
@@ -1237,7 +1445,7 @@ def run_train(card, causal=False):
             f"predicted excess of {excess:.2f} GiB ({calls} attention "
             f"calls per rollout step) passes {EAGER_LIMIT_GIB} GiB")
         return mix, got, failed, warm_peak
-    _, e_metrics, e_got, e_dt, e_warm, e_peak, _, e_left = bench_steps(
+    _, e_metrics, e_got, e_dt, e_warm, e_peak, _, e_left, _ = bench_steps(
         False, causal, n=n_steps)
     if e_got != (0, 0, 0, 0):
         raise AssertionError("the eager step launched a kernel")
@@ -1364,7 +1572,7 @@ def bf16_gate_step(card, causal=False):
             keep=True)
         torch.cuda.synchronize()
         res[route] = dict(loss=float(m["loss"]), grads=grads,
-                          counts=counts(),
+                          counts=counts(), routes=dict(bf16_core_routes),
                           actions=outs["teacher"]["actions"],
                           steps=int(m["teacher_steps"]))
         cfg = state.model.config
@@ -1390,6 +1598,8 @@ def bf16_gate_step(card, causal=False):
                 f"launches {res['bf16 kernels']['counts']} (kernels), "
                 f"{res['bf16 eager']['counts']} (eager), expected "
                 f"{(k_n, k_n, k_n, 0)} and none")
+        check_routes(res["bf16 kernels"]["routes"], 3 * k_n)
+        check_routes(res["bf16 eager"]["routes"], 0)
         for i, what_err in enumerate(("loss", "gradient")):
             k_e, e_e = errs["bf16 kernels"][i], errs["bf16 eager"][i]
             if k_e > 2 * e_e + 1e-3:
@@ -1406,7 +1616,8 @@ def bf16_gate_step(card, causal=False):
         f"{errs['bf16 eager'][1]:.3e}; bf16 kernels loss "
         f"{errs['bf16 kernels'][0]:.3e}, gradients "
         f"{errs['bf16 kernels'][1]:.3e} (limit 2 x eager + 1e-3); kernel "
-        f"launches {res['bf16 kernels']['counts']} on {card}")
+        f"launches {res['bf16 kernels']['counts']}, bf16 core launches by "
+        f"route {res['bf16 kernels']['routes']} on {card}")
     return None
 
 
@@ -1418,10 +1629,13 @@ def bench_config(card, causal, none_peak):
     parameters moved, launches as the config gives them (the recomputed
     rollout steps' forwards on top); then one float32 remat "model"
     warm-up, whose peak must be under half of `none_peak`, (b) / (d)'s.
-    Returns (forward launch mix, launch counts, failure or None)."""
+    The plain build also profiles one more step (`trace_step`) after its
+    timed ones.  Returns (forward launch mix, launch counts, failure or
+    None, the profile or None)."""
     what = "causal " if causal else ""
-    state, metrics, got, dt, warm_peak, peak, before, left = bench_steps(
-        True, causal, compute_dtype="bfloat16", remat="model")
+    state, metrics, got, dt, warm_peak, peak, before, left, extra = \
+        bench_steps(True, causal, compute_dtype="bfloat16", remat="model",
+                    trace=not causal)
     cfg = state.model.config
     mix = train_mix(cfg, metrics)
     n = sum(mix.values())
@@ -1433,6 +1647,7 @@ def bench_config(card, causal, none_peak):
         if got != (n + rec, n, n, 0):
             raise AssertionError(f"launched {got}, expected "
                                  f"{(n + rec, n, n, 0)}")
+        check_routes(extra["routes"], sum(got[:3]))
         for m in metrics:
             if not (math.isfinite(float(m["loss"]))
                     and math.isfinite(float(m["grad_norm"]))):
@@ -1453,14 +1668,17 @@ def bench_config(card, causal, none_peak):
         f"{[round(float(m['loss']), 4) for m in metrics]}, grad_norm "
         f"{[round(float(m['grad_norm']), 3) for m in metrics]}, "
         f"{moved}/{len(before)} parameters moved, launches {got} "
-        f"({mix_text(mix)}; {rec} recomputed), peak memory "
+        f"({mix_text(mix)}; {rec} recomputed; bf16 core launches by route "
+        f"{extra['routes']}), peak memory "
         f"{warm_peak:.2f} GiB in the warm-up, {peak:.2f} GiB in the timed "
         f"steps ({left:.2f} GiB left by earlier phases, freed first); "
         f"{B_TRAIN * 3 / dt:.2f} episodes/s ({dt / 3 * 1e3:.1f} ms per "
         f"step) on {card}")
+    if "trace" in extra:
+        say(trace_line(extra["trace"]))
     del state, metrics, before
     torch.cuda.empty_cache()
-    _, _, _, _, f32_peak, _, _, _ = bench_steps(True, causal, n=0,
+    _, _, _, _, f32_peak, _, _, _, _ = bench_steps(True, causal, n=0,
                                                 remat="model")
     torch.cuda.empty_cache()
     ok = f32_peak < 0.5 * none_peak
@@ -1470,7 +1688,7 @@ def bench_config(card, causal, none_peak):
     if not ok and failed is None:
         failed = (f"{what}train (g): float32 remat model peak "
                   f"{f32_peak:.2f} GiB not under half of {none_peak:.2f}")
-    return mix, got, failed, dt
+    return mix, got, failed, extra.get("trace")
 
 
 def rollout_steps(metrics):
@@ -1479,7 +1697,8 @@ def rollout_steps(metrics):
 
 
 def bench_steps(fused: bool, causal: bool = False, n: int = 3,
-                compute_dtype: str = "float32", remat: str = "none"):
+                compute_dtype: str = "float32", remat: str = "none",
+                trace: bool = False):
     """The bench's DAgger step (batch 64, dropout on) through the kernels
     or the eager path, in the plain or the causal configuration, in
     `compute_dtype` under the rollouts' `remat` policy: one warm-up step
@@ -1489,7 +1708,9 @@ def bench_steps(fused: bool, causal: bool = False, n: int = 3,
     warm-up and of the timed steps, the parameters before the timed steps,
     and the memory (GiB) earlier phases had left allocated, which is freed
     first (a train state holds reference cycles, which only the cyclic
-    collector frees), so that the peaks are this step's own."""
+    collector frees), so that the peaks are this step's own; and a dict
+    with the timed steps' bf16 core launches by route and, with `trace`,
+    the profile of one more step (`trace_step`)."""
     left = torch.cuda.memory_allocated() / 2 ** 30
     gc.collect()
     torch.cuda.empty_cache()
@@ -1515,8 +1736,98 @@ def bench_steps(fused: bool, causal: bool = False, n: int = 3,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     got = counts()
+    extra = dict(routes=dict(bf16_core_routes))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    return state, metrics, got, dt, warm_peak, peak, before, left
+    if trace:
+        extra["trace"] = trace_step(state, batcher, g)
+    return state, metrics, got, dt, warm_peak, peak, before, left, extra
+
+
+# kernels of the bf16 builds by name, for the profile's shares: the bf16
+# GEMM core (K1's projection, K2 (a)'s recompute, K2 (b)'s jobs), K1's
+# attention, K2 (a)'s attention, K2 (b)'s reduction
+K_BF16_PARTS = (("gemm core", "gemm_kernel"),
+                ("K1 attention", "attn_fwd_kernel<__nv_bfloat16"),
+                ("K2 (a) attention", "attn_bwd_kernel<__nv_bfloat16"),
+                ("K2 (b) reduce", "splitk_reduce_kernel<__nv_bfloat16"))
+
+
+def trace_step(state, batcher, g):
+    """One more DAgger step under torch.profiler (CPU and CUDA
+    activities): the window (first to last event), the device-busy share
+    of it (the union of the device's kernel, copy and set intervals; the
+    host ranges the profiler mirrors onto the device are left out), the
+    ten kernels with the most device time, and the bf16 K1 / K2
+    kernels' share of the device time.  None for the device numbers when the trace
+    holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_steps(state, batcher, 1, g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.profiler.kineto_results.events()
+    t_parse = time.perf_counter()
+    spans, by_name, device = [], {}, []
+    host_names = set()
+    lo, hi = None, None
+    for e in events:
+        s_, e_ = e.start_ns(), e.end_ns()
+        lo = s_ if lo is None else min(lo, s_)
+        hi = e_ if hi is None else max(hi, e_)
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            device.append((e.name(), s_, e_))
+        else:
+            host_names.add(e.name())
+    # the device's kernels, copies and sets; a device event named as a
+    # host one is an annotation the profiler mirrors onto the device
+    # timeline (`Optimizer.step#AdamW.step`), not device work
+    for name, s_, e_ in device:
+        if name not in host_names:
+            spans.append((s_, e_))
+            by_name[name] = by_name.get(name, 0) + (e_ - s_)
+    out = dict(wall_ms=wall * 1e3, events=len(events), device_events=
+               len(spans), profiler_s=t_parse - t_all,
+               summary_s=time.perf_counter() - t_parse)
+    if not spans:
+        return out
+    spans.sort()
+    busy, cur_s, cur_e = 0, spans[0][0], spans[0][1]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    total = sum(by_name.values())
+    out.update(window_ms=(hi - lo) / 1e6, busy_ms=busy / 1e6,
+               busy_share=busy / (hi - lo), device_ms=total / 1e6,
+               top=sorted(by_name.items(), key=lambda kv: -kv[1])[:10],
+               parts={p: sum(v for k, v in by_name.items() if key in k)
+                      / 1e6 for p, key in K_BF16_PARTS})
+    return out
+
+
+def trace_line(tr):
+    """The profile's line (`trace_step`)."""
+    head = (f"train (g) profile of one more step: {tr['wall_ms']:.1f} ms "
+            f"under the profiler, {tr['events']} events (profiler "
+            f"{tr['profiler_s']:.1f} s, summary {tr['summary_s']:.1f} s)")
+    if "busy_share" not in tr:
+        return head + "; device busy share not measured (no device events)"
+    k = sum(tr["parts"].values())
+    return (head + f"; window {tr['window_ms']:.1f} ms, device busy "
+            f"{tr['busy_ms']:.1f} ms ({tr['busy_share'] * 100:.1f}%), "
+            f"device time {tr['device_ms']:.1f} ms; bf16 K1 / K2 kernels "
+            f"{k:.1f} ms ({k / tr['device_ms'] * 100:.1f}% of device time: "
+            + ", ".join(f"{p} {v:.2f}" for p, v in tr["parts"].items())
+            + "); top 10 by device time: "
+            + "; ".join(f"{name[:70]} {ns / 1e6:.2f} ms"
+                        for name, ns in tr["top"]))
 
 
 def main() -> int:
@@ -1535,7 +1846,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s (in parallel)")
     for name, rec in _build.build_log.items():
         for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line or "entry" in line:
+            if ("registers" in line or "spill" in line or "entry" in line) \
+                    and "C7519" not in line:
                 say(f"  ptxas {name}: {line.strip()}")
     lib = _build.load("fused_qkv_mha_bwd")
     smem = (ctypes.c_int * 4)()
@@ -1573,8 +1885,10 @@ def main() -> int:
     say(f"wall: phase 5 (c, d) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cf_failed = bf16_gate_step(card, causal=True)
-    g_mix, g_train, g_failed, _ = bench_config(card, False, none_peak)
+    # the plain bench build last: its profiled step comes after every timed
+    # step of the script
     cg_mix, cg_train, cg_failed, _ = bench_config(card, True, c_none_peak)
+    g_mix, g_train, g_failed, _ = bench_config(card, False, none_peak)
     say(f"wall: phase 5 (f causal, g) {time.perf_counter() - t0:.1f} s")
 
     # one row per kernel: launches by path (decode counts the forward
@@ -1669,7 +1983,8 @@ def main() -> int:
              launches_by_path=b_by_path[0], max_abs_err=b_err("fwd_err"),
              ms=b_avg("ms"), plain_ms=b_avg("plain_ms"),
              bound_ms=b_avg("bound_ms"), bound_by=b_by("bound_by"),
-             library_ms=b_avg("library_ms")),
+             library_ms=b_avg("library_ms"), device_ms=b_avg("device_ms"),
+             library_device_ms=b_avg("library_device_ms")),
         dict(name="fused_qkv_mha_bwd_attn_bf16", route="cuda",
              source=src + "fused_qkv_mha_bwd.cu",
              replaces="vln_goat_tpu/ops/attention.py:181",
@@ -1686,7 +2001,8 @@ def main() -> int:
              ms=b_avg("projb_ms"), plain_ms=b_avg("projb_plain_ms"),
              bound_ms=b_avg("projb_bound_ms"),
              bound_by=b_by("projb_bound_by"),
-             library_ms=b_avg("projb_library_ms")),
+             library_ms=b_avg("projb_library_ms"),
+             device_ms=b_avg("projb_device_ms")),
     ]
     # the float32 CUDA-core bounds, beside the 3xTF32 ones
     # the kernels line carries, and the forward by part
@@ -1698,6 +2014,17 @@ def main() -> int:
     say(f"forward by part over the train mix: proj "
         f"{avg('fwd_proj_ms'):.4f} ms, attn (no dropout) "
         f"{avg('fwd_attn_ms'):.4f} ms")
+    say(bf16_part_line(b_train_rows, b_mix))
+    say(f"bf16 over the bench build's mix: K1 {b_avg('ms'):.4f} ms, "
+        f"{b_avg('ms') / b_avg('library_ms'):.2f}x its library call "
+        f"{b_avg('library_ms'):.4f} (device time, CUDA graphs: "
+        f"{b_avg('device_ms'):.4f} against {b_avg('library_device_ms'):.4f}"
+        f", {b_avg('device_ms') / b_avg('library_device_ms'):.2f}x); K2 (b) "
+        f"{b_avg('projb_ms'):.4f} ms, "
+        f"{b_avg('projb_ms') / b_avg('projb_library_ms'):.2f}x its library "
+        f"call {b_avg('projb_library_ms'):.4f} (device time "
+        f"{b_avg('projb_device_ms'):.4f}); K2 (a) {b_avg('attn_ms'):.4f} "
+        f"ms, {b_avg('attn_ms') / b_avg('attn_library_ms'):.2f}x")
     say(f"wall: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     failures = [f for f in (d_failed, cd_failed, failed, c_failed, e_failed,

@@ -1,7 +1,10 @@
 """The projection backward's launch plan (`ops/bwd_plan.py`) and the
 backward's choice of gradients (`ops/attention.py` `backward_needs`), on
 the CPU: both decide, in Python, what the CUDA kernels of
-`csrc/fused_qkv_mha_bwd.cu` run.
+`csrc/fused_qkv_mha_bwd.cu` run.  The plan is per GEMM core: the bf16
+core's slices are whole 64-deep chunks, and its persistent blocks walk the
+units in launch order (the `test_bf16_*` cases, with a model of that
+schedule here).
 
 The plan is held to what the kernel relies on: each output tile of each
 job is written by one block, each of a weight gradient's rows lies in one
@@ -14,7 +17,8 @@ import torch
 
 from vln_goat_tpu_torch.ops.attention import backward_needs, gemm_tf32x3
 from vln_goat_tpu_torch.ops.bwd_plan import (HSUM_THREADS, JOB_IDS, SMS,
-                                             TILE_K, TILE_M, TILE_N,
+                                             TILE_K, TILE_K_BF16, TILE_M,
+                                             TILE_N, TILE_N_BF16, Job,
                                              proj_plan, split_depth)
 
 D = HD = 768
@@ -26,6 +30,43 @@ SHAPES = [(64, 60, 60), (64, 50, 50), (64, 54, 54), (64, 60, 36),
           (64, 60, 47), (64, 60, 24), (64, 50, 24), (64, 54, 24),
           (64, 50, 50), (8, 200, 200), (3, 7, 33), (1, 1, 1), (5, 61, 29)]
 TRAIN = {s for s in SHAPES if s[0] == 64} | {(8, 200, 200)}
+
+
+# the bench build's launch mix of one DAgger step (3 steps, plain and
+# causal; chip_smoke.py phase 5 (g)): (B, Lq, Lk) -> K1 launches
+BENCH_MIX = {(64, 60, 60): 36, (64, 60, 36): 3, (64, 60, 47): 3,
+             (64, 60, 24): 3, (64, 50, 50): 420, (64, 54, 54): 420,
+             (64, 50, 24): 60, (64, 54, 24): 60}
+
+
+def qkv_jobs(B, Lq, Lk, tile_n=TILE_N_BF16):
+    """The q / k / v projection jobs of one bf16 K1 launch (or K2 (a)'s
+    recompute) as `csrc/qkv_proj.cuh` lays them out: [B*Lq, HD] and twice
+    [B*Lk, HD] over a depth of D, in 128 x tile_n tiles."""
+    return tuple(Job(name, rows, HD, D, 1, D,
+                     -(-rows // TILE_M) * -(-HD // tile_n))
+                 for name, rows in (("q", B * Lq), ("k", B * Lk),
+                                    ("v", B * Lk)))
+
+
+def unit_chunks(jobs):
+    """The 64-deep chunks each GEMM work unit walks, in launch order (job
+    by job; slice s of a job's tiles after slice s - 1's)."""
+    out = []
+    for j in jobs:
+        if j.name == "hsum":
+            continue
+        for s in range(j.splits):
+            depth = min(j.k, (s + 1) * j.kc) - s * j.kc
+            out += [-(-depth // TILE_K_BF16)] * j.tiles
+    return out
+
+
+def persistent_blocks(units):
+    """The bf16 core's persistent schedule: min(SMS, units) blocks, block
+    b taking units b, b + grid, ... in launch order."""
+    grid = min(SMS, len(units))
+    return [units[b::grid] for b in range(grid)]
 
 
 def _blocks(plan):
@@ -156,3 +197,73 @@ def test_backward_needs(needs, bias, want):
     causal bank's y does not); the bias gradient per head for a bias with
     the heads' dimension, else summed over the heads."""
     assert backward_needs(needs + (False, False, False), bias, 12) == want
+
+
+@pytest.mark.parametrize("B,Lq,Lk", SHAPES)
+def test_bf16_plan_covers_every_tile_and_row_once_in_whole_chunks(B, Lq,
+                                                                   Lk):
+    """The bf16 core's plan: every tile of every slice once, each
+    weight gradient's rows once in ascending slices of whole 64-deep
+    chunks (none empty), longest jobs first, the head sum last."""
+    plan = proj_plan(B, Lq, Lk, D, HD, hsum=True, core="bf16")
+    assert plan.jobs[-1].name == "hsum"
+    seen = {}
+    for name, s, tile in _blocks(plan):
+        seen.setdefault(name, []).append((s, tile))
+    for job in plan.jobs[:-1]:
+        tiles = -(-job.m // TILE_M) * -(-job.n // TILE_N_BF16)
+        assert sorted(seen[job.name]) == [(s, t) for s in range(job.splits)
+                                          for t in range(tiles)]
+        assert job.kc % TILE_K_BF16 == 0
+        bounds = [(s * job.kc, min((s + 1) * job.kc, job.k))
+                  for s in range(job.splits)]
+        assert all(hi > lo for lo, hi in bounds)
+        assert [r for lo, hi in bounds for r in range(lo, hi)] == \
+            list(range(job.k))
+    keys = [(-j.kc, JOB_IDS[j.name]) for j in plan.jobs[:-1]]
+    assert keys == sorted(keys)
+
+
+@pytest.mark.parametrize("B,Lq,Lk", sorted(BENCH_MIX))
+def test_bf16_persistent_schedule_at_the_train_mix(B, Lq, Lk):
+    """At the bench build's shapes the persistent blocks take every unit
+    once in launch order, in as many rounds as units per block rounded up,
+    and, the jobs running longest first, the longest block walks at most
+    one unit's chunks more than the mean (a list schedule's bound); the
+    q / k / v launch has 270, 225 or 243 units of 128 x 256 at text60,
+    gmap50, local54."""
+    for jobs in (qkv_jobs(B, Lq, Lk),
+                 proj_plan(B, Lq, Lk, D, HD, core="bf16").jobs):
+        units = unit_chunks(jobs)
+        assert len(units) == sum(j.blocks for j in jobs if j.name != "hsum")
+        blocks = persistent_blocks(units)
+        assert sorted(w for b in blocks for w in b) == sorted(units)
+        assert max(len(b) for b in blocks) == -(-len(units) // len(blocks))
+        assert max(sum(b) for b in blocks) <= \
+            sum(units) / len(blocks) + max(units)
+    want = {(64, 60, 60): 270, (64, 50, 50): 225, (64, 54, 54): 243}
+    if (B, Lq, Lk) in want:
+        assert len(unit_chunks(qkv_jobs(B, Lq, Lk))) == want[(B, Lq, Lk)]
+
+
+def test_bf16_tile_width_halves_the_rounds_at_the_train_mix():
+    """The kernel's 256-wide tile (chosen by its measured time, see
+    `ops/bwd_plan.py`) takes the q / k / v launch at gmap50 and local54,
+    the bulk of the bench build's K1 launches, to two rounds of 132
+    blocks, where 128-wide tiles (450 and 486 units) take four."""
+    for B, Lq, Lk in ((64, 50, 50), (64, 54, 54)):
+        for tile_n, want in ((TILE_N_BF16, 2), (128, 4)):
+            units = unit_chunks(qkv_jobs(B, Lq, Lk, tile_n))
+            assert max(len(b) for b in persistent_blocks(units)) == want
+    assert TILE_N_BF16 == 256
+
+
+@pytest.mark.parametrize("K,splits", [(1, 1), (33, 2), (100, 3), (3840, 3),
+                                      (3200, 5), (64, 9), (3456, 3)])
+def test_bf16_split_depth_slices(K, splits):
+    """`split_depth` with the bf16 core's 64-deep chunks."""
+    S, kc = split_depth(K, splits, TILE_K_BF16)
+    assert 1 <= S <= splits and kc % TILE_K_BF16 == 0
+    bounds = [(s * kc, min((s + 1) * kc, K)) for s in range(S)]
+    assert all(hi > lo for lo, hi in bounds)
+    assert [r for lo, hi in bounds for r in range(lo, hi)] == list(range(K))

@@ -18,13 +18,16 @@ import pytest
 import torch
 
 from vln_goat_tpu_torch.ops import attention as attention_mod
-from vln_goat_tpu_torch.ops.attention import (attention_backward,
+from vln_goat_tpu_torch.ops.attention import (attend_plain,
+                                              attention_backward,
+                                              bf16_core_routes,
+                                              forward_projection,
                                               fused_qkv_mha,
                                               fused_qkv_mha_plain,
                                               gemm_bf16, gemm_tf32x3, mha,
-                                              mha_plain,
+                                              mha_plain, project_plain,
                                               projection_backward)
-from vln_goat_tpu_torch.ops.bwd_plan import split_depth
+from vln_goat_tpu_torch.ops.bwd_plan import TILE_K_BF16, split_depth
 from vln_goat_tpu_torch.ops.dropout import keep_mask
 
 pytestmark = pytest.mark.cuda
@@ -461,24 +464,47 @@ def _operand_bf16(g, rows, cols, how):
         torch.bfloat16)
 
 
+def _tma_describes(sr, sk, t):
+    """Whether the bf16 core's TMA route takes an operand with element
+    strides (sr, sk) (r its row of A or column of B, k the depth): one
+    unit stride, the other a multiple of 8 elements (16 bytes), a 16-byte
+    aligned base."""
+    other = sr if sk == 1 else (sk if sr == 1 else 0)
+    return t.data_ptr() % 16 == 0 and other > 0 and other % 8 == 0
+
+
 @pytest.mark.parametrize("M,N,K,a_how,b_how,splits", [
     (1, 1, 1, "c", "c", 1), (130, 70, 45, "c", "c", 1),
     (257, 131, 99, "t", "c", 1), (100, 64, 200, "c", "t", 3),
     (77, 50, 33, "slice", "slice", 2), (768, 768, 3840, "t", "c", 2),
-    (200, 768, 3840, "t", "t", 5)])
+    (200, 768, 3840, "t", "t", 5),
+    # the TMA route in its four layouts, across tile, chunk and split
+    # edges: A K-major / B MN-major, ragged M and N, a last chunk of 8,
+    # slices of 128 then 8; both MN-major; A MN-major / B K-major
+    (300, 200, 640, "c", "c", 2), (129, 257, 136, "c", "t", 2),
+    (256, 136, 200, "t", "c", 3), (64, 128, 1000, "t", "t", 4)])
 def test_gemm_bf16_core_matches_float64(card, M, N, K, a_how, b_how,
                                         splits):
     """The bf16 GEMM core against a float64 matmul of the same bf16
-    values, at the float32 core's cases: bf16 products are exact in
-    float32, so the bound is the float32 sum's (1e-5 of the largest sum of
-    absolute products), and the column sums of B likewise."""
+    values, at the float32 core's cases and at cases of its TMA route:
+    bf16 products are exact in float32, so the bound is the float32 sum's
+    (1e-5 of the largest sum of absolute products), and the column sums of
+    B likewise.  The depth is cut in whole 64-deep chunks, and the launch
+    is counted under the route its operands take (TMA where both can be
+    described, else direct)."""
     a, b = _operand_bf16(card, M, K, a_how), _operand_bf16(card, K, N, b_how)
     bias = torch.randn(N, generator=card, device="cuda").to(torch.bfloat16)
     before = gemm_bf16.launches
+    route = "tma" if (_tma_describes(a.stride(0), a.stride(1), a) and
+                      _tma_describes(b.stride(1), b.stride(0), b)) \
+        else "direct"
+    routes = dict(bf16_core_routes)
     c, colsum = gemm_bf16(a, b, bias, splits)
     torch.cuda.synchronize()
     assert gemm_bf16.launches == before + 1
-    S, kc = split_depth(K, splits)
+    assert bf16_core_routes[route] == routes[route] + 1
+    assert sum(bf16_core_routes.values()) == sum(routes.values()) + 1
+    S, kc = split_depth(K, splits, TILE_K_BF16)
     assert c.shape == (S, M, N) and c.dtype == torch.float32
     a64, b64 = a.double(), b.double()
     scale = float((a64.abs() @ b64.abs()).max())
@@ -514,14 +540,42 @@ def test_bf16_forward_matches_plain(card, Lq, Lk, hb, linear, rate):
     _assert_bf16_gate(out, plain, ref)
 
 
+# K2 (a)'s dq past 64 keys (several key chunks), where the kernel sums dq
+# in float32 over the chunks and rounds once: its error against float64
+# at most this many times the plain bf16 version's: the largest ratio the
+# one-chunk shapes (Lk <= 64) show on the card, 1.345 (chip_smoke.py phase
+# 3 bf16, decode shapes), and 11.5% more
+DQ_LONG_RATIO = 1.5
+
+
+def _dq_rounding_excess(dq, ds, k, scale):
+    """The bf16 kernel's dq against one rounding of its exact sum over all
+    keys, the float64 product of the kernel's own ds (rounded to bf16, as
+    it enters the product) and the projected k [B, Lk, H, dh], times
+    `scale`: the largest |dq - ref| over one bf16 ulp of ref plus 2^-16 of
+    the product's absolute sum (the float32 sum's own error).  A dq added
+    up in bf16 chunk by chunk rounds several times and lands beyond 1."""
+    B, _, Lq, _ = ds.shape
+    d, kk = ds.to(torch.bfloat16).double(), k.double()
+    ref = torch.einsum("bhqk,bkhd->bqhd", d, kk).reshape(B, Lq, -1) * scale
+    mag = torch.einsum("bhqk,bkhd->bqhd", d.abs(), kk.abs()).reshape(
+        B, Lq, -1) * scale
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    return float(((dq.double() - ref).abs() / (ulp + 2.0 ** -16 * mag)).max())
+
+
 @pytest.mark.parametrize("Lq,Lk,hb,linear", [
     (40, 40, None, True), (50, 50, 1, True), (70, 130, 1, False),
-    (60, 60, 12, False), (60, 47, None, True)])
+    (60, 60, 12, False), (60, 47, None, True), (60, 200, 1, True)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_bf16_backward_matches_plain(card, Lq, Lk, hb, linear, rate):
     """K2 (a) and (b) in bf16 through autograd: every gradient in its
     input's dtype (bf16), within the gate of the float64 gradient; the key
-    bias's gradient (zero up to rounding) at dWk's scale."""
+    bias's gradient (zero up to rounding) at dWk's scale.  K2 (a)'s dq
+    against the plain attention's autograd over the plain projections,
+    both against float64 (printed), past 64 keys within DQ_LONG_RATIO of
+    the plain version's error."""
     args, seed = _bf16_case(card, 2, Lq, Lk, hb, linear, grad=True)
     leaves = [a for a in args if a is not None]
     dout = torch.randn(2, Lq, D, generator=card, device="cuda").to(
@@ -544,6 +598,31 @@ def test_bf16_backward_matches_plain(card, Lq, Lk, hb, linear, rate):
     for i, (g_, p_, r) in enumerate(zip(got, plain, ref)):
         assert g_.dtype == torch.bfloat16 and g_.shape == r.shape
         _assert_bf16_gate(g_, p_, r, ref[4] if i == 5 else None)
+
+    det = [None if a is None else a.detach() for a in args]
+    dq, _, _, ds = attention_backward(*det, seed, dout, H, rate,
+                                      need_ds=True)
+    excess = _dq_rounding_excess(
+        dq, ds, forward_projection(*det[:8], num_heads=H)[1], (D // H) ** -0.5)
+    errs = []
+    for dt in (torch.bfloat16, torch.float64):
+        src = det if dt == torch.bfloat16 else \
+            [None if a is None else a.double() for a in det]
+        qkv = [t.detach().requires_grad_() for t in project_plain(*src[:8])]
+        (g,) = torch.autograd.grad(
+            attend_plain(*qkv, src[8], H, rate, seed, dtype=src[0].dtype),
+            qkv[:1], dout.to(dt))
+        errs.append(g)
+    plain_dq, ref_dq = errs
+    err, err_plain = _rel(dq, ref_dq), _rel(plain_dq, ref_dq)
+    print(f"dq against float64 at Lq {Lq}, Lk {Lk}, rate {rate}: kernel "
+          f"{err:.3e}, plain {err_plain:.3e} (ratio {err / err_plain:.3f}); "
+          f"from one rounding of its own ds k: {excess:.3f} of the "
+          f"allowance")
+    assert excess <= 1, excess
+    _assert_bf16_gate(dq, plain_dq, ref_dq)
+    if Lk > 64:
+        assert err <= DQ_LONG_RATIO * err_plain, (err, err_plain)
 
 
 def test_bf16_backward_is_bitwise_repeatable(card):

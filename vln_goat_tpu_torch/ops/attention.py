@@ -19,12 +19,13 @@ and attention over projected heads.
 
 Both run in float32 or, for bf16 inputs (the JAX package's bf16 model,
 `_bdot(..., dt=x.dtype)` :120-137), in bf16: bf16 operands of every
-product with float32 sums, on the bf16 core `csrc/gemm_bf16.cuh` and bf16
-fragments of the attention; scores, softmax, dropout and the score
-gradients in float32; q, k, v, p, ds and the projection gradients rounded
-to bf16 where the JAX kernel casts them; outputs and gradients in their
-input's dtype.  x, y, the weights and biases of one call share one dtype;
-a mix raises.
+product with float32 sums, on the bf16 core `csrc/gemm_bf16.cuh` (one
+persistent launch fed by TMA; `bf16_core_routes` counts its launches by
+load route) and bf16 fragments of the attention; scores, softmax,
+dropout and the score gradients in float32; q, k, v, p, ds and the
+projection gradients rounded to bf16 where the JAX kernel casts them;
+outputs and gradients in their input's dtype.  x, y, the weights and
+biases of one call share one dtype; a mix raises.
 
 On a CUDA tensor `fused_qkv_mha` runs `FusedQKVMHA`, an autograd Function
 whose forward launches the forward kernel and whose backward launches the
@@ -51,8 +52,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from .bwd_plan import (JOB_IDS, TILE_K, TILE_M, TILE_N, proj_plan,
-                       split_depth)
+from .bwd_plan import (CHUNK, JOB_IDS, TILE_K, TILE_K_BF16, TILE_M, TILE_N,
+                       TILE_N_BF16, proj_plan, split_depth)
 from .dropout import keep_mask, keep_threshold
 
 
@@ -168,6 +169,7 @@ def _fwd_lib() -> ctypes.CDLL:
             fn.restype = _I
         lib.fused_qkv_mha_head_dim.restype = _I
         lib.fused_qkv_mha_max_lk.restype = _I
+        lib.fused_qkv_mha_bf16_route.restype = _I
     return lib
 
 
@@ -178,7 +180,7 @@ def _bwd_lib() -> ctypes.CDLL:
             fa = getattr(lib, "fused_qkv_mha_bwd_attn" + sfx)
             fa.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3
                            + [_VP, _LL, _LL, _LL, _LL] + [_VP, _U, _F]
-                           + [_VP] * 7 + [_I] * 5 + [_F, _VP])
+                           + [_VP] * 8 + [_I] * 5 + [_F, _VP])
             fa.restype = _I
             fp = getattr(lib, "fused_qkv_mha_bwd_proj" + sfx)
             fp.argtypes = ([_VP, _VP] + _W * 3 + [_VP] * 6 + [_VP] * 9
@@ -194,14 +196,28 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.fused_qkv_mha_bwd_smem.restype = None
         lib.fused_qkv_mha_bwd_head_dim.restype = _I
         lib.fused_qkv_mha_bwd_max_lk.restype = _I
+        lib.fused_qkv_mha_bwd_bf16_route.restype = _I
         lib.fused_qkv_mha_bwd_tile.argtypes = [_VP]
         lib.fused_qkv_mha_bwd_tile.restype = None
-        tile = (_I * 3)()
+        tile = (_I * 6)()
         lib.fused_qkv_mha_bwd_tile(tile)
-        if tuple(tile) != (TILE_M, TILE_N, TILE_K):
-            raise RuntimeError(f"the backward kernel tiles by {tuple(tile)}, "
-                               f"its plan by {(TILE_M, TILE_N, TILE_K)}")
+        want = (TILE_M, TILE_N, TILE_K, TILE_M, TILE_N_BF16, TILE_K_BF16)
+        if tuple(tile) != want:
+            raise RuntimeError(f"the backward kernels tile by {tuple(tile)}, "
+                               f"their plan by {want}")
     return lib
+
+
+# launches of the bf16 GEMM core (K1's projection, K2 (a)'s recompute,
+# K2 (b)'s jobs, `gemm_bf16`) by the route its operands took: "tma", every
+# operand through a tensor map, or "direct", at least one (a stride TMA
+# cannot describe) loaded by the producer warp with ordinary loads
+bf16_core_routes = {"tma": 0, "direct": 0}
+
+
+def _count_route(route: int) -> None:
+    """Counts one bf16 core launch by the route its library reports."""
+    bf16_core_routes["tma" if route == 1 else "direct"] += 1
 
 
 def _ints(ctype, values):
@@ -418,6 +434,8 @@ def forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias=None,
             c.scale, *c.seed_args(), c.stream())
     fused_qkv_mha.launches += 1
     c.check(rc, "fused_qkv_mha")
+    if c.dtype == torch.bfloat16:
+        _count_route(c.lib.fused_qkv_mha_bf16_route())
     return out
 
 
@@ -468,18 +486,26 @@ def attention_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout,
     dv = torch.empty((c.B, c.Lk, c.HD), **like)
     ds = torch.empty((c.B, c.H, c.Lq, c.Lk), **f32) if need_ds else None
     qkv = torch.empty(c.B * (c.Lq + 2 * c.Lk) * c.HD, **like)
-    # softmax statistics of each row, when the keys span several chunks
-    stats = torch.empty(c.B * c.H * c.Lq * 3, **f32) \
-        if c.Lk > ATTN_KEY_CHUNK else None
+    # softmax statistics of each row, when the keys span several chunks,
+    # and in bf16 dq's running sum over them (rounded once, at the end)
+    several = c.Lk > ATTN_KEY_CHUNK
+    stats = torch.empty(c.B * c.H * c.Lq * 3, **f32) if several else None
+    dq_acc = torch.empty(dq.numel(), **f32) \
+        if several and c.dtype == torch.bfloat16 else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(c.dev):
         rc = c.entry("fused_qkv_mha_bwd_attn")(
             x.data_ptr(), y.data_ptr(), *c.weight_args(), *c.bias_args(),
             *c.seed_args(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), None if ds is None else ds.data_ptr(),
-            qkv.data_ptr(), None if stats is None else stats.data_ptr(),
+            dv.data_ptr(), ptr(ds), qkv.data_ptr(), ptr(stats), ptr(dq_acc),
             c.B, c.Lq, c.Lk, c.D, c.H, c.scale, c.stream())
     attention_backward.launches += 1
     c.check(rc, "fused_qkv_mha_bwd_attn")
+    if c.dtype == torch.bfloat16:
+        _count_route(c.lib.fused_qkv_mha_bwd_bf16_route())
     return dq, dk, dv, ds
 
 
@@ -530,8 +556,10 @@ class ProjectionBackward:
                 raise ValueError(f"ds {tuple(ds.shape)}, expected "
                                  f"contiguous {(B, num_heads, Lq, Lk)}")
             self.dbias = torch.empty((B, 1, Lq, Lk), **f32)
-        self.plan = plan = proj_plan(B, Lq, Lk, D, HD, need_dx, need_dy,
-                                     ds is not None)
+        self.plan = plan = proj_plan(
+            B, Lq, Lk, D, HD, need_dx, need_dy, ds is not None,
+            "bf16" if dtype == torch.bfloat16 else "tf32x3")
+        self.dtype = dtype
         self.scratch = torch.empty(plan.scratch_floats, **f32)
         self.dev, self.shape = dev, (B, Lq, Lk, D, num_heads)
         self.proj_fn = _entry(self.lib, "fused_qkv_mha_bwd_proj", dtype)
@@ -596,6 +624,8 @@ def projection_backward(x, y, wq, wk, wv, dq, dk, dv, ds=None,
         call.launch()
     finally:
         projection_backward.launches += 1
+    if call.dtype == torch.bfloat16:
+        _count_route(call.lib.fused_qkv_mha_bwd_bf16_route())
     return call.dx, call.dy, call.dws, call.dbs, call.dbias
 
 
@@ -607,7 +637,8 @@ def _gemm_core(name, dtype, a, b, bias, splits):
         raise ValueError(f"{name}: needs CUDA tensors")
     M, K = a.shape
     N = b.shape[1]
-    S, kc = split_depth(K, splits)
+    S, kc = split_depth(
+        K, splits, CHUNK["bf16" if dtype == torch.bfloat16 else "tf32x3"])
     for t in (a, b) + (() if bias is None else (bias,)):
         if t.device != a.device or t.dtype != dtype:
             raise ValueError(f"{name}: needs {dtype} on one card")
@@ -642,9 +673,12 @@ def gemm_tf32x3(a, b, bias=None, splits: int = 1):
 
 def gemm_bf16(a, b, bias=None, splits: int = 1):
     """`gemm_tf32x3` for the bf16 core: a, b and the bias in bf16, c and
-    colsum in float32 (bf16 products, float32 sums).  Card only."""
+    colsum in float32 (bf16 products, float32 sums), the depth cut into
+    whole 64-deep chunks (`split_depth(K, splits, TILE_K_BF16)`); the
+    launch is counted in `bf16_core_routes` too.  Card only."""
     out = _gemm_core("gemm_bf16", torch.bfloat16, a, b, bias, splits)
     gemm_bf16.launches += 1
+    _count_route(_bwd_lib().fused_qkv_mha_bwd_bf16_route())
     return out
 
 

@@ -43,8 +43,9 @@
 // sums in float32: `_bdot(..., dt=x.dtype)` :120-137): the `_bf16` entries
 // take x, y, the weights, the biases and the additive bias in bf16 and
 // return the output in bf16.  The projections run on the bf16 core
-// (gemm_bf16.cuh: one wgmma m64n128k16 per 16-deep step, the weights
-// copied straight into wgmma's layout) with float32 sums plus the bias,
+// (gemm_bf16.cuh: one persistent block per SM, a producer warp feeding a
+// TMA ring, wgmma m64n256k16 on both operands in shared memory, whatever
+// the weights' layout) with float32 sums plus the bias,
 // rounded to bf16 into a scratch of half the float32 size (the JAX kernel
 // casts q, k and v to bf16 before its products); the attention core takes
 // bf16 m16n8k16 fragments for q k^T and p v, float32 scores, softmax and
@@ -172,6 +173,10 @@ int fused_qkv_mha_fwd_bf16(FWD_ARGS) { return fwd<qkv_proj::Bf16>(FWD_NAMES); }
 
 // Head width the kernel is compiled for, so the wrapper can check it.
 int fused_qkv_mha_head_dim(void) { return attn_fwd::DH; }
+
+// The route of this library's last bf16 projection launch: 1 every operand
+// by TMA, 0 at least one loaded directly, -1 no launch yet.
+int fused_qkv_mha_bf16_route(void) { return gemm_bf16::last_route(); }
 
 // Largest key length the kernel takes.
 int fused_qkv_mha_max_lk(void) { return attn_fwd::MAX_LK; }

@@ -77,12 +77,15 @@
 // bf16 m16n8k16 fragments; p, dp and ds stay float32 and are rounded to
 // bf16 where they enter a product (pd before pd^T dO, ds before ds k and
 // ds^T q); dq, dk and dv are written in bf16, the operands of every product
-// after them (past 64 keys dq is added chunk by chunk in bf16, one rounding
-// more than the JAX kernel's); ds is written in float32.  (b) runs dx, dy
-// and the split-K weight gradients on the bf16 core with float32 partial
-// sums and the same fixed-order reduction, which rounds dW and db to bf16
-// (the weights' dtype, :338-341); dx and dy are rounded to bf16 (x.dtype).
-// db sums the bf16 dq (dk, dv), where the JAX kernel sums its float32 dq.
+// after them (past 64 keys dq is added chunk by chunk in a float32
+// scratch and rounded once, after the last chunk, as the JAX kernel's one
+// float32 product over all keys, :216); ds is written in float32.  (b)
+// runs dx, dy and the split-K weight gradients on the bf16 core
+// (gemm_bf16.cuh: persistent, TMA-fed, wgmma from shared memory; slices of
+// whole 64-deep chunks) with float32 partial sums and the same fixed-order
+// reduction, which rounds dW and db to bf16 (the weights' dtype,
+// :338-341); dx and dy are rounded to bf16 (x.dtype).  db sums the bf16 dq
+// (dk, dv), where the JAX kernel sums its float32 dq.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -228,6 +231,7 @@ struct AttnArgs {
   T* dv;
   float* ds;          // [B, H, Lq, Lk], or null
   float* stats;       // [B, H, Lq, 3] when Lk > KC
+  float* dq_acc;      // bf16: dq's running sum [B, Lq, H*dh] when Lk > KC
   int Lq, Lk, H;
   float scale;
 };
@@ -424,7 +428,9 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
         }
       }
       __syncthreads();
-      // dq (tile rows) = scale ds k, added over the key chunks
+      // dq (tile rows) = scale ds k, added over the key chunks: in dq
+      // itself (float32), or in float32 scratch and rounded to bf16 once,
+      // with the last chunk
       float dqa[4][4] = {};
       warp_mma<T>(dqa, rowmajor_f(Ss), rowmajor(Ks), wm, wn);
 #pragma unroll
@@ -434,9 +440,17 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
           const int qi = q0 + wm + g + (e >= 2 ? 8 : 0);
           const int col = wn + 8 * ni + 2 * t + (e & 1);
           if (qi < Lq) {
-            T* o = A.dq + ((long long)b * Lq + qi) * HD + col0 + col;
+            const long long i = ((long long)b * Lq + qi) * HD + col0 + col;
             const float v = dqa[ni][e] * A.scale;
-            put(o, c == 0 ? v : to_f(*o) + v);
+            if constexpr (sizeof(T) == 4) {
+              put(A.dq + i, c == 0 ? v : to_f(A.dq[i]) + v);
+            } else if (nch == 1) {
+              put(A.dq + i, v);
+            } else {
+              const float sum = c == 0 ? v : A.dq_acc[i] + v;
+              if (c < nch - 1) A.dq_acc[i] = sum;
+              else put(A.dq + i, sum);
+            }
           }
         }
       // the tile's share of dv = pd^T dO and dk = ds^T q (keys x dh)
@@ -469,11 +483,13 @@ int bwd_attn(const void* x, const void* y, const void* wq, long long wq_sd,
              long long wv_so, const void* bv, const void* bias, long long sb,
              long long sh, long long sq, long long sk, const void* seeds,
              unsigned int thresh, float inv_keep, const void* dout, void* dq,
-             void* dk, void* dv, void* ds, void* qkv, void* stats, int B,
-             int Lq, int Lk, int D, int H, float scale, void* stream) {
+             void* dk, void* dv, void* ds, void* qkv, void* stats,
+             void* dq_acc, int B, int Lq, int Lk, int D, int H, float scale,
+             void* stream) {
   using T = typename Core::T;
   if (B < 1 || Lq < 1 || Lk < 1 || Lk > MAX_LK || H < 1 || D < 1 ||
-      (Lk > KC && stats == nullptr))
+      (Lk > KC && stats == nullptr) ||
+      (sizeof(T) == 2 && Lk > KC && dq_acc == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int HD = H * DH;
@@ -506,6 +522,7 @@ int bwd_attn(const void* x, const void* y, const void* wq, long long wq_sd,
   A.dv = (T*)dv;
   A.ds = (float*)ds;
   A.stats = Lk > KC ? (float*)stats : nullptr;
+  A.dq_acc = sizeof(T) == 2 && Lk > KC ? (float*)dq_acc : nullptr;
   A.Lq = Lq;
   A.Lk = Lk;
   A.H = H;
@@ -527,8 +544,7 @@ int bwd_proj(const void* x, const void* y, const void* wq, long long wq_sd,
              const long long* wofs, const long long* bofs, const void* ds,
              void* dbias, const int* order, int njobs, int blocks, int B,
              int Lq, int Lk, int D, int H, void* stream) {
-  constexpr int BK = tf32x3::BK;
-  static_assert(BK == gemm_bf16::BK, "one plan for both cores");
+  constexpr int BK = Core::BK;   // the plan cuts slices in whole chunks
   if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 1 || njobs < 0 ||
       njobs > MAX_JOBS + 1)
     return (int)cudaErrorInvalidValue;
@@ -626,7 +642,7 @@ int bwd_gemm(const void* a, long long a_sm, long long a_sk, const void* b,
              long long b_sk, long long b_sn, const void* bias, void* c,
              void* colsum, int m, int n, int k, int splits, int kc,
              void* stream) {
-  if (m < 1 || n < 1 || k < 1 || splits < 1 || kc % tf32x3::BK != 0 ||
+  if (m < 1 || n < 1 || k < 1 || splits < 1 || kc % Core::BK != 0 ||
       (long long)splits * kc < k || (long long)(splits - 1) * kc >= k)
     return (int)cudaErrorInvalidValue;
   Jobs<Core> J = {};
@@ -650,12 +666,12 @@ extern "C" {
       long long wv_so, const void *bv, const void *bias, long long sb,       \
       long long sh, long long sq, long long sk, const void *seeds,           \
       unsigned int thresh, float inv_keep, const void *dout, void *dq,       \
-      void *dk, void *dv, void *ds, void *qkv, void *stats, int B, int Lq,   \
-      int Lk, int D, int H, float scale, void *stream
+      void *dk, void *dv, void *ds, void *qkv, void *stats, void *dq_acc,    \
+      int B, int Lq, int Lk, int D, int H, float scale, void *stream
 #define ATTN_NAMES                                                           \
   x, y, wq, wq_sd, wq_so, bq, wk, wk_sd, wk_so, bk, wv, wv_sd, wv_so, bv,    \
       bias, sb, sh, sq, sk, seeds, thresh, inv_keep, dout, dq, dk, dv, ds,   \
-      qkv, stats, B, Lq, Lk, D, H, scale, stream
+      qkv, stats, dq_acc, B, Lq, Lk, D, H, scale, stream
 #define PROJ_ARGS                                                            \
   const void *x, const void *y, const void *wq, long long wq_sd,            \
       long long wq_so, const void *wk, long long wk_sd, long long wk_so,     \
@@ -687,9 +703,10 @@ extern "C" {
 // through strides, biases [H*dh], additive bias through four strides (null:
 // none), seeds int32 [B] (null: no dropout), dO [B, Lq, H*dh]; scratch qkv
 // of B (Lq + 2 Lk) H*dh elements and, when Lk > 64, stats of B H Lq 3
-// floats; writes dq [B, Lq, H*dh], dk, dv [B, Lk, H*dh] and, if ds is not
-// null, ds [B, H, Lq, Lk] (float32).  The `_bf16` entry takes every tensor
-// but ds and stats in bf16.
+// floats (and for `_bf16` dq_acc of B Lq H*dh floats, else null); writes
+// dq [B, Lq, H*dh], dk, dv [B, Lk, H*dh] and, if ds is not null, ds
+// [B, H, Lq, Lk] (float32).  The `_bf16` entry takes every tensor but ds,
+// stats and dq_acc in bf16.
 int fused_qkv_mha_bwd_attn(ATTN_ARGS) {
   return bwd_attn<qkv_proj::Tf32x3>(ATTN_NAMES);
 }
@@ -760,12 +777,20 @@ int fused_qkv_mha_bwd_head_dim(void) { return DH; }
 // Largest key length the attention backward takes.
 int fused_qkv_mha_bwd_max_lk(void) { return MAX_LK; }
 
-// GEMM tile (rows, columns, depth chunk), so the wrapper's plan can check
-// that it tiles as the kernel does.
+// GEMM tiles (rows, columns, depth chunk) of the 3xTF32 core, then of the
+// bf16 core, so the wrapper's plan can check that it tiles as the kernels
+// do.
 void fused_qkv_mha_bwd_tile(int* out) {
   out[0] = tf32x3::BM;
   out[1] = tf32x3::BN;
   out[2] = tf32x3::BK;
+  out[3] = gemm_bf16::BM;
+  out[4] = gemm_bf16::BN;
+  out[5] = gemm_bf16::BK;
 }
+
+// The route of this library's last bf16 GEMM launch: 1 every operand by
+// TMA, 0 at least one loaded directly, -1 no launch yet.
+int fused_qkv_mha_bwd_bf16_route(void) { return gemm_bf16::last_route(); }
 
 }  // extern "C"

@@ -1,16 +1,18 @@
 // One launch of GEMM jobs on a tensor-core GEMM core, and the q / k / v
 // projection built from it.
 //
-// `gemm_jobs_kernel<Core>` runs a table of up to MAX_JOBS GEMM jobs in one
-// launch, each block one tile (or one split-K slice of a tile) of one job,
-// and after them an elementwise job: the sum over the heads of ds, the
-// bias gradient of a [B, 1, Lq, Lk] bias.  `Core` is the float32-accurate
-// 3xTF32 core (gemm_tf32x3.cuh, `Tf32x3`) or the bf16 core (gemm_bf16.cuh,
-// `Bf16`).  `qkv_jobs` fills the table with the three projections
-// q = x Wq + bq, k = y Wk + bk, v = y Wv + bv over all B*L rows at once,
-// each [rows, H*dh] written contiguously into one scratch of B (Lq + 2 Lk)
-// H*dh elements of the core's type (bf16 for the bf16 core: the JAX
-// package's cast of q, k and v before its products): the forward
+// A table of up to MAX_JOBS GEMM jobs runs in one launch, and after them
+// an elementwise job: the sum over the heads of ds, the bias gradient of
+// a [B, 1, Lq, Lk] bias.  `Core` is the float32-accurate 3xTF32 core
+// (gemm_tf32x3.cuh, `Tf32x3`), whose `gemm_jobs_kernel<Core>` gives each
+// block one tile (or one split-K slice of a tile) of one job, or the bf16
+// core (gemm_bf16.cuh, `Bf16`), whose persistent kernel walks the same
+// table with one block per SM (`launch_jobs` for `Jobs<Bf16>`, the
+// core's launch parameters).  `qkv_jobs` fills the table with the three
+// projections q = x Wq + bq, k = y Wk + bk, v = y Wv + bv over all B*L
+// rows at once, each [rows, H*dh] written contiguously into one scratch of
+// B (Lq + 2 Lk) H*dh elements of the core's type (bf16 for the bf16 core:
+// the JAX package's cast of q, k and v before its products): the forward
 // (fused_qkv_mha.cu) projects through it, and the backward
 // (fused_qkv_mha_bwd.cu) recomputes through the same jobs, so both see the
 // same q, k and v bit for bit.
@@ -27,13 +29,14 @@ namespace {
 
 constexpr int MAX_JOBS = 5;
 constexpr int THREADS = tf32x3::THREADS;
-static_assert(THREADS == gemm_bf16::THREADS, "one block size for both cores");
+static_assert(MAX_JOBS == gemm_bf16::MAX_JOBS, "one job table for both cores");
 
 // the float32-accurate core: float operands and results
 struct Tf32x3 {
   using T = float;
   using Job = tf32x3::GemmJob;
   static constexpr size_t SMEM_BYTES = tf32x3::SMEM_BYTES;
+  static constexpr int BK = tf32x3::BK;   // split-K slices: whole chunks
   __device__ static void block(const Job& j, int s, int tile, void* smem) {
     tf32x3::gemm_block(j, s, tile, static_cast<float*>(smem));
   }
@@ -53,10 +56,7 @@ struct Tf32x3 {
 struct Bf16 {
   using T = gemm_bf16::bf16;
   using Job = gemm_bf16::GemmJob;
-  static constexpr size_t SMEM_BYTES = gemm_bf16::SMEM_BYTES;
-  __device__ static void block(const Job& j, int s, int tile, void* smem) {
-    gemm_bf16::gemm_block(j, s, tile, static_cast<unsigned char*>(smem));
-  }
+  static constexpr int BK = gemm_bf16::BK;
   static void job(Job& j, int m, int n, int k, int splits, int kc, void* c,
                   long long c_sm, long long c_sn, long long c_split,
                   int c_bf16 = 1) {
@@ -111,6 +111,10 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_jobs_kernel(
   J.dbias[e] = acc;
 }
 
+// the bf16 core's table is its launch parameters
+template <>
+struct Jobs<Bf16> : gemm_bf16::Params {};
+
 // Numbers the jobs' blocks, launches the table on `stream` and returns
 // cudaGetLastError() (0: nothing to launch).
 template <class Core>
@@ -128,6 +132,10 @@ inline int launch_jobs(Jobs<Core>& J, cudaStream_t stream) {
   if (e != cudaSuccess) return (int)e;
   gemm_jobs_kernel<Core><<<blocks, THREADS, Core::SMEM_BYTES, stream>>>(J);
   return (int)cudaGetLastError();
+}
+
+inline int launch_jobs(Jobs<Bf16>& J, cudaStream_t stream) {
+  return gemm_bf16::launch(J, stream);
 }
 
 // The three projection jobs: x [B*Lq, D] and y [B*Lk, D] contiguous, each
