@@ -62,15 +62,22 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      and both against float64 on the same bf16-rounded inputs (output and
      every gradient scaled by its largest float64 magnitude: the kernel's
      error at most 2x the plain version's + 1e-3), at the decode shapes
-     (batch 8, dropout 0; keep share within 4 binomial sd of 0.9 at the
-     bf16-rounded kept probability) and at the train shapes (batch 64,
+     (batch 8, dropout 0; keep share within 4 binomial sd of 0.9), past
+     the float32 build's 256 keys (Lk 256, 257, 300, 520: the bf16 cores
+     take any Lk) and at the train shapes (batch 64,
      dropout 0.1, timed beside the plain version, `addmm` x3 + SDPA in
      bf16 with their autograd, and the bound at 989 TFLOP/s / 3.35 TB/s;
-     K1 and its library call also by device time, from CUDA graphs; K1
-     and K2 (b) by part, each GEMM part's TFLOP/s, the host time of one C
-     call); two backward launches bitwise equal; K2 (a)'s dq past 64 keys
-     (Lk 130 and 200) within one rounding of its exact sum over all keys
-     and within DQ_LONG_RATIO of the plain version's error;
+     K1 and K2 (a), (b) and their library calls also by device time, from
+     CUDA graphs or, for an autograd backward, the profiler's kernel
+     times; K1 and K2 (a), (b) by part: the two attention cores
+     (attn_fwd_sm90, attn_bwd_sm90) beside their bytes bounds and SDPA,
+     each GEMM part's TFLOP/s, the host time of one C call); two backward
+     launches bitwise equal; K2 (a)'s dq past 64 keys (Lk 130, 200, 300,
+     520) within one rounding of its exact sum over all keys, and at Lk
+     130 and 200 within DQ_LONG_RATIO of the plain version's error; the
+     bf16 attention-only kernel (`mha`) against float64 beside its plain
+     version at MHA_CASES and at 300 and 520 keys; a float32 block over
+     257 keys through the fused gate takes the eager route;
   4 (bf16): greedy decode in bf16 through the kernels and on the eager
      path from the same weights, against the float32 kernel route's first
      step (each route's logits, the kernels' distance at most 2x the
@@ -89,8 +96,11 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      (d)'s; then one more plain step under torch.profiler (the device-busy
      share, the ten kernels with the most device time, the bf16 K1 / K2
      kernels' share), after every timed step.
-Every bf16 decode and train path's launches of the bf16 GEMM core must
-all have taken its TMA route (`ops.attention.bf16_core_routes`).
+Every bf16 decode and train path's launches of the bf16 GEMM core and of
+the bf16 attention cores must all have taken their TMA routes
+(`ops.attention.bf16_core_routes`, `attn_core_routes`), and no decode or
+train path may have sent a block to the eager path by its shape
+(`gate_routes`, checked wherever the launch counts are read).
 Every path is driven with the launch counts set to 0 just before it and
 read just after.
 The line before the last is one JSON object with every kernel's numbers
@@ -118,9 +128,12 @@ import torch.nn.functional as F
 from vln_goat_tpu_torch.config import TrainConfig
 from vln_goat_tpu_torch.entry import (build_flagship, build_train_flagship,
                                       greedy_rollout, train_steps)
+from vln_goat_tpu_torch.models.layers import AttentionCore
 from vln_goat_tpu_torch.ops import _build
 from vln_goat_tpu_torch.ops.attention import (_fwd_call, attend_plain,
+                                              gate_routes,
                                               attention_backward,
+                                              attn_core_routes,
                                               bf16_core_routes,
                                               forward_projection,
                                               fused_qkv_mha,
@@ -376,15 +389,16 @@ def grads_of(out, args, dout):
     return [None if a is None else next(it) for a in lv]
 
 
-def kept_unit(Lk, dtype):
+def kept_unit(Lk):
     """The value one kept uniform probability adds to an output column
-    of values one: 1 / (Lk (1 - RATE)) as the kernel computes it in
-    float32, rounded to bf16 for a bf16 call (the cast of p before p v;
-    the same value for every key, so the rounding does not average out)."""
+    of values one: 1 / (Lk (1 - RATE)) as the kernels compute it in
+    float32.  The bf16 build rounds e = exp(s - max) = 1, exact in bf16,
+    before p v and divides by the row sum after it, so no bf16 rounding
+    enters the unit."""
     f32 = torch.float32
     unit = (torch.tensor(1.0, dtype=f32) / Lk) \
         * torch.tensor(1.0 / (1.0 - RATE), dtype=f32)
-    return float(unit.to(dtype))
+    return float(unit)
 
 
 def keep_share(Lq, Lk, dtype=torch.float32):
@@ -401,7 +415,7 @@ def keep_share(Lq, Lk, dtype=torch.float32):
     with torch.no_grad():
         out = fused_qkv_mha(x, y, w0, zeros, w0, zeros, w0, zeros + 1.0,
                             None, num_heads=H, dropout_rate=RATE, seed=seed)
-    share = float(out[..., ::DH].float().mean()) / (Lk * kept_unit(Lk, dtype))
+    share = float(out[..., ::DH].float().mean()) / (Lk * kept_unit(Lk))
     sd = math.sqrt(RATE * (1.0 - RATE) / (B * H * Lq * Lk))
     if abs(share - (1.0 - RATE)) > 4 * sd:
         raise AssertionError(f"keep share {share} at {Lq}x{Lk}: more than "
@@ -560,6 +574,18 @@ def time_backward(row, args, det, seed, dout, batch, rate, parts):
     row["projb_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
         lq, lv, (dq.view(-1, H * DH), dk.view(-1, H * DH),
                  dv.view(-1, H * DH)), retain_graph=True))
+    if parts and x.dtype == BF16:
+        # K2 (a) by device time (a CUDA graph), and both library calls'
+        # (under the profiler: a graph cannot hold the backward of a graph
+        # built outside it)
+        row["need_ds"] = need_ds
+        row["attn_device_ms"] = graph_ms(lambda: attention_backward(
+            *det, seed, dout, H, rate, need_ds=need_ds))
+        row["attn_library_device_ms"] = kernel_ms(attn_library)
+        row["projb_library_device_ms"] = kernel_ms(
+            lambda: torch.autograd.grad(
+                lq, lv, (dq.view(-1, H * DH), dk.view(-1, H * DH),
+                         dv.view(-1, H * DH)), retain_graph=True))
     if parts:
         # (b) by part: the dx and dy GEMMs, the split-K weight gradients,
         # the pass that adds their slices, and the head sum of ds
@@ -751,7 +777,7 @@ def check_shape_bf16(g, name, Lq, Lk, bias_kind, layout, batch, timed):
     row["bound_ms"], row["bound_by"] = max(fb), \
         "operations" if fb[0] >= fb[1] else "bytes"
     time_backward(row, args, det, seed, dout, batch, rate, parts=True)
-    bf16_parts(row, det, kw)
+    bf16_parts(row, det, kw, dout)
     return row
 
 
@@ -779,13 +805,37 @@ def host_us(fn, n=200):
     return dt / n * 1e6
 
 
-def bf16_parts(row, det, kw):
+def part_bound(det, kind, with_ds):
+    """(ms, "bytes" or "operations") of the least time of an attention
+    part over projected heads at one call's inputs: the forward's ("fwd":
+    q, k, v and the bias read, the output written; two products) or K2
+    (a)'s ("bwd": q, k, v, dO and the bias read, dq, dk, dv and, with_ds,
+    the float32 ds written; five products), at the bf16 peak."""
+    x, y, bias = det[0], det[1], det[8]
+    Bx, Lq = x.shape[:2]
+    Lk = y.shape[1]
+    qo, kv = Bx * Lq * H * DH * 2, Bx * Lk * H * DH * 2
+    att = 2 * Bx * Lq * Lk * H * DH
+    if kind == "fwd":
+        nbytes, flops = 2 * qo + 2 * kv + _bytes(bias), 2 * att
+    else:
+        nbytes = 3 * qo + 4 * kv + _bytes(bias) \
+            + (4 * Bx * H * Lq * Lk if with_ds else 0)
+        flops = 5 * att
+    t = (flops / PEAK_BF16_FLOP_PER_S * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3)
+    return max(t), "operations" if t[0] >= t[1] else "bytes"
+
+
+def bf16_parts(row, det, kw, dout):
     """K1 bf16's device time and its library call's (each from a CUDA
-    graph of ten calls, so no host work sits between them) and K1 by part
+    graph of ten calls, so no host work sits between them), K1 by part
     (the projection GEMM alone, and the attention as the whole forward's
-    device time less it: the attention-only kernel takes float32 only),
-    each GEMM part's TFLOP/s, and the host time of one C call of the
-    projection and of the projection backward."""
+    device time less it) and K2 (a) by part (its recompute runs the
+    projection's jobs: the attention as K2 (a)'s device time less them),
+    each attention part beside its bound, the plain attention over the
+    projected heads and the library's (SDPA, by device time), each GEMM
+    part's TFLOP/s, and the host time of one C call of the projection and
+    of the projection backward."""
     proj = forward_projection(*det[:8], num_heads=H)
     del proj
     row["fwd_proj_ms"] = graph_ms(
@@ -793,6 +843,38 @@ def bf16_parts(row, det, kw):
     row["device_ms"] = graph_ms(lambda: fused_qkv_mha(*det, **kw))
     row["library_device_ms"] = graph_ms(lambda: library_call(det))
     row["fwd_attn_ms"] = row["device_ms"] - row["fwd_proj_ms"]
+    row["bwd_attn_ms"] = row["attn_device_ms"] - row["fwd_proj_ms"]
+    for part in ("fwd", "bwd"):
+        row[f"{part}_attn_bound_ms"], row[f"{part}_attn_bound_by"] = \
+            part_bound(det, part, row["need_ds"])
+    bias, rate, seed = det[8], kw["dropout_rate"], kw["seed"]
+    with torch.no_grad():
+        qkv0 = project_plain(*det[:8])
+    heads4 = [t.to(BF16).view(t.shape[0], t.shape[1], H, DH).transpose(1, 2)
+              for t in qkv0]
+    do4 = dout.view(dout.shape[0], -1, H, DH).transpose(1, 2)
+    mask = None if bias is None else bias.detach()
+
+    def fwd_plain():
+        with torch.no_grad():
+            return attend_plain(*qkv0, bias, H, rate, seed, dtype=BF16)
+
+    def bwd_plain():
+        qkv = [t.detach().requires_grad_() for t in qkv0]
+        return torch.autograd.grad(attend_plain(*qkv, bias, H, rate, seed,
+                                                dtype=BF16), qkv, dout)
+
+    def bwd_library():
+        qkv = [t.detach().requires_grad_() for t in heads4]
+        lo = F.scaled_dot_product_attention(*qkv, attn_mask=mask)
+        return torch.autograd.grad(lo, qkv, do4)
+
+    row["fwd_attn_plain_ms"] = cuda_ms(fwd_plain)
+    row["bwd_attn_plain_ms"] = cuda_ms(bwd_plain)
+    row["fwd_attn_library_device_ms"] = graph_ms(
+        lambda: F.scaled_dot_product_attention(*heads4, attn_mask=mask))
+    row["bwd_attn_library_device_ms"] = kernel_ms(bwd_library)
+    del qkv0, heads4
     flops = gemm_flops(det)
     row["tflops"] = {p: flops[p] / (row[key] * 1e-3) / 1e12
                      for p, key in (("proj", "fwd_proj_ms"),
@@ -844,15 +926,15 @@ def dq_rounding_excess(dq, ds, k, scale):
 
 
 def check_dq_long(g, rows):
-    """K2 (a)'s dq at Lk 130 and 200 (batch 8, several key chunks): within
-    one rounding of the float64 sum of its own ds times k
+    """K2 (a)'s dq at Lk 130, 200, 300 and 520 (batch 8, several key
+    tiles): within one rounding of the float64 sum of its own ds times k
     (`dq_rounding_excess` at most 1), and against the plain attention's
-    autograd over the plain projections, both held to float64: the
-    kernel's error at most DQ_LONG_RATIO times the plain version's;
-    printed beside the largest kernel / plain ratio of the one-chunk
-    decode shapes in `rows`."""
+    autograd over the plain projections, both held to float64: the bf16
+    gate, and at Lk 130 and 200 the kernel's error at most DQ_LONG_RATIO
+    times the plain version's; printed beside the largest kernel / plain
+    ratio of the one-chunk decode shapes in `rows`."""
     res = []
-    for Lq, Lk in ((70, 130), (60, 200)):
+    for Lq, Lk in ((70, 130), (60, 200), (60, 300), (40, 520)):
         args32, seed = make_case(g, Lq, Lk, "key", "linear", B)
         det = [None if a is None else a.detach() for a in to_bf16(args32)]
         det64 = [None if a is None else a.double() for a in det]
@@ -874,7 +956,7 @@ def check_dq_long(g, rows):
                 attend_plain(*qkv, src[8], H, 0.0, seed,
                              dtype=src[0].dtype), qkv[:1], do)
         err, plain = bf16_gate(f"dq at Lk {Lk}", dq, grads[0], grads[1])
-        if err > DQ_LONG_RATIO * plain:
+        if Lk <= 200 and err > DQ_LONG_RATIO * plain:
             raise AssertionError(f"dq at Lk {Lk}: bf16 kernel error {err:.3e}"
                                  f" > {DQ_LONG_RATIO} x plain {plain:.3e}")
         res.append((Lq, Lk, err, plain, excess))
@@ -885,7 +967,7 @@ def check_dq_long(g, rows):
                     f"; from one rounding of its own ds k: {x:.3f} of the "
                     f"allowance)" for lq, lk, e, p, x in res)
         + f"; the one-chunk decode shapes' largest ratio {one:.3f}; limit "
-        f"{DQ_LONG_RATIO}")
+        f"{DQ_LONG_RATIO} at Lk 130 and 200")
 
 
 def bf16_part_line(train_rows, mix):
@@ -920,6 +1002,32 @@ def bf16_part_line(train_rows, mix):
             f"{avg('fwd_host_us'):.1f}")
 
 
+def bf16_attn_line(train_rows, mix):
+    """The two bf16 attention cores over a launch mix, by device time:
+    K1's attention part and K2 (a)'s (K2 (a) less its recompute), each
+    beside its bound (and the share of it reached) and SDPA's device time
+    over the same heads; K2 (a) and (b) whole beside their library calls'
+    device time."""
+    total = sum(mix.values())
+
+    def avg(key):
+        return sum(train_rows[s][key] * w for s, w in mix.items()) / total
+
+    parts = []
+    for part, what in (("fwd", "K1 attention"), ("bwd", "K2 (a) attention")):
+        ms, bnd = avg(f"{part}_attn_ms"), avg(f"{part}_attn_bound_ms")
+        parts.append(f"{what} {ms:.4f} ms, bound {bnd:.4f} "
+                     f"({bnd / ms * 100:.1f}% of it), SDPA "
+                     f"{avg(f'{part}_attn_library_device_ms'):.4f}")
+    return ("bf16 attention cores by device time over the bench build's "
+            "mix: " + "; ".join(parts)
+            + f"; K2 (a) recompute {avg('fwd_proj_ms'):.4f}; K2 (a) "
+            f"{avg('attn_device_ms'):.4f} against its library call "
+            f"{avg('attn_library_device_ms'):.4f}; K2 (b) "
+            f"{avg('projb_device_ms'):.4f} against its library call "
+            f"{avg('projb_library_device_ms'):.4f}")
+
+
 def check_kernels_bf16():
     """Phase 3 (bf16): the decode shapes at batch 8 without dropout, then
     the train shapes at batch 64 with dropout (timed); rows by shape."""
@@ -932,6 +1040,16 @@ def check_kernels_bf16():
             f"dropout 0; against float64 (kernel / plain bf16, of the "
             f"scale): " + ", ".join(f"{k} {a:.2e}/{p:.2e}" for k, (a, p)
                                     in row["gates"].items())
+            + (f"; keep share {row['keep_share']:.5f} sd "
+               f"{row['keep_sd']:.1e}" if "keep_share" in row else "")
+            + "; two backward launches bitwise equal")
+    for name, Lq, Lk, bias_kind, layout in LONG_SHAPES:
+        row = check_shape_bf16(g, name, Lq, Lk, bias_kind, layout, B,
+                               timed=False)
+        say(f"long-key bf16 kernel {name}: B={B} Lq={Lq} Lk={Lk} "
+            f"bias={bias_kind} dropout 0; against float64 (kernel / plain "
+            f"bf16, of the scale): " + ", ".join(
+                f"{k} {a:.2e}/{p:.2e}" for k, (a, p) in row["gates"].items())
             + (f"; keep share {row['keep_share']:.5f} sd "
                f"{row['keep_sd']:.1e}" if "keep_share" in row else "")
             + "; two backward launches bitwise equal")
@@ -1041,6 +1159,103 @@ def check_mha():
     return rows
 
 
+# the attention-only kernel in bf16 (the Hopper core with p v in two bf16
+# terms): MHA_CASES, then past the float32 build's 256 keys
+MHA_BF16_CASES = MHA_CASES + (("case20x300_key", 20, 300, "key", B),
+                              ("case40x520_heads", 40, 520, "heads", B))
+
+
+def check_mha_bf16():
+    """Phase 3 (bf16) for the attention-only kernel: bf16 q, k, v (a
+    float32 bias, which the TPU kernel upcasts as it is), the kernel and
+    the plain version (float32 throughout, the output rounded once) both
+    against float64, the kernel held to the bf16 gate; rows by case."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    for name, Lq, Lk, bias_kind, batch in MHA_BF16_CASES:
+        q, k, v, bias = mha_case(g, Lq, Lk, bias_kind, batch)
+        q, k, v = (t.to(BF16) for t in (q, k, v))
+        before = dict(attn_core_routes)
+        out = mha(q, k, v, bias)
+        torch.cuda.synchronize()
+        if out.dtype != BF16 or attn_core_routes["tma"] != before["tma"] + 1:
+            raise AssertionError(f"mha bf16 {name}: {out.dtype}, routes "
+                                 f"{attn_core_routes}")
+        plain = mha_plain(q, k, v, bias)
+        ref = mha_plain(*(None if a is None else a.double()
+                          for a in (q, k, v, bias)))
+        err, err_plain = bf16_gate(f"mha bf16 {name}", out, plain, ref)
+        ops = 4 * batch * H * Lq * Lk * DH
+        nbytes = _bytes(q, k, v, bias) + 2 * out.numel()
+        fb = (ops / PEAK_BF16_FLOP_PER_S * 1e3,
+              nbytes / PEAK_BYTES_PER_S * 1e3)
+        mask = None if bias is None else bias.to(BF16)
+        row = rows[name] = dict(
+            err=err, err_plain=err_plain,
+            ms=cuda_ms(lambda: mha(q, k, v, bias)),
+            device_ms=graph_ms(lambda: mha(q, k, v, bias)),
+            plain_ms=cuda_ms(lambda: mha_plain(q, k, v, bias)),
+            library_ms=cuda_ms(lambda: mha_library(q, k, v, mask)),
+            library_device_ms=graph_ms(lambda: mha_library(q, k, v, mask)),
+            bound_ms=max(fb),
+            bound_by="operations" if fb[0] >= fb[1] else "bytes")
+        say(f"kernel mha bf16 {name}: B={batch} Lq={Lq} Lk={Lk} "
+            f"bias={bias_kind}; against float64 (of the scale): kernel "
+            f"{err:.3e}, plain {err_plain:.3e}; ms={row['ms']:.4f} (device "
+            f"{row['device_ms']:.4f}) plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} (device "
+            f"{row['library_device_ms']:.4f}) bound_ms="
+            f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    return rows
+
+
+# Query blocks past the float32 build's 256 keys.  bf16: the kernels
+# at the decode batch against the plain bf16 version and float64, with
+# check_shape_bf16's gates; float32: the C entry refuses them and the
+# fused gate sends them to the eager path before any launch
+LONG_SHAPES = (("long256", 60, 256, "key", "linear"),
+               ("long257", 60, 257, "full", "linear"),
+               ("long300", 50, 300, "heads", "dense"),
+               ("long520", 40, 520, "key", "linear"))
+
+
+def check_long_route():
+    """Past 256 keys in float32: a 60-query block over 257 keys through
+    the card's AttentionCore gate takes the eager route (counted in
+    `gate_routes`, no kernel launched) and gives the eager path's output
+    bit for bit; the kernel itself refuses the shape."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    core = AttentionCore(D, H, DH, use_fused=True, min_lq=32).cuda()
+    eager = AttentionCore(D, H, DH).cuda()
+    eager.load_state_dict(core.state_dict())
+    x = torch.randn(B, 60, D, generator=g, device="cuda")
+    y = torch.randn(B, 257, D, generator=g, device="cuda")
+    reset_counts()
+    with torch.no_grad():
+        out, ref = core(x, y), eager(x, y)
+    torch.cuda.synchronize()
+    if dict(gate_routes) != {"kernels": 0, "eager": 1} or \
+            fused_qkv_mha.launches:
+        raise AssertionError(f"float32 at 257 keys: gate routes "
+                             f"{gate_routes}, {fused_qkv_mha.launches} "
+                             "launches")
+    if not torch.equal(out, ref):
+        raise AssertionError("float32 at 257 keys: the gate's eager route "
+                             "differs from the eager path")
+    reset_counts()
+    w = core.query.weight.t()
+    try:
+        fused_qkv_mha(x, y, w, core.query.bias, w, core.query.bias, w,
+                      core.query.bias, num_heads=H)
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("the float32 kernel took 257 keys")
+    say(f"long keys in float32 at Lq 60, Lk 257: the gate routed it eager "
+        f"(routes {{'kernels': 0, 'eager': 1}}, no launch), output equal "
+        f"to the eager path's; the kernel refuses it: {refused}")
+
+
 def check_logit_masks(out):
     """MEM slot and visited / empty node slots -inf, stop finite, and every
     real unvisited node finite, at every step an episode was active."""
@@ -1066,18 +1281,34 @@ def reset_counts():
     projection_backward.launches = 0
     mha.launches = 0
     bf16_core_routes.update(tma=0, direct=0)
+    attn_core_routes.update(tma=0, direct=0)
+    gate_routes.update(kernels=0, eager=0)
 
 
-def check_routes(routes, want):
-    """Every bf16 core launch of a path (`want` of them) took the TMA
-    route; raises AssertionError."""
-    if routes != {"tma": want, "direct": 0}:
-        raise AssertionError(f"bf16 core launches by route {routes}, "
-                             f"expected {want} by TMA and none direct")
+def routes_now():
+    """The bf16 launches so far by route: the GEMM core's ("core") and the
+    attention cores' ("attn")."""
+    return dict(core=dict(bf16_core_routes), attn=dict(attn_core_routes))
+
+
+def check_routes(routes, want, attn_want):
+    """Every bf16 GEMM core launch of a path (`want` of them) and every
+    bf16 attention core launch (`attn_want`) took the TMA route; raises
+    AssertionError."""
+    if routes != dict(core={"tma": want, "direct": 0},
+                      attn={"tma": attn_want, "direct": 0}):
+        raise AssertionError(f"bf16 launches by route {routes}, expected "
+                             f"{want} GEMM core and {attn_want} attention "
+                             f"core launches by TMA and none direct")
 
 
 def counts():
-    """Launches (forward, backward a, backward b, attention-only)."""
+    """Launches (forward, backward a, backward b, attention-only).  Raises
+    if the fused gate sent a query block to the eager path by its shape
+    since the last reset: no decode or train path may."""
+    if gate_routes["eager"]:
+        raise AssertionError(f"the fused gate routed {gate_routes['eager']} "
+                             "calls to the eager path by their shape")
     return (fused_qkv_mha.launches, attention_backward.launches,
             projection_backward.launches, mha.launches)
 
@@ -1183,14 +1414,14 @@ def run_rollouts_bf16(card, causal=False):
     if counts() != (sum(mix.values()), 0, 0, 0):
         raise AssertionError(f"{what}bf16 decode launched {counts()}, "
                              f"expected ({sum(mix.values())}, 0, 0, 0)")
-    routes = dict(bf16_core_routes)
-    check_routes(routes, launches)
+    routes = routes_now()
+    check_routes(routes, launches, launches)
     reset_counts()
     ref = greedy_rollout(e_ro, batch)
     torch.cuda.synchronize()
     if counts() != (0, 0, 0, 0):
         raise AssertionError("the eager bf16 run launched a kernel")
-    check_routes(dict(bf16_core_routes), 0)
+    check_routes(routes_now(), 0, 0)
     check_logit_masks(out)
     check_logit_masks(ref)
     first, first_ref = out["fused_logits"][0], ref["fused_logits"][0]
@@ -1572,7 +1803,7 @@ def bf16_gate_step(card, causal=False):
             keep=True)
         torch.cuda.synchronize()
         res[route] = dict(loss=float(m["loss"]), grads=grads,
-                          counts=counts(), routes=dict(bf16_core_routes),
+                          counts=counts(), routes=routes_now(),
                           actions=outs["teacher"]["actions"],
                           steps=int(m["teacher_steps"]))
         cfg = state.model.config
@@ -1598,8 +1829,8 @@ def bf16_gate_step(card, causal=False):
                 f"launches {res['bf16 kernels']['counts']} (kernels), "
                 f"{res['bf16 eager']['counts']} (eager), expected "
                 f"{(k_n, k_n, k_n, 0)} and none")
-        check_routes(res["bf16 kernels"]["routes"], 3 * k_n)
-        check_routes(res["bf16 eager"]["routes"], 0)
+        check_routes(res["bf16 kernels"]["routes"], 3 * k_n, 2 * k_n)
+        check_routes(res["bf16 eager"]["routes"], 0, 0)
         for i, what_err in enumerate(("loss", "gradient")):
             k_e, e_e = errs["bf16 kernels"][i], errs["bf16 eager"][i]
             if k_e > 2 * e_e + 1e-3:
@@ -1647,7 +1878,7 @@ def bench_config(card, causal, none_peak):
         if got != (n + rec, n, n, 0):
             raise AssertionError(f"launched {got}, expected "
                                  f"{(n + rec, n, n, 0)}")
-        check_routes(extra["routes"], sum(got[:3]))
+        check_routes(extra["routes"], sum(got[:3]), got[0] + got[1])
         for m in metrics:
             if not (math.isfinite(float(m["loss"]))
                     and math.isfinite(float(m["grad_norm"]))):
@@ -1736,7 +1967,7 @@ def bench_steps(fused: bool, causal: bool = False, n: int = 3,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     got = counts()
-    extra = dict(routes=dict(bf16_core_routes))
+    extra = dict(routes=routes_now())
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if trace:
         extra["trace"] = trace_step(state, batcher, g)
@@ -1747,9 +1978,39 @@ def bench_steps(fused: bool, causal: bool = False, n: int = 3,
 # GEMM core (K1's projection, K2 (a)'s recompute, K2 (b)'s jobs), K1's
 # attention, K2 (a)'s attention, K2 (b)'s reduction
 K_BF16_PARTS = (("gemm core", "gemm_kernel"),
-                ("K1 attention", "attn_fwd_kernel<__nv_bfloat16"),
-                ("K2 (a) attention", "attn_bwd_kernel<__nv_bfloat16"),
+                ("K1 attention", "attn_fwd_sm90_kernel"),
+                ("K2 (a) attention", "attn_bwd_sm90_kernel"),
                 ("K2 (b) reduce", "splitk_reduce_kernel<__nv_bfloat16"))
+
+
+def device_work(events):
+    """(name, start ns, end ns) of the device's kernels, copies and sets
+    among a profile's events; a device event named as a host one is an
+    annotation the profiler mirrors onto the device timeline
+    (`Optimizer.step#AdamW.step`), not device work."""
+    cuda = torch.autograd.DeviceType.CUDA
+    host = {e.name() for e in events if e.device_type() != cuda}
+    return [(e.name(), e.start_ns(), e.end_ns()) for e in events
+            if e.device_type() == cuda and e.name() not in host]
+
+
+def kernel_ms(fn, n=5):
+    """Device time of one call of fn, where a CUDA graph cannot hold it
+    (an autograd backward of a graph built outside): the summed durations
+    of the device work of n calls under torch.profiler, over n (the gaps
+    between the kernels not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    work = device_work(prof.profiler.kineto_results.events())
+    if not work:
+        raise AssertionError("the profile holds no device work")
+    return sum(e_ - s_ for _, s_, e_ in work) / n / 1e6
 
 
 def trace_step(state, batcher, g):
@@ -1771,24 +2032,12 @@ def trace_step(state, batcher, g):
         wall = time.perf_counter() - t0
     events = prof.profiler.kineto_results.events()
     t_parse = time.perf_counter()
-    spans, by_name, device = [], {}, []
-    host_names = set()
-    lo, hi = None, None
-    for e in events:
-        s_, e_ = e.start_ns(), e.end_ns()
-        lo = s_ if lo is None else min(lo, s_)
-        hi = e_ if hi is None else max(hi, e_)
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            device.append((e.name(), s_, e_))
-        else:
-            host_names.add(e.name())
-    # the device's kernels, copies and sets; a device event named as a
-    # host one is an annotation the profiler mirrors onto the device
-    # timeline (`Optimizer.step#AdamW.step`), not device work
-    for name, s_, e_ in device:
-        if name not in host_names:
-            spans.append((s_, e_))
-            by_name[name] = by_name.get(name, 0) + (e_ - s_)
+    lo = min(e.start_ns() for e in events)
+    hi = max(e.end_ns() for e in events)
+    spans, by_name = [], {}
+    for name, s_, e_ in device_work(events):
+        spans.append((s_, e_))
+        by_name[name] = by_name.get(name, 0) + (e_ - s_)
     out = dict(wall_ms=wall * 1e3, events=len(events), device_events=
                len(spans), profiler_s=t_parse - t_all,
                summary_s=time.perf_counter() - t_parse)
@@ -1864,6 +2113,8 @@ def main() -> int:
     say(f"wall: phase 3 (float32) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     b_rows, b_train_rows = check_kernels_bf16()
+    b_mha_rows = check_mha_bf16()
+    check_long_route()
     say(f"wall: phase 3 (bf16) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     decode = run_rollouts(card)
@@ -1914,6 +2165,9 @@ def main() -> int:
 
     def mha_avg(key):
         return sum(mha_rows[s][key] for s in MHA_LINE) / len(MHA_LINE)
+
+    def b_mha_avg(key):
+        return sum(b_mha_rows[s][key] for s in MHA_LINE) / len(MHA_LINE)
 
     # the bf16 rows: launches by bf16 path (decode counts the forward
     # only; the bench build's forward count includes the recomputed
@@ -2002,7 +2256,40 @@ def main() -> int:
              bound_ms=b_avg("projb_bound_ms"),
              bound_by=b_by("projb_bound_by"),
              library_ms=b_avg("projb_library_ms"),
-             device_ms=b_avg("projb_device_ms")),
+             device_ms=b_avg("projb_device_ms"),
+             library_device_ms=b_avg("projb_library_device_ms")),
+        # the two bf16 attention cores alone, by device time, inside K1
+        # bf16 and K2 (a) bf16 (their launches); plain: the plain attention
+        # over projected heads (its autograd for K2 (a)); library: SDPA
+        dict(name="attn_fwd_sm90", route="cuda",
+             source=src + "attn_fwd_sm90.cuh",
+             replaces="vln_goat_tpu/ops/attention.py:169",
+             launches=sum(b_by_path[0].values()),
+             launches_by_path=b_by_path[0], max_abs_err=b_err("fwd_err"),
+             ms=b_avg("fwd_attn_ms"), plain_ms=b_avg("fwd_attn_plain_ms"),
+             bound_ms=b_avg("fwd_attn_bound_ms"),
+             bound_by=b_by("fwd_attn_bound_by"),
+             library_ms=b_avg("fwd_attn_library_device_ms")),
+        dict(name="attn_bwd_sm90", route="cuda",
+             source=src + "attn_bwd_sm90.cuh",
+             replaces="vln_goat_tpu/ops/attention.py:181",
+             launches=sum(b_by_path[1].values()),
+             launches_by_path=b_by_path[1], max_abs_err=b_err("attn_err"),
+             ms=b_avg("bwd_attn_ms"), plain_ms=b_avg("bwd_attn_plain_ms"),
+             bound_ms=b_avg("bwd_attn_bound_ms"),
+             bound_by=b_by("bwd_attn_bound_by"),
+             library_ms=b_avg("bwd_attn_library_device_ms")),
+        dict(name="mha_bf16", route="cuda", source=src + "mha.cu",
+             replaces="vln_goat_tpu/ops/attention.py:49", launches=0,
+             launches_by_path=dict(decode=0, train=0, causal_decode=0,
+                                   causal_train=0),
+             max_abs_err=max(r["err"] for r in b_mha_rows.values()),
+             ms=b_mha_avg("ms"), plain_ms=b_mha_avg("plain_ms"),
+             bound_ms=b_mha_avg("bound_ms"),
+             bound_by=b_mha_rows[MHA_LINE[0]]["bound_by"],
+             library_ms=b_mha_avg("library_ms"),
+             device_ms=b_mha_avg("device_ms"),
+             library_device_ms=b_mha_avg("library_device_ms")),
     ]
     # the float32 CUDA-core bounds, beside the 3xTF32 ones
     # the kernels line carries, and the forward by part
@@ -2015,6 +2302,7 @@ def main() -> int:
         f"{avg('fwd_proj_ms'):.4f} ms, attn (no dropout) "
         f"{avg('fwd_attn_ms'):.4f} ms")
     say(bf16_part_line(b_train_rows, b_mix))
+    say(bf16_attn_line(b_train_rows, b_mix))
     say(f"bf16 over the bench build's mix: K1 {b_avg('ms'):.4f} ms, "
         f"{b_avg('ms') / b_avg('library_ms'):.2f}x its library call "
         f"{b_avg('library_ms'):.4f} (device time, CUDA graphs: "

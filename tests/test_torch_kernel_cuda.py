@@ -233,11 +233,22 @@ def test_forward_drops_what_the_plain_version_drops(card, Lq, Lk):
 
 
 def test_fused_qkv_mha_refuses_long_keys(card):
+    """Past 256 keys the float32 build refuses the call (the fused gate
+    routes such a block to the eager path before any launch: `fused_route`,
+    tests/test_torch_fused_route.py); the bf16 build takes any Lk."""
     x = torch.zeros(1, 4, 768, device="cuda")
     y = torch.zeros(1, 257, 768, device="cuda")
     w, b = torch.zeros(768, 768, device="cuda"), torch.zeros(768, device="cuda")
     with pytest.raises(ValueError, match="Lk <="):
         fused_qkv_mha(x, y, w, b, w, b, w, b, num_heads=12)
+    assert attention_mod.fused_route(257, 64, 768, torch.float32) == "eager"
+    bf = [t.to(torch.bfloat16) for t in (x, y, w, b)]
+    before = fused_qkv_mha.launches
+    out = fused_qkv_mha(bf[0], bf[1], bf[2], bf[3], bf[2], bf[3], bf[2],
+                        bf[3], num_heads=12)
+    torch.cuda.synchronize()
+    assert fused_qkv_mha.launches == before + 1
+    assert out.dtype == torch.bfloat16 and bool((out == 0).all())
 
 
 # the causal configuration's attention shapes: text cross-attention to the
@@ -321,6 +332,8 @@ def test_mha_reads_transposed_views(card, Lk):
 
 
 def test_mha_refuses_what_it_does_not_take(card):
+    """Head width 64 only; past 256 keys float32 only refuses (the bf16
+    build takes any Lk); float16 and mixed dtypes are refused."""
     q = torch.zeros(1, 4, H, 32, device="cuda")
     with pytest.raises(ValueError, match="head width"):
         mha(q, q, q)
@@ -328,6 +341,14 @@ def test_mha_refuses_what_it_does_not_take(card):
     k = torch.zeros(1, 257, H, 64, device="cuda")
     with pytest.raises(ValueError, match="Lk <="):
         mha(q, k, k)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mha(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="like q"):
+        mha(q.to(torch.bfloat16), k, k)
+    out = mha(q.to(torch.bfloat16), k.to(torch.bfloat16),
+              k.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and bool((out == 0).all())
 
 
 def _operand(g, rows, cols, how):
@@ -655,10 +676,10 @@ def test_bf16_keep_share(card):
     with torch.no_grad():
         out = fused_qkv_mha(x, y, wq, zeros, eye, zeros, wv, zeros + 1.0,
                             None, num_heads=H, dropout_rate=0.1, seed=seed)
-    # the kernel rounds the kept probability 1 / (L 0.9), the same for
-    # every key, to bf16 before p v: one kept key adds that value
-    unit = float(((torch.tensor(1.0) / L) * torch.tensor(1.0 / 0.9))
-                 .to(torch.bfloat16))
+    # the kernel rounds e = exp(s - max) = 1 (exact in bf16) before p v
+    # and divides by the row sum L after it: one kept key adds the float32
+    # value 1 / (L 0.9)
+    unit = float((torch.tensor(1.0) / L) * torch.tensor(1.0 / 0.9))
     share = float(out[..., ::64].float().mean()) / (L * unit)
     n = B * H * L * L
     assert abs(share - 0.9) < 4 * math.sqrt(0.9 * 0.1 / n)
@@ -674,3 +695,112 @@ def test_kernels_refuse_mixed_dtypes(card):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fused_qkv_mha(*(a.half() if a is not None else None for a in args),
                       num_heads=H)
+
+
+# key lengths on both sides of one 64-key tile and of the float32 build's
+# 256 keys, which the bf16 cores take (any Lk)
+LONG_KEYS = [64, 65, 256, 257, 300, 520]
+
+
+@pytest.mark.parametrize("Lk", LONG_KEYS)
+def test_bf16_forward_long_keys_match_plain(card, Lk):
+    """K1 bf16 (the Hopper attention core) across key tiles: the output
+    within the bf16 gate of float64, launched and counted by TMA."""
+    args, seed = _bf16_case(card, 2, 40, Lk, 1, True)
+    routes = dict(attention_mod.attn_core_routes)
+    with torch.no_grad():
+        out = fused_qkv_mha(*args, num_heads=H, dropout_rate=0.1, seed=seed)
+        plain = fused_qkv_mha_plain(*args, num_heads=H, dropout_rate=0.1,
+                                    seed=seed)
+        ref = fused_qkv_mha_plain(
+            *(None if a is None else a.double() for a in args), num_heads=H,
+            dropout_rate=0.1, seed=seed)
+    torch.cuda.synchronize()
+    assert attention_mod.attn_core_routes["tma"] == routes["tma"] + 1
+    _assert_bf16_gate(out, plain, ref)
+
+
+@pytest.mark.parametrize("Lk", LONG_KEYS)
+def test_bf16_backward_long_keys_match_plain(card, Lk):
+    """K2 (a) and (b) bf16 across key tiles through autograd: every
+    gradient within the bf16 gate of float64; dq within one rounding of
+    the float64 sum of the kernel's own ds times k; two launches of K2 (a)
+    bitwise equal."""
+    args, seed = _bf16_case(card, 2, 40, Lk, 1, False, grad=True)
+    leaves = [a for a in args if a is not None]
+    dout = torch.randn(2, 40, D, generator=card, device="cuda").to(
+        torch.bfloat16)
+    kw = dict(num_heads=H, dropout_rate=0.1, seed=seed)
+    got = torch.autograd.grad(fused_qkv_mha(*args, **kw), leaves, dout)
+    plain = torch.autograd.grad(fused_qkv_mha_plain(*args, **kw), leaves,
+                                dout)
+    leaves64 = [a.detach().double().requires_grad_() for a in leaves]
+    ref = torch.autograd.grad(fused_qkv_mha_plain(*leaves64, **kw), leaves64,
+                              dout.double())
+    for i, (g_, p_, r) in enumerate(zip(got, plain, ref)):
+        assert g_.dtype == torch.bfloat16 and g_.shape == r.shape
+        _assert_bf16_gate(g_, p_, r, ref[4] if i == 5 else None)
+    det = [None if a is None else a.detach() for a in args]
+    first = attention_backward(*det, seed, dout, H, 0.1, need_ds=True)
+    again = attention_backward(*det, seed, dout, H, 0.1, need_ds=True)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    dq, ds = first[0], first[3]
+    assert _dq_rounding_excess(
+        dq, ds, forward_projection(*det[:8], num_heads=H)[1],
+        (D // H) ** -0.5) <= 1
+
+
+@pytest.mark.parametrize("Lq,Lk,bias_kind", [
+    (16, 16, None), (24, 40, "key"), (12, 12, "full"), (50, 60, "key"),
+    (130, 256, "full"), (1, 200, "key"), (65, 63, None), (63, 300, "key"),
+    (40, 520, "full")])
+def test_mha_bf16_matches_float64(card, Lq, Lk, bias_kind):
+    """The bf16 K3 (scores, softmax and p v in float32 on the Hopper core,
+    p in two bf16 terms): within the bf16 gate of float64, beside the
+    plain version (float32 throughout, the output rounded once)."""
+    q, k, v, bias = _mha_case(card, 3, Lq, Lk, bias_kind)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    routes = dict(attention_mod.attn_core_routes)
+    out = mha(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert attention_mod.attn_core_routes["tma"] == routes["tma"] + 1
+    ref = mha_plain(*(None if a is None else a.double()
+                      for a in (q, k, v, bias)))
+    _assert_bf16_gate(out, mha_plain(q, k, v, bias), ref)
+
+
+def test_mha_bf16_reads_transposed_views(card):
+    """Views whose head dimension is not the unit stride: TMA cannot
+    describe them, and the producer warp loads them directly (counted)."""
+    def view(L):
+        t = torch.randn(2, H, 64, L + 1, generator=card, device="cuda")
+        return t.to(torch.bfloat16)[..., 1:].permute(0, 3, 1, 2)
+    q, k, v = view(70), view(130), view(130)
+    routes = dict(attention_mod.attn_core_routes)
+    out = mha(q, k, v)
+    torch.cuda.synchronize()
+    assert attention_mod.attn_core_routes["direct"] == routes["direct"] + 1
+    ref = mha_plain(q.double(), k.double(), v.double())
+    _assert_bf16_gate(out, mha_plain(q, k, v), ref)
+
+
+def test_bf16_keep_share_long_keys(card):
+    """The bf16 forward core keeps the float32 share at rate 0.1 across
+    four key tiles."""
+    B, Lq, Lk = 4, 64, 200
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    x = torch.randn(B, Lq, D, generator=card, device="cuda").to(
+        torch.bfloat16)
+    y = torch.randn(B, Lk, D, generator=card, device="cuda").to(
+        torch.bfloat16)
+    zeros, w0 = torch.zeros(D, **bf), torch.zeros(D, D, **bf)
+    seed = torch.randint(0, 2 ** 31 - 1, (B,), generator=card,
+                         device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        out = fused_qkv_mha(x, y, w0, zeros, w0, zeros, w0, zeros + 1.0,
+                            None, num_heads=H, dropout_rate=0.1, seed=seed)
+    unit = float((torch.tensor(1.0) / Lk) * torch.tensor(1.0 / 0.9))
+    share = float(out[..., ::64].float().mean()) / (Lk * unit)
+    assert abs(share - 0.9) < 4 * math.sqrt(0.9 * 0.1 / (B * H * Lq * Lk))

@@ -19,13 +19,18 @@ and attention over projected heads.
 
 Both run in float32 or, for bf16 inputs (the JAX package's bf16 model,
 `_bdot(..., dt=x.dtype)` :120-137), in bf16: bf16 operands of every
-product with float32 sums, on the bf16 core `csrc/gemm_bf16.cuh` (one
-persistent launch fed by TMA; `bf16_core_routes` counts its launches by
-load route) and bf16 fragments of the attention; scores, softmax,
-dropout and the score gradients in float32; q, k, v, p, ds and the
-projection gradients rounded to bf16 where the JAX kernel casts them;
-outputs and gradients in their input's dtype.  x, y, the weights and
-biases of one call share one dtype; a mix raises.
+product with float32 sums, the GEMMs on the bf16 core `csrc/gemm_bf16.cuh`
+(one persistent launch fed by TMA; `bf16_core_routes` counts its launches
+by load route) and the attention on the Hopper cores
+`csrc/attn_fwd_sm90.cuh` and `csrc/attn_bwd_sm90.cuh` (64-row tiles by
+TMA, wgmma, the scores in registers, any Lk; `attn_core_routes` counts
+their launches by load route); scores, softmax, dropout and the score
+gradients in float32; q, k, v, p, ds and the projection gradients
+rounded to bf16 where the JAX kernel casts them; outputs and gradients in
+their input's dtype.  x, y, the weights and biases of one call share one
+dtype; a mix raises.  On the card the float32 build takes at most 256
+keys, and both take head width 64 and D % 32 == 0: `fused_route` is the
+fused gate's decision by shape (models/layers.py), before any launch.
 
 On a CUDA tensor `fused_qkv_mha` runs `FusedQKVMHA`, an autograd Function
 whose forward launches the forward kernel and whose backward launches the
@@ -38,10 +43,11 @@ the chip smoke test holds the kernels against.  The dropout mask of both is
 
 `mha` is the port of `pallas_mha` (:104, kernel `_mha_kernel` :49): the
 attention alone, forward only, over q / k / v that are already projected
-and split into heads.  On a CUDA tensor it launches `csrc/mha.cu`; on a
-CPU tensor it computes `mha_plain`.  As in the JAX package, no model path
-calls it: it is a public op for A/B comparisons.  It runs the same
-attention core as the fused forward, without dropout.
+and split into heads, in float32 or bf16.  On a CUDA tensor it launches
+`csrc/mha.cu`; on a CPU tensor it computes `mha_plain`.  As in the JAX
+package, no model path calls it: it is a public op for A/B comparisons.
+It runs the same attention core as the fused forward of its dtype,
+without dropout (in bf16 with p v in float32 precision).
 """
 from __future__ import annotations
 
@@ -55,6 +61,32 @@ from . import _build
 from .bwd_plan import (CHUNK, JOB_IDS, TILE_K, TILE_K_BF16, TILE_M, TILE_N,
                        TILE_N_BF16, proj_plan, split_depth)
 from .dropout import keep_mask, keep_threshold
+
+
+# What the card's builds of the fused kernels take (the C headers' numbers,
+# which tests/test_torch_fused_route.py reads): head width 64, a model
+# width that is a multiple of 32, and in float32 at most 256 keys
+# (csrc/attn_fwd.cuh MAX_LK; the bf16 cores take any Lk).
+KERNEL_HEAD_DIM = 64
+KERNEL_D_MULTIPLE = 32
+F32_MAX_LK = 256
+# decisions of the fused gate on the card (`models/layers.py`
+# AttentionCore), by `fused_route`: "kernels", or "eager" for a shape that
+# no build of the kernels takes
+gate_routes = {"kernels": 0, "eager": 0}
+
+
+def fused_route(Lk: int, dh: int, D: int, dtype: torch.dtype) -> str:
+    """Where the fused gate sends a query block on the card, from its
+    shape alone, before any launch: "kernels" if a build of the fused
+    kernels takes it, else "eager", the eager path, which computes the same
+    function.  The JAX gate sends every such block to its Pallas kernel,
+    which takes any shape (vln_goat_tpu/models/layers.py:113-136); the
+    plain version takes any shape too, so on the CPU the gate never asks."""
+    takes = (dtype in _SUFFIX and dh == KERNEL_HEAD_DIM
+             and D % KERNEL_D_MULTIPLE == 0
+             and (dtype == torch.bfloat16 or Lk <= F32_MAX_LK))
+    return "kernels" if takes else "eager"
 
 
 def _split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -130,14 +162,21 @@ def fused_qkv_mha_plain(x, y, wq, bq, wk, bk, wv, bv, bias=None,
 
 def mha_plain(q, k, v, bias=None):
     """q [B, Lq, H, dh], k / v [B, Lk, H, dh], additive bias
-    broadcastable to [B, H, Lq, Lk] -> [B, Lq, H*dh]: softmax(q k^T /
-    sqrt(dh) + bias) v with the softmax in float32."""
+    broadcastable to [B, H, Lq, Lk] -> [B, Lq, H*dh] in q's dtype:
+    softmax(q k^T / sqrt(dh) + bias) v.  At the JAX kernel's cast points
+    (`_mha_kernel` :49-62): a bf16 or float32 q, k, v and bias are taken
+    in float32, scores, softmax and p v in float32, the output rounded
+    once; float64 stays float64."""
     B, Lq, H, dh = q.shape
+    dt = q.dtype
+    acc = torch.promote_types(dt, torch.float32)
+    q, k, v = (t.to(acc) for t in (q, k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(dh))
     if bias is not None:
-        s = s + bias.to(s.dtype)
-    p = torch.softmax(s.float(), dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, Lq, H * dh)
+        s = s + bias.to(acc)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, Lq, H * dh)
+    return out.to(dt)
 
 
 _VP, _LL, _I, _U, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
@@ -170,6 +209,7 @@ def _fwd_lib() -> ctypes.CDLL:
         lib.fused_qkv_mha_head_dim.restype = _I
         lib.fused_qkv_mha_max_lk.restype = _I
         lib.fused_qkv_mha_bf16_route.restype = _I
+        lib.fused_qkv_mha_attn_route.restype = _I
     return lib
 
 
@@ -197,6 +237,7 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.fused_qkv_mha_bwd_head_dim.restype = _I
         lib.fused_qkv_mha_bwd_max_lk.restype = _I
         lib.fused_qkv_mha_bwd_bf16_route.restype = _I
+        lib.fused_qkv_mha_bwd_attn_route.restype = _I
         lib.fused_qkv_mha_bwd_tile.argtypes = [_VP]
         lib.fused_qkv_mha_bwd_tile.restype = None
         tile = (_I * 6)()
@@ -213,11 +254,15 @@ def _bwd_lib() -> ctypes.CDLL:
 # operand through a tensor map, or "direct", at least one (a stride TMA
 # cannot describe) loaded by the producer warp with ordinary loads
 bf16_core_routes = {"tma": 0, "direct": 0}
+# launches of the bf16 attention cores (csrc/attn_fwd_sm90.cuh under K1
+# bf16 and the bf16 `mha`, csrc/attn_bwd_sm90.cuh under K2 (a) bf16) by
+# the route their q, k, v (and dO) took, as above
+attn_core_routes = {"tma": 0, "direct": 0}
 
 
-def _count_route(route: int) -> None:
-    """Counts one bf16 core launch by the route its library reports."""
-    bf16_core_routes["tma" if route == 1 else "direct"] += 1
+def _count(routes: dict, route: int) -> None:
+    """Counts one launch in `routes` by the route its library reports."""
+    routes["tma" if route == 1 else "direct"] += 1
 
 
 def _ints(ctype, values):
@@ -226,26 +271,28 @@ def _ints(ctype, values):
 
 def _mha_lib() -> ctypes.CDLL:
     lib = _build.load("mha")
-    fn = lib.mha_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([_VP, _LL, _LL, _LL, _LL] * 3
-                       + [_VP, _LL, _LL, _LL, _LL, _VP] + [_I] * 4
-                       + [_F, _VP])
-        fn.restype = _I
+    if lib.mha_fwd.argtypes is None:
+        for fn in (lib.mha_fwd, lib.mha_fwd_bf16):
+            fn.argtypes = ([_VP, _LL, _LL, _LL, _LL] * 3
+                           + [_VP, _LL, _LL, _LL, _LL, _VP] + [_I] * 4
+                           + [_F, _VP])
+            fn.restype = _I
         lib.mha_head_dim.restype = _I
         lib.mha_max_lk.restype = _I
+        lib.mha_attn_route.restype = _I
     return lib
 
 
 def mha(q, k, v, bias=None):
     """Signature and layout of `pallas_mha`: q [B, Lq, H, dh], k / v
-    [B, Lk, H, dh], additive bias broadcastable to [B, H, Lq, Lk] ->
-    [B, Lq, H*dh], softmax in float32.  Forward only (no autograd), as the
-    TPU kernel has no VJP.
+    [B, Lk, H, dh] in float32 or bf16, additive bias broadcastable to
+    [B, H, Lq, Lk] -> [B, Lq, H*dh] in q's dtype, scores, softmax and p v
+    in float32.  Forward only (no autograd), as the TPU kernel has no VJP.
 
     On the card the kernel reads q, k, v and the bias through their
-    strides; it takes head width 64, Lk up to 256 and float32, and raises
-    on anything else."""
+    strides; it takes head width 64, and Lk up to 256 in float32 (any in
+    bf16, on the Hopper core, whose launches count in `attn_core_routes`),
+    and raises on anything else."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, bias)
     dev = q.device
@@ -256,9 +303,13 @@ def mha(q, k, v, bias=None):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: expected [B, Lq, H, dh] and "
                          "[B, Lk, H, dh]")
+    dtype = q.dtype
+    if dtype not in _SUFFIX:
+        raise ValueError(f"q: the kernel takes float32 or bfloat16, got "
+                         f"{dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"{name}: needs float32 on {dev}, got "
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: needs {dtype} on {dev} like q, got "
                              f"{t.dtype} on {t.device}")
     lib = _mha_lib()
     B, Lq, H, dh = q.shape
@@ -266,18 +317,18 @@ def mha(q, k, v, bias=None):
     if dh != lib.mha_head_dim():
         raise ValueError(f"the kernel is built for head width "
                          f"{lib.mha_head_dim()}, got {dh}")
-    if Lk > lib.mha_max_lk():
-        raise ValueError(f"the kernel takes Lk <= {lib.mha_max_lk()}, got "
-                         f"{Lk}")
+    if dtype == torch.float32 and Lk > lib.mha_max_lk():
+        raise ValueError(f"the float32 kernel takes Lk <= "
+                         f"{lib.mha_max_lk()}, got {Lk}")
     bias4, bst = None, (0, 0, 0, 0)
     if bias is not None:
         if bias.device != dev:
             raise ValueError(f"bias: needs {dev}, got {bias.device}")
         bias4 = bias.to(torch.float32).expand(B, H, Lq, Lk)
         bst = bias4.stride()
-    out = torch.empty((B, Lq, H * dh), device=dev, dtype=torch.float32)
+    out = torch.empty((B, Lq, H * dh), device=dev, dtype=dtype)
     with torch.cuda.device(dev):
-        rc = lib.mha_fwd(
+        rc = _entry(lib, "mha_fwd", dtype)(
             q.data_ptr(), *q.stride(), k.data_ptr(), *k.stride(),
             v.data_ptr(), *v.stride(),
             None if bias4 is None else bias4.data_ptr(), *bst,
@@ -287,6 +338,8 @@ def mha(q, k, v, bias=None):
     if rc != 0:
         raise RuntimeError(f"mha kernel launch failed: CUDA error {rc} "
                            f"(B={B}, Lq={Lq}, Lk={Lk}, H={H})")
+    if dtype == torch.bfloat16:
+        _count(attn_core_routes, lib.mha_attn_route())
     return out
 
 
@@ -339,9 +392,11 @@ class _Call:
         if dh != head_dim:
             raise ValueError(f"the kernel is built for head width "
                              f"{head_dim}, got {dh}")
-        if Lk > max_lk or D % 32:
-            raise ValueError(f"the kernel takes Lk <= {max_lk} and "
-                             f"D % 32 == 0, got Lk={Lk}, D={D}")
+        if (dtype == torch.float32 and Lk > max_lk) or \
+                D % KERNEL_D_MULTIPLE:
+            raise ValueError(f"the kernels take D % 32 == 0, and Lk <= "
+                             f"{max_lk} in float32, got Lk={Lk}, D={D}, "
+                             f"{dtype}")
         if not 0.0 <= dropout_rate < 1.0:
             raise ValueError(f"dropout_rate {dropout_rate} not in [0, 1)")
 
@@ -435,7 +490,8 @@ def forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias=None,
     fused_qkv_mha.launches += 1
     c.check(rc, "fused_qkv_mha")
     if c.dtype == torch.bfloat16:
-        _count_route(c.lib.fused_qkv_mha_bf16_route())
+        _count(bf16_core_routes, c.lib.fused_qkv_mha_bf16_route())
+        _count(attn_core_routes, c.lib.fused_qkv_mha_attn_route())
     return out
 
 
@@ -458,7 +514,9 @@ def forward_projection(x, y, wq, bq, wk, bk, wv, bv, num_heads: int = 12):
             v.view(c.B, c.Lk, c.H, dh))
 
 
-# keys per chunk of the attention backward (csrc/fused_qkv_mha_bwd.cu KC)
+# keys per chunk of the attention backward (csrc/fused_qkv_mha_bwd.cu KC,
+# csrc/attn_sm90.cuh TILE): past one, it takes row statistics and, in bf16,
+# dq's running sum in float32 scratch
 ATTN_KEY_CHUNK = 64
 
 
@@ -505,7 +563,8 @@ def attention_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout,
     attention_backward.launches += 1
     c.check(rc, "fused_qkv_mha_bwd_attn")
     if c.dtype == torch.bfloat16:
-        _count_route(c.lib.fused_qkv_mha_bwd_bf16_route())
+        _count(bf16_core_routes, c.lib.fused_qkv_mha_bwd_bf16_route())
+        _count(attn_core_routes, c.lib.fused_qkv_mha_bwd_attn_route())
     return dq, dk, dv, ds
 
 
@@ -625,7 +684,7 @@ def projection_backward(x, y, wq, wk, wv, dq, dk, dv, ds=None,
     finally:
         projection_backward.launches += 1
     if call.dtype == torch.bfloat16:
-        _count_route(call.lib.fused_qkv_mha_bwd_bf16_route())
+        _count(bf16_core_routes, call.lib.fused_qkv_mha_bwd_bf16_route())
     return call.dx, call.dy, call.dws, call.dbs, call.dbias
 
 
@@ -678,7 +737,7 @@ def gemm_bf16(a, b, bias=None, splits: int = 1):
     launch is counted in `bf16_core_routes` too.  Card only."""
     out = _gemm_core("gemm_bf16", torch.bfloat16, a, b, bias, splits)
     gemm_bf16.launches += 1
-    _count_route(_bwd_lib().fused_qkv_mha_bwd_bf16_route())
+    _count(bf16_core_routes, _bwd_lib().fused_qkv_mha_bwd_bf16_route())
     return out
 
 

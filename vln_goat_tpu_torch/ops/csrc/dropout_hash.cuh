@@ -25,13 +25,17 @@ __device__ __forceinline__ uint32_t murmur_word(uint32_t h, uint32_t w) {
   return h * 5u + 0xe6546b64u;
 }
 
-__device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t b,
-                                                 uint32_t h, uint32_t q,
-                                                 uint32_t k) {
-  uint32_t x = murmur_word(seed, b);
-  x = murmur_word(x, h);
-  x = murmur_word(x, q);
-  x = murmur_word(x, k);
+// The hash state after the first three counter words: one (b, h, q) row's
+// prefix, shared by its keys.
+__device__ __forceinline__ uint32_t dropout_row(uint32_t seed, uint32_t b,
+                                                uint32_t h, uint32_t q) {
+  return murmur_word(murmur_word(murmur_word(seed, b), h), q);
+}
+
+// The bits of key k of a row, from the row's prefix.
+__device__ __forceinline__ uint32_t dropout_bits_at(uint32_t row,
+                                                    uint32_t k) {
+  uint32_t x = murmur_word(row, k);
   x ^= 16u;                      // length of the key in bytes
   x ^= x >> 16;
   x *= 0x85ebca6bu;
@@ -39,4 +43,10 @@ __device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t b,
   x *= 0xc2b2ae35u;
   x ^= x >> 16;
   return x;
+}
+
+__device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t b,
+                                                 uint32_t h, uint32_t q,
+                                                 uint32_t k) {
+  return dropout_bits_at(dropout_row(seed, b, h, q), k);
 }

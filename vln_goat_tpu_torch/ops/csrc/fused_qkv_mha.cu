@@ -47,10 +47,14 @@
 // TMA ring, wgmma m64n256k16 on both operands in shared memory, whatever
 // the weights' layout) with float32 sums plus the bias,
 // rounded to bf16 into a scratch of half the float32 size (the JAX kernel
-// casts q, k and v to bf16 before its products); the attention core takes
-// bf16 m16n8k16 fragments for q k^T and p v, float32 scores, softmax and
-// dropout, and p rounded to bf16 before p v.  Bound: the same operations
-// at the 989 TFLOP/s of bf16, about 0.012 ms a launch on the train mix.
+// casts q, k and v to bf16 before its products); the attention runs on the
+// Hopper core of attn_fwd_sm90.cuh (persistent blocks over 64-row query
+// tiles, k and v by 64-key tiles through a TMA ring, q k^T and p v on
+// wgmma with the scores in registers and an online softmax, so any Lk):
+// float32 scores, softmax and dropout, e = exp(s - max) rounded to bf16
+// before p v.  Bound: the same operations at the 989 TFLOP/s of bf16,
+// about 0.012 ms a launch on the train mix; the attention part alone is
+// bound by its bytes (attn_fwd_sm90.cuh).
 //
 // Dropout (`_fa_probs` :149-166): with per-row seeds the normalised
 // probabilities pass through the counter-based keep mask of
@@ -60,6 +64,7 @@
 #include <cuda_runtime.h>
 
 #include "attn_fwd.cuh"
+#include "attn_fwd_sm90.cuh"
 #include "qkv_proj.cuh"
 
 namespace {
@@ -91,7 +96,9 @@ int fwd(const void* x, const void* y, const void* wq, long long wq_sd,
         int B, int Lq, int Lk, int D, int H, float scale, const void* seeds,
         unsigned int thresh, float inv_keep, void* stream) {
   using T = typename Core::T;
-  if (B < 1 || Lq < 1 || Lk < 1 || Lk > attn_fwd::MAX_LK || H < 1 || D < 1)
+  constexpr bool BF16 = sizeof(T) == 2;
+  if (B < 1 || Lq < 1 || Lk < 1 || (!BF16 && Lk > attn_fwd::MAX_LK) ||
+      H < 1 || D < 1)
     return (int)cudaErrorInvalidValue;
   const int HD = H * attn_fwd::DH;
   const int rc = proj<Core>(x, y, wq, wq_sd, wq_so, bq, wk, wk_sd, wk_so, bk,
@@ -101,27 +108,47 @@ int fwd(const void* x, const void* y, const void* wq, long long wq_sd,
   T* qs = (T*)qkv;
   T* ks = qs + (long long)B * Lq * HD;
   T* vs = ks + (long long)B * Lk * HD;
-  attn_fwd::Args<T> A;
-  A.q = qs;
-  A.qs = {(long long)Lq * HD, HD, attn_fwd::DH, 1};
-  A.k = ks;
-  A.ks = {(long long)Lk * HD, HD, attn_fwd::DH, 1};
-  A.v = vs;
-  A.vs = A.ks;
-  A.bias = (const T*)bias;
-  A.sb = sb;
-  A.sh = sh;
-  A.sq = sq;
-  A.sk = sk;
-  A.seeds = (const int*)seeds;
-  A.thresh = thresh;
-  A.inv_keep = inv_keep;
-  A.out = (T*)out;
-  A.Lq = Lq;
-  A.Lk = Lk;
-  A.H = H;
-  A.scale = scale;
-  return attn_fwd::launch(A, B, (cudaStream_t)stream);
+  if constexpr (BF16) {
+    // the Hopper core, over the scratch as [B, L, H, dh] heads
+    attn_fwd_sm90::Params<T> P;
+    P.q = {qs, (long long)Lq * HD, HD, attn_fwd::DH, 1, Lq};
+    P.k = {ks, (long long)Lk * HD, HD, attn_fwd::DH, 1, Lk};
+    P.v = {vs, (long long)Lk * HD, HD, attn_fwd::DH, 1, Lk};
+    P.bias = (const T*)bias;
+    P.sb = sb;
+    P.sh = sh;
+    P.sq = sq;
+    P.sk = sk;
+    P.seeds = (const int*)seeds;
+    P.thresh = thresh;
+    P.inv_keep = inv_keep;
+    P.out = (T*)out;
+    P.H = H;
+    P.scale = scale;
+    return attn_fwd_sm90::launch<T, false>(P, B, (cudaStream_t)stream);
+  } else {
+    attn_fwd::Args A;
+    A.q = qs;
+    A.qs = {(long long)Lq * HD, HD, attn_fwd::DH, 1};
+    A.k = ks;
+    A.ks = {(long long)Lk * HD, HD, attn_fwd::DH, 1};
+    A.v = vs;
+    A.vs = A.ks;
+    A.bias = (const float*)bias;
+    A.sb = sb;
+    A.sh = sh;
+    A.sq = sq;
+    A.sk = sk;
+    A.seeds = (const int*)seeds;
+    A.thresh = thresh;
+    A.inv_keep = inv_keep;
+    A.out = (T*)out;
+    A.Lq = Lq;
+    A.Lk = Lk;
+    A.H = H;
+    A.scale = scale;
+    return attn_fwd::launch(A, B, (cudaStream_t)stream);
+  }
 }
 
 }  // namespace
@@ -178,7 +205,11 @@ int fused_qkv_mha_head_dim(void) { return attn_fwd::DH; }
 // by TMA, 0 at least one loaded directly, -1 no launch yet.
 int fused_qkv_mha_bf16_route(void) { return gemm_bf16::last_route(); }
 
-// Largest key length the kernel takes.
+// Largest key length the float32 build takes (the bf16 build takes any).
 int fused_qkv_mha_max_lk(void) { return attn_fwd::MAX_LK; }
+
+// The route of this library's last bf16 attention launch
+// (attn_fwd_sm90.cuh): 1 q, k and v by TMA, 0 loaded directly, -1 none yet.
+int fused_qkv_mha_attn_route(void) { return attn_sm90::last_route(); }
 
 }  // extern "C"

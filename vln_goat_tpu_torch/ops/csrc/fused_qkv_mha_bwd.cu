@@ -73,13 +73,14 @@
 // products take bf16 operands with float32 sums, `_bdot(dt=dt)` :200-225):
 // x, y, the weights, the biases, the additive bias and dO in bf16.  (a)
 // recomputes q, k, v through the bf16 projection jobs (bf16 scratch, as the
-// forward), stages q, k, v and dO in bf16, and runs its five products on
-// bf16 m16n8k16 fragments; p, dp and ds stay float32 and are rounded to
-// bf16 where they enter a product (pd before pd^T dO, ds before ds k and
-// ds^T q); dq, dk and dv are written in bf16, the operands of every product
-// after them (past 64 keys dq is added chunk by chunk in a float32
-// scratch and rounded once, after the last chunk, as the JAX kernel's one
-// float32 product over all keys, :216); ds is written in float32.  (b)
+// forward), then runs the Hopper attention backward of attn_bwd_sm90.cuh
+// (TMA-fed 64-row tiles, its five products on wgmma, scores and their
+// gradients in registers, any Lk): p, dp and ds stay float32 and are
+// rounded to bf16 where they enter a product (pd before pd^T dO, ds before
+// ds k and ds^T q); dq, dk and dv are written in bf16, the operands of
+// every product after them (past 64 keys dq is summed over the key tiles in
+// a float32 scratch and rounded once, after the last, as the JAX kernel's
+// one float32 product over all keys, :216); ds is written in float32.  (b)
 // runs dx, dy and the split-K weight gradients on the bf16 core
 // (gemm_bf16.cuh: persistent, TMA-fed, wgmma from shared memory; slices of
 // whole 64-deep chunks) with float32 partial sums and the same fixed-order
@@ -95,6 +96,7 @@
 #include "dropout_hash.cuh"
 #include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
+#include "attn_bwd_sm90.cuh"
 #include "qkv_proj.cuh"
 
 namespace {
@@ -111,22 +113,10 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_LK = 256;
 constexpr int LDS = DH + 4;     // row stride of the (a) float tiles
-// row stride of the (a) tiles of q, k, v and dO: LDS in float, 72 in bf16
-// (a 16-byte multiple for the copies)
-template <class T>
-constexpr int LDT = sizeof(T) == 4 ? LDS : DH + 8;
-// K, V, Q and dO tiles in T, the two score tiles in float
-template <class T>
-constexpr size_t ATTN_SMEM_BYTES =
-    4 * TQ * LDT<T> * sizeof(T) + 2 * TQ * LDS * sizeof(float);
+// (a)'s float32 build: the K, V, Q and dO tiles and the two score tiles
+constexpr size_t ATTN_SMEM_BYTES = 6 * TQ * LDS * sizeof(float);
 
-using gemm_bf16::to_f;
-using gemm_bf16::warp_mma;
-
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(bf16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using tf32x3::warp_mma_16x32;
 
 // ---------------------------------------------------------------------------
 // (b) second pass: out[i] = sum over s < splits of part[s * n + i], written
@@ -188,75 +178,66 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// s[r * LDT + c] = base[(r0 + r) * stride + c] for r < 64, c < 64; rows at
-// or past lim are zero.  Asynchronous: the caller commits and waits.  In
-// bf16 a stride that allows no 16-byte copy is loaded element by element.
-template <class T>
-__device__ __forceinline__ void load_rows(T* s, const T* base,
+// s[r * LDS + c] = base[(r0 + r) * stride + c] for r < 64, c < 64; rows at
+// or past lim are zero.  Asynchronous: the caller commits and waits.
+__device__ __forceinline__ void load_rows(float* s, const float* base,
                                           long long stride, int r0,
                                           int lim) {
-  constexpr int V = 16 / sizeof(T);      // elements per 16-byte copy
-  const bool vec = ((uintptr_t)base & 15) == 0 && stride % V == 0;
-  for (int c = threadIdx.x; c < 64 * (DH / V); c += THREADS) {
-    const int r = c / (DH / V), k = (c % (DH / V)) * V;
+  const bool vec = ((uintptr_t)base & 15) == 0 && stride % 4 == 0;
+  for (int c = threadIdx.x; c < 64 * (DH / 4); c += THREADS) {
+    const int r = c / (DH / 4), k = (c % (DH / 4)) * 4;
     const bool ok = r0 + r < lim;
-    const T* src = ok ? base + (long long)(r0 + r) * stride + k : base;
-    T* d = s + r * LDT<T> + k;
+    const float* src = ok ? base + (long long)(r0 + r) * stride + k : base;
+    float* d = s + r * LDS + k;
     if (vec) {
       tf32x3::cp_async16(d, src, ok ? 16 : 0);
-    } else if constexpr (sizeof(T) == 4) {
+    } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         tf32x3::cp_async4(d + e, ok ? src + e : base, ok ? 4 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) d[e] = ok ? src[e] : T(0.f);
     }
   }
 }
 
-template <class T>
 struct AttnArgs {
-  const T* q;         // [B, Lq, H*dh]
-  const T* k;         // [B, Lk, H*dh]
-  const T* v;
-  const T* bias;      // through (sb, sh, sq, sk), or null
+  const float* q;     // [B, Lq, H*dh]
+  const float* k;     // [B, Lk, H*dh]
+  const float* v;
+  const float* bias;  // through (sb, sh, sq, sk), or null
   long long sb, sh, sq, sk;
   const int* seeds;   // [B], or null: no dropout
   unsigned int thresh;
   float inv_keep;
-  const T* dout;      // [B, Lq, H*dh]
-  T* dq;
-  T* dk;
-  T* dv;
+  const float* dout;  // [B, Lq, H*dh]
+  float* dq;
+  float* dk;
+  float* dv;
   float* ds;          // [B, H, Lq, Lk], or null
   float* stats;       // [B, H, Lq, 3] when Lk > KC
-  float* dq_acc;      // bf16: dq's running sum [B, Lq, H*dh] when Lk > KC
   int Lq, Lk, H;
   float scale;
 };
 
-template <class T>
 __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
-    const AttnArgs<T> A) {
+    const AttnArgs A) {
   extern __shared__ __align__(16) unsigned char attn_smem[];
-  constexpr int L = LDT<T>;
-  T* Ks = reinterpret_cast<T*>(attn_smem);   // [KC][L]  key chunk
-  T* Vs = Ks + KC * L;                       // [KC][L]
-  T* Qs = Vs + KC * L;                       // [TQ][L]  query tile
-  T* Os = Qs + TQ * L;                       // [TQ][L]  dO tile
-  float* Ps = reinterpret_cast<float*>(Os + TQ * L);  // [TQ][LDS] s, then pd
+  constexpr int L = LDS;
+  float* Ks = reinterpret_cast<float*>(attn_smem);   // [KC][L]  key chunk
+  float* Vs = Ks + KC * L;                   // [KC][L]
+  float* Qs = Vs + KC * L;                   // [TQ][L]  query tile
+  float* Os = Qs + TQ * L;                   // [TQ][L]  dO tile
+  float* Ps = Os + TQ * L;                   // [TQ][LDS] s, then pd
   float* Ss = Ps + TQ * LDS;                 // [TQ][LDS]  dpd, then ds
 
   const int b = blockIdx.x, h = blockIdx.y;
   const int Lq = A.Lq, Lk = A.Lk, H = A.H;
   const long long HD = (long long)H * DH;
   const int col0 = h * DH;
-  const T* qb = A.q + (long long)b * Lq * HD + col0;
-  const T* kb = A.k + (long long)b * Lk * HD + col0;
-  const T* vb = A.v + (long long)b * Lk * HD + col0;
-  const T* ob = A.dout + (long long)b * Lq * HD + col0;
-  const T* bias_bh = A.bias != nullptr
+  const float* qb = A.q + (long long)b * Lq * HD + col0;
+  const float* kb = A.k + (long long)b * Lk * HD + col0;
+  const float* vb = A.v + (long long)b * Lk * HD + col0;
+  const float* ob = A.dout + (long long)b * Lq * HD + col0;
+  const float* bias_bh = A.bias != nullptr
       ? A.bias + (long long)b * A.sb + (long long)h * A.sh : nullptr;
   const uint32_t seed = A.seeds != nullptr ? (uint32_t)A.seeds[b] : 0u;
   float* stats = A.stats != nullptr
@@ -267,25 +248,18 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
   const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
   const int nch = (Lk + KC - 1) / KC, ntile = (Lq + TQ - 1) / TQ;
 
-  // accessors of a staged tile (T, stride L) and of a score tile (float,
-  // stride LDS), row-major or transposed
-  auto rowmajor = [](const T* s) {
-    return [s](int r, int c) { return to_f(s[r * L + c]); };
-  };
-  auto transposed = [](const T* s) {
-    return [s](int r, int c) { return to_f(s[c * L + r]); };
-  };
-  auto rowmajor_f = [](const float* s) {
+  // accessors of a staged tile (stride LDS), row-major or transposed
+  auto rowmajor = [](const float* s) {
     return [s](int r, int c) { return s[r * LDS + c]; };
   };
-  auto transposed_f = [](const float* s) {
+  auto transposed = [](const float* s) {
     return [s](int r, int c) { return s[c * LDS + r]; };
   };
   // Ps <- q k^T (raw), Ss <- dO v^T, for the staged tile and chunk
   auto scores = [&]() {
     float a1[4][4] = {}, a2[4][4] = {};
-    warp_mma<T>(a1, rowmajor(Qs), transposed(Ks), wm, wn);
-    warp_mma<T>(a2, rowmajor(Os), transposed(Vs), wm, wn);
+    warp_mma_16x32(a1, rowmajor(Qs), transposed(Ks), wm, wn);
+    warp_mma_16x32(a2, rowmajor(Os), transposed(Vs), wm, wn);
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
@@ -309,7 +283,7 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
       if (j < Lk) {
         s[i] = Ps[r * LDS + jl] * A.scale;
         if (bias_bh != nullptr)
-          s[i] += to_f(bias_bh[(long long)qi * A.sq + (long long)j * A.sk]);
+          s[i] += bias_bh[(long long)qi * A.sq + (long long)j * A.sk];
         dp[i] = Ss[r * LDS + jl];
         if (A.seeds != nullptr) {
           keep[i] = dropout_bits(seed, b, h, qi, j) >= A.thresh;
@@ -428,11 +402,9 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
         }
       }
       __syncthreads();
-      // dq (tile rows) = scale ds k, added over the key chunks: in dq
-      // itself (float32), or in float32 scratch and rounded to bf16 once,
-      // with the last chunk
+      // dq (tile rows) = scale ds k, added over the key chunks in dq
       float dqa[4][4] = {};
-      warp_mma<T>(dqa, rowmajor_f(Ss), rowmajor(Ks), wm, wn);
+      warp_mma_16x32(dqa, rowmajor(Ss), rowmajor(Ks), wm, wn);
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
@@ -442,20 +414,12 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
           if (qi < Lq) {
             const long long i = ((long long)b * Lq + qi) * HD + col0 + col;
             const float v = dqa[ni][e] * A.scale;
-            if constexpr (sizeof(T) == 4) {
-              put(A.dq + i, c == 0 ? v : to_f(A.dq[i]) + v);
-            } else if (nch == 1) {
-              put(A.dq + i, v);
-            } else {
-              const float sum = c == 0 ? v : A.dq_acc[i] + v;
-              if (c < nch - 1) A.dq_acc[i] = sum;
-              else put(A.dq + i, sum);
-            }
+            A.dq[i] = c == 0 ? v : A.dq[i] + v;
           }
         }
       // the tile's share of dv = pd^T dO and dk = ds^T q (keys x dh)
-      warp_mma<T>(dva, transposed_f(Ps), rowmajor(Os), wm, wn);
-      warp_mma<T>(dka, transposed_f(Ss), rowmajor(Qs), wm, wn);
+      warp_mma_16x32(dva, transposed(Ps), rowmajor(Os), wm, wn);
+      warp_mma_16x32(dka, transposed(Ss), rowmajor(Qs), wm, wn);
     }
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
@@ -465,8 +429,8 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
         const int col = wn + 8 * ni + 2 * t + (e & 1);
         if (j < Lk) {
           const long long o = ((long long)b * Lk + j) * HD + col0 + col;
-          put(A.dk + o, dka[ni][e] * A.scale);
-          put(A.dv + o, dva[ni][e]);
+          A.dk[o] = dka[ni][e] * A.scale;
+          A.dv[o] = dva[ni][e];
         }
       }
   }
@@ -487,9 +451,10 @@ int bwd_attn(const void* x, const void* y, const void* wq, long long wq_sd,
              void* dq_acc, int B, int Lq, int Lk, int D, int H, float scale,
              void* stream) {
   using T = typename Core::T;
-  if (B < 1 || Lq < 1 || Lk < 1 || Lk > MAX_LK || H < 1 || D < 1 ||
-      (Lk > KC && stats == nullptr) ||
-      (sizeof(T) == 2 && Lk > KC && dq_acc == nullptr))
+  constexpr bool BF16 = sizeof(T) == 2;
+  if (B < 1 || Lq < 1 || Lk < 1 || (!BF16 && Lk > MAX_LK) || H < 1 ||
+      D < 1 || (Lk > KC && stats == nullptr) ||
+      (BF16 && Lk > KC && dq_acc == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int HD = H * DH;
@@ -504,34 +469,59 @@ int bwd_attn(const void* x, const void* y, const void* wq, long long wq_sd,
   int rc = launch_jobs(J, st);
   if (rc != 0) return rc;
 
-  AttnArgs<T> A;
-  A.q = qs;
-  A.k = ks;
-  A.v = vs;
-  A.bias = (const T*)bias;
-  A.sb = sb;
-  A.sh = sh;
-  A.sq = sq;
-  A.sk = sk;
-  A.seeds = (const int*)seeds;
-  A.thresh = thresh;
-  A.inv_keep = inv_keep;
-  A.dout = (const T*)dout;
-  A.dq = (T*)dq;
-  A.dk = (T*)dk;
-  A.dv = (T*)dv;
-  A.ds = (float*)ds;
-  A.stats = Lk > KC ? (float*)stats : nullptr;
-  A.dq_acc = sizeof(T) == 2 && Lk > KC ? (float*)dq_acc : nullptr;
-  A.Lq = Lq;
-  A.Lk = Lk;
-  A.H = H;
-  A.scale = scale;
-  const size_t bytes = ATTN_SMEM_BYTES<T>;
-  const cudaError_t e = tf32x3::smem_limit<attn_bwd_kernel<T>>((int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  attn_bwd_kernel<T><<<dim3(B, H), THREADS, bytes, st>>>(A);
-  return (int)cudaGetLastError();
+  if constexpr (BF16) {
+    // the Hopper core, over the scratch and dO as [B, L, H, dh] heads
+    attn_bwd_sm90::Params P;
+    P.q = {qs, (long long)Lq * HD, HD, DH, 1, Lq};
+    P.k = {ks, (long long)Lk * HD, HD, DH, 1, Lk};
+    P.v = {vs, (long long)Lk * HD, HD, DH, 1, Lk};
+    P.o = {(const T*)dout, (long long)Lq * HD, HD, DH, 1, Lq};
+    P.bias = (const T*)bias;
+    P.sb = sb;
+    P.sh = sh;
+    P.sq = sq;
+    P.sk = sk;
+    P.seeds = (const int*)seeds;
+    P.thresh = thresh;
+    P.inv_keep = inv_keep;
+    P.dq = (T*)dq;
+    P.dk = (T*)dk;
+    P.dv = (T*)dv;
+    P.ds = (float*)ds;
+    P.stats = (float*)stats;
+    P.dq_acc = (float*)dq_acc;
+    P.H = H;
+    P.scale = scale;
+    return attn_bwd_sm90::launch(P, B, st);
+  } else {
+    AttnArgs A;
+    A.q = qs;
+    A.k = ks;
+    A.v = vs;
+    A.bias = (const T*)bias;
+    A.sb = sb;
+    A.sh = sh;
+    A.sq = sq;
+    A.sk = sk;
+    A.seeds = (const int*)seeds;
+    A.thresh = thresh;
+    A.inv_keep = inv_keep;
+    A.dout = (const T*)dout;
+    A.dq = (T*)dq;
+    A.dk = (T*)dk;
+    A.dv = (T*)dv;
+    A.ds = (float*)ds;
+    A.stats = Lk > KC ? (float*)stats : nullptr;
+    A.Lq = Lq;
+    A.Lk = Lk;
+    A.H = H;
+    A.scale = scale;
+    const cudaError_t e =
+        tf32x3::smem_limit<attn_bwd_kernel>((int)ATTN_SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    attn_bwd_kernel<<<dim3(B, H), THREADS, ATTN_SMEM_BYTES, st>>>(A);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <class Core>
@@ -766,15 +756,16 @@ int fused_qkv_mha_bwd_gemm_bf16(GEMM_ARGS) {
 // Dynamic shared memory of the GEMM launch and of attn_bwd_kernel, bytes.
 void fused_qkv_mha_bwd_smem(int* out) {
   out[0] = (int)tf32x3::SMEM_BYTES;
-  out[1] = (int)ATTN_SMEM_BYTES<float>;
+  out[1] = (int)ATTN_SMEM_BYTES;
   out[2] = (int)gemm_bf16::SMEM_BYTES;
-  out[3] = (int)ATTN_SMEM_BYTES<bf16>;
+  out[3] = (int)attn_bwd_sm90::SMEM_BYTES;
 }
 
 // Head width the kernels are compiled for, so the wrapper can check it.
 int fused_qkv_mha_bwd_head_dim(void) { return DH; }
 
-// Largest key length the attention backward takes.
+// Largest key length the float32 attention backward takes (the bf16 one
+// takes any).
 int fused_qkv_mha_bwd_max_lk(void) { return MAX_LK; }
 
 // GEMM tiles (rows, columns, depth chunk) of the 3xTF32 core, then of the
@@ -792,5 +783,10 @@ void fused_qkv_mha_bwd_tile(int* out) {
 // The route of this library's last bf16 GEMM launch: 1 every operand by
 // TMA, 0 at least one loaded directly, -1 no launch yet.
 int fused_qkv_mha_bwd_bf16_route(void) { return gemm_bf16::last_route(); }
+
+// The route of this library's last bf16 attention backward launch
+// (attn_bwd_sm90.cuh): 1 q, k, v and dO by TMA, 0 loaded directly, -1 none
+// yet.
+int fused_qkv_mha_bwd_attn_route(void) { return attn_sm90::last_route(); }
 
 }  // extern "C"

@@ -3,17 +3,8 @@
 // (`_bdot(..., dt=bf16)` with preferred_element_type=float32,
 // vln_goat_tpu/ops/attention.py:120-137).
 //
-// Two levels, as in gemm_tf32x3.cuh:
-//
-// - fragment level: `warp_mma_16x32`, a warp's 16 x 32 tile over a depth
-//   of 64 on `mma.sync.aligned.m16n8k16` bf16 fragments, for the attention
-//   products (attn_fwd.cuh, fused_qkv_mha_bwd.cu).  The operands are read
-//   through accessors that return float and are rounded to bf16 to nearest
-//   when the fragment is built: values that already are bf16 pass exactly,
-//   float32 ones (the probabilities p before p v, the score gradients ds)
-//   take the JAX package's cast before the product.
-// - block level: `gemm_kernel`, one persistent launch over a table of GEMM
-//   jobs C = A B (+ bias), written for Hopper:
+// `gemm_kernel`: one persistent launch over a table of
+// GEMM jobs C = A B (+ bias), written for Hopper:
 //   * one block per SM walks the launch's work units (a 128 x 256 output
 //     tile of one split-K slice of one job, then the elementwise head-sum
 //     units) in the planned order, unit u on block u % grid, so one tile's
@@ -65,68 +56,10 @@ namespace gemm_bf16 {
 using bf16 = __nv_bfloat16;
 using tf32x3::smem_addr;
 
-// ---------------------------------------------------------------------------
-// Fragment level
-
+// two floats rounded to bf16 (to nearest) in one 32-bit word, lo first
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// c += a b for one m16n8k16 bf16 fragment triple
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc[ni] += A[m0 : m0+16, 0:64] B[0:64, n0 + 8 ni : n0 + 8 ni + 8] for
-// ni < 4, A(m, k) and B(k, n) read through the accessors as float and
-// rounded to bf16.  Fragment layout of m16n8k16 (g = lane / 4,
-// t = lane % 4): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-// a3 (g+8, 2t+8..); b0 (2t..2t+1, g), b1 (2t+8..2t+9, g); c as m16n8k8.
-// Each 16-deep step's product starts from zero and is added into the
-// float32 accumulator, as in gemm_tf32x3.cuh.
-template <class AF, class BF>
-__device__ __forceinline__ void warp_mma_16x32(float acc[4][4], AF a, BF b,
-                                               int m0, int n0) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int k0 = 0; k0 < 64; k0 += 16) {
-    uint32_t af[4];
-    af[0] = pack2(a(m0 + g, k0 + 2 * t), a(m0 + g, k0 + 2 * t + 1));
-    af[1] = pack2(a(m0 + g + 8, k0 + 2 * t), a(m0 + g + 8, k0 + 2 * t + 1));
-    af[2] = pack2(a(m0 + g, k0 + 2 * t + 8), a(m0 + g, k0 + 2 * t + 9));
-    af[3] = pack2(a(m0 + g + 8, k0 + 2 * t + 8),
-                  a(m0 + g + 8, k0 + 2 * t + 9));
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int n = n0 + 8 * ni + g;
-      uint32_t bf[2];
-      bf[0] = pack2(b(k0 + 2 * t, n), b(k0 + 2 * t + 1, n));
-      bf[1] = pack2(b(k0 + 2 * t + 8, n), b(k0 + 2 * t + 9, n));
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(part, af, bf);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[ni][e] += part[e];
-    }
-  }
-}
-
-// An element of either type as float, for the accessors of the products.
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-// The fragment product of the element type T: float32 operands in the
-// 3xTF32 split (gemm_tf32x3.cuh), bf16 ones on bf16 fragments.
-template <class T, class AF, class BF>
-__device__ __forceinline__ void warp_mma(float acc[4][4], AF a, BF b, int m0,
-                                         int n0) {
-  if constexpr (sizeof(T) == 4) tf32x3::warp_mma_16x32(acc, a, b, m0, n0);
-  else warp_mma_16x32(acc, a, b, m0, n0);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-// Multi-head attention over projected q / k / v, forward only, float32.
+// Multi-head attention over projected q / k / v, forward only, in float32
+// and in bf16.
 //
 // Replaces the TPU kernel `_mha_kernel` (vln_goat_tpu/ops/attention.py:49),
 // launched by `_pallas_mha_impl` (:66, `pallas_call` :92) behind
@@ -27,10 +28,17 @@
 // fused forward, without dropout: one block per (batch row, head) stages
 // K and V once and walks the query tiles, both products on 3xTF32
 // mma.sync fragments, so each byte of q, k, v is read from memory once.
+//
+// bf16 (`mha_fwd_bf16`; the TPU kernel takes bf16 q, k, v, upcasts them and
+// computes in float32, :49-62): the Hopper core of attn_fwd_sm90.cuh,
+// shared with the fused forward's bf16 build (key-tiled, any Lk, TMA and
+// wgmma), with p v in two bf16 terms of p so that p keeps float32's
+// precision; the bias is read in float32, the output rounded to bf16.
 
 #include <cuda_runtime.h>
 
 #include "attn_fwd.cuh"
+#include "attn_fwd_sm90.cuh"
 
 extern "C" {
 
@@ -48,7 +56,7 @@ int mha_fwd(const void* q, long long q_sb, long long q_sl, long long q_sh,
             const void* bias, long long sb, long long sh, long long sq,
             long long sk, void* out, int B, int Lq, int Lk, int H,
             float scale, void* stream) {
-  attn_fwd::Args<float> A;
+  attn_fwd::Args A;
   A.q = (const float*)q;
   A.qs = {q_sb, q_sl, q_sh, q_sd};
   A.k = (const float*)k;
@@ -71,10 +79,45 @@ int mha_fwd(const void* q, long long q_sb, long long q_sl, long long q_sh,
   return attn_fwd::launch(A, B, (cudaStream_t)stream);
 }
 
+// The same in bf16 on the Hopper core (attn_fwd_sm90.cuh): q, k, v and
+// out bf16, the bias float32, scores, softmax and p in float32 (p v as
+// two bf16 products of p's high and low parts); any Lk.
+int mha_fwd_bf16(const void* q, long long q_sb, long long q_sl,
+                 long long q_sh, long long q_sd,
+                 const void* k, long long k_sb, long long k_sl,
+                 long long k_sh, long long k_sd,
+                 const void* v, long long v_sb, long long v_sl,
+                 long long v_sh, long long v_sd,
+                 const void* bias, long long sb, long long sh, long long sq,
+                 long long sk, void* out, int B, int Lq, int Lk, int H,
+                 float scale, void* stream) {
+  using attn_sm90::bf16;
+  attn_fwd_sm90::Params<float> P;
+  P.q = {(const bf16*)q, q_sb, q_sl, q_sh, q_sd, Lq};
+  P.k = {(const bf16*)k, k_sb, k_sl, k_sh, k_sd, Lk};
+  P.v = {(const bf16*)v, v_sb, v_sl, v_sh, v_sd, Lk};
+  P.bias = (const float*)bias;
+  P.sb = sb;
+  P.sh = sh;
+  P.sq = sq;
+  P.sk = sk;
+  P.seeds = nullptr;
+  P.thresh = 0;
+  P.inv_keep = 1.f;
+  P.out = (bf16*)out;
+  P.H = H;
+  P.scale = scale;
+  return attn_fwd_sm90::launch<float, true>(P, B, (cudaStream_t)stream);
+}
+
 // Head width the kernel is compiled for, so the wrapper can check it.
 int mha_head_dim(void) { return attn_fwd::DH; }
 
-// Largest key length the kernel takes.
+// Largest key length the float32 kernel takes (the bf16 one takes any).
 int mha_max_lk(void) { return attn_fwd::MAX_LK; }
+
+// The route of this library's last bf16 launch: 1 q, k and v by TMA, 0
+// loaded directly, -1 none yet.
+int mha_attn_route(void) { return attn_sm90::last_route(); }
 
 }  // extern "C"
