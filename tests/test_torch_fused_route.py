@@ -1,18 +1,18 @@
-"""The fused gate's route by shape (`ops.attention.fused_route`) and the
-port's `AttentionCore` on the shapes it routes, against the JAX package.
+"""The fused gate's route and the port's `AttentionCore` on the shapes
+that reach the kernels, against the JAX package.
 
-On the card a build of the fused kernels takes head width 64, a model
-width that is a multiple of 32, and in float32 at most 256 keys (the bf16
-cores take any); the gate sends every other shape to the eager path
-before any launch, where the JAX gate sends every query block of 32 rows
-or more to its Pallas kernel (vln_goat_tpu/models/layers.py:113-136), which
-takes any shape.  So the port's `AttentionCore` is held to the JAX one
-with `use_pallas=True` (interpret mode) at those shapes on both of its
-paths: the fused one (here its plain version) and the eager one.  float32,
-atol 2e-5 / rtol 1e-4 as tests/test_torch_attention.py (sums in another
-order).  The gate's decision itself is checked on meta tensors, the one
-device besides the CPU that runs here: it asks `fused_route` and counts
-the answer in `gate_routes`."""
+The JAX gate sends every query block of 32 rows or more to its Pallas
+kernel (vln_goat_tpu/models/layers.py:113-136), which takes any key
+length, head width and model width; the port's gate does the same and
+never decides by shape: on the card the fused kernels take any Lk in both
+builds (the float32 attention forward past 256 keys in key blocks with an
+online softmax) and raise on a head width other than 64 or a width not a
+multiple of 32.  So the port's `AttentionCore` is held to the JAX one with
+`use_pallas=True` (interpret mode) past 256 keys and at head width 32 on
+both of its paths: the fused one (here its plain version) and the eager
+one.  float32, atol 2e-5 / rtol 1e-4 as tests/test_torch_attention.py
+(sums in another order).  The gate's decision itself is checked on meta
+tensors, the one device besides the CPU that runs here."""
 import re
 from pathlib import Path
 
@@ -24,9 +24,6 @@ import torch
 from vln_goat_tpu.models.layers import AttentionCore as JaxAttentionCore
 from vln_goat_tpu_torch.models.layers import AttentionCore
 from vln_goat_tpu_torch.ops import attention as port_attn
-from vln_goat_tpu_torch.ops.attention import (F32_MAX_LK, KERNEL_D_MULTIPLE,
-                                              KERNEL_HEAD_DIM, fused_route,
-                                              gate_routes)
 from vln_goat_tpu_torch.train.checkpoint import params_from_flax
 
 CSRC = (Path(__file__).resolve().parent.parent / "vln_goat_tpu_torch" / "ops"
@@ -35,43 +32,24 @@ ATOL, RTOL = 2e-5, 1e-4
 F32, BF16 = torch.float32, torch.bfloat16
 
 
-def _header_int(name, header):
-    m = re.search(rf"^constexpr int {name} = (\d+);", (CSRC / header)
-                  .read_text(), re.M)
-    return int(m.group(1))
+def test_no_kernel_caps_the_key_length():
+    """No source of the fused kernels or of `mha` keeps a largest key
+    length, and the wrappers ask none."""
+    for path in CSRC.iterdir():
+        assert not re.search(r"MAX_LK|max_lk", path.read_text()), path.name
+    assert not hasattr(port_attn, "fused_route")
+    src = Path(port_attn.__file__).read_text()
+    assert "max_lk" not in src
 
 
-def test_route_constants_are_the_kernels():
-    """The Python side's limits are the ones the kernels are built with."""
-    for header in ("attn_fwd.cuh", "fused_qkv_mha_bwd.cu"):
-        assert _header_int("DH", header) == KERNEL_HEAD_DIM
-        assert _header_int("MAX_LK", header) == F32_MAX_LK
-    assert _header_int("DH", "attn_sm90.cuh") == KERNEL_HEAD_DIM
-
-
-@pytest.mark.parametrize("Lk,dh,D,dtype,route", [
-    # the train and decode shapes, both builds
-    (60, 64, 768, F32, "kernels"), (200, 64, 768, BF16, "kernels"),
-    # float32 up to 256 keys; bf16 past it
-    (256, 64, 768, F32, "kernels"), (257, 64, 768, F32, "eager"),
-    (256, 64, 768, BF16, "kernels"), (257, 64, 768, BF16, "kernels"),
-    (300, 64, 768, BF16, "kernels"), (520, 64, 768, BF16, "kernels"),
-    # head width, model width, dtype
-    (60, 32, 768, F32, "eager"), (60, 32, 768, BF16, "eager"),
-    (60, 64, 776, BF16, "eager"), (60, 64, 64 * 3, F32, "kernels"),
-    (60, 64, 768, torch.float16, "eager")])
-def test_fused_route(Lk, dh, D, dtype, route):
-    assert D % KERNEL_D_MULTIPLE == 0 or route == "eager"
-    assert fused_route(Lk, dh, D, dtype) == route
-
-
-@pytest.mark.parametrize("Lk,dh,dtype,route", [
-    (60, 64, F32, "kernels"), (300, 64, F32, "eager"),
-    (300, 64, BF16, "kernels"), (60, 32, F32, "eager")])
-def test_gate_asks_the_route_off_the_cpu(monkeypatch, Lk, dh, dtype, route):
-    """On a device other than the CPU the gate takes `fused_route`'s
-    answer before any launch and counts it; the eager route launches no
-    kernel.  On the CPU it never asks."""
+@pytest.mark.parametrize("Lq,Lk,dh,dtype", [
+    (40, 60, 64, F32), (40, 300, 64, F32), (40, 520, 64, BF16),
+    (40, 60, 32, F32), (31, 60, 64, F32)])
+def test_gate_sends_every_block_to_the_kernels(monkeypatch, Lq, Lk, dh,
+                                               dtype):
+    """On any device the gate sends every query block of at least 32 rows
+    to `fused_qkv_mha`, whatever its key length or head width, and blocks
+    of fewer rows to the eager path, as the JAX gate does."""
     calls = []
     monkeypatch.setattr(
         "vln_goat_tpu_torch.models.layers.fused_qkv_mha",
@@ -80,19 +58,15 @@ def test_gate_asks_the_route_off_the_cpu(monkeypatch, Lk, dh, dtype, route):
     H, D = 12, 12 * dh
     core = AttentionCore(D, H, dh, use_fused=True, min_lq=32,
                          compute_dtype=None if dtype == F32 else dtype)
-    q_in = torch.zeros(2, 40, D)
+    q_in = torch.zeros(2, Lq, D)
     kv_in = torch.zeros(2, Lk, D)
-    before = dict(gate_routes)
     with torch.no_grad():
-        core(q_in, kv_in)                      # CPU: the plain fused path
-    assert calls == [(2, 40, D)] and gate_routes == before
+        core(q_in, kv_in)
     core = core.to("meta")
     with torch.no_grad():
         out = core(q_in.to("meta"), kv_in.to("meta"))
-    assert out.shape == (2, 40, D)
-    assert gate_routes[route] == before[route] + 1
-    assert sum(gate_routes.values()) == sum(before.values()) + 1
-    assert len(calls) == (2 if route == "kernels" else 1)
+    assert out.shape == (2, Lq, D)
+    assert calls == ([(2, Lq, D)] * 2 if Lq >= 32 else [])
 
 
 def _params(rng, hidden, d):
@@ -105,9 +79,9 @@ def _params(rng, hidden, d):
 @pytest.mark.parametrize("H,dh,Lq,Lk", [(2, 64, 40, 300), (2, 32, 36, 50)])
 @pytest.mark.parametrize("fused", [True, False])
 def test_attention_core_matches_jax_pallas(rng, H, dh, Lq, Lk, fused):
-    """Past 256 keys (the card's float32 build routes it eager) and at head
-    width 32 (no build takes it), both of the port's paths match the JAX
-    AttentionCore on its Pallas kernel."""
+    """Past 256 keys (the float32 build's key blocks) and at head width 32
+    (the kernels raise on it on the card), both of the port's paths match
+    the JAX AttentionCore on its Pallas kernel."""
     D, B = 48, 2
     p = _params(rng, D, H * dh)
     q_in = rng.standard_normal((B, Lq, D)).astype(np.float32)

@@ -80,7 +80,8 @@ def _case(g, B, Lq, Lk, hb, linear, grad=False):
 @pytest.mark.parametrize("Lq,Lk,hb,linear", [
     (1, 1, None, True), (40, 40, 1, True), (70, 130, 1, False),
     (64, 256, 12, True), (33, 17, 12, False), (1, 200, 1, True),
-    (63, 255, None, False), (65, 200, 12, True), (130, 64, 1, True)])
+    (63, 255, None, False), (65, 200, 12, True), (130, 64, 1, True),
+    (40, 257, 1, True), (70, 300, 12, False), (33, 520, None, True)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_fused_qkv_mha_matches_plain(card, Lq, Lk, hb, linear, rate):
     args, seed = _case(card, 3, Lq, Lk, hb, linear)
@@ -96,7 +97,8 @@ def test_fused_qkv_mha_matches_plain(card, Lq, Lk, hb, linear, rate):
 
 @pytest.mark.parametrize("Lq,Lk,hb,linear", [
     (40, 40, None, True), (50, 50, 1, True), (70, 130, 1, False),
-    (33, 200, 12, True), (60, 60, 12, False)])
+    (33, 200, 12, True), (60, 60, 12, False), (40, 300, 1, True),
+    (33, 520, 12, False)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_backward_matches_plain_autograd(card, Lq, Lk, hb, linear, rate):
     args, seed = _case(card, 2, Lq, Lk, hb, linear, grad=True)
@@ -232,23 +234,28 @@ def test_forward_drops_what_the_plain_version_drops(card, Lq, Lk):
     torch.testing.assert_close(pd, pd_ref, atol=1e-4, rtol=1e-3)
 
 
-def test_fused_qkv_mha_refuses_long_keys(card):
-    """Past 256 keys the float32 build refuses the call (the fused gate
-    routes such a block to the eager path before any launch: `fused_route`,
-    tests/test_torch_fused_route.py); the bf16 build takes any Lk."""
+def test_fused_qkv_mha_takes_long_keys(card):
+    """Both builds take any key length (the float32 attention forward past
+    256 keys in key blocks); head width 64 and D % 32 == 0 only: anything
+    else raises on the card, with no fallback to the plain version."""
     x = torch.zeros(1, 4, 768, device="cuda")
     y = torch.zeros(1, 257, 768, device="cuda")
     w, b = torch.zeros(768, 768, device="cuda"), torch.zeros(768, device="cuda")
-    with pytest.raises(ValueError, match="Lk <="):
-        fused_qkv_mha(x, y, w, b, w, b, w, b, num_heads=12)
-    assert attention_mod.fused_route(257, 64, 768, torch.float32) == "eager"
-    bf = [t.to(torch.bfloat16) for t in (x, y, w, b)]
-    before = fused_qkv_mha.launches
-    out = fused_qkv_mha(bf[0], bf[1], bf[2], bf[3], bf[2], bf[3], bf[2],
-                        bf[3], num_heads=12)
-    torch.cuda.synchronize()
-    assert fused_qkv_mha.launches == before + 1
-    assert out.dtype == torch.bfloat16 and bool((out == 0).all())
+    for dt in (torch.float32, torch.bfloat16):
+        a = [t.to(dt) for t in (x, y, w, b)]
+        before = fused_qkv_mha.launches
+        out = fused_qkv_mha(a[0], a[1], a[2], a[3], a[2], a[3], a[2], a[3],
+                            num_heads=12)
+        torch.cuda.synchronize()
+        assert fused_qkv_mha.launches == before + 1
+        assert out.dtype == dt and bool((out == 0).all())
+    with pytest.raises(ValueError, match="head width"):
+        fused_qkv_mha(x, y, w, b, w, b, w, b, num_heads=24)
+    x2, y2 = torch.zeros(1, 4, 784, device="cuda"), \
+        torch.zeros(1, 40, 784, device="cuda")
+    w2, b2 = torch.zeros(784, 768, device="cuda"), b
+    with pytest.raises(ValueError, match="D % 32"):
+        fused_qkv_mha(x2, y2, w2, b2, w2, b2, w2, b2, num_heads=12)
 
 
 # the causal configuration's attention shapes: text cross-attention to the
@@ -294,7 +301,8 @@ def _mha_case(g, B, Lq, Lk, bias_kind):
 
 @pytest.mark.parametrize("Lq,Lk,bias_kind", [
     (16, 16, None), (24, 40, "key"), (12, 12, "full"), (50, 60, "key"),
-    (130, 256, "full"), (1, 200, "key"), (65, 63, None), (63, 255, "key")])
+    (130, 256, "full"), (1, 200, "key"), (65, 63, None), (63, 255, "key"),
+    (63, 300, "key"), (40, 520, "full")])
 def test_mha_matches_plain(card, Lq, Lk, bias_kind):
     args = _mha_case(card, 3, Lq, Lk, bias_kind)
     before = mha.launches
@@ -332,23 +340,21 @@ def test_mha_reads_transposed_views(card, Lk):
 
 
 def test_mha_refuses_what_it_does_not_take(card):
-    """Head width 64 only; past 256 keys float32 only refuses (the bf16
-    build takes any Lk); float16 and mixed dtypes are refused."""
+    """Head width 64 only; float16 and mixed dtypes are refused; both
+    builds take any Lk."""
     q = torch.zeros(1, 4, H, 32, device="cuda")
     with pytest.raises(ValueError, match="head width"):
         mha(q, q, q)
     q = torch.zeros(1, 4, H, 64, device="cuda")
     k = torch.zeros(1, 257, H, 64, device="cuda")
-    with pytest.raises(ValueError, match="Lk <="):
-        mha(q, k, k)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         mha(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="like q"):
         mha(q.to(torch.bfloat16), k, k)
-    out = mha(q.to(torch.bfloat16), k.to(torch.bfloat16),
-              k.to(torch.bfloat16))
-    torch.cuda.synchronize()
-    assert out.dtype == torch.bfloat16 and bool((out == 0).all())
+    for dt in (torch.float32, torch.bfloat16):
+        out = mha(q.to(dt), k.to(dt), k.to(dt))
+        torch.cuda.synchronize()
+        assert out.dtype == dt and bool((out == 0).all())
 
 
 def _operand(g, rows, cols, how):
@@ -697,8 +703,7 @@ def test_kernels_refuse_mixed_dtypes(card):
                       num_heads=H)
 
 
-# key lengths on both sides of one 64-key tile and of the float32 build's
-# 256 keys, which the bf16 cores take (any Lk)
+# key lengths on both sides of one 64-key tile and of 256 keys
 LONG_KEYS = [64, 65, 256, 257, 300, 520]
 
 
@@ -769,6 +774,39 @@ def test_mha_bf16_matches_float64(card, Lq, Lk, bias_kind):
     ref = mha_plain(*(None if a is None else a.double()
                       for a in (q, k, v, bias)))
     _assert_bf16_gate(out, mha_plain(q, k, v, bias), ref)
+
+
+def _rounding_excess(out, q, k, v, bias):
+    """|out - ref| over one output rounding of the float64 function plus
+    2^-14 of sum_k p |v| (chip_smoke.py `mha_rounding_excess`), largest."""
+    q, k, v = (t.double() for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * 64 ** -0.5
+    if bias is not None:
+        s = s + bias.double()
+    p = torch.softmax(s, dim=-1)
+    ref = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(out.shape)
+    mag = torch.einsum("bhqk,bkhd->bqhd", p, v.abs()).reshape(out.shape)
+    return float(((out.double() - ref).abs()
+                  / (2.0 ** -8 * ref.abs() + 2.0 ** -14 * mag)).max())
+
+
+@pytest.mark.parametrize("Lq,Lk,bias_kind", [
+    (24, 40, "key"), (50, 60, "key"), (40, 520, "full")])
+def test_mha_bf16_rounds_once(card, Lq, Lk, bias_kind):
+    """The bf16 K3 is one output rounding of float64, as the TPU kernel
+    (p in float32); its control with p v on one bf16 rounding of p
+    (`mha_fwd_bf16_one_term`) is not."""
+    q, k, v, bias = _mha_case(card, 3, Lq, Lk, bias_kind)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    assert _rounding_excess(mha(q, k, v, bias), q, k, v, bias) <= 1
+    b4 = bias.expand(3, H, Lq, Lk)
+    out = torch.empty(3, Lq, H * 64, device="cuda", dtype=torch.bfloat16)
+    rc = attention_mod._mha_lib().mha_fwd_bf16_one_term(
+        q.data_ptr(), *q.stride(), k.data_ptr(), *k.stride(), v.data_ptr(),
+        *v.stride(), b4.data_ptr(), *b4.stride(), out.data_ptr(), 3, Lq, Lk,
+        H, 64 ** -0.5, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    assert _rounding_excess(out, q, k, v, bias) > 1
 
 
 def test_mha_bf16_reads_transposed_views(card):

@@ -29,7 +29,7 @@ from torch.nn import functional as F
 
 from ..config import GoatConfig
 from ..ops.activations import ACT2FN
-from ..ops.attention import fused_qkv_mha, fused_route, gate_routes
+from ..ops.attention import fused_qkv_mha
 from ..ops.dropout import Dropout
 from ..ops.masks import extend_neg_masks
 
@@ -127,24 +127,9 @@ class AttentionCore(nn.Module):
         """K/V projections alone (the hoisted text cache)."""
         return self.key(kv_in), self.value(kv_in)
 
-    def kernels_take(self, q_in, kv_in) -> bool:
-        """Whether the fused kernels take this call: always for CPU tensors
-        (their plain version takes any shape); on the card as
-        `fused_route` decides from the shape, counted in `gate_routes`.  A
-        shape no build takes (a head width other than 64, a width not a
-        multiple of 32, float32 past 256 keys) goes to the eager path,
-        which computes the same function."""
-        if q_in.device.type == "cpu":
-            return True
-        route = fused_route(kv_in.shape[1], self.head_dim, q_in.shape[-1],
-                            self.compute_dtype or q_in.dtype)
-        gate_routes[route] += 1
-        return route == "kernels"
-
     def forward(self, q_in, kv_in, bias=None, kv_cache=None):
         if (self.use_fused and kv_cache is None
-                and q_in.shape[1] >= self.min_lq
-                and self.kernels_take(q_in, kv_in)):
+                and q_in.shape[1] >= self.min_lq):
             drop = self.prob_dropout
             rate = drop.rate if drop.training else 0.0
             seed = None

@@ -28,9 +28,9 @@ their launches by load route); scores, softmax, dropout and the score
 gradients in float32; q, k, v, p, ds and the projection gradients
 rounded to bf16 where the JAX kernel casts them; outputs and gradients in
 their input's dtype.  x, y, the weights and biases of one call share one
-dtype; a mix raises.  On the card the float32 build takes at most 256
-keys, and both take head width 64 and D % 32 == 0: `fused_route` is the
-fused gate's decision by shape (models/layers.py), before any launch.
+dtype; a mix raises.  On the card both builds take any Lk (the float32
+attention forward past 256 keys in key blocks with an online softmax),
+head width 64 and D % 32 == 0, and raise on any other shape.
 
 On a CUDA tensor `fused_qkv_mha` runs `FusedQKVMHA`, an autograd Function
 whose forward launches the forward kernel and whose backward launches the
@@ -61,32 +61,6 @@ from . import _build
 from .bwd_plan import (CHUNK, JOB_IDS, TILE_K, TILE_K_BF16, TILE_M, TILE_N,
                        TILE_N_BF16, proj_plan, split_depth)
 from .dropout import keep_mask, keep_threshold
-
-
-# What the card's builds of the fused kernels take (the C headers' numbers,
-# which tests/test_torch_fused_route.py reads): head width 64, a model
-# width that is a multiple of 32, and in float32 at most 256 keys
-# (csrc/attn_fwd.cuh MAX_LK; the bf16 cores take any Lk).
-KERNEL_HEAD_DIM = 64
-KERNEL_D_MULTIPLE = 32
-F32_MAX_LK = 256
-# decisions of the fused gate on the card (`models/layers.py`
-# AttentionCore), by `fused_route`: "kernels", or "eager" for a shape that
-# no build of the kernels takes
-gate_routes = {"kernels": 0, "eager": 0}
-
-
-def fused_route(Lk: int, dh: int, D: int, dtype: torch.dtype) -> str:
-    """Where the fused gate sends a query block on the card, from its
-    shape alone, before any launch: "kernels" if a build of the fused
-    kernels takes it, else "eager", the eager path, which computes the same
-    function.  The JAX gate sends every such block to its Pallas kernel,
-    which takes any shape (vln_goat_tpu/models/layers.py:113-136); the
-    plain version takes any shape too, so on the CPU the gate never asks."""
-    takes = (dtype in _SUFFIX and dh == KERNEL_HEAD_DIM
-             and D % KERNEL_D_MULTIPLE == 0
-             and (dtype == torch.bfloat16 or Lk <= F32_MAX_LK))
-    return "kernels" if takes else "eager"
 
 
 def _split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -206,8 +180,12 @@ def _fwd_lib() -> ctypes.CDLL:
             fn.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3 + [_VP] + [_I] * 5
                            + [_VP])
             fn.restype = _I
+        # the bf16 attention core alone, for timing it (chip_smoke.py)
+        lib.fused_qkv_mha_attn_bf16.argtypes = (
+            [_VP, _VP, _LL, _LL, _LL, _LL, _VP] + [_I] * 4
+            + [_F, _VP, _U, _F, _VP])
+        lib.fused_qkv_mha_attn_bf16.restype = _I
         lib.fused_qkv_mha_head_dim.restype = _I
-        lib.fused_qkv_mha_max_lk.restype = _I
         lib.fused_qkv_mha_bf16_route.restype = _I
         lib.fused_qkv_mha_attn_route.restype = _I
     return lib
@@ -234,8 +212,12 @@ def _bwd_lib() -> ctypes.CDLL:
             fg.restype = _I
         lib.fused_qkv_mha_bwd_smem.argtypes = [_VP]
         lib.fused_qkv_mha_bwd_smem.restype = None
+        # (a)'s bf16 attention core alone, for timing it (chip_smoke.py)
+        lib.fused_qkv_mha_bwd_core_bf16.argtypes = (
+            [_VP, _VP] + [_LL] * 4 + [_VP, _U, _F] + [_VP] * 7 + [_I] * 4
+            + [_F, _VP])
+        lib.fused_qkv_mha_bwd_core_bf16.restype = _I
         lib.fused_qkv_mha_bwd_head_dim.restype = _I
-        lib.fused_qkv_mha_bwd_max_lk.restype = _I
         lib.fused_qkv_mha_bwd_bf16_route.restype = _I
         lib.fused_qkv_mha_bwd_attn_route.restype = _I
         lib.fused_qkv_mha_bwd_tile.argtypes = [_VP]
@@ -272,13 +254,13 @@ def _ints(ctype, values):
 def _mha_lib() -> ctypes.CDLL:
     lib = _build.load("mha")
     if lib.mha_fwd.argtypes is None:
-        for fn in (lib.mha_fwd, lib.mha_fwd_bf16):
+        # mha_fwd_bf16_one_term: the control of chip_smoke.py's check
+        for fn in (lib.mha_fwd, lib.mha_fwd_bf16, lib.mha_fwd_bf16_one_term):
             fn.argtypes = ([_VP, _LL, _LL, _LL, _LL] * 3
                            + [_VP, _LL, _LL, _LL, _LL, _VP] + [_I] * 4
                            + [_F, _VP])
             fn.restype = _I
         lib.mha_head_dim.restype = _I
-        lib.mha_max_lk.restype = _I
         lib.mha_attn_route.restype = _I
     return lib
 
@@ -290,9 +272,9 @@ def mha(q, k, v, bias=None):
     in float32.  Forward only (no autograd), as the TPU kernel has no VJP.
 
     On the card the kernel reads q, k, v and the bias through their
-    strides; it takes head width 64, and Lk up to 256 in float32 (any in
-    bf16, on the Hopper core, whose launches count in `attn_core_routes`),
-    and raises on anything else."""
+    strides; it takes head width 64 and any Lk (in bf16 on the Hopper
+    core, whose launches count in `attn_core_routes`), and raises on
+    anything else."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, bias)
     dev = q.device
@@ -317,9 +299,6 @@ def mha(q, k, v, bias=None):
     if dh != lib.mha_head_dim():
         raise ValueError(f"the kernel is built for head width "
                          f"{lib.mha_head_dim()}, got {dh}")
-    if dtype == torch.float32 and Lk > lib.mha_max_lk():
-        raise ValueError(f"the float32 kernel takes Lk <= "
-                         f"{lib.mha_max_lk()}, got {Lk}")
     bias4, bst = None, (0, 0, 0, 0)
     if bias is not None:
         if bias.device != dev:
@@ -363,8 +342,7 @@ class _Call:
     the card, shared by the forward and the backward launches."""
 
     def __init__(self, x, y, wq, bq, wk, bk, wv, bv, bias, seed,
-                 num_heads: int, dropout_rate: float, lib, head_dim: int,
-                 max_lk: int):
+                 num_heads: int, dropout_rate: float, lib, head_dim: int):
         dev = x.device
         if dev.type != "cuda":
             raise ValueError(f"fused_qkv_mha kernels: unsupported device "
@@ -392,11 +370,8 @@ class _Call:
         if dh != head_dim:
             raise ValueError(f"the kernel is built for head width "
                              f"{head_dim}, got {dh}")
-        if (dtype == torch.float32 and Lk > max_lk) or \
-                D % KERNEL_D_MULTIPLE:
-            raise ValueError(f"the kernels take D % 32 == 0, and Lk <= "
-                             f"{max_lk} in float32, got Lk={Lk}, D={D}, "
-                             f"{dtype}")
+        if D % 32:
+            raise ValueError(f"the kernels take D % 32 == 0, got D={D}")
         if not 0.0 <= dropout_rate < 1.0:
             raise ValueError(f"dropout_rate {dropout_rate} not in [0, 1)")
 
@@ -458,16 +433,14 @@ def _fwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
               dropout_rate) -> _Call:
     lib = _fwd_lib()
     return _Call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
-                 dropout_rate, lib, lib.fused_qkv_mha_head_dim(),
-                 lib.fused_qkv_mha_max_lk())
+                 dropout_rate, lib, lib.fused_qkv_mha_head_dim())
 
 
 def _bwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
               dropout_rate) -> _Call:
     lib = _bwd_lib()
     return _Call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
-                 dropout_rate, lib, lib.fused_qkv_mha_bwd_head_dim(),
-                 lib.fused_qkv_mha_bwd_max_lk())
+                 dropout_rate, lib, lib.fused_qkv_mha_bwd_head_dim())
 
 
 def forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias=None,

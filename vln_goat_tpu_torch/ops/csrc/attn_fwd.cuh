@@ -16,21 +16,25 @@
 // dimension, null for none); out is [B, Lq, H*dh] contiguous.
 //
 // One block per (batch row, head), 256 threads.  The block stages the
-// head's K and V once (cp.async, rows past Lk zero-filled) and walks its
-// query tiles of 64 rows.  Per tile: s = q k^T on mma.sync m16n8k8
-// fragments (gemm_tf32x3.cuh `warp_mma_16x32`, each of 8 warps a 16 x 32
-// piece of every 64-key chunk) into a 64 x Lk score
-// tile in shared memory; four threads per row take the max, the
-// exponentials, the sum and the keep mask of dropout_hash.cuh at each
-// (q, k), in the plain version's order of operations; then out = p v on
-// fragments, the 64-key chunks added into one accumulator.  The whole
-// score row stays in shared memory (no online max and sum): up to
-// Lk = 256 the head's K, V, a query tile and the 64 x 256 score tile fit
-// in one block's 227 KB, the softmax needs no rescaling, and the only
-// shapes past 64 keys are decode's (text200, batch 8: 96 blocks, one per
-// SM anyway).  Shared memory: 70 KB at Lk <= 64 (every train
-// shape), so three blocks share an SM (at most 85 registers a thread),
-// 222 KB at Lk = 256.
+// head's keys and values in blocks of up to KB = 256 (cp.async, rows past
+// Lk zero-filled) and walks its query tiles of 64 rows.  Per tile and key
+// block: s = q k^T on mma.sync m16n8k8 fragments (gemm_tf32x3.cuh
+// `warp_mma_16x32`, each of 8 warps a 16 x 32 piece of every 64-key
+// chunk) into a 64 x 256 score tile in shared memory; four threads per
+// row take the max, the exponentials, the sum and the keep mask of
+// dropout_hash.cuh at each (q, k); then out += p v on fragments, the
+// 64-key chunks added into one accumulator.
+// - Up to 256 keys (one key block: every train and decode shape) the
+//   whole score row is in the tile, so the softmax is the plain version's
+//   order of operations: p = exp(s - max) / sum, then the keep mask.  The
+//   head's K and V are staged once for all its query tiles.
+// - Past 256 keys the row's max m and sum l run over the key blocks (the
+//   online softmax): a block's p = exp(s - m) unnormalised, the
+//   accumulator rescaled by exp(m_old - m_new) before the block's p v, and
+//   divided by l after the last block.  K and V are staged block by block
+//   for each query tile.
+// Shared memory: 71 KB at Lk <= 64 (every train shape), so three blocks
+// share an SM (at most 85 registers a thread), 222 KB from Lk = 256 on.
 // Row strides 68 for q and k (read along rows by the fragments), 72 for v
 // (read along columns), 4 past a multiple of 64 for the scores: no bank
 // conflicts in the fragment reads.
@@ -51,7 +55,7 @@ constexpr int DH = 64;          // head width the kernel is written for
 constexpr int TQ = 64;          // query rows per tile
 constexpr int KC = 64;          // keys per chunk of the products
 constexpr int THREADS = 256;     // 8 warps; four threads per query row
-constexpr int MAX_LK = 256;
+constexpr int KB = 256;          // keys per block of the score tile
 constexpr int LDQ = DH + 4;     // row stride of q and k in shared memory
 constexpr int LDV = DH + 8;     // row stride of v
 static_assert(THREADS == 4 * TQ, "the softmax takes four threads a row");
@@ -79,14 +83,17 @@ struct Args {
   float scale;
 };
 
-__host__ __device__ inline int lk_padded(int Lk) {
-  return ((Lk + KC - 1) / KC) * KC;
+// keys of the staged block, padded to whole chunks: all of them up to KB
+__host__ __device__ inline int block_padded(int Lk) {
+  return (((Lk < KB ? Lk : KB) + KC - 1) / KC) * KC;
 }
 
+// K, V, a query tile, the score tile, and per row the rescale factor and
+// the sum's inverse of the online softmax
 __host__ inline size_t smem_bytes(int Lk) {
-  const int lp = lk_padded(Lk);
-  return sizeof(float) * ((size_t)lp * (LDQ + LDV) + (size_t)TQ * LDQ +
-                           (size_t)TQ * (lp + 4));
+  const int bp = block_padded(Lk);
+  return sizeof(float) * ((size_t)bp * (LDQ + LDV) + (size_t)TQ * LDQ +
+                           (size_t)TQ * (bp + 4) + 2 * (size_t)TQ);
 }
 
 // s[r * ld + c] = base[(r0 + r) sl + c sd] for r < rows, c < DH; rows at
@@ -116,11 +123,14 @@ __global__ void __launch_bounds__(THREADS, 3) attn_fwd_kernel(const Args A) {
   extern __shared__ __align__(16) unsigned char attn_smem[];
   const int b = blockIdx.x, h = blockIdx.y;
   const int Lq = A.Lq, Lk = A.Lk;
-  const int lp = lk_padded(Lk), ldp = lp + 4;
-  float* Ks = reinterpret_cast<float*>(attn_smem);   // [lp][LDQ]
-  float* Vs = Ks + lp * LDQ;                         // [lp][LDV]
-  float* Qs = Vs + lp * LDV;                         // [TQ][LDQ]
+  const int bp = block_padded(Lk), ldp = bp + 4;
+  const int nblk = (Lk + KB - 1) / KB;
+  float* Ks = reinterpret_cast<float*>(attn_smem);   // [bp][LDQ]
+  float* Vs = Ks + bp * LDQ;                         // [bp][LDV]
+  float* Qs = Vs + bp * LDV;                         // [TQ][LDQ]
   float* Ps = Qs + TQ * LDQ;                         // [TQ][ldp]
+  float* Al = Ps + TQ * ldp;                         // [TQ] rescale factor
+  float* Li = Al + TQ;                               // [TQ] 1 / sum
 
   const float* qb = A.q + (long long)b * A.qs.b + (long long)h * A.qs.h;
   const float* kb = A.k + (long long)b * A.ks.b + (long long)h * A.ks.h;
@@ -135,93 +145,134 @@ __global__ void __launch_bounds__(THREADS, 3) attn_fwd_kernel(const Args A) {
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
 
-  load_rows(Ks, LDQ, kb, A.ks.l, A.ks.d, 0, lp, Lk);
-  load_rows(Vs, LDV, vb, A.vs.l, A.vs.d, 0, lp, Lk);
+  if (nblk == 1) {
+    load_rows(Ks, LDQ, kb, A.ks.l, A.ks.d, 0, bp, Lk);
+    load_rows(Vs, LDV, vb, A.vs.l, A.vs.d, 0, bp, Lk);
+  }
   for (int q0 = 0; q0 < Lq; q0 += TQ) {
-    __syncthreads();      // the last tile's reads of Qs and Ps are done
+    __syncthreads();      // the last tile's reads of Qs, Ks, Vs, Ps are done
     load_rows(Qs, LDQ, qb, A.qs.l, A.qs.d, q0, TQ, Lq);
-    tf32x3::cp_async_commit();
-    tf32x3::cp_async_wait<0>();
-    __syncthreads();
-
-    // raw scores q k^T, one 64-key chunk at a time
-    for (int c0 = 0; c0 < lp; c0 += KC) {
-      float acc[4][4] = {};
-      const float* kc = Ks + c0 * LDQ;
-      warp_mma_16x32(
-          acc, [Qs](int r, int c) { return Qs[r * LDQ + c]; },
-          [kc](int c, int n) { return kc[n * LDQ + c]; }, wm, wn);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; e += 2) {
-          const int r = wm + g + (e >= 2 ? 8 : 0);
-          const int c = c0 + wn + 8 * ni + 2 * t;
-          *reinterpret_cast<float2*>(Ps + r * ldp + c) =
-              make_float2(acc[ni][e], acc[ni][e + 1]);
-        }
-    }
-    __syncthreads();
-
-    // four threads per row, each taking every fourth key: scale, bias,
-    // softmax (max and sum over the four by shuffles), keep mask; zeros
-    // past Lk and in rows past Lq, so the product below adds nothing for
-    // them.  Every row of the tile at once, so the latency of the loads,
-    // shuffles and exponentials of one row hides behind the others'.
-    {
-      const int r = tid / 4, part = tid % 4, qi = q0 + r;
-      const int nk = qi < Lq ? Lk : 0;    // keys this row takes
-      float* prow = Ps + r * ldp;
-      const float* brow = bias_bh != nullptr
-          ? bias_bh + (long long)qi * A.sq : nullptr;
-      float m = -INFINITY;
-      for (int j = part; j < nk; j += 4) {
-        float v = prow[j] * A.scale;
-        if (brow != nullptr) v += brow[(long long)j * A.sk];
-        prow[j] = v;
-        m = fmaxf(m, v);
-      }
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-      float sum = 0.f;
-      for (int j = part; j < nk; j += 4) {
-        const float e = expf(prow[j] - m);
-        prow[j] = e;
-        sum += e;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      for (int j = part; j < lp; j += 4) {
-        float p = 0.f;
-        if (j < nk) {
-          p = prow[j] / sum;
-          if (A.seeds != nullptr)
-            p = dropout_bits(seed, b, h, qi, j) >= A.thresh ? p * A.inv_keep
-                                                            : 0.f;
-        }
-        prow[j] = p;
-      }
-    }
-    __syncthreads();
-
-    // out tile = p v, the key chunks added in order into one accumulator
+    // the softmax threads' row (four a row) and its running max and sum
+    const int r = tid / 4, part = tid % 4, qi = q0 + r;
+    float m_run = -INFINITY, l_run = 0.f;
     float acc[4][4] = {};
-    for (int c0 = 0; c0 < lp; c0 += KC) {
-      const float* pc = Ps + c0;
-      const float* vc = Vs + c0 * LDV;
-      warp_mma_16x32(
-          acc, [pc, ldp](int r, int c) { return pc[r * ldp + c]; },
-          [vc](int c, int n) { return vc[c * LDV + n]; }, wm, wn);
+    for (int kb0 = 0; kb0 < Lk; kb0 += KB) {
+      const int nb = min(KB, Lk - kb0);   // keys of this block
+      if (nblk > 1) {
+        if (kb0 > 0) __syncthreads();     // the last block's p v is done
+        load_rows(Ks, LDQ, kb, A.ks.l, A.ks.d, kb0, bp, Lk);
+        load_rows(Vs, LDV, vb, A.vs.l, A.vs.d, kb0, bp, Lk);
+      }
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<0>();
+      __syncthreads();
+
+      // raw scores q k^T, one 64-key chunk at a time
+      for (int c0 = 0; c0 < bp; c0 += KC) {
+        float sa[4][4] = {};
+        const float* kc = Ks + c0 * LDQ;
+        warp_mma_16x32(
+            sa, [Qs](int rr, int c) { return Qs[rr * LDQ + c]; },
+            [kc](int c, int n) { return kc[n * LDQ + c]; }, wm, wn);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const int rr = wm + g + (e >= 2 ? 8 : 0);
+            const int c = c0 + wn + 8 * ni + 2 * t;
+            *reinterpret_cast<float2*>(Ps + rr * ldp + c) =
+                make_float2(sa[ni][e], sa[ni][e + 1]);
+          }
+      }
+      __syncthreads();
+
+      // four threads per row, each taking every fourth key: scale, bias,
+      // softmax (max and sum over the four by shuffles), keep mask; zeros
+      // past the block's keys and in rows past Lq, so the product below
+      // adds nothing for them.  Every row of the tile at once, so the
+      // latency of the loads, shuffles and exponentials of one row hides
+      // behind the others'.
+      {
+        const int nk = qi < Lq ? nb : 0;    // keys this row takes
+        float* prow = Ps + r * ldp;
+        const float* brow = bias_bh != nullptr
+            ? bias_bh + (long long)qi * A.sq + (long long)kb0 * A.sk
+            : nullptr;
+        float m = -INFINITY;
+        for (int j = part; j < nk; j += 4) {
+          float v = prow[j] * A.scale;
+          if (brow != nullptr) v += brow[(long long)j * A.sk];
+          prow[j] = v;
+          m = fmaxf(m, v);
+        }
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        // one block: the max of the whole row.  Several: the running max,
+        // the factor that rescales what was summed before (a row that is
+        // -inf so far keeps a 0 sum and no NaN)
+        float norm = 1.f;
+        if (nblk > 1) {
+          const float m_new = fmaxf(m_run, m);
+          m = m_new == -INFINITY ? 0.f : m_new;
+          const float alpha = m_run == -INFINITY ? 0.f : expf(m_run - m);
+          m_run = m_new;
+          l_run *= alpha;
+          if (part == 0) Al[r] = alpha;
+        }
+        float sum = 0.f;
+        for (int j = part; j < nk; j += 4) {
+          const float e = expf(prow[j] - m);
+          prow[j] = e;
+          sum += e;
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (nblk == 1) {
+          norm = sum;
+        } else {
+          l_run += sum;
+          if (part == 0 && kb0 + KB >= Lk) Li[r] = 1.f / l_run;
+        }
+        for (int j = part; j < bp; j += 4) {
+          float p = 0.f;
+          if (j < nk) {
+            p = nblk == 1 ? prow[j] / norm : prow[j];
+            if (A.seeds != nullptr)
+              p = dropout_bits(seed, b, h, qi, kb0 + j) >= A.thresh
+                  ? p * A.inv_keep : 0.f;
+          }
+          prow[j] = p;
+        }
+      }
+      __syncthreads();
+
+      // past the first key block, the output so far rescaled to the new
+      // max; then out += p v, the key chunks added in order
+      if (kb0 > 0) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[ni][e] *= Al[wm + g + (e >= 2 ? 8 : 0)];
+      }
+      for (int c0 = 0; c0 < bp; c0 += KC) {
+        const float* pc = Ps + c0;
+        const float* vc = Vs + c0 * LDV;
+        warp_mma_16x32(
+            acc, [pc, ldp](int rr, int c) { return pc[rr * ldp + c]; },
+            [vc](int c, int n) { return vc[c * LDV + n]; }, wm, wn);
+      }
     }
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; e += 2) {
-        const int qi = q0 + wm + g + (e >= 2 ? 8 : 0);
+        const int rr = wm + g + (e >= 2 ? 8 : 0), qo = q0 + rr;
         const int col = wn + 8 * ni + 2 * t;
-        if (qi < Lq)
-          *reinterpret_cast<float2*>(ob + (long long)qi * HD + col) =
-              make_float2(acc[ni][e], acc[ni][e + 1]);
+        const float f = nblk > 1 ? Li[rr] : 1.f;
+        if (qo < Lq)
+          *reinterpret_cast<float2*>(ob + (long long)qo * HD + col) =
+              make_float2(acc[ni][e] * f, acc[ni][e + 1] * f);
       }
   }
 }
@@ -230,12 +281,11 @@ __global__ void __launch_bounds__(THREADS, 3) attn_fwd_kernel(const Args A) {
 // cudaGetLastError(); shapes it does not take return cudaErrorInvalidValue
 // without launching.
 inline int launch(const Args& A, int B, cudaStream_t stream) {
-  if (B < 1 || A.Lq < 1 || A.Lk < 1 || A.Lk > MAX_LK || A.H < 1 ||
-      A.H > 65535)
+  if (B < 1 || A.Lq < 1 || A.Lk < 1 || A.H < 1 || A.H > 65535)
     return (int)cudaErrorInvalidValue;
-  // at the largest Lk's size, once per device
+  // at the largest block's size, once per device
   const cudaError_t e =
-      tf32x3::smem_limit<attn_fwd_kernel>((int)smem_bytes(MAX_LK));
+      tf32x3::smem_limit<attn_fwd_kernel>((int)smem_bytes(KB));
   if (e != cudaSuccess) return (int)e;
   attn_fwd_kernel<<<dim3(B, A.H), THREADS, smem_bytes(A.Lk), stream>>>(A);
   return (int)cudaGetLastError();

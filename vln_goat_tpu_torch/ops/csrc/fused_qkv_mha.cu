@@ -36,8 +36,9 @@
 //      tiles.  The forward saves nothing for the backward, which
 //      recomputes, as the JAX kernel does (`_fa_bwd_kernel` :200).
 //   2. The attention over that scratch, attn_fwd.cuh: one block per (batch
-//      row, head), K and V staged once per head, both products on 3xTF32
-//      mma.sync fragments.
+//      row, head), K and V staged once per head up to 256 keys (in blocks
+//      of 256 with an online softmax past that, so any Lk), both products
+//      on 3xTF32 mma.sync fragments.
 //
 // bf16 (the JAX package's bf16 model, whose kernel takes bf16 operands and
 // sums in float32: `_bdot(..., dt=x.dtype)` :120-137): the `_bf16` entries
@@ -87,28 +88,19 @@ int proj(const void* x, const void* y, const void* wq, long long wq_sd,
   return qkv_proj::launch_jobs(J, (cudaStream_t)stream);
 }
 
-template <class Core>
-int fwd(const void* x, const void* y, const void* wq, long long wq_sd,
-        long long wq_so, const void* bq, const void* wk, long long wk_sd,
-        long long wk_so, const void* bk, const void* wv, long long wv_sd,
-        long long wv_so, const void* bv, const void* bias, long long sb,
-        long long sh, long long sq, long long sk, void* out, void* qkv,
-        int B, int Lq, int Lk, int D, int H, float scale, const void* seeds,
-        unsigned int thresh, float inv_keep, void* stream) {
-  using T = typename Core::T;
-  constexpr bool BF16 = sizeof(T) == 2;
-  if (B < 1 || Lq < 1 || Lk < 1 || (!BF16 && Lk > attn_fwd::MAX_LK) ||
-      H < 1 || D < 1)
-    return (int)cudaErrorInvalidValue;
+// The attention over a projection scratch laid out as fwd's (q, then k
+// and v) into out.
+template <class T>
+int attend(const void* qkv, const void* bias, long long sb, long long sh,
+           long long sq, long long sk, void* out, int B, int Lq, int Lk,
+           int H, float scale, const void* seeds, unsigned int thresh,
+           float inv_keep, cudaStream_t stream) {
+  if (B < 1 || Lq < 1 || Lk < 1 || H < 1) return (int)cudaErrorInvalidValue;
   const int HD = H * attn_fwd::DH;
-  const int rc = proj<Core>(x, y, wq, wq_sd, wq_so, bq, wk, wk_sd, wk_so, bk,
-                            wv, wv_sd, wv_so, bv, qkv, B, Lq, Lk, D, H,
-                            stream);
-  if (rc != 0) return rc;
-  T* qs = (T*)qkv;
-  T* ks = qs + (long long)B * Lq * HD;
-  T* vs = ks + (long long)B * Lk * HD;
-  if constexpr (BF16) {
+  const T* qs = (const T*)qkv;
+  const T* ks = qs + (long long)B * Lq * HD;
+  const T* vs = ks + (long long)B * Lk * HD;
+  if constexpr (sizeof(T) == 2) {
     // the Hopper core, over the scratch as [B, L, H, dh] heads
     attn_fwd_sm90::Params<T> P;
     P.q = {qs, (long long)Lq * HD, HD, attn_fwd::DH, 1, Lq};
@@ -125,7 +117,7 @@ int fwd(const void* x, const void* y, const void* wq, long long wq_sd,
     P.out = (T*)out;
     P.H = H;
     P.scale = scale;
-    return attn_fwd_sm90::launch<T, false>(P, B, (cudaStream_t)stream);
+    return attn_fwd_sm90::launch<T, false>(P, B, stream);
   } else {
     attn_fwd::Args A;
     A.q = qs;
@@ -147,8 +139,25 @@ int fwd(const void* x, const void* y, const void* wq, long long wq_sd,
     A.Lk = Lk;
     A.H = H;
     A.scale = scale;
-    return attn_fwd::launch(A, B, (cudaStream_t)stream);
+    return attn_fwd::launch(A, B, stream);
   }
+}
+
+template <class Core>
+int fwd(const void* x, const void* y, const void* wq, long long wq_sd,
+        long long wq_so, const void* bq, const void* wk, long long wk_sd,
+        long long wk_so, const void* bk, const void* wv, long long wv_sd,
+        long long wv_so, const void* bv, const void* bias, long long sb,
+        long long sh, long long sq, long long sk, void* out, void* qkv,
+        int B, int Lq, int Lk, int D, int H, float scale, const void* seeds,
+        unsigned int thresh, float inv_keep, void* stream) {
+  const int rc = proj<Core>(x, y, wq, wq_sd, wq_so, bq, wk, wk_sd, wk_so, bk,
+                            wv, wv_sd, wv_so, bv, qkv, B, Lq, Lk, D, H,
+                            stream);
+  if (rc != 0) return rc;
+  return attend<typename Core::T>(qkv, bias, sb, sh, sq, sk, out, B, Lq, Lk,
+                                  H, scale, seeds, thresh, inv_keep,
+                                  (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -198,15 +207,27 @@ int fused_qkv_mha_fwd(FWD_ARGS) {
 
 int fused_qkv_mha_fwd_bf16(FWD_ARGS) { return fwd<qkv_proj::Bf16>(FWD_NAMES); }
 
+// The bf16 forward's second launch alone (the attention core of
+// attn_fwd_sm90.cuh over a scratch that fused_qkv_mha_proj_bf16 filled):
+// exported for timing the core apart from the projection; the wrapper
+// calls the whole forward.  Arguments as fused_qkv_mha_fwd_bf16's.
+int fused_qkv_mha_attn_bf16(const void* qkv, const void* bias, long long sb,
+                            long long sh, long long sq, long long sk,
+                            void* out, int B, int Lq, int Lk, int H,
+                            float scale, const void* seeds,
+                            unsigned int thresh, float inv_keep,
+                            void* stream) {
+  return attend<attn_sm90::bf16>(qkv, bias, sb, sh, sq, sk, out, B, Lq, Lk,
+                                 H, scale, seeds, thresh, inv_keep,
+                                 (cudaStream_t)stream);
+}
+
 // Head width the kernel is compiled for, so the wrapper can check it.
 int fused_qkv_mha_head_dim(void) { return attn_fwd::DH; }
 
 // The route of this library's last bf16 projection launch: 1 every operand
 // by TMA, 0 at least one loaded directly, -1 no launch yet.
 int fused_qkv_mha_bf16_route(void) { return gemm_bf16::last_route(); }
-
-// Largest key length the float32 build takes (the bf16 build takes any).
-int fused_qkv_mha_max_lk(void) { return attn_fwd::MAX_LK; }
 
 // The route of this library's last bf16 attention launch
 // (attn_fwd_sm90.cuh): 1 q, k and v by TMA, 0 loaded directly, -1 none yet.

@@ -51,8 +51,8 @@
 //      from the tile itself; with more, a first sweep over the chunks keeps
 //      each row's running max, sum and rowsum(dp * p) online and leaves them
 //      in a small scratch [B, H, Lq, 3], and dq is added chunk after chunk
-//      by the one block that owns it.  Shared memory: 105 KB, two blocks
-//      per SM.
+//      by the one block that owns it; so it takes any Lk.  Shared memory:
+//      105 KB, two blocks per SM.
 // (b) projection backward, two kernels per call:
 //   1. one GEMM launch over a table of jobs whose order and depth split the
 //      wrapper plans (ops/bwd_plan.py `proj_plan`): dx = dq Wq^T, dy as one
@@ -111,7 +111,6 @@ constexpr int KC = 64;          // keys per chunk in (a)
 constexpr int TQ = 64;          // query rows per tile in (a)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_LK = 256;
 constexpr int LDS = DH + 4;     // row stride of the (a) float tiles
 // (a)'s float32 build: the K, V, Q and dO tiles and the two score tiles
 constexpr size_t ATTN_SMEM_BYTES = 6 * TQ * LDS * sizeof(float);
@@ -440,35 +439,22 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
 
 namespace {
 
-template <class Core>
-int bwd_attn(const void* x, const void* y, const void* wq, long long wq_sd,
-             long long wq_so, const void* bq, const void* wk, long long wk_sd,
-             long long wk_so, const void* bk, const void* wv, long long wv_sd,
-             long long wv_so, const void* bv, const void* bias, long long sb,
-             long long sh, long long sq, long long sk, const void* seeds,
+// The attention backward over a recompute scratch laid out as bwd_attn's
+// (q, then k and v).
+template <class T>
+int bwd_core(const void* qkv, const void* bias, long long sb, long long sh,
+             long long sq, long long sk, const void* seeds,
              unsigned int thresh, float inv_keep, const void* dout, void* dq,
-             void* dk, void* dv, void* ds, void* qkv, void* stats,
-             void* dq_acc, int B, int Lq, int Lk, int D, int H, float scale,
-             void* stream) {
-  using T = typename Core::T;
+             void* dk, void* dv, void* ds, void* stats, void* dq_acc, int B,
+             int Lq, int Lk, int H, float scale, cudaStream_t st) {
   constexpr bool BF16 = sizeof(T) == 2;
-  if (B < 1 || Lq < 1 || Lk < 1 || (!BF16 && Lk > MAX_LK) || H < 1 ||
-      D < 1 || (Lk > KC && stats == nullptr) ||
+  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || (Lk > KC && stats == nullptr) ||
       (BF16 && Lk > KC && dq_acc == nullptr))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
   const int HD = H * DH;
-  T* qs = (T*)qkv;
-  T* ks = qs + (long long)B * Lq * HD;
-  T* vs = ks + (long long)B * Lk * HD;
-  const void* w[3] = {wq, wk, wv};
-  const long long sd[3] = {wq_sd, wk_sd, wv_sd}, so[3] = {wq_so, wk_so, wv_so};
-  const void* bb[3] = {bq, bk, bv};
-  Jobs<Core> J;
-  qkv_proj::qkv_jobs(J, x, y, w, sd, so, bb, qs, B, Lq, Lk, D, HD);
-  int rc = launch_jobs(J, st);
-  if (rc != 0) return rc;
-
+  const T* qs = (const T*)qkv;
+  const T* ks = qs + (long long)B * Lq * HD;
+  const T* vs = ks + (long long)B * Lk * HD;
   if constexpr (BF16) {
     // the Hopper core, over the scratch and dO as [B, L, H, dh] heads
     attn_bwd_sm90::Params P;
@@ -522,6 +508,33 @@ int bwd_attn(const void* x, const void* y, const void* wq, long long wq_sd,
     attn_bwd_kernel<<<dim3(B, H), THREADS, ATTN_SMEM_BYTES, st>>>(A);
     return (int)cudaGetLastError();
   }
+}
+
+template <class Core>
+int bwd_attn(const void* x, const void* y, const void* wq, long long wq_sd,
+             long long wq_so, const void* bq, const void* wk, long long wk_sd,
+             long long wk_so, const void* bk, const void* wv, long long wv_sd,
+             long long wv_so, const void* bv, const void* bias, long long sb,
+             long long sh, long long sq, long long sk, const void* seeds,
+             unsigned int thresh, float inv_keep, const void* dout, void* dq,
+             void* dk, void* dv, void* ds, void* qkv, void* stats,
+             void* dq_acc, int B, int Lq, int Lk, int D, int H, float scale,
+             void* stream) {
+  using T = typename Core::T;
+  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int HD = H * DH;
+  T* qs = (T*)qkv;
+  const void* w[3] = {wq, wk, wv};
+  const long long sd[3] = {wq_sd, wk_sd, wv_sd}, so[3] = {wq_so, wk_so, wv_so};
+  const void* bb[3] = {bq, bk, bv};
+  Jobs<Core> J;
+  qkv_proj::qkv_jobs(J, x, y, w, sd, so, bb, qs, B, Lq, Lk, D, HD);
+  const int rc = launch_jobs(J, st);
+  if (rc != 0) return rc;
+  return bwd_core<T>(qkv, bias, sb, sh, sq, sk, seeds, thresh, inv_keep, dout,
+                     dq, dk, dv, ds, stats, dq_acc, B, Lq, Lk, H, scale, st);
 }
 
 template <class Core>
@@ -705,6 +718,24 @@ int fused_qkv_mha_bwd_attn_bf16(ATTN_ARGS) {
   return bwd_attn<qkv_proj::Bf16>(ATTN_NAMES);
 }
 
+// (a)'s second launch alone in bf16 (the attention core of
+// attn_bwd_sm90.cuh over a scratch filled as the recompute fills it,
+// fused_qkv_mha_proj_bf16 of fused_qkv_mha.cu): exported for timing the
+// core apart from the recompute; the wrapper calls the whole of (a).
+// Arguments as fused_qkv_mha_bwd_attn_bf16's.
+int fused_qkv_mha_bwd_core_bf16(const void* qkv, const void* bias,
+                                long long sb, long long sh, long long sq,
+                                long long sk, const void* seeds,
+                                unsigned int thresh, float inv_keep,
+                                const void* dout, void* dq, void* dk,
+                                void* dv, void* ds, void* stats,
+                                void* dq_acc, int B, int Lq, int Lk, int H,
+                                float scale, void* stream) {
+  return bwd_core<bf16>(qkv, bias, sb, sh, sq, sk, seeds, thresh, inv_keep,
+                        dout, dq, dk, dv, ds, stats, dq_acc, B, Lq, Lk, H,
+                        scale, (cudaStream_t)stream);
+}
+
 // (b) Launches the projection-backward GEMM jobs on `stream` and returns
 // cudaGetLastError().  From dq [B, Lq, H*dh] and dk, dv [B, Lk, H*dh]
 // (written by (a)), x, y and the weights (through strides).  `order` lists
@@ -763,10 +794,6 @@ void fused_qkv_mha_bwd_smem(int* out) {
 
 // Head width the kernels are compiled for, so the wrapper can check it.
 int fused_qkv_mha_bwd_head_dim(void) { return DH; }
-
-// Largest key length the float32 attention backward takes (the bf16 one
-// takes any).
-int fused_qkv_mha_bwd_max_lk(void) { return MAX_LK; }
 
 // GEMM tiles (rows, columns, depth chunk) of the 3xTF32 core, then of the
 // bf16 core, so the wrapper's plan can check that it tiles as the kernels

@@ -27,7 +27,9 @@
 // Design: the attention-forward core of attn_fwd.cuh, shared with the
 // fused forward, without dropout: one block per (batch row, head) stages
 // K and V once and walks the query tiles, both products on 3xTF32
-// mma.sync fragments, so each byte of q, k, v is read from memory once.
+// mma.sync fragments, so each byte of q, k, v is read from memory once
+// (past 256 keys K and V go in blocks of 256 for each query tile, with an
+// online softmax: any Lk).
 //
 // bf16 (`mha_fwd_bf16`; the TPU kernel takes bf16 q, k, v, upcasts them and
 // computes in float32, :49-62): the Hopper core of attn_fwd_sm90.cuh,
@@ -39,6 +41,45 @@
 
 #include "attn_fwd.cuh"
 #include "attn_fwd_sm90.cuh"
+
+// The bf16 kernel on the Hopper core (attn_fwd_sm90.cuh): q, k, v and out
+// bf16, the bias float32, scores, softmax and p in float32; SPLIT_P: p v
+// as two bf16 products of p's high and low parts.  Any Lk.
+#define MHA_BF16_ARGS                                                        \
+  const void *q, long long q_sb, long long q_sl, long long q_sh,             \
+      long long q_sd, const void *k, long long k_sb, long long k_sl,         \
+      long long k_sh, long long k_sd, const void *v, long long v_sb,         \
+      long long v_sl, long long v_sh, long long v_sd, const void *bias,      \
+      long long sb, long long sh, long long sq, long long sk, void *out,     \
+      int B, int Lq, int Lk, int H, float scale, void *stream
+#define MHA_BF16_NAMES                                                       \
+  q, q_sb, q_sl, q_sh, q_sd, k, k_sb, k_sl, k_sh, k_sd, v, v_sb, v_sl, v_sh, \
+      v_sd, bias, sb, sh, sq, sk, out, B, Lq, Lk, H, scale, stream
+
+namespace {
+
+template <bool SPLIT_P>
+int mha_bf16(MHA_BF16_ARGS) {
+  using attn_sm90::bf16;
+  attn_fwd_sm90::Params<float> P;
+  P.q = {(const bf16*)q, q_sb, q_sl, q_sh, q_sd, Lq};
+  P.k = {(const bf16*)k, k_sb, k_sl, k_sh, k_sd, Lk};
+  P.v = {(const bf16*)v, v_sb, v_sl, v_sh, v_sd, Lk};
+  P.bias = (const float*)bias;
+  P.sb = sb;
+  P.sh = sh;
+  P.sq = sq;
+  P.sk = sk;
+  P.seeds = nullptr;
+  P.thresh = 0;
+  P.inv_keep = 1.f;
+  P.out = (bf16*)out;
+  P.H = H;
+  P.scale = scale;
+  return attn_fwd_sm90::launch<float, SPLIT_P>(P, B, (cudaStream_t)stream);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -79,42 +120,21 @@ int mha_fwd(const void* q, long long q_sb, long long q_sl, long long q_sh,
   return attn_fwd::launch(A, B, (cudaStream_t)stream);
 }
 
-// The same in bf16 on the Hopper core (attn_fwd_sm90.cuh): q, k, v and
-// out bf16, the bias float32, scores, softmax and p in float32 (p v as
-// two bf16 products of p's high and low parts); any Lk.
-int mha_fwd_bf16(const void* q, long long q_sb, long long q_sl,
-                 long long q_sh, long long q_sd,
-                 const void* k, long long k_sb, long long k_sl,
-                 long long k_sh, long long k_sd,
-                 const void* v, long long v_sb, long long v_sl,
-                 long long v_sh, long long v_sd,
-                 const void* bias, long long sb, long long sh, long long sq,
-                 long long sk, void* out, int B, int Lq, int Lk, int H,
-                 float scale, void* stream) {
-  using attn_sm90::bf16;
-  attn_fwd_sm90::Params<float> P;
-  P.q = {(const bf16*)q, q_sb, q_sl, q_sh, q_sd, Lq};
-  P.k = {(const bf16*)k, k_sb, k_sl, k_sh, k_sd, Lk};
-  P.v = {(const bf16*)v, v_sb, v_sl, v_sh, v_sd, Lk};
-  P.bias = (const float*)bias;
-  P.sb = sb;
-  P.sh = sh;
-  P.sq = sq;
-  P.sk = sk;
-  P.seeds = nullptr;
-  P.thresh = 0;
-  P.inv_keep = 1.f;
-  P.out = (bf16*)out;
-  P.H = H;
-  P.scale = scale;
-  return attn_fwd_sm90::launch<float, true>(P, B, (cudaStream_t)stream);
+// The same in bf16: q, k, v and out bf16, the bias float32, scores,
+// softmax and p in float32 (p v as two bf16 products of p's high and low
+// parts); any Lk.
+int mha_fwd_bf16(MHA_BF16_ARGS) { return mha_bf16<true>(MHA_BF16_NAMES); }
+
+// The bf16 kernel with p v as one product of p rounded to bf16, the
+// precision the TPU kernel does not have: exported only as the control of
+// the bf16 kernel's one-rounding check (chip_smoke.py), which must fail
+// it.
+int mha_fwd_bf16_one_term(MHA_BF16_ARGS) {
+  return mha_bf16<false>(MHA_BF16_NAMES);
 }
 
 // Head width the kernel is compiled for, so the wrapper can check it.
 int mha_head_dim(void) { return attn_fwd::DH; }
-
-// Largest key length the float32 kernel takes (the bf16 one takes any).
-int mha_max_lk(void) { return attn_fwd::MAX_LK; }
 
 // The route of this library's last bf16 launch: 1 q, k and v by TMA, 0
 // loaded directly, -1 none yet.
