@@ -82,6 +82,13 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      520: the attention forward's key blocks) against the plain version
      with phase 3's float32 gates, and a float32 block over 257 keys
      through the fused gate launches the kernels;
+  3 (head widths): K1, K2 (a), K2 (b) and K3 at head widths 32 and 128
+     (24 heads of 32, 6 of 128 over D = 768), float32 and bf16, at the
+     local shape (Lq = Lk = 54, key mask), batch 64, dropout 0.1, under
+     the gates above and timed as the train shapes (K3 over 60 text keys,
+     bf16 within one output rounding of float64); then K1 and K2 at the
+     vectorized teacher's phase B row count (512 x 52, float32 gated at
+     dropout 0 and 0.1, bf16 gated and timed);
   4 (bf16): greedy decode in bf16 through the kernels and on the eager
      path from the same weights, against the float32 kernel route's first
      step (each route's logits, the kernels' distance at most 2x the
@@ -94,12 +101,29 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      bf16 eager and bf16 kernels: each bf16 route's loss and global
      gradient error against float32, the kernels' at most 2x eager's +
      1e-3 (plain and causal);
-  5 (g): the bench build (bf16, remat "model", batch 64, dropout on),
-     causal then plain, one warm-up per bucket and 3 timed steps, and a
-     float32 remat "model" warm-up whose peak must be under half of (b) /
-     (d)'s; then one more plain step under torch.profiler (the device-busy
-     share, the ten kernels with the most device time, the bf16 K1 / K2
-     kernels' share), after every timed step.
+  5 (h): the vectorized teacher against the per-step teacher through the
+     kernels (float32, batch 8, dropout 0, one imitation step each):
+     targets and actions identical, losses to a relative 1e-4, every
+     gradient within 1e-3 of its largest magnitude, the same launches;
+     then the vectorized step on eager against the kernels under (a)'s
+     gates, with its ReLU pinning;
+  5 (i): (a)'s gates for the DAgger step with sample_feedback
+     "expl_sample" and for the dagger_fused step on a batch whose halves
+     come from different buckets;
+  5 (j): the dagger_fused bench build (bf16, remat "model", two
+     minibatches of 64 a step): one warm-up per bucket, 2 timed steps,
+     loss and grad norm finite, parameters moved, launches as the config
+     gives them (the text encoding once per fused step), peak memory;
+  5 (g): the bench build (bf16, remat "model", batch 64, dropout on,
+     the vectorized teacher), causal then plain, one warm-up per bucket
+     and 3 timed steps, and a float32 remat "model" warm-up whose peak
+     must be under half of (b) / (d)'s; before the plain one, the
+     vectorized and the per-step teacher in one call, 3 steps each on the
+     same batches, alternating; then one more plain step under
+     torch.profiler (the device-busy share, the ten kernels with the most
+     device time, the bf16 K1 / K2 kernels' share), after every timed
+     step.
+The train steps run the vectorized teacher unless a phase says otherwise.
 Every bf16 decode and train path's launches of the bf16 GEMM core and of
 the bf16 attention cores must all have taken their TMA routes
 (`ops.attention.bf16_core_routes`, `attn_core_routes`).
@@ -108,7 +132,7 @@ read just after.
 The line before the last is one JSON object with every kernel's numbers
 (the bf16 builds as rows of their own); the last is {"ok": true,
 "device": {...}}.  Any failure raises, but for the comparisons of phases
-4 (bf16) and 5 (a), (c), (e), (f), (g): each prints its failure, the
+4 (bf16) and 5 (a), (c), (e)-(j): each prints its failure, the
 later phases run and print their numbers, and the script then prints the
 failures instead of the last two lines and exits non-zero.  There is no
 CPU fallback, and without a card the script exits non-zero before
@@ -116,6 +140,7 @@ printing a result.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import json
@@ -130,10 +155,12 @@ import torch.nn.functional as F
 from vln_goat_tpu_torch.config import TrainConfig
 from vln_goat_tpu_torch.entry import (build_flagship, build_train_flagship,
                                       greedy_rollout, train_steps)
+from vln_goat_tpu_torch.train.trainer import fuse_dagger_batches
 from vln_goat_tpu_torch.models.layers import AttentionCore
 from vln_goat_tpu_torch.ops import _build
-from vln_goat_tpu_torch.ops.attention import (_bwd_call, _fwd_call,
-                                              _mha_lib, ATTN_KEY_CHUNK,
+from vln_goat_tpu_torch.ops.attention import (_bwd_call, _bwd_lib,
+                                              _fwd_call, _mha_lib,
+                                              ATTN_KEY_CHUNK, HEAD_DIMS,
                                               attend_plain,
                                               attention_backward,
                                               attn_core_routes,
@@ -144,7 +171,9 @@ from vln_goat_tpu_torch.ops.attention import (_bwd_call, _fwd_call,
                                               mha_plain, project_plain,
                                               projection_backward,
                                               PROJ_PARTS, ProjectionBackward)
-from vln_goat_tpu_torch.tools.gate_witness import (pin_relus,
+from vln_goat_tpu_torch.tools.gate_witness import (NOISE_GRAD_BIASES,
+                                                    TEACHER_NOISE_BIASES,
+                                                    pin_relus,
                                                     record_relus,
                                                     worst_grad)
 
@@ -508,6 +537,11 @@ def check_shape(g, name, Lq, Lk, bias_kind, layout, batch, timed):
     if not timed:
         return row
 
+    # by device time: K1 and its library call, each from a CUDA graph of
+    # ten calls
+    row["device_ms"] = graph_ms(lambda: fused_qkv_mha(
+        *det, num_heads=H, dropout_rate=rate, seed=seed))
+    row["library_device_ms"] = graph_ms(lambda: library_call(det))
     # the forward by part: its q / k / v projection GEMM alone, and the
     # attention core over that GEMM's output through `mha` (the same core,
     # without dropout)
@@ -577,7 +611,7 @@ def time_backward(row, args, det, seed, dout, batch, rate, parts):
     row["projb_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
         lq, lv, (dq.view(-1, H * DH), dk.view(-1, H * DH),
                  dv.view(-1, H * DH)), retain_graph=True))
-    if parts and x.dtype == BF16:
+    if parts:
         # K2 (a) by device time (a CUDA graph), and both library calls'
         # (under the profiler: a graph cannot hold the backward of a graph
         # built outside it)
@@ -593,8 +627,7 @@ def time_backward(row, args, det, seed, dout, batch, rate, parts):
         # (b) by part: the dx and dy GEMMs, the split-K weight gradients,
         # the pass that adds their slices, and the head sum of ds
         call = ProjectionBackward(x, y, wq, wk, wv, dq, dk, dv, hsum, H)
-        if x.dtype == BF16:
-            row["projb_device_ms"] = graph_ms(call.launch)
+        row["projb_device_ms"] = graph_ms(call.launch)
         for part in PROJ_PARTS:
             if part != "hsum" or hsum is not None:
                 row[f"projb_{part}_ms"] = graph_ms(lambda: call.launch(part))
@@ -851,10 +884,10 @@ def attn_cores(det, kw, dout, need_ds):
         return None if t is None else t.data_ptr()
 
     fa = (q.data_ptr(), *c.bias_args(), out.data_ptr(), c.B, c.Lq, c.Lk,
-          H, c.scale, *c.seed_args(), c.stream())
+          H, c.dh, c.scale, *c.seed_args(), c.stream())
     ba = (q.data_ptr(), *cb.bias_args(), *cb.seed_args(), dout.data_ptr(),
           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(ds), ptr(stats),
-          ptr(dq_acc), c.B, c.Lq, c.Lk, H, c.scale, c.stream())
+          ptr(dq_acc), c.B, c.Lq, c.Lk, H, c.dh, c.scale, c.stream())
 
     def fwd():
         if c.lib.fused_qkv_mha_attn_bf16(*fa) != 0:
@@ -945,7 +978,7 @@ def bf16_parts(row, det, kw, dout):
                       dtype=c.dtype)
     fn = c.entry("fused_qkv_mha_proj")
     cargs = [det[0].data_ptr(), det[1].data_ptr(), *c.weight_args(),
-             qkv.data_ptr(), c.B, c.Lq, c.Lk, c.D, c.H, c.stream()]
+             qkv.data_ptr(), c.B, c.Lq, c.Lk, c.D, c.H, c.dh, c.stream()]
     row["proj_host_us"] = host_us(lambda: fn(*cargs))
     with torch.no_grad():
         row["fwd_host_us"] = host_us(lambda: fused_qkv_mha(*det, **kw))
@@ -1187,11 +1220,11 @@ def mha_library(q, k, v, bias):
     return o.transpose(1, 2).reshape(q.shape[0], q.shape[1], H * DH)
 
 
-def check_mha():
+def check_mha(cases=MHA_CASES):
     """Phase 3 for the attention-only kernel: rows of numbers by case."""
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for name, Lq, Lk, bias_kind, batch in MHA_CASES:
+    for name, Lq, Lk, bias_kind, batch in cases:
         q, k, v, bias = mha_case(g, Lq, Lk, bias_kind, batch)
         out = mha(q, k, v, bias)
         torch.cuda.synchronize()
@@ -1210,8 +1243,10 @@ def check_mha():
         row = rows[name] = dict(
             err=float((out - ref).abs().max()),
             ms=cuda_ms(lambda: mha(q, k, v, bias)),
+            device_ms=graph_ms(lambda: mha(q, k, v, bias)),
             plain_ms=cuda_ms(lambda: mha_plain(q, k, v, bias)),
             library_ms=cuda_ms(lambda: mha_library(q, k, v, bias)),
+            library_device_ms=graph_ms(lambda: mha_library(q, k, v, bias)),
             bound_ms=max(fb),
             bound_by="operations" if fb[0] >= fb[1] else "bytes",
             bound_f32_ms=max(ops / PEAK_F32_FLOP_PER_S * 1e3, fb[1]))
@@ -1260,7 +1295,7 @@ def mha_one_term(q, k, v, bias):
     rc = _mha_lib().mha_fwd_bf16_one_term(
         q.data_ptr(), *q.stride(), k.data_ptr(), *k.stride(), v.data_ptr(),
         *v.stride(), None if bias4 is None else bias4.data_ptr(), *bst,
-        out.data_ptr(), Bq, Lq, Lk, Hq, 1.0 / math.sqrt(dh),
+        out.data_ptr(), Bq, Lq, Lk, Hq, dh, 1.0 / math.sqrt(dh),
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mha_fwd_bf16_one_term: CUDA error {rc}")
@@ -1273,7 +1308,7 @@ MHA_BF16_CASES = MHA_CASES + (("case20x300_key", 20, 300, "key", B),
                               ("case40x520_heads", 40, 520, "heads", B))
 
 
-def check_mha_bf16():
+def check_mha_bf16(cases=MHA_BF16_CASES):
     """Phase 3 (bf16) for the attention-only kernel: bf16 q, k, v (a
     float32 bias, which the TPU kernel upcasts as it is), the kernel and
     the plain version (float32 throughout, the output rounded once) both
@@ -1282,7 +1317,7 @@ def check_mha_bf16():
     one-term control must exceed; rows by case."""
     g = torch.Generator(device="cuda").manual_seed(3)
     rows = {}
-    for name, Lq, Lk, bias_kind, batch in MHA_BF16_CASES:
+    for name, Lq, Lk, bias_kind, batch in cases:
         q, k, v, bias = mha_case(g, Lq, Lk, bias_kind, batch)
         q, k, v = (t.to(BF16) for t in (q, k, v))
         before = dict(attn_core_routes)
@@ -1372,6 +1407,145 @@ def check_long_f32(g):
         + f"; two backward launches bitwise equal; Lq 60 Lk 257 through the "
         f"gate: 1 launch, {float((out - ref).abs().max()):.2e} from eager")
 
+
+# ---------------------------------------------------------------------------
+# Phase 3 (head widths): every attention kernel at head widths 32 and 128
+# (GOAT's D = 768 as 24 heads of 32 and as 6 of 128), float32 and bf16: K1,
+# K2 (a) and K2 (b) at the local branch's shape (Lq = Lk = 54, key mask),
+# batch 64, dropout 0.1, under phase 3's and phase 3 (bf16)'s gates and
+# timed as the train shapes are; K3 over the hoisted text (54 queries, 60
+# keys) under phase 3's gate and, in bf16, within one output rounding of
+# float64.  No path of either package runs these widths (GOAT's is 64).
+WIDTHS = (32, 128)
+WIDTH_SHAPE = ("local54", 54, 54, "key", "linear")
+# The vectorized teacher's phase B encodes the panoramas of all its steps
+# at once (8 steps x 64 episodes at the bench's wide bucket); its encoder's
+# self-attention is the plain DETR attention in both packages, so no fused
+# kernel runs there.  K1 and K2 are held at that row count all the same,
+# 512 rows of 52 tokens under a key mask: the per-row dropout seeds and
+# the kernels' index products at the largest batch a step could give them.
+PHASE_B_SHAPE = ("pano52", 52, 52, "key", "linear")
+PHASE_B_BATCH = 8 * B_TRAIN
+
+
+@contextlib.contextmanager
+def head_width(dh):
+    """The module's head split (H heads of DH over D), which every phase 3
+    helper reads, at head width dh for the body."""
+    global H, DH
+    saved = H, DH
+    H, DH = D // dh, dh
+    try:
+        yield
+    finally:
+        H, DH = saved
+
+
+def check_head_widths():
+    """Phase 3 (head widths): rows {dh: {f32, bf16, mha, mha_bf16}}."""
+    rows = {}
+    name, Lq, Lk, bias_kind, layout = WIDTH_SHAPE
+    for dh in WIDTHS:
+        with head_width(dh):
+            g = torch.Generator(device="cuda").manual_seed(11)
+            tag = f"{name}_dh{dh}"
+            case = ((f"{name}xtext60_dh{dh}", Lq, 60, "key", B_TRAIN),)
+            r = rows[dh] = dict(
+                f32=check_shape(g, tag, Lq, Lk, bias_kind, layout, B_TRAIN,
+                                timed=True),
+                bf16=check_shape_bf16(g, tag, Lq, Lk, bias_kind, layout,
+                                      B_TRAIN, timed=True),
+                mha=check_mha(case)[case[0][0]],
+                mha_bf16=check_mha_bf16(case)[case[0][0]])
+        f, b = r["f32"], r["bf16"]
+        say(f"head width {dh} ({D // dh} heads), B={B_TRAIN} Lq={Lq} "
+            f"Lk={Lk} key mask, dropout {RATE}: float32 max_abs_err forward "
+            f"{f[f'fwd_err_{RATE}']:.3e}, attention backward "
+            f"{f[f'attn_err_{RATE}']:.3e}, grads {f[f'proj_err_{RATE}']:.3e};"
+            f" ms K1 {f['ms']:.4f} (device {f['device_ms']:.4f}, bound "
+            f"{f['bound_ms']:.4f}, plain {f['plain_ms']:.4f}, library "
+            f"{f['library_ms']:.4f}), K2 (a) {f['attn_ms']:.4f} (device "
+            f"{f['attn_device_ms']:.4f}, bound {f['attn_bound_ms']:.4f}), "
+            f"K2 (b) {f['projb_ms']:.4f} (device {f['projb_device_ms']:.4f}"
+            f", bound {f['projb_bound_ms']:.4f}); bf16 against float64 "
+            f"forward {b['fwd_err']:.3e}, K2 (a) {b['attn_err']:.3e}, K2 (b) "
+            f"{b['proj_err']:.3e}; ms K1 {b['ms']:.4f} (device "
+            f"{b['device_ms']:.4f}, bound {b['bound_ms']:.4f}, library "
+            f"device {b['library_device_ms']:.4f}), K2 (a) "
+            f"{b['attn_ms']:.4f} (device {b['attn_device_ms']:.4f}), K2 (b) "
+            f"{b['projb_ms']:.4f} (device {b['projb_device_ms']:.4f}); "
+            f"attention cores by kernel {b['fwd_attn_device_ms']:.4f} / "
+            f"{b['bwd_attn_device_ms']:.4f} ms (bytes bounds "
+            f"{b['fwd_attn_bound_ms']:.4f} / {b['bwd_attn_bound_ms']:.4f});"
+            f" K3 float32 {r['mha']['ms']:.4f} ms, bf16 "
+            f"{r['mha_bf16']['ms']:.4f} ms at "
+            f"{r['mha_bf16']['excess']:.3f} of one output rounding")
+    return rows
+
+
+def check_phase_b():
+    """K1 and K2 at phase B's row count (PHASE_B_SHAPE at PHASE_B_BATCH):
+    float32 under phase 3's gates (dropout 0 and 0.1, two backward launches
+    bitwise equal), bf16 under phase 3 (bf16)'s and timed.  Returns the
+    bf16 row."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    name, Lq, Lk, bias_kind, layout = PHASE_B_SHAPE
+    f = check_shape(g, name, Lq, Lk, bias_kind, layout, PHASE_B_BATCH,
+                    timed=False)
+    b = check_shape_bf16(g, name, Lq, Lk, bias_kind, layout, PHASE_B_BATCH,
+                         timed=True)
+    say(f"phase B rows: B={PHASE_B_BATCH} Lq={Lq} Lk={Lk} key mask; float32 "
+        f"max_abs_err forward {f['fwd_err_0.0']:.3e} / "
+        f"{f[f'fwd_err_{RATE}']:.3e}, attention backward "
+        f"{f['attn_err_0.0']:.3e} / {f[f'attn_err_{RATE}']:.3e}, grads "
+        f"{f['proj_err_0.0']:.3e} / {f[f'proj_err_{RATE}']:.3e} (dropout 0 "
+        f"/ {RATE}), two backward launches bitwise equal; bf16 dropout "
+        f"{RATE} against float64 forward {b['fwd_err']:.3e}, K2 (a) "
+        f"{b['attn_err']:.3e}, K2 (b) {b['proj_err']:.3e}; ms K1 "
+        f"{b['ms']:.4f} (device {b['device_ms']:.4f}, bound "
+        f"{b['bound_ms']:.4f}, library device "
+        f"{b['library_device_ms']:.4f}), K2 (a) {b['attn_ms']:.4f} (device "
+        f"{b['attn_device_ms']:.4f}, bound {b['attn_bound_ms']:.4f}), K2 (b)"
+        f" {b['projb_ms']:.4f} (device {b['projb_device_ms']:.4f}, bound "
+        f"{b['projb_bound_ms']:.4f})")
+    return b
+
+
+def width_kernel_rows(tag, row, mrow, bf16):
+    """The kernel line's rows of one K1 / K2 (a) / K2 (b) / K3 check that
+    no path runs (launches 0): `row` a timed check_shape(_bf16) row, mrow
+    a check_mha(_bf16) row."""
+    src = "vln_goat_tpu_torch/ops/csrc/"
+    sfx = "_bf16" if bf16 else ""
+    zero = dict(decode=0, train=0, causal_decode=0, causal_train=0)
+    errs = (("fwd_err", "attn_err", "proj_err") if bf16 else
+            (f"fwd_err_{RATE}", f"attn_err_{RATE}", f"proj_err_{RATE}"))
+    out = []
+    for name, file, line, key, err in (
+            ("fused_qkv_mha", "fused_qkv_mha.cu", 169, "", errs[0]),
+            ("fused_qkv_mha_bwd_attn", "fused_qkv_mha_bwd.cu", 181, "attn_",
+             errs[1]),
+            ("fused_qkv_mha_bwd_proj", "fused_qkv_mha_bwd.cu", 181,
+             "projb_", errs[2])):
+        out.append(dict(
+            name=f"{name}{sfx}_{tag}", route="cuda", source=src + file,
+            replaces=f"vln_goat_tpu/ops/attention.py:{line}", launches=0,
+            launches_by_path=zero, max_abs_err=row[err], ms=row[key + "ms"],
+            plain_ms=row[key + "plain_ms"], bound_ms=row[key + "bound_ms"],
+            bound_by=row[key + "bound_by"],
+            library_ms=row[key + "library_ms"],
+            device_ms=row[key + "device_ms"],
+            library_device_ms=row.get(key + "library_device_ms")))
+    if mrow is not None:
+        out.append(dict(
+            name=f"mha{sfx}_{tag}", route="cuda", source=src + "mha.cu",
+            replaces="vln_goat_tpu/ops/attention.py:49", launches=0,
+            launches_by_path=zero, max_abs_err=mrow["err"], ms=mrow["ms"],
+            plain_ms=mrow["plain_ms"], bound_ms=mrow["bound_ms"],
+            bound_by=mrow["bound_by"], library_ms=mrow["library_ms"],
+            device_ms=mrow["device_ms"],
+            library_device_ms=mrow["library_device_ms"]))
+    return out
 
 def check_logit_masks(out):
     """MEM slot and visited / empty node slots -inf, stop finite, and every
@@ -1626,17 +1800,20 @@ def launch_mix(cfg, steps):
 
 
 def train_mix(cfg, metrics):
-    """Forward launches of the fused kernel in the DAgger steps whose
+    """Forward launches of the fused kernel in the train steps whose
     metrics are given: the instruction encoding once per step (shared by
-    the teacher and the sampled rollout), and every teacher and sample
-    step's.  Each forward has its two backward launches."""
-    steps = sum(int(m["teacher_steps"]) + int(m["sample_steps"])
-                for m in metrics)
+    the teacher and the sampled rollout, or of the fused batch), and every
+    rollout step's navigation (teacher_steps, sample_steps or
+    fused_steps).  The vectorized teacher runs as many navigation calls as
+    the per-step teacher, and its one panorama call over all steps holds
+    no fused attention (the panorama encoder's self-attention is the plain
+    DETR attention in both packages), so it launches what the per-step
+    teacher launches.  Each forward has its two backward launches."""
     return add_mix(*([text_mix(cfg)] * len(metrics)),
-                   step_mix(cfg, steps))
+                   step_mix(cfg, sum(rollout_steps(metrics, flat=True))))
 
 
-def compare_steps(k, e, pinned):
+def compare_steps(k, e, pinned, noise=NOISE_GRAD_BIASES):
     """Phase 5 (a) / (c): the kernel step k and the eager step e, each
     (metrics, grads, rollouts), agree: every ReLU decision of the kernel
     step that differed from the eager step's (`pinned`, as
@@ -1650,19 +1827,23 @@ def compare_steps(k, e, pinned):
         raise AssertionError(
             f"a ReLU decision differs from the eager step's with |z - "
             f"z_eager| {pinned['dist']:.3e} > {KINK_BAND}")
-    for r in ("teacher", "sample"):
+    if set(k_outs) != set(e_outs):
+        raise AssertionError(f"rollouts {set(k_outs)} vs {set(e_outs)}")
+    for r in e_outs:
         if not torch.equal(k_outs[r]["actions"], e_outs[r]["actions"]):
             raise AssertionError(f"{r} actions differ")
-    if not bool((k_outs["sample"]["actions"] >= 0).any()):
-        raise AssertionError("the sampled rollout never moved")
+        if not bool((k_outs[r]["actions"] >= 0).any()):
+            raise AssertionError(f"the {r} rollout never moved")
     for key in ("loss", "il_loss", "sample_loss"):
+        if key not in e_m:
+            continue
         a, b_ = float(k_m[key]), float(e_m[key])
         if abs(a - b_) > 1e-4 * abs(b_):
             raise AssertionError(f"{key}: {a} vs {b_}")
     if set(k_grads) != set(e_grads):
         raise AssertionError("the two steps give different parameters a "
                              "gradient")
-    worst, name = worst_grad(k_grads, e_grads)
+    worst, name = worst_grad(k_grads, e_grads, noise)
     if worst > 1e-3:
         raise AssertionError(f"grad {name}: |diff| {worst:.3e} of its "
                              f"scale > 1e-3")
@@ -1671,25 +1852,25 @@ def compare_steps(k, e, pinned):
     return worst, name
 
 
-def run_train(card, causal=False):
-    """Phase 5: (a) and (b), or (c) and (d) for the causal
-    configuration.  Returns the timed steps' launch mix and counts, the
-    failure of (a) / (c)'s comparison (None when it passed), which (b) /
-    (d) do not wait on, and the warm-up's peak memory (GiB) of (b) / (d)
-    through the kernels."""
-    what = "causal " if causal else ""
-    pa, pb = ("c", "d") if causal else ("a", "b")
-    # (a) kernel path against the eager path, dropout off, batch 8
+def kernel_vs_eager(head, what, build_kw, batch_fn=None,
+                    noise=NOISE_GRAD_BIASES):
+    """One train step at batch 8, every dropout at 0, of the build
+    `build_train_flagship("cuda", batch_size=B, dropout=False,
+    **build_kw)` through the eager path and through the kernels, from the
+    same weights, batch (`batch_fn(state, batcher)`, default the batcher's
+    next one) and generator seed: the eager step first, keeping the inputs
+    of its ClsPrediction heads' ReLUs (the model's only kinks); the kernel
+    step takes its decisions where its own differ, within KINK_BAND of the
+    kink; then compare_steps' gates (`noise`: the biases held at their
+    weight's scale) and the launches the config gives.  Prints a line;
+    returns the failure of the comparison, or None."""
     k_state, batcher = build_train_flagship("cuda", batch_size=B,
-                                            dropout=False, causal=causal)
+                                            dropout=False, **build_kw)
     e_state, _ = build_train_flagship("cuda", batch_size=B, dropout=False,
-                                      use_fused_attention=False,
-                                      causal=causal)
+                                      use_fused_attention=False, **build_kw)
     e_state.model.load_state_dict(k_state.model.state_dict())
-    _, batch = batcher.next_batch()
-    # the eager step first, keeping the inputs of its ClsPrediction heads'
-    # ReLUs (the model's only kinks); the kernel step takes its decisions
-    # where its own differ, within KINK_BAND of the kink (compare_steps)
+    batch = batch_fn(k_state, batcher) if batch_fn is not None \
+        else batcher.next_batch()[1]
     seen, hooks = record_relus(e_state.model)
     reset_counts()
     e_m, e_grads, e_outs = e_state.step_fn(
@@ -1709,38 +1890,139 @@ def run_train(card, causal=False):
     for h in hooks:
         h.remove()
     if pinned["calls"] != sum(len(c) for c in seen.values()):
-        raise AssertionError(f"{what}kernel step made {pinned['calls']} "
+        raise AssertionError(f"{head}: kernel step made {pinned['calls']} "
                              "ReLU calls, the eager step "
                              f"{sum(len(c) for c in seen.values())}")
     del seen
     mix = train_mix(k_state.model.config, [k_m])
     n = sum(mix.values())
     if k_counts != (n, n, n, 0):
-        raise AssertionError(f"{what}kernel step launched {k_counts}, "
+        raise AssertionError(f"{head}: kernel step launched {k_counts}, "
                              f"expected {(n, n, n, 0)}")
-    head = (f"{what}train ({pa}) batch {B}, dropout 0: kernel vs eager "
-            f"DAgger step")
-    failed = None
+    head_line = f"{head} batch {B}, dropout 0: kernel vs eager {what}"
     try:
         worst, name = compare_steps((k_m, k_grads, k_outs),
-                                    (e_m, e_grads, e_outs), pinned)
+                                    (e_m, e_grads, e_outs), pinned, noise)
     except AssertionError as exc:
-        failed = f"{what}train ({pa}): {exc}"
-        say(f"{head}: FAILED: {exc} (the script goes on, and fails at its "
-            f"end)")
-    else:
-        say(f"{head}: teacher {int(k_outs['teacher']['steps'])} + sample "
-            f"{int(k_outs['sample']['steps'])} steps, actions identical, "
-            f"loss {float(k_m['loss']):.6f} vs {float(e_m['loss']):.6f}, "
-            f"{len(e_grads)} gradients within {worst:.2e} of their max "
-            f"(limit 1e-3), launches {k_counts} (forward, backward a, "
-            f"backward b, attention-only; {mix_text(mix)}); worst {name}; "
-            f"the heads' ReLU inputs within {pinned['dev']:.2e} of eager's, "
-            f"{pinned['flips']} of the kernel step's ReLU decisions "
-            f"differed from eager's, each within "
-            f"{pinned['dist']:.2e} of its kink (limit {KINK_BAND}), and "
-            f"took eager's")
-    del k_state, e_state, k_grads, e_grads, k_outs, e_outs
+        say(f"{head_line}: FAILED: {exc} (the script goes on, and fails at "
+            f"its end)")
+        return f"{head}: {exc}"
+    say(f"{head_line}: "
+        + " + ".join(f"{r} {int(o['steps'])}" for r, o in k_outs.items())
+        + f" steps, actions identical, loss {float(k_m['loss']):.6f} vs "
+        f"{float(e_m['loss']):.6f}, {len(e_grads)} gradients within "
+        f"{worst:.2e} of their max (limit 1e-3), launches {k_counts} "
+        f"(forward, backward a, backward b, attention-only; "
+        f"{mix_text(mix)}); worst {name}; the heads' ReLU inputs within "
+        f"{pinned['dev']:.2e} of eager's, {pinned['flips']} of the kernel "
+        f"step's ReLU decisions differed from eager's, each within "
+        f"{pinned['dist']:.2e} of its kink (limit {KINK_BAND}), and took "
+        f"eager's")
+    return None
+
+
+def vec_teacher_gate(card):
+    """Phase 5 (h): the vectorized teacher against the per-step teacher
+    through the kernels, float32, batch 8, every dropout at 0: one
+    imitation step each from the same weights and batch, losses to a
+    relative 1e-4, the targets and actions identical, every gradient
+    within 1e-3 of its largest magnitude, the launches as the config gives
+    them (the same on both); then the vectorized step through the eager
+    path against the kernels under kernel_vs_eager's gates.  Returns a
+    failure or None."""
+    tcfg = TrainConfig(train_alg="imitation", weight_decay=0.01)
+    res, sd, batch = {}, None, None
+    for vec in (True, False):
+        state, batcher = build_train_flagship(
+            "cuda", batch_size=B, dropout=False, tcfg=tcfg,
+            vectorized_teacher=vec)
+        if sd is None:
+            sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+            batch = batcher.next_batch()[1]
+        else:
+            state.model.load_state_dict(sd)
+        reset_counts()
+        t0 = time.perf_counter()
+        m, grads, outs = state.step_fn(
+            state, batch, torch.Generator(device="cuda").manual_seed(0),
+            keep=True)
+        torch.cuda.synchronize()
+        res[vec] = dict(m=m, grads=grads, out=outs["teacher"],
+                        counts=counts(), s=time.perf_counter() - t0)
+        cfg = state.model.config
+        del state, batcher
+    torch.cuda.empty_cache()
+    v, p = res[True], res[False]
+    n = sum(train_mix(cfg, [v["m"]]).values())
+    try:
+        for k in ("targets", "actions", "steps"):
+            if not torch.equal(v["out"][k].cpu(), p["out"][k].cpu()):
+                raise AssertionError(f"{k} differ")
+        a, b_ = float(v["m"]["loss"]), float(p["m"]["loss"])
+        if abs(a - b_) > 1e-4 * abs(b_):
+            raise AssertionError(f"loss {a} vs {b_}")
+        if set(v["grads"]) != set(p["grads"]):
+            raise AssertionError("other parameters have a gradient")
+        worst, name = worst_grad(v["grads"], p["grads"])
+        if worst > 1e-3:
+            raise AssertionError(f"grad {name}: |diff| {worst:.3e} of its "
+                                 f"scale > 1e-3")
+        if v["counts"] != (n, n, n, 0) or p["counts"] != v["counts"]:
+            raise AssertionError(f"launches {v['counts']} (vectorized), "
+                                 f"{p['counts']} (per step), expected "
+                                 f"{(n, n, n, 0)}")
+    except AssertionError as exc:
+        say(f"train (h) vectorized teacher: FAILED: {exc} (the script goes "
+            f"on, and fails at its end)")
+        return f"train (h): {exc}"
+    say(f"train (h) batch {B}, dropout 0, kernels: vectorized against "
+        f"per-step teacher, imitation ({int(v['out']['steps'])} steps): "
+        f"targets and actions identical, loss {a:.6f} vs {b_:.6f}, "
+        f"{len(p['grads'])} gradients within {worst:.2e} of their max "
+        f"(limit 1e-3), worst {name}; launches {v['counts']} on both; "
+        f"{v['s'] * 1e3:.1f} / {p['s'] * 1e3:.1f} ms a step (first step, "
+        f"not a measurement) on {card}")
+    # a teacher-forced step: the local head's last two biases get
+    # gradients that are zero up to rounding (TEACHER_NOISE_BIASES)
+    return kernel_vs_eager("train (h)", "vectorized imitation step",
+                           dict(tcfg=tcfg),
+                           noise=NOISE_GRAD_BIASES + TEACHER_NOISE_BIASES)
+
+
+def two_buckets(state, batcher):
+    """A fused-DAgger batch whose halves come from different gt-length
+    buckets (the narrower gt paths padded)."""
+    caps = batcher.bucket_caps
+    return fuse_dagger_batches(
+        batcher.make_batch(batcher.next_minibatch(), gt_cap=caps[0]),
+        batcher.make_batch(batcher.next_minibatch(), gt_cap=caps[-1]))
+
+
+def sampled_gates():
+    """Phase 5 (i): kernel_vs_eager's gates for the DAgger step with
+    sample_feedback "expl_sample" and for the dagger_fused step on a
+    batch whose halves come from different buckets.  Returns the
+    failures."""
+    return [f for f in (
+        kernel_vs_eager("train (i)", "DAgger step, expl_sample",
+                        dict(sample_feedback="expl_sample")),
+        kernel_vs_eager("train (i)", "dagger_fused step, halves of two "
+                        "buckets", dict(tcfg=TrainConfig(
+                            train_alg="dagger_fused", weight_decay=0.01)),
+                        batch_fn=two_buckets)) if f is not None]
+
+
+def run_train(card, causal=False):
+    """Phase 5: (a) and (b), or (c) and (d) for the causal
+    configuration.  Returns the timed steps' launch mix and counts, the
+    failure of (a) / (c)'s comparison (None when it passed), which (b) /
+    (d) do not wait on, and the warm-up's peak memory (GiB) of (b) / (d)
+    through the kernels."""
+    what = "causal " if causal else ""
+    pa, pb = ("c", "d") if causal else ("a", "b")
+    # (a) kernel path against the eager path, dropout off, batch 8
+    failed = kernel_vs_eager(f"{what}train ({pa})", "DAgger step",
+                             dict(causal=causal))
     torch.cuda.empty_cache()
 
     # (b) the bench's step: batch 64, dropout on, EARLIER_STEPS timed
@@ -1837,7 +2119,7 @@ def remat_gate(card):
             steps.append(dict(
                 loss=float(m["loss"]), grads=grads, counts=counts(),
                 actions={r: o["actions"] for r, o in outs.items()},
-                n_steps=int(m["teacher_steps"]) + int(m["sample_steps"]),
+                n_steps=rollout_steps([m], flat=True)[0],
                 gen=g.get_state()))
         runs[remat] = steps
         cfg = state.model.config
@@ -1981,9 +2263,8 @@ def bench_config(card, causal, none_peak):
     cfg = state.model.config
     mix = train_mix(cfg, metrics)
     n = sum(mix.values())
-    rec = sum(step_mix(cfg, sum(int(m["teacher_steps"])
-                                + int(m["sample_steps"])
-                                for m in metrics)).values())
+    rec = sum(step_mix(cfg, sum(rollout_steps(metrics, flat=True)))
+              .values())
     failed = None
     try:
         if got != (n + rec, n, n, 0):
@@ -2033,14 +2314,124 @@ def bench_config(card, causal, none_peak):
     return mix, got, failed, extra.get("trace")
 
 
-def rollout_steps(metrics):
-    return [(int(m["teacher_steps"]), int(m["sample_steps"]))
-            for m in metrics]
+def teacher_ab(card, n=3):
+    """Phase 5 (g)'s same-call comparison of the two teachers: the bench
+    build (bf16, remat "model", batch 64, dropout on) with the vectorized
+    teacher and with the per-step one (`vectorized_teacher=False`), from
+    the same weights and generator seed, one warm-up per bucket each, then
+    n steps each on the same batches, the two alternating (the first of
+    each pair alternates too).  Host clock around synchronised steps.
+    Prints the line; returns {teacher: [ms of each step]}."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    states, sd, batcher = {}, None, None
+    for name, vec in (("vectorized", True), ("per-step", False)):
+        st, b_ = build_train_flagship("cuda", batch_size=B_TRAIN,
+                                      compute_dtype="bfloat16",
+                                      remat="model", vectorized_teacher=vec)
+        if sd is None:
+            sd, batcher = {k: v.clone() for k, v
+                           in st.model.state_dict().items()}, b_
+        else:
+            st.model.load_state_dict(sd)
+        states[name] = (st, torch.Generator(device="cuda").manual_seed(0))
+    del sd
+    for cap in batcher.bucket_caps:
+        bb = batcher.make_batch(batcher.next_minibatch(), gt_cap=cap)
+        for st, g in states.values():
+            st.step_fn(st, bb, g)
+    ms = {name: [] for name in states}
+    steps = {name: [] for name in states}
+    for i in range(n):
+        batch = batcher.next_batch()[1]
+        order = list(states) if i % 2 == 0 else list(states)[::-1]
+        for name in order:
+            st, g = states[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = st.step_fn(st, batch, g)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            steps[name].append(rollout_steps([m])[0])
+    say("train (g) teachers in one call, bench build, same batches, "
+        "alternating: " + "; ".join(
+            f"{name} teacher {[round(t, 1) for t in v]} ms (mean "
+            f"{sum(v) / len(v):.1f}; teacher, sample steps {steps[name]})"
+            for name, v in ms.items()) + f" on {card}")
+    del states
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms
+
+
+def fused_bench(card):
+    """Phase 5 (j): the GOAT_BENCH_ALG=dagger_fused build (bf16, remat
+    "model", sample feedback "sample"): each step one batch of two fused
+    minibatches of 64; one warm-up per bucket, then 2 timed steps; loss
+    and grad norm finite, parameters moved, launches as the config gives
+    them (the instruction encoding once per fused step, the recomputed
+    rollout steps' forwards on top), every bf16 launch by TMA, and the
+    peak memory.  Returns (forward launch mix, launch counts, failure or
+    None)."""
+    n_steps = 2
+    state, metrics, got, dt, warm_peak, peak, before, left, extra = \
+        bench_steps(True, False, n=n_steps, compute_dtype="bfloat16",
+                    remat="model", tcfg=TrainConfig(
+                        train_alg="dagger_fused", weight_decay=0.01))
+    cfg = state.model.config
+    mix = train_mix(cfg, metrics)
+    n = sum(mix.values())
+    rec = sum(step_mix(cfg, sum(rollout_steps(metrics, flat=True)))
+              .values())
+    failed, moved = None, -1
+    try:
+        if got != (n + rec, n, n, 0):
+            raise AssertionError(f"launched {got}, expected "
+                                 f"{(n + rec, n, n, 0)}")
+        check_routes(extra["routes"], sum(got[:3]), got[0] + got[1])
+        for m in metrics:
+            if not (math.isfinite(float(m["loss"]))
+                    and math.isfinite(float(m["grad_norm"]))):
+                raise AssertionError(f"non-finite step: {m}")
+        moved = sum(not torch.equal(p.detach(), before[n_])
+                    for n_, p in state.model.named_parameters())
+        if moved < 0.9 * len(before):
+            raise AssertionError(f"only {moved} of {len(before)} "
+                                 "parameters moved")
+    except AssertionError as exc:
+        failed = f"train (j): {exc}"
+        say(f"train (j): FAILED: {exc} (the script goes on, and fails at "
+            f"its end)")
+    say(f"train (j) dagger_fused build, bf16 compute, remat model, two "
+        f"minibatches of {B_TRAIN} a step, dropout {RATE}/{RATE}/feat 0.4, "
+        f"kernels: {n_steps} steps (fused steps "
+        f"{rollout_steps(metrics, flat=True)}), loss "
+        f"{[round(float(m['loss']), 4) for m in metrics]} (il "
+        f"{[round(float(m['il_loss']), 4) for m in metrics]}, sample "
+        f"{[round(float(m['sample_loss']), 4) for m in metrics]}), "
+        f"grad_norm {[round(float(m['grad_norm']), 3) for m in metrics]}, "
+        f"{moved}/{len(before)} parameters moved, launches {got} "
+        f"({mix_text(mix)}; {rec} recomputed; bf16 core launches by route "
+        f"{extra['routes']}), peak memory {warm_peak:.2f} GiB in the "
+        f"warm-up, {peak:.2f} GiB in the timed steps ({left:.2f} GiB left "
+        f"by earlier phases, freed first); {2 * B_TRAIN * n_steps / dt:.2f}"
+        f" episodes/s ({dt / n_steps * 1e3:.1f} ms per step) on {card}")
+    del state, metrics, before
+    torch.cuda.empty_cache()
+    return mix, got, failed
+
+
+def rollout_steps(metrics, flat=False):
+    """Each step's rollout steps by rollout (teacher, sample; or fused), or
+    with `flat` each step's total."""
+    steps = [tuple(int(v) for k, v in m.items() if k.endswith("_steps"))
+             for m in metrics]
+    return [sum(t) for t in steps] if flat else steps
 
 
 def bench_steps(fused: bool, causal: bool = False, n: int = 3,
                 compute_dtype: str = "float32", remat: str = "none",
-                trace: bool = False):
+                trace: bool = False, **build_kw):
     """The bench's DAgger step (batch 64, dropout on) through the kernels
     or the eager path, in the plain or the causal configuration, in
     `compute_dtype` under the rollouts' `remat` policy: one warm-up step
@@ -2052,7 +2443,9 @@ def bench_steps(fused: bool, causal: bool = False, n: int = 3,
     first (a train state holds reference cycles, which only the cyclic
     collector frees), so that the peaks are this step's own; and a dict
     with the timed steps' bf16 core launches by route and, with `trace`,
-    the profile of one more step (`trace_step`)."""
+    the profile of one more step (`trace_step`).  build_kw: more of
+    build_train_flagship's arguments; a dagger_fused build warms up on
+    batches whose halves are of one bucket."""
     left = torch.cuda.memory_allocated() / 2 ** 30
     gc.collect()
     torch.cuda.empty_cache()
@@ -2060,12 +2453,15 @@ def bench_steps(fused: bool, causal: bool = False, n: int = 3,
                                           use_fused_attention=fused,
                                           causal=causal,
                                           compute_dtype=compute_dtype,
-                                          remat=remat)
+                                          remat=remat, **build_kw)
     g = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for cap in batcher.bucket_caps:
         bb = batcher.make_batch(batcher.next_minibatch(), gt_cap=cap)
+        if state.train_alg == "dagger_fused":
+            bb = fuse_dagger_batches(bb, batcher.make_batch(
+                batcher.next_minibatch(), gt_cap=cap))
         state.step_fn(state, bb, g)
     torch.cuda.synchronize()
     warm_peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2212,12 +2608,14 @@ def main() -> int:
             if ("registers" in line or "spill" in line or "entry" in line) \
                     and "C7519" not in line:
                 say(f"  ptxas {name}: {line.strip()}")
+    _bwd_lib()
     lib = _build.load("fused_qkv_mha_bwd")
     smem = (ctypes.c_int * 4)()
-    lib.fused_qkv_mha_bwd_smem(smem)
-    say(f"  fused_qkv_mha_bwd dynamic shared memory: GEMM jobs "
-        f"{smem[0]} bytes, attn_bwd_kernel {smem[1]} bytes a block; bf16 "
-        f"builds {smem[2]} and {smem[3]} bytes")
+    for dh in HEAD_DIMS:
+        lib.fused_qkv_mha_bwd_smem(dh, smem)
+        say(f"  fused_qkv_mha_bwd dynamic shared memory at head width {dh}: "
+            f"GEMM jobs {smem[0]} bytes, attn_bwd_kernel {smem[1]} bytes a "
+            f"block; bf16 builds {smem[2]} and {smem[3]} bytes")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2231,6 +2629,11 @@ def main() -> int:
     b_mha_rows = check_mha_bf16()
     say(f"wall: phase 3 (bf16) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    w_rows = check_head_widths()
+    pb_bf16 = check_phase_b()
+    say(f"wall: phase 3 (head widths, phase B rows) "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     decode = run_rollouts(card)
     b_decode, d_failed = run_rollouts_bf16(card)
     say(f"wall: phase 4 {time.perf_counter() - t0:.1f} s")
@@ -2242,6 +2645,10 @@ def main() -> int:
     f_failed = bf16_gate_step(card)
     say(f"wall: phase 5 (e, f) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    h_failed = vec_teacher_gate(card)
+    i_failed = sampled_gates()
+    say(f"wall: phase 5 (h, i) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     c_decode = run_rollouts(card, causal=True)
     c_b_decode, cd_failed = run_rollouts_bf16(card, causal=True)
     say(f"wall: causal phase 4 {time.perf_counter() - t0:.1f} s")
@@ -2250,11 +2657,18 @@ def main() -> int:
     say(f"wall: phase 5 (c, d) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cf_failed = bf16_gate_step(card, causal=True)
+    cg_mix, cg_train, cg_failed, _ = bench_config(card, True, c_none_peak)
+    say(f"wall: phase 5 (f causal, g causal) "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    j_mix, j_train, j_failed = fused_bench(card)
+    say(f"wall: phase 5 (j) {time.perf_counter() - t0:.1f} s")
     # the plain bench build last: its profiled step comes after every timed
     # step of the script
-    cg_mix, cg_train, cg_failed, _ = bench_config(card, True, c_none_peak)
+    t0 = time.perf_counter()
+    teacher_ab(card)
     g_mix, g_train, g_failed, _ = bench_config(card, False, none_peak)
-    say(f"wall: phase 5 (f causal, g) {time.perf_counter() - t0:.1f} s")
+    say(f"wall: phase 5 (g) {time.perf_counter() - t0:.1f} s")
 
     # one row per kernel: launches by path (decode counts the forward
     # only), and times weighted by the launch mix of both train paths
@@ -2290,7 +2704,8 @@ def main() -> int:
     b_mix = add_mix(g_mix, cg_mix)
     b_total = sum(b_mix.values())
     b_by_path = [dict(decode=b_decode, train=g_train[i],
-                      causal_decode=c_b_decode, causal_train=cg_train[i])
+                      causal_decode=c_b_decode, causal_train=cg_train[i],
+                      fused_train=j_train[i])
                  for i in range(3)]
     for i in (1, 2):
         b_by_path[i].update(decode=0, causal_decode=0)
@@ -2316,7 +2731,8 @@ def main() -> int:
              max_abs_err=err("fwd_err"),
              ms=avg("ms"), plain_ms=avg("plain_ms"),
              bound_ms=avg("bound_ms"), bound_by=by("bound_by"),
-             library_ms=avg("library_ms")),
+             library_ms=avg("library_ms"), device_ms=avg("device_ms"),
+             library_device_ms=avg("library_device_ms")),
         dict(name="fused_qkv_mha_bwd_attn", route="cuda",
              source=src + "fused_qkv_mha_bwd.cu",
              replaces="vln_goat_tpu/ops/attention.py:181",
@@ -2324,7 +2740,9 @@ def main() -> int:
              launches_by_path=by_path[1], max_abs_err=err("attn_err"),
              ms=avg("attn_ms"), plain_ms=avg("attn_plain_ms"),
              bound_ms=avg("attn_bound_ms"), bound_by=by("attn_bound_by"),
-             library_ms=avg("attn_library_ms")),
+             library_ms=avg("attn_library_ms"),
+             device_ms=avg("attn_device_ms"),
+             library_device_ms=avg("attn_library_device_ms")),
         dict(name="fused_qkv_mha_bwd_proj", route="cuda",
              source=src + "fused_qkv_mha_bwd.cu",
              replaces="vln_goat_tpu/ops/attention.py:181",
@@ -2332,7 +2750,9 @@ def main() -> int:
              launches_by_path=by_path[2], max_abs_err=err("proj_err"),
              ms=avg("projb_ms"), plain_ms=avg("projb_plain_ms"),
              bound_ms=avg("projb_bound_ms"), bound_by=by("projb_bound_by"),
-             library_ms=avg("projb_library_ms")),
+             library_ms=avg("projb_library_ms"),
+             device_ms=avg("projb_device_ms"),
+             library_device_ms=avg("projb_library_device_ms")),
         # on no path, in either package: the JAX package keeps pallas_mha
         # for A/B comparisons; times at the hoisted-text cross-attention
         dict(name="mha", route="cuda", source=src + "mha.cu",
@@ -2343,7 +2763,8 @@ def main() -> int:
              ms=mha_avg("ms"), plain_ms=mha_avg("plain_ms"),
              bound_ms=mha_avg("bound_ms"),
              bound_by=mha_rows[MHA_LINE[0]]["bound_by"],
-             library_ms=mha_avg("library_ms")),
+             library_ms=mha_avg("library_ms"), device_ms=mha_avg("device_ms"),
+             library_device_ms=mha_avg("library_device_ms")),
         dict(name="fused_qkv_mha_bf16", route="cuda",
              source=src + "fused_qkv_mha.cu",
              replaces="vln_goat_tpu/ops/attention.py:169",
@@ -2360,7 +2781,9 @@ def main() -> int:
              launches_by_path=b_by_path[1], max_abs_err=b_err("attn_err"),
              ms=b_avg("attn_ms"), plain_ms=b_avg("attn_plain_ms"),
              bound_ms=b_avg("attn_bound_ms"), bound_by=b_by("attn_bound_by"),
-             library_ms=b_avg("attn_library_ms")),
+             library_ms=b_avg("attn_library_ms"),
+             device_ms=b_avg("attn_device_ms"),
+             library_device_ms=b_avg("attn_library_device_ms")),
         dict(name="fused_qkv_mha_bwd_proj_bf16", route="cuda",
              source=src + "fused_qkv_mha_bwd.cu",
              replaces="vln_goat_tpu/ops/attention.py:181",
@@ -2410,6 +2833,12 @@ def main() -> int:
              device_ms=b_mha_avg("device_ms"),
              library_device_ms=b_mha_avg("library_device_ms")),
     ]
+    # head widths 32 and 128 and the phase B row count: on no path
+    for dh, r in w_rows.items():
+        kernels += width_kernel_rows(f"dh{dh}", r["f32"], r["mha"], False)
+        kernels += width_kernel_rows(f"dh{dh}", r["bf16"], r["mha_bf16"],
+                                     True)
+    kernels += width_kernel_rows(f"b{PHASE_B_BATCH}", pb_bf16, None, True)
     # the float32 CUDA-core bounds, beside the 3xTF32 ones
     # the kernels line carries, and the forward by part
     say(f"float32 CUDA-core bound over the train mix: forward "
@@ -2435,7 +2864,8 @@ def main() -> int:
     say(f"wall: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     failures = [f for f in (d_failed, cd_failed, failed, c_failed, e_failed,
-                            f_failed, cf_failed, g_failed, cg_failed)
+                            f_failed, cf_failed, g_failed, cg_failed,
+                            h_failed, j_failed, *i_failed)
                 if f is not None]
     if failures:
         say("FAILED: " + "; ".join(failures))

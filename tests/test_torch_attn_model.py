@@ -56,7 +56,8 @@ def _constants():
 
 
 C = _constants()
-TILE, DH = C["TILE"], C["DH"]
+# the model runs at head width 64, one tile's 64 head columns (TW)
+TILE, DH = C["TILE"], C["TW"]
 ATOL = 1e-3
 B, H, Lq = 2, 2, 70
 D = H * DH

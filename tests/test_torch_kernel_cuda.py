@@ -236,8 +236,9 @@ def test_forward_drops_what_the_plain_version_drops(card, Lq, Lk):
 
 def test_fused_qkv_mha_takes_long_keys(card):
     """Both builds take any key length (the float32 attention forward past
-    256 keys in key blocks); head width 64 and D % 32 == 0 only: anything
-    else raises on the card, with no fallback to the plain version."""
+    256 keys in key blocks); head widths 32, 64, 128 and D % 32 == 0 only:
+    anything else (768 / 16 = 48) raises on the card, with no fallback to
+    the plain version."""
     x = torch.zeros(1, 4, 768, device="cuda")
     y = torch.zeros(1, 257, 768, device="cuda")
     w, b = torch.zeros(768, 768, device="cuda"), torch.zeros(768, device="cuda")
@@ -249,8 +250,8 @@ def test_fused_qkv_mha_takes_long_keys(card):
         torch.cuda.synchronize()
         assert fused_qkv_mha.launches == before + 1
         assert out.dtype == dt and bool((out == 0).all())
-    with pytest.raises(ValueError, match="head width"):
-        fused_qkv_mha(x, y, w, b, w, b, w, b, num_heads=24)
+    with pytest.raises(ValueError, match=r"head widths \(32, 64, 128\)"):
+        fused_qkv_mha(x, y, w, b, w, b, w, b, num_heads=16)
     x2, y2 = torch.zeros(1, 4, 784, device="cuda"), \
         torch.zeros(1, 40, 784, device="cuda")
     w2, b2 = torch.zeros(784, 768, device="cuda"), b
@@ -340,9 +341,9 @@ def test_mha_reads_transposed_views(card, Lk):
 
 
 def test_mha_refuses_what_it_does_not_take(card):
-    """Head width 64 only; float16 and mixed dtypes are refused; both
-    builds take any Lk."""
-    q = torch.zeros(1, 4, H, 32, device="cuda")
+    """Head widths 32, 64 and 128 only; float16 and mixed dtypes are
+    refused; both builds take any Lk."""
+    q = torch.zeros(1, 4, H, 48, device="cuda")
     with pytest.raises(ValueError, match="head width"):
         mha(q, q, q)
     q = torch.zeros(1, 4, H, 64, device="cuda")
@@ -804,7 +805,7 @@ def test_mha_bf16_rounds_once(card, Lq, Lk, bias_kind):
     rc = attention_mod._mha_lib().mha_fwd_bf16_one_term(
         q.data_ptr(), *q.stride(), k.data_ptr(), *k.stride(), v.data_ptr(),
         *v.stride(), b4.data_ptr(), *b4.stride(), out.data_ptr(), 3, Lq, Lk,
-        H, 64 ** -0.5, torch.cuda.current_stream().cuda_stream)
+        H, 64, 64 ** -0.5, torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     assert _rounding_excess(out, q, k, v, bias) > 1
 
@@ -842,3 +843,85 @@ def test_bf16_keep_share_long_keys(card):
     unit = float((torch.tensor(1.0) / Lk) * torch.tensor(1.0 / 0.9))
     share = float(out[..., ::64].float().mean()) / (Lk * unit)
     assert abs(share - 0.9) < 4 * math.sqrt(0.9 * 0.1 / (B * H * Lq * Lk))
+
+
+# ---------------------------------------------------------------------------
+# Head widths 32 and 128 at D = 768 (24 heads of 32, 6 of 128): every
+# attention kernel of both builds against its plain version, through the
+# gates of the 64-wide cases above, with one and several key tiles
+
+WIDTH_CASES = [(24, 54, 54, 1), (6, 54, 54, None), (24, 70, 130, "h"),
+               (6, 33, 200, "h")]
+
+
+def _hb(hb, heads):
+    return heads if hb == "h" else hb
+
+
+@pytest.mark.parametrize("heads,Lq,Lk,hb", WIDTH_CASES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_head_widths_match_plain(card, heads, Lq, Lk, hb, rate):
+    """float32 K1 and K2 (a) + (b) through autograd at head width
+    768 / heads."""
+    args, seed = _case(card, 2, Lq, Lk, _hb(hb, heads), True, grad=True)
+    leaves = [a for a in args if a is not None]
+    before = fused_qkv_mha.launches
+    out = fused_qkv_mha(*args, num_heads=heads, dropout_rate=rate, seed=seed)
+    ref = fused_qkv_mha_plain(*args, num_heads=heads, dropout_rate=rate,
+                              seed=seed)
+    torch.cuda.synchronize()
+    assert fused_qkv_mha.launches == before + 1
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-3)
+    dout = torch.randn(2, Lq, D, generator=card, device="cuda")
+    _assert_grads(torch.autograd.grad(out, leaves, dout),
+                  torch.autograd.grad(ref, leaves, dout))
+
+
+@pytest.mark.parametrize("heads,Lq,Lk,hb", WIDTH_CASES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_head_widths_match_float64(card, heads, Lq, Lk, hb, rate):
+    """bf16 K1 and K2 (a) + (b) at head width 768 / heads, within the bf16
+    gate of float64, every attention launch by TMA."""
+    args, seed = _bf16_case(card, 2, Lq, Lk, _hb(hb, heads), True,
+                            grad=True)
+    leaves = [a for a in args if a is not None]
+    routes = dict(attention_mod.attn_core_routes)
+    out = fused_qkv_mha(*args, num_heads=heads, dropout_rate=rate, seed=seed)
+    dout = torch.randn(2, Lq, D, generator=card, device="cuda").to(
+        torch.bfloat16)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert attention_mod.attn_core_routes == {
+        "tma": routes["tma"] + 2, "direct": routes["direct"]}
+    plain_out = fused_qkv_mha_plain(*args, num_heads=heads,
+                                    dropout_rate=rate, seed=seed)
+    plain = torch.autograd.grad(plain_out, leaves, dout)
+    leaves64 = [a.detach().double().requires_grad_() for a in leaves]
+    it = iter(leaves64)
+    args64 = [None if a is None else next(it) for a in args]
+    ref_out = fused_qkv_mha_plain(*args64, num_heads=heads,
+                                  dropout_rate=rate, seed=seed)
+    ref = torch.autograd.grad(ref_out, leaves64, dout.double())
+    _assert_bf16_gate(out, plain_out, ref_out)
+    for i, (g_, p_, r) in enumerate(zip(got, plain, ref)):
+        assert g_.dtype == torch.bfloat16 and g_.shape == r.shape
+        _assert_bf16_gate(g_, p_, r, ref[4] if i == 5 else None)
+
+
+@pytest.mark.parametrize("dh", [32, 128])
+@pytest.mark.parametrize("Lq,Lk", [(54, 60), (63, 300)])
+def test_mha_head_widths(card, dh, Lq, Lk):
+    """K3 in float32 (against the plain version) and bf16 (within the bf16
+    gate of float64) at head width dh, 768 / dh heads, under a key mask."""
+    heads = D // dh
+    q, k, v = (torch.randn(2, L, heads, dh, generator=card, device="cuda")
+               for L in (Lq, Lk, Lk))
+    keep = torch.rand(2, Lk, generator=card, device="cuda") < 0.8
+    keep[:, 0] = True
+    bias = (1.0 - keep.float())[:, None, None, :] * -10000.0
+    torch.testing.assert_close(mha(q, k, v, bias), mha_plain(q, k, v, bias),
+                               atol=1e-4, rtol=1e-3)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    out = mha(qb, kb, vb, bias)
+    ref = mha_plain(*(t.double() for t in (qb, kb, vb, bias)))
+    _assert_bf16_gate(out, mha_plain(qb, kb, vb, bias), ref)

@@ -167,6 +167,6 @@ class TrainConfig:
 
     lr: float = 2e-5
     weight_decay: float = 0.0
-    train_alg: str = "dagger"      # imitation | dagger
+    train_alg: str = "dagger"      # imitation | dagger | dagger_fused
     ml_weight: float = 0.2
     grad_clip: float = 40.0

@@ -22,7 +22,14 @@ bench_train` times:
 parameters; the fused kernels' bf16 builds), and `remat="model"` has the
 train step's rollouts recompute each model call in the backward:
 `build_train_flagship(compute_dtype="bfloat16", remat="model")` is
-`bench.py`'s train build for R2R (`bench.py:78`, `:123`, `:200`).
+`bench.py`'s train build for R2R (`bench.py:78`, `:123`, `:200`), with
+its vectorized teacher (`vectorized_teacher=True`, the default;
+`GOAT_VEC_TEACHER=0` there is `vectorized_teacher=False` here).
+`tcfg=TrainConfig(train_alg="dagger_fused")` is its `GOAT_BENCH_ALG=
+dagger_fused` build, whose steps `train_steps` feeds with two batches
+fused into one (`trainer.fuse_dagger_batches`); `sample_feedback=
+"expl_sample"` has the sampled rollouts explore as the reference's
+`--expl_sample`.
 
 `causal=True` builds either with GOAT's causal configuration (`CAUSAL`:
 BACL back-door text type_2 and image type_1, FACL front-door on text,
@@ -49,7 +56,7 @@ from .tools.kmeans import FrontDoorPicker
 from .tools.zdict import (DIRECTION_WORDS, FALLBACK_LANDMARKS, front_banks,
                           instr_bank_names)
 from .train.params import init_goat_params
-from .train.trainer import TrainState, init_train_state
+from .train.trainer import TrainState, fuse_dagger_batches, init_train_state
 
 TINY = dict(num_l_layers=1, num_x_layers=1, num_pano_layers=1,
             hidden_size=32, num_attention_heads=2, intermediate_size=64,
@@ -176,7 +183,10 @@ def build_train_flagship(device="cuda", tiny: bool = False,
                          tcfg: Optional[TrainConfig] = None,
                          teacher_horizon="auto", causal: bool = False,
                          compute_dtype: str = "float32",
-                         remat: str = "none"):
+                         remat: str = "none",
+                         vectorized_teacher: bool = True,
+                         sample_feedback: str = "sample",
+                         expl_max_ratio: float = 0.6):
     """(TrainState, batcher) of the R2R DAgger step of `bench.py`
     `bench_train` (its `build` for R2R, :78-140): the full-width R2R model
     in float32 with seeded random weights, 4 synthetic scans of 120
@@ -188,7 +198,10 @@ def build_train_flagship(device="cuda", tiny: bool = False,
     Weights drawn from seed 0.  `dropout=False` sets every dropout
     probability to 0.  compute_dtype: "float32" or "bfloat16" (bench.py
     trains in bf16); remat: the rollouts' rematerialisation policy, "none"
-    or "model" (bench.py's GOAT_BENCH_REMAT default).  `tiny=True`: the
+    or "model" (bench.py's GOAT_BENCH_REMAT default); vectorized_teacher,
+    sample_feedback and expl_max_ratio: the train step's
+    (`trainer.make_train_step`; tcfg.train_alg may be "imitation",
+    "dagger" or "dagger_fused").  `tiny=True`: the
     JAX package's train-step test configuration (one 12-viewpoint scan,
     hidden 32, 16 node slots, horizon 6, buckets (4, 6)).  causal=True:
     the CAUSAL flags, and the batcher attaches make_causal_banks(cfg,
@@ -230,13 +243,27 @@ def build_train_flagship(device="cuda", tiny: bool = False,
                              grad_clip=tcfg.grad_clip,
                              train_alg=tcfg.train_alg,
                              ml_weight=tcfg.ml_weight,
-                             teacher_horizon=teacher_horizon, remat=remat)
+                             teacher_horizon=teacher_horizon, remat=remat,
+                             vectorized_teacher=vectorized_teacher,
+                             sample_feedback=sample_feedback,
+                             expl_max_ratio=expl_max_ratio)
     return state, batcher
+
+
+def next_train_batch(state: TrainState, batcher: EpisodeBatcher) -> dict:
+    """The batch of state's next step: the batcher's next one, or for
+    "dagger_fused" its next two fused (`fuse_dagger_batches`, as
+    `bench.py`'s `nb()`)."""
+    if state.train_alg == "dagger_fused":
+        b_t = batcher.next_batch()[1]
+        return fuse_dagger_batches(b_t, batcher.next_batch()[1])
+    return batcher.next_batch()[1]
 
 
 def train_steps(state: TrainState, batcher: EpisodeBatcher, n: int,
                 generator: torch.Generator) -> List[dict]:
-    """n updates of state on the batcher's next n batches; the metrics of
-    each step (tensors on the model's device)."""
-    return [state.step_fn(state, batcher.next_batch()[1], generator)
+    """n updates of state on the batcher's next batches
+    (`next_train_batch`); the metrics of each step (tensors on the
+    model's device)."""
+    return [state.step_fn(state, next_train_batch(state, batcher), generator)
             for _ in range(n)]

@@ -29,8 +29,9 @@ gradients in float32; q, k, v, p, ds and the projection gradients
 rounded to bf16 where the JAX kernel casts them; outputs and gradients in
 their input's dtype.  x, y, the weights and biases of one call share one
 dtype; a mix raises.  On the card both builds take any Lk (the float32
-attention forward past 256 keys in key blocks with an online softmax),
-head width 64 and D % 32 == 0, and raise on any other shape.
+attention forward past 256 keys in key blocks with an online softmax), the
+head widths of `HEAD_DIMS` (32, 64, 128: one kernel instance each, chosen
+at launch) and D % 32 == 0, and raise on any other shape.
 
 On a CUDA tensor `fused_qkv_mha` runs `FusedQKVMHA`, an autograd Function
 whose forward launches the forward kernel and whose backward launches the
@@ -157,6 +158,30 @@ _VP, _LL, _I, _U, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_uint, ctypes.c_float
 _W = [_VP, _LL, _LL]                    # weight pointer and its two strides
 
+# the head widths the attention kernels are built for (csrc/head_dims.cuh;
+# each library's `*_head_dims` entry must report the same set)
+HEAD_DIMS = (32, 64, 128)
+
+
+def check_head_dim(dh: int) -> None:
+    """Raises ValueError for a head width the kernels are not built for,
+    naming the widths they are."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the kernels are built for head widths "
+                         f"{HEAD_DIMS}, got {dh}")
+
+
+def _check_head_dims(lib: ctypes.CDLL, entry: str) -> None:
+    """Holds the library's head widths (its entry `entry`) to HEAD_DIMS."""
+    fn = getattr(lib, entry)
+    fn.argtypes = [_VP, _I]
+    fn.restype = _I
+    out = (_I * 8)()
+    n = fn(out, 8)
+    if tuple(out[:n]) != HEAD_DIMS:
+        raise RuntimeError(f"{entry}: the library is built for head widths "
+                           f"{tuple(out[:n])}, the wrapper for {HEAD_DIMS}")
+
 
 # the dtypes the kernels take, and the suffix of their C entries
 _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
@@ -173,19 +198,19 @@ def _fwd_lib() -> ctypes.CDLL:
         for sfx in _SUFFIX.values():
             fn = getattr(lib, "fused_qkv_mha_fwd" + sfx)
             fn.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3
-                           + [_VP, _LL, _LL, _LL, _LL, _VP, _VP] + [_I] * 5
+                           + [_VP, _LL, _LL, _LL, _LL, _VP, _VP] + [_I] * 6
                            + [_F, _VP, _U, _F, _VP])
             fn.restype = _I
             fn = getattr(lib, "fused_qkv_mha_proj" + sfx)
-            fn.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3 + [_VP] + [_I] * 5
+            fn.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3 + [_VP] + [_I] * 6
                            + [_VP])
             fn.restype = _I
         # the bf16 attention core alone, for timing it (chip_smoke.py)
         lib.fused_qkv_mha_attn_bf16.argtypes = (
-            [_VP, _VP, _LL, _LL, _LL, _LL, _VP] + [_I] * 4
+            [_VP, _VP, _LL, _LL, _LL, _LL, _VP] + [_I] * 5
             + [_F, _VP, _U, _F, _VP])
         lib.fused_qkv_mha_attn_bf16.restype = _I
-        lib.fused_qkv_mha_head_dim.restype = _I
+        _check_head_dims(lib, "fused_qkv_mha_head_dims")
         lib.fused_qkv_mha_bf16_route.restype = _I
         lib.fused_qkv_mha_attn_route.restype = _I
     return lib
@@ -198,26 +223,26 @@ def _bwd_lib() -> ctypes.CDLL:
             fa = getattr(lib, "fused_qkv_mha_bwd_attn" + sfx)
             fa.argtypes = ([_VP, _VP] + (_W + [_VP]) * 3
                            + [_VP, _LL, _LL, _LL, _LL] + [_VP, _U, _F]
-                           + [_VP] * 8 + [_I] * 5 + [_F, _VP])
+                           + [_VP] * 8 + [_I] * 6 + [_F, _VP])
             fa.restype = _I
             fp = getattr(lib, "fused_qkv_mha_bwd_proj" + sfx)
             fp.argtypes = ([_VP, _VP] + _W * 3 + [_VP] * 6 + [_VP] * 9
-                           + [_I] * 7 + [_VP])
+                           + [_I] * 8 + [_VP])
             fp.restype = _I
             fr = getattr(lib, "fused_qkv_mha_bwd_reduce" + sfx)
-            fr.argtypes = [_VP] * 10 + [_I] * 2 + [_VP]
+            fr.argtypes = [_VP] * 10 + [_I] * 3 + [_VP]
             fr.restype = _I
             fg = getattr(lib, "fused_qkv_mha_bwd_gemm" + sfx)
             fg.argtypes = [_VP, _LL, _LL] * 2 + [_VP] * 3 + [_I] * 5 + [_VP]
             fg.restype = _I
-        lib.fused_qkv_mha_bwd_smem.argtypes = [_VP]
+        lib.fused_qkv_mha_bwd_smem.argtypes = [_I, _VP]
         lib.fused_qkv_mha_bwd_smem.restype = None
         # (a)'s bf16 attention core alone, for timing it (chip_smoke.py)
         lib.fused_qkv_mha_bwd_core_bf16.argtypes = (
-            [_VP, _VP] + [_LL] * 4 + [_VP, _U, _F] + [_VP] * 7 + [_I] * 4
+            [_VP, _VP] + [_LL] * 4 + [_VP, _U, _F] + [_VP] * 7 + [_I] * 5
             + [_F, _VP])
         lib.fused_qkv_mha_bwd_core_bf16.restype = _I
-        lib.fused_qkv_mha_bwd_head_dim.restype = _I
+        _check_head_dims(lib, "fused_qkv_mha_bwd_head_dims")
         lib.fused_qkv_mha_bwd_bf16_route.restype = _I
         lib.fused_qkv_mha_bwd_attn_route.restype = _I
         lib.fused_qkv_mha_bwd_tile.argtypes = [_VP]
@@ -257,10 +282,10 @@ def _mha_lib() -> ctypes.CDLL:
         # mha_fwd_bf16_one_term: the control of chip_smoke.py's check
         for fn in (lib.mha_fwd, lib.mha_fwd_bf16, lib.mha_fwd_bf16_one_term):
             fn.argtypes = ([_VP, _LL, _LL, _LL, _LL] * 3
-                           + [_VP, _LL, _LL, _LL, _LL, _VP] + [_I] * 4
+                           + [_VP, _LL, _LL, _LL, _LL, _VP] + [_I] * 5
                            + [_F, _VP])
             fn.restype = _I
-        lib.mha_head_dim.restype = _I
+        _check_head_dims(lib, "mha_head_dims")
         lib.mha_attn_route.restype = _I
     return lib
 
@@ -272,9 +297,9 @@ def mha(q, k, v, bias=None):
     in float32.  Forward only (no autograd), as the TPU kernel has no VJP.
 
     On the card the kernel reads q, k, v and the bias through their
-    strides; it takes head width 64 and any Lk (in bf16 on the Hopper
-    core, whose launches count in `attn_core_routes`), and raises on
-    anything else."""
+    strides; it takes the head widths of HEAD_DIMS and any Lk (in bf16 on
+    the Hopper core, whose launches count in `attn_core_routes`), and
+    raises on anything else."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, bias)
     dev = q.device
@@ -293,12 +318,10 @@ def mha(q, k, v, bias=None):
         if t.device != dev or t.dtype != dtype:
             raise ValueError(f"{name}: needs {dtype} on {dev} like q, got "
                              f"{t.dtype} on {t.device}")
-    lib = _mha_lib()
     B, Lq, H, dh = q.shape
     Lk = k.shape[1]
-    if dh != lib.mha_head_dim():
-        raise ValueError(f"the kernel is built for head width "
-                         f"{lib.mha_head_dim()}, got {dh}")
+    check_head_dim(dh)
+    lib = _mha_lib()
     bias4, bst = None, (0, 0, 0, 0)
     if bias is not None:
         if bias.device != dev:
@@ -311,7 +334,7 @@ def mha(q, k, v, bias=None):
             q.data_ptr(), *q.stride(), k.data_ptr(), *k.stride(),
             v.data_ptr(), *v.stride(),
             None if bias4 is None else bias4.data_ptr(), *bst,
-            out.data_ptr(), B, Lq, Lk, H, 1.0 / math.sqrt(dh),
+            out.data_ptr(), B, Lq, Lk, H, dh, 1.0 / math.sqrt(dh),
             torch.cuda.current_stream(dev).cuda_stream)
     mha.launches += 1
     if rc != 0:
@@ -342,7 +365,7 @@ class _Call:
     the card, shared by the forward and the backward launches."""
 
     def __init__(self, x, y, wq, bq, wk, bk, wv, bv, bias, seed,
-                 num_heads: int, dropout_rate: float, lib, head_dim: int):
+                 num_heads: int, dropout_rate: float, lib):
         dev = x.device
         if dev.type != "cuda":
             raise ValueError(f"fused_qkv_mha kernels: unsupported device "
@@ -367,9 +390,7 @@ class _Call:
                                  f"like x, got {t.dtype} on {t.device}")
         for name, w, b in (("q", wq, bq), ("k", wk, bk), ("v", wv, bv)):
             _check_weight(name, w, b, D, HD, dev, dtype)
-        if dh != head_dim:
-            raise ValueError(f"the kernel is built for head width "
-                             f"{head_dim}, got {dh}")
+        check_head_dim(dh)
         if D % 32:
             raise ValueError(f"the kernels take D % 32 == 0, got D={D}")
         if not 0.0 <= dropout_rate < 1.0:
@@ -396,6 +417,7 @@ class _Call:
         self.inv_keep = 1.0 / (1.0 - dropout_rate)
         self.dev, self.lib, self.dtype = dev, lib, dtype
         self.B, self.Lq, self.Lk, self.D, self.H, self.HD = B, Lq, Lk, D, H, HD
+        self.dh = dh
         self.scale = 1.0 / math.sqrt(dh)
         self.ws = ((wq, bq), (wk, bk), (wv, bv))
 
@@ -431,16 +453,14 @@ class _Call:
 
 def _fwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
               dropout_rate) -> _Call:
-    lib = _fwd_lib()
     return _Call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
-                 dropout_rate, lib, lib.fused_qkv_mha_head_dim())
+                 dropout_rate, _fwd_lib())
 
 
 def _bwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
               dropout_rate) -> _Call:
-    lib = _bwd_lib()
     return _Call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
-                 dropout_rate, lib, lib.fused_qkv_mha_bwd_head_dim())
+                 dropout_rate, _bwd_lib())
 
 
 def forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias=None,
@@ -458,7 +478,7 @@ def forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias=None,
     with torch.cuda.device(c.dev):
         rc = c.entry("fused_qkv_mha_fwd")(
             x.data_ptr(), y.data_ptr(), *c.weight_args(), *c.bias_args(),
-            out.data_ptr(), qkv.data_ptr(), c.B, c.Lq, c.Lk, c.D, c.H,
+            out.data_ptr(), qkv.data_ptr(), c.B, c.Lq, c.Lk, c.D, c.H, c.dh,
             c.scale, *c.seed_args(), c.stream())
     fused_qkv_mha.launches += 1
     c.check(rc, "fused_qkv_mha")
@@ -479,9 +499,9 @@ def forward_projection(x, y, wq, bq, wk, bk, wv, bv, num_heads: int = 12):
     with torch.cuda.device(c.dev):
         rc = c.entry("fused_qkv_mha_proj")(
             x.data_ptr(), y.data_ptr(), *c.weight_args(), qkv.data_ptr(),
-            c.B, c.Lq, c.Lk, c.D, c.H, c.stream())
+            c.B, c.Lq, c.Lk, c.D, c.H, c.dh, c.stream())
     c.check(rc, "fused_qkv_mha projection")
-    dh = c.HD // c.H
+    dh = c.dh
     q, k, v = qkv.split([c.B * c.Lq * c.HD] + [c.B * c.Lk * c.HD] * 2)
     return (q.view(c.B, c.Lq, c.H, dh), k.view(c.B, c.Lk, c.H, dh),
             v.view(c.B, c.Lk, c.H, dh))
@@ -532,7 +552,7 @@ def attention_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout,
             x.data_ptr(), y.data_ptr(), *c.weight_args(), *c.bias_args(),
             *c.seed_args(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), ptr(ds), qkv.data_ptr(), ptr(stats), ptr(dq_acc),
-            c.B, c.Lq, c.Lk, c.D, c.H, c.scale, c.stream())
+            c.B, c.Lq, c.Lk, c.D, c.H, c.dh, c.scale, c.stream())
     attention_backward.launches += 1
     c.check(rc, "fused_qkv_mha_bwd_attn")
     if c.dtype == torch.bfloat16:
@@ -594,6 +614,7 @@ class ProjectionBackward:
         self.dtype = dtype
         self.scratch = torch.empty(plan.scratch_floats, **f32)
         self.dev, self.shape = dev, (B, Lq, Lk, D, num_heads)
+        dh = HD // num_heads
         self.proj_fn = _entry(self.lib, "fused_qkv_mha_bwd_proj", dtype)
         self.reduce_fn = _entry(self.lib, "fused_qkv_mha_bwd_reduce", dtype)
 
@@ -611,12 +632,12 @@ class ProjectionBackward:
              _ints(_LL, [w.stride(1) for w in self.dws]),
              _ints(_I, plan.splits), _ints(_I, plan.kc),
              _ints(_LL, plan.wofs), _ints(_LL, plan.bofs), ptr(ds),
-             ptr(self.dbias)], [B, Lq, Lk, D, num_heads])
+             ptr(self.dbias)], [B, Lq, Lk, D, num_heads, dh])
         self.reduce_args = [
             self.scratch.data_ptr(),
             *[t.data_ptr() for t in self.dws + self.dbs],
             _ints(_I, plan.splits), _ints(_LL, plan.wofs),
-            _ints(_LL, plan.bofs), D, num_heads]
+            _ints(_LL, plan.bofs), D, num_heads, dh]
 
     def launch(self, part: Optional[str] = None) -> None:
         if part is not None and part not in PROJ_PARTS:

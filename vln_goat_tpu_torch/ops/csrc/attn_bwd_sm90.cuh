@@ -13,6 +13,14 @@
 // bf16 kernel's `_bdot(dt=bf16)` casts, :200-225), every sum float32, and
 // ds written in float32 when the bias needs a gradient.
 //
+// A template of the head width DH (head_dims.cuh: 32, 64, 128), whose
+// operands are NT = ceil(DH / 64) tiles of 64 head columns each
+// (attn_sm90.cuh): s and dp sum the NT tiles' products; dq, dk and dv are
+// NT 64 x 64 accumulators each, one per tile of k, q and dO, dk and dv
+// held through the query tiles and dq taken one tile after the other.  At
+// DH = 128 (NT = 2) that is 128 accumulator registers a thread for dk and
+// dv, and one block an SM.
+//
 // What bounds it on an H100: bytes.  At the train shapes a (b, h) reads
 // q, k, v and dO once (32 KB) and writes dq, dk, dv (24 KB), plus the
 // float32 ds (16 KB) for a graph bias, for 5 products of 2 Lq Lk dh
@@ -51,12 +59,20 @@ namespace {
 
 using namespace attn_sm90;
 
-constexpr int PAIR_BYTES = 2 * TILE_BYTES;
 constexpr int OUTER = 2;          // outer pairs: this one and the next
 constexpr int INNER = 2;          // inner pairs in flight
-constexpr size_t SMEM_BYTES =
-    ALIGN + (size_t)(OUTER + INNER) * PAIR_BYTES + 2 * TILE_BYTES +
-    2 * (OUTER + INNER) * sizeof(uint64_t);
+
+// one operand's tiles at head width DH, a pair of operands, and the
+// kernel's shared memory
+template <int DH>
+__host__ __device__ constexpr int opnd_bytes() {
+  return tiles_of(DH) * TILE_BYTES;
+}
+template <int DH>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return ALIGN + (size_t)(OUTER + INNER) * 2 * opnd_bytes<DH>() +
+         2 * TILE_BYTES + 2 * (OUTER + INNER) * sizeof(uint64_t);
+}
 
 struct Params {
   CUtensorMap map[4];   // q, k, v, dO (the TMA route)
@@ -66,12 +82,12 @@ struct Params {
   const int* seeds;     // [B], or null: no dropout
   unsigned int thresh;
   float inv_keep;
-  bf16* dq;             // [B, Lq, H*DH]
-  bf16* dk;             // [B, Lk, H*DH]
+  bf16* dq;             // [B, Lq, H*dh]
+  bf16* dk;             // [B, Lk, H*dh]
   bf16* dv;
   float* ds;            // [B, H, Lq, Lk], or null
   float* stats;         // [B, H, Lq, 3] when Lk > TILE
-  float* dq_acc;        // [B, Lq, H*DH] when Lk > TILE
+  float* dq_acc;        // [B, Lq, H*dh] when Lk > TILE
   int H;
   float scale;
   int tma;
@@ -130,15 +146,17 @@ __device__ __forceinline__ uint32_t scores_tile(float s[32], float dp[32],
   return keep;
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
+template <int DH>
+__global__ void __launch_bounds__(THREADS, DH > 64 ? 1 : 2)
     attn_bwd_sm90_kernel(const __grid_constant__ Params P) {
+  constexpr int NT = tiles_of(DH), OB = opnd_bytes<DH>(), PAIR = 2 * OB;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       ((uintptr_t)smem_raw + ALIGN - 1) & ~(uintptr_t)(ALIGN - 1));
   Ring R;
   R.outer = base;
-  R.inner = R.outer + OUTER * PAIR_BYTES;
-  unsigned char* Ps = R.inner + INNER * PAIR_BYTES;   // pd [q][key], bf16
+  R.inner = R.outer + OUTER * PAIR;
+  unsigned char* Ps = R.inner + INNER * PAIR;         // pd [q][key], bf16
   unsigned char* Ss = Ps + TILE_BYTES;                // ds [q][key], bf16
   R.outer_full = reinterpret_cast<uint64_t*>(Ss + TILE_BYTES);
   R.outer_empty = R.outer_full + OUTER;
@@ -165,16 +183,16 @@ __global__ void __launch_bounds__(THREADS, 2)
     auto push = [&](bool outer, bool qside, int l0) {
       const int i = outer ? R.on++ : R.in++;
       const int n = outer ? OUTER : INNER;
-      unsigned char* pair = (outer ? R.outer : R.inner) + (i % n) * PAIR_BYTES;
+      unsigned char* pair = (outer ? R.outer : R.inner) + (i % n) * PAIR;
       bar_wait(&(outer ? R.outer_empty : R.inner_empty)[i % n],
                ((i / n) & 1) ^ 1);
-      unsigned char* dst[2] = {pair, pair + TILE_BYTES};
+      unsigned char* dst[2] = {pair, pair + OB};
       const Heads* o[2] = {qside ? &P.q : &P.k, qside ? &P.o : &P.v};
       const CUtensorMap* m[2] = {&P.map[qside ? 0 : 1],
                                  &P.map[qside ? 3 : 2]};
       const int l[2] = {l0, l0};
-      load_tiles<2>(dst, o, m, l, b, h, P.tma,
-                    &(outer ? R.outer_full : R.inner_full)[i % n]);
+      load_tiles<2, DH>(dst, o, m, l, b, h, P.tma,
+                        &(outer ? R.outer_full : R.inner_full)[i % n]);
     };
     if (nk > 1)
       for (int i = 0; i < nq; ++i) {
@@ -203,7 +221,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int n = outer ? OUTER : INNER;
     slot = i % n;
     bar_wait(&(outer ? R.outer_full : R.inner_full)[slot], (i / n) & 1);
-    return smem_addr((outer ? R.outer : R.inner) + slot * PAIR_BYTES);
+    return smem_addr((outer ? R.outer : R.inner) + slot * PAIR);
   };
   auto release = [&](bool outer, int slot) {
     if (tid == 0) bar_arrive(&(outer ? R.outer_empty : R.inner_empty)[slot]);
@@ -228,8 +246,12 @@ __global__ void __launch_bounds__(THREADS, 2)
     fence_acc(s);
     fence_acc(dp);
     mma_fence();
-    tile_ss<0, 0>(s, qpair, kpair);
-    tile_ss<0, 0>(dp, qpair + TILE_BYTES, kpair + TILE_BYTES);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      tile_ss<0, 0>(s, qpair + j * TILE_BYTES, kpair + j * TILE_BYTES);
+      tile_ss<0, 0>(dp, qpair + OB + j * TILE_BYTES,
+                    kpair + OB + j * TILE_BYTES);
+    }
     mma_commit();
     mma_wait();
     fence_acc(s);
@@ -296,9 +318,12 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int k0 = j * TILE;
     int os;
     const uint32_t kp = take(true, os);
-    float dk[32], dv[32];
-    zero(dk);
-    zero(dv);
+    float dk[NT][32], dv[NT][32];
+#pragma unroll
+    for (int jt = 0; jt < NT; ++jt) {
+      zero(dk[jt]);
+      zero(dv[jt]);
+    }
     for (int i = 0; i < nq; ++i) {
       const int q0 = i * TILE;
       int is;
@@ -385,48 +410,57 @@ __global__ void __launch_bounds__(THREADS, 2)
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       consumers_sync();
-      float dq[32];
-      zero(dq);
-      fence_acc(dq);
-      fence_acc(dk);
-      fence_acc(dv);
-      mma_fence();
-      tile_rs<1>(dq, da, kp);
-      tile_ss<1, 1>(dv, ps, qp + TILE_BYTES);
-      tile_ss<1, 1>(dk, ss, qp);
-      mma_commit();
-      mma_wait();
-      fence_acc(dq);
-      fence_acc(dk);
-      fence_acc(dv);
-      release(false, is);
-      // dq: written, or summed over the key tiles in float32 and rounded
-      // once with the last
+      // per tile jt of the head columns: dq's, and dk's and dv's sums
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int qi = q0 + 16 * warp + g + 8 * r;
-        if (qi >= Lq) continue;
-        const long long row = ((long long)b * Lq + qi) * HD + h * DH;
+      for (int jt = 0; jt < NT; ++jt) {
+        float dq[32];
+        zero(dq);
+        fence_acc(dq);
+        fence_acc(dk[jt]);
+        fence_acc(dv[jt]);
+        mma_fence();
+        tile_rs<1>(dq, da, kp + jt * TILE_BYTES);
+        tile_ss<1, 1>(dv[jt], ps, qp + OB + jt * TILE_BYTES);
+        tile_ss<1, 1>(dk[jt], ss, qp + jt * TILE_BYTES);
+        mma_commit();
+        mma_wait();
+        fence_acc(dq);
+        fence_acc(dk[jt]);
+        fence_acc(dv[jt]);
+        // dq: written, or summed over the key tiles in float32 and
+        // rounded once with the last
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const long long o = row + 8 * c + 2 * t;
-          float v0 = dq[4 * c + 2 * r] * P.scale;
-          float v1 = dq[4 * c + 2 * r + 1] * P.scale;
-          if (nk > 1) {
-            if (j > 0) {
-              const float2 a = *reinterpret_cast<const float2*>(P.dq_acc + o);
-              v0 += a.x;
-              v1 += a.y;
+        for (int r = 0; r < 2; ++r) {
+          const int qi = q0 + 16 * warp + g + 8 * r;
+          if (qi >= Lq) continue;
+          const long long row =
+              ((long long)b * Lq + qi) * HD + h * DH + TW * jt;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            // at DH = 32 the columns past 32 are the tiles' zero padding
+            if (TW * jt + 8 * c >= DH) continue;
+            const long long o = row + 8 * c + 2 * t;
+            float v0 = dq[4 * c + 2 * r] * P.scale;
+            float v1 = dq[4 * c + 2 * r + 1] * P.scale;
+            if (nk > 1) {
+              if (j > 0) {
+                const float2 a =
+                    *reinterpret_cast<const float2*>(P.dq_acc + o);
+                v0 += a.x;
+                v1 += a.y;
+              }
+              if (j < nk - 1) {
+                *reinterpret_cast<float2*>(P.dq_acc + o) =
+                    make_float2(v0, v1);
+                continue;
+              }
             }
-            if (j < nk - 1) {
-              *reinterpret_cast<float2*>(P.dq_acc + o) = make_float2(v0, v1);
-              continue;
-            }
+            *reinterpret_cast<__nv_bfloat162*>(P.dq + o) =
+                __floats2bfloat162_rn(v0, v1);
           }
-          *reinterpret_cast<__nv_bfloat162*>(P.dq + o) =
-              __floats2bfloat162_rn(v0, v1);
         }
       }
+      release(false, is);
     }
     release(true, os);
 #pragma unroll
@@ -435,21 +469,28 @@ __global__ void __launch_bounds__(THREADS, 2)
       if (kj >= Lk) continue;
       const long long row = ((long long)b * Lk + kj) * HD + h * DH;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const long long o = row + 8 * c + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(P.dk + o) = __floats2bfloat162_rn(
-            dk[4 * c + 2 * r] * P.scale, dk[4 * c + 2 * r + 1] * P.scale);
-        *reinterpret_cast<__nv_bfloat162*>(P.dv + o) =
-            __floats2bfloat162_rn(dv[4 * c + 2 * r], dv[4 * c + 2 * r + 1]);
-      }
+      for (int jt = 0; jt < NT; ++jt)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          if (TW * jt + 8 * c >= DH) continue;
+          const long long o = row + TW * jt + 8 * c + 2 * t;
+          *reinterpret_cast<__nv_bfloat162*>(P.dk + o) =
+              __floats2bfloat162_rn(dk[jt][4 * c + 2 * r] * P.scale,
+                                    dk[jt][4 * c + 2 * r + 1] * P.scale);
+          *reinterpret_cast<__nv_bfloat162*>(P.dv + o) =
+              __floats2bfloat162_rn(dv[jt][4 * c + 2 * r],
+                                    dv[jt][4 * c + 2 * r + 1]);
+        }
     }
   }
 }
 
 // Encodes the tensor maps, chooses the route and launches one block per
-// (b, h) on `stream`; returns cudaGetLastError(), or cudaErrorInvalidValue
-// without launching for shapes or scratch it does not take.
-__host__ inline int launch(Params& P, int B, cudaStream_t stream) {
+// (b, h) of the kernel of head width dh on `stream`; returns
+// cudaGetLastError(), or cudaErrorInvalidValue without launching for
+// shapes or scratch it does not take (a head width outside head_dims.cuh's
+// set among them).
+__host__ inline int launch(Params& P, int B, int dh, cudaStream_t stream) {
   const int Lq = P.q.L, Lk = P.k.L;
   if (B < 1 || Lq < 1 || Lk < 1 || P.v.L != Lk || P.o.L != Lq || P.H < 1 ||
       (long long)B * P.H >= (1ll << 31) ||
@@ -459,14 +500,20 @@ __host__ inline int launch(Params& P, int B, cudaStream_t stream) {
     P.stats = nullptr;
     P.dq_acc = nullptr;
   }
-  P.tma = encode(&P.map[0], P.q, B, P.H) && encode(&P.map[1], P.k, B, P.H) &&
-          encode(&P.map[2], P.v, B, P.H) && encode(&P.map[3], P.o, B, P.H);
-  const cudaError_t e =
-      tf32x3::smem_limit<attn_bwd_sm90_kernel>((int)SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  attn_bwd_sm90_kernel<<<B * P.H, THREADS, SMEM_BYTES, stream>>>(P);
-  last_route() = P.tma;
-  return (int)cudaGetLastError();
+  return head_dims::dispatch(dh, [&](auto w) {
+    constexpr int DH = decltype(w)::value;
+    constexpr int smem = (int)smem_bytes<DH>();
+    P.tma = encode(&P.map[0], P.q, B, P.H, DH) &&
+            encode(&P.map[1], P.k, B, P.H, DH) &&
+            encode(&P.map[2], P.v, B, P.H, DH) &&
+            encode(&P.map[3], P.o, B, P.H, DH);
+    const cudaError_t e =
+        tf32x3::smem_limit<attn_bwd_sm90_kernel<DH>>(smem);
+    if (e != cudaSuccess) return (int)e;
+    attn_bwd_sm90_kernel<DH><<<B * P.H, THREADS, smem, stream>>>(P);
+    last_route() = P.tma;
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace

@@ -2,7 +2,8 @@
 // float32, shared by the fused forward (fused_qkv_mha.cu, over its
 // projection scratch) and the attention-only kernel (mha.cu, over the
 // caller's views); products in the float32-accurate 3xTF32 split.  The
-// bf16 builds run the Hopper core of attn_fwd_sm90.cuh instead.
+// bf16 builds run the Hopper core of attn_fwd_sm90.cuh instead.  A
+// template of the head width DH, built for each width of head_dims.cuh.
 //
 // For batch row b and head h:
 //
@@ -16,28 +17,32 @@
 // dimension, null for none); out is [B, Lq, H*dh] contiguous.
 //
 // One block per (batch row, head), 256 threads.  The block stages the
-// head's keys and values in blocks of up to KB = 256 (cp.async, rows past
-// Lk zero-filled) and walks its query tiles of 64 rows.  Per tile and key
-// block: s = q k^T on mma.sync m16n8k8 fragments (gemm_tf32x3.cuh
-// `warp_mma_16x32`, each of 8 warps a 16 x 32 piece of every 64-key
-// chunk) into a 64 x 256 score tile in shared memory; four threads per
-// row take the max, the exponentials, the sum and the keep mask of
-// dropout_hash.cuh at each (q, k); then out += p v on fragments, the
-// 64-key chunks added into one accumulator.
-// - Up to 256 keys (one key block: every train and decode shape) the
+// head's keys and values in blocks of up to KB = 256 (128 at DH = 128;
+// cp.async, rows past Lk zero-filled) and walks its query tiles of 64
+// rows.  Per tile and key block: s = q k^T on mma.sync m16n8k8 fragments
+// (gemm_tf32x3.cuh `warp_mma_16x32` over a depth of DH, each of 8 warps a
+// 16 x 32 piece of every 64-key chunk) into a 64 x KB score tile in shared
+// memory; four threads per row take the max, the exponentials, the sum
+// and the keep mask of dropout_hash.cuh at each (q, k); then out += p v on
+// fragments, the 64-key chunks added into one accumulator: the 64 x DH
+// output is 4 DH / 32 pieces of 16 x 32, one a warp at DH = 64, two at
+// DH = 128, one for each of warps 0-3 at DH = 32.
+// - Up to KB keys (one key block: every train and decode shape) the
 //   whole score row is in the tile, so the softmax is the plain version's
 //   order of operations: p = exp(s - max) / sum, then the keep mask.  The
 //   head's K and V are staged once for all its query tiles.
-// - Past 256 keys the row's max m and sum l run over the key blocks (the
+// - Past KB keys the row's max m and sum l run over the key blocks (the
 //   online softmax): a block's p = exp(s - m) unnormalised, the
 //   accumulator rescaled by exp(m_old - m_new) before the block's p v, and
 //   divided by l after the last block.  K and V are staged block by block
 //   for each query tile.
-// Shared memory: 71 KB at Lk <= 64 (every train shape), so three blocks
-// share an SM (at most 85 registers a thread), 222 KB from Lk = 256 on.
-// Row strides 68 for q and k (read along rows by the fragments), 72 for v
-// (read along columns), 4 past a multiple of 64 for the scores: no bank
-// conflicts in the fragment reads.
+// Shared memory at DH = 64: 71 KB at Lk <= 64 (every train shape), so
+// three blocks share an SM (at most 85 registers a thread), 222 KB from
+// Lk = 256 on; at DH = 32 less; at DH = 128 118 KB at Lk <= 64 and 200 KB
+// from Lk = 128 on, one block an SM.  Row strides DH + 4 for q and k (read
+// along rows by the fragments), DH + 8 for v (read along columns), 4 past
+// a multiple of 64 for the scores: no bank conflicts in the fragment
+// reads.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,19 +51,32 @@
 
 #include "dropout_hash.cuh"
 #include "gemm_tf32x3.cuh"
+#include "head_dims.cuh"
 
 namespace attn_fwd {
 // internal linkage: each library that includes this has its own kernel
 namespace {
 
-constexpr int DH = 64;          // head width the kernel is written for
 constexpr int TQ = 64;          // query rows per tile
 constexpr int KC = 64;          // keys per chunk of the products
 constexpr int THREADS = 256;     // 8 warps; four threads per query row
 constexpr int KB = 256;          // keys per block of the score tile
-constexpr int LDQ = DH + 4;     // row stride of q and k in shared memory
-constexpr int LDV = DH + 8;     // row stride of v
+constexpr int KB_WIDE = 128;     // the same at DH = 128 (shared memory)
 static_assert(THREADS == 4 * TQ, "the softmax takes four threads a row");
+
+// The constants of head width DH: keys per block of the score tile, row
+// strides of q and k and of v in shared memory, the output's 16 x 32
+// pieces a warp holds, and the blocks an SM is to hold.
+template <int DH>
+struct Shape {
+  static_assert(DH % 32 == 0, "whole 32-column pieces");
+  static constexpr int KB = DH > 64 ? KB_WIDE : attn_fwd::KB;
+  static constexpr int LDQ = DH + 4;
+  static constexpr int LDV = DH + 8;
+  static constexpr int PIECES = 4 * DH / 32;     // of the 64 x DH output
+  static constexpr int NP = (PIECES + 7) / 8;    // a warp's
+  static constexpr int MIN_BLOCKS = DH > 64 ? 1 : 3;
+};
 
 struct Strides {
   long long b, l, h, d;
@@ -84,20 +102,26 @@ struct Args {
 };
 
 // keys of the staged block, padded to whole chunks: all of them up to KB
+template <int DH>
 __host__ __device__ inline int block_padded(int Lk) {
+  constexpr int KB = Shape<DH>::KB;
   return (((Lk < KB ? Lk : KB) + KC - 1) / KC) * KC;
 }
 
 // K, V, a query tile, the score tile, and per row the rescale factor and
 // the sum's inverse of the online softmax
+template <int DH>
 __host__ inline size_t smem_bytes(int Lk) {
-  const int bp = block_padded(Lk);
-  return sizeof(float) * ((size_t)bp * (LDQ + LDV) + (size_t)TQ * LDQ +
-                           (size_t)TQ * (bp + 4) + 2 * (size_t)TQ);
+  using S = Shape<DH>;
+  const int bp = block_padded<DH>(Lk);
+  return sizeof(float) * ((size_t)bp * (S::LDQ + S::LDV) +
+                           (size_t)TQ * S::LDQ + (size_t)TQ * (bp + 4) +
+                           2 * (size_t)TQ);
 }
 
 // s[r * ld + c] = base[(r0 + r) sl + c sd] for r < rows, c < DH; rows at
 // or past lim are zero.  Asynchronous: the caller commits and waits.
+template <int DH>
 __device__ __forceinline__ void load_rows(float* s, int ld, const float* base,
                                           long long sl, long long sd, int r0,
                                           int rows, int lim) {
@@ -119,11 +143,15 @@ __device__ __forceinline__ void load_rows(float* s, int ld, const float* base,
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 3) attn_fwd_kernel(const Args A) {
+template <int DH>
+__global__ void __launch_bounds__(THREADS, Shape<DH>::MIN_BLOCKS)
+    attn_fwd_kernel(const Args A) {
+  using S = Shape<DH>;
+  constexpr int KB = S::KB, LDQ = S::LDQ, LDV = S::LDV, NP = S::NP;
   extern __shared__ __align__(16) unsigned char attn_smem[];
   const int b = blockIdx.x, h = blockIdx.y;
   const int Lq = A.Lq, Lk = A.Lk;
-  const int bp = block_padded(Lk), ldp = bp + 4;
+  const int bp = block_padded<DH>(Lk), ldp = bp + 4;
   const int nblk = (Lk + KB - 1) / KB;
   float* Ks = reinterpret_cast<float*>(attn_smem);   // [bp][LDQ]
   float* Vs = Ks + bp * LDQ;                         // [bp][LDV]
@@ -143,25 +171,30 @@ __global__ void __launch_bounds__(THREADS, 3) attn_fwd_kernel(const Args A) {
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
+  // the score chunk's piece (rows wm, keys wn), and the rows of every
+  // output piece of the warp; output piece i: columns wo(i), held by the
+  // warp when on(i)
   const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
+  auto wo = [warp](int i) { return ((warp + 8 * i) / 4) * 32; };
+  auto on = [warp](int i) { return warp + 8 * i < S::PIECES; };
 
   if (nblk == 1) {
-    load_rows(Ks, LDQ, kb, A.ks.l, A.ks.d, 0, bp, Lk);
-    load_rows(Vs, LDV, vb, A.vs.l, A.vs.d, 0, bp, Lk);
+    load_rows<DH>(Ks, LDQ, kb, A.ks.l, A.ks.d, 0, bp, Lk);
+    load_rows<DH>(Vs, LDV, vb, A.vs.l, A.vs.d, 0, bp, Lk);
   }
   for (int q0 = 0; q0 < Lq; q0 += TQ) {
     __syncthreads();      // the last tile's reads of Qs, Ks, Vs, Ps are done
-    load_rows(Qs, LDQ, qb, A.qs.l, A.qs.d, q0, TQ, Lq);
+    load_rows<DH>(Qs, LDQ, qb, A.qs.l, A.qs.d, q0, TQ, Lq);
     // the softmax threads' row (four a row) and its running max and sum
     const int r = tid / 4, part = tid % 4, qi = q0 + r;
     float m_run = -INFINITY, l_run = 0.f;
-    float acc[4][4] = {};
+    float acc[NP][4][4] = {};
     for (int kb0 = 0; kb0 < Lk; kb0 += KB) {
       const int nb = min(KB, Lk - kb0);   // keys of this block
       if (nblk > 1) {
         if (kb0 > 0) __syncthreads();     // the last block's p v is done
-        load_rows(Ks, LDQ, kb, A.ks.l, A.ks.d, kb0, bp, Lk);
-        load_rows(Vs, LDV, vb, A.vs.l, A.vs.d, kb0, bp, Lk);
+        load_rows<DH>(Ks, LDQ, kb, A.ks.l, A.ks.d, kb0, bp, Lk);
+        load_rows<DH>(Vs, LDV, vb, A.vs.l, A.vs.d, kb0, bp, Lk);
       }
       tf32x3::cp_async_commit();
       tf32x3::cp_async_wait<0>();
@@ -171,7 +204,7 @@ __global__ void __launch_bounds__(THREADS, 3) attn_fwd_kernel(const Args A) {
       for (int c0 = 0; c0 < bp; c0 += KC) {
         float sa[4][4] = {};
         const float* kc = Ks + c0 * LDQ;
-        warp_mma_16x32(
+        warp_mma_16x32<DH>(
             sa, [Qs](int rr, int c) { return Qs[rr * LDQ + c]; },
             [kc](int c, int n) { return kc[n * LDQ + c]; }, wm, wn);
 #pragma unroll
@@ -250,45 +283,60 @@ __global__ void __launch_bounds__(THREADS, 3) attn_fwd_kernel(const Args A) {
       // max; then out += p v, the key chunks added in order
       if (kb0 > 0) {
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+        for (int i = 0; i < NP; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[ni][e] *= Al[wm + g + (e >= 2 ? 8 : 0)];
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][ni][e] *= Al[wm + g + (e >= 2 ? 8 : 0)];
       }
-      for (int c0 = 0; c0 < bp; c0 += KC) {
-        const float* pc = Ps + c0;
-        const float* vc = Vs + c0 * LDV;
-        warp_mma_16x32(
-            acc, [pc, ldp](int rr, int c) { return pc[rr * ldp + c]; },
-            [vc](int c, int n) { return vc[c * LDV + n]; }, wm, wn);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        if (!on(i)) continue;
+        for (int c0 = 0; c0 < bp; c0 += KC) {
+          const float* pc = Ps + c0;
+          const float* vc = Vs + c0 * LDV;
+          warp_mma_16x32(
+              acc[i], [pc, ldp](int rr, int c) { return pc[rr * ldp + c]; },
+              [vc](int c, int n) { return vc[c * LDV + n]; }, wm, wo(i));
+        }
       }
     }
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int i = 0; i < NP; ++i) {
+      if (!on(i)) continue;
 #pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int rr = wm + g + (e >= 2 ? 8 : 0), qo = q0 + rr;
-        const int col = wn + 8 * ni + 2 * t;
-        const float f = nblk > 1 ? Li[rr] : 1.f;
-        if (qo < Lq)
-          *reinterpret_cast<float2*>(ob + (long long)qo * HD + col) =
-              make_float2(acc[ni][e] * f, acc[ni][e + 1] * f);
-      }
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int rr = wm + g + (e >= 2 ? 8 : 0), qo = q0 + rr;
+          const int col = wo(i) + 8 * ni + 2 * t;
+          const float f = nblk > 1 ? Li[rr] : 1.f;
+          if (qo < Lq)
+            *reinterpret_cast<float2*>(ob + (long long)qo * HD + col) =
+                make_float2(acc[i][ni][e] * f, acc[i][ni][e + 1] * f);
+        }
+    }
   }
 }
 
-// Launches attn_fwd_kernel on `stream` for B batch rows and returns
-// cudaGetLastError(); shapes it does not take return cudaErrorInvalidValue
+// Launches attn_fwd_kernel of head width dh on `stream` for B batch rows
+// and returns cudaGetLastError(); shapes it does not take (a head width
+// outside head_dims.cuh's set among them) return cudaErrorInvalidValue
 // without launching.
-inline int launch(const Args& A, int B, cudaStream_t stream) {
+inline int launch(const Args& A, int B, int dh, cudaStream_t stream) {
   if (B < 1 || A.Lq < 1 || A.Lk < 1 || A.H < 1 || A.H > 65535)
     return (int)cudaErrorInvalidValue;
-  // at the largest block's size, once per device
-  const cudaError_t e =
-      tf32x3::smem_limit<attn_fwd_kernel>((int)smem_bytes(KB));
-  if (e != cudaSuccess) return (int)e;
-  attn_fwd_kernel<<<dim3(B, A.H), THREADS, smem_bytes(A.Lk), stream>>>(A);
-  return (int)cudaGetLastError();
+  return head_dims::dispatch(dh, [&](auto w) {
+    constexpr int DH = decltype(w)::value;
+    // at the largest block's size, once per device
+    const cudaError_t e = tf32x3::smem_limit<attn_fwd_kernel<DH>>(
+        (int)smem_bytes<DH>(Shape<DH>::KB));
+    if (e != cudaSuccess) return (int)e;
+    attn_fwd_kernel<DH>
+        <<<dim3(B, A.H), THREADS, smem_bytes<DH>(A.Lk), stream>>>(A);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace

@@ -8,6 +8,11 @@
 //   s = q k^T * scale + bias[b, h]                   (float32)
 //   out[b, :, h*dh:(h+1)*dh] = softmax(s) v          (dropout: keep mask)
 //
+// A template of the head width DH (head_dims.cuh: 32, 64, 128), whose
+// operands are NT = ceil(DH / 64) tiles of 64 head columns each
+// (attn_sm90.cuh): s sums the NT tiles' products, and o = e v is NT
+// 64 x 64 accumulators, one per tile of v.
+//
 // What bounds it on an H100: bytes.  At the train shapes (Lq, Lk <= 64,
 // dh 64) a (b, h) reads q, k and v once (24 KB) and writes 8 KB for
 // 2 Lq Lk dh * 2 operations, about 16 operations a byte against the
@@ -53,9 +58,18 @@ using namespace attn_sm90;
 
 constexpr int KV_STAGES = 2;     // k and v tiles in flight
 constexpr int Q_BUFS = 2;        // q tiles: this unit's and the next one's
-constexpr size_t SMEM_BYTES =
-    ALIGN + (size_t)(Q_BUFS + 2 * KV_STAGES) * TILE_BYTES +
-    2 * (Q_BUFS + KV_STAGES) * sizeof(uint64_t);
+
+// q, k and v of one unit or key tile at head width DH, and the kernel's
+// shared memory
+template <int DH>
+__host__ __device__ constexpr int opnd_bytes() {
+  return tiles_of(DH) * TILE_BYTES;
+}
+template <int DH>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return ALIGN + (size_t)(Q_BUFS + 2 * KV_STAGES) * opnd_bytes<DH>() +
+         2 * (Q_BUFS + KV_STAGES) * sizeof(uint64_t);
+}
 
 template <class BiasT>
 struct Params {
@@ -66,7 +80,7 @@ struct Params {
   const int* seeds;     // [B], or null: no dropout
   unsigned int thresh;
   float inv_keep;
-  bf16* out;            // [B, Lq, H*DH]
+  bf16* out;            // [B, Lq, H*dh]
   int H, qtiles, units;
   float scale;
   int tma;
@@ -127,16 +141,17 @@ __device__ __forceinline__ void softmax_tile(float s[32], float m[2],
   }
 }
 
-template <class BiasT, bool SPLIT_P>
+template <class BiasT, bool SPLIT_P, int DH>
 __global__ void __launch_bounds__(THREADS, 2)
     attn_fwd_sm90_kernel(const __grid_constant__ Params<BiasT> P) {
+  constexpr int NT = tiles_of(DH), OB = opnd_bytes<DH>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       ((uintptr_t)smem_raw + ALIGN - 1) & ~(uintptr_t)(ALIGN - 1));
-  unsigned char* Qs = base;                              // [Q_BUFS] tiles
-  unsigned char* Ks = Qs + Q_BUFS * TILE_BYTES;          // [KV_STAGES]
-  unsigned char* Vs = Ks + KV_STAGES * TILE_BYTES;       // [KV_STAGES]
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + KV_STAGES * TILE_BYTES);
+  unsigned char* Qs = base;                              // [Q_BUFS] q
+  unsigned char* Ks = Qs + Q_BUFS * OB;                  // [KV_STAGES] k
+  unsigned char* Vs = Ks + KV_STAGES * OB;               // [KV_STAGES] v
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + KV_STAGES * OB);
   uint64_t* q_empty = q_full + Q_BUFS;
   uint64_t* kv_full = q_empty + Q_BUFS;
   uint64_t* kv_empty = kv_full + KV_STAGES;
@@ -163,20 +178,20 @@ __global__ void __launch_bounds__(THREADS, 2)
       const int qb = n % Q_BUFS;
       bar_wait(&q_empty[qb], ((n / Q_BUFS) & 1) ^ 1);
       {
-        unsigned char* dst[1] = {Qs + qb * TILE_BYTES};
+        unsigned char* dst[1] = {Qs + qb * OB};
         const Heads* o[1] = {&P.q};
         const CUtensorMap* m[1] = {&P.map[0]};
         const int l0[1] = {q0};
-        load_tiles<1>(dst, o, m, l0, b, h, P.tma, &q_full[qb]);
+        load_tiles<1, DH>(dst, o, m, l0, b, h, P.tma, &q_full[qb]);
       }
       for (int k0 = 0; k0 < Lk; k0 += TILE, ++it) {
         const int st = it % KV_STAGES;
         bar_wait(&kv_empty[st], ((it / KV_STAGES) & 1) ^ 1);
-        unsigned char* dst[2] = {Ks + st * TILE_BYTES, Vs + st * TILE_BYTES};
+        unsigned char* dst[2] = {Ks + st * OB, Vs + st * OB};
         const Heads* o[2] = {&P.k, &P.v};
         const CUtensorMap* m[2] = {&P.map[1], &P.map[2]};
         const int l0[2] = {k0, k0};
-        load_tiles<2>(dst, o, m, l0, b, h, P.tma, &kv_full[st]);
+        load_tiles<2, DH>(dst, o, m, l0, b, h, P.tma, &kv_full[st]);
       }
     }
     return;
@@ -192,7 +207,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int bh = u / P.qtiles, q0 = (u % P.qtiles) * TILE;
     const int b = bh / H, h = bh % H;
     const int qb = n % Q_BUFS;
-    const uint32_t qs = smem_addr(Qs + qb * TILE_BYTES);
+    const uint32_t qs = smem_addr(Qs + qb * OB);
     // per row: its bias (a row past Lq reads the last one's), its dropout
     // hash prefix
     int rows[2];
@@ -207,17 +222,22 @@ __global__ void __launch_bounds__(THREADS, 2)
           : nullptr;
       R.hash[r] = dropout_row(seed, b, h, rows[r]);
     }
-    float o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    zero(o);
+    float o[NT][32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) zero(o[j]);
     bar_wait(&q_full[qb], (n / Q_BUFS) & 1);
     for (int k0 = 0; k0 < Lk; k0 += TILE, ++it) {
       const int st = it % KV_STAGES;
+      const uint32_t ks = smem_addr(Ks + st * OB);
+      const uint32_t vs = smem_addr(Vs + st * OB);
       bar_wait(&kv_full[st], (it / KV_STAGES) & 1);
       float s[32];
       zero(s);
       fence_acc(s);
       mma_fence();
-      tile_ss<0, 0>(s, qs, smem_addr(Ks + st * TILE_BYTES));
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        tile_ss<0, 0>(s, qs + j * TILE_BYTES, ks + j * TILE_BYTES);
       mma_commit();
       mma_wait();
       fence_acc(s);
@@ -238,20 +258,27 @@ __global__ void __launch_bounds__(THREADS, 2)
       // past the first key tile, the output so far rescaled to the new max
       if (k0 > 0) {
 #pragma unroll
-        for (int idx = 0; idx < 32; ++idx) o[idx] *= alpha[(idx >> 1) & 1];
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int idx = 0; idx < 32; ++idx)
+            o[j][idx] *= alpha[(idx >> 1) & 1];
       }
       uint32_t pa[4][4];
       to_a(s, pa);
+      uint32_t lo[4][4];
+      if constexpr (SPLIT_P) to_a_lo(s, lo);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) fence_acc(o[j]);
       mma_fence();
-      tile_rs<1>(o, pa, smem_addr(Vs + st * TILE_BYTES));
-      if constexpr (SPLIT_P) {
-        uint32_t lo[4][4];
-        to_a_lo(s, lo);
-        tile_rs<1>(o, lo, smem_addr(Vs + st * TILE_BYTES));
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        tile_rs<1>(o[j], pa, vs + j * TILE_BYTES);
+        if constexpr (SPLIT_P) tile_rs<1>(o[j], lo, vs + j * TILE_BYTES);
       }
       mma_commit();
       mma_wait();
-      fence_acc(o);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) fence_acc(o[j]);
       if (tid == 0) bar_arrive(&kv_empty[st]);
     }
 #pragma unroll
@@ -262,40 +289,50 @@ __global__ void __launch_bounds__(THREADS, 2)
       bf16* dst = P.out + ((long long)b * Lq + rows[r]) * HD +
                   (long long)h * DH + 2 * t;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
-            __floats2bfloat162_rn(o[4 * i + 2 * r] * f,
-                                  o[4 * i + 2 * r + 1] * f);
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          // at DH = 32 the columns past 32 are the tile's zero padding
+          if (TW * j + 8 * i < DH)
+            *reinterpret_cast<__nv_bfloat162*>(dst + TW * j + 8 * i) =
+                __floats2bfloat162_rn(o[j][4 * i + 2 * r] * f,
+                                      o[j][4 * i + 2 * r + 1] * f);
     }
   }
 }
 
 // Encodes the tensor maps, chooses the route and launches one persistent
-// block per resident slot (at most one per unit) on `stream`; returns
-// cudaGetLastError(), or cudaErrorInvalidValue without launching for
-// shapes it does not take.
+// block per resident slot (at most one per unit) of the kernel of head
+// width dh on `stream`; returns cudaGetLastError(), or
+// cudaErrorInvalidValue without launching for shapes it does not take (a
+// head width outside head_dims.cuh's set among them).
 template <class BiasT, bool SPLIT_P>
-__host__ inline int launch(Params<BiasT>& P, int B, cudaStream_t stream) {
+__host__ inline int launch(Params<BiasT>& P, int B, int dh,
+                           cudaStream_t stream) {
   const int Lq = P.q.L, Lk = P.k.L;
   if (B < 1 || Lq < 1 || Lk < 1 || P.v.L != Lk || P.H < 1 ||
       (long long)B * P.H * ((Lq + TILE - 1) / TILE) > (1ll << 30))
     return (int)cudaErrorInvalidValue;
-  P.qtiles = (Lq + TILE - 1) / TILE;
-  P.units = B * P.H * P.qtiles;
-  P.tma = encode(&P.map[0], P.q, B, P.H) && encode(&P.map[1], P.k, B, P.H) &&
-          encode(&P.map[2], P.v, B, P.H);
-  const cudaError_t e =
-      tf32x3::smem_limit<attn_fwd_sm90_kernel<BiasT, SPLIT_P>>(
-          (int)SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  const int slots =
-      blocks_per_sm<attn_fwd_sm90_kernel<BiasT, SPLIT_P>>((int)SMEM_BYTES) *
-      gemm_bf16::sm_count();
-  const int grid = P.units < slots ? P.units : slots;
-  attn_fwd_sm90_kernel<BiasT, SPLIT_P>
-      <<<grid, THREADS, SMEM_BYTES, stream>>>(P);
-  last_route() = P.tma;
-  return (int)cudaGetLastError();
+  return head_dims::dispatch(dh, [&](auto w) {
+    constexpr int DH = decltype(w)::value;
+    constexpr int smem = (int)smem_bytes<DH>();
+    P.qtiles = (Lq + TILE - 1) / TILE;
+    P.units = B * P.H * P.qtiles;
+    P.tma = encode(&P.map[0], P.q, B, P.H, DH) &&
+            encode(&P.map[1], P.k, B, P.H, DH) &&
+            encode(&P.map[2], P.v, B, P.H, DH);
+    const cudaError_t e =
+        tf32x3::smem_limit<attn_fwd_sm90_kernel<BiasT, SPLIT_P, DH>>(smem);
+    if (e != cudaSuccess) return (int)e;
+    const int slots =
+        blocks_per_sm<attn_fwd_sm90_kernel<BiasT, SPLIT_P, DH>>(smem) *
+        gemm_bf16::sm_count();
+    const int grid = P.units < slots ? P.units : slots;
+    attn_fwd_sm90_kernel<BiasT, SPLIT_P, DH>
+        <<<grid, THREADS, smem, stream>>>(P);
+    last_route() = P.tma;
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace

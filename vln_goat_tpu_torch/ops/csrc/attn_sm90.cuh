@@ -2,10 +2,16 @@
 // forward (attn_fwd_sm90.cuh: K1 bf16's attention and the bf16 K3) and the
 // backward (attn_bwd_sm90.cuh: K2 (a) bf16's attention).
 //
-// - Tiles: 64 rows (queries, keys, or rows of dO) of one head, 64 bf16 =
-//   128 bytes each, in shared memory in TMA's 128-byte swizzle: row r at
-//   r * 128 bytes, its 16-byte pieces permuted by XOR with r mod 8
-//   (gemm_bf16.cuh `sw_offset`, K-major form).  One tile is read by wgmma
+// - Tiles: 64 rows (queries, keys, or rows of dO) of one head, 64 head
+//   columns (TW) of 64 bf16 = 128 bytes each, in shared memory in TMA's
+//   128-byte swizzle: row r at r * 128 bytes, its 16-byte pieces permuted
+//   by XOR with r mod 8 (gemm_bf16.cuh `sw_offset`, K-major form).  An
+//   operand of head width DH (head_dims.cuh: 32, 64 or 128) takes
+//   NT = ceil(DH / 64) tiles, tile j its columns [64 j, 64 j + 64): two at
+//   128; at 32 one tile whose columns past 32 are zeros (TMA's fill of a
+//   box past the tensor's extent, or the direct route's), so the products
+//   over the head dimension add zeros and the columns past 32 of an
+//   output are never stored.  One tile is read by wgmma
 //   both as a K-major operand (its rows are m or n, the head dimension the
 //   depth: q and k in s = q k^T) and as an MN-major one (its rows are the
 //   depth: v in p v, k in dq = ds k), through the descriptors of
@@ -14,7 +20,8 @@
 //   strides (`Heads`).  Where TMA can describe one (the head dimension the
 //   unit stride, the others multiples of 16 bytes, a 16-byte aligned base),
 //   a tile is one 4-D box (dh, L, H, B) = (64, 64, 1, 1) of its tensor
-//   map, rows past L arriving as zeros; otherwise the producer warp loads
+//   map at (64 j, l0, h, b), rows past L and columns past dh arriving as
+//   zeros; otherwise the producer warp loads
 //   it with ordinary loads into the same swizzled layout (the "direct"
 //   route, as gemm_bf16.cuh's).  A launch takes one route for all its
 //   operands and reports it (`last_route`).
@@ -36,6 +43,7 @@
 
 #include "dropout_hash.cuh"
 #include "gemm_bf16.cuh"
+#include "head_dims.cuh"
 
 namespace attn_sm90 {
 // internal linkage: each library that includes this has its own kernels
@@ -51,9 +59,9 @@ using gemm_bf16::sw_desc;
 using gemm_bf16::sw_offset;
 using tf32x3::smem_addr;
 
-constexpr int DH = 64;                  // head width of the tiles
+constexpr int TW = 64;                  // head columns of a tile
 constexpr int TILE = 64;                // rows of a tile, keys of a key tile
-constexpr int ROW_BYTES = DH * 2;       // one swizzle row
+constexpr int ROW_BYTES = TW * 2;       // one swizzle row
 constexpr int TILE_BYTES = TILE * ROW_BYTES;   // 8 KB, atom aligned
 constexpr int CONSUMERS = 128;          // one warpgroup
 constexpr int THREADS = CONSUMERS + 32; // and the producer warp
@@ -67,6 +75,11 @@ static_assert(K16_K == gemm_bf16::K16_STEP_K &&
                   K16_MN == gemm_bf16::K16_STEP_MN,
               "the GEMM core's descriptor steps");
 
+// tiles of an operand of head width dh
+__host__ __device__ constexpr int tiles_of(int dh) {
+  return (dh + TW - 1) / TW;
+}
+
 // element (b, l, h, d) at p[b sb + l sl + h sh + d sd], l < L
 struct Heads {
   const bf16* p;
@@ -77,53 +90,64 @@ struct Heads {
 // ---------------------------------------------------------------------------
 // Loads (producer warp)
 
-// box (0, l0, h, b) of a 4-D tensor map into dst, completing on bar
+// box (d0, l0, h, b) of a 4-D tensor map into dst, completing on bar
 __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
-                                          int l0, int h, int b,
+                                          int d0, int l0, int h, int b,
                                           uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"((uint64_t)map), "r"(0), "r"(l0), "r"(h), "r"(b),
+      "l"((uint64_t)map), "r"(d0), "r"(l0), "r"(h), "r"(b),
       "r"(smem_addr(bar))
       : "memory");
 }
 
-// The warp writes rows [l0, l0 + 64) of head (b, h) of o into dst in the
-// swizzled layout, zeros past L (the direct route).
+// The warp writes rows [l0, l0 + 64), head columns [d0, d0 + 64) of head
+// (b, h) of o (head width dh) into dst in the swizzled layout, zeros past
+// L and past dh (the direct route).
 __device__ __forceinline__ void load_direct(unsigned char* dst,
                                             const Heads& o, int b, int h,
-                                            int l0) {
+                                            int l0, int d0, int dh) {
   const int lane = threadIdx.x % 32;
   const bf16 zero = __float2bfloat16(0.f);
   const bf16* base = o.p + (long long)b * o.sb + (long long)h * o.sh;
-  for (int e = lane; e < TILE * DH; e += 32) {
-    const int r = e / DH, d = e % DH;
-    const bf16 v = l0 + r < o.L
-        ? base[(long long)(l0 + r) * o.sl + (long long)d * o.sd] : zero;
+  for (int e = lane; e < TILE * TW; e += 32) {
+    const int r = e / TW, d = e % TW;
+    const bf16 v = l0 + r < o.L && d0 + d < dh
+        ? base[(long long)(l0 + r) * o.sl + (long long)(d0 + d) * o.sd]
+        : zero;
     *reinterpret_cast<bf16*>(dst + sw_offset(true, r, d)) = v;
   }
 }
 
-// The producer warp fills `n` tiles (dst[i] from operand o[i], map[i],
-// rows from l0[i]) and signals `bar` once they have all landed.
-template <int N>
+// The producer warp fills the NT tiles of each of N operands of head
+// width DH (operand i from o[i], map[i], rows from l0[i], its tile j into
+// dst[i] + j TILE_BYTES) and signals `bar` once they have all landed.
+template <int N, int DH>
 __device__ __forceinline__ void load_tiles(unsigned char* const* dst,
                                            const Heads* const* o,
                                            const CUtensorMap* const* map,
                                            const int* l0, int b, int h,
                                            bool tma, uint64_t* bar) {
+  constexpr int NT = tiles_of(DH);
   const int lane = threadIdx.x % 32;
   if (tma) {
     if (lane == 0) {
-      bar_arrive_tx(bar, N * TILE_BYTES);
+      bar_arrive_tx(bar, N * NT * TILE_BYTES);
 #pragma unroll
-      for (int i = 0; i < N; ++i) tma_load4(dst[i], map[i], l0[i], h, b, bar);
+      for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          tma_load4(dst[i] + j * TILE_BYTES, map[i], TW * j, l0[i], h, b,
+                    bar);
     }
     return;
   }
 #pragma unroll
-  for (int i = 0; i < N; ++i) load_direct(dst[i], *o[i], b, h, l0[i]);
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      load_direct(dst[i] + j * TILE_BYTES, *o[i], b, h, l0[i], TW * j, DH);
   // the stores, visible to wgmma's async proxy, then one arrival
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncwarp();
@@ -277,9 +301,10 @@ __device__ __forceinline__ float quad_sum(float v) {
 // ---------------------------------------------------------------------------
 // Host side
 
-// Encodes o as a 4-D tensor map (dh, L, H, B) with (64, 64, 1, 1) boxes
-// if TMA can describe it; returns whether it did.
-__host__ inline bool encode(CUtensorMap* slot, const Heads& o, int B, int H) {
+// Encodes o, of head width dh, as a 4-D tensor map (dh, L, H, B) with
+// (64, 64, 1, 1) boxes if TMA can describe it; returns whether it did.
+__host__ inline bool encode(CUtensorMap* slot, const Heads& o, int B, int H,
+                            int dh) {
   const gemm_bf16::EncodeTiled fn = gemm_bf16::encoder();
   if (fn == nullptr || o.sd != 1 || ((uintptr_t)o.p & 15) != 0) return false;
   const long long n[3] = {o.L, H, B};
@@ -291,9 +316,9 @@ __host__ inline bool encode(CUtensorMap* slot, const Heads& o, int B, int H) {
     if (bytes <= 0 || bytes % 16 != 0 || bytes >= (1ll << 40)) return false;
     strides[i] = (cuuint64_t)bytes;
   }
-  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)o.L, (cuuint64_t)H,
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)o.L, (cuuint64_t)H,
                               (cuuint64_t)B};
-  const cuuint32_t box[4] = {DH, TILE, 1, 1};
+  const cuuint32_t box[4] = {TW, TILE, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(slot, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)o.p, dims,
             strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -39,6 +39,10 @@
 //      row, head), K and V staged once per head up to 256 keys (in blocks
 //      of 256 with an online softmax past that, so any Lk), both products
 //      on 3xTF32 mma.sync fragments.
+// Head widths: the attention kernels of either build are templates of the
+// head width, one instance for each of head_dims.cuh's 32, 64 and 128,
+// chosen at launch from the `dh` argument; the projections only see
+// H dh.  Any other width returns cudaErrorInvalidValue before a launch.
 //
 // bf16 (the JAX package's bf16 model, whose kernel takes bf16 operands and
 // sums in float32: `_bdot(..., dt=x.dtype)` :120-137): the `_bf16` entries
@@ -66,6 +70,7 @@
 
 #include "attn_fwd.cuh"
 #include "attn_fwd_sm90.cuh"
+#include "head_dims.cuh"
 #include "qkv_proj.cuh"
 
 namespace {
@@ -75,16 +80,15 @@ int proj(const void* x, const void* y, const void* wq, long long wq_sd,
          long long wq_so, const void* bq, const void* wk, long long wk_sd,
          long long wk_so, const void* bk, const void* wv, long long wv_sd,
          long long wv_so, const void* bv, void* qkv, int B, int Lq, int Lk,
-         int D, int H, void* stream) {
-  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 1)
+         int D, int H, int dh, void* stream) {
+  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 1 || dh < 1)
     return (int)cudaErrorInvalidValue;
   const void* w[3] = {wq, wk, wv};
   const long long sd[3] = {wq_sd, wk_sd, wv_sd};
   const long long so[3] = {wq_so, wk_so, wv_so};
   const void* b[3] = {bq, bk, bv};
   qkv_proj::Jobs<Core> J;
-  qkv_proj::qkv_jobs(J, x, y, w, sd, so, b, qkv, B, Lq, Lk, D,
-                     H * attn_fwd::DH);
+  qkv_proj::qkv_jobs(J, x, y, w, sd, so, b, qkv, B, Lq, Lk, D, H * dh);
   return qkv_proj::launch_jobs(J, (cudaStream_t)stream);
 }
 
@@ -93,19 +97,20 @@ int proj(const void* x, const void* y, const void* wq, long long wq_sd,
 template <class T>
 int attend(const void* qkv, const void* bias, long long sb, long long sh,
            long long sq, long long sk, void* out, int B, int Lq, int Lk,
-           int H, float scale, const void* seeds, unsigned int thresh,
-           float inv_keep, cudaStream_t stream) {
-  if (B < 1 || Lq < 1 || Lk < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  const int HD = H * attn_fwd::DH;
+           int H, int dh, float scale, const void* seeds,
+           unsigned int thresh, float inv_keep, cudaStream_t stream) {
+  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || dh < 1)
+    return (int)cudaErrorInvalidValue;
+  const int HD = H * dh;
   const T* qs = (const T*)qkv;
   const T* ks = qs + (long long)B * Lq * HD;
   const T* vs = ks + (long long)B * Lk * HD;
   if constexpr (sizeof(T) == 2) {
     // the Hopper core, over the scratch as [B, L, H, dh] heads
     attn_fwd_sm90::Params<T> P;
-    P.q = {qs, (long long)Lq * HD, HD, attn_fwd::DH, 1, Lq};
-    P.k = {ks, (long long)Lk * HD, HD, attn_fwd::DH, 1, Lk};
-    P.v = {vs, (long long)Lk * HD, HD, attn_fwd::DH, 1, Lk};
+    P.q = {qs, (long long)Lq * HD, HD, dh, 1, Lq};
+    P.k = {ks, (long long)Lk * HD, HD, dh, 1, Lk};
+    P.v = {vs, (long long)Lk * HD, HD, dh, 1, Lk};
     P.bias = (const T*)bias;
     P.sb = sb;
     P.sh = sh;
@@ -117,13 +122,13 @@ int attend(const void* qkv, const void* bias, long long sb, long long sh,
     P.out = (T*)out;
     P.H = H;
     P.scale = scale;
-    return attn_fwd_sm90::launch<T, false>(P, B, stream);
+    return attn_fwd_sm90::launch<T, false>(P, B, dh, stream);
   } else {
     attn_fwd::Args A;
     A.q = qs;
-    A.qs = {(long long)Lq * HD, HD, attn_fwd::DH, 1};
+    A.qs = {(long long)Lq * HD, HD, dh, 1};
     A.k = ks;
-    A.ks = {(long long)Lk * HD, HD, attn_fwd::DH, 1};
+    A.ks = {(long long)Lk * HD, HD, dh, 1};
     A.v = vs;
     A.vs = A.ks;
     A.bias = (const float*)bias;
@@ -139,7 +144,7 @@ int attend(const void* qkv, const void* bias, long long sb, long long sh,
     A.Lk = Lk;
     A.H = H;
     A.scale = scale;
-    return attn_fwd::launch(A, B, stream);
+    return attn_fwd::launch(A, B, dh, stream);
   }
 }
 
@@ -149,14 +154,15 @@ int fwd(const void* x, const void* y, const void* wq, long long wq_sd,
         long long wk_so, const void* bk, const void* wv, long long wv_sd,
         long long wv_so, const void* bv, const void* bias, long long sb,
         long long sh, long long sq, long long sk, void* out, void* qkv,
-        int B, int Lq, int Lk, int D, int H, float scale, const void* seeds,
-        unsigned int thresh, float inv_keep, void* stream) {
+        int B, int Lq, int Lk, int D, int H, int dh, float scale,
+        const void* seeds, unsigned int thresh, float inv_keep,
+        void* stream) {
   const int rc = proj<Core>(x, y, wq, wq_sd, wq_so, bq, wk, wk_sd, wk_so, bk,
-                            wv, wv_sd, wv_so, bv, qkv, B, Lq, Lk, D, H,
+                            wv, wv_sd, wv_so, bv, qkv, B, Lq, Lk, D, H, dh,
                             stream);
   if (rc != 0) return rc;
   return attend<typename Core::T>(qkv, bias, sb, sh, sq, sk, out, B, Lq, Lk,
-                                  H, scale, seeds, thresh, inv_keep,
+                                  H, dh, scale, seeds, thresh, inv_keep,
                                   (cudaStream_t)stream);
 }
 
@@ -174,24 +180,25 @@ extern "C" {
 #define FWD_ARGS                                                             \
   PROJ_ARGS, const void *bias, long long sb, long long sh, long long sq,     \
       long long sk, void *out, void *qkv, int B, int Lq, int Lk, int D,      \
-      int H, float scale, const void *seeds, unsigned int thresh,            \
+      int H, int dh, float scale, const void *seeds, unsigned int thresh,    \
       float inv_keep, void *stream
 #define FWD_NAMES                                                            \
-  PROJ_NAMES, bias, sb, sh, sq, sk, out, qkv, B, Lq, Lk, D, H, scale, seeds, \
-      thresh, inv_keep, stream
+  PROJ_NAMES, bias, sb, sh, sq, sk, out, qkv, B, Lq, Lk, D, H, dh, scale,    \
+      seeds, thresh, inv_keep, stream
 
 // The forward's first launch alone: q, k and v into `qkv` (laid out as
 // fused_qkv_mha_fwd's).  Returns cudaGetLastError().  Exported for timing the
 // projection apart from the attention; the wrapper calls the whole
 // forward.  Weights [D, H*dh] through strides (W[d, o] at w[d sd + o so]).
 int fused_qkv_mha_proj(PROJ_ARGS, void* qkv, int B, int Lq, int Lk, int D,
-                       int H, void* stream) {
-  return proj<qkv_proj::Tf32x3>(PROJ_NAMES, qkv, B, Lq, Lk, D, H, stream);
+                       int H, int dh, void* stream) {
+  return proj<qkv_proj::Tf32x3>(PROJ_NAMES, qkv, B, Lq, Lk, D, H, dh,
+                                stream);
 }
 
 int fused_qkv_mha_proj_bf16(PROJ_ARGS, void* qkv, int B, int Lq, int Lk,
-                            int D, int H, void* stream) {
-  return proj<qkv_proj::Bf16>(PROJ_NAMES, qkv, B, Lq, Lk, D, H, stream);
+                            int D, int H, int dh, void* stream) {
+  return proj<qkv_proj::Bf16>(PROJ_NAMES, qkv, B, Lq, Lk, D, H, dh, stream);
 }
 
 // Launches the forward on `stream` and returns the first CUDA error (0
@@ -213,17 +220,20 @@ int fused_qkv_mha_fwd_bf16(FWD_ARGS) { return fwd<qkv_proj::Bf16>(FWD_NAMES); }
 // calls the whole forward.  Arguments as fused_qkv_mha_fwd_bf16's.
 int fused_qkv_mha_attn_bf16(const void* qkv, const void* bias, long long sb,
                             long long sh, long long sq, long long sk,
-                            void* out, int B, int Lq, int Lk, int H,
+                            void* out, int B, int Lq, int Lk, int H, int dh,
                             float scale, const void* seeds,
                             unsigned int thresh, float inv_keep,
                             void* stream) {
   return attend<attn_sm90::bf16>(qkv, bias, sb, sh, sq, sk, out, B, Lq, Lk,
-                                 H, scale, seeds, thresh, inv_keep,
+                                 H, dh, scale, seeds, thresh, inv_keep,
                                  (cudaStream_t)stream);
 }
 
-// Head width the kernel is compiled for, so the wrapper can check it.
-int fused_qkv_mha_head_dim(void) { return attn_fwd::DH; }
+// The head widths the attention kernels are compiled for (the first n into
+// out), so the wrapper can check a call's; returns how many there are.
+int fused_qkv_mha_head_dims(int* out, int n) {
+  return head_dims::query(out, n);
+}
 
 // The route of this library's last bf16 projection launch: 1 every operand
 // by TMA, 0 at least one loaded directly, -1 no launch yet.

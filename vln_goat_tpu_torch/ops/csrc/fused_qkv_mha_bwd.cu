@@ -51,8 +51,12 @@
 //      from the tile itself; with more, a first sweep over the chunks keeps
 //      each row's running max, sum and rowsum(dp * p) online and leaves them
 //      in a small scratch [B, H, Lq, 3], and dq is added chunk after chunk
-//      by the one block that owns it; so it takes any Lk.  Shared memory:
-//      105 KB, two blocks per SM.
+//      by the one block that owns it; so it takes any Lk.  A template of
+//      the head width DH (head_dims.cuh: 32, 64, 128): the products over
+//      the head dimension run DH deep, and each 64 x DH result is
+//      4 DH / 32 pieces of 16 x 32 over the 8 warps.  Shared memory:
+//      105 KB at DH = 64, two blocks per SM (at DH = 128 166 KB, one).
+//      The recompute, and (b), only see the projections' width H dh.
 // (b) projection backward, two kernels per call:
 //   1. one GEMM launch over a table of jobs whose order and depth split the
 //      wrapper plans (ops/bwd_plan.py `proj_plan`): dx = dq Wq^T, dy as one
@@ -97,6 +101,7 @@
 #include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 #include "attn_bwd_sm90.cuh"
+#include "head_dims.cuh"
 #include "qkv_proj.cuh"
 
 namespace {
@@ -106,14 +111,25 @@ using qkv_proj::Jobs;
 using qkv_proj::launch_jobs;
 using qkv_proj::MAX_JOBS;
 
-constexpr int DH = 64;          // head width the kernel is written for
 constexpr int KC = 64;          // keys per chunk in (a)
 constexpr int TQ = 64;          // query rows per tile in (a)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int LDS = DH + 4;     // row stride of the (a) float tiles
-// (a)'s float32 build: the K, V, Q and dO tiles and the two score tiles
-constexpr size_t ATTN_SMEM_BYTES = 6 * TQ * LDS * sizeof(float);
+constexpr int LDP = KC + 4;     // row stride of (a)'s float score tiles
+
+// (a)'s float32 build at head width DH: the row stride of the K, V, Q and
+// dO tiles, their shared memory with the two score tiles', the 16 x 32
+// pieces of a 64 x DH result a warp holds, and the blocks an SM is to hold
+template <int DH>
+struct AttnShape {
+  static_assert(DH % 32 == 0, "whole 32-column pieces");
+  static constexpr int LDT = DH + 4;
+  static constexpr size_t SMEM_BYTES =
+      (4 * (size_t)TQ * LDT + 2 * (size_t)TQ * LDP) * sizeof(float);
+  static constexpr int PIECES = 4 * DH / 32;
+  static constexpr int NP = (PIECES + WARPS - 1) / WARPS;
+  static constexpr int MIN_BLOCKS = DH > 64 ? 1 : 2;
+};
 
 using tf32x3::warp_mma_16x32;
 
@@ -177,17 +193,20 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// s[r * LDS + c] = base[(r0 + r) * stride + c] for r < 64, c < 64; rows at
-// or past lim are zero.  Asynchronous: the caller commits and waits.
+// s[r * (DH + 4) + c] = base[(r0 + r) * stride + c] for r < 64, c < DH;
+// rows at or past lim are zero.  Asynchronous: the caller commits and
+// waits.
+template <int DH>
 __device__ __forceinline__ void load_rows(float* s, const float* base,
                                           long long stride, int r0,
                                           int lim) {
+  constexpr int LDT = AttnShape<DH>::LDT;
   const bool vec = ((uintptr_t)base & 15) == 0 && stride % 4 == 0;
   for (int c = threadIdx.x; c < 64 * (DH / 4); c += THREADS) {
     const int r = c / (DH / 4), k = (c % (DH / 4)) * 4;
     const bool ok = r0 + r < lim;
     const float* src = ok ? base + (long long)(r0 + r) * stride + k : base;
-    float* d = s + r * LDS + k;
+    float* d = s + r * LDT + k;
     if (vec) {
       tf32x3::cp_async16(d, src, ok ? 16 : 0);
     } else {
@@ -217,16 +236,18 @@ struct AttnArgs {
   float scale;
 };
 
-__global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
-    const AttnArgs A) {
+template <int DH>
+__global__ void __launch_bounds__(THREADS, AttnShape<DH>::MIN_BLOCKS)
+    attn_bwd_kernel(const AttnArgs A) {
+  using S = AttnShape<DH>;
+  constexpr int L = S::LDT, NP = S::NP;
   extern __shared__ __align__(16) unsigned char attn_smem[];
-  constexpr int L = LDS;
   float* Ks = reinterpret_cast<float*>(attn_smem);   // [KC][L]  key chunk
   float* Vs = Ks + KC * L;                   // [KC][L]
   float* Qs = Vs + KC * L;                   // [TQ][L]  query tile
   float* Os = Qs + TQ * L;                   // [TQ][L]  dO tile
-  float* Ps = Os + TQ * L;                   // [TQ][LDS] s, then pd
-  float* Ss = Ps + TQ * LDS;                 // [TQ][LDS]  dpd, then ds
+  float* Ps = Os + TQ * L;                   // [TQ][LDP] s, then pd
+  float* Ss = Ps + TQ * LDP;                 // [TQ][LDP]  dpd, then ds
 
   const int b = blockIdx.x, h = blockIdx.y;
   const int Lq = A.Lq, Lk = A.Lk, H = A.H;
@@ -244,29 +265,40 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
+  // a score tile's piece (rows wm, keys wn), and the rows of every piece
+  // of a 64 x DH result the warp holds: piece i, columns wo(i), when on(i)
   const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
+  auto wo = [warp](int i) { return ((warp + WARPS * i) / 4) * 32; };
+  auto on = [warp](int i) { return warp + WARPS * i < S::PIECES; };
   const int nch = (Lk + KC - 1) / KC, ntile = (Lq + TQ - 1) / TQ;
 
-  // accessors of a staged tile (stride LDS), row-major or transposed
+  // accessors of a staged operand tile (stride L) or score tile (stride
+  // LDP), row-major or transposed
   auto rowmajor = [](const float* s) {
-    return [s](int r, int c) { return s[r * LDS + c]; };
+    return [s](int r, int c) { return s[r * L + c]; };
   };
   auto transposed = [](const float* s) {
-    return [s](int r, int c) { return s[c * LDS + r]; };
+    return [s](int r, int c) { return s[c * L + r]; };
+  };
+  auto score_rows = [](const float* s) {
+    return [s](int r, int c) { return s[r * LDP + c]; };
+  };
+  auto score_cols = [](const float* s) {
+    return [s](int r, int c) { return s[c * LDP + r]; };
   };
   // Ps <- q k^T (raw), Ss <- dO v^T, for the staged tile and chunk
   auto scores = [&]() {
     float a1[4][4] = {}, a2[4][4] = {};
-    warp_mma_16x32(a1, rowmajor(Qs), transposed(Ks), wm, wn);
-    warp_mma_16x32(a2, rowmajor(Os), transposed(Vs), wm, wn);
+    warp_mma_16x32<DH>(a1, rowmajor(Qs), transposed(Ks), wm, wn);
+    warp_mma_16x32<DH>(a2, rowmajor(Os), transposed(Vs), wm, wn);
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = wm + g + (e >= 2 ? 8 : 0);
         const int c = wn + 8 * ni + 2 * t + (e & 1);
-        Ps[r * LDS + c] = a1[ni][e];
-        Ss[r * LDS + c] = a2[ni][e];
+        Ps[r * LDP + c] = a1[ni][e];
+        Ss[r * LDP + c] = a2[ni][e];
       }
   };
   // lane's two keys of row r at chunk c0: scaled score (-inf past Lk) and
@@ -280,10 +312,10 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
       s[i] = -INFINITY;
       dp[i] = 0.f;
       if (j < Lk) {
-        s[i] = Ps[r * LDS + jl] * A.scale;
+        s[i] = Ps[r * LDP + jl] * A.scale;
         if (bias_bh != nullptr)
           s[i] += bias_bh[(long long)qi * A.sq + (long long)j * A.sk];
-        dp[i] = Ss[r * LDS + jl];
+        dp[i] = Ss[r * LDP + jl];
         if (A.seeds != nullptr) {
           keep[i] = dropout_bits(seed, b, h, qi, j) >= A.thresh;
           dp[i] = keep[i] ? dp[i] * A.inv_keep : 0.f;
@@ -308,11 +340,11 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
       for (int c = 0; c < nch; ++c) {
         __syncthreads();
         if (c == 0) {
-          load_rows(Qs, qb, HD, q0, Lq);
-          load_rows(Os, ob, HD, q0, Lq);
+          load_rows<DH>(Qs, qb, HD, q0, Lq);
+          load_rows<DH>(Os, ob, HD, q0, Lq);
         }
-        load_rows(Ks, kb, HD, c * KC, Lk);
-        load_rows(Vs, vb, HD, c * KC, Lk);
+        load_rows<DH>(Ks, kb, HD, c * KC, Lk);
+        load_rows<DH>(Vs, vb, HD, c * KC, Lk);
         tf32x3::cp_async_commit();
         tf32x3::cp_async_wait<0>();
         __syncthreads();
@@ -349,16 +381,16 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
 
   for (int c = 0; c < nch; ++c) {
     const int c0 = c * KC;
-    float dka[4][4] = {}, dva[4][4] = {};
+    float dka[NP][4][4] = {}, dva[NP][4][4] = {};
     for (int it = 0; it < ntile; ++it) {
       const int q0 = it * TQ;
       __syncthreads();
       if (it == 0) {
-        load_rows(Ks, kb, HD, c0, Lk);
-        load_rows(Vs, vb, HD, c0, Lk);
+        load_rows<DH>(Ks, kb, HD, c0, Lk);
+        load_rows<DH>(Vs, vb, HD, c0, Lk);
       }
-      load_rows(Qs, qb, HD, q0, Lq);
-      load_rows(Os, ob, HD, q0, Lq);
+      load_rows<DH>(Qs, qb, HD, q0, Lq);
+      load_rows<DH>(Os, ob, HD, q0, Lq);
       tf32x3::cp_async_commit();
       tf32x3::cp_async_wait<0>();
       __syncthreads();
@@ -369,8 +401,8 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
       for (int i = 0; i < TQ / WARPS; ++i) {
         const int r = warp * (TQ / WARPS) + i, qi = q0 + r;
         if (qi >= Lq) {
-          Ps[r * LDS + lane] = Ps[r * LDS + lane + 32] = 0.f;
-          Ss[r * LDS + lane] = Ss[r * LDS + lane + 32] = 0.f;
+          Ps[r * LDP + lane] = Ps[r * LDP + lane + 32] = 0.f;
+          Ss[r * LDP + lane] = Ss[r * LDP + lane + 32] = 0.f;
           continue;
         }
         float s[2], dp[2];
@@ -394,44 +426,53 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
           const float pd =
               A.seeds != nullptr ? (keep[i2] ? p * A.inv_keep : 0.f) : p;
           const float dsv = p * (dp[i2] - dsum);
-          Ps[r * LDS + jl] = j < Lk ? pd : 0.f;
-          Ss[r * LDS + jl] = j < Lk ? dsv : 0.f;
+          Ps[r * LDP + jl] = j < Lk ? pd : 0.f;
+          Ss[r * LDP + jl] = j < Lk ? dsv : 0.f;
           if (A.ds != nullptr && j < Lk)
             A.ds[(((long long)b * H + h) * Lq + qi) * Lk + j] = dsv;
         }
       }
       __syncthreads();
-      // dq (tile rows) = scale ds k, added over the key chunks in dq
-      float dqa[4][4] = {};
-      warp_mma_16x32(dqa, rowmajor(Ss), rowmajor(Ks), wm, wn);
+#pragma unroll
+      for (int pi = 0; pi < NP; ++pi) {
+        if (!on(pi)) continue;
+        // dq (tile rows) = scale ds k, added over the key chunks in dq
+        float dqa[4][4] = {};
+        warp_mma_16x32(dqa, score_rows(Ss), rowmajor(Ks), wm, wo(pi));
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = q0 + wm + g + (e >= 2 ? 8 : 0);
+            const int col = wo(pi) + 8 * ni + 2 * t + (e & 1);
+            if (qi < Lq) {
+              const long long i =
+                  ((long long)b * Lq + qi) * HD + col0 + col;
+              const float v = dqa[ni][e] * A.scale;
+              A.dq[i] = c == 0 ? v : A.dq[i] + v;
+            }
+          }
+        // the tile's share of dv = pd^T dO and dk = ds^T q (keys x dh)
+        warp_mma_16x32(dva[pi], score_cols(Ps), rowmajor(Os), wm, wo(pi));
+        warp_mma_16x32(dka[pi], score_cols(Ss), rowmajor(Qs), wm, wo(pi));
+      }
+    }
+#pragma unroll
+    for (int pi = 0; pi < NP; ++pi) {
+      if (!on(pi)) continue;
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qi = q0 + wm + g + (e >= 2 ? 8 : 0);
-          const int col = wn + 8 * ni + 2 * t + (e & 1);
-          if (qi < Lq) {
-            const long long i = ((long long)b * Lq + qi) * HD + col0 + col;
-            const float v = dqa[ni][e] * A.scale;
-            A.dq[i] = c == 0 ? v : A.dq[i] + v;
+          const int j = c0 + wm + g + (e >= 2 ? 8 : 0);
+          const int col = wo(pi) + 8 * ni + 2 * t + (e & 1);
+          if (j < Lk) {
+            const long long o = ((long long)b * Lk + j) * HD + col0 + col;
+            A.dk[o] = dka[pi][ni][e] * A.scale;
+            A.dv[o] = dva[pi][ni][e];
           }
         }
-      // the tile's share of dv = pd^T dO and dk = ds^T q (keys x dh)
-      warp_mma_16x32(dva, transposed(Ps), rowmajor(Os), wm, wn);
-      warp_mma_16x32(dka, transposed(Ss), rowmajor(Qs), wm, wn);
     }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = c0 + wm + g + (e >= 2 ? 8 : 0);
-        const int col = wn + 8 * ni + 2 * t + (e & 1);
-        if (j < Lk) {
-          const long long o = ((long long)b * Lk + j) * HD + col0 + col;
-          A.dk[o] = dka[ni][e] * A.scale;
-          A.dv[o] = dva[ni][e];
-        }
-      }
   }
 }
 
@@ -439,29 +480,29 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bwd_kernel(
 
 namespace {
 
-// The attention backward over a recompute scratch laid out as bwd_attn's
-// (q, then k and v).
+// The attention backward of head width dh over a recompute scratch laid
+// out as bwd_attn's (q, then k and v).
 template <class T>
 int bwd_core(const void* qkv, const void* bias, long long sb, long long sh,
              long long sq, long long sk, const void* seeds,
              unsigned int thresh, float inv_keep, const void* dout, void* dq,
              void* dk, void* dv, void* ds, void* stats, void* dq_acc, int B,
-             int Lq, int Lk, int H, float scale, cudaStream_t st) {
+             int Lq, int Lk, int H, int dh, float scale, cudaStream_t st) {
   constexpr bool BF16 = sizeof(T) == 2;
   if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || (Lk > KC && stats == nullptr) ||
       (BF16 && Lk > KC && dq_acc == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int HD = H * DH;
+  const int HD = H * dh;
   const T* qs = (const T*)qkv;
   const T* ks = qs + (long long)B * Lq * HD;
   const T* vs = ks + (long long)B * Lk * HD;
   if constexpr (BF16) {
     // the Hopper core, over the scratch and dO as [B, L, H, dh] heads
     attn_bwd_sm90::Params P;
-    P.q = {qs, (long long)Lq * HD, HD, DH, 1, Lq};
-    P.k = {ks, (long long)Lk * HD, HD, DH, 1, Lk};
-    P.v = {vs, (long long)Lk * HD, HD, DH, 1, Lk};
-    P.o = {(const T*)dout, (long long)Lq * HD, HD, DH, 1, Lq};
+    P.q = {qs, (long long)Lq * HD, HD, dh, 1, Lq};
+    P.k = {ks, (long long)Lk * HD, HD, dh, 1, Lk};
+    P.v = {vs, (long long)Lk * HD, HD, dh, 1, Lk};
+    P.o = {(const T*)dout, (long long)Lq * HD, HD, dh, 1, Lq};
     P.bias = (const T*)bias;
     P.sb = sb;
     P.sh = sh;
@@ -478,7 +519,7 @@ int bwd_core(const void* qkv, const void* bias, long long sb, long long sh,
     P.dq_acc = (float*)dq_acc;
     P.H = H;
     P.scale = scale;
-    return attn_bwd_sm90::launch(P, B, st);
+    return attn_bwd_sm90::launch(P, B, dh, st);
   } else {
     AttnArgs A;
     A.q = qs;
@@ -502,11 +543,14 @@ int bwd_core(const void* qkv, const void* bias, long long sb, long long sh,
     A.Lk = Lk;
     A.H = H;
     A.scale = scale;
-    const cudaError_t e =
-        tf32x3::smem_limit<attn_bwd_kernel>((int)ATTN_SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    attn_bwd_kernel<<<dim3(B, H), THREADS, ATTN_SMEM_BYTES, st>>>(A);
-    return (int)cudaGetLastError();
+    return head_dims::dispatch(dh, [&](auto w) {
+      constexpr int DH = decltype(w)::value;
+      constexpr int smem = (int)AttnShape<DH>::SMEM_BYTES;
+      const cudaError_t e = tf32x3::smem_limit<attn_bwd_kernel<DH>>(smem);
+      if (e != cudaSuccess) return (int)e;
+      attn_bwd_kernel<DH><<<dim3(B, H), THREADS, smem, st>>>(A);
+      return (int)cudaGetLastError();
+    });
   }
 }
 
@@ -518,13 +562,13 @@ int bwd_attn(const void* x, const void* y, const void* wq, long long wq_sd,
              long long sh, long long sq, long long sk, const void* seeds,
              unsigned int thresh, float inv_keep, const void* dout, void* dq,
              void* dk, void* dv, void* ds, void* qkv, void* stats,
-             void* dq_acc, int B, int Lq, int Lk, int D, int H, float scale,
-             void* stream) {
+             void* dq_acc, int B, int Lq, int Lk, int D, int H, int dh,
+             float scale, void* stream) {
   using T = typename Core::T;
-  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 1)
+  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 1 || dh < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int HD = H * DH;
+  const int HD = H * dh;
   T* qs = (T*)qkv;
   const void* w[3] = {wq, wk, wv};
   const long long sd[3] = {wq_sd, wk_sd, wv_sd}, so[3] = {wq_so, wk_so, wv_so};
@@ -534,7 +578,8 @@ int bwd_attn(const void* x, const void* y, const void* wq, long long wq_sd,
   const int rc = launch_jobs(J, st);
   if (rc != 0) return rc;
   return bwd_core<T>(qkv, bias, sb, sh, sq, sk, seeds, thresh, inv_keep, dout,
-                     dq, dk, dv, ds, stats, dq_acc, B, Lq, Lk, H, scale, st);
+                     dq, dk, dv, ds, stats, dq_acc, B, Lq, Lk, H, dh, scale,
+                     st);
 }
 
 template <class Core>
@@ -546,12 +591,12 @@ int bwd_proj(const void* x, const void* y, const void* wq, long long wq_sd,
              const long long* dw_so, const int* splits, const int* kc,
              const long long* wofs, const long long* bofs, const void* ds,
              void* dbias, const int* order, int njobs, int blocks, int B,
-             int Lq, int Lk, int D, int H, void* stream) {
+             int Lq, int Lk, int D, int H, int dh, void* stream) {
   constexpr int BK = Core::BK;   // the plan cuts slices in whole chunks
-  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 1 || njobs < 0 ||
+  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 1 || dh < 1 || njobs < 0 ||
       njobs > MAX_JOBS + 1)
     return (int)cudaErrorInvalidValue;
-  const int HD = H * DH;
+  const int HD = H * dh;
   const int Mq = B * Lq, Mk = B * Lk;
   const void* src[3] = {x, y, y};
   const void* grad[3] = {dq, dk, dv};
@@ -609,8 +654,8 @@ template <class T>
 int bwd_reduce(const void* scratch, void* dwq, void* dwk, void* dwv,
                void* dbq, void* dbk, void* dbv, const int* splits,
                const long long* wofs, const long long* bofs, int D, int H,
-               void* stream) {
-  const int HD = H * DH;
+               int dh, void* stream) {
+  const int HD = H * dh;
   const float* sc = (const float*)scratch;
   void* dw[3] = {dwq, dwk, dwv};
   void* db[3] = {dbq, dbk, dbv};
@@ -670,11 +715,11 @@ extern "C" {
       long long sh, long long sq, long long sk, const void *seeds,           \
       unsigned int thresh, float inv_keep, const void *dout, void *dq,       \
       void *dk, void *dv, void *ds, void *qkv, void *stats, void *dq_acc,    \
-      int B, int Lq, int Lk, int D, int H, float scale, void *stream
+      int B, int Lq, int Lk, int D, int H, int dh, float scale, void *stream
 #define ATTN_NAMES                                                           \
   x, y, wq, wq_sd, wq_so, bq, wk, wk_sd, wk_so, bk, wv, wv_sd, wv_so, bv,    \
       bias, sb, sh, sq, sk, seeds, thresh, inv_keep, dout, dq, dk, dv, ds,   \
-      qkv, stats, dq_acc, B, Lq, Lk, D, H, scale, stream
+      qkv, stats, dq_acc, B, Lq, Lk, D, H, dh, scale, stream
 #define PROJ_ARGS                                                            \
   const void *x, const void *y, const void *wq, long long wq_sd,            \
       long long wq_so, const void *wk, long long wk_sd, long long wk_so,     \
@@ -683,17 +728,17 @@ extern "C" {
       const long long *dw_sd, const long long *dw_so, const int *splits,     \
       const int *kc, const long long *wofs, const long long *bofs,           \
       const void *ds, void *dbias, const int *order, int njobs, int blocks,  \
-      int B, int Lq, int Lk, int D, int H, void *stream
+      int B, int Lq, int Lk, int D, int H, int dh, void *stream
 #define PROJ_NAMES                                                           \
   x, y, wq, wq_sd, wq_so, wk, wk_sd, wk_so, wv, wv_sd, wv_so, dq, dk, dv,    \
       dx, dy, scratch, dw_sd, dw_so, splits, kc, wofs, bofs, ds, dbias,      \
-      order, njobs, blocks, B, Lq, Lk, D, H, stream
+      order, njobs, blocks, B, Lq, Lk, D, H, dh, stream
 #define REDUCE_ARGS                                                          \
   const void *scratch, void *dwq, void *dwk, void *dwv, void *dbq,          \
       void *dbk, void *dbv, const int *splits, const long long *wofs,        \
-      const long long *bofs, int D, int H, void *stream
+      const long long *bofs, int D, int H, int dh, void *stream
 #define REDUCE_NAMES \
-  scratch, dwq, dwk, dwv, dbq, dbk, dbv, splits, wofs, bofs, D, H, stream
+  scratch, dwq, dwk, dwv, dbq, dbk, dbv, splits, wofs, bofs, D, H, dh, stream
 #define GEMM_ARGS                                                            \
   const void *a, long long a_sm, long long a_sk, const void *b,             \
       long long b_sk, long long b_sn, const void *bias, void *c,             \
@@ -701,8 +746,10 @@ extern "C" {
 #define GEMM_NAMES \
   a, a_sm, a_sk, b, b_sk, b_sn, bias, c, colsum, m, n, k, splits, kc, stream
 
-// (a) Launches the recompute GEMM and attn_bwd_kernel on `stream`; returns
-// the first CUDA error.  x [B, Lq, D], y [B, Lk, D], weights [D, H*dh]
+// (a) Launches the recompute GEMM and attn_bwd_kernel of head width dh (of
+// head_dims.cuh's set) on `stream`; returns the first CUDA error (another
+// width: cudaErrorInvalidValue).  x [B, Lq, D], y [B, Lk, D], weights
+// [D, H*dh]
 // through strides, biases [H*dh], additive bias through four strides (null:
 // none), seeds int32 [B] (null: no dropout), dO [B, Lq, H*dh]; scratch qkv
 // of B (Lq + 2 Lk) H*dh elements and, when Lk > 64, stats of B H Lq 3
@@ -730,10 +777,10 @@ int fused_qkv_mha_bwd_core_bf16(const void* qkv, const void* bias,
                                 const void* dout, void* dq, void* dk,
                                 void* dv, void* ds, void* stats,
                                 void* dq_acc, int B, int Lq, int Lk, int H,
-                                float scale, void* stream) {
+                                int dh, float scale, void* stream) {
   return bwd_core<bf16>(qkv, bias, sb, sh, sq, sk, seeds, thresh, inv_keep,
                         dout, dq, dk, dv, ds, stats, dq_acc, B, Lq, Lk, H,
-                        scale, (cudaStream_t)stream);
+                        dh, scale, (cudaStream_t)stream);
 }
 
 // (b) Launches the projection-backward GEMM jobs on `stream` and returns
@@ -784,16 +831,26 @@ int fused_qkv_mha_bwd_gemm_bf16(GEMM_ARGS) {
   return bwd_gemm<qkv_proj::Bf16>(GEMM_NAMES);
 }
 
-// Dynamic shared memory of the GEMM launch and of attn_bwd_kernel, bytes.
-void fused_qkv_mha_bwd_smem(int* out) {
+// Dynamic shared memory of the GEMM launch and of attn_bwd_kernel at head
+// width dh, bytes, and of their bf16 builds (0 for the attention kernels
+// at a width outside head_dims.cuh's set).
+void fused_qkv_mha_bwd_smem(int dh, int* out) {
   out[0] = (int)tf32x3::SMEM_BYTES;
-  out[1] = (int)ATTN_SMEM_BYTES;
   out[2] = (int)gemm_bf16::SMEM_BYTES;
-  out[3] = (int)attn_bwd_sm90::SMEM_BYTES;
+  out[1] = out[3] = 0;
+  head_dims::dispatch(dh, [&](auto w) {
+    constexpr int DH = decltype(w)::value;
+    out[1] = (int)AttnShape<DH>::SMEM_BYTES;
+    out[3] = (int)attn_bwd_sm90::smem_bytes<DH>();
+    return 0;
+  });
 }
 
-// Head width the kernels are compiled for, so the wrapper can check it.
-int fused_qkv_mha_bwd_head_dim(void) { return DH; }
+// The head widths the attention kernels are compiled for (the first n into
+// out), so the wrapper can check a call's; returns how many there are.
+int fused_qkv_mha_bwd_head_dims(int* out, int n) {
+  return head_dims::query(out, n);
+}
 
 // GEMM tiles (rows, columns, depth chunk) of the 3xTF32 core, then of the
 // bf16 core, so the wrapper's plan can check that it tiles as the kernels

@@ -11,10 +11,10 @@
 // Two levels:
 //
 // - fragment level: `split_tf32`, `mma3` and `warp_mma_16x32`, a warp's
-//   16 x 32 tile over a depth of 64 on `mma.sync.aligned.m16n8k8`, with
-//   operands read from shared memory through accessors (the attention
-//   backward's five products in fused_qkv_mha_bwd.cu, the attention
-//   forward's two in attn_fwd.cuh);
+//   16 x 32 tile over a depth of 64 (or of a head width) on
+//   `mma.sync.aligned.m16n8k8`, with operands read from shared memory
+//   through accessors (the attention backward's five products in
+//   fused_qkv_mha_bwd.cu, the attention forward's two in attn_fwd.cuh);
 // - block level: `gemm_block`, one 128 x 128 output tile of a job
 //   C = A B (+ bias) over a range of the depth, two warpgroups of 64 x 128
 //   on `wgmma.mma_async.m64n128k8` (A from registers, B from shared
@@ -129,8 +129,10 @@ __device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4],
   mma_tf32(c, ab, bb);
 }
 
-// acc[ni] += A[m0 : m0+16, 0:64] B[0:64, n0 + 8 ni : n0 + 8 ni + 8] for
-// ni < 4, A(m, k) and B(k, n) read through the accessors.  Each 8-deep
+// acc[ni] += A[m0 : m0+16, 0:DEPTH] B[0:DEPTH, n0 + 8 ni : n0 + 8 ni + 8]
+// for ni < 4, A(m, k) and B(k, n) read through the accessors; DEPTH a
+// multiple of 8 (64 unless given: a head width of 32 or 128 for the
+// products over the head dimension).  Each 8-deep
 // step's three products start from zero and are added into acc in
 // float32, rounding to nearest: the tensor cores' own sums round toward
 // zero, and over the depth of a score row (64) or of p v (up to 256 keys)
@@ -138,13 +140,14 @@ __device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4],
 // layout of m16n8k8 (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g+8, t),
 // a2 (g, t+4), a3 (g+8, t+4); b0 (t, g), b1 (t+4, g); c0, c1 (g, 2t, 2t+1),
 // c2, c3 (g+8, 2t, 2t+1).
-template <class AF, class BF>
+template <int DEPTH = 64, class AF, class BF>
 __device__ __forceinline__ void warp_mma_16x32(float acc[4][4], AF a, BF b,
                                                int m0, int n0) {
+  static_assert(DEPTH % 8 == 0, "whole 8-deep steps");
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int k0 = 0; k0 < 64; k0 += 8) {
+  for (int k0 = 0; k0 < DEPTH; k0 += 8) {
     uint32_t ab[4], as[4];
     split_tf32(a(m0 + g, k0 + t), ab[0], as[0]);
     split_tf32(a(m0 + g + 8, k0 + t), ab[1], as[1]);

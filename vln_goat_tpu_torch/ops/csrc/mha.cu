@@ -36,11 +36,16 @@
 // shared with the fused forward's bf16 build (key-tiled, any Lk, TMA and
 // wgmma), with p v in two bf16 terms of p so that p keeps float32's
 // precision; the bias is read in float32, the output rounded to bf16.
+//
+// Both builds take the head widths of head_dims.cuh (32, 64, 128), one
+// kernel instance each, chosen at launch from `dh`; any other width
+// returns cudaErrorInvalidValue without a launch.
 
 #include <cuda_runtime.h>
 
 #include "attn_fwd.cuh"
 #include "attn_fwd_sm90.cuh"
+#include "head_dims.cuh"
 
 // The bf16 kernel on the Hopper core (attn_fwd_sm90.cuh): q, k, v and out
 // bf16, the bias float32, scores, softmax and p in float32; SPLIT_P: p v
@@ -51,10 +56,10 @@
       long long k_sh, long long k_sd, const void *v, long long v_sb,         \
       long long v_sl, long long v_sh, long long v_sd, const void *bias,      \
       long long sb, long long sh, long long sq, long long sk, void *out,     \
-      int B, int Lq, int Lk, int H, float scale, void *stream
+      int B, int Lq, int Lk, int H, int dh, float scale, void *stream
 #define MHA_BF16_NAMES                                                       \
   q, q_sb, q_sl, q_sh, q_sd, k, k_sb, k_sl, k_sh, k_sd, v, v_sb, v_sl, v_sh, \
-      v_sd, bias, sb, sh, sq, sk, out, B, Lq, Lk, H, scale, stream
+      v_sd, bias, sb, sh, sq, sk, out, B, Lq, Lk, H, dh, scale, stream
 
 namespace {
 
@@ -76,7 +81,8 @@ int mha_bf16(MHA_BF16_ARGS) {
   P.out = (bf16*)out;
   P.H = H;
   P.scale = scale;
-  return attn_fwd_sm90::launch<float, SPLIT_P>(P, B, (cudaStream_t)stream);
+  return attn_fwd_sm90::launch<float, SPLIT_P>(P, B, dh,
+                                               (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -95,7 +101,7 @@ int mha_fwd(const void* q, long long q_sb, long long q_sl, long long q_sh,
             const void* v, long long v_sb, long long v_sl, long long v_sh,
             long long v_sd,
             const void* bias, long long sb, long long sh, long long sq,
-            long long sk, void* out, int B, int Lq, int Lk, int H,
+            long long sk, void* out, int B, int Lq, int Lk, int H, int dh,
             float scale, void* stream) {
   attn_fwd::Args A;
   A.q = (const float*)q;
@@ -117,7 +123,7 @@ int mha_fwd(const void* q, long long q_sb, long long q_sl, long long q_sh,
   A.Lk = Lk;
   A.H = H;
   A.scale = scale;
-  return attn_fwd::launch(A, B, (cudaStream_t)stream);
+  return attn_fwd::launch(A, B, dh, (cudaStream_t)stream);
 }
 
 // The same in bf16: q, k, v and out bf16, the bias float32, scores,
@@ -133,8 +139,9 @@ int mha_fwd_bf16_one_term(MHA_BF16_ARGS) {
   return mha_bf16<false>(MHA_BF16_NAMES);
 }
 
-// Head width the kernel is compiled for, so the wrapper can check it.
-int mha_head_dim(void) { return attn_fwd::DH; }
+// The head widths the kernels are compiled for (the first n into out), so
+// the wrapper can check a call's; returns how many there are.
+int mha_head_dims(int* out, int n) { return head_dims::query(out, n); }
 
 // The route of this library's last bf16 launch: 1 q, k and v by TMA, 0
 // loaded directly, -1 none yet.

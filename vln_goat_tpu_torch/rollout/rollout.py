@@ -1,7 +1,10 @@
 """Episodic rollouts (counterpart of vln_goat_tpu/rollout/rollout.py
-`build_rollout`): greedy decode (`feedback="argmax"`) and the two training
-feedbacks of the DAgger step, teacher forcing and sampling
-(`feedback in {"teacher", "sample"}`, `train_ml=True`).
+`build_rollout` and `build_teacher_rollout_vec`): greedy decode
+(`feedback="argmax"`) and the training feedbacks of the DAgger step
+(`train_ml=True`): teacher forcing, sampling, the reference's
+`--expl_sample` exploration and the fused DAgger batch
+(`feedback in {"teacher", "sample", "expl_sample", "fused_dagger"}`), and
+the vectorized teacher (`NavRollout.teacher_rollout_vec`).
 
 The JAX package compiles the episode into one `lax.while_loop` (decode) or
 `lax.scan` (training); here it is a Python loop over the horizon that
@@ -41,8 +44,19 @@ rollout.py:1006-1040), so the backward recomputes the model forwards and
 keeps only their inputs and outputs; the text encoding is not
 checkpointed, as in the JAX package.
 
-The nDTW expert, `expl_sample`, the fused-DAgger feedback and the object
-branch are not ported.
+The vectorized teacher splits the teacher-forced rollout as the JAX
+package's `build_teacher_rollout_vec` does (rollout.py:1602-1932): under
+teacher forcing the path, and with it every geometric model input, does
+not depend on the parameters, so (A) a loop without any model call
+records each step's geometry, targets and node-table indices, (B) one
+`forward_panorama` encodes the panoramas of all its steps at once, over
+the steps x episodes rows, and (C) a loop of `forward_navigation` calls
+rebuilds the running node embeddings from the recorded indices and sums
+the cross-entropy.  Without dropout it is loss-identical to the per-step
+teacher; with dropout (B) draws one mask for all steps, the JAX package's
+documented divergence.
+
+The nDTW expert and the object branch are not ported.
 
 The causal banks (`tools.zdict.SHARED_BANKS`) ride the batch as [B, N, ...]
 views of one copy, shared by every episode; nothing here slices or
@@ -63,8 +77,14 @@ from ..ops.dropout import checkpoint
 from .world import INF_DIST, NavWorld
 
 IGNORE_ID = -100           # target of a step without supervision
-# salt of the sampled action's draw (vln_goat_tpu/rollout/rollout.py:1265)
-SAMPLE_SALT = 7
+# salts of the action draws (vln_goat_tpu/rollout/rollout.py:1251-1283):
+# the sampled action's Gumbel noise; expl_sample's explore draw (uniform)
+# and its random move's Gumbel noise
+SAMPLE_SALT, EXPLORE_SALT, RANDOM_MOVE_SALT = 7, 11, 13
+# training feedbacks (`train_rollout`) and the sampled half of the fused
+# DAgger batch
+TRAIN_FEEDBACKS = ("teacher", "sample", "expl_sample", "fused_dagger")
+SAMPLE_FEEDBACKS = ("sample", "expl_sample")
 # rematerialisation policies of the training rollouts, and those of the JAX
 # package's `build_rollout` (rollout.py:1424-1470) not ported yet
 REMAT = ("none", "model")
@@ -141,6 +161,34 @@ def gumbel_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
     tiny = torch.finfo(torch.float32).tiny
     u = torch.rand(shape, generator=generator, device=device).clamp_min(tiny)
     return -torch.log(-torch.log(u))
+
+
+def uniform_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Uniform [0, 1) draws of `shape` from `generator`."""
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def _nav_embed_assemble(embed_sum, embed_cnt, last_embeds, pano_embeds,
+                        N: int):
+    """The parameter-dependent navigation inputs (the JAX package's
+    `_nav_embed_assemble`, rollout.py:94): the map tokens' embeddings
+    [stop, MEM, node_0..N-1] from the running node sums and counts, and
+    the local branch's [stop, MEM, pano...]."""
+    B, D = embed_sum.shape[0], embed_sum.shape[2]
+    zeros_d = torch.zeros(B, 1, D, device=embed_sum.device)
+    last = last_embeds[:, None, :]
+    cnt = embed_cnt[:, :N].clamp(min=1.0)
+    node_embeds = embed_sum[:, :N] / cnt[:, :, None]
+    return (torch.cat([zeros_d, last, node_embeds], dim=1),
+            torch.cat([zeros_d, last, pano_embeds], dim=1))
+
+
+def _tile(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x [B, ...] repeated n times along a new leading axis, flattened to
+    [n B, ...] (the JAX package's `tile`): a view where x is one bank
+    broadcast over its episodes (stride 0), a copy otherwise."""
+    return x.unsqueeze(0).expand(n, *x.shape).reshape(n * x.shape[0],
+                                                      *x.shape[1:])
 
 
 class NavRollout:
@@ -241,7 +289,9 @@ class NavRollout:
         one Floyd-Warshall relaxation through arr.  A candidate that finds
         the node table full takes an evicted slot (the JAX package's
         default 'spill' policy); one that finds nothing to evict is
-        dropped and counted in overflow_n."""
+        dropped and counted in overflow_n.  The slots a spill clears come
+        back as `emb_clear` [B, N+1] (absent when nothing spilled), for the
+        vectorized teacher to replay on its node embeddings."""
         w, r, dev = self.world, self.rcfg, self.device
         B = arr.shape[0]
         N1, TRASH = r.num_nodes + 1, r.num_nodes
@@ -316,13 +366,17 @@ class NavRollout:
                "enext": enext,
                "overflow_n": st["overflow_n"] + need.sum(dim=1),
                "spilled_n": st["spilled_n"] + spilled}
+        out.pop("emb_clear", None)
         if emb_clear is not None:
             # evicted slots start fresh: no inherited embeddings/bookkeeping
+            # (the vectorized teacher's geometry state has no embeddings)
             keep = ~emb_clear
-            out["embed_sum"] = st["embed_sum"] * keep[..., None]
-            out["embed_cnt"] = st["embed_cnt"] * keep
-            out["stop_prob"] = torch.where(emb_clear, -math.inf,
-                                           st["stop_prob"])
+            out["emb_clear"] = emb_clear
+            if "embed_sum" in st:
+                out["embed_sum"] = st["embed_sum"] * keep[..., None]
+                out["embed_cnt"] = st["embed_cnt"] * keep
+                out["stop_prob"] = torch.where(emb_clear, -math.inf,
+                                               st["stop_prob"])
             out["step_id"] = st["step_id"] * keep
             out["visited"] = out["visited"] & keep
         return out
@@ -339,26 +393,36 @@ class NavRollout:
         return dict(embeds=embeds, kv=self.model.forward_text_kv(embeds))
 
     # ------------------------------------------------------------------
-    def _pano_inputs(self, st, batch):
-        """Padded panorama tokens: [K candidate slots | 36 view slots]."""
+    def _pano_inputs(self, st, batch, cur_vp=None, view_ix=None,
+                     scan=None, images: bool = True):
+        """Padded panorama tokens: [K candidate slots | 36 view slots].
+        A function of (scan, cur_vp, view_ix) alone, taken from the state
+        and batch unless given (the vectorized teacher's flattened
+        steps give them); `images=False` leaves out the image features
+        (`img`), for the geometry alone."""
         w, r = self.world, self.rcfg
-        scan = batch["scan_idx"]
-        cur_vp = _row(st["node_vp"], st["cur"])
-        vi = st["view_ix"]
-        feats = w.get_feat(scan, cur_vp)                   # [B, 36, Df]
+        if scan is None:
+            scan = batch["scan_idx"]
+        if cur_vp is None:
+            cur_vp = _row(st["node_vp"], st["cur"])
+        vi = st["view_ix"] if view_ix is None else view_ix
         cands = w.get_cands(scan, cur_vp)
         B, K = cands["local"].shape
         cam_h = float(G.VIEW_HEADINGS[0]) \
             + (vi % 12).float() * (math.pi / 6)
         cam_e = ((vi // 12).float() - 1.0) * (math.pi / 6)
 
-        cand_img = torch.gather(
-            feats, 1, cands["ptid"][:, :, None].expand(B, K, feats.shape[2]))
+        img = None
+        if images:
+            feats = w.get_feat(scan, cur_vp)               # [B, 36, Df]
+            cand_img = torch.gather(
+                feats, 1,
+                cands["ptid"][:, :, None].expand(B, K, feats.shape[2]))
+            img = torch.cat([cand_img, feats], dim=1).float()
         cand_ang = G.angle_feature_t(cands["heading"] - cam_h[:, None],
                                      cands["elev"] - cam_e[:, None],
                                      r.angle_feat_size)
         view_ang = self._ang_tab[vi]                       # [B, 36, A]
-        img = torch.cat([cand_img, feats], dim=1).float()
         ang = torch.cat([cand_ang, view_ang], dim=1)
         loc = torch.cat([ang, torch.ones(ang.shape[:-1] + (3,),
                                          device=ang.device)], dim=-1)
@@ -373,26 +437,22 @@ class NavRollout:
                     cands=cands, cam_h=cam_h, cam_e=cam_e, cur_vp=cur_vp)
 
     # ------------------------------------------------------------------
-    def _nav_inputs(self, st, batch, pano, pano_embeds, cnode, has):
-        """Global-map + local-branch tensors (agent.py:151-304)."""
+    def _nav_inputs(self, st, batch, pano, pano_embeds, cnode, has,
+                    embeds: bool = True):
+        """Global-map + local-branch tensors (agent.py:151-304).
+        `embeds=False` leaves out the two that depend on the parameters
+        (gmap_img_embeds, vp_img_embeds: `_nav_embed_assemble`), for the
+        vectorized teacher's geometry loop."""
         w, r = self.world, self.rcfg
         B, dev = st["cur"].shape[0], self.device
         N = r.num_nodes
         A = r.angle_feat_size
         scan = batch["scan_idx"]
-        D = self.mcfg.hidden_size
 
         real = torch.arange(N, device=dev)[None, :] < st["n_nodes"][:, None]
         node_vp = st["node_vp"][:, :N]
         visited = st["visited"][:, :N] & real
         cur_vp = pano["cur_vp"]
-        zeros_d = torch.zeros(B, 1, D, device=dev)
-        last = st["last_embeds"][:, None, :]
-
-        # node embeddings (sum/count average)
-        cnt = st["embed_cnt"][:, :N].clamp(min=1.0)
-        node_embeds = st["embed_sum"][:, :N] / cnt[:, :, None]
-        gmap_img_embeds = torch.cat([zeros_d, last, node_embeds], dim=1)
 
         # positions & episodic metrics relative to the current node; `% V`
         # keeps the -1 pad slots in range, as the JAX package's lookups do
@@ -428,7 +488,6 @@ class NavRollout:
         cands = pano["cands"]
         K = cands["local"].shape[1]
         L = 2 + pano["mask"].shape[1]
-        vp_img_embeds = torch.cat([zeros_d, last, pano_embeds], dim=1)
         local_to_gmap = torch.full((B, L), -1, dtype=torch.int64, device=dev)
         local_to_gmap[:, 2:2 + K] = torch.where(has, cnode + 2, -1)
 
@@ -454,14 +513,18 @@ class NavRollout:
         no_vp_left = ~torch.any(real & ~visited, dim=1)
 
         nav_in = dict(
-            gmap_img_embeds=gmap_img_embeds, gmap_step_ids=gmap_step_ids,
+            gmap_step_ids=gmap_step_ids,
             gmap_pos_fts=gmap_pos_fts, gmap_masks=gmap_masks,
             gmap_pair_dists=gmap_pair_dists,
             gmap_visited_masks=gmap_visited,
-            vp_img_embeds=vp_img_embeds, vp_pos_fts=vp_pos_fts,
+            vp_pos_fts=vp_pos_fts,
             vp_masks=vp_masks, vp_nav_masks=vp_nav_masks,
             local_to_gmap=local_to_gmap,
         )
+        if embeds:
+            nav_in["gmap_img_embeds"], nav_in["vp_img_embeds"] = \
+                _nav_embed_assemble(st["embed_sum"], st["embed_cnt"],
+                                    st["last_embeds"], pano_embeds, N)
         return nav_in, dict(no_vp_left=no_vp_left, node_vp=node_vp,
                             visited=visited, real=real)
 
@@ -516,8 +579,43 @@ class NavRollout:
         return torch.stack(hops, dim=1), prev
 
     # ------------------------------------------------------------------
+    def _call(self, fn, remat, *args, **kwargs):
+        """A model call of a training rollout: under remat "model" through
+        `ops.dropout.checkpoint` (recomputed in the backward)."""
+        if remat == "model":
+            return checkpoint(self.model, fn, *args, **kwargs)
+        return fn(*args, **kwargs)
+
+    def _draw(self, noise_key, t, salt, sampler, shape):
+        """Draws of `sampler` over the episode uid space (`shape`'s first
+        axis) from a generator seeded by (rollout key, step, salt); the
+        caller gathers them by uid, as the JAX package's `uid_rows`."""
+        g = torch.Generator(device=self.device).manual_seed(
+            (noise_key * 1000003 + t * 1009 + salt) % 2 ** 63)
+        return sampler(g, shape, self.device)
+
+    def _sampled_action(self, mode, logits, uid, t, noise_key,
+                        expl_max_ratio):
+        """The action of a sampled feedback (vln_goat_tpu/rollout/
+        rollout.py:1262-1284): "sample", a Gumbel-max draw from the policy
+        (salt 7); "expl_sample", the argmax, except where a uniform draw
+        (salt 11) exceeds expl_max_ratio, which moves to a uniformly random
+        action among the finite logits (Gumbel-max over them, salt 13)."""
+        B0, G = logits.shape
+        if mode == "sample":
+            noise = self._draw(noise_key, t, SAMPLE_SALT, gumbel_noise,
+                               (B0, G))
+            return (logits + noise[uid]).argmax(dim=1)
+        explore = self._draw(noise_key, t, EXPLORE_SALT, uniform_noise,
+                             (B0,))[uid] > expl_max_ratio
+        noise = self._draw(noise_key, t, RANDOM_MOVE_SALT, gumbel_noise,
+                           (B0, G))
+        finite = torch.where(torch.isfinite(logits), 0.0, -math.inf)
+        rnd = (finite + noise[uid]).argmax(dim=1)
+        return torch.where(explore, rnd, logits.argmax(dim=1))
+
     def _step(self, st, batch, txt, t, feedback, horizon, noise_key,
-              remat="none"):
+              remat="none", sample_feedback="sample", expl_max_ratio=0.6):
         """One decision step for every episode; returns (state, record).
         Every feedback but "argmax" trains: the record's `loss` is then the
         step's imitation loss per episode (zero in decode)."""
@@ -525,9 +623,8 @@ class NavRollout:
         train_ml = feedback != "argmax"
 
         def call(fn, *args, **kwargs):
-            if train_ml and remat == "model":
-                return checkpoint(model, fn, *args, **kwargs)
-            return fn(*args, **kwargs)
+            return self._call(fn, remat if train_ml else "none", *args,
+                              **kwargs)
         N = r.num_nodes
         act = ~st["ended"]
         st = {**st, "step_id": _set_row(
@@ -584,37 +681,55 @@ class NavRollout:
                                           probs[:, 0], act)}
 
         # supervision: expert target and f32 cross-entropy
-        # (vln_goat_tpu/rollout/rollout.py:1232-1248)
+        # (vln_goat_tpu/rollout/rollout.py:1230-1248): the gt path's next
+        # node for "teacher", the SPL expert for the sampled feedbacks, and
+        # per episode by batch["is_teacher"] for "fused_dagger"
         B0 = logits.shape[0]
         target = torch.full_like(st["cur"], IGNORE_ID)
         step_loss = torch.zeros(B0, device=logits.device)
+        is_t = batch.get("is_teacher") if feedback == "fused_dagger" \
+            else None
         if train_ml:
-            target = self._teacher(st, batch, aux, t,
-                                   imitation=(feedback == "teacher"))
+            if is_t is not None:
+                target = torch.where(
+                    is_t, self._teacher(st, batch, aux, t, imitation=True),
+                    self._teacher(st, batch, aux, t, imitation=False))
+            else:
+                target = self._teacher(st, batch, aux, t,
+                                       imitation=(feedback == "teacher"))
             logp = torch.log_softmax(logits.float(), dim=1)
             li = logp.gather(1, target.clamp(min=0)[:, None])[:, 0]
             step_loss = -torch.where(target >= 0, li, torch.zeros_like(li))
 
         # action selection (vln_goat_tpu/rollout/rollout.py:1251-1295):
-        # Gumbel-max samples drawn for every episode uid and gathered by
-        # uid, from a generator seeded by (rollout key, step, salt)
+        # draws for every episode uid, gathered by uid
+        lg = logits.detach()
         if feedback == "teacher":
             a = target.clamp(min=0)
-        elif feedback == "sample":
-            g = torch.Generator(device=self.device).manual_seed(
-                (noise_key * 1000003 + t * 1009 + SAMPLE_SALT) % 2 ** 63)
-            noise = gumbel_noise(g, (B0, logits.shape[1]), self.device)
-            a = (logits.detach() + noise[st["uid"]]).argmax(dim=1)
+        elif feedback in SAMPLE_FEEDBACKS:
+            a = self._sampled_action(feedback, lg, st["uid"], t, noise_key,
+                                     expl_max_ratio)
+        elif is_t is not None:
+            a = torch.where(is_t, target.clamp(min=0),
+                            self._sampled_action(sample_feedback, lg,
+                                                 st["uid"], t, noise_key,
+                                                 expl_max_ratio))
         else:
             a = logits.argmax(dim=1)
 
-        # stop: teacher and sample also stop at the goal (agent.py:649-662)
+        # stop (agent.py:649-662): teacher and sample also stop at the
+        # goal; argmax and expl_sample on the stop action only
         a_stop = a == 0
         if train_ml:
             gl = batch["gt_len"]
             goal = batch["gt_path"][torch.arange(B0, device=self.device),
                                     gl - 1]
-            a_stop = a_stop | (pano["cur_vp"] == goal)
+            at_goal = pano["cur_vp"] == goal
+            if is_t is not None:
+                at_goal = at_goal & (is_t | (sample_feedback == "sample"))
+            elif feedback == "expl_sample":
+                at_goal = torch.zeros_like(at_goal)
+            a_stop = a_stop | at_goal
         just_ended = act & (a_stop | aux["no_vp_left"]
                             | (t == horizon - 1))
         moves = act & ~just_ended
@@ -656,9 +771,10 @@ class NavRollout:
 
     # ------------------------------------------------------------------
     def _run(self, batch, txt, feedback, horizon, noise_key,
-             remat="none"):
+             remat="none", **sampling):
         """The step loop and the final stop-backtrack; records are kept
-        detached, the per-step losses as they are."""
+        detached, the per-step losses as they are.  `sampling`: _step's
+        sample_feedback and expl_max_ratio."""
         r = self.rcfg
         B = batch["scan_idx"].shape[0]
         T, G = horizon or r.horizon, r.num_nodes + 2
@@ -682,7 +798,7 @@ class NavRollout:
         t = 0
         while t < T and not bool(st["ended"].all()):
             st, rec = self._step(st, batch, txt, t, feedback, T, noise_key,
-                                 remat)
+                                 remat, **sampling)
             losses.append(rec.pop("loss"))
             for k, v in rec.items():
                 recs[k][t] = v
@@ -715,31 +831,205 @@ class NavRollout:
         `steps`, the number of decision steps run."""
         return self._run(batch, self.encode_text(batch), "argmax", None, 0)
 
+    @staticmethod
+    def _noise_key(generator: torch.Generator) -> int:
+        """The rollout's key of its action draws, from `generator`."""
+        return int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=generator.device))
+
     def train_rollout(self, batch, feedback: str,
                       generator: torch.Generator,
                       txt: Optional[dict] = None,
                       horizon: Optional[int] = None,
-                      remat: str = "none") -> Dict[str, torch.Tensor]:
+                      remat: str = "none", sample_feedback: str = "sample",
+                      expl_max_ratio: float = 0.6
+                      ) -> Dict[str, torch.Tensor]:
         """Training rollout with the imitation loss (the JAX package's
         `build_rollout(feedback, train_ml=True, deterministic=False)`):
-        `feedback="teacher"` follows the gt path, `"sample"` samples from
-        the policy with the SPL expert as target.  `ml_loss` is the summed
-        cross-entropy over steps and episodes divided by B (JAX :1574),
-        differentiable in the model's parameters.  `txt` is an
-        `encode_text` result to share between rollouts on one batch;
+        `feedback="teacher"` follows the gt path; `"sample"` samples from
+        the policy and `"expl_sample"` explores (`_sampled_action`), both
+        with the SPL expert as target; `"fused_dagger"` runs a batch of
+        `trainer.fuse_dagger_batches`, whose episodes where
+        batch["is_teacher"] follow the gt path and the rest take
+        `sample_feedback`.  `ml_loss` is the summed cross-entropy over
+        steps and episodes divided by B (JAX :1574), `loss_per_ep` each
+        episode's sum, differentiable in the model's parameters.  `txt` is
+        an `encode_text` result to share between rollouts on one batch;
         `horizon` shortens the scan (the trainer's teacher_horizon);
         `remat` is one of `REMAT`.  Dropout draws come from the generator
         the caller gave the model (`set_generator`); the sampled actions'
         noise from `generator`."""
         check_remat(remat)
+        if feedback not in TRAIN_FEEDBACKS:
+            raise ValueError(f"training feedback {feedback!r}: one of "
+                             f"{TRAIN_FEEDBACKS}")
+        if sample_feedback not in SAMPLE_FEEDBACKS:
+            raise ValueError(f"sample_feedback {sample_feedback!r}: one of "
+                             f"{SAMPLE_FEEDBACKS}")
+        if feedback == "fused_dagger" and "is_teacher" not in batch:
+            raise ValueError("fused_dagger needs batch['is_teacher'] "
+                             "(trainer.fuse_dagger_batches)")
         if txt is None:
             txt = self.encode_text(batch)
-        noise_key = int(torch.randint(0, 2 ** 62, (1,),
-                                      generator=generator,
-                                      device=generator.device))
-        if feedback not in ("teacher", "sample"):
-            raise ValueError(f"training feedback {feedback!r} is not ported")
-        return self._run(batch, txt, feedback, horizon, noise_key, remat)
+        return self._run(batch, txt, feedback, horizon,
+                         self._noise_key(generator), remat,
+                         sample_feedback=sample_feedback,
+                         expl_max_ratio=expl_max_ratio)
+
+    # ------------------------------------------------------------------
+    def _geo_step(self, st, batch, t, T):
+        """Phase A of the vectorized teacher: one teacher-forced step
+        without any model call (the JAX package's `geo_step`,
+        rollout.py:1694-1777).  Returns the state after the step and its
+        record: the step's current viewpoint, view and slot, the active
+        episodes, the candidates' embedding scatter (add, tgt), the slots
+        the arrival's spill keeps (None: all), the gt target, the
+        navigation geometry and the action taken (-1 if none)."""
+        r, w = self.rcfg, self.world
+        N = r.num_nodes
+        act = ~st["ended"]
+        st = {**st, "step_id": _set_row(
+            st["step_id"], st["cur"], torch.full_like(st["cur"], t + 1),
+            act)}
+        cur_slot, vi = st["cur"], st["view_ix"]
+        pano = self._pano_inputs(st, batch, images=False)
+        cands = pano["cands"]
+        known = torch.where(
+            torch.arange(N, device=self.device)[None, :]
+            < st["n_nodes"][:, None], st["node_vp"][:, :N], -2)
+        cmatch = known[:, None, :] == cands["local"][:, :, None]  # [B,K,N]
+        cnode = cmatch.int().argmax(-1)
+        chas = cmatch.any(-1) & cands["mask"]
+        add = chas & ~_take(st["visited"], cnode) & act[:, None]
+        tgt = torch.where(add, cnode, N)
+        geo, aux = self._nav_inputs(st, batch, pano, None, cnode, chas,
+                                    embeds=False)
+        target = self._teacher(st, batch, aux, t, imitation=True)
+        a = target.clamp(min=0)
+        B = a.shape[0]
+        goal = batch["gt_path"][torch.arange(B, device=self.device),
+                                batch["gt_len"] - 1]
+        a_stop = (pano["cur_vp"] == goal) | (a == 0)
+        just_ended = act & (a_stop | aux["no_vp_left"] | (t == T - 1))
+        moves = act & ~just_ended
+        tgt_node = (a - 2).clamp(0, N - 1)
+        # camera update (arrival-edge view of prev -> action), as _step
+        _, prev = self._expand_path(st, tgt_node, r.seg_len)
+        rev = _take(_row(st["enext"], tgt_node), st["cur"][:, None])[:, 0]
+        prev = torch.where(rev >= 0, rev, prev)
+        tgt_vp = _row(st["node_vp"], tgt_node)
+        pc = w.get_cands(batch["scan_idx"], _row(st["node_vp"], prev))
+        pk = ((pc["local"] == tgt_vp[:, None]) & pc["mask"]).int().argmax(1)
+        st = {**st,
+              "view_ix": torch.where(moves, _row(pc["ptid"], pk),
+                                     st["view_ix"]),
+              "cur": torch.where(moves, tgt_node, st["cur"]),
+              "ended": st["ended"] | just_ended}
+        st = self._arrive(st, batch, st["cur"], skip=~moves)
+        clear = st.pop("emb_clear", None)
+        rec = dict(cur_vp=pano["cur_vp"], view_ix=vi, act=act,
+                   cur_slot=cur_slot, add=add, tgt=tgt,
+                   keep=None if clear is None else ~clear, target=target,
+                   geo=geo, action=torch.where(moves, tgt_vp, -1))
+        return st, rec
+
+    def teacher_rollout_vec(self, batch, generator: torch.Generator,
+                            txt: Optional[dict] = None,
+                            horizon: Optional[int] = None,
+                            remat: str = "none") -> Dict[str, torch.Tensor]:
+        """The teacher-forced training rollout with the panorama encoder
+        run once over all its steps (the JAX package's
+        `build_teacher_rollout_vec`, rollout.py:1602-1932; the module
+        docstring gives the three phases).  Arguments as `train_rollout`'s
+        (the generator's draw of the action key is taken, and left unused,
+        so that the generator moves on as under the per-step teacher).
+        Returns ml_loss, loss_per_ep, targets and actions [T, B], n_nodes,
+        overflow_n, spilled_n and `steps`, the steps phase A ran: it stops
+        once every episode has ended (a later step adds nothing to the
+        loss).  Under remat "model" both model calls go through
+        `ops.dropout.checkpoint`."""
+        check_remat(remat)
+        if txt is None:
+            txt = self.encode_text(batch)
+        self._noise_key(generator)
+        r, model = self.rcfg, self.model
+        B = batch["scan_idx"].shape[0]
+        T, N, dev = horizon or r.horizon, r.num_nodes, self.device
+
+        # ---- phase A: the geometry, no model call
+        st = self.init_state(batch)
+        for k in ("embed_sum", "embed_cnt", "stop_prob", "last_embeds"):
+            st.pop(k)
+        recs = []
+        with torch.no_grad():
+            while len(recs) < T and not bool(st["ended"].all()):
+                st, rec = self._geo_step(st, batch, len(recs), T)
+                recs.append(rec)
+        n = len(recs)
+        targets = torch.full((T, B), IGNORE_ID, dtype=torch.int64,
+                             device=dev)
+        actions = torch.full((T, B), -1, dtype=torch.int64, device=dev)
+        out = dict(targets=targets, actions=actions, n_nodes=st["n_nodes"],
+                   overflow_n=st["overflow_n"], spilled_n=st["spilled_n"],
+                   steps=torch.tensor(n))
+        if n == 0:
+            zero = torch.zeros(B, device=dev)
+            return dict(out, ml_loss=zero.sum(), loss_per_ep=zero)
+        for t, rec in enumerate(recs):
+            targets[t], actions[t] = rec["target"], rec["action"]
+
+        # ---- phase B: one panorama encoding over the n B flattened steps
+        pano = self._pano_inputs(
+            None, batch, cur_vp=torch.cat([x["cur_vp"] for x in recs]),
+            view_ix=torch.cat([x["view_ix"] for x in recs]),
+            scan=_tile(batch["scan_idx"], n))
+        pe, pm, pf = self._call(
+            model.forward_panorama, remat, pano["img"], pano["loc"],
+            pano["nav_types"], pano["mask"],
+            **{dst: _tile(batch[src], n) for src, dst in _PANO_BANKS
+               if src in batch})
+        if pf is None:  # average fallback (agent.py:550-552)
+            m = pm[..., None].to(pe.dtype)
+            pf = (pe * m).sum(1) / m.sum(1).clamp(min=1.0)
+        pe = pe.reshape(n, B, *pe.shape[1:])
+        pf = pf.reshape(n, B, *pf.shape[1:])
+        K = pano["cands"]["local"].shape[1]
+
+        # ---- phase C: the navigation calls, step by step
+        D = self.mcfg.hidden_size
+        es = torch.zeros(B, N + 1, D, device=dev)
+        ec = torch.zeros(B, N + 1, device=dev)
+        last = torch.zeros(B, D, device=dev)
+        nav_banks = {dst: batch[src] for src, dst in _NAV_BANKS
+                     if src in batch}
+        losses = []
+        for t, rec in enumerate(recs):
+            act = rec["act"]
+            es = _set_row(es, rec["cur_slot"], pf[t], act)
+            ec = _set_row(ec, rec["cur_slot"], torch.ones_like(ec[:, 0]),
+                          act)
+            addf = rec["add"].to(es.dtype)
+            es = es.scatter_add(
+                1, rec["tgt"][:, :, None].expand(-1, -1, D),
+                pe[t, :, :K] * addf[..., None])
+            ec = ec.scatter_add(1, rec["tgt"], addf)
+            gmap, vp = _nav_embed_assemble(es, ec, last, pe[t], N)
+            outs = self._call(model.forward_navigation, remat,
+                              txt["embeds"], batch["txt_masks"],
+                              txt_kv=txt["kv"], gmap_img_embeds=gmap,
+                              vp_img_embeds=vp, **rec["geo"], **nav_banks)
+            last = torch.where(act[:, None], outs["cls_embeds"], last)
+            logp = torch.log_softmax(outs["fused_logits"].float(), dim=1)
+            target = rec["target"]
+            li = logp.gather(1, target.clamp(min=0)[:, None])[:, 0]
+            losses.append(-torch.where(target >= 0, li,
+                                       torch.zeros_like(li)))
+            if rec["keep"] is not None:
+                es = es * rec["keep"][..., None]
+                ec = ec * rec["keep"]
+        loss_per_ep = torch.stack(losses).sum(dim=0)
+        return dict(out, ml_loss=loss_per_ep.sum() / B,
+                    loss_per_ep=loss_per_ep)
 
 
 def to_numpy(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

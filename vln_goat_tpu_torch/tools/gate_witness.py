@@ -51,18 +51,29 @@ from ..ops.attention import fused_qkv_mha, fused_qkv_mha_plain
 NOISE_GRAD_BIASES = (".key.bias", "sprel_linear.bias",
                      "global_sap_head.net.2.bias",
                      "global_sap_head.net.3.bias")
+# Under teacher forcing along a shortest path the agent stands next to one
+# visited node (the one it came from), so the local head's last two biases
+# (its LayerNorm's and its output's: one constant on every local logit)
+# move the stop, every candidate and the backtrack slot alike: their
+# gradients are zero up to rounding in a teacher-forced step (1e-8 of
+# their weights' on the CPU test configuration, against 0.1-0.3 in a
+# DAgger step, whose sampled rollout wanders), and a teacher-forced gate
+# holds them as NOISE_GRAD_BIASES are held
+TEACHER_NOISE_BIASES = ("local_sap_head.net.2.bias",
+                        "local_sap_head.net.3.bias")
 ENTRY_POINTS = ("forward_text", "forward_text_kv", "forward_panorama",
                 "forward_navigation")
 
 
-def worst_grad(got, ref):
+def worst_grad(got, ref, noise=NOISE_GRAD_BIASES):
     """(largest |got - ref| over each gradient's scale, its name): the
-    scale is the gradient's largest magnitude, for NOISE_GRAD_BIASES their
-    weight's."""
+    scale is the gradient's largest magnitude, for the biases `noise`
+    names (NOISE_GRAD_BIASES; for a teacher-forced step also
+    TEACHER_NOISE_BIASES) their weight's."""
     worst = (0.0, "")
     for name, ge in ref.items():
         scale = float(ge.abs().max())
-        if name.endswith(NOISE_GRAD_BIASES):
+        if name.endswith(noise):
             # zero up to rounding: each adds one constant to a whole row
             # of scores or to every finite fused logit, which softmax
             # ignores; held at the scale of its weight's gradient, as

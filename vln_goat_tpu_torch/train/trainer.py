@@ -7,6 +7,14 @@ agent_base.py:154-203):
 - 'dagger': the teacher rollout at ml_weight (0.2) plus the on-policy
   sampled rollout at weight 1, both imitation loss only, on the same
   minibatch, sharing one instruction encoding (as the JAX package does);
+- 'dagger_fused': the two rollouts of the reference's DAgger step, each on
+  a minibatch of its own, as one rollout over both
+  (`fuse_dagger_batches`; the rollout's "fused_dagger" feedback): each
+  half's summed cross-entropy is divided by its own size, and the loss is
+  ml_weight l_t + l_s (the JAX package's trainer.py:195-205);
+- the sampled rollouts' feedback `sample_feedback`: "sample", or
+  "expl_sample" (the reference's --expl_sample: argmax, but a random move
+  with probability 1 - expl_max_ratio);
 - loss: summed cross-entropy over steps and episodes divided by B;
 - global-norm clip 40, AdamW (optax's update: clip_by_global_norm, then
   adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay), in optax's arithmetic),
@@ -19,9 +27,10 @@ agent_base.py:154-203):
 - the rollouts' rematerialisation policy `remat` ("none" or "model",
   rollout.REMAT).
 
-The teacher is the per-step rollout (the JAX package's
-`vectorized_teacher=False`, loss-identical to its vectorized teacher
-without dropout).  The backward is autograd's through the whole rollout;
+The teacher is the vectorized teacher (`NavRollout.teacher_rollout_vec`,
+`vectorized_teacher=True`, the JAX package's default), or the per-step
+rollout (`vectorized_teacher=False`); without dropout the two are
+loss-identical.  The backward is autograd's through the whole rollout;
 the fused attention calls on the card run the backward kernels of
 ops/attention.py.
 """
@@ -34,8 +43,11 @@ from typing import Callable, Dict, Iterable, List, Optional, Union
 import torch
 
 from ..ops.dropout import set_generator
-from ..rollout.rollout import NavRollout, check_remat
+from ..rollout.rollout import NavRollout, SAMPLE_FEEDBACKS, check_remat
+from ..tools.zdict import SHARED_BANKS
 from ..utils.guard import FiniteGuard
+
+TRAIN_ALGS = ("imitation", "dagger", "dagger_fused")
 
 
 def make_lr_schedule(name: str, lr: float, warmup_steps: int,
@@ -226,8 +238,9 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
 
 @dataclass
 class TrainState:
-    """The model, its optimizer and schedule, the update count, and the
-    step function that advances them (`make_train_step`)."""
+    """The model, its optimizer and schedule, the update count, the step
+    function that advances them (`make_train_step`), its train_alg (whose
+    batches `entry.train_steps` draws) and the rollout it runs."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
@@ -235,6 +248,8 @@ class TrainState:
     grad_clip: float = 40.0
     step: int = 0
     step_fn: Optional[Callable] = field(default=None, repr=False)
+    train_alg: str = "dagger"
+    rollout: Optional[NavRollout] = field(default=None, repr=False)
 
 
 def apply_update(state: TrainState) -> torch.Tensor:
@@ -263,21 +278,71 @@ def apply_update(state: TrainState) -> torch.Tensor:
     return norm
 
 
+def fuse_dagger_batches(batch_t: Dict[str, torch.Tensor],
+                        batch_s: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """One fused-DAgger batch from a teacher minibatch and a sample
+    minibatch (the JAX package's trainer.py:226): the episodes of batch_t,
+    then those of batch_s, and `is_teacher` marking the first; gt paths of
+    length-bucketed halves padded with -1 to the wider cap.  feat_noise is
+    the teacher batch's, shared; a causal bank (one bank broadcast over
+    the episodes of either half, `tools.zdict.causal_batch`) is broadcast
+    over the fused episodes."""
+    b_t, b_s = batch_t["scan_idx"].shape[0], batch_s["scan_idx"].shape[0]
+    out = {}
+    for k, v in batch_t.items():
+        if k == "feat_noise" or k not in batch_s:
+            out[k] = v
+        elif k in SHARED_BANKS:
+            out[k] = v[:1].expand(b_t + b_s, *v.shape[1:])
+        else:
+            a, b = v, batch_s[k]
+            if k == "gt_path" and a.shape[1] != b.shape[1]:
+                width = max(a.shape[1], b.shape[1])
+                a, b = (torch.nn.functional.pad(x, (0, width - x.shape[1]),
+                                                value=-1) for x in (a, b))
+            out[k] = torch.cat([a, b], dim=0)
+    dev = batch_t["scan_idx"].device
+    out["is_teacher"] = torch.cat(
+        [torch.ones(b_t, dtype=torch.bool, device=dev),
+         torch.zeros(b_s, dtype=torch.bool, device=dev)])
+    return out
+
+
 def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
                  ml_weight: float = 0.2,
                  teacher_horizon: Union[int, str, None] = None,
-                 remat: str = "none"):
+                 remat: str = "none", vectorized_teacher: bool = True,
+                 sample_feedback: str = "sample",
+                 expl_max_ratio: float = 0.6):
     """loss_fn(batch, generator) -> (loss, metrics, outs): the imitation
-    loss of `train_alg` and its rollouts' outputs, under the rollouts'
-    rematerialisation policy `remat`.  teacher_horizon: None
+    loss of `train_alg` (TRAIN_ALGS) and its rollouts' outputs, under the
+    rollouts' rematerialisation policy `remat`.  teacher_horizon: None
     keeps the rollout's horizon, an int caps the teacher scan, "auto"
     takes min(gt_path width, horizon) per batch (JAX :150-156): teacher
     episodes end once their gt path is exhausted, so the cap is
-    loss-identical while skipping the dead tail."""
-    if train_alg not in ("imitation", "dagger"):
-        raise ValueError(f"train_alg {train_alg!r} is not ported")
+    loss-identical while skipping the dead tail.  vectorized_teacher: the
+    teacher rollout is `teacher_rollout_vec` (else the per-step one);
+    sample_feedback ("sample" or "expl_sample") and expl_max_ratio: the
+    sampled rollouts' feedback ("dagger" and the sampled half of
+    "dagger_fused")."""
+    if train_alg not in TRAIN_ALGS:
+        raise ValueError(f"train_alg {train_alg!r}: one of {TRAIN_ALGS}")
+    if sample_feedback not in SAMPLE_FEEDBACKS:
+        raise ValueError(f"sample_feedback {sample_feedback!r}: one of "
+                         f"{SAMPLE_FEEDBACKS}")
     check_remat(remat)
     full = rollout.rcfg.horizon
+    sampling = dict(sample_feedback=sample_feedback,
+                    expl_max_ratio=expl_max_ratio)
+
+    def teacher(batch, generator, txt=None):
+        if vectorized_teacher:
+            return rollout.teacher_rollout_vec(
+                batch, generator, txt=txt, horizon=teacher_h(batch),
+                remat=remat)
+        return rollout.train_rollout(batch, "teacher", generator, txt=txt,
+                                     horizon=teacher_h(batch), remat=remat)
 
     def teacher_h(batch) -> int:
         h = teacher_horizon
@@ -289,26 +354,35 @@ def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
         metrics: Dict[str, torch.Tensor] = {}
         outs: Dict[str, dict] = {}
         if train_alg == "imitation":
-            out = rollout.train_rollout(batch, "teacher", generator,
-                                        horizon=teacher_h(batch),
-                                        remat=remat)
+            out = teacher(batch, generator)
             loss = out["ml_loss"]
             metrics["il_loss"] = out["ml_loss"]
             metrics["node_overflow"] = out["overflow_n"].sum()
             outs["teacher"] = out
+        elif train_alg == "dagger_fused":
+            out = rollout.train_rollout(batch, "fused_dagger", generator,
+                                        remat=remat, **sampling)
+            is_t = batch["is_teacher"]
+            n_t = is_t.sum().clamp(min=1)
+            n_s = (~is_t).sum().clamp(min=1)
+            zero = torch.zeros_like(out["loss_per_ep"])
+            l_t = torch.where(is_t, out["loss_per_ep"], zero).sum() / n_t
+            l_s = torch.where(is_t, zero, out["loss_per_ep"]).sum() / n_s
+            loss = ml_weight * l_t + l_s
+            metrics["il_loss"] = l_t
+            metrics["sample_loss"] = l_s
+            metrics["node_overflow"] = out["overflow_n"].sum()
+            outs["fused"] = out
         else:
             txt = rollout.encode_text(batch)
             loss = torch.zeros((), device=rollout.device)
             if ml_weight != 0:
-                out_t = rollout.train_rollout(batch, "teacher", generator,
-                                              txt=txt,
-                                              horizon=teacher_h(batch),
-                                              remat=remat)
+                out_t = teacher(batch, generator, txt)
                 loss = loss + ml_weight * out_t["ml_loss"]
                 metrics["il_loss"] = out_t["ml_loss"]
                 outs["teacher"] = out_t
-            out_s = rollout.train_rollout(batch, "sample", generator,
-                                          txt=txt, remat=remat)
+            out_s = rollout.train_rollout(batch, sample_feedback, generator,
+                                          txt=txt, remat=remat, **sampling)
             loss = loss + out_s["ml_loss"]
             metrics["sample_loss"] = out_s["ml_loss"]
             metrics["node_overflow"] = out_s["overflow_n"].sum()
@@ -322,18 +396,24 @@ def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
 def make_train_step(rollout: NavRollout, train_alg: str = "dagger",
                     ml_weight: float = 0.2,
                     teacher_horizon: Union[int, str, None] = None,
-                    remat: str = "none"):
+                    remat: str = "none", vectorized_teacher: bool = True,
+                    sample_feedback: str = "sample",
+                    expl_max_ratio: float = 0.6):
     """train_step(state, batch, generator) -> metrics: one update of
-    state.model.  Dropout and the sampled actions draw from `generator`
-    (on the model's device).  Metrics: loss, il_loss / sample_loss,
-    grad_norm (before clipping), node_overflow, node_spilled, and the
-    decision steps each rollout ran (teacher_steps, sample_steps).
-    keep=True returns (metrics, grads, outs) instead, to compare two
-    steps: grads {name: gradient before clipping}, outs the rollouts'
-    outputs by feedback.  `remat`: the rollouts' rematerialisation policy
-    (rollout.REMAT); the JAX package's default, "full", is not ported."""
+    state.model (for "dagger_fused" on a `fuse_dagger_batches` batch).
+    Dropout and the sampled actions draw from `generator` (on the model's
+    device).  Metrics: loss, il_loss / sample_loss, grad_norm (before
+    clipping), node_overflow, node_spilled, and the decision steps each
+    rollout ran (teacher_steps, sample_steps; fused_steps).  keep=True
+    returns (metrics, grads, outs) instead, to compare two steps: grads
+    {name: gradient before clipping}, outs the rollouts' outputs by name
+    ("teacher", "sample", "fused").  `remat`: the rollouts'
+    rematerialisation policy (rollout.REMAT; the JAX package's others
+    raise); vectorized_teacher, sample_feedback, expl_max_ratio: as
+    `make_loss_fn`'s."""
     loss_fn = make_loss_fn(rollout, train_alg, ml_weight, teacher_horizon,
-                           remat)
+                           remat, vectorized_teacher, sample_feedback,
+                           expl_max_ratio)
 
     def train_step(state: TrainState, batch, generator: torch.Generator,
                    keep: bool = False):
@@ -362,14 +442,20 @@ def init_train_state(model: torch.nn.Module, rollout: NavRollout,
                      ml_weight: float = 0.2,
                      teacher_horizon: Union[int, str, None] = None,
                      remat: str = "none", accumulate_steps: int = 1,
-                     finite_guard: bool = False, **sched) -> TrainState:
+                     finite_guard: bool = False,
+                     vectorized_teacher: bool = True,
+                     sample_feedback: str = "sample",
+                     expl_max_ratio: float = 0.6, **sched) -> TrainState:
     """TrainState of `model` with AdamW (make_optimizer, with its
     accumulation and finite guard) and the step function of `train_alg`
-    over `rollout` under the rematerialisation policy `remat`."""
+    over `rollout` under the rematerialisation policy `remat`, with
+    `make_train_step`'s teacher and sampling options."""
     opt, scheduler = make_optimizer(
         [p for p in model.parameters() if p.requires_grad], lr,
         weight_decay, accumulate_steps=accumulate_steps,
         finite_guard=finite_guard, **sched)
     return TrainState(model, opt, scheduler, grad_clip, 0,
                       make_train_step(rollout, train_alg, ml_weight,
-                                      teacher_horizon, remat))
+                                      teacher_horizon, remat,
+                                      vectorized_teacher, sample_feedback,
+                                      expl_max_ratio), train_alg, rollout)
