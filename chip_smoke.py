@@ -123,6 +123,27 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      torch.profiler (the device-busy share, the ten kernels with the most
      device time, the bf16 K1 / K2 kernels' share), after every timed
      step.
+  3 (m): F6's widths through the wrappers' zero pad: K1, K2 (a) + (b)
+     (autograd) and K3 at head widths 16, 48 and 96 over D = 768 and at
+     D = 200 as 5 heads of 40 (Lq = Lk = 54 under a key mask, batch 64,
+     dropout 0.1), float32 under phase 3's gates and bf16 under phase 3
+     (bf16)'s, each call launching the kernels; timed beside head width
+     64 at D = 768 (unpadded) and beside the plain version and the
+     library calls;
+  5 (k): every remat policy (ops/remat.py) on the bench build (bf16,
+     batch 64, the kernels, dropout on): one DAgger step each from the
+     same weights, batch and generator seed; the loss equal to "none"'s,
+     every gradient within 1e-6 of its largest magnitude of "none"'s;
+     step ms, peak GiB, the GiB the loss forward keeps for the backward
+     and launches per policy; "full"'s peak and kept GiB below
+     "model"'s;
+  5 (l): the fine-tune CLI (`python -m vln_goat_tpu_torch.cli`) at full
+     R2R width on `--synthetic` with `--use_pallas --compute_dtype
+     bfloat16`, batch 8, its default remat ("full"): train 4 iterations
+     (validation every 2), resume from `train_state_latest` to 6, `--mode
+     valid --submit` from the saved state; K1 and K2 launched, metrics
+     and submissions written, losses finite, the `--save_torch_ckpt` .pt
+     read back by the port's loader bit for bit.
 The train steps run the vectorized teacher unless a phase says otherwise.
 Every bf16 decode and train path's launches of the bf16 GEMM core and of
 the bf16 attention cores must all have taken their TMA routes
@@ -145,8 +166,11 @@ import ctypes
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -155,7 +179,10 @@ import torch.nn.functional as F
 from vln_goat_tpu_torch.config import TrainConfig
 from vln_goat_tpu_torch.entry import (build_flagship, build_train_flagship,
                                       greedy_rollout, train_steps)
-from vln_goat_tpu_torch.train.trainer import fuse_dagger_batches
+from vln_goat_tpu_torch.ops.remat import POLICIES as REMAT_POLICIES
+from vln_goat_tpu_torch.ops.dropout import set_generator
+from vln_goat_tpu_torch.train.trainer import (fuse_dagger_batches,
+                                              init_train_state, make_loss_fn)
 from vln_goat_tpu_torch.models.layers import AttentionCore
 from vln_goat_tpu_torch.ops import _build
 from vln_goat_tpu_torch.ops.attention import (_bwd_call, _bwd_lib,
@@ -1429,16 +1456,21 @@ PHASE_B_BATCH = 8 * B_TRAIN
 
 
 @contextlib.contextmanager
-def head_width(dh):
-    """The module's head split (H heads of DH over D), which every phase 3
-    helper reads, at head width dh for the body."""
-    global H, DH
-    saved = H, DH
-    H, DH = D // dh, dh
+def model_width(d, dh):
+    """The module's D, H and DH at model width d split into heads of dh,
+    which every phase 3 helper reads, for the body."""
+    global D, H, DH
+    saved = D, H, DH
+    D, H, DH = d, d // dh, dh
     try:
         yield
     finally:
-        H, DH = saved
+        D, H, DH = saved
+
+
+def head_width(dh):
+    """The module's head split at head width dh over D, for the body."""
+    return model_width(D, dh)
 
 
 def check_head_widths():
@@ -1865,9 +1897,11 @@ def kernel_vs_eager(head, what, build_kw, batch_fn=None,
     weight's scale) and the launches the config gives.  Prints a line;
     returns the failure of the comparison, or None."""
     k_state, batcher = build_train_flagship("cuda", batch_size=B,
-                                            dropout=False, **build_kw)
+                                            dropout=False, remat="none",
+                                            **build_kw)
     e_state, _ = build_train_flagship("cuda", batch_size=B, dropout=False,
-                                      use_fused_attention=False, **build_kw)
+                                      use_fused_attention=False,
+                                      remat="none", **build_kw)
     e_state.model.load_state_dict(k_state.model.state_dict())
     batch = batch_fn(k_state, batcher) if batch_fn is not None \
         else batcher.next_batch()[1]
@@ -1935,7 +1969,7 @@ def vec_teacher_gate(card):
     for vec in (True, False):
         state, batcher = build_train_flagship(
             "cuda", batch_size=B, dropout=False, tcfg=tcfg,
-            vectorized_teacher=vec)
+            vectorized_teacher=vec, remat="none")
         if sd is None:
             sd = {k: v.clone() for k, v in state.model.state_dict().items()}
             batch = batcher.next_batch()[1]
@@ -2184,7 +2218,8 @@ def bf16_gate_step(card, causal=False):
                                 ("bf16 eager", False, "bfloat16"),
                                 ("bf16 kernels", True, "bfloat16")):
         state, batcher = build_train_flagship(
-            "cuda", use_fused_attention=fused, compute_dtype=dtype, **kw)
+            "cuda", use_fused_attention=fused, compute_dtype=dtype,
+            remat="none", **kw)
         if sd is None:
             sd = {k: v.clone() for k, v in state.model.state_dict().items()}
             batch = batcher.next_batch()[1]
@@ -2588,6 +2623,335 @@ def trace_line(tr):
             + "; ".join(f"{name[:70]} {ns / 1e6:.2f} ms"
                         for name, ns in tr["top"]))
 
+# ---------------------------------------------------------------------------
+# Phase 3 (m): F6's widths.  A head width outside HEAD_DIMS or a model width
+# that is not a multiple of 32 goes through the wrappers' zero pad
+# (`ops.attention.padded_call`, `mha_padded`); (D, head width) pairs, and
+# head width 64 at D = 768 (no pad) timed beside them.
+F6_WIDTHS = ((768, 16), (768, 48), (768, 96), (200, 40))
+F6_SHAPE = ("local54", 54, 54)
+
+
+def autograd_ms(fn, args, dout):
+    """ms of the backward alone of fn(*args): autograd.grad over a graph
+    kept between calls."""
+    lv = [a for a in leaves(args) if a is not None]
+    out = fn(*args)
+    return cuda_ms(lambda: torch.autograd.grad(out, lv, dout,
+                                               retain_graph=True))
+
+
+def f6_case(g, d, dh, bf16):
+    """One (d, dh) case in float32 or bf16: gates, launches and times;
+    returns its row (K1, K2 by autograd, K3)."""
+    name, Lq, Lk = F6_SHAPE
+    tag = f"{name}_d{d}_dh{dh}{'_bf16' if bf16 else ''}"
+    batch = B_TRAIN
+    with model_width(d, dh):
+        args32, seed = make_case(g, Lq, Lk, "key", "linear", batch)
+        args = to_bf16(args32) if bf16 else args32
+        det = [None if a is None else a.detach() for a in args]
+        kw = dict(num_heads=H, dropout_rate=RATE, seed=seed)
+        dout = torch.randn(batch, Lq, H * DH, generator=g, device="cuda")
+        dout = dout.to(BF16) if bf16 else dout
+        reset_counts()
+        with torch.no_grad():
+            out = fused_qkv_mha(*det, **kw)
+        got = grads_of(fused_qkv_mha(*args, **kw), args, dout)
+        q, k, v, bias = mha_case(g, Lq, 60, "key", batch)
+        if bf16:
+            q, k, v = (t.to(BF16) for t in (q, k, v))
+        mo = mha(q, k, v, bias)
+        torch.cuda.synchronize()
+        launched = counts()
+        if launched != (2, 1, 1, 1):
+            raise AssertionError(f"{tag}: launches {launched}, expected "
+                                 "(2, 1, 1, 1): the padded calls must run "
+                                 "the kernels")
+        plain = fused_qkv_mha_plain(*det, **kw)
+        pgrads = grads_of(fused_qkv_mha_plain(*args, **kw), args, dout)
+        mref = mha_plain(q, k, v, bias)
+        row = {}
+        if bf16:
+            a64 = in_float64(args)
+            ref = fused_qkv_mha_plain(*[None if a is None else a.detach()
+                                        for a in a64], **kw)
+            row["fwd_err"] = bf16_gate(f"{tag} forward", out, plain, ref)[0]
+            r64 = grads_of(fused_qkv_mha_plain(*a64, **kw), a64,
+                           dout.double())
+            row["bwd_err"] = max(
+                bf16_gate(f"{tag} {n_}", a, p_, r, sc)[0]
+                for n_, a, p_, r, sc in zip(GRADS, got, pgrads, r64,
+                                            grad_scales(r64))
+                if r is not None)
+            m64 = mha_plain(*(t.double() for t in (q, k, v)), bias.double())
+            row["mha_err"] = bf16_gate(f"{tag} mha", mo, mref, m64)[0]
+        else:
+            torch.testing.assert_close(out, plain, atol=ATOL, rtol=RTOL)
+            row["fwd_err"] = float((out - plain).abs().max())
+            row["bwd_err"] = check_grads(got, pgrads, tag)
+            torch.testing.assert_close(mo, mref, atol=ATOL, rtol=RTOL)
+            row["mha_err"] = float((mo - mref).abs().max())
+        del got, pgrads
+        row["ms"] = cuda_ms(lambda: fused_qkv_mha(*det, **kw))
+        row["plain_ms"] = cuda_ms(lambda: fused_qkv_mha_plain(*det, **kw))
+        row["library_ms"] = cuda_ms(lambda: library_call(det))
+        fb = bound(det, tf32x3=not bf16)
+        row["bound_ms"], row["bound_by"] = max(fb), \
+            "operations" if fb[0] >= fb[1] else "bytes"
+        row["bwd_ms"] = autograd_ms(lambda *a: fused_qkv_mha(*a, **kw),
+                                    args, dout)
+        row["bwd_plain_ms"] = autograd_ms(
+            lambda *a: fused_qkv_mha_plain(*a, **kw), args, dout)
+        row["bwd_library_ms"] = autograd_ms(lambda *a: library_call(a),
+                                            args, dout)
+        ba = bound(det, "attn", tf32x3=not bf16)
+        bp = bound(det, "proj", tf32x3=not bf16)
+        row["bwd_bound_ms"] = max(ba) + max(bp)
+        row["bwd_bound_by"] = "operations" if ba[0] + bp[0] >= \
+            ba[1] + bp[1] else "bytes"
+        row["mha_ms"] = cuda_ms(lambda: mha(q, k, v, bias))
+        row["mha_plain_ms"] = cuda_ms(lambda: mha_plain(q, k, v, bias))
+        row["mha_library_ms"] = cuda_ms(
+            lambda: mha_library(q, k, v, bias.to(q.dtype)))
+        ops = 4 * batch * H * Lq * 60 * DH
+        mb = (ops / (PEAK_BF16_FLOP_PER_S if bf16 else
+                     PEAK_TF32_FLOP_PER_S / 3) * 1e3,
+              (_bytes(q, k, v, bias) + mo.numel() * mo.element_size())
+              / PEAK_BYTES_PER_S * 1e3)
+        row["mha_bound_ms"], row["mha_bound_by"] = max(mb), \
+            "operations" if mb[0] >= mb[1] else "bytes"
+    return tag, row
+
+
+def check_f6_widths():
+    """Phase 3 (m): rows {tag: row} of every F6_WIDTHS case and of head
+    width 64 at D = 768, float32 and bf16."""
+    rows = {}
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for d, dh in F6_WIDTHS + ((768, 64),):
+        for bf16 in (False, True):
+            tag, r = f6_case(g, d, dh, bf16)
+            rows[tag] = r
+            say(f"width {tag} ({d // dh} heads of {dh}, B={B_TRAIN}, key "
+                f"mask, dropout {RATE}; {'against float64: ' if bf16 else ''}"
+                f"err forward {r['fwd_err']:.3e}, gradients "
+                f"{r['bwd_err']:.3e}, mha {r['mha_err']:.3e}): K1 "
+                f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+                f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}), K2 by "
+                f"autograd {r['bwd_ms']:.4f} ms (plain "
+                f"{r['bwd_plain_ms']:.4f}, library {r['bwd_library_ms']:.4f}"
+                f", bound {r['bwd_bound_ms']:.4f}), K3 {r['mha_ms']:.4f} ms "
+                f"(plain {r['mha_plain_ms']:.4f}, library "
+                f"{r['mha_library_ms']:.4f}, bound {r['mha_bound_ms']:.4f})")
+    return rows
+
+
+def f6_kernel_rows(rows):
+    """The kernel line's rows of phase 3 (m) (launches 0: no path of
+    either package runs these widths)."""
+    src = "vln_goat_tpu_torch/ops/csrc/"
+    zero = dict(decode=0, train=0, causal_decode=0, causal_train=0)
+    out = []
+    for tag, r in rows.items():
+        for name, file, line, key, err in (
+                ("fused_qkv_mha", "fused_qkv_mha.cu", 169, "", "fwd_err"),
+                ("fused_qkv_mha_bwd", "fused_qkv_mha_bwd.cu", 181, "bwd_",
+                 "bwd_err"),
+                ("mha", "mha.cu", 49, "mha_", "mha_err")):
+            out.append(dict(
+                name=f"{name}_{tag}", route="cuda", source=src + file,
+                replaces=f"vln_goat_tpu/ops/attention.py:{line}",
+                launches=0, launches_by_path=zero, max_abs_err=r[err],
+                ms=r[key + "ms"], plain_ms=r[key + "plain_ms"],
+                bound_ms=r[key + "bound_ms"], bound_by=r[key + "bound_by"],
+                library_ms=r[key + "library_ms"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5 (k): the remat policies on the bench build
+def remat_policies(card):
+    """One bf16 DAgger step at batch 64 through the kernels under every
+    policy of ops/remat.py, from the same weights, batch and generator
+    seed (after one untimed warm-up step), and before it the step's loss
+    forward alone, whose graph's memory (allocated after it, less before)
+    is what the policy keeps for the backward: the vectorized teacher
+    checkpoints its calls under every policy but "none", and its
+    recomputed panorama pass sets the step's peak, so the peaks of the
+    policies that differ only in the sampled rollout differ little;
+    returns (rows, failure or None)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, batcher = build_train_flagship("cuda", batch_size=B_TRAIN,
+                                          compute_dtype="bfloat16",
+                                          remat="model")
+    model, ro = state.model, state.rollout
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = batcher.next_batch()[1]
+    state.step_fn(state, batch, torch.Generator(device="cuda").manual_seed(0))
+    rows, ref, failure = {}, None, None
+    worst, bitwise = 0.0, True
+    for policy in REMAT_POLICIES:
+        model.load_state_dict(sd)
+        model.train()
+        g = torch.Generator(device="cuda").manual_seed(0)
+        set_generator(model, g)
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        loss = make_loss_fn(ro, teacher_horizon="auto", remat=policy)(
+            batch, g)[0]
+        torch.cuda.synchronize()
+        held = (torch.cuda.memory_allocated() - base) / 2 ** 30
+        del loss
+        st = init_train_state(model, ro, teacher_horizon="auto",
+                              remat=policy)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        m, grads, _ = st.step_fn(st, batch, g, keep=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rows[policy] = dict(ms=dt * 1e3, loss=float(m["loss"]),
+                            peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                            held=held, counts=counts())
+        if ref is None:
+            ref = (rows[policy]["loss"], grads)
+            continue
+        try:
+            if rows[policy]["loss"] != ref[0]:
+                raise AssertionError(f"{policy}: loss "
+                                     f"{rows[policy]['loss']} vs none "
+                                     f"{ref[0]}")
+            for n_, r in ref[1].items():
+                d = float((grads[n_].float() - r.float()).abs().max())
+                sc = float(r.abs().max())
+                bitwise &= d == 0.0
+                if d > 1e-6 * sc:
+                    raise AssertionError(f"{policy}: grad {n_} |diff| "
+                                         f"{d:.3e} > 1e-6 x {sc:.3e}")
+                worst = max(worst, d / sc if sc else 0.0)
+        except AssertionError as exc:
+            failure = failure or f"train (k): {exc}"
+        del grads, m, st
+    del state, batcher, model, ro, sd, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key in ("peak", "held"):
+        if rows["full"][key] >= rows["model"][key]:
+            failure = failure or (
+                f"train (k): full's {key} {rows['full'][key]:.4f} GiB not "
+                f"below model's {rows['model'][key]:.4f}")
+    say(f"train (k) remat policies, bench build (bf16, batch {B_TRAIN}, "
+        f"kernels, dropout on), one DAgger step each from the same weights, "
+        f"batch and seed: losses "
+        + ("equal" if failure is None else "see FAILED")
+        + f" to none's ({rows['none']['loss']:.6f}), gradients "
+        + ("bitwise equal" if bitwise else f"within {worst:.2e} of their "
+           "max") + f" on {card}; "
+        + "; ".join(f"{p_} {r['ms']:.1f} ms, peak {r['peak']:.4f} GiB, "
+                    f"forward keeps {r['held']:.4f} GiB, launches "
+                    f"{r['counts'][:3]}" for p_, r in rows.items()))
+    if failure is not None:
+        say(f"train (k): FAILED: {failure} (the script goes on, and fails "
+            "at its end)")
+    return rows, failure
+
+
+# ---------------------------------------------------------------------------
+# Phase 5 (l): the fine-tune CLI at full R2R width
+def cli_phase(card):
+    """Train / resume / valid --submit through `vln_goat_tpu_torch.cli` in
+    this process; returns (numbers, failure or None)."""
+    from vln_goat_tpu_torch import cli
+    from vln_goat_tpu_torch.train import checkpoint as ck
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    common = ["--synthetic", "--use_pallas", "--compute_dtype", "bfloat16",
+              "--batch_size", "8", "--device", "cuda", "--output_dir", out,
+              "--log_every", "2", "--save_torch_ckpt"]
+    state_dir = os.path.join(out, "train_state_latest")
+    nums = {}
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(["--mode", "train", "--iters", "4"] + common)
+        nums["train_s"] = time.perf_counter() - t0
+        nums["train_counts"] = counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(["--mode", "train", "--iters", "6", "--resume_file",
+                  state_dir] + common)
+        nums["resume_s"] = time.perf_counter() - t0
+        nums["resume_counts"] = counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(["--mode", "valid", "--submit", "--resume_file",
+                  state_dir] + common)
+        nums["valid_s"] = time.perf_counter() - t0
+        nums["valid_counts"] = counts()
+        lines = [json.loads(line) for line in
+                 open(os.path.join(out, "metrics.jsonl"))]
+        train = [d for d in lines if "train/loss" in d]
+        nums["losses"] = [d["train/loss"] for d in train]
+        nums["val_unseen"] = [d for d in lines if "val_unseen/spl" in d][-1]
+        nums["log"] = [line.strip() for line in
+                       open(os.path.join(out, "train.log"))
+                       if line.startswith("iter")]
+        if [d["step"] for d in train] != [2, 4, 6]:
+            raise AssertionError(f"train steps {[d['step'] for d in train]}"
+                                 ", expected [2, 4, 6]")
+        if not all(math.isfinite(v) for v in nums["losses"]):
+            raise AssertionError(f"losses {nums['losses']}")
+        for key in ("train_counts", "resume_counts"):
+            if min(nums[key][:3]) <= 0:
+                raise AssertionError(f"{key} {nums[key]}: K1 and K2 must "
+                                     "launch")
+        if nums["valid_counts"][0] <= 0:
+            raise AssertionError(f"valid launches {nums['valid_counts']}")
+        for split in ("val_train_seen", "val_seen", "val_unseen"):
+            subs = json.load(open(os.path.join(out,
+                                               f"submit_{split}.json")))
+            if len(subs) != 16 or not all(s["trajectory"] for s in subs):
+                raise AssertionError(f"submit_{split}.json: {len(subs)} "
+                                     "predictions")
+        params = ck.load_params(os.path.join(out, "ckpt_latest"))
+        merged, missing, extra = ck.merge_loaded(
+            params, ck.load_reference_checkpoint(
+                os.path.join(out, "latest_dict.pt")))
+        if missing or extra or not all(torch.equal(merged[k], v)
+                                       for k, v in params.items()):
+            raise AssertionError(f"the .pt round trip differs (missing "
+                                 f"{missing[:3]}, extra {extra[:3]})")
+        failure = None
+    except AssertionError as exc:
+        failure = f"train (l): {exc}"
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"train (l) CLI at R2R width (--synthetic --use_pallas "
+        f"--compute_dtype bfloat16, batch 8, remat full): train 4 iters "
+        f"{nums.get('train_s', 0):.1f} s (launches "
+        f"{nums.get('train_counts')}), resume to 6 "
+        f"{nums.get('resume_s', 0):.1f} s (launches "
+        f"{nums.get('resume_counts')}), valid --submit "
+        f"{nums.get('valid_s', 0):.1f} s (launches "
+        f"{nums.get('valid_counts')}); losses {nums.get('losses')}; "
+        f"train.log {nums.get('log')}; val_unseen "
+        f"{nums.get('val_unseen')}; .pt round trip "
+        f"{'bitwise' if failure is None else 'see FAILED'} on {card}")
+    if failure is not None:
+        say(f"train (l): FAILED: {failure} (the script goes on, and fails "
+            "at its end)")
+    return nums, failure
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2634,6 +2998,9 @@ def main() -> int:
     say(f"wall: phase 3 (head widths, phase B rows) "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    f6_rows = check_f6_widths()
+    say(f"wall: phase 3 (m) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     decode = run_rollouts(card)
     b_decode, d_failed = run_rollouts_bf16(card)
     say(f"wall: phase 4 {time.perf_counter() - t0:.1f} s")
@@ -2663,6 +3030,12 @@ def main() -> int:
     t0 = time.perf_counter()
     j_mix, j_train, j_failed = fused_bench(card)
     say(f"wall: phase 5 (j) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, k_failed = remat_policies(card)
+    say(f"wall: phase 5 (k) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, l_failed = cli_phase(card)
+    say(f"wall: phase 5 (l) {time.perf_counter() - t0:.1f} s")
     # the plain bench build last: its profiled step comes after every timed
     # step of the script
     t0 = time.perf_counter()
@@ -2839,6 +3212,7 @@ def main() -> int:
         kernels += width_kernel_rows(f"dh{dh}", r["bf16"], r["mha_bf16"],
                                      True)
     kernels += width_kernel_rows(f"b{PHASE_B_BATCH}", pb_bf16, None, True)
+    kernels += f6_kernel_rows(f6_rows)
     # the float32 CUDA-core bounds, beside the 3xTF32 ones
     # the kernels line carries, and the forward by part
     say(f"float32 CUDA-core bound over the train mix: forward "
@@ -2865,7 +3239,8 @@ def main() -> int:
     say(json.dumps({"kernels": kernels}))
     failures = [f for f in (d_failed, cd_failed, failed, c_failed, e_failed,
                             f_failed, cf_failed, g_failed, cg_failed,
-                            h_failed, j_failed, *i_failed)
+                            h_failed, j_failed, k_failed, l_failed,
+                            *i_failed)
                 if f is not None]
     if failures:
         say("FAILED: " + "; ".join(failures))

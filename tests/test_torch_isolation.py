@@ -57,7 +57,15 @@ def test_port_and_smoke_import_without_jax():
             "vln_goat_tpu_torch.train.trainer",
             "vln_goat_tpu_torch.tools.kmeans",
             "vln_goat_tpu_torch.tools.zdict",
-            "vln_goat_tpu_torch.utils.guard"} <= set(mods)
+            "vln_goat_tpu_torch.utils.guard",
+            # the fine-tune CLI's slice
+            "vln_goat_tpu_torch.cli", "vln_goat_tpu_torch.ops.remat",
+            "vln_goat_tpu_torch.data.annotations",
+            "vln_goat_tpu_torch.data.feature_db",
+            "vln_goat_tpu_torch.eval.metrics",
+            "vln_goat_tpu_torch.utils.logger",
+            "vln_goat_tpu_torch.utils.misc",
+            "vln_goat_tpu_torch.utils.tb"} <= set(mods)
     code = "import importlib\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in mods) + \
         "import chip_smoke\nprint('ok')\n"
@@ -109,3 +117,6 @@ def test_entry_points_default_to_cuda(no_card):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_train_flagship(tiny=True, compute_dtype="bfloat16",
                              remat="model")
+    from vln_goat_tpu_torch import cli
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.build_runtime(cli.parse_args(["--mode", "valid", "--synthetic"]))

@@ -236,9 +236,10 @@ def test_forward_drops_what_the_plain_version_drops(card, Lq, Lk):
 
 def test_fused_qkv_mha_takes_long_keys(card):
     """Both builds take any key length (the float32 attention forward past
-    256 keys in key blocks); head widths 32, 64, 128 and D % 32 == 0 only:
-    anything else (768 / 16 = 48) raises on the card, with no fallback to
-    the plain version."""
+    256 keys in key blocks); any head width up to 128 and any D (768 / 16
+    = 48 and D = 784 zero-padded to the widths the kernels take, still
+    launching the kernels); a head width past 128 raises on the card, with
+    no fallback to the plain version."""
     x = torch.zeros(1, 4, 768, device="cuda")
     y = torch.zeros(1, 257, 768, device="cuda")
     w, b = torch.zeros(768, 768, device="cuda"), torch.zeros(768, device="cuda")
@@ -250,13 +251,18 @@ def test_fused_qkv_mha_takes_long_keys(card):
         torch.cuda.synchronize()
         assert fused_qkv_mha.launches == before + 1
         assert out.dtype == dt and bool((out == 0).all())
-    with pytest.raises(ValueError, match=r"head widths \(32, 64, 128\)"):
-        fused_qkv_mha(x, y, w, b, w, b, w, b, num_heads=16)
+    with pytest.raises(ValueError, match="head widths up to 128"):
+        fused_qkv_mha(x, y, w, b, w, b, w, b, num_heads=4)
     x2, y2 = torch.zeros(1, 4, 784, device="cuda"), \
         torch.zeros(1, 40, 784, device="cuda")
     w2, b2 = torch.zeros(784, 768, device="cuda"), b
-    with pytest.raises(ValueError, match="D % 32"):
-        fused_qkv_mha(x2, y2, w2, b2, w2, b2, w2, b2, num_heads=12)
+    for args, heads in (((x, y, w, b), 16), ((x2, y2, w2, b2), 12)):
+        before = fused_qkv_mha.launches
+        xx, yy, ww, bb = args
+        out = fused_qkv_mha(xx, yy, ww, bb, ww, bb, ww, bb, num_heads=heads)
+        torch.cuda.synchronize()
+        assert fused_qkv_mha.launches == before + 1
+        assert out.shape == (1, 4, 768) and bool((out == 0).all())
 
 
 # the causal configuration's attention shapes: text cross-attention to the
@@ -341,9 +347,11 @@ def test_mha_reads_transposed_views(card, Lk):
 
 
 def test_mha_refuses_what_it_does_not_take(card):
-    """Head widths 32, 64 and 128 only; float16 and mixed dtypes are
-    refused; both builds take any Lk."""
+    """Head widths up to 128 (48 zero-padded to 64); float16 and mixed
+    dtypes are refused; both builds take any Lk."""
     q = torch.zeros(1, 4, H, 48, device="cuda")
+    assert mha(q, q, q).shape == (1, 4, H * 48)
+    q = torch.zeros(1, 4, H, 192, device="cuda")
     with pytest.raises(ValueError, match="head width"):
         mha(q, q, q)
     q = torch.zeros(1, 4, H, 64, device="cuda")

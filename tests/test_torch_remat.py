@@ -12,8 +12,8 @@ step's `forward_panorama` and `forward_navigation` under
   `make_train_step(remat="model")` as test_torch_train_step.py holds the
   "none" step (losses 1e-4 relative, gradients atol 1e-5 / rtol 1e-3,
   identical sampled actions, the Gumbel array substituted on both sides).
-- The JAX package's other policies are not ported and raise, naming the
-  policy.
+- A policy that is none of the JAX package's raises, naming it (the
+  others: tests/test_torch_remat_policies.py).
 """
 import numpy as np
 import pytest
@@ -23,7 +23,6 @@ import torch
 from vln_goat_tpu.train import trainer as jtr
 from vln_goat_tpu_torch.entry import build_train_flagship
 from vln_goat_tpu_torch.ops.dropout import Dropout, checkpoint, set_generator
-from vln_goat_tpu_torch.rollout.rollout import REMAT_NOT_PORTED
 from vln_goat_tpu_torch.train.checkpoint import flatten, params_from_flax
 from test_torch_train_step import (B, _keep_grads, _patch_noise,
                                    rigs)  # noqa: F401  (the fixture)
@@ -118,7 +117,9 @@ def test_model_remat_matches_jax(rigs):  # noqa: F811
     assert np.array_equal(outs["sample"]["actions"].numpy(), jactions)
 
 
-@pytest.mark.parametrize("policy", list(REMAT_NOT_PORTED) + ["bogus"])
+@pytest.mark.parametrize("policy", [
+    "bogus", "", "Full", "none ", "model_dots", "dots_saveable", "offload",
+    "blk", "ffn_wide"])
 def test_unported_remat_policies_raise(policy):
     with pytest.raises(ValueError, match=repr(policy)):
         build_train_flagship("cpu", tiny=True, batch_size=4, remat=policy)

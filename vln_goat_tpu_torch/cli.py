@@ -1,0 +1,593 @@
+"""Fine-tuning / validation CLI of the port (counterpart of
+vln_goat_tpu/cli.py, R2R).
+
+  python -m vln_goat_tpu_torch.cli --mode train --dataset r2r \
+      --connectivity_dir ... --anno_dir ... --img_ft_file ... --output_dir out
+  python -m vln_goat_tpu_torch.cli --mode valid --resume_file out/ckpt_latest \
+      --submit ...
+  python -m vln_goat_tpu_torch.cli --mode train --synthetic   # no datasets
+
+The flags and defaults are the JAX package's; `--use_pallas` routes the
+attention through the fused kernels (`use_fused_attention`), and
+`--device` (default cuda) picks where everything runs: nothing falls back
+to the CPU unasked.  `--prng` is accepted and has no effect (every draw
+comes from a torch.Generator seeded by `--seed`).
+
+Orchestration as the JAX CLI's (main_nav.py:140-401): `log_every` train
+cycles, each ending with greedy validation of every split, the latest
+parameters (`ckpt_latest`), the full train state (`train_state_latest`,
+which `--resume_file` continues bit for bit, the batch iterators
+fast-forwarded), the best on val_unseen by SPL + SR
+(`ckpt_best_val_unseen`) and, with `--save_torch_ckpt`, the reference .pt
+(`latest_dict.pt`); per-cycle front-door resampling; submission JSONs.
+`ckpt_latest` and `ckpt_best_val_unseen` are directories of the port's
+own parameter file; `--resume_file` / `--bert_ckpt_file` take one of
+those, a train-state directory, or a reference .pt, through which the
+port and the JAX package exchange weights.
+
+Not ported, each raising with its ROADMAP.md Queue 1 item: `--mode
+extract_cfp_features` (item 5) and `--mode speaker` (item 8),
+`--use_transpeaker` and `--z_instr_update` (item 8), the reverie / soon /
+rxr datasets, their object features and the nDTW expert (item 6), and more
+than one process (item 4, DistributedDataParallel).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("vln_goat_tpu_torch")
+    p.add_argument("--mode", required=True,
+                   choices=["train", "valid", "extract_cfp_features",
+                            "speaker"])
+    p.add_argument("--speaker_iters", type=int, default=2000)
+    p.add_argument("--speaker_lr", type=float, default=1e-4)
+    p.add_argument("--speaker_angle_size", type=int, default=128)
+    p.add_argument("--dataset", default="r2r",
+                   choices=["r2r", "rxr", "reverie", "soon"])
+    p.add_argument("--output_dir", default="out")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--synthetic", action="store_true",
+                   help="run on the synthetic fixture world (no datasets)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the run uses (cuda or cpu)")
+
+    # data paths (r2r/parser.py:159-217)
+    p.add_argument("--connectivity_dir", default=None)
+    p.add_argument("--scanvp_cands_file", default=None,
+                   help="reference scanvp_candview_relangles.json candidate "
+                        "cache; overrides computed candidate tables")
+    p.add_argument("--sweep_visibility", action="store_true",
+                   help="apply the MatterSim view-frustum rule when "
+                        "computing candidates (36-view sweep semantics)")
+    p.add_argument("--anno_dir", default=None)
+    p.add_argument("--img_ft_file", default=None)
+    p.add_argument("--aug_ft_file", default=None,
+                   help="EnvEdit features: alternated with the originals "
+                        "across each training batch")
+    p.add_argument("--aug", default=None,
+                   help="aug trajectory annotation file; 'synthetic' builds "
+                        "a fixture aug split on the synthetic world")
+    p.add_argument("--aug_times", type=int, default=1,
+                   help="aug updates per GT update in the interleave")
+    p.add_argument("--accumulate_grad", action="store_true",
+                   help="one optimizer step per GT+aug group "
+                        "(--accumulateGrad, agent.py:407-445)")
+    p.add_argument("--use_transpeaker", action="store_true",
+                   help="re-caption aug paths with the speaker (not ported)")
+    p.add_argument("--speaker_ckpt_file", default=None)
+    p.add_argument("--obj_ft_file", default=None)
+    p.add_argument("--bbox_file", default=None)
+    p.add_argument("--img_zdict_file", default=None)
+    p.add_argument("--instr_zdict_file", default=None)
+    p.add_argument("--front_feat_file", default=None)
+    p.add_argument("--resume_file", default=None)
+    p.add_argument("--bert_ckpt_file", default=None,
+                   help="reference .pt to initialize from (key surgery)")
+
+    # model
+    p.add_argument("--num_l_layers", type=int, default=6)
+    p.add_argument("--num_pano_layers", type=int, default=2)
+    p.add_argument("--num_x_layers", type=int, default=3)
+    p.add_argument("--hidden_size", type=int, default=None)
+    p.add_argument("--num_attention_heads", type=int, default=None)
+    p.add_argument("--intermediate_size", type=int, default=None)
+    p.add_argument("--image_feat_size", type=int, default=768)
+    p.add_argument("--obj_feat_size", type=int, default=0)
+    p.add_argument("--angle_feat_size", type=int, default=4)
+    p.add_argument("--dropout", type=float, default=0.1)
+    p.add_argument("--feat_dropout", type=float, default=None,
+                   help="None keeps the dataset preset (0.4 r2r)")
+    p.add_argument("--fusion", default="dynamic",
+                   choices=["global", "local", "avg", "dynamic"])
+    p.add_argument("--expert_policy", default="spl", choices=["spl", "ndtw"])
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--use_pallas", action="store_true",
+                   help="the fused attention kernels (ops/attention.py)")
+
+    # causal flags
+    p.add_argument("--do_back_img", action="store_true")
+    p.add_argument("--do_back_txt", action="store_true")
+    p.add_argument("--do_front_img", action="store_true")
+    p.add_argument("--do_front_his", action="store_true")
+    p.add_argument("--do_front_txt", action="store_true")
+    p.add_argument("--do_back_txt_type", default="type_2")
+    p.add_argument("--do_back_img_type", default="type_1")
+    p.add_argument("--do_add_method", default="door")
+    p.add_argument("--z_instr_update", action="store_true")
+    p.add_argument("--update_iter", type=int, default=3000)
+    p.add_argument("--front_n_clusters", type=int, default=24)
+    p.add_argument("--expl_sample", action="store_true")
+    p.add_argument("--expl_max_ratio", type=float, default=0.6)
+    p.add_argument("--cat_file", default=None)
+    p.add_argument("--tokenizer_vocab", default=None)
+    p.add_argument("--num_processes", type=int, default=1)
+    p.add_argument("--process_id", type=int, default=0)
+    p.add_argument("--coordinator", default="localhost:12391")
+
+    # training
+    p.add_argument("--iters", type=int, default=150000)
+    p.add_argument("--log_every", type=int, default=1000)
+    p.add_argument("--batch_size", type=int, default=12)
+    p.add_argument("--lr", type=float, default=2e-5)
+    p.add_argument("--bucket_caps", default="",
+                   help="comma-separated gt-length caps (e.g. '5,8'): "
+                        "length-homogeneous train minibatches whose teacher "
+                        "runs at the bucket cap.  Empty = off")
+    p.add_argument("--train_alg", default="dagger",
+                   choices=["imitation", "dagger", "dagger_fused"])
+    p.add_argument("--remat", default="full",
+                   choices=["full", "dots", "ffn", "bounds", "none", "model",
+                            "probs", "wide"],
+                   help="rollout rematerialisation policy for training "
+                        "(ops/remat.py)")
+    p.add_argument("--prng", default="rbg",
+                   choices=["rbg", "threefry2x32"],
+                   help="the JAX package's PRNG choice; no effect here")
+    p.add_argument("--ml_weight", type=float, default=0.2)
+    p.add_argument("--grad_clip", type=float, default=40.0)
+    p.add_argument("--use_lr_sch", action="store_true")
+    p.add_argument("--lr_sch", default="polynomial",
+                   choices=["constant", "constant_with_warmup", "linear",
+                            "polynomial", "cosine"])
+    p.add_argument("--warmup_steps", type=int, default=3000)
+    p.add_argument("--max_action_len", type=int, default=None)
+    p.add_argument("--max_instr_len", type=int, default=None)
+    p.add_argument("--num_nodes", type=int, default=48)
+    p.add_argument("--max_cands", type=int, default=16)
+    p.add_argument("--eval_first", action="store_true")
+    p.add_argument("--submit", action="store_true")
+    p.add_argument("--save_torch_ckpt", action="store_true",
+                   help="also write reference-format .pt checkpoints")
+    p.add_argument("--for_debug", action="store_true")
+    p.add_argument("--tokenizer", default="roberta")
+    return p.parse_args(argv)
+
+
+def check_ported(args) -> None:
+    """Raises NotImplementedError for a mode, dataset or flag the port does
+    not run, naming its ROADMAP.md Queue 1 item."""
+    refused = [
+        (args.mode == "extract_cfp_features",
+         "--mode extract_cfp_features (CFP extraction)", 5),
+        (args.mode == "speaker", "--mode speaker", 8),
+        (args.use_transpeaker, "--use_transpeaker (back-translation)", 8),
+        (args.z_instr_update, "--z_instr_update (the online z-dict "
+         "update)", 8),
+        (args.dataset != "r2r", f"--dataset {args.dataset}", 6),
+        (bool(args.obj_ft_file or args.bbox_file or args.obj_feat_size),
+         "object features (--obj_ft_file / --bbox_file / --obj_feat_size)",
+         6),
+        (args.expert_policy != "spl", "--expert_policy ndtw", 6),
+        (args.num_processes > 1,
+         f"--num_processes {args.num_processes} (DistributedDataParallel)",
+         4),
+    ]
+    for hit, what, item in refused:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported (ROADMAP.md Queue 1 item {item})")
+
+
+# ----------------------------------------------------------------------
+def build_runtime(args):
+    """The model, world, rollout and per-split batchers of a run, on
+    `args.device` (the JAX CLI's build_runtime, R2R)."""
+    from .config import GoatConfig
+    from .device import resolve
+    from .entry import build_model
+    from .rollout.env import EpisodeBatcher, make_synthetic_dataset
+    from .rollout.rollout import NavRollout, RolloutConfig
+    from .rollout.world import NavWorld
+    from .train import checkpoint as ck
+
+    check_ported(args)
+    dev = resolve(args.device)
+    cfg = GoatConfig.for_dataset(
+        args.dataset,
+        num_l_layers=args.num_l_layers, num_pano_layers=args.num_pano_layers,
+        num_x_layers=args.num_x_layers, image_feat_size=args.image_feat_size,
+        angle_feat_size=args.angle_feat_size,
+        hidden_dropout_prob=args.dropout,
+        glocal_fuse=args.fusion == "dynamic", fusion=args.fusion,
+        do_back_img=args.do_back_img, do_back_txt=args.do_back_txt,
+        do_front_img=args.do_front_img, do_front_his=args.do_front_his,
+        do_front_txt=args.do_front_txt,
+        do_back_txt_type=args.do_back_txt_type,
+        do_back_img_type=args.do_back_img_type,
+        do_add_method=args.do_add_method, mode=args.mode,
+        use_fused_attention=args.use_pallas,
+        compute_dtype=args.compute_dtype)
+    over = dict(hidden_size=args.hidden_size,
+                num_attention_heads=args.num_attention_heads,
+                intermediate_size=args.intermediate_size,
+                feat_dropout=args.feat_dropout,
+                max_action_len=args.max_action_len,
+                max_instr_len=args.max_instr_len)
+    cfg = cfg.replace(**{k: v for k, v in over.items()
+                         if v is not None and (v or k == "feat_dropout")})
+
+    if args.synthetic:
+        from .sim.graph_sim import make_synthetic_scan
+
+        scans = [make_synthetic_scan(f"s{i}", num_vps=40, seed=i)
+                 for i in range(3)]
+        graphs = {g.scan_id: g for g in scans}
+        world = NavWorld.build(scans, feat_dim=cfg.image_feat_size, seed=0,
+                               device=dev)
+        splits = {}
+        for name, n, seed in [("train", 64, 1), ("val_seen", 16, 2),
+                              ("val_unseen", 16, 3)]:
+            splits[name] = make_synthetic_dataset(
+                graphs, n, vocab_size=cfg.vocab_size,
+                max_instr_len=min(cfg.max_instr_len, 48),
+                path_len=(3, 6), seed=seed)
+        # val_train_seen = slice of train (r2r/data_utils.py:149-151)
+        splits["val_train_seen"] = splits["train"][:16]
+        if args.aug:
+            splits["aug"] = make_synthetic_dataset(
+                graphs, 64, vocab_size=cfg.vocab_size,
+                max_instr_len=min(cfg.max_instr_len, 48),
+                path_len=(3, 6), seed=11)
+    else:
+        from .data.annotations import construct_instrs, load_annotation_file
+        from .data.feature_db import ImageFeaturesDB
+        from .sim.graph_sim import load_connectivity, load_scanvp_cands
+
+        split_names = ["train", "val_train_seen", "val_seen", "val_unseen"]
+        if args.submit:
+            split_names.append("test")
+        splits = construct_instrs(args.anno_dir, args.dataset, split_names,
+                                  tokenizer=args.tokenizer,
+                                  max_instr_len=cfg.max_instr_len,
+                                  for_debug=args.for_debug)
+        if args.aug and args.aug != "synthetic":
+            splits["aug"] = load_annotation_file(
+                args.aug, args.dataset, tokenizer=args.tokenizer,
+                max_instr_len=cfg.max_instr_len, for_debug=args.for_debug)
+        scan_ids = sorted({it["scan"] for s in splits.values() for it in s})
+        graphs = load_connectivity(args.connectivity_dir, scan_ids,
+                                   max_cands=args.max_cands,
+                                   sweep_visibility=args.sweep_visibility)
+        if args.scanvp_cands_file:
+            load_scanvp_cands(args.scanvp_cands_file, graphs)
+        features = ImageFeaturesDB(args.img_ft_file, cfg.image_feat_size) \
+            .as_packed_array(graphs, scan_ids)
+        aug_features = None
+        if args.aug_ft_file:
+            aug_features = ImageFeaturesDB(
+                args.aug_ft_file, cfg.image_feat_size
+            ).as_packed_array(graphs, scan_ids)
+        world = NavWorld.build([graphs[s] for s in scan_ids],
+                               features=features, aug_features=aug_features,
+                               feat_dim=cfg.image_feat_size, device=dev)
+
+    scan_order = list(graphs)
+    model = build_model(cfg, dev, seed=args.seed)
+    path = args.resume_file or args.bert_ckpt_file
+    if path:
+        if ck.is_train_state_dir(path):
+            if args.mode != "train":    # train() restores the whole state
+                model.load_state_dict(ck.load_train_state_params(path))
+        elif os.path.isdir(path):
+            model.load_state_dict(ck.load_params(path))
+        else:
+            missing, extra = ck.load_reference(model, path)
+            print(f"loaded {path}: {len(missing)} missing, "
+                  f"{len(extra)} extra keys")
+
+    rcfg = RolloutConfig(num_nodes=args.num_nodes, horizon=cfg.max_action_len,
+                         feat_dim=cfg.image_feat_size,
+                         angle_feat_size=cfg.angle_feat_size)
+    rollout = NavRollout(model, world, rcfg)
+
+    # gt paths padded to the datasets' true maximum (bounded by the
+    # horizon); one cap across splits keeps one shape per batch
+    gt_cap = max((len(it["path"]) for data in splits.values()
+                  for it in data), default=2)
+    gt_cap = min(max(gt_cap, 2), cfg.max_action_len + 1)
+    caps = sorted({min(int(c), gt_cap)
+                   for c in args.bucket_caps.split(",") if c.strip()})
+    batchers = {
+        name: EpisodeBatcher(
+            data, graphs, scan_order, args.batch_size,
+            max_instr_len=min(cfg.max_instr_len, 64 if args.synthetic
+                              else 512),
+            max_gt_len=gt_cap,
+            bucket_caps=(caps if caps and name in ("train", "aug")
+                         else None),
+            # EnvEdit alternation on the training envs only
+            # (r2r/env.py:78-84)
+            env_edit=(name in ("train", "aug") and world.has_aug),
+            seed=args.seed + i, device=dev)
+        for i, (name, data) in enumerate(splits.items())
+    }
+    rt = dict(cfg=cfg, model=model, world=world, rollout=rollout,
+              batchers=batchers, graphs=graphs, scan_order=scan_order,
+              args=args, device=dev)
+    _load_causal_banks(args, rt)
+    return rt
+
+
+def _load_causal_banks(args, rt):
+    """BACL z-dict TSVs and the FACL front-door picker (main_nav.py:31-137
+    build_dataset)."""
+    from .tools.zdict import (instr_bank_names, load_img_zdict_tsv,
+                              load_instr_zdict_tsv)
+
+    banks = {}
+    if args.instr_zdict_file and (args.do_back_txt or args.do_front_txt):
+        banks.update(instr_bank_names(
+            load_instr_zdict_tsv(args.instr_zdict_file)))
+    if args.img_zdict_file and args.do_back_img:
+        img = load_img_zdict_tsv(args.img_zdict_file)
+        banks["img_z_features"] = img["img_features"]
+        banks["img_z_pzs"] = img["img_pzs"]
+    rt["banks"] = banks
+    rt["front_picker"] = None
+    if args.front_feat_file and (args.do_front_txt or args.do_front_img
+                                 or args.do_front_his):
+        from .tools.kmeans import FrontDoorPicker, load_cfp_tsv
+
+        feats = load_cfp_tsv(args.front_feat_file,
+                             dim=rt["cfg"].hidden_size)
+        rt["front_picker"] = FrontDoorPicker(
+            {k: feats[k] for k in ("txt_feats", "vp_feats", "gmap_feats")},
+            n_clusters=args.front_n_clusters, seed=args.seed,
+            device=rt["device"])
+    _refresh_front_dict(args, rt)
+
+
+def _refresh_front_dict(args, rt):
+    """Per-cycle front-door resampling (utils/data.py:450-480)."""
+    from .tools.zdict import front_banks
+
+    if rt.get("front_picker") is not None:
+        rt["banks"].update(front_banks(rt["front_picker"].random_pick(),
+                                       rt["cfg"]))
+
+
+# ----------------------------------------------------------------------
+def run_validation(rt, split: str, max_batches: Optional[int] = None):
+    """Greedy decode of a whole split -> (metrics, per-item predictions)
+    (main_nav.py:338-391 / agent_base.py:44-67)."""
+    from .entry import greedy_rollout
+    from .eval.metrics import eval_item, eval_metrics
+    from .tools.zdict import causal_batch
+
+    batcher = rt["batchers"][split]
+    batcher.reset_epoch(shuffle=False)
+    rt["model"].eval()
+    seen, per_item, preds = set(), [], []
+    n_batches = int(np.ceil(batcher.size() / batcher.batch_size))
+    if max_batches:
+        n_batches = min(n_batches, max_batches)
+    for _ in range(n_batches):
+        items, batch = batcher.next_batch()
+        paths = greedy_rollout(rt["rollout"], causal_batch(
+            rt["banks"], batch))["trajectories"]
+        for b, it in enumerate(items):
+            if it["instr_id"] in seen:
+                continue
+            seen.add(it["instr_id"])
+            g = rt["graphs"][it["scan"]]
+            gt_local = [g.index[v] for v in it["path"]]
+            preds.append({"instr_id": it["instr_id"],
+                          "trajectory": [[g.vp_ids[v]] for v in paths[b]]})
+            per_item.append(eval_item(g.dist, paths[b], gt_local))
+    return eval_metrics(per_item), preds
+
+
+def train(args, rt):
+    from .tools.zdict import causal_batch
+    from .train import checkpoint as ck
+    from .train.trainer import fuse_dagger_batches, init_train_state
+    from .utils.logger import MetricsLogger, RunningMeter, write_to_record_file
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    record_file = os.path.join(args.output_dir, "train.log")
+    mlog = MetricsLogger(os.path.join(args.output_dir, "metrics.jsonl"),
+                         tb_dir=os.path.join(args.output_dir, "tb"))
+    batchers = rt["batchers"]
+    batcher, aug_batcher = batchers["train"], batchers.get("aug")
+    # --accumulate_grad: one optimizer step per GT+aug group
+    accum = (args.aug_times + 1) if (args.accumulate_grad
+                                     and aug_batcher is not None) else 1
+    sched = dict(lr_sch=args.lr_sch, warmup_steps=args.warmup_steps,
+                 total_steps=args.iters) if args.use_lr_sch else {}
+    # teacher episodes end within max_gt_len steps: the shortened teacher
+    # is loss-identical; with --bucket_caps it follows each batch's cap
+    th = "auto" if args.bucket_caps.strip() else max(
+        (b.max_gt_len for k, b in batchers.items() if k in ("train", "aug")),
+        default=None)
+    state = init_train_state(
+        rt["model"], rt["rollout"], lr=args.lr, grad_clip=args.grad_clip,
+        train_alg=args.train_alg, ml_weight=args.ml_weight,
+        teacher_horizon=th, remat=args.remat, accumulate_steps=accum,
+        sample_feedback="expl_sample" if args.expl_sample else "sample",
+        expl_max_ratio=args.expl_max_ratio, **sched)
+    fused = args.train_alg == "dagger_fused"
+    # the train loop's draws (dropout, sampled actions) come from one
+    # generator, saved with the train state
+    gen = torch.Generator(device=rt["device"]).manual_seed(args.seed)
+
+    start_iter = 0
+    if args.resume_file and ck.is_train_state_dir(args.resume_file):
+        start_iter = ck.load_train_state(args.resume_file, state, gen)
+        write_to_record_file(f"resumed train state from {args.resume_file} "
+                             f"@ iter {start_iter}", record_file)
+
+    meter = RunningMeter("loss")
+    best = {"score": -1.0, "iter": 0}
+    if args.eval_first:
+        for split in ("val_train_seen", "val_seen", "val_unseen"):
+            if split in batchers:
+                m, _ = run_validation(rt, split, max_batches=4)
+                write_to_record_file(f"[eval_first] {split}: {m}",
+                                     record_file)
+
+    def update(items, batch):
+        batch = causal_batch(rt["banks"], batch)
+        if fused:
+            # the reference's two DAgger rollouts take two minibatches;
+            # the fused step takes both, the first half teacher-forced
+            _, batch2 = batcher.next_batch()
+            batch = fuse_dagger_batches(batch,
+                                        causal_batch(rt["banks"], batch2))
+        return state.step_fn(state, batch, gen)
+
+    def aug_update():
+        items = aug_batcher.next_minibatch()
+        if fused:
+            items = items + aug_batcher.next_minibatch()
+            half = len(items) // 2
+            batch = fuse_dagger_batches(*(
+                causal_batch(rt["banks"], aug_batcher.make_batch(part))
+                for part in (items[:half], items[half:])))
+            return state.step_fn(state, batch, gen)
+        return update(items, aug_batcher.make_batch(items))
+
+    per = args.aug_times + 1
+    # fast-forward the seeded batch iterators so that a resumed run sees
+    # the uninterrupted run's batches
+    pulls = 2 if fused else 1
+    if start_iter:
+        if aug_batcher is None:
+            for _ in range(start_iter * pulls):
+                batcher.next_minibatch()
+        else:
+            for _ in range(start_iter // per):
+                for _ in range(pulls):
+                    batcher.next_minibatch()
+                for _ in range(args.aug_times * pulls):
+                    aug_batcher.next_minibatch()
+
+    t0 = time.time()
+    it = start_iter
+    while it < args.iters:
+        interval = min(args.log_every, args.iters - it)
+        losses = []
+        if aug_batcher is None:
+            consumed = interval
+            for _ in range(interval):
+                metrics = update(*batcher.next_batch())
+                losses.append(metrics["loss"])
+        else:
+            # GT/aug interleave: 1 train update + aug_times aug updates per
+            # group (main_nav.py:220-252), each one iteration
+            groups = max(interval // per, 1)
+            consumed = groups * per
+            for _ in range(groups):
+                metrics = update(*batcher.next_batch())
+                losses.append(metrics["loss"])
+                for _ in range(args.aug_times):
+                    metrics = aug_update()
+                    losses.append(metrics["loss"])
+        for v in losses:
+            meter(float(v))
+        step = it + consumed
+        mlog.set_step(step)
+        mlog.log_scalar_dict({"loss": meter.val,
+                              "grad_norm": float(metrics["grad_norm"]),
+                              "node_overflow":
+                                  float(metrics.get("node_overflow", 0))},
+                             prefix="train")
+        write_to_record_file(
+            f"iter {step}: loss {meter.val:.4f} "
+            f"({(time.time() - t0) / max(step - start_iter, 1) * 1000:.0f} "
+            f"ms/iter)", record_file)
+        scores = {}
+        for split in ("val_train_seen", "val_seen", "val_unseen"):
+            if split in batchers:
+                m, _ = run_validation(rt, split)
+                scores[split] = m
+                mlog.log_scalar_dict(m, prefix=split)
+                write_to_record_file(f"  {split}: {m}", record_file)
+        out = args.output_dir
+        ck.save_params(os.path.join(out, "ckpt_latest"), state.model)
+        ck.save_train_state(os.path.join(out, "train_state_latest"), state,
+                            gen, step)
+        if args.save_torch_ckpt:
+            ck.save_reference_checkpoint(
+                state.model, os.path.join(out, "latest_dict.pt"), step)
+        if "val_unseen" in scores:
+            score = scores["val_unseen"]["spl"] + scores["val_unseen"]["sr"]
+            if score > best["score"]:
+                best = {"score": score, "iter": step}
+                ck.save_params(os.path.join(out, "ckpt_best_val_unseen"),
+                               state.model)
+                write_to_record_file(f"  new best @ {step}: {score:.2f}",
+                                     record_file)
+        _refresh_front_dict(args, rt)    # per-cycle FACL resampling
+        it = step
+    return state
+
+
+def valid(args, rt):
+    from .utils.logger import write_to_record_file
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    record_file = os.path.join(args.output_dir, "valid.log")
+    for split in ("val_train_seen", "val_seen", "val_unseen", "test"):
+        if split not in rt["batchers"]:
+            continue
+        t0 = time.time()
+        m, preds = run_validation(rt, split)
+        # no gt paths on the test split: predictions only
+        write_to_record_file(
+            f"{split} ({time.time() - t0:.1f}s): "
+            f"{'predictions only' if split == 'test' else m}", record_file)
+        if args.submit:
+            out = os.path.join(args.output_dir, f"submit_{split}.json")
+            with open(out, "w") as f:
+                json.dump(preds, f)
+            write_to_record_file(f"wrote {out}", record_file)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    from .utils.misc import set_seed
+
+    check_ported(args)
+    set_seed(args.seed)
+    os.makedirs(args.output_dir, exist_ok=True)
+    # snapshot the config like the reference run dirs (utils/save.py:12-20)
+    with open(os.path.join(args.output_dir, "args.json"), "w") as f:
+        json.dump(vars(args), f, indent=2)
+    rt = build_runtime(args)
+    if args.mode == "train":
+        return train(args, rt)
+    valid(args, rt)
+
+
+if __name__ == "__main__":
+    main()

@@ -100,7 +100,9 @@ def fuse_logits(global_logits, local_logits, gmap_masks, gmap_visited_masks,
     fused = masked_global + torch.where(
         unvis, torch.where(has_direct, direct, bw[:, None]),
         torch.zeros_like(masked_global))
-    fused[:, 0] += local_logits[:, 0]
+    # the stop slot takes the local stop logit (no write in place: remat
+    # policies may keep `fused`'s first value)
+    fused = torch.cat([fused[:, :1] + local_logits[:, :1], fused[:, 1:]], 1)
     return fused, masked_global, masked_local
 
 

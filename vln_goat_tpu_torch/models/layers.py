@@ -5,6 +5,9 @@ Float32, or bfloat16 compute with float32 parameters (the config's
 `Embedding` cast per call, so autograd hands the float32 parameters their
 gradients through the casts; LayerNorm statistics and every softmax are
 taken in float32.  In float32 they are torch's own layers, unchanged.
+The tensors the JAX package's remat policies name carry the same
+checkpoint names (`ops.remat.checkpoint_name`: `blk` at each sublayer's
+output, `attn_probs`, `ffn_wide`; `drop_mask` in `ops.dropout.dropout`).
 Dropout sits at every site of the JAX package (attention
 probabilities, hidden states, the DETR pano encoder's residual and FFN
 branches); it is active in train() mode and draws from the generator that
@@ -31,6 +34,7 @@ from ..config import GoatConfig
 from ..ops.activations import ACT2FN
 from ..ops.attention import fused_qkv_mha
 from ..ops.dropout import Dropout
+from ..ops.remat import checkpoint_name, ffn_sublayer
 from ..ops.masks import extend_neg_masks
 
 
@@ -163,7 +167,7 @@ class AttentionCore(nn.Module):
         if bias is not None:
             scores = scores + bias.to(scores.dtype)
         probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
-        probs = self.prob_dropout(probs)
+        probs = self.prob_dropout(checkpoint_name(probs, "attn_probs"))
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         return ctx.reshape(B, Lq, H * dh)
 
@@ -177,7 +181,10 @@ class BertSelfOutput(nn.Module):
         self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, hidden, residual):
-        return self.LayerNorm(self.dropout(self.dense(hidden)) + residual)
+        # the layer boundary: all that remat "bounds" keeps
+        return checkpoint_name(
+            self.LayerNorm(self.dropout(self.dense(hidden)) + residual),
+            "blk")
 
 
 class BertAttention(nn.Module):
@@ -209,7 +216,8 @@ class BertIntermediate(nn.Module):
         self.act = ACT2FN[c.hidden_act]
 
     def forward(self, hidden):
-        return self.act(self.dense(hidden))
+        h = checkpoint_name(self.dense(hidden), "ffn_wide")
+        return checkpoint_name(self.act(h), "ffn_wide")
 
 
 class BertOutput(nn.Module):
@@ -221,7 +229,9 @@ class BertOutput(nn.Module):
         self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, hidden, residual):
-        return self.LayerNorm(self.dropout(self.dense(hidden)) + residual)
+        return checkpoint_name(
+            self.LayerNorm(self.dropout(self.dense(hidden)) + residual),
+            "blk")
 
 
 class BertLayer(nn.Module):
@@ -235,6 +245,9 @@ class BertLayer(nn.Module):
 
     def forward(self, hidden, bias=None):
         h = self.attention(hidden, None, bias)
+        return ffn_sublayer(self, self.ffn, h)
+
+    def ffn(self, h):
         return self.output(self.intermediate(h), h)
 
 
@@ -259,6 +272,9 @@ class BertCrossLayer(nn.Module):
                 else self_bias + graph_sprels
         h = self.attention(hidden, None, self_bias)
         h = self.crossattention(h, enc_hidden, cross_bias, kv_cache=kv_cache)
+        return ffn_sublayer(self, self.ffn, h)
+
+    def ffn(self, h):
         return self.output(self.intermediate(h), h)
 
 
@@ -327,8 +343,8 @@ class TorchMultiheadAttention(nn.Module):
                 scores.dtype, torch.float32)).masked_fill(
                     key_padding_mask[:, None, None, :],
                     torch.finfo(torch.float32).min)
-        probs = self.prob_dropout(
-            torch.softmax(scores.float(), dim=-1).to(v.dtype))
+        probs = self.prob_dropout(checkpoint_name(
+            torch.softmax(scores.float(), dim=-1).to(v.dtype), "attn_probs"))
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, Lq, d)
         return self.out_proj(ctx)
 
@@ -357,8 +373,13 @@ class PanoEncoderLayer(nn.Module):
     def forward(self, src, key_padding_mask=None):
         h = self.norm1(src)
         src = src + self.dropout1(self.self_attn(h, h, h, key_padding_mask))
-        h = self.dropout(self.act(self.linear1(self.norm2(src))))
-        return src + self.dropout2(self.linear2(h))
+        return src + ffn_sublayer(self, self.ffn, src)
+
+    def ffn(self, src):
+        h = checkpoint_name(self.linear1(self.norm2(src)), "ffn_wide")
+        h = checkpoint_name(self.act(h), "ffn_wide")
+        h = checkpoint_name(self.dropout(h), "ffn_wide")
+        return self.dropout2(self.linear2(h))
 
 
 class PanoEncoder(nn.Module):

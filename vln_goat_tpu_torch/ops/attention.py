@@ -31,7 +31,9 @@ their input's dtype.  x, y, the weights and biases of one call share one
 dtype; a mix raises.  On the card both builds take any Lk (the float32
 attention forward past 256 keys in key blocks with an online softmax), the
 head widths of `HEAD_DIMS` (32, 64, 128: one kernel instance each, chosen
-at launch) and D % 32 == 0, and raise on any other shape.
+at launch) and D % 32 == 0; the wrappers zero-pad any other head width up
+to 128 and any other D to those (`padded_call`, `mha_padded`), and raise
+past a head width of 128.
 
 On a CUDA tensor `fused_qkv_mha` runs `FusedQKVMHA`, an autograd Function
 whose forward launches the forward kernel and whose backward launches the
@@ -90,10 +92,12 @@ def project_plain(x, y, wq, bq, wk, bk, wv, bv):
 def attend_plain(q, k, v, bias=None, num_heads: int = 12,
                  dropout_rate: float = 0.0,
                  seed: Optional[torch.Tensor] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 scale: Optional[float] = None):
     """Attention over projected q [B, Lq, H*dh], k/v [B, Lk, H*dh]:
     softmax(q k^T / sqrt(dh) + bias) in float32, the keep mask of
     `keep_mask(seed, ...)` at `dropout_rate`, times v -> [B, Lq, H*dh].
+    `scale` replaces 1 / sqrt(dh) (the head-padded call's true width).
 
     `dtype` (default q's) is the call's compute dtype.  bf16: q, k, v, the
     bias and p are rounded to bf16 where the JAX kernel casts them (before
@@ -111,7 +115,9 @@ def attend_plain(q, k, v, bias=None, num_heads: int = 12,
         def rd(t):
             return t
     q, k, v = (_split_heads(rd(t), H) for t in (q, k, v))
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(dh))
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if bias is not None:
         s = s + rd(bias).to(s.dtype)
     p = torch.softmax(s.float(), dim=-1).to(v.dtype)
@@ -125,28 +131,32 @@ def attend_plain(q, k, v, bias=None, num_heads: int = 12,
 
 def fused_qkv_mha_plain(x, y, wq, bq, wk, bk, wv, bv, bias=None,
                         num_heads: int = 12, dropout_rate: float = 0.0,
-                        seed: Optional[torch.Tensor] = None):
+                        seed: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None):
     """x [B, Lq, D] (query side), y [B, Lk, D] (key/value side),
     projection weights [D, H*dh] with biases [H*dh], additive bias
     broadcastable to [B, {1,H}, Lq, Lk], per-row int32 seeds [B] (needed
     when dropout_rate > 0) -> [B, Lq, H*dh] in x's dtype.  Softmax in
     float32; bf16 inputs take the cast points of `attend_plain`."""
     return attend_plain(*project_plain(x, y, wq, bq, wk, bk, wv, bv), bias,
-                        num_heads, dropout_rate, seed, dtype=x.dtype)
+                        num_heads, dropout_rate, seed, dtype=x.dtype,
+                        scale=scale)
 
 
-def mha_plain(q, k, v, bias=None):
+def mha_plain(q, k, v, bias=None, scale: Optional[float] = None):
     """q [B, Lq, H, dh], k / v [B, Lk, H, dh], additive bias
     broadcastable to [B, H, Lq, Lk] -> [B, Lq, H*dh] in q's dtype:
     softmax(q k^T / sqrt(dh) + bias) v.  At the JAX kernel's cast points
     (`_mha_kernel` :49-62): a bf16 or float32 q, k, v and bias are taken
     in float32, scores, softmax and p v in float32, the output rounded
-    once; float64 stays float64."""
+    once; float64 stays float64.  `scale` replaces 1 / sqrt(dh)."""
     B, Lq, H, dh = q.shape
     dt = q.dtype
     acc = torch.promote_types(dt, torch.float32)
     q, k, v = (t.to(acc) for t in (q, k, v))
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(dh))
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if bias is not None:
         s = s + bias.to(acc)
     p = torch.softmax(s, dim=-1)
@@ -169,6 +179,50 @@ def check_head_dim(dh: int) -> None:
     if dh not in HEAD_DIMS:
         raise ValueError(f"the kernels are built for head widths "
                          f"{HEAD_DIMS}, got {dh}")
+
+
+def padded_widths(D: int, dh: int):
+    """(Dp, dp): the model width D rounded up to a multiple of 32 and the
+    head width dh rounded up to the next width of HEAD_DIMS, which the
+    kernels take.  Raises ValueError past the widest (F6's remainder)."""
+    if dh > HEAD_DIMS[-1]:
+        raise ValueError(f"head width {dh}: the kernels take head widths up "
+                         f"to {HEAD_DIMS[-1]} (zero-padded to one of "
+                         f"{HEAD_DIMS})")
+    return -(-D // 32) * 32, next(w for w in HEAD_DIMS if w >= dh)
+
+
+def _pad_heads(t: torch.Tensor, H: int, dh: int, dp: int) -> torch.Tensor:
+    """[..., H*dh] -> [..., H*dp]: each head's columns followed by dp - dh
+    zero columns."""
+    lead = t.shape[:-1]
+    return torch.nn.functional.pad(t.reshape(*lead, H, dh),
+                                   (0, dp - dh)).reshape(*lead, H * dp)
+
+
+def padded_call(fn, x, y, wq, bq, wk, bk, wv, bv, bias=None,
+                num_heads: int = 12, dropout_rate: float = 0.0, seed=None):
+    """`fn` (the signature of `fused_qkv_mha_plain` with `scale`) at widths
+    the kernels take: D zero-padded to Dp (zero columns of x and y, zero
+    rows of each weight), each head's q / k / v columns zero-padded to dp
+    (`padded_widths`), the scale 1 / sqrt(dh) of the true head width, the
+    padded columns of the output sliced off.  The zero columns add exact
+    zeros to q k^T and to p v; autograd carries the gradients back through
+    the pad and the slice."""
+    B, Lq, D = x.shape
+    H = num_heads
+    dh = wq.shape[1] // H
+    Dp, dp = padded_widths(D, dh)
+    F = torch.nn.functional
+
+    def rows(w):
+        return _pad_heads(F.pad(w, (0, 0, 0, Dp - D)), H, dh, dp)
+
+    out = fn(F.pad(x, (0, Dp - D)), F.pad(y, (0, Dp - D)),
+             rows(wq), _pad_heads(bq, H, dh, dp), rows(wk),
+             _pad_heads(bk, H, dh, dp), rows(wv), _pad_heads(bv, H, dh, dp),
+             bias, H, dropout_rate, seed, scale=1.0 / math.sqrt(dh))
+    return out.view(B, Lq, H, dp)[..., :dh].reshape(B, Lq, H * dh)
 
 
 def _check_head_dims(lib: ctypes.CDLL, entry: str) -> None:
@@ -298,10 +352,30 @@ def mha(q, k, v, bias=None):
 
     On the card the kernel reads q, k, v and the bias through their
     strides; it takes the head widths of HEAD_DIMS and any Lk (in bf16 on
-    the Hopper core, whose launches count in `attn_core_routes`), and
-    raises on anything else."""
+    the Hopper core, whose launches count in `attn_core_routes`); another
+    head width up to 128 is zero-padded to the next of HEAD_DIMS, scaled by
+    its true width and sliced back (`mha_padded`), and anything else
+    raises."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, bias)
+    if q.dim() == 4 and q.shape[3] not in HEAD_DIMS:
+        return mha_padded(_mha_kernel, q, k, v, bias)
+    return _mha_kernel(q, k, v, bias)
+
+
+def mha_padded(fn, q, k, v, bias=None):
+    """`fn` (the signature of `mha_plain` with `scale`) with q, k, v
+    zero-padded from head width dh to the next width of HEAD_DIMS, the
+    scale 1 / sqrt(dh), and the output's padded columns sliced off."""
+    B, Lq, H, dh = q.shape
+    dp = padded_widths(32, dh)[1]
+    q, k, v = (torch.nn.functional.pad(t, (0, dp - dh)) for t in (q, k, v))
+    out = fn(q, k, v, bias, scale=1.0 / math.sqrt(dh))
+    return out.view(B, Lq, H, dp)[..., :dh].reshape(B, Lq, H * dh)
+
+
+def _mha_kernel(q, k, v, bias=None, scale: Optional[float] = None):
+    """One launch of `csrc/mha.cu` on CUDA tensors (`mha`'s card path)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"mha kernel: unsupported device {dev}")
@@ -334,7 +408,8 @@ def mha(q, k, v, bias=None):
             q.data_ptr(), *q.stride(), k.data_ptr(), *k.stride(),
             v.data_ptr(), *v.stride(),
             None if bias4 is None else bias4.data_ptr(), *bst,
-            out.data_ptr(), B, Lq, Lk, H, dh, 1.0 / math.sqrt(dh),
+            out.data_ptr(), B, Lq, Lk, H, dh,
+            1.0 / math.sqrt(dh) if scale is None else scale,
             torch.cuda.current_stream(dev).cuda_stream)
     mha.launches += 1
     if rc != 0:
@@ -365,7 +440,8 @@ class _Call:
     the card, shared by the forward and the backward launches."""
 
     def __init__(self, x, y, wq, bq, wk, bk, wv, bv, bias, seed,
-                 num_heads: int, dropout_rate: float, lib):
+                 num_heads: int, dropout_rate: float, lib,
+                 scale: Optional[float] = None):
         dev = x.device
         if dev.type != "cuda":
             raise ValueError(f"fused_qkv_mha kernels: unsupported device "
@@ -418,7 +494,7 @@ class _Call:
         self.dev, self.lib, self.dtype = dev, lib, dtype
         self.B, self.Lq, self.Lk, self.D, self.H, self.HD = B, Lq, Lk, D, H, HD
         self.dh = dh
-        self.scale = 1.0 / math.sqrt(dh)
+        self.scale = 1.0 / math.sqrt(dh) if scale is None else scale
         self.ws = ((wq, bq), (wk, bk), (wv, bv))
 
     def weight_args(self, with_bias: bool = True):
@@ -452,26 +528,27 @@ class _Call:
 
 
 def _fwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
-              dropout_rate) -> _Call:
+              dropout_rate, scale=None) -> _Call:
     return _Call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
-                 dropout_rate, _fwd_lib())
+                 dropout_rate, _fwd_lib(), scale)
 
 
 def _bwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
-              dropout_rate) -> _Call:
+              dropout_rate, scale=None) -> _Call:
     return _Call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
-                 dropout_rate, _bwd_lib())
+                 dropout_rate, _bwd_lib(), scale)
 
 
 def forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias=None,
                    num_heads: int = 12, dropout_rate: float = 0.0,
-                   seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   seed: Optional[torch.Tensor] = None,
+                   scale: Optional[float] = None) -> torch.Tensor:
     """One call of the forward on CUDA tensors (no autograd), counted as
     one launch: the q / k / v projection GEMM into scratch of
     B (Lq + 2 Lk) H*dh elements of x's dtype, freed on return, then the
-    attention."""
+    attention.  `scale` replaces 1 / sqrt(dh)."""
     c = _fwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
-                  dropout_rate)
+                  dropout_rate, scale)
     like = dict(device=c.dev, dtype=c.dtype)
     out = torch.empty((c.B, c.Lq, c.HD), **like)
     qkv = torch.empty(c.B * (c.Lq + 2 * c.Lk) * c.HD, **like)
@@ -515,7 +592,7 @@ ATTN_KEY_CHUNK = 64
 
 def attention_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout,
                        num_heads: int = 12, dropout_rate: float = 0.0,
-                       need_ds: bool = False):
+                       need_ds: bool = False, scale: Optional[float] = None):
     """Kernel (a) of the backward on CUDA tensors: from the forward's
     inputs and dO [B, Lq, H*dh], the gradients of the projected
     q [B, Lq, H*dh], k and v [B, Lk, H*dh], and ds [B, H, Lq, Lk] (the
@@ -523,9 +600,9 @@ def attention_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout,
     Two launches: the q / k / v recompute into scratch of
     B (Lq + 2 Lk) H*dh elements of x's dtype, freed on return, then the
     attention backward over it.  dq, dk, dv come in x's dtype (dO's), ds in
-    float32."""
+    float32.  `scale` replaces 1 / sqrt(dh)."""
     c = _bwd_call(x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
-                  dropout_rate)
+                  dropout_rate, scale)
     dout = dout.contiguous()
     if dout.shape != (c.B, c.Lq, c.HD) or dout.dtype != c.dtype:
         raise ValueError(f"dO {tuple(dout.shape)} {dout.dtype}, expected "
@@ -756,11 +833,12 @@ class FusedQKVMHA(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, y, wq, bq, wk, bk, wv, bv, bias, seed, num_heads,
-                dropout_rate):
+                dropout_rate, scale=None):
         out = forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias, num_heads,
-                             dropout_rate, seed)
+                             dropout_rate, seed, scale)
         ctx.save_for_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed)
         ctx.num_heads, ctx.dropout_rate = num_heads, dropout_rate
+        ctx.scale = scale
         return out
 
     @staticmethod
@@ -771,7 +849,7 @@ class FusedQKVMHA(torch.autograd.Function):
             ctx.needs_input_grad, bias, H)
         dq, dk, dv, ds = attention_backward(
             x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout, H,
-            ctx.dropout_rate, need_ds=need_bias)
+            ctx.dropout_rate, need_ds=need_bias, scale=ctx.scale)
         dx, dy, (dwq, dwk, dwv), (dbq, dbk, dbv), dbias = \
             projection_backward(x, y, wq, wk, wv, dq, dk, dv,
                                 ds if need_bias and not per_head else None,
@@ -780,7 +858,7 @@ class FusedQKVMHA(torch.autograd.Function):
             dbias = (ds if per_head else dbias).sum_to_size(bias.shape) \
                 .to(bias.dtype)
         return (dx, dy, dwq, dbq, dwk, dbk, dwv, dbv, dbias, None, None,
-                None)
+                None, None)
 
 
 def fused_qkv_mha(x, y, wq, bq, wk, bk, wv, bv, bias=None,
@@ -793,12 +871,24 @@ def fused_qkv_mha(x, y, wq, bq, wk, bk, wv, bv, bias=None,
     Differentiable in every tensor input but the seeds.
 
     A weight may be the transposed view of a torch Linear weight
-    (`lin.weight.t()`): the kernels read it through its strides."""
+    (`lin.weight.t()`): the kernels read it through its strides.  On the
+    card a head width outside HEAD_DIMS or a D that is not a multiple of
+    32 goes through `padded_call` (any head width up to 128)."""
     if x.device.type == "cpu":
         return fused_qkv_mha_plain(x, y, wq, bq, wk, bk, wv, bv, bias,
                                    num_heads, dropout_rate, seed)
+    dh = wq.shape[1] // num_heads
+    if dh not in HEAD_DIMS or x.shape[2] % 32:
+        return padded_call(_fused_apply, x, y, wq, bq, wk, bk, wv, bv, bias,
+                           num_heads, dropout_rate, seed)
+    return _fused_apply(x, y, wq, bq, wk, bk, wv, bv, bias, num_heads,
+                        dropout_rate, seed)
+
+
+def _fused_apply(x, y, wq, bq, wk, bk, wv, bv, bias, num_heads,
+                 dropout_rate, seed, scale=None):
     return FusedQKVMHA.apply(x, y, wq, bq, wk, bk, wv, bv, bias, seed,
-                             num_heads, float(dropout_rate))
+                             num_heads, float(dropout_rate), scale)
 
 
 # kernel launches since the last reset; the plain path does not count

@@ -32,6 +32,9 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
+from .remat import both, checkpoint_name, count_checkpoint
+from .remat import contexts as policy_contexts
+
 _M32 = 0xFFFFFFFF
 
 
@@ -96,7 +99,9 @@ def dropout(x: torch.Tensor, rate: float,
     if generator is None:
         raise ValueError("dropout needs an explicit torch.Generator: "
                          "call set_generator(model, g) before training")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = checkpoint_name(
+        torch.rand(x.shape, generator=generator, device=x.device) >= rate,
+        "drop_mask")
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -149,7 +154,8 @@ def _replay(gens: List[torch.Generator], states: List[torch.Tensor]):
             g.set_state(s)
 
 
-def checkpoint(module: nn.Module, fn, *args, **kwargs):
+def checkpoint(module: nn.Module, fn, *args, policy: Optional[str] = None,
+               **kwargs):
     """`fn(*args, **kwargs)` under torch.utils.checkpoint (non-reentrant):
     its activations are dropped after the forward and recomputed in the
     backward, the JAX package's `jax.checkpoint` of one model call.  The
@@ -157,12 +163,18 @@ def checkpoint(module: nn.Module, fn, *args, **kwargs):
     set again for the recompute, which therefore draws the forward's seeds
     and masks; after it each generator is put back to the state it had
     before the recompute, so a step leaves them as it would without the
-    checkpoint."""
+    checkpoint.  `policy` (`ops.remat.POLICIES`; None keeps nothing) adds
+    the selective checkpoint's own pair of contexts to the replay's."""
     gens = generators(module)
+    caches = []
 
     def contexts():
         states = [g.get_state() for g in gens]
-        return contextlib.nullcontext(), _replay(gens, states)
+        fwd, rec, cache = policy_contexts(policy)
+        caches.append(cache)
+        return fwd, both(_replay(gens, states), rec)
 
-    return _ckpt.checkpoint(fn, *args, use_reentrant=False,
-                            context_fn=contexts, **kwargs)
+    out = _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           context_fn=contexts, **kwargs)
+    count_checkpoint(args, kwargs, caches[0] if caches else None)
+    return out

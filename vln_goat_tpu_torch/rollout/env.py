@@ -32,7 +32,7 @@ class EpisodeBatcher:
     def __init__(self, data: List[dict], scan_graphs: Dict[str, ScanGraph],
                  scan_order: Sequence[str], batch_size: int,
                  max_instr_len: int = 200, max_gt_len: int = 20,
-                 seed: int = 0,
+                 env_edit: bool = False, seed: int = 0,
                  bucket_caps: Optional[Sequence[int]] = None,
                  device="cuda",
                  banks: Optional[Dict[str, np.ndarray]] = None):
@@ -47,6 +47,10 @@ class EpisodeBatcher:
         bucket chosen ~ proportional to its pending count, so epoch order
         stays shuffled across buckets.
 
+        env_edit: every batch carries `use_aug`, True on its even
+        episodes, which then read the world's EnvEdit features
+        (r2r/env.py:78-84; `NavWorld.feat_aug`).
+
         banks: the causal configuration's banks ({batch key: [N, D] or
         p(z) [N]}, `tools.zdict`), attached to every batch as views shared
         by its episodes (`causal_batch`)."""
@@ -56,6 +60,7 @@ class EpisodeBatcher:
         self.batch_size = batch_size
         self.max_instr_len = max_instr_len
         self.max_gt_len = max_gt_len
+        self.env_edit = env_edit
         self.device = resolve(device)
         self.rng = random.Random(seed)
         self.rng.shuffle(self.data)
@@ -64,6 +69,15 @@ class EpisodeBatcher:
         self._queues: Optional[Dict[int, List[dict]]] = None
         self._gt_cap = max_gt_len  # cap used by the LAST make_batch
         self.banks = banks
+
+    def size(self) -> int:
+        return len(self.data)
+
+    def reset_epoch(self, shuffle: bool = False):
+        if shuffle:
+            self.rng.shuffle(self.data)
+        self.ix = 0
+        self._queues = None
 
     def next_minibatch(self, batch_size: Optional[int] = None) -> List[dict]:
         bs = batch_size or self.batch_size
@@ -155,6 +169,10 @@ class EpisodeBatcher:
             gt_len=t(gt_len.astype(np.int64)),
             txt_ids=t(txt_ids), txt_masks=t(txt_masks),
         )
+        if self.env_edit:
+            # alternate original/EnvEdit-augmented features across the batch
+            # (r2r/env.py:78-84)
+            batch["use_aug"] = t(np.arange(B) % 2 == 0)
         return causal_batch(self.banks, batch) if self.banks else batch
 
     def next_batch(self) -> tuple:

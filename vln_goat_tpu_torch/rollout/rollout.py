@@ -36,13 +36,16 @@ the imitation loss back across steps through the node-embedding tables
 plain indexing; the JAX package's one-hot contractions compute the same
 values exactly.
 
-Training rollouts take a rematerialisation policy (`REMAT`): "none"
-keeps every step's activations for the backward; "model" checkpoints each
-step's `forward_panorama` and `forward_navigation` call
-(`ops.dropout.checkpoint`, the JAX package's per-call `jax.checkpoint`,
-rollout.py:1006-1040), so the backward recomputes the model forwards and
-keeps only their inputs and outputs; the text encoding is not
-checkpointed, as in the JAX package.
+Training rollouts take a rematerialisation policy (`ops.remat.POLICIES`,
+the JAX package's `remat=`): "none" keeps every step's activations for the
+backward; "model", "model_probs" and "model_wide" checkpoint each step's
+`forward_panorama` and `forward_navigation` call (`ops.dropout.checkpoint`,
+the JAX package's per-call `jax.checkpoint`, rollout.py:1006-1040); "full",
+"dots", "bounds", "probs" and "wide" checkpoint the whole decision step
+`_step` (rollout.py:1419-1468), which therefore writes nothing in place of
+its inputs; "ffn" checkpoints each FFN sublayer of the step's model calls
+(`ops.remat` says why).  The text encoding is not checkpointed, as in the JAX
+package.
 
 The vectorized teacher splits the teacher-forced rollout as the JAX
 package's `build_teacher_rollout_vec` does (rollout.py:1602-1932): under
@@ -74,6 +77,8 @@ import torch
 from ..core import geometry as G
 from ..models.goat import GoatModel
 from ..ops.dropout import checkpoint
+from ..ops.remat import (STEP_POLICIES, call_policy, check as check_remat,
+                         ffn_region, vec_call_policy)
 from .world import INF_DIST, NavWorld
 
 IGNORE_ID = -100           # target of a step without supervision
@@ -85,22 +90,6 @@ SAMPLE_SALT, EXPLORE_SALT, RANDOM_MOVE_SALT = 7, 11, 13
 # DAgger batch
 TRAIN_FEEDBACKS = ("teacher", "sample", "expl_sample", "fused_dagger")
 SAMPLE_FEEDBACKS = ("sample", "expl_sample")
-# rematerialisation policies of the training rollouts, and those of the JAX
-# package's `build_rollout` (rollout.py:1424-1470) not ported yet
-REMAT = ("none", "model")
-REMAT_NOT_PORTED = ("full", "dots", "ffn", "bounds", "probs", "wide",
-                    "model_probs", "model_wide")
-
-
-def check_remat(remat: str) -> None:
-    """Raises ValueError for a policy the port does not run."""
-    if remat in REMAT_NOT_PORTED:
-        raise ValueError(f"remat policy {remat!r} is not ported (ported: "
-                         f"{REMAT})")
-    if remat not in REMAT:
-        raise ValueError(f"unknown remat policy {remat!r}")
-
-
 # batch keys of the causal banks -> the model argument each feeds
 _TEXT_BANKS = (("instr_z_direction_features", "z_direc_embeds"),
                ("instr_z_direction_pzs", "z_direc_pzs"),
@@ -268,9 +257,10 @@ class NavRollout:
         spilled = ok_spill.sum(dim=1)
 
         tgt_e = torch.where(ok_spill, slot_for, TRASH)
+        # the trash slot only receives False (tgt_e is TRASH where no
+        # spill is); nothing is written in place, for remat's recompute
         er = torch.zeros(B, N1, dtype=torch.bool, device=dev).index_put(
             (bcol, tgt_e), ok_spill)
-        er[:, TRASH] = False
         thru = torch.gather(er, 1, st["enext"].clamp(0, N1 - 1)
                             .view(B, N1 * N1)).view(B, N1, N1)
         cm = er[:, None, :] | er[:, :, None] | thru
@@ -394,18 +384,21 @@ class NavRollout:
 
     # ------------------------------------------------------------------
     def _pano_inputs(self, st, batch, cur_vp=None, view_ix=None,
-                     scan=None, images: bool = True):
+                     scan=None, images: bool = True, use_aug=None):
         """Padded panorama tokens: [K candidate slots | 36 view slots].
-        A function of (scan, cur_vp, view_ix) alone, taken from the state
-        and batch unless given (the vectorized teacher's flattened
-        steps give them); `images=False` leaves out the image features
-        (`img`), for the geometry alone."""
+        A function of (scan, cur_vp, view_ix, use_aug) alone, taken from
+        the state and batch unless given (the vectorized teacher's
+        flattened steps give them); use_aug picks each episode's EnvEdit
+        features (`NavWorld.get_feat`); `images=False` leaves out the image
+        features (`img`), for the geometry alone."""
         w, r = self.world, self.rcfg
         if scan is None:
             scan = batch["scan_idx"]
         if cur_vp is None:
             cur_vp = _row(st["node_vp"], st["cur"])
         vi = st["view_ix"] if view_ix is None else view_ix
+        if use_aug is None:
+            use_aug = batch.get("use_aug")
         cands = w.get_cands(scan, cur_vp)
         B, K = cands["local"].shape
         cam_h = float(G.VIEW_HEADINGS[0]) \
@@ -414,7 +407,7 @@ class NavRollout:
 
         img = None
         if images:
-            feats = w.get_feat(scan, cur_vp)               # [B, 36, Df]
+            feats = w.get_feat(scan, cur_vp, use_aug)      # [B, 36, Df]
             cand_img = torch.gather(
                 feats, 1,
                 cands["ptid"][:, :, None].expand(B, K, feats.shape[2]))
@@ -579,12 +572,13 @@ class NavRollout:
         return torch.stack(hops, dim=1), prev
 
     # ------------------------------------------------------------------
-    def _call(self, fn, remat, *args, **kwargs):
-        """A model call of a training rollout: under remat "model" through
-        `ops.dropout.checkpoint` (recomputed in the backward)."""
-        if remat == "model":
-            return checkpoint(self.model, fn, *args, **kwargs)
-        return fn(*args, **kwargs)
+    def _call(self, fn, policy, *args, **kwargs):
+        """A model call of a training rollout: through
+        `ops.dropout.checkpoint` under the checkpoint policy `policy`
+        (recomputed in the backward), or as it is when `policy` is None."""
+        if policy is None:
+            return fn(*args, **kwargs)
+        return checkpoint(self.model, fn, *args, policy=policy, **kwargs)
 
     def _draw(self, noise_key, t, salt, sampler, shape):
         """Draws of `sampler` over the episode uid space (`shape`'s first
@@ -623,8 +617,8 @@ class NavRollout:
         train_ml = feedback != "argmax"
 
         def call(fn, *args, **kwargs):
-            return self._call(fn, remat if train_ml else "none", *args,
-                              **kwargs)
+            return self._call(fn, call_policy(remat) if train_ml else None,
+                              *args, **kwargs)
         N = r.num_nodes
         act = ~st["ended"]
         st = {**st, "step_id": _set_row(
@@ -797,8 +791,17 @@ class NavRollout:
         losses = []
         t = 0
         while t < T and not bool(st["ended"].all()):
-            st, rec = self._step(st, batch, txt, t, feedback, T, noise_key,
-                                 remat, **sampling)
+            if remat == "ffn" and feedback != "argmax":
+                with ffn_region():
+                    st, rec = self._step(st, batch, txt, t, feedback, T,
+                                         noise_key, "none", **sampling)
+            elif remat in STEP_POLICIES and feedback != "argmax":
+                st, rec = checkpoint(self.model, self._step, st, batch, txt,
+                                     t, feedback, T, noise_key, "none",
+                                     policy=remat, **sampling)
+            else:
+                st, rec = self._step(st, batch, txt, t, feedback, T,
+                                     noise_key, remat, **sampling)
             losses.append(rec.pop("loss"))
             for k, v in rec.items():
                 recs[k][t] = v
@@ -856,7 +859,8 @@ class NavRollout:
         episode's sum, differentiable in the model's parameters.  `txt` is
         an `encode_text` result to share between rollouts on one batch;
         `horizon` shortens the scan (the trainer's teacher_horizon);
-        `remat` is one of `REMAT`.  Dropout draws come from the generator
+        `remat` is one of `ops.remat.POLICIES`.  Dropout draws come from
+        the generator
         the caller gave the model (`set_generator`); the sampled actions'
         noise from `generator`."""
         check_remat(remat)
@@ -946,8 +950,10 @@ class NavRollout:
         Returns ml_loss, loss_per_ep, targets and actions [T, B], n_nodes,
         overflow_n, spilled_n and `steps`, the steps phase A ran: it stops
         once every episode has ended (a later step adds nothing to the
-        loss).  Under remat "model" both model calls go through
-        `ops.dropout.checkpoint`."""
+        loss).  Under every remat policy but "none" both model calls go
+        through `ops.dropout.checkpoint` (`ops.remat.vec_call_policy`: the
+        names of "probs" / "wide" kept, as in the JAX package,
+        rollout.py:1636-1663)."""
         check_remat(remat)
         if txt is None:
             txt = self.encode_text(batch)
@@ -982,9 +988,12 @@ class NavRollout:
         pano = self._pano_inputs(
             None, batch, cur_vp=torch.cat([x["cur_vp"] for x in recs]),
             view_ix=torch.cat([x["view_ix"] for x in recs]),
-            scan=_tile(batch["scan_idx"], n))
+            scan=_tile(batch["scan_idx"], n),
+            use_aug=_tile(batch["use_aug"], n) if "use_aug" in batch
+            else None)
+        policy = vec_call_policy(remat)
         pe, pm, pf = self._call(
-            model.forward_panorama, remat, pano["img"], pano["loc"],
+            model.forward_panorama, policy, pano["img"], pano["loc"],
             pano["nav_types"], pano["mask"],
             **{dst: _tile(batch[src], n) for src, dst in _PANO_BANKS
                if src in batch})
@@ -1014,7 +1023,7 @@ class NavRollout:
                 pe[t, :, :K] * addf[..., None])
             ec = ec.scatter_add(1, rec["tgt"], addf)
             gmap, vp = _nav_embed_assemble(es, ec, last, pe[t], N)
-            outs = self._call(model.forward_navigation, remat,
+            outs = self._call(model.forward_navigation, policy,
                               txt["embeds"], batch["txt_masks"],
                               txt_kv=txt["kv"], gmap_img_embeds=gmap,
                               vp_img_embeds=vp, **rec["geo"], **nav_banks)

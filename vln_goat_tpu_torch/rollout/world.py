@@ -1,5 +1,6 @@
 """NavWorld: packed navigation tables of a set of scans, as tensors on one
-device (counterpart of vln_goat_tpu/rollout/world.py, view features only).
+device (counterpart of vln_goat_tpu/rollout/world.py: view features and
+their EnvEdit-augmented copy; no object tables).
 
 Scans are padded to Vmax viewpoints; features are flattened to a global
 [Vtot, 36, Df] tensor addressed by vp_offset[scan] + local index.
@@ -33,17 +34,25 @@ class NavWorld:
     n_vps: torch.Tensor         # [S] int64
     vp_offset: torch.Tensor     # [S] int64 into feat
     feat: torch.Tensor          # [Vtot, 36, Df]
+    # EnvEdit augmented features, [0, 36, Df] when absent (r2r/env.py:78-84)
+    feat_aug: Optional[torch.Tensor] = None
+
+    @property
+    def has_aug(self) -> bool:
+        return self.feat_aug is not None and self.feat_aug.shape[0] > 0
 
     @classmethod
     def build(cls, scans: Sequence[ScanGraph],
               features: Optional[np.ndarray] = None, feat_dim: int = 768,
               seed: int = 0, device="cuda",
-              feat_dtype: torch.dtype = torch.float32) -> "NavWorld":
+              feat_dtype: torch.dtype = torch.float32,
+              aug_features: Optional[np.ndarray] = None) -> "NavWorld":
         """Pack ScanGraphs (+ per-viewpoint 36-view features) onto `device`.
 
         features: [sum(V_s), 36, Df] in scan order, or None for random
         synthetic features drawn with numpy from `seed` (the same draws as
-        the JAX package's NavWorld.build)."""
+        the JAX package's NavWorld.build).  aug_features: the EnvEdit
+        features in the same layout, or None."""
         device = resolve(device)
         S = len(scans)
         Vmax = max(g.num_vps for g in scans)
@@ -89,11 +98,20 @@ class NavWorld:
             dist=t(dist), hops=t(hops), nexthop=t(nexthop),
             n_vps=t(n_vps), vp_offset=t(vp_offset),
             feat=t(features, feat_dtype),
+            feat_aug=t(aug_features if aug_features is not None else
+                       np.zeros((0, 36, features.shape[2]), np.float32),
+                       feat_dtype),
         )
 
     # gathers used by the rollout (scan = [B] scan index, vp = [B] local idx)
-    def get_feat(self, scan, vp):
-        return self.feat[self.vp_offset[scan] + vp]
+    def get_feat(self, scan, vp, use_aug=None):
+        """[B, 36, Df] view features of (scan, vp); where use_aug [B] is
+        True (and the world has them) the EnvEdit features."""
+        idx = self.vp_offset[scan] + vp
+        base = self.feat[idx]
+        if use_aug is None or not self.has_aug:
+            return base
+        return torch.where(use_aug[:, None, None], self.feat_aug[idx], base)
 
     def get_cands(self, scan, vp):
         """All candidate tables for (scan, vp): each [B, K]."""

@@ -5,14 +5,17 @@ neighbours, candidate enumeration, all-pairs shortest paths -- built once
 on the host so the episode loop runs as tensor lookups.
 
 A copy of the JAX package's module with the all-pairs shortest paths
-computed here in numpy, without that package's native library.  Loading
-real connectivity files and the reference candidate cache is not ported
-yet; `make_synthetic_scan` stands in for a scan.
+computed here in numpy, without that package's native library.
+`load_connectivity` reads Matterport connectivity JSONs and
+`load_scanvp_cands` the reference's candidate cache; `make_synthetic_scan`
+stands in for a scan.
 """
 from __future__ import annotations
 
 import heapq
+import json
 import math
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Sequence
 
@@ -196,6 +199,92 @@ def build_scan_graph(scan_id: str, vp_ids: List[str], pos: np.ndarray,
     return ScanGraph(scan_id, vp_ids, pos.astype(np.float32), cand_local,
                      cand_ptid, cand_heading, cand_elev, cand_dist, cand_mask,
                      dist, hops, nexthop)
+
+
+# ----------------------------------------------------------------------
+# Reference candidate-cache interop: scanvp_candview_relangles.json maps
+# '{scan}_{vp}' -> {next_vp: [pointId, _, rel_h, rel_e]} where rel_h/rel_e
+# are offsets from the chosen view's center (consumers: r2r/env.py:244,
+# pretrain dataset.py:452-462 `heading = view_angle[0] + v[2]`; index 1 is
+# read by nothing).
+def load_scanvp_cands(path: str, graphs: Dict[str, ScanGraph]) -> int:
+    """Overwrite candidate tables from the reference's precomputed
+    candidate cache — the exact per-view-sweep candidate sets the authors
+    ship — so the real-data path does not depend on the graph-adjacency
+    approximation.  Returns the number of (scan, vp) entries applied."""
+    with open(path) as f:
+        cache = json.load(f)
+    applied = 0
+    for g in graphs.values():
+        K = g.cand_local.shape[1]
+        for v, vp_id in enumerate(g.vp_ids):
+            entry = cache.get(f"{g.scan_id}_{vp_id}")
+            if entry is None:
+                continue
+            g.cand_local[v] = -1
+            g.cand_ptid[v] = 0
+            g.cand_heading[v] = 0.0
+            g.cand_elev[v] = 0.0
+            g.cand_dist[v] = 0.0
+            g.cand_mask[v] = False
+            j = 0
+            for nxt, rec in entry.items():
+                if nxt not in g.index:
+                    continue
+                if j >= K:
+                    raise ValueError(
+                        f"{g.scan_id}_{vp_id}: >{K} cached candidates")
+                w = g.index[nxt]
+                ptid = int(rec[0])
+                g.cand_local[v, j] = w
+                g.cand_ptid[v, j] = ptid
+                g.cand_heading[v, j] = float(G.VIEW_HEADINGS[ptid]) + \
+                    float(rec[2])
+                g.cand_elev[v, j] = float(G.VIEW_ELEVATIONS[ptid]) + \
+                    float(rec[3])
+                g.cand_dist[v, j] = float(np.linalg.norm(g.pos[v] - g.pos[w]))
+                g.cand_mask[v, j] = True
+                j += 1
+            applied += 1
+    return applied
+
+
+def load_connectivity(connectivity_dir: str, scans: Sequence[str],
+                      max_cands: int = 16,
+                      sweep_visibility: bool = False) -> Dict[str, ScanGraph]:
+    """Load Matterport connectivity JSONs (utils/data.py:76-101 semantics:
+    only `included` nodes, edge iff both endpoints included and
+    `unobstructed` both ways is not required — the reference keeps an edge
+    when item['unobstructed'][j] and the target is included)."""
+    out = {}
+    for scan in scans:
+        with open(os.path.join(connectivity_dir, f"{scan}_connectivity.json")) as f:
+            data = json.load(f)
+        included = [bool(item["included"]) for item in data]
+        vp_ids, pos, remap = [], [], {}
+        for i, item in enumerate(data):
+            if not included[i]:
+                continue
+            remap[i] = len(vp_ids)
+            vp_ids.append(item["image_id"])
+            p = item["pose"]
+            # camera z is pose[11] alone — the reference's edge weights and
+            # eval distances do NOT add the node height field
+            # (utils/data.py:79-83)
+            pos.append([p[3], p[7], p[11]])
+        edges = set()
+        for i, item in enumerate(data):
+            if not included[i]:
+                continue
+            for j, un in enumerate(item["unobstructed"]):
+                if un and j < len(included) and included[j]:
+                    a, b = remap[i], remap[j]
+                    if a != b:
+                        edges.add((min(a, b), max(a, b)))
+        out[scan] = build_scan_graph(scan, vp_ids, np.asarray(pos, np.float32),
+                                     sorted(edges), max_cands,
+                                     sweep_visibility=sweep_visibility)
+    return out
 
 
 def make_synthetic_scan(scan_id: str = "synth", num_vps: int = 24,

@@ -1,5 +1,22 @@
-"""Weights carried across from the JAX package.
+"""Checkpoints of the port (counterpart of vln_goat_tpu/train/checkpoint.py).
 
+- Train state: `save_train_state` / `load_train_state` write and read a
+  directory (marked as the JAX package marks its own, `is_train_state_dir`)
+  holding one `torch.save` file: the parameters, AdamW's exp_avg /
+  exp_avg_sq / step per parameter, the update and schedule counts, the
+  optimizer's accumulation and finite-guard state, the train loop's
+  generator state and the iteration, so that a resumed run continues bit
+  for bit.  The port's train states are its own files.
+- Reference `.pt` files, the interchange with the JAX package and the
+  reference code: `load_reference_checkpoint` reads a fine-tune wrapper
+  ({"vln_bert": {"epoch", "state_dict"}}) or a flat state dict,
+  `strip_prefixes` maps its keys to the port's (the reference torch names,
+  which the port's modules carry), `merge_loaded` overlays them on a
+  state_dict, counting missing and extra keys as the JAX package counts
+  its leaves; `save_reference_checkpoint` writes the CLI's
+  `--save_torch_ckpt` format (JAX cli.py:860-867), the exact inverse.
+
+Weights carried across from the JAX package in memory:
 `params_from_flax` takes the JAX package's parameters as a flat
 {"a/b/kernel": array} dict (or the nested tree) and returns the port's
 state_dict.  The naming follows the JAX package's `flax_to_torch`
@@ -12,8 +29,9 @@ state_dict.  The naming follows the JAX package's `flax_to_torch`
 """
 from __future__ import annotations
 
+import os
 import re
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,3 +89,200 @@ def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         out[owner + ".in_proj_bias"] = torch.from_numpy(np.concatenate(
             [d[f"{n}/bias"] for n in _QKV], 0))
     return out
+
+
+def strip_prefixes(key: str) -> Optional[str]:
+    """A reference key without its wrapper prefixes (agent_base.py:232-246,
+    vlnbert_init.py:56-69): `module.`, `vln_bert.bert.`, `vln_bert.`,
+    `bert.`; None for the keys that are buffers, not parameters."""
+    if key.startswith("module."):
+        key = key[len("module."):]
+    for pre in ("vln_bert.bert.", "vln_bert.", "bert."):
+        if key.startswith(pre):
+            key = key[len(pre):]
+            break
+    if key in ("embeddings.position_ids", "embeddings.token_type_ids"):
+        return None
+    if key.startswith("drop_env"):
+        return None
+    return key
+
+
+def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference .pt (the fine-tune wrapper {"vln_bert": {"epoch",
+    "state_dict"}}, {"state_dict": ...}, or a flat state dict) -> its state
+    dict, on the CPU, keys as written."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and isinstance(ckpt.get("vln_bert"), dict) \
+            and "state_dict" in ckpt["vln_bert"]:
+        sd = ckpt["vln_bert"]["state_dict"]
+    elif isinstance(ckpt, dict) and "state_dict" in ckpt:
+        sd = ckpt["state_dict"]
+    else:
+        sd = ckpt
+    return {k: torch.as_tensor(v) for k, v in sd.items()}
+
+
+def merge_loaded(init: Mapping[str, torch.Tensor],
+                 loaded: Mapping[str, torch.Tensor], strict: bool = False
+                 ) -> Tuple[Dict[str, torch.Tensor], List[str], List[str]]:
+    """Overlay a loaded reference state dict (keys through
+    `strip_prefixes`) on `init` (a state_dict) -> (merged, missing, extra):
+    missing, the keys of `init` the file lacks; extra, the file's keys
+    `init` lacks and those of another shape (named with both shapes), as
+    the JAX package's merge_loaded counts them; the reference tolerates
+    both at load (agent_base.py:238-253) unless `strict`."""
+    out = dict(init)
+    seen, extra = set(), []
+    for key, val in loaded.items():
+        k = strip_prefixes(key)
+        if k is None:
+            continue
+        if k not in init:
+            extra.append(k)
+        elif tuple(init[k].shape) != tuple(val.shape):
+            extra.append(f"{k} (shape {tuple(val.shape)} != "
+                         f"{tuple(init[k].shape)})")
+        else:
+            out[k] = val.to(init[k].dtype)
+            seen.add(k)
+    missing = [k for k in init if k not in seen
+               and not any(e.startswith(k + " (") for e in extra)]
+    if strict and (missing or extra):
+        raise ValueError(f"missing={missing}, extra={extra}")
+    return out, missing, extra
+
+
+def load_reference(model: torch.nn.Module, path: str, strict: bool = False
+                   ) -> Tuple[List[str], List[str]]:
+    """Loads a reference .pt into `model` (`merge_loaded` over its
+    state_dict) -> (missing, extra)."""
+    merged, missing, extra = merge_loaded(
+        model.state_dict(), load_reference_checkpoint(path), strict)
+    model.load_state_dict(merged)
+    return missing, extra
+
+
+def reference_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """`model`'s state dict under the reference fine-tune keys (every key
+    under `vln_bert.`, as the JAX package's flax_to_torch writes them)."""
+    return {"vln_bert." + k: v.detach() for k, v in model.state_dict().items()}
+
+
+def save_reference_checkpoint(model: torch.nn.Module, path: str,
+                              epoch: int) -> None:
+    """`model`'s state dict in the reference fine-tune format (the JAX CLI's
+    `_save_torch`): {"vln_bert": {"epoch", "state_dict"}}, keys as
+    `reference_state_dict`, tensors on the CPU; `load_reference_checkpoint`
+    + `merge_loaded` give back the same tensors."""
+    sd = {k: v.cpu().clone() for k, v in reference_state_dict(model).items()}
+    torch.save({"vln_bert": {"epoch": epoch, "state_dict": sd}}, path)
+
+
+PARAMS_FILE = "params.pt"
+
+
+def save_params(path: str, model: torch.nn.Module) -> None:
+    """`model`'s state dict (on the CPU) into directory `path`, the port's
+    parameters-only checkpoint (the JAX CLI's orbax `ckpt_*`)."""
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, PARAMS_FILE + ".tmp")
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+               tmp)
+    os.replace(tmp, os.path.join(path, PARAMS_FILE))
+
+
+def load_params(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a `save_params` directory."""
+    return torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu",
+                      weights_only=True)
+
+
+# the marker file of a train-state directory (the JAX package's)
+TRAIN_STATE_MARKER = "GOAT_TRAIN_STATE"
+TRAIN_STATE_FILE = "train_state.pt"
+
+
+def is_train_state_dir(path: str) -> bool:
+    return os.path.isdir(path) and \
+        os.path.exists(os.path.join(path, TRAIN_STATE_MARKER))
+
+
+def save_train_state(path: str, state, generator: torch.Generator,
+                     iteration: int) -> None:
+    """Writes `state` (a trainer.TrainState), the train loop's generator
+    state and the iteration into directory `path` (made if missing)."""
+    opt = state.optimizer
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    adam = {}
+    for p in opt.params():
+        st = opt.state.get(p)
+        if st:
+            adam[names[id(p)]] = {"step": st["step"],
+                                  "exp_avg": st["mu"].detach().cpu(),
+                                  "exp_avg_sq": st["nu"].detach().cpu()}
+    extra = {}
+    if opt.accumulator is not None:
+        extra["accumulator"] = {"mini_step": opt.accumulator.mini_step,
+                                "acc": [a.cpu() for a in opt.accumulator.acc]}
+    if opt.guard is not None:
+        extra["guard"] = dict(vars(opt.guard))
+    blob = {"params": {k: v.detach().cpu() for k, v in
+                       state.model.state_dict().items()},
+            "adamw": adam, "step": state.step,
+            "schedule_count": state.scheduler.last_epoch,
+            "generator": generator.get_state(), "iteration": int(iteration),
+            **extra}
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, TRAIN_STATE_FILE + ".tmp")
+    torch.save(blob, tmp)
+    os.replace(tmp, os.path.join(path, TRAIN_STATE_FILE))
+    with open(os.path.join(path, TRAIN_STATE_MARKER), "w") as f:
+        f.write("1\n")
+
+
+def _read_train_state(path: str) -> dict:
+    if not is_train_state_dir(path):
+        raise ValueError(f"{path} is not a train-state directory (no "
+                         f"{TRAIN_STATE_MARKER})")
+    return torch.load(os.path.join(path, TRAIN_STATE_FILE),
+                      map_location="cpu", weights_only=False)
+
+
+def load_train_state_params(path: str) -> Dict[str, torch.Tensor]:
+    """The parameters alone of a train-state directory (valid mode)."""
+    return _read_train_state(path)["params"]
+
+
+@torch.no_grad()
+def load_train_state(path: str, state,
+                     generator: Optional[torch.Generator] = None) -> int:
+    """Restores a `save_train_state` directory into `state` (built with the
+    same model and optimizer flags as the saved run) and `generator`, in
+    place -> the iteration to continue from."""
+    blob = _read_train_state(path)
+    state.model.load_state_dict(blob["params"])
+    opt = state.optimizer
+    params = dict(state.model.named_parameters())
+    for name, st in blob["adamw"].items():
+        p = params[name]
+        opt.state[p] = {"step": st["step"],
+                        "mu": st["exp_avg"].to(p.device),
+                        "nu": st["exp_avg_sq"].to(p.device)}
+    if "accumulator" in blob:
+        acc = opt.accumulator
+        acc.mini_step = blob["accumulator"]["mini_step"]
+        for a, v in zip(acc.acc, blob["accumulator"]["acc"]):
+            a.copy_(v)
+    if "guard" in blob:
+        vars(opt.guard).update(blob["guard"])
+    state.step = blob["step"]
+    sched = state.scheduler
+    sched.last_epoch = blob["schedule_count"]
+    sched._last_lr = [base * lam(sched.last_epoch) for base, lam in
+                      zip(sched.base_lrs, sched.lr_lambdas)]
+    for group, lr in zip(opt.param_groups, sched._last_lr):
+        group["lr"] = lr
+    if generator is not None:
+        generator.set_state(blob["generator"])
+    return blob["iteration"]

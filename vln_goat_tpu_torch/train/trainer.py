@@ -24,8 +24,8 @@ agent_base.py:154-203):
   mini-batch gradients taken as one update (`accumulate_steps`, optax's
   MultiSteps) and a guard that skips an update with a non-finite gradient
   (`finite_guard`, optax's apply_if_finite);
-- the rollouts' rematerialisation policy `remat` ("none" or "model",
-  rollout.REMAT).
+- the rollouts' rematerialisation policy `remat` (`ops.remat.POLICIES`;
+  "full" by default, as the JAX package's make_train_step).
 
 The teacher is the vectorized teacher (`NavRollout.teacher_rollout_vec`,
 `vectorized_teacher=True`, the JAX package's default), or the per-step
@@ -43,7 +43,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Union
 import torch
 
 from ..ops.dropout import set_generator
-from ..rollout.rollout import NavRollout, SAMPLE_FEEDBACKS, check_remat
+from ..ops.remat import check as check_remat
+from ..rollout.rollout import NavRollout, SAMPLE_FEEDBACKS
 from ..tools.zdict import SHARED_BANKS
 from ..utils.guard import FiniteGuard
 
@@ -312,7 +313,7 @@ def fuse_dagger_batches(batch_t: Dict[str, torch.Tensor],
 def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
                  ml_weight: float = 0.2,
                  teacher_horizon: Union[int, str, None] = None,
-                 remat: str = "none", vectorized_teacher: bool = True,
+                 remat: str = "full", vectorized_teacher: bool = True,
                  sample_feedback: str = "sample",
                  expl_max_ratio: float = 0.6):
     """loss_fn(batch, generator) -> (loss, metrics, outs): the imitation
@@ -396,7 +397,7 @@ def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
 def make_train_step(rollout: NavRollout, train_alg: str = "dagger",
                     ml_weight: float = 0.2,
                     teacher_horizon: Union[int, str, None] = None,
-                    remat: str = "none", vectorized_teacher: bool = True,
+                    remat: str = "full", vectorized_teacher: bool = True,
                     sample_feedback: str = "sample",
                     expl_max_ratio: float = 0.6):
     """train_step(state, batch, generator) -> metrics: one update of
@@ -408,8 +409,8 @@ def make_train_step(rollout: NavRollout, train_alg: str = "dagger",
     returns (metrics, grads, outs) instead, to compare two steps: grads
     {name: gradient before clipping}, outs the rollouts' outputs by name
     ("teacher", "sample", "fused").  `remat`: the rollouts'
-    rematerialisation policy (rollout.REMAT; the JAX package's others
-    raise); vectorized_teacher, sample_feedback, expl_max_ratio: as
+    rematerialisation policy (`ops.remat.POLICIES`, "full" by default as
+    in the JAX package); vectorized_teacher, sample_feedback, expl_max_ratio: as
     `make_loss_fn`'s."""
     loss_fn = make_loss_fn(rollout, train_alg, ml_weight, teacher_horizon,
                            remat, vectorized_teacher, sample_feedback,
@@ -441,7 +442,7 @@ def init_train_state(model: torch.nn.Module, rollout: NavRollout,
                      grad_clip: float = 40.0, train_alg: str = "dagger",
                      ml_weight: float = 0.2,
                      teacher_horizon: Union[int, str, None] = None,
-                     remat: str = "none", accumulate_steps: int = 1,
+                     remat: str = "full", accumulate_steps: int = 1,
                      finite_guard: bool = False,
                      vectorized_teacher: bool = True,
                      sample_feedback: str = "sample",
