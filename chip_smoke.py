@@ -144,6 +144,28 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      valid --submit` from the saved state; K1 and K2 launched, metrics
      and submissions written, losses finite, the `--save_torch_ckpt` .pt
      read back by the port's loader bit for bit.
+  3 (n): F6 past 128: K1, K2 (autograd) and K3 in both builds at 3 heads
+     of 256 and 4 of 192 over D = 768 (the wide-head core as they are)
+     and 5 of 160 over D = 800 (zero-padded to 192), phase 3 (m)'s gates,
+     launches and times, beside head width 128; then K1, K2 (a), (b) at
+     the new paths' shapes (the REVERIE local branch, 74 tokens at batch
+     32; the RxR instruction, 250 at batch 16; the CFP tim self-encoders,
+     48 and 53 at batch 64) under phase 3's and 3 (bf16)'s gates, timed;
+  5 (m): REVERIE at R2R width with 20 synthetic objects a viewpoint, batch
+     32: the greedy decode through the kernels and on the eager path
+     (actions, trajectories, pred_obj_id identical, logits within 1e-3),
+     then one DAgger step with remat "full" and the og loss on float32
+     eager, bf16 eager and bf16 kernels (dropout 0, the sampled actions
+     forced by scaled Gumbel draws): the kernels' loss and gradient error
+     against float32 at most 2x eager bf16's + 1e-3;
+  5 (n): RxR at R2R width, 250-token instructions, horizon 28, the nDTW
+     expert, batch 16: one DAgger step through the kernels in float32
+     (loss to a relative 1e-4 of the eager step's) and in bf16;
+  5 (o): CFP extraction over 64 trajectories through the kernels and on
+     the eager path (outputs within 1e-4);
+  5 (p): the CLI on the card: `--dataset reverie` train and valid
+     --submit, `--dataset rxr --expert_policy ndtw` train, `--mode
+     extract_cfp_features`.
 The train steps run the vectorized teacher unless a phase says otherwise.
 Every bf16 decode and train path's launches of the bf16 GEMM core and of
 the bf16 attention cores must all have taken their TMA routes
@@ -153,7 +175,7 @@ read just after.
 The line before the last is one JSON object with every kernel's numbers
 (the bf16 builds as rows of their own); the last is {"ok": true,
 "device": {...}}.  Any failure raises, but for the comparisons of phases
-4 (bf16) and 5 (a), (c), (e)-(j): each prints its failure, the
+4 (bf16) and 5 (a), (c), (e)-(p): each prints its failure, the
 later phases run and print their numbers, and the script then prints the
 failures instead of the last two lines and exits non-zero.  There is no
 CPU fallback, and without a card the script exits non-zero before
@@ -173,6 +195,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -1543,26 +1566,31 @@ def check_phase_b():
     return b
 
 
-def width_kernel_rows(tag, row, mrow, bf16):
-    """The kernel line's rows of one K1 / K2 (a) / K2 (b) / K3 check that
-    no path runs (launches 0): `row` a timed check_shape(_bf16) row, mrow
-    a check_mha(_bf16) row."""
+def width_kernel_rows(tag, row, mrow, bf16, launches=(0, 0, 0),
+                      by_path=None):
+    """The kernel line's rows of one K1 / K2 (a) / K2 (b) / K3 check: `row`
+    a timed check_shape(_bf16) row, mrow a check_mha(_bf16) row; launches
+    of K1, K2 (a), K2 (b) on the path that runs the shape (0: no path runs
+    it), by_path their split by path (K1's; K2's the same paths)."""
     src = "vln_goat_tpu_torch/ops/csrc/"
     sfx = "_bf16" if bf16 else ""
     zero = dict(decode=0, train=0, causal_decode=0, causal_train=0)
     errs = (("fwd_err", "attn_err", "proj_err") if bf16 else
             (f"fwd_err_{RATE}", f"attn_err_{RATE}", f"proj_err_{RATE}"))
     out = []
-    for name, file, line, key, err in (
+    for i, (name, file, line, key, err) in enumerate((
             ("fused_qkv_mha", "fused_qkv_mha.cu", 169, "", errs[0]),
             ("fused_qkv_mha_bwd_attn", "fused_qkv_mha_bwd.cu", 181, "attn_",
              errs[1]),
             ("fused_qkv_mha_bwd_proj", "fused_qkv_mha_bwd.cu", 181,
-             "projb_", errs[2])):
+             "projb_", errs[2]))):
+        paths = zero if by_path is None else \
+            {k: v if i == 0 else launches[i] for k, v in by_path.items()}
         out.append(dict(
             name=f"{name}{sfx}_{tag}", route="cuda", source=src + file,
-            replaces=f"vln_goat_tpu/ops/attention.py:{line}", launches=0,
-            launches_by_path=zero, max_abs_err=row[err], ms=row[key + "ms"],
+            replaces=f"vln_goat_tpu/ops/attention.py:{line}",
+            launches=launches[i], launches_by_path=paths,
+            max_abs_err=row[err], ms=row[key + "ms"],
             plain_ms=row[key + "plain_ms"], bound_ms=row[key + "bound_ms"],
             bound_by=row[key + "bound_by"],
             library_ms=row[key + "library_ms"],
@@ -2953,6 +2981,579 @@ def cli_phase(card):
     return nums, failure
 
 
+# ---------------------------------------------------------------------------
+# Phase 3 (n): F6 past 128.  Head widths past 128 run on the wide-head core
+# (ops/csrc/attn_wide.cuh), a multiple of 64 as it is and 160 zero-padded
+# to 192: 3 heads of 256 and 4 of 192 over D = 768, 5 of 160 over D = 800,
+# each in both builds through f6_case (K1, K2 by autograd, K3), timed
+# beside head width 128 at D = 768 (the widest instanced core).
+F6_WIDE = ((768, 256), (768, 192), (800, 160))
+
+
+def f6_line(tag, d, dh, r):
+    return (f"width {tag} ({d // dh} heads of {dh}, B={B_TRAIN}, key "
+            f"mask, dropout {RATE}; {'against float64: ' if 'bf16' in tag else ''}"
+            f"err forward {r['fwd_err']:.3e}, gradients "
+            f"{r['bwd_err']:.3e}, mha {r['mha_err']:.3e}): K1 "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}), K2 by "
+            f"autograd {r['bwd_ms']:.4f} ms (plain "
+            f"{r['bwd_plain_ms']:.4f}, library {r['bwd_library_ms']:.4f}"
+            f", bound {r['bwd_bound_ms']:.4f}), K3 {r['mha_ms']:.4f} ms "
+            f"(plain {r['mha_plain_ms']:.4f}, library "
+            f"{r['mha_library_ms']:.4f}, bound {r['mha_bound_ms']:.4f})")
+
+
+def check_f6_wide():
+    """Phase 3 (n): rows {tag: row} of every F6_WIDE case and of head
+    width 128 at D = 768, float32 and bf16."""
+    rows = {}
+    g = torch.Generator(device="cuda").manual_seed(19)
+    for d, dh in F6_WIDE + ((768, 128),):
+        for bf16 in (False, True):
+            tag, r = f6_case(g, d, dh, bf16)
+            rows[tag] = r
+            say(f6_line(tag, d, dh, r))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 5 (m)-(p): the REVERIE object branch, the RxR nDTW expert and CFP
+# extraction at R2R width (768, 12 heads of 64), and the kernels at their
+# new shapes: the REVERIE local branch (stop + MEM + 16 candidates + 36
+# views + 20 objects = 74 tokens under a key mask, batch 32), the RxR
+# instruction (250 tokens, batch 16), the CFP tim self-encoders over the
+# map (48 tokens) and the last viewpoint (53), batch 64.
+REVERIE_OBJS, REVERIE_BATCH, RXR_BATCH, CFP_TRAJ = 20, 32, 16, 64
+NEW_SHAPES = (("reverie_local74", 74, 74, REVERIE_BATCH),
+              ("rxr_text250", 250, 250, RXR_BATCH))
+CFP_SHAPES = (("cfp_gmap48", 48, 48, CFP_TRAJ), ("cfp_vp53", 53, 53,
+                                                 CFP_TRAJ))
+
+
+def bench_scans():
+    from vln_goat_tpu_torch.sim.graph_sim import make_synthetic_scan
+
+    return [make_synthetic_scan(f"s{i}", num_vps=120, degree=4, seed=i)
+            for i in range(4)]
+
+
+def dataset_rig(dataset, compute_dtype="float32", fused=True, batch=8,
+                dropout=False, objects=None, scans=None, **over):
+    """(model, rollout, batcher, rt) of `dataset` at R2R width on the bench's
+    four synthetic scans; REVERIE gets a synthetic store of REVERIE_OBJS
+    objects a viewpoint (the CLI's, each episode's object visible at its
+    goal), and the batcher's batches go through the CLI's run_batch
+    (gt_obj_slot)."""
+    from vln_goat_tpu_torch import cli
+    from vln_goat_tpu_torch.config import GoatConfig
+    from vln_goat_tpu_torch.entry import build_model
+    from vln_goat_tpu_torch.rollout.env import (EpisodeBatcher,
+                                                make_synthetic_dataset)
+    from vln_goat_tpu_torch.rollout.rollout import NavRollout, RolloutConfig
+    from vln_goat_tpu_torch.rollout.world import NavWorld
+
+    kw = dict(use_fused_attention=fused, compute_dtype=compute_dtype, **over)
+    if not dropout:
+        kw.update(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                  feat_dropout=0.0)
+    cfg = GoatConfig.for_dataset(dataset, **kw)
+    scans = scans or bench_scans()
+    graphs = {g_.scan_id: g_ for g_ in scans}
+    order = list(graphs)
+    world = NavWorld.build(scans, feat_dim=768, seed=0, objects=objects,
+                           device="cuda")
+    model = build_model(cfg, "cuda", seed=WEIGHT_SEED)
+    rxr = dataset == "rxr"
+    ro = NavRollout(model, world, RolloutConfig(
+        num_nodes=48, horizon=cfg.max_action_len, feat_dim=768,
+        expert_policy="ndtw" if rxr else "spl"))
+    instr = cfg.max_instr_len if rxr else 60
+    data = make_synthetic_dataset(graphs, 64, vocab_size=cfg.vocab_size,
+                                  path_len=(6, 12) if rxr else (4, 7),
+                                  seed=1, max_instr_len=instr)
+    if objects is not None:
+        offs = cli._vp_offsets(graphs, order)
+        for it in data:
+            row = offs[it["scan"]] + graphs[it["scan"]].index[it["path"][-1]]
+            it["objId"] = int(objects["oid"][row,
+                                             int(objects["mask"][row].argmax())])
+    batcher = EpisodeBatcher(data, graphs, order, batch_size=batch,
+                             max_instr_len=instr,
+                             max_gt_len=13 if rxr else 8, device="cuda")
+    rt = dict(banks={}, objects=objects, world=world, graphs=graphs,
+              scan_order=order, device="cuda")
+    return model, ro, batcher, rt
+
+
+def forced_noise():
+    """Gumbel draws scaled by 1e4: a sampled action is the argmax of the
+    noise over the legal actions, the same on every route whatever the
+    logits' rounding (a comparison of two routes' DAgger steps needs the
+    same sampled trajectory)."""
+    from vln_goat_tpu_torch.rollout import rollout as port_rollout
+
+    orig = port_rollout.gumbel_noise
+
+    @contextlib.contextmanager
+    def ctx():
+        port_rollout.gumbel_noise = \
+            lambda g_, shape, device: 1e4 * orig(g_, shape, device)
+        try:
+            yield
+        finally:
+            port_rollout.gumbel_noise = orig
+    return ctx()
+
+
+def step_routes(build, routes, batch, alg="dagger", remat="full"):
+    """One train step of each route (name, fused, dtype) from one set of
+    weights and one batch under forced_noise(); {route: numbers}."""
+    res, sd = {}, None
+    for route, fused, dtype in routes:
+        model, ro, _, _ = build(fused, dtype)
+        if sd is None:
+            sd = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(sd)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        st = init_train_state(model, ro, train_alg=alg, remat=remat,
+                              teacher_horizon="auto")
+        with forced_noise():
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            m, grads, outs = st.step_fn(
+                st, batch, torch.Generator(device="cuda").manual_seed(0),
+                keep=True)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        moved = any(not torch.equal(v, before[k])
+                    for k, v in model.state_dict().items())
+        res[route] = dict(loss=float(m["loss"]), grads=grads, ms=dt * 1e3,
+                          counts=counts(), routes=routes_now(), moved=moved,
+                          peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                          actions={k: o["actions"] for k, o in outs.items()})
+        del model, ro, st, m, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_step_routes(res, ref_route, kernel_routes, eager_routes, tag):
+    """Actions identical on every route, every loss finite, the parameters
+    moved, the kernel routes launching K1 and K2 (a), (b), the eager ones
+    nothing, every bf16 launch by TMA; raises AssertionError."""
+    ref = res[ref_route]
+    for route, r in res.items():
+        for k, a in ref["actions"].items():
+            if not torch.equal(r["actions"][k], a):
+                raise AssertionError(f"{tag} {route}: {k} actions differ")
+        if not (math.isfinite(r["loss"]) and r["moved"]):
+            raise AssertionError(f"{tag} {route}: loss {r['loss']}, "
+                                 f"parameters moved {r['moved']}")
+        if route in kernel_routes and min(r["counts"][:3]) <= 0:
+            raise AssertionError(f"{tag} {route}: launches {r['counts']}")
+        if route in eager_routes and r["counts"] != (0, 0, 0, 0):
+            raise AssertionError(f"{tag} {route}: eager launched "
+                                 f"{r['counts']}")
+        if route in kernel_routes and "bf16" in route and (
+                r["routes"]["core"]["direct"] or r["routes"]["attn"]["direct"]
+                or not r["routes"]["core"]["tma"]):
+            raise AssertionError(f"{tag} {route}: bf16 launches by route "
+                                 f"{r['routes']}")
+
+
+def reverie_phase(card):
+    """Phase 5 (m): REVERIE at R2R width with REVERIE_OBJS synthetic objects
+    a viewpoint, batch REVERIE_BATCH.  The greedy decode through the
+    kernels and on the eager path (float32, same weights): actions,
+    trajectories and pred_obj_id identical, the logits' masks as the model
+    defines them and within 1e-3 (phase 4's gates).  Then one DAgger step
+    with remat "full" and the og loss on float32 eager, bf16 eager and bf16
+    kernels (dropout 0, forced sampling): actions identical, each bf16
+    route's loss and global gradient error against float32, the kernels'
+    at most 2x eager's + 1e-3, the kernels launched, by TMA.  Returns
+    (numbers, failure or None)."""
+    from vln_goat_tpu_torch import cli
+    from vln_goat_tpu_torch.config import GoatConfig
+
+    scans = bench_scans()
+    objects = cli.synthetic_objects(
+        sum(s.num_vps for s in scans), GoatConfig.for_dataset("reverie"),
+        num_objs=REVERIE_OBJS)
+
+    def build(fused, dtype):
+        return dataset_rig("reverie", dtype, fused, REVERIE_BATCH,
+                           objects=objects, scans=scans)
+
+    nums, failure = {}, None
+    try:
+        model, ro, batcher, rt = build(True, "float32")
+        items, raw = batcher.next_batch()
+        batch = cli.run_batch(rt, raw, items)
+        if not bool((batch["gt_obj_slot"] >= 0).all()):
+            raise AssertionError("an episode's object is not at its goal")
+        greedy_rollout(ro, batch)                      # warm-up
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = greedy_rollout(ro, batch)
+        torch.cuda.synchronize()
+        nums["decode_ms"] = (time.perf_counter() - t0) * 1e3
+        nums["decode_counts"] = counts()
+        e_model, e_ro, _, _ = build(False, "float32")
+        e_model.load_state_dict(model.state_dict())
+        reset_counts()
+        t0 = time.perf_counter()
+        ref = greedy_rollout(e_ro, batch)
+        torch.cuda.synchronize()
+        nums["eager_decode_ms"] = (time.perf_counter() - t0) * 1e3
+        if counts() != (0, 0, 0, 0):
+            raise AssertionError("the eager decode launched a kernel")
+        if nums["decode_counts"][0] <= 0 or \
+                nums["decode_counts"][1:] != (0, 0, 0):
+            raise AssertionError(f"decode launches {nums['decode_counts']}")
+        for key in ("actions", "pred_obj_id"):
+            if not torch.equal(out[key], ref[key]):
+                raise AssertionError(f"decode {key} differ")
+        if out["trajectories"] != ref["trajectories"]:
+            raise AssertionError("decode trajectories differ")
+        check_logit_masks(out)
+        fin = torch.isfinite(ref["fused_logits"])
+        if not torch.equal(fin, torch.isfinite(out["fused_logits"])):
+            raise AssertionError("finite-logit pattern differs")
+        nums["logit_diff"] = float((out["fused_logits"][fin]
+                                    - ref["fused_logits"][fin]).abs().max())
+        if nums["logit_diff"] > 1e-3:
+            raise AssertionError(f"fused logits differ by "
+                                 f"{nums['logit_diff']}")
+        nums["steps"] = int(out["steps"])
+        nums["picked"] = int((out["pred_obj_id"] >= 0).sum())
+        del model, ro, e_model, e_ro, out, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        res = step_routes(build, (("float32 eager", False, "float32"),
+                                  ("bf16 eager", False, "bfloat16"),
+                                  ("bf16 kernels", True, "bfloat16")),
+                          batch)
+        check_step_routes(res, "float32 eager", ("bf16 kernels",),
+                          ("float32 eager", "bf16 eager"), "train (m)")
+        r32 = res["float32 eager"]
+        g32 = grad_vector(r32["grads"], r32["grads"])
+        errs = {}
+        for route in ("bf16 eager", "bf16 kernels"):
+            r = res[route]
+            errs[route] = (abs(r["loss"] - r32["loss"]) / abs(r32["loss"]),
+                           float((grad_vector(r["grads"], r32["grads"])
+                                  - g32).norm() / g32.norm()))
+        for i, what in enumerate(("loss", "gradient")):
+            k_e, e_e = errs["bf16 kernels"][i], errs["bf16 eager"][i]
+            if k_e > 2 * e_e + 1e-3:
+                raise AssertionError(f"train (m) {what} error {k_e:.3e} > 2"
+                                     f" x eager bf16 {e_e:.3e} + 1e-3")
+        if float(r32["grads"]["og_head.net.3.weight"].abs().sum()) == 0:
+            raise AssertionError("og_head got no gradient")
+        nums.update(errs=errs, loss=r32["loss"],
+                    step={k: dict(ms=v["ms"], counts=v["counts"],
+                                  peak=v["peak"], routes=v["routes"])
+                          for k, v in res.items()})
+    except AssertionError as exc:
+        failure = f"train (m): {exc}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    e = nums.get("errs", {})
+    say(f"train (m) REVERIE at R2R width ({REVERIE_OBJS} objects a "
+        f"viewpoint, batch {REVERIE_BATCH}): decode through the kernels "
+        f"{nums.get('decode_ms', 0):.1f} ms ({nums.get('steps')} steps, "
+        f"launches {nums.get('decode_counts')}), eager "
+        f"{nums.get('eager_decode_ms', 0):.1f} ms; actions, trajectories and"
+        f" pred_obj_id identical ({nums.get('picked')} episodes picked an "
+        f"object), fused logits max |diff| {nums.get('logit_diff', 0):.3e};"
+        f" DAgger step, remat full, og loss, dropout 0, forced sampling: "
+        f"float32 eager loss {nums.get('loss', 0):.6f}; "
+        + "; ".join(f"{k} loss {v[0]:.3e}, gradients {v[1]:.3e}"
+                    for k, v in e.items())
+        + " (kernels: limit 2 x eager + 1e-3); "
+        + "; ".join(f"{k} {v['ms']:.1f} ms, peak {v['peak']:.2f} GiB, "
+                    f"launches {v['counts'][:3]}"
+                    for k, v in nums.get("step", {}).items())
+        + f" on {card}")
+    if failure is not None:
+        say(f"train (m): FAILED: {failure} (the script goes on, and fails "
+            "at its end)")
+    return nums, failure
+
+
+def rxr_phase(card):
+    """Phase 5 (n): RxR at R2R width, max_instr_len 250, horizon 28, the
+    nDTW expert, batch RXR_BATCH: one DAgger step (remat "full", dropout 0,
+    forced sampling) through the kernels in float32, on the eager path in
+    float32 (losses to a relative 1e-4), and through the kernels in bf16;
+    actions identical, losses finite, parameters moved, the kernels
+    launched.  Returns (numbers, failure or None)."""
+    from vln_goat_tpu_torch import cli
+
+    scans = bench_scans()
+
+    def build(fused, dtype):
+        return dataset_rig("rxr", dtype, fused, RXR_BATCH, scans=scans)
+
+    nums, failure = {}, None
+    try:
+        _, _, batcher, rt = build(True, "float32")
+        items, raw = batcher.next_batch()
+        batch = cli.run_batch(rt, raw, items)
+        nums["text"] = tuple(batch["txt_ids"].shape)
+        res = step_routes(build, (("float32 kernels", True, "float32"),
+                                  ("float32 eager", False, "float32"),
+                                  ("bf16 kernels", True, "bfloat16")),
+                          batch)
+        check_step_routes(res, "float32 eager",
+                          ("float32 kernels", "bf16 kernels"),
+                          ("float32 eager",), "train (n)")
+        a, b_ = res["float32 kernels"]["loss"], res["float32 eager"]["loss"]
+        if abs(a - b_) > 1e-4 * abs(b_):
+            raise AssertionError(f"train (n) float32 loss {a} vs eager {b_}")
+        nums["res"] = {k: dict(loss=v["loss"], ms=v["ms"], peak=v["peak"],
+                               counts=v["counts"])
+                       for k, v in res.items()}
+        nums["moves"] = int((res["float32 eager"]["actions"]["sample"] >= 0)
+                            .sum())
+    except AssertionError as exc:
+        failure = f"train (n): {exc}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"train (n) RxR at R2R width (instructions {nums.get('text')}, "
+        f"horizon 28, nDTW expert, batch {RXR_BATCH}), one DAgger step per "
+        f"route, remat full, dropout 0, forced sampling "
+        f"({nums.get('moves')} sampled moves): "
+        + "; ".join(f"{k} loss {v['loss']:.6f}, {v['ms']:.1f} ms, peak "
+                    f"{v['peak']:.2f} GiB, launches {v['counts'][:3]}"
+                    for k, v in nums.get("res", {}).items())
+        + f" on {card}")
+    if failure is not None:
+        say(f"train (n): FAILED: {failure} (the script goes on, and fails "
+            "at its end)")
+    return nums, failure
+
+
+def cfp_phase(card):
+    """Phase 5 (o): `tools.cfp_extract.extract_cfp_features` over CFP_TRAJ
+    gt trajectories at R2R width in one batch, through the kernels and on
+    the eager path from the same weights (float32): the pooled outputs
+    finite, tanh-bounded and within 1e-4, K1 launched (forward only).
+    Returns (numbers, failure or None)."""
+    from vln_goat_tpu_torch.pretrain.data import (PretrainShapes,
+                                                  TrajBatchBuilder,
+                                                  items_from_dataset)
+    from vln_goat_tpu_torch.tools.cfp_extract import extract_cfp_features
+
+    scans = bench_scans()
+    nums, failure, outs = {}, None, {}
+    try:
+        for route, fused in (("kernels", True), ("eager", False)):
+            model, _, batcher, rt = dataset_rig(
+                "r2r", fused=fused, scans=scans,
+                mode="extract_cfp_features")
+            if outs:
+                model.load_state_dict(sd)
+            else:
+                sd = {k: v.clone() for k, v in model.state_dict().items()}
+            builder = TrajBatchBuilder(
+                rt["graphs"], rt["scan_order"],
+                rt["world"].feat.cpu().numpy(),
+                PretrainShapes(max_txt_len=64, max_steps=12, max_cands=16,
+                               max_gmap=48), seed=0)
+            items = items_from_dataset(batcher.data[:CFP_TRAJ],
+                                       rt["graphs"])
+            extract_cfp_features(model, builder, items[:8], batch_size=8)
+            builder.rng = np.random.default_rng(0)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[route] = extract_cfp_features(model, builder, items,
+                                               batch_size=CFP_TRAJ)
+            torch.cuda.synchronize()
+            nums[f"{route}_ms"] = (time.perf_counter() - t0) * 1e3
+            nums[f"{route}_counts"] = counts()
+            del model, builder
+        if nums["kernels_counts"][0] <= 0 or \
+                nums["kernels_counts"][1:] != (0, 0, 0) or \
+                nums["eager_counts"] != (0, 0, 0, 0):
+            raise AssertionError(f"launches {nums['kernels_counts']} "
+                                 f"(kernels), {nums['eager_counts']} (eager)")
+        diff = 0.0
+        for k, v in outs["kernels"].items():
+            if v.shape != (CFP_TRAJ, 768) or not np.isfinite(v).all() or \
+                    np.abs(v).max() > 1.0:
+                raise AssertionError(f"{k}: shape {v.shape}, finite "
+                                     f"{np.isfinite(v).all()}")
+            diff = max(diff, float(np.abs(v - outs["eager"][k]).max()))
+        nums["diff"] = diff
+        if diff > 1e-4:
+            raise AssertionError(f"kernel and eager outputs differ by {diff}")
+    except AssertionError as exc:
+        failure = f"cfp (o): {exc}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"cfp (o) extract_cfp_features over {CFP_TRAJ} trajectories at R2R "
+        f"width: kernels {nums.get('kernels_ms', 0):.1f} ms (launches "
+        f"{nums.get('kernels_counts')}), eager "
+        f"{nums.get('eager_ms', 0):.1f} ms; txt / vp / gmap outputs max "
+        f"|diff| {nums.get('diff', float('nan')):.3e} on {card}")
+    if failure is not None:
+        say(f"cfp (o): FAILED: {failure} (the script goes on, and fails at "
+            "its end)")
+    return nums, failure
+
+
+def cli_datasets_phase(card):
+    """Phase 5 (p): the CLI on the card at R2R width (`--synthetic
+    --use_pallas`, batch 8): `--dataset reverie` train 2 iterations (bf16)
+    and `--mode valid --submit` (RGS metrics, pred_objid), `--dataset rxr
+    --expert_policy ndtw` train 2 iterations (bf16; nDTW), `--mode
+    extract_cfp_features` (float32; 64 rows); K1 launched by each, K2 by
+    the trains.  Returns (numbers, failure or None)."""
+    from vln_goat_tpu_torch import cli
+    from vln_goat_tpu_torch.tools.cfp_extract import load_cfp_tsv
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_cli_datasets_")
+    nums, failure = {}, None
+    common = ["--synthetic", "--use_pallas", "--batch_size", "8",
+              "--device", "cuda", "--log_every", "2"]
+    try:
+        for name, argv in (
+                ("reverie train", ["--mode", "train", "--dataset",
+                                   "reverie", "--iters", "2",
+                                   "--compute_dtype", "bfloat16"]),
+                ("reverie valid", ["--mode", "valid", "--dataset",
+                                   "reverie", "--submit", "--resume_file",
+                                   os.path.join(out, "reverie",
+                                                "ckpt_latest")]),
+                ("rxr train", ["--mode", "train", "--dataset", "rxr",
+                               "--expert_policy", "ndtw", "--iters", "2",
+                               "--compute_dtype", "bfloat16"]),
+                ("cfp", ["--mode", "extract_cfp_features"])):
+            d = os.path.join(out, name.split()[0])
+            gc.collect()
+            torch.cuda.empty_cache()
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.main(argv + common + ["--output_dir", d])
+            torch.cuda.synchronize()
+            nums[name] = dict(s=time.perf_counter() - t0, counts=counts())
+            c = nums[name]["counts"]
+            if c[0] <= 0 or ("train" in name and min(c[1:3]) <= 0):
+                raise AssertionError(f"{name}: launches {c}")
+        lines = [json.loads(line) for line in
+                 open(os.path.join(out, "reverie", "metrics.jsonl"))]
+        nums["reverie"] = [d_ for d_ in lines if "val_unseen/rgs" in d_][-1]
+        subs = json.load(open(os.path.join(out, "reverie",
+                                           "submit_val_unseen.json")))
+        if not subs or not all("pred_objid" in s for s in subs):
+            raise AssertionError("the REVERIE submission lacks pred_objid")
+        nums["picked"] = sum(s["pred_objid"] >= 0 for s in subs)
+        lines = [json.loads(line) for line in
+                 open(os.path.join(out, "rxr", "metrics.jsonl"))]
+        nums["rxr"] = [d_ for d_ in lines if "val_unseen/nDTW" in d_][-1]
+        if not all(math.isfinite(d_["train/loss"]) for d_ in lines
+                   if "train/loss" in d_):
+            raise AssertionError("an RxR loss is not finite")
+        feats = load_cfp_tsv(os.path.join(out, "cfp",
+                                          "r2r_cfp_features.tsv"))
+        nums["cfp_rows"] = len(feats["path_ids"])
+        if nums["cfp_rows"] != 64 or not all(
+                np.isfinite(feats[k]).all() for k in
+                ("txt_feats", "vp_feats", "gmap_feats")):
+            raise AssertionError(f"CFP TSV: {nums['cfp_rows']} rows")
+    except AssertionError as exc:
+        failure = f"cli (p): {exc}"
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("cli (p) at R2R width (--synthetic --use_pallas, batch 8): "
+        + "; ".join(f"{k} {v['s']:.1f} s (launches {v['counts'][:3]})"
+                    for k, v in nums.items() if isinstance(v, dict)
+                    and "s" in v)
+        + f"; REVERIE val_unseen {nums.get('reverie')}, "
+        f"{nums.get('picked')} submitted objects; RxR val_unseen "
+        f"{nums.get('rxr')}; CFP TSV {nums.get('cfp_rows')} rows on {card}")
+    if failure is not None:
+        say(f"cli (p): FAILED: {failure} (the script goes on, and fails at "
+            "its end)")
+    return nums, failure
+
+
+def new_shape_rows():
+    """K1, K2 (a), K2 (b) at the new paths' shapes (NEW_SHAPES, key mask,
+    dropout 0.1) and K1 at the CFP tim shapes, float32 under phase 3's
+    gates and bf16 under phase 3 (bf16)'s, timed as the train shapes:
+    {tag: {"f32", "bf16"}}."""
+    rows = {}
+    g = torch.Generator(device="cuda").manual_seed(23)
+    for name, Lq, Lk, batch in NEW_SHAPES + CFP_SHAPES:
+        r = rows[name] = dict(
+            f32=check_shape(g, name, Lq, Lk, "key", "linear", batch,
+                            timed=True),
+            bf16=check_shape_bf16(g, name, Lq, Lk, "key", "linear", batch,
+                                  timed=True))
+        f, b = r["f32"], r["bf16"]
+        say(f"shape {name}: B={batch} Lq={Lq} Lk={Lk} key mask, dropout "
+            f"{RATE}; float32 max_abs_err forward {f[f'fwd_err_{RATE}']:.3e}"
+            f", attention backward {f[f'attn_err_{RATE}']:.3e}, grads "
+            f"{f[f'proj_err_{RATE}']:.3e}; ms K1 {f['ms']:.4f} (device "
+            f"{f['device_ms']:.4f}, bound {f['bound_ms']:.4f}, plain "
+            f"{f['plain_ms']:.4f}, library {f['library_ms']:.4f}), K2 (a) "
+            f"{f['attn_ms']:.4f} (bound {f['attn_bound_ms']:.4f}, library "
+            f"{f['attn_library_ms']:.4f}), K2 (b) {f['projb_ms']:.4f} (bound"
+            f" {f['projb_bound_ms']:.4f}, library "
+            f"{f['projb_library_ms']:.4f}); bf16 against float64 forward "
+            f"{b['fwd_err']:.3e}, K2 (a) {b['attn_err']:.3e}, K2 (b) "
+            f"{b['proj_err']:.3e}; ms K1 {b['ms']:.4f} (device "
+            f"{b['device_ms']:.4f}, bound {b['bound_ms']:.4f}, library "
+            f"{b['library_ms']:.4f}), K2 (a) {b['attn_ms']:.4f} (bound "
+            f"{b['attn_bound_ms']:.4f}, library {b['attn_library_ms']:.4f}),"
+            f" K2 (b) {b['projb_ms']:.4f} (bound {b['projb_bound_ms']:.4f}, "
+            f"library {b['projb_library_ms']:.4f})")
+    return rows
+
+
+def new_kernel_rows(rows, m, n, o):
+    """The kernel line's rows of the new shapes, with the launches their
+    paths counted: the REVERIE local rows those of 5 (m) (float32 decode,
+    bf16 kernel step), the RxR text rows 5 (n)'s steps, the CFP rows 5
+    (o)'s extraction (K1 only)."""
+    out = []
+    step = m.get("step", {}).get("bf16 kernels", {}).get("counts",
+                                                        (0, 0, 0, 0))
+    dec = m.get("decode_counts", (0, 0, 0, 0))
+    res = n.get("res", {})
+    rx32 = res.get("float32 kernels", {}).get("counts", (0, 0, 0, 0))
+    rx16 = res.get("bf16 kernels", {}).get("counts", (0, 0, 0, 0))
+    cfp = o.get("kernels_counts", (0, 0, 0, 0))
+    launches = {
+        "reverie_local74": ((dec[0], 0, 0), dict(reverie_decode=dec[0]),
+                            step[:3], dict(reverie_train=step[0])),
+        "rxr_text250": (rx32[:3], dict(rxr_train=rx32[0]), rx16[:3],
+                        dict(rxr_train=rx16[0])),
+        "cfp_gmap48": ((cfp[0], 0, 0), dict(cfp_extract=cfp[0]), (0, 0, 0),
+                       dict(cfp_extract=0)),
+        "cfp_vp53": ((cfp[0], 0, 0), dict(cfp_extract=cfp[0]), (0, 0, 0),
+                     dict(cfp_extract=0)),
+    }
+    for tag, r in rows.items():
+        l32, p32, l16, p16 = launches[tag]
+        k = 1 if tag.startswith("cfp") else 3
+        out += width_kernel_rows(tag, r["f32"], None, False, l32, p32)[:k]
+        out += width_kernel_rows(tag, r["bf16"], None, True, l16, p16)[:k]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3001,6 +3602,12 @@ def main() -> int:
     f6_rows = check_f6_widths()
     say(f"wall: phase 3 (m) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    wide_rows = check_f6_wide()
+    say(f"wall: phase 3 (n) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    shape_rows = new_shape_rows()
+    say(f"wall: phase 3 (new paths' shapes) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     decode = run_rollouts(card)
     b_decode, d_failed = run_rollouts_bf16(card)
     say(f"wall: phase 4 {time.perf_counter() - t0:.1f} s")
@@ -3036,6 +3643,18 @@ def main() -> int:
     t0 = time.perf_counter()
     _, l_failed = cli_phase(card)
     say(f"wall: phase 5 (l) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m_nums, m_failed = reverie_phase(card)
+    say(f"wall: phase 5 (m) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n_nums, n_failed = rxr_phase(card)
+    say(f"wall: phase 5 (n) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    o_nums, o_failed = cfp_phase(card)
+    say(f"wall: phase 5 (o) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, p_failed = cli_datasets_phase(card)
+    say(f"wall: phase 5 (p) {time.perf_counter() - t0:.1f} s")
     # the plain bench build last: its profiled step comes after every timed
     # step of the script
     t0 = time.perf_counter()
@@ -3213,6 +3832,8 @@ def main() -> int:
                                      True)
     kernels += width_kernel_rows(f"b{PHASE_B_BATCH}", pb_bf16, None, True)
     kernels += f6_kernel_rows(f6_rows)
+    kernels += f6_kernel_rows(wide_rows)
+    kernels += new_kernel_rows(shape_rows, m_nums, n_nums, o_nums)
     # the float32 CUDA-core bounds, beside the 3xTF32 ones
     # the kernels line carries, and the forward by part
     say(f"float32 CUDA-core bound over the train mix: forward "
@@ -3240,6 +3861,7 @@ def main() -> int:
     failures = [f for f in (d_failed, cd_failed, failed, c_failed, e_failed,
                             f_failed, cf_failed, g_failed, cg_failed,
                             h_failed, j_failed, k_failed, l_failed,
+                            m_failed, n_failed, o_failed, p_failed,
                             *i_failed)
                 if f is not None]
     if failures:

@@ -12,7 +12,8 @@ CLI-test widths (hidden 32, 2 heads, tests/test_cli.py's `_tiny`):
 - the non-synthetic path on reference-format fixture files (connectivity,
   annotations, HDF5 features with EnvEdit features, the candidate cache,
   the z-dict TSVs), train and valid;
-- each unported mode, dataset and flag raises, naming its ROADMAP.md item;
+- each unported mode and flag raises, naming its ROADMAP.md item, and
+  the ported ones (items 5 and 6) pass the check;
   `--device cuda` without a card raises.
 The validation against the JAX CLI is test_torch_cli_jax.py.
 """
@@ -167,17 +168,28 @@ def test_aug_interleave_fused(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mode", "extract_cfp_features"], 5), (["--mode", "speaker"], 8),
-    (["--use_transpeaker"], 8), (["--z_instr_update"], 8),
-    (["--dataset", "reverie"], 6), (["--dataset", "soon"], 6),
-    (["--dataset", "rxr"], 6), (["--expert_policy", "ndtw"], 6),
-    (["--num_processes", "2"], 4)])
+    (["--mode", "speaker"], 8), (["--use_transpeaker"], 8),
+    (["--z_instr_update"], 8), (["--num_processes", "2"], 4)])
 def test_unported_raise(tmp_path, flags, item):
     argv = ["--mode", "train", "--synthetic", "--output_dir",
             str(tmp_path), "--device", "cpu"] + flags
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 item {item}"):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mode", "extract_cfp_features"], ["--dataset", "reverie"],
+    ["--dataset", "soon"], ["--dataset", "rxr"], ["--expert_policy", "ndtw"],
+    ["--dataset", "reverie", "--obj_ft_file", "objs.h5", "--bbox_file",
+     "bbox.json", "--obj_feat_size", "768"]])
+def test_ported_pass_the_check(tmp_path, flags):
+    """Queue 1 items 5 and 6 are ported: CFP extraction, the REVERIE /
+    SOON / RxR datasets, object features and the nDTW expert pass
+    `check_ported` (they run in test_torch_cli_datasets.py)."""
+    cli.check_ported(cli.parse_args(
+        ["--mode", "train", "--synthetic", "--output_dir", str(tmp_path),
+         "--device", "cpu"] + flags))
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

@@ -1,4 +1,5 @@
-"""F6: any head width up to 128 and any model width.
+"""F6: any head width and any model width (up to 128 here; the widths
+past it in tests/test_torch_f6_wide.py).
 
 On the card the wrappers zero-pad a head width outside (32, 64, 128) to
 the next of them and D to a multiple of 32 (`padded_call`, `mha_padded`):
@@ -59,9 +60,13 @@ def test_padded_widths(D, heads):
 
 
 def test_past_128_raises():
+    """Past 128 nothing raises any more: a head width is padded to the next
+    multiple of 64, which the wide-head core takes as it is
+    (tests/test_torch_f6_wide.py)."""
     assert padded_widths(768, 128) == (768, 128)
-    with pytest.raises(ValueError, match="head widths up to 128"):
-        padded_widths(768, 192)
+    assert padded_widths(768, 192) == (768, 192)
+    assert padded_widths(800, 160) == (800, 192)
+    assert padded_widths(780, 130) == (800, 192)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])

@@ -65,7 +65,11 @@ def test_port_and_smoke_import_without_jax():
             "vln_goat_tpu_torch.eval.metrics",
             "vln_goat_tpu_torch.utils.logger",
             "vln_goat_tpu_torch.utils.misc",
-            "vln_goat_tpu_torch.utils.tb"} <= set(mods)
+            "vln_goat_tpu_torch.utils.tb",
+            # the object branch, the nDTW expert and CFP extraction
+            "vln_goat_tpu_torch.models.traj",
+            "vln_goat_tpu_torch.pretrain.data",
+            "vln_goat_tpu_torch.tools.cfp_extract"} <= set(mods)
     code = "import importlib\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in mods) + \
         "import chip_smoke\nprint('ok')\n"

@@ -236,10 +236,10 @@ def test_forward_drops_what_the_plain_version_drops(card, Lq, Lk):
 
 def test_fused_qkv_mha_takes_long_keys(card):
     """Both builds take any key length (the float32 attention forward past
-    256 keys in key blocks); any head width up to 128 and any D (768 / 16
-    = 48 and D = 784 zero-padded to the widths the kernels take, still
-    launching the kernels); a head width past 128 raises on the card, with
-    no fallback to the plain version."""
+    256 keys in key blocks); any head width and any D (768 / 16 = 48 and
+    D = 784 zero-padded to the widths the kernels take, 768 / 4 = 192 on
+    the wide-head core as it is, each launching the kernels, with no
+    fallback to the plain version)."""
     x = torch.zeros(1, 4, 768, device="cuda")
     y = torch.zeros(1, 257, 768, device="cuda")
     w, b = torch.zeros(768, 768, device="cuda"), torch.zeros(768, device="cuda")
@@ -251,8 +251,11 @@ def test_fused_qkv_mha_takes_long_keys(card):
         torch.cuda.synchronize()
         assert fused_qkv_mha.launches == before + 1
         assert out.dtype == dt and bool((out == 0).all())
-    with pytest.raises(ValueError, match="head widths up to 128"):
-        fused_qkv_mha(x, y, w, b, w, b, w, b, num_heads=4)
+    before = fused_qkv_mha.launches
+    out = fused_qkv_mha(x, y, w, b, w, b, w, b, num_heads=4)
+    torch.cuda.synchronize()
+    assert fused_qkv_mha.launches == before + 1
+    assert out.shape == (1, 4, 768) and bool((out == 0).all())
     x2, y2 = torch.zeros(1, 4, 784, device="cuda"), \
         torch.zeros(1, 40, 784, device="cuda")
     w2, b2 = torch.zeros(784, 768, device="cuda"), b
@@ -347,13 +350,15 @@ def test_mha_reads_transposed_views(card, Lk):
 
 
 def test_mha_refuses_what_it_does_not_take(card):
-    """Head widths up to 128 (48 zero-padded to 64); float16 and mixed
-    dtypes are refused; both builds take any Lk."""
+    """Any head width (48 zero-padded to 64, 192 on the wide-head core,
+    160 zero-padded to 192); float16 and mixed dtypes are refused; both
+    builds take any Lk."""
     q = torch.zeros(1, 4, H, 48, device="cuda")
     assert mha(q, q, q).shape == (1, 4, H * 48)
-    q = torch.zeros(1, 4, H, 192, device="cuda")
-    with pytest.raises(ValueError, match="head width"):
-        mha(q, q, q)
+    for dh in (192, 160):
+        q = torch.randn(1, 4, H, dh, device="cuda")
+        torch.testing.assert_close(mha(q, q, q), mha_plain(q, q, q),
+                                   atol=1e-4, rtol=1e-3)
     q = torch.zeros(1, 4, H, 64, device="cuda")
     k = torch.zeros(1, 257, H, 64, device="cuda")
     with pytest.raises(ValueError, match="float32 or bfloat16"):

@@ -1,11 +1,15 @@
-"""Fine-tuning / validation CLI of the port (counterpart of
-vln_goat_tpu/cli.py, R2R).
+"""Fine-tuning / validation / CFP-extraction CLI of the port (counterpart
+of vln_goat_tpu/cli.py) for R2R, RxR, REVERIE and SOON.
 
   python -m vln_goat_tpu_torch.cli --mode train --dataset r2r \
       --connectivity_dir ... --anno_dir ... --img_ft_file ... --output_dir out
   python -m vln_goat_tpu_torch.cli --mode valid --resume_file out/ckpt_latest \
       --submit ...
   python -m vln_goat_tpu_torch.cli --mode train --synthetic   # no datasets
+  python -m vln_goat_tpu_torch.cli --mode train --dataset reverie --synthetic
+  python -m vln_goat_tpu_torch.cli --mode train --dataset rxr \
+      --expert_policy ndtw --synthetic
+  python -m vln_goat_tpu_torch.cli --mode extract_cfp_features --synthetic
 
 The flags and defaults are the JAX package's; `--use_pallas` routes the
 attention through the fused kernels (`use_fused_attention`), and
@@ -20,15 +24,21 @@ which `--resume_file` continues bit for bit, the batch iterators
 fast-forwarded), the best on val_unseen by SPL + SR
 (`ckpt_best_val_unseen`) and, with `--save_torch_ckpt`, the reference .pt
 (`latest_dict.pt`); per-cycle front-door resampling; submission JSONs.
+RxR selects the best on val_unseen by nDTW + SDTW; REVERIE / SOON
+validate with the object-grounding metrics (RGS, RGSPL) and submit each
+episode's `pred_objid`.  The object store is `--obj_ft_file`'s
+(`data.feature_db.ObjectFeaturesDB`) or, with `--synthetic`, a seeded one
+whose goal viewpoints show each episode's object; `--bbox_file` maps
+objects to the viewpoints that see them.  `--mode extract_cfp_features`
+writes the training set's CFP features
+(`<output_dir>/<dataset>_cfp_features.tsv`, `tools.cfp_extract`).
 `ckpt_latest` and `ckpt_best_val_unseen` are directories of the port's
 own parameter file; `--resume_file` / `--bert_ckpt_file` take one of
 those, a train-state directory, or a reference .pt, through which the
 port and the JAX package exchange weights.
 
 Not ported, each raising with its ROADMAP.md Queue 1 item: `--mode
-extract_cfp_features` (item 5) and `--mode speaker` (item 8),
-`--use_transpeaker` and `--z_instr_update` (item 8), the reverie / soon /
-rxr datasets, their object features and the nDTW expert (item 6), and more
+speaker`, `--use_transpeaker` and `--z_instr_update` (item 8), and more
 than one process (item 4, DistributedDataParallel).
 """
 from __future__ import annotations
@@ -177,17 +187,10 @@ def check_ported(args) -> None:
     """Raises NotImplementedError for a mode, dataset or flag the port does
     not run, naming its ROADMAP.md Queue 1 item."""
     refused = [
-        (args.mode == "extract_cfp_features",
-         "--mode extract_cfp_features (CFP extraction)", 5),
         (args.mode == "speaker", "--mode speaker", 8),
         (args.use_transpeaker, "--use_transpeaker (back-translation)", 8),
         (args.z_instr_update, "--z_instr_update (the online z-dict "
          "update)", 8),
-        (args.dataset != "r2r", f"--dataset {args.dataset}", 6),
-        (bool(args.obj_ft_file or args.bbox_file or args.obj_feat_size),
-         "object features (--obj_ft_file / --bbox_file / --obj_feat_size)",
-         6),
-        (args.expert_policy != "spl", "--expert_policy ndtw", 6),
         (args.num_processes > 1,
          f"--num_processes {args.num_processes} (DistributedDataParallel)",
          4),
@@ -200,8 +203,8 @@ def check_ported(args) -> None:
 
 # ----------------------------------------------------------------------
 def build_runtime(args):
-    """The model, world, rollout and per-split batchers of a run, on
-    `args.device` (the JAX CLI's build_runtime, R2R)."""
+    """The model, world, rollout, per-split batchers and object store of a
+    run, on `args.device` (the JAX CLI's build_runtime)."""
     from .config import GoatConfig
     from .device import resolve
     from .entry import build_model
@@ -230,20 +233,25 @@ def build_runtime(args):
     over = dict(hidden_size=args.hidden_size,
                 num_attention_heads=args.num_attention_heads,
                 intermediate_size=args.intermediate_size,
+                obj_feat_size=args.obj_feat_size,
                 feat_dropout=args.feat_dropout,
                 max_action_len=args.max_action_len,
                 max_instr_len=args.max_instr_len)
     cfg = cfg.replace(**{k: v for k, v in over.items()
                          if v is not None and (v or k == "feat_dropout")})
 
+    objects = None
     if args.synthetic:
         from .sim.graph_sim import make_synthetic_scan
 
         scans = [make_synthetic_scan(f"s{i}", num_vps=40, seed=i)
                  for i in range(3)]
         graphs = {g.scan_id: g for g in scans}
+        if cfg.is_objnav:
+            objects = synthetic_objects(
+                sum(g.num_vps for g in scans), cfg)
         world = NavWorld.build(scans, feat_dim=cfg.image_feat_size, seed=0,
-                               device=dev)
+                               objects=objects, device=dev)
         splits = {}
         for name, n, seed in [("train", 64, 1), ("val_seen", 16, 2),
                               ("val_unseen", 16, 3)]:
@@ -258,13 +266,27 @@ def build_runtime(args):
                 graphs, 64, vocab_size=cfg.vocab_size,
                 max_instr_len=min(cfg.max_instr_len, 48),
                 path_len=(3, 6), seed=11)
+        if objects is not None:
+            # each episode's object: one visible at its goal viewpoint
+            offs = _vp_offsets(graphs, list(graphs))
+            for data in splits.values():
+                for it in data:
+                    row = offs[it["scan"]] + \
+                        graphs[it["scan"]].index[it["path"][-1]]
+                    k = int(np.argmax(objects["mask"][row]))
+                    it["objId"] = int(objects["oid"][row, k])
     else:
         from .data.annotations import construct_instrs, load_annotation_file
         from .data.feature_db import ImageFeaturesDB
         from .sim.graph_sim import load_connectivity, load_scanvp_cands
 
+        # split roster per dataset (main_nav.py:113-120)
         split_names = ["train", "val_train_seen", "val_seen", "val_unseen"]
-        if args.submit:
+        if args.dataset == "rxr":
+            split_names.remove("val_train_seen")
+            if not args.submit:
+                split_names.remove("val_seen")
+        if args.submit and args.dataset != "rxr":
             split_names.append("test")
         splits = construct_instrs(args.anno_dir, args.dataset, split_names,
                                   tokenizer=args.tokenizer,
@@ -287,8 +309,15 @@ def build_runtime(args):
             aug_features = ImageFeaturesDB(
                 args.aug_ft_file, cfg.image_feat_size
             ).as_packed_array(graphs, scan_ids)
+        if cfg.is_objnav and args.obj_ft_file:
+            from .data.feature_db import ObjectFeaturesDB
+
+            objects = ObjectFeaturesDB(
+                args.obj_ft_file, cfg.obj_feat_size,
+                cfg.angle_feat_size).as_packed_arrays(graphs, scan_ids)
         world = NavWorld.build([graphs[s] for s in scan_ids],
                                features=features, aug_features=aug_features,
+                               objects=objects,
                                feat_dim=cfg.image_feat_size, device=dev)
 
     scan_order = list(graphs)
@@ -306,6 +335,7 @@ def build_runtime(args):
                   f"{len(extra)} extra keys")
 
     rcfg = RolloutConfig(num_nodes=args.num_nodes, horizon=cfg.max_action_len,
+                         expert_policy=args.expert_policy,
                          feat_dim=cfg.image_feat_size,
                          angle_feat_size=cfg.angle_feat_size)
     rollout = NavRollout(model, world, rcfg)
@@ -333,9 +363,71 @@ def build_runtime(args):
     }
     rt = dict(cfg=cfg, model=model, world=world, rollout=rollout,
               batchers=batchers, graphs=graphs, scan_order=scan_order,
-              args=args, device=dev)
+              objects=objects, args=args, device=dev)
+    if args.bbox_file:
+        from .data.annotations import load_obj2vps
+
+        rt["obj2vps"] = {
+            (scan, oid): [graphs[scan].index[vp] for vp in vps
+                          if vp in graphs[scan].index]
+            for (scan, oid), vps in load_obj2vps(args.bbox_file).items()
+            if scan in graphs}
     _load_causal_banks(args, rt)
     return rt
+
+
+def synthetic_objects(vtot: int, cfg, num_objs: int = 8,
+                      seed: int = 7) -> dict:
+    """The synthetic object store (the JAX CLI's REVERIE fixture, the same
+    numpy draws): `num_objs` objects a viewpoint with features, location
+    and absolute direction, about 80% of them present."""
+    rng = np.random.default_rng(seed)
+    return dict(
+        feat=rng.standard_normal(
+            (vtot, num_objs, cfg.obj_feat_size)).astype(np.float32),
+        loc=rng.standard_normal(
+            (vtot, num_objs, cfg.angle_feat_size + 3)).astype(np.float32),
+        dir=rng.uniform(-np.pi, np.pi, (vtot, num_objs, 2)).astype(
+            np.float32),
+        mask=rng.random((vtot, num_objs)) < 0.8,
+        name=rng.integers(0, cfg.obj_name_vocab_size, (vtot, num_objs)),
+        oid=np.arange(vtot * num_objs).reshape(vtot, num_objs),
+    )
+
+
+def _vp_offsets(graphs, scan_order):
+    """Each scan's first row in the world's packed viewpoint tables."""
+    offs, total = {}, 0
+    for s in scan_order:
+        offs[s] = total
+        total += graphs[s].num_vps
+    return offs
+
+
+def run_batch(rt, batch, items=None):
+    """An episode batch as the rollouts take it: the causal banks attached
+    and, for an object store and items that name their object, each
+    episode's gt object slot `gt_obj_slot` (its object among the goal
+    viewpoint's tokens after the 2 + K + 36 local ones, -1 if not there;
+    the JAX CLI's causal_batch)."""
+    from .tools.zdict import causal_batch
+
+    out = causal_batch(rt["banks"], batch)
+    objects = rt.get("objects")
+    if items is None or objects is None or \
+            not all("objId" in it for it in items):
+        return out
+    off = 2 + rt["world"].max_cands + 36
+    offs = _vp_offsets(rt["graphs"], rt["scan_order"])
+    slot = np.full(len(items), -1, np.int64)
+    for b, it in enumerate(items):
+        g = rt["graphs"][it["scan"]]
+        row = objects["oid"][offs[it["scan"]] + g.index[it["path"][-1]]]
+        hit = np.nonzero(row == int(it["objId"]))[0]
+        if len(hit):
+            slot[b] = off + int(hit[0])
+    out["gt_obj_slot"] = torch.as_tensor(slot, device=rt["device"])
+    return out
 
 
 def _load_causal_banks(args, rt):
@@ -381,34 +473,50 @@ def run_validation(rt, split: str, max_batches: Optional[int] = None):
     """Greedy decode of a whole split -> (metrics, per-item predictions)
     (main_nav.py:338-391 / agent_base.py:44-67)."""
     from .entry import greedy_rollout
-    from .eval.metrics import eval_item, eval_metrics
-    from .tools.zdict import causal_batch
+    from .eval.metrics import (eval_item, eval_metrics, reverie_eval_item,
+                               reverie_eval_metrics)
 
     batcher = rt["batchers"][split]
     batcher.reset_epoch(shuffle=False)
     rt["model"].eval()
+    objnav = rt["cfg"].is_objnav and rt.get("objects") is not None
+    obj2vps = rt.get("obj2vps") or {}
     seen, per_item, preds = set(), [], []
     n_batches = int(np.ceil(batcher.size() / batcher.batch_size))
     if max_batches:
         n_batches = min(n_batches, max_batches)
     for _ in range(n_batches):
         items, batch = batcher.next_batch()
-        paths = greedy_rollout(rt["rollout"], causal_batch(
-            rt["banks"], batch))["trajectories"]
+        out = greedy_rollout(rt["rollout"], run_batch(rt, batch, items))
+        paths = out["trajectories"]
+        pred_oid = out["pred_obj_id"].cpu().numpy() \
+            if "pred_obj_id" in out else None
         for b, it in enumerate(items):
             if it["instr_id"] in seen:
                 continue
             seen.add(it["instr_id"])
             g = rt["graphs"][it["scan"]]
             gt_local = [g.index[v] for v in it["path"]]
-            preds.append({"instr_id": it["instr_id"],
-                          "trajectory": [[g.vp_ids[v]] for v in paths[b]]})
-            per_item.append(eval_item(g.dist, paths[b], gt_local))
+            pred = {"instr_id": it["instr_id"],
+                    "trajectory": [[g.vp_ids[v]] for v in paths[b]]}
+            if objnav and "objId" in it:
+                # REVERIE metrics (reverie/env.py:530-553); without obj2vps
+                # the goal viewpoint is the object's only one
+                goals = obj2vps.get((it["scan"], str(it["objId"])),
+                                    [gt_local[-1]])
+                oid = -1 if pred_oid is None else int(pred_oid[b])
+                per_item.append(reverie_eval_item(
+                    g.dist, paths[b], oid, gt_local, goals, it["objId"]))
+                pred["pred_objid"] = oid
+            else:
+                per_item.append(eval_item(g.dist, paths[b], gt_local))
+            preds.append(pred)
+    if objnav and per_item and "rgs" in per_item[0]:
+        return reverie_eval_metrics(per_item), preds
     return eval_metrics(per_item), preds
 
 
 def train(args, rt):
-    from .tools.zdict import causal_batch
     from .train import checkpoint as ck
     from .train.trainer import fuse_dagger_batches, init_train_state
     from .utils.logger import MetricsLogger, RunningMeter, write_to_record_file
@@ -447,6 +555,9 @@ def train(args, rt):
                              f"@ iter {start_iter}", record_file)
 
     meter = RunningMeter("loss")
+    # model selection (main_nav.py:296-308)
+    sel = (lambda m: m["nDTW"] + m["SDTW"]) if args.dataset == "rxr" \
+        else (lambda m: m["spl"] + m["sr"])
     best = {"score": -1.0, "iter": 0}
     if args.eval_first:
         for split in ("val_train_seen", "val_seen", "val_unseen"):
@@ -456,13 +567,13 @@ def train(args, rt):
                                      record_file)
 
     def update(items, batch):
-        batch = causal_batch(rt["banks"], batch)
+        batch = run_batch(rt, batch, items)
         if fused:
             # the reference's two DAgger rollouts take two minibatches;
             # the fused step takes both, the first half teacher-forced
-            _, batch2 = batcher.next_batch()
+            items2, batch2 = batcher.next_batch()
             batch = fuse_dagger_batches(batch,
-                                        causal_batch(rt["banks"], batch2))
+                                        run_batch(rt, batch2, items2))
         return state.step_fn(state, batch, gen)
 
     def aug_update():
@@ -471,7 +582,7 @@ def train(args, rt):
             items = items + aug_batcher.next_minibatch()
             half = len(items) // 2
             batch = fuse_dagger_batches(*(
-                causal_batch(rt["banks"], aug_batcher.make_batch(part))
+                run_batch(rt, aug_batcher.make_batch(part), part)
                 for part in (items[:half], items[half:])))
             return state.step_fn(state, batch, gen)
         return update(items, aug_batcher.make_batch(items))
@@ -540,7 +651,7 @@ def train(args, rt):
             ck.save_reference_checkpoint(
                 state.model, os.path.join(out, "latest_dict.pt"), step)
         if "val_unseen" in scores:
-            score = scores["val_unseen"]["spl"] + scores["val_unseen"]["sr"]
+            score = sel(scores["val_unseen"])
             if score > best["score"]:
                 best = {"score": score, "iter": step}
                 ck.save_params(os.path.join(out, "ckpt_best_val_unseen"),
@@ -573,6 +684,33 @@ def valid(args, rt):
             write_to_record_file(f"wrote {out}", record_file)
 
 
+def extract_cfp(args, rt):
+    """--mode extract_cfp_features: the training set's gt trajectories
+    through `GoatModel.extract_cfp` into
+    `<output_dir>/<dataset>_cfp_features.tsv` (the JAX CLI's extract_cfp,
+    cli.py:898-917)."""
+    from .pretrain.data import (PretrainShapes, TrajBatchBuilder,
+                                items_from_dataset)
+    from .tools.cfp_extract import extract_cfp_features
+
+    cfg = rt["cfg"]
+    shapes = PretrainShapes(
+        max_txt_len=min(cfg.max_instr_len, 64),
+        max_steps=min(cfg.max_action_len + 1, 12),
+        max_cands=args.max_cands, max_gmap=args.num_nodes)
+    features = rt["world"].feat.float().cpu().numpy()
+    builder = TrajBatchBuilder(rt["graphs"], rt["scan_order"], features,
+                               shapes, seed=args.seed)
+    items = items_from_dataset(rt["batchers"]["train"].data, rt["graphs"])
+    out_tsv = os.path.join(args.output_dir,
+                           f"{args.dataset}_cfp_features.tsv")
+    os.makedirs(args.output_dir, exist_ok=True)
+    feats = extract_cfp_features(rt["model"], builder, items,
+                                 out_tsv=out_tsv)
+    print(f"wrote {out_tsv}: {feats['txt_feats'].shape[0]} trajectories")
+    return feats
+
+
 def main(argv=None):
     args = parse_args(argv)
     from .utils.misc import set_seed
@@ -586,6 +724,8 @@ def main(argv=None):
     rt = build_runtime(args)
     if args.mode == "train":
         return train(args, rt)
+    if args.mode == "extract_cfp_features":
+        return extract_cfp(args, rt)
     valid(args, rt)
 
 

@@ -1,6 +1,7 @@
-"""Image feature stores (counterpart of vln_goat_tpu/data/feature_db.py:
-`ImageFeaturesDB` and `TsvFeaturesDB`; the REVERIE object store waits for
-the object branch).
+"""Image and object feature stores (counterpart of
+vln_goat_tpu/data/feature_db.py: `ImageFeaturesDB`, `TsvFeaturesDB` and
+the REVERIE / SOON object store `ObjectFeaturesDB`).  h5py is imported
+only when a file is read.
 
 Reference: ImageFeaturesDB (map_nav_src/utils/data.py:25-74) — HDF5 keyed
 '{scan}_{vp}' -> (36, Df) with an in-RAM cache, plus a base64-TSV path, and
@@ -92,3 +93,72 @@ class TsvFeaturesDB:
 
     def get_image_feature(self, scan: str, viewpoint: str) -> np.ndarray:
         return self._store[f"{scan}_{viewpoint}"]
+
+
+class ObjectFeaturesDB:
+    """REVERIE object store (reverie ObjectFeatureDB, reverie/env.py:46+,
+    452-457): HDF5 keyed '{scan}_{vp}' -> [n_obj, Dobj] features with the
+    attributes 'directions' [n_obj, 2], 'sizes' [n_obj, 2], 'obj_ids' and
+    'names'; at most `max_objects` a viewpoint."""
+
+    def __init__(self, obj_ft_file: str, obj_feat_size: int = 768,
+                 angle_feat_size: int = 4, max_objects: int = 20,
+                 image_w: int = 640, image_h: int = 480):
+        self.path = obj_ft_file
+        self.dim = obj_feat_size
+        self.afs = angle_feat_size
+        self.max_objects = max_objects
+        self.image_w, self.image_h = image_w, image_h
+        self._h5 = None
+
+    _file = ImageFeaturesDB._file
+
+    def as_packed_arrays(self, scan_graphs, scan_order: Sequence[str]
+                         ) -> dict:
+        """-> the `objects` dict of NavWorld.build, [Vtot, Lo, ...] arrays
+        in scan order, Lo = max_objects: feat, loc (angle features of the
+        absolute direction, then the box [h/H, w/W, hw/HW]), dir (the raw
+        absolute (heading, elevation), from which the rollout computes the
+        camera-relative angles each step), mask, name, oid (-1 pad)."""
+        from ..core.geometry import angle_feature_np
+
+        f = self._file()
+        Lo = self.max_objects
+        vtot = sum(scan_graphs[s].num_vps for s in scan_order)
+        out = dict(
+            feat=np.zeros((vtot, Lo, self.dim), np.float32),
+            loc=np.zeros((vtot, Lo, self.afs + 3), np.float32),
+            dir=np.zeros((vtot, Lo, 2), np.float32),
+            mask=np.zeros((vtot, Lo), bool),
+            name=np.zeros((vtot, Lo), np.int32),
+            oid=np.full((vtot, Lo), -1, np.int32),
+        )
+        row = 0
+        area = self.image_w * self.image_h
+        for s in scan_order:
+            for vp in scan_graphs[s].vp_ids:
+                key = f"{s}_{vp}"
+                if key in f:
+                    ds = f[key]
+                    n = min(ds.shape[0], Lo)
+                    out["feat"][row, :n] = ds[...][:n, :self.dim]
+                    att = dict(ds.attrs)
+                    dirs = np.asarray(att.get("directions",
+                                              np.zeros((n, 2))))[:n]
+                    sizes = np.asarray(att.get("sizes",
+                                               np.zeros((n, 2))))[:n]
+                    out["loc"][row, :n, :self.afs] = angle_feature_np(
+                        dirs[:, 0], dirs[:, 1], self.afs)
+                    out["dir"][row, :n] = dirs
+                    a = self.afs
+                    out["loc"][row, :n, a] = sizes[:, 1] / self.image_h
+                    out["loc"][row, :n, a + 1] = sizes[:, 0] / self.image_w
+                    out["loc"][row, :n, a + 2] = \
+                        sizes[:, 0] * sizes[:, 1] / area
+                    out["mask"][row, :n] = True
+                    names = np.asarray(att.get("names", np.zeros(n)))[:n]
+                    out["name"][row, :n] = names.astype(np.int32)
+                    oids = np.asarray(att.get("obj_ids", np.arange(n)))[:n]
+                    out["oid"][row, :n] = oids.astype(np.int32)
+                row += 1
+        return out

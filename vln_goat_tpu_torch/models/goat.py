@@ -1,12 +1,13 @@
 """GOAT dual-scale cross-modal navigation model (counterpart of
-vln_goat_tpu/models/goat.py), the modes the rollouts run: `forward_text`,
+vln_goat_tpu/models/goat.py): the modes the rollouts run, `forward_text`,
 `forward_panorama`, `forward_text_kv` and `forward_navigation`, with the
-BACL back-door and FACL front-door modules of the causal configuration.
-In train() mode every dropout of the JAX package is on, drawing from the
-generator that `ops.dropout.set_generator` hands the model.
-
-The object branch, the critic and the CFP extraction heads are not ported
-yet; a config that needs them is refused at construction.
+BACL back-door and FACL front-door modules of the causal configuration
+and, for REVERIE / SOON, the object tokens and the object-grounding head
+(`og_head`, `obj_logits`); and the `extract_cfp_features` mode,
+`extract_cfp` / `cfp_pool` over the tim self-encoders and heads.  `Critic`
+is the value head the reference builds and never trains.  In train() mode
+every dropout of the JAX package is on, drawing from the generator that
+`ops.dropout.set_generator` hands the model.
 """
 from __future__ import annotations
 
@@ -19,10 +20,12 @@ from ..config import GoatConfig
 from ..ops.dropout import Dropout
 from ..ops.masks import extend_neg_masks
 from .backbone import LanguageEncoder, LanguageEncoderDo, RobertaEmbeddings
-from .layers import (BertAttention, BertPooler, ClsPrediction,
+from .layers import (BertAttention, BertPooler,
+                     BertPredictionHeadTransform, ClsPrediction,
                      CrossmodalEncoder, Embedding, LayerNorm, Linear,
                      cast_dtype)
 from .panorama import CausalImageEmbeddings
+from .traj import aggregate_gmap_features
 
 NEG_INF = float("-inf")
 
@@ -35,6 +38,8 @@ class LocalVPEncoder(nn.Module):
             Linear(2 * (c.angle_feat_size + 3), c.hidden_size, dt),
             LayerNorm(c.hidden_size, 1e-12, dt))
         self.encoder = CrossmodalEncoder(c)
+        if c.mode == "extract_cfp_features":
+            self.tim_self_encoder = BertAttention(c)
 
     def pos_embed(self, vp_pos_fts):
         return self.vp_pos_embeddings(vp_pos_fts)
@@ -51,6 +56,8 @@ class GlobalMapEncoder(nn.Module):
                                               c.hidden_size, dt)
         self.encoder = CrossmodalEncoder(c)
         self.sprel_linear = Linear(1, 1, dt) if c.graph_sprels else None
+        if c.mode == "extract_cfp_features":
+            self.tim_self_encoder = BertAttention(c)
 
     def input_embed(self, gmap_img_embeds, gmap_step_ids, gmap_pos_fts):
         return (gmap_img_embeds
@@ -134,16 +141,18 @@ class FrontDoorEncoder(nn.Module):
         return w * out + (1.0 - w) * local_feats
 
 
+# the raw parameters of the CFP pooling, [hidden, 1] each (the JAX
+# package's goat.py:203-205; its checkpoint.py RAW_PARAMS)
+TIM_ATTN = ("tim_global_attn", "tim_local_attn", "tim_txt_attn")
+
+
 class GoatModel(nn.Module):
     """GlocalTextPathNavCMT equivalent, the modes of the decode and
-    training rollouts."""
+    training rollouts and of CFP extraction."""
 
     def __init__(self, c: GoatConfig):
         super().__init__()
         dt = cast_dtype(c)
-        if c.obj_feat_size > 0 or c.mode == "extract_cfp_features":
-            raise NotImplementedError(
-                "object grounding and CFP extraction are not ported yet")
         self.config = c
         self.embeddings = RobertaEmbeddings(c)
         self.lang_encoder = LanguageEncoderDo(c) \
@@ -155,6 +164,8 @@ class GoatModel(nn.Module):
         self.local_sap_head = ClsPrediction(c)
         self.sap_fuse_linear = ClsPrediction(
             c, input_size=c.hidden_size * 2) if c.glocal_fuse else None
+        # object grounding (REVERIE / SOON)
+        self.og_head = ClsPrediction(c) if c.obj_feat_size > 0 else None
         self.gmap_pooler = BertPooler(c)
         self.vp_pooler = BertPooler(c)
         self.txt_pooler = BertPooler(c)
@@ -163,6 +174,13 @@ class GoatModel(nn.Module):
         # env-feature dropout on the raw view features
         # (vln_goat_tpu/models/goat.py:195, :245)
         self.drop_env = Dropout(c.feat_dropout)
+        if c.mode == "extract_cfp_features":
+            self.tim_global_head = BertPredictionHeadTransform(c)
+            self.tim_local_head = BertPredictionHeadTransform(c)
+            self.tim_txt_head = BertPredictionHeadTransform(c)
+            for name in TIM_ATTN:
+                self.register_parameter(
+                    name, nn.Parameter(torch.empty(c.hidden_size, 1)))
         # FACL front-door encoders (goat.py:211-219).  front_txt_encoder is
         # built as the reference builds it, and like it never called: the
         # text's front-door bank goes to the language encoder's
@@ -188,10 +206,16 @@ class GoatModel(nn.Module):
         return self.lang_encoder(h, txt_masks)
 
     def forward_panorama(self, view_img_fts, loc_fts, nav_types, view_masks,
-                         z_img_features=None, z_img_pzs=None):
+                         z_img_features=None, z_img_pzs=None, obj_fts=None,
+                         obj_masks=None, obj_names=None):
+        """The per-step panorama encoding (CausalImageEmbeddings) of the
+        raw view features after the env-feature dropout, which the object
+        features take too (the JAX package's goat.py:240-251)."""
+        if obj_fts is not None:
+            obj_fts = self.drop_env(obj_fts)
         return self.img_embeddings(self.drop_env(view_img_fts), loc_fts,
                                    nav_types, view_masks, z_img_features,
-                                   z_img_pzs)
+                                   z_img_pzs, obj_fts, obj_masks, obj_names)
 
     def forward_text_kv(self, txt_embeds):
         """Per-layer cross-attention K/V projections of the instruction,
@@ -204,9 +228,13 @@ class GoatModel(nn.Module):
         gmap_img_embeds, gmap_step_ids, gmap_pos_fts, gmap_masks,
         gmap_pair_dists, gmap_visited_masks,
         vp_img_embeds, vp_pos_fts, vp_masks, vp_nav_masks,
-        local_to_gmap, front_vp_feats=None, front_gmap_feats=None,
-        txt_kv=None,
+        local_to_gmap, vp_obj_masks=None, front_vp_feats=None,
+        front_gmap_feats=None, txt_kv=None,
     ) -> Dict[str, torch.Tensor]:
+        """The navigation step's logits; with `vp_obj_masks` [B, L] (True
+        at the object tokens of the local branch) and an object head, the
+        object-grounding logits `obj_logits` [B, L], -inf outside the mask
+        (None otherwise)."""
         ge, le = self.global_encoder, self.local_encoder
         gmap_embeds = ge.input_embed(gmap_img_embeds, gmap_step_ids,
                                      gmap_pos_fts)
@@ -240,6 +268,12 @@ class GoatModel(nn.Module):
             global_logits, local_logits, gmap_masks, gmap_visited_masks,
             vp_nav_masks, local_to_gmap)
 
+        obj_logits = None
+        if vp_obj_masks is not None and self.og_head is not None:
+            obj_logits = self.og_head(vp_embeds).squeeze(-1)
+            obj_logits = torch.where(vp_obj_masks, obj_logits,
+                                     torch.full_like(obj_logits, NEG_INF))
+
         cls_embeds = self.local_his_ln(self.local_his_map(torch.cat([
             self.gmap_pooler(gmap_embeds), self.vp_pooler(vp_embeds),
             self.txt_pooler(txt_embeds)], dim=-1)))
@@ -249,5 +283,93 @@ class GoatModel(nn.Module):
             "global_logits": global_logits,
             "local_logits": local_logits,
             "fused_logits": fused_logits,
+            "obj_logits": obj_logits,
             "cls_embeds": cls_embeds,
         }
+
+    def extract_cfp(self, batch) -> Dict[str, torch.Tensor]:
+        """The `extract_cfp_features` mode (the JAX package's goat.py:
+        346-394): a batch of `pretrain.data.TrajBatchBuilder(task="cfp")`
+        (tensors) -> the attention-pooled txt / vp / gmap vectors
+        (`cfp_pool`).  The trajectory's panoramas go through the
+        panorama encoder's trajectory path, the map tokens take
+        `traj.aggregate_gmap_features` of them and run through the global
+        branch's tim self-encoder, the last viewpoint's panorama through
+        the local branch's."""
+        txt_embeds = self.forward_text(batch["txt_ids"], batch["txt_masks"])
+        v = batch["traj_view_img_fts"]
+        B, T, Lp = v.shape[:3]
+
+        def flat(x):
+            return x.reshape((B * T,) + tuple(x.shape[2:]))
+
+        embeds, masks, fused = self.img_embeddings(
+            flat(v), flat(batch["traj_loc_fts"]),
+            flat(batch["traj_nav_types"]), flat(batch["traj_view_masks"]),
+            per_step=False)
+        D = embeds.shape[-1]
+        embeds = embeds.reshape(B, T, Lp, D)
+        masks = masks.reshape(B, T, Lp)
+        if fused is None:
+            m = masks[..., None].to(embeds.dtype)
+            fused = (embeds * m).sum(2) / m.sum(2).clamp(min=1.0)
+        else:
+            fused = fused.reshape(B, T, D)
+        stepm = batch["step_masks"].to(embeds.dtype)
+        embeds = embeds * stepm[..., None, None]
+        fused = fused * stepm[..., None]
+
+        ge, le = self.global_encoder, self.local_encoder
+        gmap_img = aggregate_gmap_features(
+            embeds, fused, batch["gmap_visited_step"], batch["cand_to_gmap"],
+            batch["gmap_step_ids"].shape[1])
+        gmap_embeds = ge.input_embed(gmap_img, batch["gmap_step_ids"],
+                                     batch["gmap_pos_fts"])
+        gmap_embeds = ge.tim_self_encoder(
+            gmap_embeds, None, extend_neg_masks(batch["gmap_masks"]))
+
+        bidx = torch.arange(B, device=v.device)
+        last = batch["traj_len"].long() - 1
+        vp_img = torch.cat([torch.zeros(B, 1, D, device=v.device),
+                            embeds[bidx, last].float()], dim=1)
+        vp_masks = torch.cat(
+            [torch.ones(B, 1, dtype=torch.bool, device=v.device),
+             masks[bidx, last]], dim=1)
+        vp_embeds = vp_img + le.pos_embed(batch["vp_pos_fts"])
+        vp_embeds = le.tim_self_encoder(vp_embeds, None,
+                                        extend_neg_masks(vp_masks))
+        return self.cfp_pool(gmap_embeds, vp_embeds, txt_embeds)
+
+    def cfp_pool(self, gmap_embeds, vp_embeds, txt_embeds
+                 ) -> Dict[str, torch.Tensor]:
+        """tanh of the attention-pooled head transform of each sequence:
+        softmax over the tokens of tanh(h) a, a the tim_*_attn vector."""
+        def pool(x, head, attn):
+            h = head(x)
+            a = torch.softmax(torch.tanh(h) @ attn.to(h.dtype), dim=1)
+            return torch.tanh((h * a).sum(dim=1))
+
+        return {
+            "gmap_outputs": pool(gmap_embeds, self.tim_global_head,
+                                 self.tim_global_attn),
+            "vp_outputs": pool(vp_embeds, self.tim_local_head,
+                               self.tim_local_attn),
+            "txt_outputs": pool(txt_embeds, self.tim_txt_head,
+                                self.tim_txt_attn),
+        }
+
+
+class Critic(nn.Module):
+    """Value head 768 -> 512 -> 1 (the JAX package's goat.py:409-424, torch
+    names state2value.0 / .3): built and optimized by the reference but
+    never trained (no RL loss is computed), ported for checkpoint parity."""
+
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        dt = cast_dtype(c)
+        self.state2value = nn.Sequential(
+            Linear(c.hidden_size, 512, dt), nn.ReLU(),
+            Dropout(c.hidden_dropout_prob), Linear(512, 1, dt))
+
+    def forward(self, state):
+        return self.state2value(state).squeeze(-1)

@@ -31,9 +31,11 @@ their input's dtype.  x, y, the weights and biases of one call share one
 dtype; a mix raises.  On the card both builds take any Lk (the float32
 attention forward past 256 keys in key blocks with an online softmax), the
 head widths of `HEAD_DIMS` (32, 64, 128: one kernel instance each, chosen
-at launch) and D % 32 == 0; the wrappers zero-pad any other head width up
-to 128 and any other D to those (`padded_call`, `mha_padded`), and raise
-past a head width of 128.
+at launch), any wider multiple of `WIDE_STEP` (64) on the wide-head core
+`csrc/attn_wide.cuh` (128-column pieces, float32 sums on the CUDA cores,
+forward and backward) and D % 32 == 0; the wrappers zero-pad any other
+head width to the next width the kernels take and any other D to a
+multiple of 32 (`padded_call`, `mha_padded`), so every head width runs.
 
 On a CUDA tensor `fused_qkv_mha` runs `FusedQKVMHA`, an autograd Function
 whose forward launches the forward kernel and whose backward launches the
@@ -168,28 +170,38 @@ _VP, _LL, _I, _U, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_uint, ctypes.c_float
 _W = [_VP, _LL, _LL]                    # weight pointer and its two strides
 
-# the head widths the attention kernels are built for (csrc/head_dims.cuh;
-# each library's `*_head_dims` entry must report the same set)
+# the head widths the attention kernels are built for (csrc/head_dims.cuh),
+# and the step of the wider ones that csrc/attn_wide.cuh takes (each
+# library's `*_head_dims` entry must report the same set and step)
 HEAD_DIMS = (32, 64, 128)
+WIDE_STEP = 64
+
+
+def takes_head_dim(dh: int) -> bool:
+    """Whether the kernels take head width dh as it is: a width of
+    HEAD_DIMS, or past the widest a multiple of WIDE_STEP."""
+    return dh in HEAD_DIMS or (dh > HEAD_DIMS[-1] and dh % WIDE_STEP == 0)
 
 
 def check_head_dim(dh: int) -> None:
-    """Raises ValueError for a head width the kernels are not built for,
-    naming the widths they are."""
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the kernels are built for head widths "
-                         f"{HEAD_DIMS}, got {dh}")
+    """Raises ValueError for a head width the kernels do not take, naming
+    the widths they do."""
+    if not takes_head_dim(dh):
+        raise ValueError(f"the kernels take head widths {HEAD_DIMS} and "
+                         f"multiples of {WIDE_STEP} past {HEAD_DIMS[-1]}, "
+                         f"got {dh}")
 
 
 def padded_widths(D: int, dh: int):
     """(Dp, dp): the model width D rounded up to a multiple of 32 and the
-    head width dh rounded up to the next width of HEAD_DIMS, which the
-    kernels take.  Raises ValueError past the widest (F6's remainder)."""
+    head width dh rounded up to the next width the kernels take: the next
+    of HEAD_DIMS up to the widest, past it the next multiple of
+    WIDE_STEP."""
     if dh > HEAD_DIMS[-1]:
-        raise ValueError(f"head width {dh}: the kernels take head widths up "
-                         f"to {HEAD_DIMS[-1]} (zero-padded to one of "
-                         f"{HEAD_DIMS})")
-    return -(-D // 32) * 32, next(w for w in HEAD_DIMS if w >= dh)
+        dp = -(-dh // WIDE_STEP) * WIDE_STEP
+    else:
+        dp = next(w for w in HEAD_DIMS if w >= dh)
+    return -(-D // 32) * 32, dp
 
 
 def _pad_heads(t: torch.Tensor, H: int, dh: int, dp: int) -> torch.Tensor:
@@ -226,15 +238,17 @@ def padded_call(fn, x, y, wq, bq, wk, bk, wv, bv, bias=None,
 
 
 def _check_head_dims(lib: ctypes.CDLL, entry: str) -> None:
-    """Holds the library's head widths (its entry `entry`) to HEAD_DIMS."""
+    """Holds the library's head widths and wide step (its entry `entry`)
+    to HEAD_DIMS and WIDE_STEP."""
     fn = getattr(lib, entry)
     fn.argtypes = [_VP, _I]
     fn.restype = _I
     out = (_I * 8)()
     n = fn(out, 8)
-    if tuple(out[:n]) != HEAD_DIMS:
+    if tuple(out[:n]) != HEAD_DIMS + (WIDE_STEP,):
         raise RuntimeError(f"{entry}: the library is built for head widths "
-                           f"{tuple(out[:n])}, the wrapper for {HEAD_DIMS}")
+                           f"and step {tuple(out[:n])}, the wrapper for "
+                           f"{HEAD_DIMS + (WIDE_STEP,)}")
 
 
 # the dtypes the kernels take, and the suffix of their C entries
@@ -352,21 +366,22 @@ def mha(q, k, v, bias=None):
 
     On the card the kernel reads q, k, v and the bias through their
     strides; it takes the head widths of HEAD_DIMS and any Lk (in bf16 on
-    the Hopper core, whose launches count in `attn_core_routes`); another
-    head width up to 128 is zero-padded to the next of HEAD_DIMS, scaled by
-    its true width and sliced back (`mha_padded`), and anything else
-    raises."""
+    the Hopper core, whose launches count in `attn_core_routes`) and the
+    wider multiples of WIDE_STEP (`csrc/attn_wide.cuh`); any other head
+    width is zero-padded to the next width it takes, scaled by its true
+    width and sliced back (`mha_padded`)."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, bias)
-    if q.dim() == 4 and q.shape[3] not in HEAD_DIMS:
+    if q.dim() == 4 and not takes_head_dim(q.shape[3]):
         return mha_padded(_mha_kernel, q, k, v, bias)
     return _mha_kernel(q, k, v, bias)
 
 
 def mha_padded(fn, q, k, v, bias=None):
     """`fn` (the signature of `mha_plain` with `scale`) with q, k, v
-    zero-padded from head width dh to the next width of HEAD_DIMS, the
-    scale 1 / sqrt(dh), and the output's padded columns sliced off."""
+    zero-padded from head width dh to the next width the kernels take
+    (`padded_widths`), the scale 1 / sqrt(dh), and the output's padded
+    columns sliced off."""
     B, Lq, H, dh = q.shape
     dp = padded_widths(32, dh)[1]
     q, k, v = (torch.nn.functional.pad(t, (0, dp - dh)) for t in (q, k, v))
@@ -415,7 +430,7 @@ def _mha_kernel(q, k, v, bias=None, scale: Optional[float] = None):
     if rc != 0:
         raise RuntimeError(f"mha kernel launch failed: CUDA error {rc} "
                            f"(B={B}, Lq={Lq}, Lk={Lk}, H={H})")
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and dh in HEAD_DIMS:
         _count(attn_core_routes, lib.mha_attn_route())
     return out
 
@@ -561,7 +576,8 @@ def forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias=None,
     c.check(rc, "fused_qkv_mha")
     if c.dtype == torch.bfloat16:
         _count(bf16_core_routes, c.lib.fused_qkv_mha_bf16_route())
-        _count(attn_core_routes, c.lib.fused_qkv_mha_attn_route())
+        if c.dh in HEAD_DIMS:
+            _count(attn_core_routes, c.lib.fused_qkv_mha_attn_route())
     return out
 
 
@@ -614,12 +630,15 @@ def attention_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout,
     dv = torch.empty((c.B, c.Lk, c.HD), **like)
     ds = torch.empty((c.B, c.H, c.Lq, c.Lk), **f32) if need_ds else None
     qkv = torch.empty(c.B * (c.Lq + 2 * c.Lk) * c.HD, **like)
-    # softmax statistics of each row, when the keys span several chunks,
-    # and in bf16 dq's running sum over them (rounded once, at the end)
+    # softmax statistics of each row, when the keys span several chunks or
+    # the head runs on the wide core, and in bf16 dq's running sum over the
+    # chunks (rounded once, at the end) on the instanced cores
     several = c.Lk > ATTN_KEY_CHUNK
-    stats = torch.empty(c.B * c.H * c.Lq * 3, **f32) if several else None
+    wide = c.dh not in HEAD_DIMS
+    stats = torch.empty(c.B * c.H * c.Lq * 3, **f32) \
+        if several or wide else None
     dq_acc = torch.empty(dq.numel(), **f32) \
-        if several and c.dtype == torch.bfloat16 else None
+        if several and not wide and c.dtype == torch.bfloat16 else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -634,7 +653,8 @@ def attention_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout,
     c.check(rc, "fused_qkv_mha_bwd_attn")
     if c.dtype == torch.bfloat16:
         _count(bf16_core_routes, c.lib.fused_qkv_mha_bwd_bf16_route())
-        _count(attn_core_routes, c.lib.fused_qkv_mha_bwd_attn_route())
+        if not wide:
+            _count(attn_core_routes, c.lib.fused_qkv_mha_bwd_attn_route())
     return dq, dk, dv, ds
 
 
@@ -872,13 +892,14 @@ def fused_qkv_mha(x, y, wq, bq, wk, bk, wv, bv, bias=None,
 
     A weight may be the transposed view of a torch Linear weight
     (`lin.weight.t()`): the kernels read it through its strides.  On the
-    card a head width outside HEAD_DIMS or a D that is not a multiple of
-    32 goes through `padded_call` (any head width up to 128)."""
+    card a head width the kernels do not take as it is (`takes_head_dim`)
+    or a D that is not a multiple of 32 goes through `padded_call`, so any
+    head width runs."""
     if x.device.type == "cpu":
         return fused_qkv_mha_plain(x, y, wq, bq, wk, bk, wv, bv, bias,
                                    num_heads, dropout_rate, seed)
     dh = wq.shape[1] // num_heads
-    if dh not in HEAD_DIMS or x.shape[2] % 32:
+    if not takes_head_dim(dh) or x.shape[2] % 32:
         return padded_call(_fused_apply, x, y, wq, bq, wk, bk, wv, bv, bias,
                            num_heads, dropout_rate, seed)
     return _fused_apply(x, y, wq, bq, wk, bk, wv, bv, bias, num_heads,

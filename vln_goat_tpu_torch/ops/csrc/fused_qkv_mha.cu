@@ -41,8 +41,10 @@
 //      on 3xTF32 mma.sync fragments.
 // Head widths: the attention kernels of either build are templates of the
 // head width, one instance for each of head_dims.cuh's 32, 64 and 128,
-// chosen at launch from the `dh` argument; the projections only see
-// H dh.  Any other width returns cudaErrorInvalidValue before a launch.
+// chosen at launch from the `dh` argument; a wider head that is a multiple
+// of 64 runs on attn_wide.cuh (128-column pieces, float32 sums on the CUDA
+// cores); the projections only see H dh.  Any other width returns
+// cudaErrorInvalidValue before a launch.
 //
 // bf16 (the JAX package's bf16 model, whose kernel takes bf16 operands and
 // sums in float32: `_bdot(..., dt=x.dtype)` :120-137): the `_bf16` entries
@@ -70,6 +72,7 @@
 
 #include "attn_fwd.cuh"
 #include "attn_fwd_sm90.cuh"
+#include "attn_wide.cuh"
 #include "head_dims.cuh"
 #include "qkv_proj.cuh"
 
@@ -105,6 +108,28 @@ int attend(const void* qkv, const void* bias, long long sb, long long sh,
   const T* qs = (const T*)qkv;
   const T* ks = qs + (long long)B * Lq * HD;
   const T* vs = ks + (long long)B * Lk * HD;
+  if (head_dims::wide(dh)) {
+    attn_wide::Params<T, T> W{};
+    W.q = {qs, (long long)Lq * HD, HD, dh, 1};
+    W.k = {ks, (long long)Lk * HD, HD, dh, 1};
+    W.v = {vs, (long long)Lk * HD, HD, dh, 1};
+    W.bias = (const T*)bias;
+    W.sb = sb;
+    W.sh = sh;
+    W.sq = sq;
+    W.sk = sk;
+    W.seeds = (const int*)seeds;
+    W.thresh = thresh;
+    W.inv_keep = inv_keep;
+    W.out = (T*)out;
+    W.B = B;
+    W.Lq = Lq;
+    W.Lk = Lk;
+    W.H = H;
+    W.dh = dh;
+    W.scale = scale;
+    return attn_wide::forward<T, T, sizeof(T) == 2>(W, stream);
+  }
   if constexpr (sizeof(T) == 2) {
     // the Hopper core, over the scratch as [B, L, H, dh] heads
     attn_fwd_sm90::Params<T> P;
@@ -229,8 +254,9 @@ int fused_qkv_mha_attn_bf16(const void* qkv, const void* bias, long long sb,
                                  (cudaStream_t)stream);
 }
 
-// The head widths the attention kernels are compiled for (the first n into
-// out), so the wrapper can check a call's; returns how many there are.
+// The head widths the attention kernels are compiled for, then the step of
+// the widths past them that attn_wide.cuh takes (the first n into out), so
+// the wrapper can check a call's; returns how many there are.
 int fused_qkv_mha_head_dims(int* out, int n) {
   return head_dims::query(out, n);
 }

@@ -56,6 +56,10 @@
 //      the head dimension run DH deep, and each 64 x DH result is
 //      4 DH / 32 pieces of 16 x 32 over the 8 warps.  Shared memory:
 //      105 KB at DH = 64, two blocks per SM (at DH = 128 166 KB, one).
+//      A head wider than 128 (a multiple of 64) runs, in either build, on
+//      attn_wide.cuh's backward instead: a pass over the rows (statistics
+//      in the [B, H, Lq, 3] scratch, ds, dq) and one over the keys (dk,
+//      dv), 128-column pieces, float32 sums on the CUDA cores.
 //      The recompute, and (b), only see the projections' width H dh.
 // (b) projection backward, two kernels per call:
 //   1. one GEMM launch over a table of jobs whose order and depth split the
@@ -101,6 +105,7 @@
 #include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 #include "attn_bwd_sm90.cuh"
+#include "attn_wide.cuh"
 #include "head_dims.cuh"
 #include "qkv_proj.cuh"
 
@@ -489,13 +494,42 @@ int bwd_core(const void* qkv, const void* bias, long long sb, long long sh,
              void* dk, void* dv, void* ds, void* stats, void* dq_acc, int B,
              int Lq, int Lk, int H, int dh, float scale, cudaStream_t st) {
   constexpr bool BF16 = sizeof(T) == 2;
-  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || (Lk > KC && stats == nullptr) ||
-      (BF16 && Lk > KC && dq_acc == nullptr))
+  const bool wide = head_dims::wide(dh);
+  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 ||
+      ((Lk > KC || wide) && stats == nullptr) ||
+      (BF16 && Lk > KC && !wide && dq_acc == nullptr))
     return (int)cudaErrorInvalidValue;
   const int HD = H * dh;
   const T* qs = (const T*)qkv;
   const T* ks = qs + (long long)B * Lq * HD;
   const T* vs = ks + (long long)B * Lk * HD;
+  if (wide) {
+    attn_wide::Params<T, T> W{};
+    W.q = {qs, (long long)Lq * HD, HD, dh, 1};
+    W.k = {ks, (long long)Lk * HD, HD, dh, 1};
+    W.v = {vs, (long long)Lk * HD, HD, dh, 1};
+    W.o = {(const T*)dout, (long long)Lq * HD, HD, dh, 1};
+    W.bias = (const T*)bias;
+    W.sb = sb;
+    W.sh = sh;
+    W.sq = sq;
+    W.sk = sk;
+    W.seeds = (const int*)seeds;
+    W.thresh = thresh;
+    W.inv_keep = inv_keep;
+    W.dq = (T*)dq;
+    W.dk = (T*)dk;
+    W.dv = (T*)dv;
+    W.ds = (float*)ds;
+    W.stats = (float*)stats;
+    W.B = B;
+    W.Lq = Lq;
+    W.Lk = Lk;
+    W.H = H;
+    W.dh = dh;
+    W.scale = scale;
+    return attn_wide::backward<T, T, BF16>(W, st);
+  }
   if constexpr (BF16) {
     // the Hopper core, over the scratch and dO as [B, L, H, dh] heads
     attn_bwd_sm90::Params P;
@@ -746,14 +780,16 @@ extern "C" {
 #define GEMM_NAMES \
   a, a_sm, a_sk, b, b_sk, b_sn, bias, c, colsum, m, n, k, splits, kc, stream
 
-// (a) Launches the recompute GEMM and attn_bwd_kernel of head width dh (of
-// head_dims.cuh's set) on `stream`; returns the first CUDA error (another
-// width: cudaErrorInvalidValue).  x [B, Lq, D], y [B, Lk, D], weights
+// (a) Launches the recompute GEMM and the attention backward of head width
+// dh (attn_bwd_kernel for head_dims.cuh's set, attn_wide.cuh past it) on
+// `stream`; returns the first CUDA error (another width:
+// cudaErrorInvalidValue).  x [B, Lq, D], y [B, Lk, D], weights
 // [D, H*dh]
 // through strides, biases [H*dh], additive bias through four strides (null:
 // none), seeds int32 [B] (null: no dropout), dO [B, Lq, H*dh]; scratch qkv
-// of B (Lq + 2 Lk) H*dh elements and, when Lk > 64, stats of B H Lq 3
-// floats (and for `_bf16` dq_acc of B Lq H*dh floats, else null); writes
+// of B (Lq + 2 Lk) H*dh elements and, when Lk > 64 or dh > 128, stats of
+// B H Lq 3 floats (and for `_bf16` when Lk > 64 and dh <= 128 dq_acc of
+// B Lq H*dh floats, else null); writes
 // dq [B, Lq, H*dh], dk, dv [B, Lk, H*dh] and, if ds is not null, ds
 // [B, H, Lq, Lk] (float32).  The `_bf16` entry takes every tensor but ds,
 // stats and dq_acc in bf16.
@@ -846,8 +882,9 @@ void fused_qkv_mha_bwd_smem(int dh, int* out) {
   });
 }
 
-// The head widths the attention kernels are compiled for (the first n into
-// out), so the wrapper can check a call's; returns how many there are.
+// The head widths the attention kernels are compiled for, then the step of
+// the widths past them that attn_wide.cuh takes (the first n into out), so
+// the wrapper can check a call's; returns how many there are.
 int fused_qkv_mha_bwd_head_dims(int* out, int n) {
   return head_dims::query(out, n);
 }

@@ -38,13 +38,16 @@
 // precision; the bias is read in float32, the output rounded to bf16.
 //
 // Both builds take the head widths of head_dims.cuh (32, 64, 128), one
-// kernel instance each, chosen at launch from `dh`; any other width
-// returns cudaErrorInvalidValue without a launch.
+// kernel instance each, chosen at launch from `dh`, and any wider multiple
+// of 64 on attn_wide.cuh (128-column pieces, float32 sums, p kept in
+// float32 in bf16 too); any other width returns cudaErrorInvalidValue
+// without a launch.
 
 #include <cuda_runtime.h>
 
 #include "attn_fwd.cuh"
 #include "attn_fwd_sm90.cuh"
+#include "attn_wide.cuh"
 #include "head_dims.cuh"
 
 // The bf16 kernel on the Hopper core (attn_fwd_sm90.cuh): q, k, v and out
@@ -63,9 +66,35 @@
 
 namespace {
 
+// q, k, v, out of T, the bias float32, on attn_wide.cuh (dh past 128)
+template <class T, bool ROUND_P>
+int mha_wide(MHA_BF16_ARGS) {
+  attn_wide::Params<T, float> W{};
+  W.q = {(const T*)q, q_sb, q_sl, q_sh, q_sd};
+  W.k = {(const T*)k, k_sb, k_sl, k_sh, k_sd};
+  W.v = {(const T*)v, v_sb, v_sl, v_sh, v_sd};
+  W.bias = (const float*)bias;
+  W.sb = sb;
+  W.sh = sh;
+  W.sq = sq;
+  W.sk = sk;
+  W.seeds = nullptr;
+  W.thresh = 0;
+  W.inv_keep = 1.f;
+  W.out = (T*)out;
+  W.B = B;
+  W.Lq = Lq;
+  W.Lk = Lk;
+  W.H = H;
+  W.dh = dh;
+  W.scale = scale;
+  return attn_wide::forward<T, float, ROUND_P>(W, (cudaStream_t)stream);
+}
+
 template <bool SPLIT_P>
 int mha_bf16(MHA_BF16_ARGS) {
   using attn_sm90::bf16;
+  if (head_dims::wide(dh)) return mha_wide<bf16, !SPLIT_P>(MHA_BF16_NAMES);
   attn_fwd_sm90::Params<float> P;
   P.q = {(const bf16*)q, q_sb, q_sl, q_sh, q_sd, Lq};
   P.k = {(const bf16*)k, k_sb, k_sl, k_sh, k_sd, Lk};
@@ -103,6 +132,11 @@ int mha_fwd(const void* q, long long q_sb, long long q_sl, long long q_sh,
             const void* bias, long long sb, long long sh, long long sq,
             long long sk, void* out, int B, int Lq, int Lk, int H, int dh,
             float scale, void* stream) {
+  if (head_dims::wide(dh))
+    return mha_wide<float, false>(q, q_sb, q_sl, q_sh, q_sd, k, k_sb, k_sl,
+                                  k_sh, k_sd, v, v_sb, v_sl, v_sh, v_sd,
+                                  bias, sb, sh, sq, sk, out, B, Lq, Lk, H,
+                                  dh, scale, stream);
   attn_fwd::Args A;
   A.q = (const float*)q;
   A.qs = {q_sb, q_sl, q_sh, q_sd};
@@ -139,8 +173,9 @@ int mha_fwd_bf16_one_term(MHA_BF16_ARGS) {
   return mha_bf16<false>(MHA_BF16_NAMES);
 }
 
-// The head widths the kernels are compiled for (the first n into out), so
-// the wrapper can check a call's; returns how many there are.
+// The head widths the kernels are compiled for, then the step of the widths
+// past them that attn_wide.cuh takes (the first n into out), so the
+// wrapper can check a call's; returns how many there are.
 int mha_head_dims(int* out, int n) { return head_dims::query(out, n); }
 
 // The route of this library's last bf16 launch: 1 q, k and v by TMA, 0

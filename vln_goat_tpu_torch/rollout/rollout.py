@@ -59,7 +59,24 @@ the cross-entropy.  Without dropout it is loss-identical to the per-step
 teacher; with dropout (B) draws one mask for all steps, the JAX package's
 documented divergence.
 
-The nDTW expert and the object branch are not ported.
+REVERIE / SOON (`is_objnav` with a world that has objects): the object
+tokens follow the 36 views in the local branch, their angle features
+camera-relative at every step (the JAX package's rollout.py:654-670);
+`forward_navigation`'s `obj_logits` over them pick each step's object
+(`og_oid` of the current node, `pred_obj_id` of the stop node in the
+decode's output), and under training with `gt_obj_slot` in the batch the
+object-grounding cross-entropy at the goal joins the step's loss
+(rollout.py:1194-1226), on all three training paths.
+
+The nDTW expert (`RolloutConfig.expert_policy="ndtw"`, RxR): the sampled
+feedbacks' target is the unvisited node whose path, the episode's
+trajectory so far plus the full-graph shortest path to the node (up to
+`ndtw_future_len` hops), scores the best nDTW against the gt path,
+exp(-dtw / (3 gt_len)); the trajectory's DTW row is kept in the state and
+extended over every move (`dtw_extend_row`, rollout.py:67-92, :856-897,
+:1320-1335).  The teacher-forced rollouts, the vectorized teacher's
+geometry loop among them, take the gt path's next node as the JAX
+package's do, so the expert policy does not change them.
 
 The causal banks (`tools.zdict.SHARED_BANKS`) ride the batch as [B, N, ...]
 views of one copy, shared by every episode; nothing here slices or
@@ -108,8 +125,38 @@ class RolloutConfig:
     horizon: int = 15          # max_action_len (r2r parser default)
     seg_len: int = 12          # max hops recorded per move
     back_len: int = 16         # max hops of the final stop-backtrack
+    expert_policy: str = "spl"  # spl | ndtw (RxR, agent.py:333-342)
+    ndtw_future_len: int = 10  # DTW lookahead hops per candidate
     feat_dim: int = 768
     angle_feat_size: int = 4
+
+
+# the DTW table's "no alignment yet"
+DTW_BIG = 1e9
+
+
+def dtw_extend_row(row, cost, valid=None):
+    """One DTW row update (the JAX package's `dtw_extend_row`): for the
+    appended path node with distances `cost` [..., Tg] to the reference
+    nodes, dp[j] = cost[j] + min(prev[j], prev[j-1], dp[j-1]), written as
+    dp = C + cummin(min(prev[j], prev[j-1]) - C[j-1]) with C the cumulative
+    sum of the costs.  row [..., Tg+1] (entry 0 the empty prefix); where
+    `valid` (broadcast over the leading dims) is False the row is kept."""
+    a = torch.minimum(row[..., 1:], row[..., :-1])
+    C = torch.cumsum(cost, dim=-1)
+    Cs = torch.cat([torch.zeros_like(C[..., :1]), C[..., :-1]], dim=-1)
+    dp = C + torch.cummin(a - Cs, dim=-1).values
+    new = torch.cat([torch.full_like(row[..., :1], DTW_BIG), dp], dim=-1)
+    if valid is None:
+        return new
+    return torch.where(valid[..., None], new, row)
+
+
+def dtw_init_row(shape_prefix, Tg1: int, device=None) -> torch.Tensor:
+    """The DTW row of the empty path: 0, then DTW_BIG."""
+    row = torch.full(tuple(shape_prefix) + (Tg1,), DTW_BIG, device=device)
+    row[..., 0] = 0.0
+    return row
 
 
 def pano_angle_table(angle_feat_size: int, device) -> torch.Tensor:
@@ -172,6 +219,31 @@ def _nav_embed_assemble(embed_sum, embed_cnt, last_embeds, pano_embeds,
             torch.cat([zeros_d, last, pano_embeds], dim=1))
 
 
+def _obj_kw(pano) -> dict:
+    """forward_panorama's object arguments from `_pano_inputs`' tables
+    (none without objects)."""
+    objs = pano.get("objs")
+    if objs is None:
+        return {}
+    return dict(obj_fts=objs["feat"], obj_masks=objs["mask"],
+                obj_names=objs["name"])
+
+
+def og_cross_entropy(obj_logits, gt_slot, at_goal):
+    """The object-grounding loss per episode (the JAX package's
+    rollout.py:1212-1226): -log_softmax(obj_logits)[gt_slot] where the
+    episode is at its goal with a gt slot and some object, else 0.  A row
+    without any object is replaced by zeros before the log_softmax, whose
+    gradient would be NaN there."""
+    has_obj = torch.isfinite(obj_logits).any(dim=1)
+    ok = at_goal & (gt_slot >= 0) & has_obj
+    safe = torch.where(has_obj[:, None], obj_logits,
+                       torch.zeros_like(obj_logits))
+    oli = torch.log_softmax(safe, dim=1).gather(
+        1, gt_slot.clamp(min=0)[:, None].long())[:, 0]
+    return -torch.where(ok, oli, torch.zeros_like(oli))
+
+
 def _tile(x: torch.Tensor, n: int) -> torch.Tensor:
     """x [B, ...] repeated n times along a new leading axis, flattened to
     [n B, ...] (the JAX package's `tile`): a view where x is one bank
@@ -193,7 +265,11 @@ class NavRollout:
         self._ang_tab = pano_angle_table(rcfg.angle_feat_size, self.device)
 
     # ------------------------------------------------------------------
-    def init_state(self, batch) -> Dict[str, torch.Tensor]:
+    def init_state(self, batch, need_dtw: bool = False
+                   ) -> Dict[str, torch.Tensor]:
+        """The episode's state at its start node.  need_dtw: keep the nDTW
+        expert's row (with expert_policy "ndtw"); REVERIE / SOON worlds
+        add each node's chosen object id `og_oid` (-1 none)."""
         r, dev = self.rcfg, self.device
         B = batch["scan_idx"].shape[0]
         N1 = r.num_nodes + 1
@@ -223,8 +299,38 @@ class NavRollout:
             overflow_n=torch.zeros(B, dtype=torch.int64, device=dev),
             spilled_n=torch.zeros(B, dtype=torch.int64, device=dev),
         )
+        if self.objnav:
+            st["og_oid"] = torch.full((B, N1), -1, dtype=torch.int64,
+                                      device=dev)
+        if r.expert_policy == "ndtw" and need_dtw:
+            row = dtw_init_row((B,), batch["gt_path"].shape[1] + 1, dev)
+            st["dtw_row"] = dtw_extend_row(
+                row, self._gt_cost(batch, batch["start_vp"]))
         return self._arrive(st, batch, st["cur"],
                             torch.zeros(B, dtype=torch.bool, device=dev))
+
+    def _gt_cost(self, batch, vp):
+        """Distances of viewpoints vp [B] or [B, N] (local ids) to each gt
+        path node: [B, Tg] or [B, N, Tg] (a -1 pad reads node 0's, which
+        no DTW entry it feeds is read at)."""
+        gt = batch["gt_path"].clamp(min=0)
+        scan = batch["scan_idx"]
+        d = self.world.dist
+        if vp.dim() == 1:
+            return d[scan[:, None], vp[:, None], gt]
+        return d[scan[:, None, None], vp[..., None], gt[:, None, :]]
+
+    @property
+    def objnav(self) -> bool:
+        """Whether the episodes see object tokens: a REVERIE / SOON model
+        on a world with objects."""
+        return self.world.num_objs > 0 and self.mcfg.is_objnav
+
+    def rcfg_obj_offset(self) -> int:
+        """Local-token slot where the object tokens start, after the stop
+        and MEM tokens' 2 (added by the caller): K candidate slots + 36
+        views."""
+        return self.world.max_cands + 36
 
     # ------------------------------------------------------------------
     def _spill(self, st, arr, exists, idx_exist, need, cidx):
@@ -369,6 +475,8 @@ class NavRollout:
                                                st["stop_prob"])
             out["step_id"] = st["step_id"] * keep
             out["visited"] = out["visited"] & keep
+            if "og_oid" in st:
+                out["og_oid"] = torch.where(emb_clear, -1, st["og_oid"])
         return out
 
     # ------------------------------------------------------------------
@@ -426,8 +534,27 @@ class NavRollout:
         nav_types = torch.cat(
             [cands["mask"].long(),
              torch.zeros(B, 36, dtype=torch.int64, device=ang.device)], dim=1)
+        objs = None
+        if self.objnav:
+            # REVERIE object tokens (reverie/env.py:452-457), their angle
+            # features relative to the camera at every step
+            # (reverie/data_utils.py:90-93); the stored loc keeps the box
+            objs = w.get_objs(scan, cur_vp)
+            Lo = objs["feat"].shape[1]
+            obj_loc = objs["loc"]
+            if objs["dir"] is not None:
+                A = r.angle_feat_size
+                oang = G.angle_feature_t(
+                    objs["dir"][..., 0] - cam_h[:, None],
+                    objs["dir"][..., 1] - cam_e[:, None], A)
+                obj_loc = torch.cat([oang, obj_loc[..., A:]], dim=-1)
+            loc = torch.cat([loc, obj_loc], dim=1)
+            nav_types = torch.cat(
+                [nav_types, torch.full((B, Lo), 2, dtype=torch.int64,
+                                       device=ang.device)], dim=1)
         return dict(img=img, loc=loc, nav_types=nav_types, mask=view_mask,
-                    cands=cands, cam_h=cam_h, cam_e=cam_e, cur_vp=cur_vp)
+                    objs=objs, cands=cands, cam_h=cam_h, cam_e=cam_e,
+                    cur_vp=cur_vp)
 
     # ------------------------------------------------------------------
     def _nav_inputs(self, st, batch, pano, pano_embeds, cnode, has,
@@ -480,7 +607,9 @@ class NavRollout:
         # ---- local branch ----
         cands = pano["cands"]
         K = cands["local"].shape[1]
-        L = 2 + pano["mask"].shape[1]
+        objs = pano.get("objs")
+        Lo = 0 if objs is None else objs["feat"].shape[1]
+        L = 2 + pano["mask"].shape[1] + Lo
         local_to_gmap = torch.full((B, L), -1, dtype=torch.int64, device=dev)
         local_to_gmap[:, 2:2 + K] = torch.where(has, cnode + 2, -1)
 
@@ -499,10 +628,12 @@ class NavRollout:
         vp_pos_fts[:, :, :A7] = start_ft[:, None, :]
         vp_pos_fts[:, 2:2 + K, A7:] = cand_ft
 
-        vp_masks = torch.cat([ones1, ones1, pano["mask"]], dim=1)
+        vp_masks = torch.cat([ones1, ones1, pano["mask"]]
+                             + ([] if objs is None else [objs["mask"]]),
+                             dim=1)
         vp_nav_masks = torch.cat(
             [ones1, ~ones1, cands["mask"],
-             torch.zeros(B, 36, dtype=torch.bool, device=dev)], dim=1)
+             torch.zeros(B, 36 + Lo, dtype=torch.bool, device=dev)], dim=1)
         no_vp_left = ~torch.any(real & ~visited, dim=1)
 
         nav_in = dict(
@@ -514,6 +645,10 @@ class NavRollout:
             vp_masks=vp_masks, vp_nav_masks=vp_nav_masks,
             local_to_gmap=local_to_gmap,
         )
+        if Lo > 0:
+            nav_in["vp_obj_masks"] = torch.cat(
+                [torch.zeros(B, 2 + K + 36, dtype=torch.bool, device=dev),
+                 objs["mask"]], dim=1)
         if embeds:
             nav_in["gmap_img_embeds"], nav_in["vp_img_embeds"] = \
                 _nav_embed_assemble(st["embed_sum"], st["embed_cnt"],
@@ -525,10 +660,13 @@ class NavRollout:
     def _teacher(self, st, batch, aux, t, imitation):
         """Expert action in gmap-token space (agent.py:306-349; the JAX
         package's `_teacher` :835-925): with `imitation` the next node of
-        the gt path (stop at its end), else the SPL expert, the unvisited
-        node nearest to the goal by dist(cur, node) + dist(node, goal) over
-        the full scan graph (stop at the goal).  IGNORE_ID where nothing
-        qualifies and for ended episodes."""
+        the gt path (stop at its end); else the expert of
+        `rcfg.expert_policy`: "spl", the unvisited node nearest to the goal
+        by dist(cur, node) + dist(node, goal) over the full scan graph, or
+        "ndtw", the unvisited node with the best nDTW of the trajectory
+        extended by the shortest path to it (`_ndtw_scores`); stop at the
+        goal.  IGNORE_ID where nothing qualifies and for ended
+        episodes."""
         w = self.world
         B = st["cur"].shape[0]
         bidx = torch.arange(B, device=self.device)
@@ -543,6 +681,14 @@ class NavRollout:
             slot = match.int().argmax(dim=1) + 2
             a = torch.where(is_last, 0,
                             torch.where(match.any(dim=1), slot, ignore))
+        elif self.rcfg.expert_policy == "ndtw":
+            cand = aux["real"] & ~aux["visited"]
+            score = torch.where(cand, self._ndtw_scores(st, batch, aux,
+                                                        cur_vp), -math.inf)
+            best = score.argmax(dim=1) + 2
+            any_cand = torch.isfinite(score).any(dim=1)
+            a = torch.where(cur_vp == goal, 0,
+                            torch.where(any_cand, best, ignore))
         else:
             scan = batch["scan_idx"][:, None]
             node = aux["node_vp"] % w.dist.shape[1]
@@ -555,6 +701,30 @@ class NavRollout:
             a = torch.where(cur_vp == goal, 0,
                             torch.where(any_cand, best, ignore))
         return torch.where(st["ended"], ignore, a)
+
+    def _ndtw_scores(self, st, batch, aux, cur_vp):
+        """nDTW of each node-table slot [B, N] (agent.py:333-340, the JAX
+        package's rollout.py:856-897): the trajectory's DTW row extended
+        hop by hop along the full-graph shortest path from cur_vp to the
+        slot's node (at most ndtw_future_len hops, the path's own length
+        where shorter), then exp(-dtw / (3 gt_len)) at the gt path's
+        end."""
+        w, r = self.world, self.rcfg
+        node_vp = aux["node_vp"] % w.dist.shape[1]         # [B, N]
+        B, N = node_vp.shape
+        scan = batch["scan_idx"][:, None]
+        hops = w.hops[scan, cur_vp[:, None], node_vp]
+        row = st["dtw_row"][:, None, :].expand(B, N, -1)
+        p = cur_vp[:, None].expand(B, N)
+        for k in range(r.ndtw_future_len):
+            nxt = w.nexthop[scan, p, node_vp]
+            nxt = torch.where(nxt < 0, p, nxt)
+            row = dtw_extend_row(row, self._gt_cost(batch, nxt),
+                                 valid=k < hops)
+            p = nxt
+        gl = batch["gt_len"]
+        dtw = row.gather(2, gl[:, None, None].expand(B, N, 1))[..., 0]
+        return torch.exp(-dtw / (3.0 * gl[:, None].float()))
 
     # ------------------------------------------------------------------
     def _expand_path(self, st, tgt_node, max_len):
@@ -628,7 +798,7 @@ class NavRollout:
         pano = self._pano_inputs(st, batch)
         pano_embeds, pano_masks, pano_fused = call(
             model.forward_panorama, pano["img"], pano["loc"],
-            pano["nav_types"], pano["mask"],
+            pano["nav_types"], pano["mask"], **_obj_kw(pano),
             **{dst: batch[src] for src, dst in _PANO_BANKS if src in batch})
         if pano_fused is None:  # average fallback (agent.py:550-552)
             m = pano_masks[..., None].to(pano_embeds.dtype)
@@ -673,12 +843,31 @@ class NavRollout:
         probs = torch.softmax(logits.detach(), dim=1)
         st = {**st, "stop_prob": _set_row(st["stop_prob"], st["cur"],
                                           probs[:, 0], act)}
+        B0 = logits.shape[0]
+        goal = batch["gt_path"][torch.arange(B0, device=self.device),
+                                batch["gt_len"] - 1]
+
+        # object grounding (agent_obj_goat.py:676-690): the current node
+        # keeps the id of the object its step picks; training adds the
+        # object cross-entropy at the goal
+        og_loss = None
+        obj_logits = outs.get("obj_logits")
+        if obj_logits is not None:
+            oids = pano["objs"]["oid"]
+            k_obj = (obj_logits.detach().argmax(dim=1)
+                     - 2 - self.rcfg_obj_offset()).clamp(0, oids.shape[1] - 1)
+            st = {**st, "og_oid": _set_row(st["og_oid"], st["cur"],
+                                           _row(oids, k_obj), act)}
+            if train_ml and "gt_obj_slot" in batch:
+                og_loss = og_cross_entropy(
+                    obj_logits, batch["gt_obj_slot"],
+                    act & (pano["cur_vp"] == goal))
 
         # supervision: expert target and f32 cross-entropy
         # (vln_goat_tpu/rollout/rollout.py:1230-1248): the gt path's next
-        # node for "teacher", the SPL expert for the sampled feedbacks, and
-        # per episode by batch["is_teacher"] for "fused_dagger"
-        B0 = logits.shape[0]
+        # node for "teacher", the expert of rcfg.expert_policy (SPL or
+        # nDTW) for the sampled feedbacks, and per episode by
+        # batch["is_teacher"] for "fused_dagger"; plus the og loss
         target = torch.full_like(st["cur"], IGNORE_ID)
         step_loss = torch.zeros(B0, device=logits.device)
         is_t = batch.get("is_teacher") if feedback == "fused_dagger" \
@@ -694,6 +883,8 @@ class NavRollout:
             logp = torch.log_softmax(logits.float(), dim=1)
             li = logp.gather(1, target.clamp(min=0)[:, None])[:, 0]
             step_loss = -torch.where(target >= 0, li, torch.zeros_like(li))
+            if og_loss is not None:
+                step_loss = step_loss + og_loss
 
         # action selection (vln_goat_tpu/rollout/rollout.py:1251-1295):
         # draws for every episode uid, gathered by uid
@@ -715,9 +906,6 @@ class NavRollout:
         # goal; argmax and expl_sample on the stop action only
         a_stop = a == 0
         if train_ml:
-            gl = batch["gt_len"]
-            goal = batch["gt_path"][torch.arange(B0, device=self.device),
-                                    gl - 1]
             at_goal = pano["cur_vp"] == goal
             if is_t is not None:
                 at_goal = at_goal & (is_t | (sample_feedback == "sample"))
@@ -751,6 +939,14 @@ class NavRollout:
         seg_vp = torch.where(seg >= 0, _take(st["node_vp"], seg.clamp(0, N)),
                              -1)
         act_vp = torch.where(moves, tgt_vp, -1)
+        if "dtw_row" in st:
+            # the nDTW expert's row follows the traversed segment
+            row = st["dtw_row"]
+            for k in range(r.seg_len):
+                row = dtw_extend_row(
+                    row, self._gt_cost(batch, seg_vp[:, k].clamp(min=0)),
+                    valid=seg[:, k] >= 0)
+            st = {**st, "dtw_row": row}
 
         st = {**st,
               "view_ix": torch.where(moves, new_view, st["view_ix"]),
@@ -773,7 +969,6 @@ class NavRollout:
         B = batch["scan_idx"].shape[0]
         T, G = horizon or r.horizon, r.num_nodes + 2
         dev = self.device
-        st = self.init_state(batch)
         recs = dict(
             action_node=torch.full((T, B), -1, dtype=torch.int64, device=dev),
             seg=torch.full((T, B, r.seg_len), -1, dtype=torch.int64,
@@ -790,6 +985,8 @@ class NavRollout:
         )
         losses = []
         t = 0
+        st = self.init_state(batch, need_dtw=feedback not in ("argmax",
+                                                              "teacher"))
         while t < T and not bool(st["ended"].all()):
             if remat == "ffn" and feedback != "argmax":
                 with ffn_region():
@@ -813,8 +1010,12 @@ class NavRollout:
         back = torch.where((best_stop != st["cur"])[:, None], back, -1)
         loss_per_ep = torch.stack(losses).sum(dim=0) if losses \
             else torch.zeros(B, device=dev)
+        extra = {}
+        if "og_oid" in st:
+            # the object picked at the chosen stop node
+            extra["pred_obj_id"] = _row(st["og_oid"], best_stop)
         return dict(
-            ml_loss=loss_per_ep.sum() / B, loss_per_ep=loss_per_ep,
+            extra, ml_loss=loss_per_ep.sum() / B, loss_per_ep=loss_per_ep,
             actions=recs["action_node"], segs=recs["seg"],
             seg_hops=recs["seg_hops"], logits=recs["logits"],
             active=recs["active"], targets=recs["target"],
@@ -934,7 +1135,8 @@ class NavRollout:
         rec = dict(cur_vp=pano["cur_vp"], view_ix=vi, act=act,
                    cur_slot=cur_slot, add=add, tgt=tgt,
                    keep=None if clear is None else ~clear, target=target,
-                   geo=geo, action=torch.where(moves, tgt_vp, -1))
+                   geo=geo, action=torch.where(moves, tgt_vp, -1),
+                   at_goal=pano["cur_vp"] == goal)
         return st, rec
 
     def teacher_rollout_vec(self, batch, generator: torch.Generator,
@@ -994,7 +1196,7 @@ class NavRollout:
         policy = vec_call_policy(remat)
         pe, pm, pf = self._call(
             model.forward_panorama, policy, pano["img"], pano["loc"],
-            pano["nav_types"], pano["mask"],
+            pano["nav_types"], pano["mask"], **_obj_kw(pano),
             **{dst: _tile(batch[src], n) for src, dst in _PANO_BANKS
                if src in batch})
         if pf is None:  # average fallback (agent.py:550-552)
@@ -1031,8 +1233,13 @@ class NavRollout:
             logp = torch.log_softmax(outs["fused_logits"].float(), dim=1)
             target = rec["target"]
             li = logp.gather(1, target.clamp(min=0)[:, None])[:, 0]
-            losses.append(-torch.where(target >= 0, li,
-                                       torch.zeros_like(li)))
+            step_loss = -torch.where(target >= 0, li, torch.zeros_like(li))
+            if outs.get("obj_logits") is not None and \
+                    "gt_obj_slot" in batch:
+                step_loss = step_loss + og_cross_entropy(
+                    outs["obj_logits"], batch["gt_obj_slot"],
+                    act & rec["at_goal"])
+            losses.append(step_loss)
             if rec["keep"] is not None:
                 es = es * rec["keep"][..., None]
                 ec = ec * rec["keep"]

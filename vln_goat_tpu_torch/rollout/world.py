@@ -1,6 +1,6 @@
 """NavWorld: packed navigation tables of a set of scans, as tensors on one
-device (counterpart of vln_goat_tpu/rollout/world.py: view features and
-their EnvEdit-augmented copy; no object tables).
+device (counterpart of vln_goat_tpu/rollout/world.py: view features, their
+EnvEdit-augmented copy, and the REVERIE / SOON object tables).
 
 Scans are padded to Vmax viewpoints; features are flattened to a global
 [Vtot, 36, Df] tensor addressed by vp_offset[scan] + local index.
@@ -36,23 +36,52 @@ class NavWorld:
     feat: torch.Tensor          # [Vtot, 36, Df]
     # EnvEdit augmented features, [0, 36, Df] when absent (r2r/env.py:78-84)
     feat_aug: Optional[torch.Tensor] = None
+    # objects (REVERIE / SOON), zero-width [Vtot, 0, ...] when absent
+    obj_feat: Optional[torch.Tensor] = None   # [Vtot, Lo, Dobj]
+    obj_loc: Optional[torch.Tensor] = None    # [Vtot, Lo, A+3] angle + box
+    obj_dir: Optional[torch.Tensor] = None    # [Vtot, Lo or 0, 2] absolute
+    obj_mask: Optional[torch.Tensor] = None   # [Vtot, Lo] bool
+    obj_name: Optional[torch.Tensor] = None   # [Vtot, Lo] category id
+    obj_id: Optional[torch.Tensor] = None     # [Vtot, Lo] dataset object id
 
     @property
     def has_aug(self) -> bool:
         return self.feat_aug is not None and self.feat_aug.shape[0] > 0
+
+    @property
+    def max_cands(self) -> int:
+        return self.cand_local.shape[-1]
+
+    @property
+    def num_objs(self) -> int:
+        return 0 if self.obj_feat is None else self.obj_feat.shape[1]
+
+    def get_objs(self, scan, vp):
+        """Object tables of (scan, vp), each [B, Lo, ...]: feat, loc, dir
+        (None when the world has no raw directions), mask, name, oid."""
+        g = self.vp_offset[scan] + vp
+        d = self.obj_dir[g]
+        return dict(feat=self.obj_feat[g], loc=self.obj_loc[g],
+                    dir=d if d.shape[1] else None, mask=self.obj_mask[g],
+                    name=self.obj_name[g], oid=self.obj_id[g])
 
     @classmethod
     def build(cls, scans: Sequence[ScanGraph],
               features: Optional[np.ndarray] = None, feat_dim: int = 768,
               seed: int = 0, device="cuda",
               feat_dtype: torch.dtype = torch.float32,
-              aug_features: Optional[np.ndarray] = None) -> "NavWorld":
+              aug_features: Optional[np.ndarray] = None,
+              objects: Optional[dict] = None) -> "NavWorld":
         """Pack ScanGraphs (+ per-viewpoint 36-view features) onto `device`.
 
         features: [sum(V_s), 36, Df] in scan order, or None for random
         synthetic features drawn with numpy from `seed` (the same draws as
         the JAX package's NavWorld.build).  aug_features: the EnvEdit
-        features in the same layout, or None."""
+        features in the same layout, or None.  objects: the object store
+        (`data.feature_db.ObjectFeaturesDB.as_packed_arrays`, or a
+        synthetic one): {feat [Vtot, Lo, Dobj], loc [Vtot, Lo, A+3],
+        dir [Vtot, Lo, 2] (optional), mask, name, oid [Vtot, Lo]}, or None
+        for zero-width tables."""
         device = resolve(device)
         S = len(scans)
         Vmax = max(g.num_vps for g in scans)
@@ -87,6 +116,24 @@ class NavWorld:
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                    device=device)
 
+        if objects is not None:
+            dirs = objects.get("dir")
+            obj = dict(
+                obj_feat=t(objects["feat"], feat_dtype),
+                obj_loc=t(np.asarray(objects["loc"], np.float32)),
+                obj_dir=t(np.asarray(dirs, np.float32) if dirs is not None
+                          else np.zeros((vtot, 0, 2), np.float32)),
+                obj_mask=t(np.asarray(objects["mask"], bool)),
+                obj_name=t(objects["name"], torch.int64),
+                obj_id=t(objects["oid"], torch.int64))
+        else:
+            obj = dict(
+                obj_feat=t(np.zeros((vtot, 0, 1), np.float32), feat_dtype),
+                obj_loc=t(np.zeros((vtot, 0, 7), np.float32)),
+                obj_dir=t(np.zeros((vtot, 0, 2), np.float32)),
+                obj_mask=t(np.zeros((vtot, 0), bool)),
+                obj_name=t(np.zeros((vtot, 0), np.int64)),
+                obj_id=t(np.zeros((vtot, 0), np.int64)))
         return cls(
             pos=t(pad2([g.pos for g in scans], 0.0)),
             cand_local=t(pad2([g.cand_local for g in scans], -1), torch.int64),
@@ -101,6 +148,7 @@ class NavWorld:
             feat_aug=t(aug_features if aug_features is not None else
                        np.zeros((0, 36, features.shape[2]), np.float32),
                        feat_dtype),
+            **obj,
         )
 
     # gathers used by the rollout (scan = [B] scan index, vp = [B] local idx)

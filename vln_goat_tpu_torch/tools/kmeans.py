@@ -6,15 +6,11 @@ the extracted CFP features (n_clusters=24, r2r/parser.py
 front_n_clusters) and at every refresh picks one random member of each
 cluster to form the front-door bank.  `kmeans_fit` seeds with kmeans++ on
 the host, with the numpy draws of the JAX package's, then runs Lloyd
-iterations in torch on the given device.  `load_cfp_tsv` reads the CFP
-feature file the picker clusters (the JAX package's
-tools/cfp_extract.py:67; writing it, CFP extraction, is not ported).
+iterations in torch on the given device.  The CFP feature file the
+picker clusters is read by `tools.cfp_extract.load_cfp_tsv`.
 """
 from __future__ import annotations
 
-import base64
-import csv
-import sys
 from typing import Dict, Tuple
 
 import numpy as np
@@ -88,23 +84,3 @@ class FrontDoorPicker:
                 rows.append(f[self.rng.choice(members)])
             out[key] = np.stack(rows, 0).astype(np.float32)
         return out
-
-
-CFP_TSV_FIELDS = ["path_id", "txt_feats", "vp_feats", "gmap_feats"]
-
-
-def load_cfp_tsv(path: str, dim: int = 768) -> Dict[str, np.ndarray]:
-    """A CFP feature TSV (path_id, then base64 float32 txt / vp / gmap
-    features) -> {"path_ids": [...], "txt_feats" / "vp_feats" /
-    "gmap_feats": [N, dim]} (read_tim_tsv, utils/data.py:430-449)."""
-    csv.field_size_limit(sys.maxsize)
-    out = {k: [] for k in CFP_TSV_FIELDS[1:]}
-    ids = []
-    with open(path) as f:
-        for row in csv.DictReader(f, delimiter="\t",
-                                  fieldnames=CFP_TSV_FIELDS):
-            ids.append(row["path_id"])
-            for k in out:
-                out[k].append(np.frombuffer(
-                    base64.b64decode(row[k]), np.float32)[:dim])
-    return {"path_ids": ids, **{k: np.stack(v, 0) for k, v in out.items()}}

@@ -25,7 +25,13 @@ state_dict.  The naming follows the JAX package's `flax_to_torch`
 - Dense kernel [in, out] -> Linear weight [out, in]; bias -> bias;
 - LayerNorm scale -> weight; Embed embedding -> weight;
 - the pano encoder's q_proj/k_proj/v_proj pack into torch
-  MultiheadAttention's in_proj_weight / in_proj_bias.
+  MultiheadAttention's in_proj_weight / in_proj_bias;
+- a raw parameter (the CFP pooling's tim_*_attn, the JAX package's
+  RAW_PARAMS) keeps its name and layout.
+These cover every parameter of every configuration: the object tokens
+(obj_reverie_linear, obj_name_linear, nav_type_embedding, layer_norm,
+pano_encoder), og_head, the tim_* modules of the `extract_cfp_features`
+mode, and `Critic` (state2value.0 / .3) as a tree of its own.
 """
 from __future__ import annotations
 
@@ -68,9 +74,12 @@ def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         if parts[0] == "params":
             parts = parts[1:]
         parts = [re.sub(r"_(\d+)$", r".\1", p) for p in parts]
+        val = np.asarray(val, np.float32)
+        if len(parts) == 1:
+            out[parts[0]] = torch.from_numpy(val.copy())
+            continue
         leaf, mod = parts[-1], parts[-2]
         base = ".".join(parts[:-1])
-        val = np.asarray(val, np.float32)
         if mod in _QKV:
             owner = ".".join(parts[:-2])
             qkv.setdefault(owner, {})[f"{mod}/{leaf}"] = val

@@ -4,7 +4,8 @@ model's own device with an explicit torch.Generator.
 The distributions are those the JAX package's flax modules use: Dense
 kernels lecun-normal (a normal of std sqrt(1/fan_in) truncated at two
 standard deviations and rescaled), biases zero, LayerNorm scale one and
-bias zero, embeddings normal with std sqrt(1/width).  The draws differ from
+bias zero, embeddings normal with std sqrt(1/width), the CFP pooling's raw
+tim_*_attn vectors normal with std 0.02.  The draws differ from
 JAX's, which use another generator.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ import math
 import torch
 from torch import nn
 
+from ..models.goat import TIM_ATTN
 from ..models.layers import TorchMultiheadAttention
 
 # std of a unit normal truncated to [-2, 2]
@@ -44,4 +46,8 @@ def init_goat_params(model: nn.Module, seed: int = 0) -> nn.Module:
         elif isinstance(m, TorchMultiheadAttention):
             _lecun_(m.in_proj_weight, m.in_proj_weight.shape[1], g)
             nn.init.zeros_(m.in_proj_bias)
+        for name in TIM_ATTN:
+            p = getattr(m, name, None)
+            if isinstance(p, nn.Parameter):
+                nn.init.normal_(p, 0.0, 0.02, generator=g)
     return model
