@@ -166,6 +166,28 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
   5 (p): the CLI on the card: `--dataset reverie` train and valid
      --submit, `--dataset rxr --expert_policy ndtw` train, `--mode
      extract_cfp_features`.
+  3 (o): K1, K2 (a) and K2 (b) in float32 at every attention shape of
+     pretraining at R2R width, batch 48 (the text's 80 tokens, MLM's text
+     over the 64 map slots and the 53 viewpoint tokens, the map's
+     self-attention with and without the graph bias, the map and the
+     viewpoint over the text, the viewpoint's self-attention, REVERIE's
+     73-token viewpoint), dropout 0.1, phase 3's gates, timed;
+  5 (q): pretraining at R2R width through the pretrain CLI's `--synthetic`
+     build, batch 48, trajectories of 20 steps: one update per task (MLM,
+     SAP, CFP, MRC with 1000 classes; OG on the REVERIE rig, 20 objects a
+     viewpoint) through the kernels against the eager path, every dropout
+     at 0 (loss to a relative 1e-4, gradients within 1e-3 of their scale,
+     phase 5 (a)'s ReLU pinning within KINK_BAND, K1 / K2 launches equal to
+     the task's plan: every attention on the kernels); then each task's
+     examples per second and peak memory with dropout on, fed by the CLI's
+     worker pool (3 warm-up and 6 timed updates), and one more update
+     under torch.profiler (device-busy share, the float32 K1 / K2
+     kernels' device time);
+  5 (r): the pretrain CLI (MLM / SAP / CFP, use_pallas_attention, batch
+     48, 4 updates, one validation) writing `ckpt_latest` and a
+     `ckpt_best_*`, whose pretrain .pt initialises the fine-tune model with
+     no encoder key missing and runs 2 iterations of the fine-tune CLI
+     through `--bert_ckpt_file`.
 The train steps run the vectorized teacher unless a phase says otherwise.
 Every bf16 decode and train path's launches of the bf16 GEMM core and of
 the bf16 attention cores must all have taken their TMA routes
@@ -175,7 +197,7 @@ read just after.
 The line before the last is one JSON object with every kernel's numbers
 (the bf16 builds as rows of their own); the last is {"ok": true,
 "device": {...}}.  Any failure raises, but for the comparisons of phases
-4 (bf16) and 5 (a), (c), (e)-(p): each prints its failure, the
+4 (bf16) and 5 (a), (c), (e)-(r): each prints its failure, the
 later phases run and print their numbers, and the script then prints the
 failures instead of the last two lines and exits non-zero.  There is no
 CPU fallback, and without a card the script exits non-zero before
@@ -2564,35 +2586,60 @@ def device_work(events):
             if e.device_type() == cuda and e.name() not in host]
 
 
-def kernel_ms(fn, n=5, name=None):
+# profiles taken again because the first held none of the device work
+# asked for (kernel_ms), printed at the end: the profiler has dropped a
+# launched kernel's events (attn_bwd_sm90_kernel, at 3 (n)'s CFP shape)
+PROFILE_RETRIES = []
+
+
+def kernel_ms(fn, n=5, name=None, attempts=3):
     """Device time of one call of fn, where a CUDA graph cannot hold it
     (an autograd backward of a graph built outside) or a kernel is to be
     read alone: the summed durations of the device work of n calls under
     torch.profiler (with `name`, of the kernels whose name holds it), over
-    n (the gaps between the kernels not counted)."""
+    n (the gaps between the kernels not counted).  A profile without that
+    work is taken again, up to `attempts` profiles in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    work = [w for w in device_work(prof.profiler.kineto_results.events())
-            if name is None or name in w[0]]
-    if not work:
-        raise AssertionError(f"the profile holds no device work"
-                             f"{'' if name is None else ' named ' + name}")
-    return sum(e_ - s_ for _, s_, e_ in work) / n / 1e6
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        work = [w for w in device_work(prof.profiler.kineto_results.events())
+                if name is None or name in w[0]]
+        if work:
+            return sum(e_ - s_ for _, s_, e_ in work) / n / 1e6
+        PROFILE_RETRIES.append(name)
+    raise AssertionError(f"{attempts} profiles hold no device work"
+                         f"{'' if name is None else ' named ' + name}")
+
+
+# the float32 K1 / K2 kernels by part: the 3xTF32 GEMM jobs (the q / k / v
+# projections, their recompute and K2 (b)'s products), the attention cores
+# and K2 (b)'s split-K reduction
+K_F32_PARTS = (("GEMM jobs", "gemm_jobs_kernel"),
+               ("K1 attention", "attn_fwd_kernel"),
+               ("K2 (a) attention", "attn_bwd_kernel"),
+               ("K2 (b) reduce", "splitk_reduce_kernel<float"))
 
 
 def trace_step(state, batcher, g):
-    """One more DAgger step under torch.profiler (CPU and CUDA
-    activities): the window (first to last event), the device-busy share
-    of it (the union of the device's kernel, copy and set intervals; the
-    host ranges the profiler mirrors onto the device are left out), the
-    ten kernels with the most device time, and the bf16 K1 / K2
-    kernels' share of the device time.  None for the device numbers when the trace
+    """One more DAgger step under torch.profiler: `trace_call`'s numbers
+    with the bf16 K1 / K2 kernels' share."""
+    return trace_call(lambda: train_steps(state, batcher, 1, g),
+                      K_BF16_PARTS)
+
+
+def trace_call(fn, parts):
+    """fn() under torch.profiler (CPU and CUDA activities): the window
+    (first to last event), the device-busy share of it (the union of the
+    device's kernel, copy and set intervals; the host ranges the profiler
+    mirrors onto the device are left out), the ten kernels with the most
+    device time, and the device time of the kernels `parts` names ((label,
+    name substring) pairs).  None for the device numbers when the trace
     holds no device event."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2600,7 +2647,7 @@ def trace_step(state, batcher, g):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_steps(state, batcher, 1, g)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.profiler.kineto_results.events()
@@ -2630,7 +2677,7 @@ def trace_step(state, batcher, g):
                busy_share=busy / (hi - lo), device_ms=total / 1e6,
                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:10],
                parts={p: sum(v for k, v in by_name.items() if key in k)
-                      / 1e6 for p, key in K_BF16_PARTS})
+                      / 1e6 for p, key in parts})
     return out
 
 
@@ -3554,6 +3601,449 @@ def new_kernel_rows(rows, m, n, o):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 3 (o), 5 (q), 5 (r): pretraining at R2R width (hidden 768, 12 heads
+# of 64, 6 text / 2 pano / 3 cross layers, vocab 50265), the pretrain CLI's
+# `--synthetic` rig: batch 48, trajectories of up to 20 steps, 80-token
+# instructions, 64 map slots ([stop] + nodes, no [MEM]), 53 viewpoint
+# tokens ([stop] + 16 candidates + 36 views; 73 with REVERIE's 20 objects
+# a viewpoint).  Every module in float32, as the JAX pretrain model.
+PT_BATCH, PT_WARM, PT_TIMED = 48, 3, 6
+PT_TASKS, PT_OG = ("mlm", "sap", "cfp", "mrc"), ("og",)
+# (tag, Lq, Lk, bias kind) of every pretraining attention: the text's
+# self-attention (the language encoder, and MLM's cross encoders' own
+# self-attention); MLM's text over the map and the viewpoint; the map's
+# self-attention under the key mask and the graph bias (SAP) or the key
+# mask alone (CFP's tim self-encoder); the map over the text; the
+# viewpoint's self-attention (SAP, MRC, CFP's tim self-encoder) and the
+# viewpoint over the text; REVERIE's viewpoint with objects (OG)
+PT_SHAPES = (("pt_text80", 80, 80, "key"),
+             ("pt_text80xgmap64", 80, 64, "key"),
+             ("pt_text80xvp53", 80, 53, "key"),
+             ("pt_gmap64_graph", 64, 64, "full"),
+             ("pt_gmap64", 64, 64, "key"),
+             ("pt_gmap64xtext80", 64, 80, "key"),
+             ("pt_vp53", 53, 53, "key"),
+             ("pt_vp53xtext80", 53, 80, "key"),
+             ("pt_vp73", 73, 73, "key"),
+             ("pt_vp73xtext80", 73, 80, "key"))
+# the gradients zero up to rounding in a pretraining step: NOISE_GRAD_BIASES
+# and, SAP being teacher-forced, TEACHER_NOISE_BIASES (gate_witness), and
+# the og head's last two biases (one constant on every object logit)
+PT_NOISE = NOISE_GRAD_BIASES + TEACHER_NOISE_BIASES + (
+    "og_head.net.2.bias", "og_head.net.3.bias")
+
+
+def pretrain_plan(task, layers=6, cross=3):
+    """{shape tag: fused attention calls} of one forward of `task` (each
+    also one K2 (a) and one K2 (b) launch in its backward): every
+    attention of pretraining has at least 53 queries, over the gate's 32,
+    so every one is a kernel launch."""
+    vp = "pt_vp73" if task == "og" else "pt_vp53"
+    plan = {"pt_text80": layers}
+    if task == "mlm":
+        plan.update(pt_text80=layers + 2 * cross, pt_text80xgmap64=cross,
+                    pt_text80xvp53=cross)
+    elif task == "sap":
+        plan.update(pt_gmap64_graph=cross, pt_gmap64xtext80=cross,
+                    pt_vp53=cross, pt_vp53xtext80=cross)
+    elif task in ("mrc", "og"):
+        plan.update({vp: cross, vp + "xtext80": cross})
+    elif task == "cfp":
+        plan.update(pt_gmap64=1, pt_vp53=1)
+    return plan
+
+
+def pretrain_shape_rows():
+    """Phase 3 (o): K1, K2 (a), K2 (b) in float32 at every PT_SHAPES shape,
+    batch 48, dropout 0.1, under phase 3's gates and timed as the train
+    shapes: {tag: row}."""
+    rows = {}
+    g = torch.Generator(device="cuda").manual_seed(29)
+    for name, Lq, Lk, bias_kind in PT_SHAPES:
+        f = rows[name] = check_shape(g, name, Lq, Lk, bias_kind, "linear",
+                                     PT_BATCH, timed=True)
+        say(f"shape {name}: B={PT_BATCH} Lq={Lq} Lk={Lk} {bias_kind} bias, "
+            f"dropout {RATE}; float32 max_abs_err forward "
+            f"{f[f'fwd_err_{RATE}']:.3e}, attention backward "
+            f"{f[f'attn_err_{RATE}']:.3e}, grads {f[f'proj_err_{RATE}']:.3e}"
+            f"; ms K1 {f['ms']:.4f} (device {f['device_ms']:.4f}, bound "
+            f"{f['bound_ms']:.4f}, plain {f['plain_ms']:.4f}, library "
+            f"{f['library_ms']:.4f}), K2 (a) {f['attn_ms']:.4f} (bound "
+            f"{f['attn_bound_ms']:.4f}, plain {f['attn_plain_ms']:.4f}, "
+            f"library {f['attn_library_ms']:.4f}), K2 (b) "
+            f"{f['projb_ms']:.4f} (bound {f['projb_bound_ms']:.4f}, plain "
+            f"{f['projb_plain_ms']:.4f}, library "
+            f"{f['projb_library_ms']:.4f})")
+    return rows
+
+
+def pretrain_rig(dataset, tasks, fused, dropout, workers=0):
+    """(args, runtime) of the pretrain CLI's `--synthetic` build at R2R
+    width on the card: batch 48, the CLI's defaults otherwise (its
+    weights from seed 0), the fused kernels or the eager path, every
+    dropout at 0 unless `dropout`."""
+    from vln_goat_tpu_torch.pretrain import cli as pcli
+
+    mc = dict(use_pallas_attention=fused)
+    if not dropout:
+        mc.update(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    fd, path = tempfile.mkstemp(suffix=".json", prefix="chip_smoke_pt_")
+    with os.fdopen(fd, "w") as f:
+        json.dump(mc, f)
+    try:
+        args = pcli.parse_args(
+            ["--synthetic", "--device", "cuda", "--dataset", dataset,
+             "--tasks", *tasks, "--mix_ratio", *["1"] * len(tasks),
+             "--train_batch_size", str(PT_BATCH), "--model_config", path,
+             "--num_workers", str(workers)])
+        return args, pcli.build(args)
+    finally:
+        os.unlink(path)
+
+
+def pretrain_step(model, task, batch):
+    """One pretraining update of `model` on `batch` (AdamW as the CLI
+    builds it), the dropout generator seeded 0; (metrics, gradients,
+    launches)."""
+    from vln_goat_tpu_torch.config import PretrainConfig
+    from vln_goat_tpu_torch.pretrain.train import (PretrainState,
+                                                   make_pretrain_optimizer,
+                                                   make_pretrain_steps)
+
+    state = PretrainState(model, make_pretrain_optimizer(PretrainConfig(),
+                                                         model))
+    step = make_pretrain_steps(model, (task,))[task]
+    reset_counts()
+    m, grads = step(state, batch, torch.Generator(device="cuda").manual_seed(0),
+                    keep=True)
+    torch.cuda.synchronize()
+    return m, grads, counts()
+
+
+def pretrain_gates(card):
+    """Phase 5 (q), correctness: each task's update at R2R width, batch 48,
+    every dropout at 0, through the kernels against the eager path from the
+    same weights and batch: the loss to a relative 1e-4, every gradient
+    within 1e-3 of its largest magnitude (PT_NOISE at their weight's), the
+    ClsPrediction ReLU decisions of the kernel step that differ from
+    eager's within KINK_BAND of the kink (and given eager's, as phase 5
+    (a) gives them), and the launches of K1, K2 (a), K2 (b) each equal to
+    the task's plan (every attention on the kernels).  MLM, SAP, CFP and
+    MRC (1000 classes) on the R2R rig, OG on the REVERIE rig.  Returns
+    ({task: numbers}, failure or None)."""
+    from vln_goat_tpu_torch.pretrain.cli import batch_to_device, make_batch_np
+
+    nums, failure = {}, None
+    try:
+        for dataset, tasks in (("r2r", PT_TASKS), ("reverie", PT_OG)):
+            _, e_rt = pretrain_rig(dataset, tasks, False, False)
+            _, k_rt = pretrain_rig(dataset, tasks, True, False)
+            sd0 = {k: v.clone() for k, v in e_rt["model"].state_dict().items()}
+            for task in tasks:
+                e_rt["model"].load_state_dict(sd0)
+                k_rt["model"].load_state_dict(sd0)
+                batch = batch_to_device(make_batch_np(
+                    e_rt["builder"], e_rt["items"]["train"], PT_BATCH, 0,
+                    "train", task, 0), e_rt["device"])
+                seen, hooks = record_relus(e_rt["model"])
+                e_m, e_grads, e_counts = pretrain_step(e_rt["model"], task,
+                                                       batch)
+                for h in hooks:
+                    h.remove()
+                pinned, hooks = pin_relus(k_rt["model"], seen)
+                t0 = time.perf_counter()
+                k_m, k_grads, k_counts = pretrain_step(k_rt["model"], task,
+                                                       batch)
+                ms = (time.perf_counter() - t0) * 1e3
+                for h in hooks:
+                    h.remove()
+                n = sum(pretrain_plan(task).values())
+                r = nums[task] = dict(
+                    loss=float(k_m["loss"]), eager_loss=float(e_m["loss"]),
+                    counts=k_counts, plan=n, flips=pinned["flips"],
+                    dist=pinned["dist"], dev=pinned["dev"], ms=ms,
+                    metrics={k: float(v) for k, v in k_m.items()})
+                if e_counts != (0, 0, 0, 0):
+                    raise AssertionError(f"{task}: the eager step launched "
+                                         f"{e_counts}")
+                if k_counts != (n, n, n, 0):
+                    raise AssertionError(f"{task}: the kernel step launched "
+                                         f"{k_counts}, the plan {n}")
+                if not math.isfinite(r["loss"]) or abs(
+                        r["loss"] - r["eager_loss"]) > 1e-4 * abs(
+                            r["eager_loss"]):
+                    raise AssertionError(f"{task}: loss {r['loss']} vs eager "
+                                         f"{r['eager_loss']}")
+                if pinned["dist"] > KINK_BAND:
+                    raise AssertionError(
+                        f"{task}: a ReLU decision differs from eager's with "
+                        f"|z - z_eager| {pinned['dist']:.3e} > {KINK_BAND}")
+                if set(k_grads) != set(e_grads):
+                    raise AssertionError(f"{task}: other parameters got a "
+                                         "gradient")
+                r["grad_ratio"], r["grad_name"] = worst_grad(
+                    k_grads, e_grads, PT_NOISE)
+                if r["grad_ratio"] > 1e-3:
+                    raise AssertionError(
+                        f"{task}: gradient {r['grad_name']} differs by "
+                        f"{r['grad_ratio']:.3e} of its scale > 1e-3")
+                del seen, e_grads, k_grads, batch
+            del e_rt, k_rt, sd0
+            gc.collect()
+            torch.cuda.empty_cache()
+    except AssertionError as exc:
+        failure = f"pretrain (q): {exc}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"pretrain (q) R2R width, batch {PT_BATCH}, dropout 0, kernels vs "
+        "eager, one update per task: "
+        + "; ".join(f"{t} loss {r['loss']:.6f} vs {r['eager_loss']:.6f}, "
+                    f"gradients within {r.get('grad_ratio', float('nan')):.2e}"
+                    f" of their max ({r.get('grad_name')}), launches "
+                    f"{r['counts'][:3]} (plan {r['plan']}), {r['flips']} ReLU "
+                    f"decisions given eager's (within {r['dist']:.2e} of the "
+                    f"kink), kernel step {r['ms']:.1f} ms"
+                    for t, r in nums.items())
+        + f" on {card}")
+    if failure is not None:
+        say(f"pretrain (q): FAILED: {failure} (the script goes on, and fails "
+            "at its end)")
+    return nums, failure
+
+
+def pretrain_timing(card):
+    """Phase 5 (q), throughput: each task's updates at R2R width, batch 48,
+    dropout on (0.1), through the kernels, fed by the CLI's worker pool
+    (`pretrain.cli.batch_pool`, 6 spawned workers on shared-memory
+    tables; copies to the card from pinned memory) as bench.py's
+    bench_pretrain feeds its steps: PT_WARM warm-up updates, then PT_TIMED
+    timed ones, the loss fetched every step as the CLI fetches it;
+    examples per second, ms per update, peak memory and the launches over
+    all the task's updates (each its plan); then one more update under
+    torch.profiler (`trace_call`: the device-busy share, the float32 K1 /
+    K2 kernels' device time).  Returns ({task: numbers}, failure or
+    None)."""
+    from vln_goat_tpu_torch.config import PretrainConfig
+    from vln_goat_tpu_torch.pretrain import cli as pcli
+    from vln_goat_tpu_torch.pretrain.train import (PretrainState,
+                                                   make_pretrain_optimizer,
+                                                   make_pretrain_steps,
+                                                   step_generator)
+
+    nums, failure, setup = {}, None, {}
+    try:
+        for dataset, tasks in (("r2r", PT_TASKS), ("reverie", PT_OG)):
+            t0 = time.perf_counter()
+            args, rt = pretrain_rig(dataset, tasks, True, True, workers=6)
+            setup[dataset] = time.perf_counter() - t0
+            model, dev = rt["model"], rt["device"]
+            state = PretrainState(model, make_pretrain_optimizer(
+                PretrainConfig(tasks=tasks), model))
+            steps = make_pretrain_steps(model, tasks)
+            pool, close = pcli.batch_pool(args, rt["builder"], rt["items"])
+            try:
+                for task in tasks:
+                    # the warm-up and timed updates, then one more under
+                    # the profiler
+                    descs = [("train", task, s)
+                             for s in range(PT_WARM + PT_TIMED + 1)]
+                    gc.collect()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_counts()
+                    t_first = time.perf_counter()
+                    for i, (_, nb) in enumerate(pool.imap(iter(descs))):
+                        if i == 0:
+                            t_first = time.perf_counter() - t_first
+                        if i == PT_WARM:
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                        batch = pcli.batch_to_device(nb, dev)
+                        gen = step_generator(0, i, dev)
+                        if i < PT_WARM + PT_TIMED:
+                            loss = float(steps[task](state, batch,
+                                                     gen)["loss"])
+                            if i == PT_WARM + PT_TIMED - 1:
+                                torch.cuda.synchronize()
+                                dt = time.perf_counter() - t0
+                            continue
+                        trace = trace_call(lambda: float(steps[task](
+                            state, batch, gen)["loss"]), K_F32_PARTS)
+                    n = sum(pretrain_plan(task).values()) * len(descs)
+                    r = nums[task] = dict(
+                        ex_s=PT_BATCH * PT_TIMED / dt,
+                        ms=dt / PT_TIMED * 1e3, loss=loss,
+                        peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        counts=counts(), plan=n, steps=len(descs),
+                        first_batch_s=t_first, trace=trace)
+                    if not math.isfinite(loss):
+                        raise AssertionError(f"{task}: loss {loss}")
+                    if r["counts"] != (n, n, n, 0):
+                        raise AssertionError(f"{task}: launched "
+                                             f"{r['counts']}, the plan {n}")
+            finally:
+                close()
+            del state, steps, model, rt
+            gc.collect()
+            torch.cuda.empty_cache()
+    except AssertionError as exc:
+        failure = f"pretrain (q) timing: {exc}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"pretrain (q) R2R width, batch {PT_BATCH}, dropout 0.1, kernels, "
+        f"6 batch workers, {PT_WARM} warm-up + {PT_TIMED} timed updates per "
+        "task: "
+        + "; ".join(f"{t} {r['ex_s']:.1f} examples/s ({r['ms']:.1f} ms an "
+                    f"update, peak {r['peak']:.2f} GiB, launches "
+                    f"{r['counts'][:3]} over {r['steps']} updates, first "
+                    f"batch after {r['first_batch_s']:.1f} s)"
+                    for t, r in nums.items())
+        + "; rig builds " + ", ".join(f"{k} {v:.1f} s"
+                                      for k, v in setup.items())
+        + f" on {card}")
+    for t, r in nums.items():
+        tr = r["trace"]
+        if "busy_share" not in tr:
+            say(f"pretrain (q) {t}: profile of one more update "
+                f"{tr['wall_ms']:.1f} ms, no device events")
+            continue
+        k = sum(tr["parts"].values())
+        say(f"pretrain (q) {t}: profile of one more update "
+            f"{tr['wall_ms']:.1f} ms, {tr['events']} events; device busy "
+            f"{tr['busy_ms']:.1f} ms ({tr['busy_share'] * 100:.1f}% of "
+            f"{tr['window_ms']:.1f} ms), device time {tr['device_ms']:.1f} "
+            f"ms; float32 K1 / K2 kernels {k:.1f} ms "
+            f"({k / tr['device_ms'] * 100:.1f}%: "
+            + ", ".join(f"{p} {v:.2f}" for p, v in tr["parts"].items())
+            + "); top 5: " + "; ".join(f"{name[:60]} {ns / 1e6:.2f} ms"
+                                       for name, ns in tr["top"][:5]))
+    if failure is not None:
+        say(f"pretrain (q) timing: FAILED: {failure} (the script goes on, "
+            "and fails at its end)")
+    return nums, failure
+
+
+def pretrain_cli_phase(card):
+    """Phase 5 (r): `python -m vln_goat_tpu_torch.pretrain.cli --synthetic`
+    (in this process) with a `--model_config` setting use_pallas_attention,
+    R2R width, MLM / SAP / CFP at batch 48, 2 batch workers, 4 updates and
+    one validation: K1 and K2 launched, `ckpt_latest` and a `ckpt_best_*`
+    written, the losses logged finite.  Then the best directory as a
+    pretrain .pt (`save_pretrain_checkpoint`) initialises the fine-tune
+    GoatModel with no encoder key missing, and the fine-tune CLI runs 2
+    iterations from it through `--bert_ckpt_file` (`--use_pallas`, batch
+    8).  Returns (numbers, failure or None)."""
+    from vln_goat_tpu_torch import cli
+    from vln_goat_tpu_torch.config import GoatConfig
+    from vln_goat_tpu_torch.entry import build_model
+    from vln_goat_tpu_torch.pretrain import cli as pcli
+    from vln_goat_tpu_torch.train import checkpoint as ck
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    nums, failure = {}, None
+    try:
+        mc = os.path.join(out, "model.json")
+        with open(mc, "w") as f:
+            json.dump({"use_pallas_attention": True}, f)
+        pdir = os.path.join(out, "pretrain")
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        pcli.main(["--synthetic", "--model_config", mc, "--output_dir", pdir,
+                   "--num_train_steps", "4", "--valid_steps", "4",
+                   "--log_steps", "2", "--num_workers", "2"])
+        torch.cuda.synchronize()
+        nums["pretrain_s"] = time.perf_counter() - t0
+        nums["pretrain_counts"] = counts()
+        if min(nums["pretrain_counts"][:3]) <= 0:
+            raise AssertionError(f"pretrain launches "
+                                 f"{nums['pretrain_counts']}")
+        best = sorted(d for d in os.listdir(pdir)
+                      if d.startswith("ckpt_best_"))
+        if not best or not os.path.isdir(os.path.join(pdir, "ckpt_latest")):
+            raise AssertionError(f"checkpoints {sorted(os.listdir(pdir))}")
+        nums["best"] = best
+        lines = [json.loads(line) for line in
+                 open(os.path.join(pdir, "metrics.jsonl"))]
+        nums["train"] = [d for d in lines if "train/mlm" in d]
+        nums["val_unseen"] = [d for d in lines if any(
+            k.startswith("val_unseen/") for k in d)]
+        if not nums["train"] or not all(
+                math.isfinite(v) for d in nums["train"] for k, v in d.items()
+                if k.startswith("train/")):
+            raise AssertionError(f"train losses {nums['train']}")
+        pt = os.path.join(out, "pretrain.pt")
+        ck.save_pretrain_checkpoint(
+            ck.load_params(os.path.join(pdir, best[-1])), pt)
+        ft = build_model(GoatConfig.for_dataset("r2r"), "cuda")
+        missing, extra = ck.load_reference(ft, pt)
+        nums["missing"], nums["extra"] = missing, extra
+        enc = [k for k in missing if k.split(".")[0] in (
+            "embeddings", "lang_encoder", "img_embeddings", "local_encoder",
+            "global_encoder")]
+        if enc:
+            raise AssertionError(f"encoder keys missing: {enc[:5]}")
+        del ft
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        fdir = os.path.join(out, "finetune")
+        cli.main(["--mode", "train", "--synthetic", "--use_pallas",
+                  "--bert_ckpt_file", pt, "--iters", "2", "--log_every", "2",
+                  "--batch_size", "8", "--device", "cuda", "--output_dir",
+                  fdir])
+        torch.cuda.synchronize()
+        nums["finetune_s"] = time.perf_counter() - t0
+        nums["finetune_counts"] = counts()
+        lines = [json.loads(line) for line in
+                 open(os.path.join(fdir, "metrics.jsonl"))]
+        losses = [d["train/loss"] for d in lines if "train/loss" in d]
+        nums["finetune_losses"] = losses
+        if not losses or not all(math.isfinite(v) for v in losses) or \
+                min(nums["finetune_counts"][:3]) <= 0:
+            raise AssertionError(f"fine-tune losses {losses}, launches "
+                                 f"{nums['finetune_counts']}")
+    except AssertionError as exc:
+        failure = f"pretrain (r): {exc}"
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"pretrain (r) the pretrain CLI at R2R width (--synthetic, "
+        f"use_pallas_attention, batch 48, 4 updates, validation at 4): "
+        f"{nums.get('pretrain_s', 0):.1f} s (launches "
+        f"{nums.get('pretrain_counts')}), checkpoints {nums.get('best')}, "
+        f"train {nums.get('train')}, val_unseen {nums.get('val_unseen')}; "
+        f"its .pt into the fine-tune model: missing {nums.get('missing')}, "
+        f"extra {len(nums.get('extra', []))} keys; the fine-tune CLI from it "
+        f"(--bert_ckpt_file, 2 iterations) {nums.get('finetune_s', 0):.1f} s"
+        f" (launches {nums.get('finetune_counts')}), losses "
+        f"{nums.get('finetune_losses')} on {card}")
+    if failure is not None:
+        say(f"pretrain (r): FAILED: {failure} (the script goes on, and fails "
+            "at its end)")
+    return nums, failure
+
+
+def pretrain_kernel_rows(rows, timing):
+    """The kernel line's rows of PT_SHAPES: K1, K2 (a), K2 (b) each, with
+    the launches 5 (q)'s timed updates made at that shape (the plan's
+    count per update times the task's updates, by task)."""
+    out = []
+    for tag, row in rows.items():
+        by_task = {f"pretrain_{t}": pretrain_plan(t).get(tag, 0) * r["steps"]
+                   for t, r in timing.items()}
+        n = sum(by_task.values())
+        for r in width_kernel_rows(tag, row, None, False, (n, n, n)):
+            # each forward call has its backward: K2 splits as K1 does
+            r["launches_by_path"] = dict(by_task)
+            out.append(r)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3608,6 +4098,9 @@ def main() -> int:
     shape_rows = new_shape_rows()
     say(f"wall: phase 3 (new paths' shapes) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    pt_rows = pretrain_shape_rows()
+    say(f"wall: phase 3 (o) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     decode = run_rollouts(card)
     b_decode, d_failed = run_rollouts_bf16(card)
     say(f"wall: phase 4 {time.perf_counter() - t0:.1f} s")
@@ -3655,6 +4148,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _, p_failed = cli_datasets_phase(card)
     say(f"wall: phase 5 (p) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, q_failed = pretrain_gates(card)
+    q_timing, qt_failed = pretrain_timing(card)
+    say(f"wall: phase 5 (q) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, r_failed = pretrain_cli_phase(card)
+    say(f"wall: phase 5 (r) {time.perf_counter() - t0:.1f} s")
     # the plain bench build last: its profiled step comes after every timed
     # step of the script
     t0 = time.perf_counter()
@@ -3834,6 +4334,7 @@ def main() -> int:
     kernels += f6_kernel_rows(f6_rows)
     kernels += f6_kernel_rows(wide_rows)
     kernels += new_kernel_rows(shape_rows, m_nums, n_nums, o_nums)
+    kernels += pretrain_kernel_rows(pt_rows, q_timing)
     # the float32 CUDA-core bounds, beside the 3xTF32 ones
     # the kernels line carries, and the forward by part
     say(f"float32 CUDA-core bound over the train mix: forward "
@@ -3856,13 +4357,15 @@ def main() -> int:
         f"call {b_avg('projb_library_ms'):.4f} (device time "
         f"{b_avg('projb_device_ms'):.4f}); K2 (a) {b_avg('attn_ms'):.4f} "
         f"ms, {b_avg('attn_ms') / b_avg('attn_library_ms'):.2f}x")
+    say(f"profiles taken again for want of the device work asked for: "
+        f"{len(PROFILE_RETRIES)} {PROFILE_RETRIES}")
     say(f"wall: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     failures = [f for f in (d_failed, cd_failed, failed, c_failed, e_failed,
                             f_failed, cf_failed, g_failed, cg_failed,
                             h_failed, j_failed, k_failed, l_failed,
                             m_failed, n_failed, o_failed, p_failed,
-                            *i_failed)
+                            q_failed, qt_failed, r_failed, *i_failed)
                 if f is not None]
     if failures:
         say("FAILED: " + "; ".join(failures))

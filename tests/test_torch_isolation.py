@@ -69,7 +69,14 @@ def test_port_and_smoke_import_without_jax():
             # the object branch, the nDTW expert and CFP extraction
             "vln_goat_tpu_torch.models.traj",
             "vln_goat_tpu_torch.pretrain.data",
-            "vln_goat_tpu_torch.tools.cfp_extract"} <= set(mods)
+            "vln_goat_tpu_torch.tools.cfp_extract",
+            # pretraining
+            "vln_goat_tpu_torch.pretrain.model",
+            "vln_goat_tpu_torch.pretrain.train",
+            "vln_goat_tpu_torch.pretrain.optimizers",
+            "vln_goat_tpu_torch.pretrain.cli",
+            "vln_goat_tpu_torch.data.prefetch",
+            "vln_goat_tpu_torch.data.worker_pool"} <= set(mods)
     code = "import importlib\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in mods) + \
         "import chip_smoke\nprint('ok')\n"
@@ -124,3 +131,10 @@ def test_entry_points_default_to_cuda(no_card):
     from vln_goat_tpu_torch import cli
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.build_runtime(cli.parse_args(["--mode", "valid", "--synthetic"]))
+    from vln_goat_tpu_torch.pretrain import cli as pretrain_cli
+    from vln_goat_tpu_torch.pretrain.model import build_pretrain_model
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pretrain_cli.build(pretrain_cli.parse_args(["--synthetic"]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_pretrain_model(GoatConfig(num_l_layers=1, hidden_size=32,
+                                        num_attention_heads=2), ("mlm",))

@@ -938,3 +938,40 @@ def test_mha_head_widths(card, dh, Lq, Lk):
     out = mha(qb, kb, vb, bias)
     ref = mha_plain(*(t.double() for t in (qb, kb, vb, bias)))
     _assert_bf16_gate(out, mha_plain(qb, kb, vb, bias), ref)
+
+
+# pretraining's attention shapes (chip_smoke.py phase 3 (o)): the text's
+# self-attention (80 tokens) under its key mask; MLM's text over the map
+# (64 slots, no [MEM]) and over the viewpoint (53: stop + 16 candidates +
+# 36 views); the map's self-attention under the key mask and the graph
+# bias; the map over the text; the viewpoint's self-attention
+PRETRAIN_SHAPES = [(80, 80, "key"), (80, 64, "key"), (80, 53, "key"),
+                   (64, 64, "graph"), (64, 80, "key"), (53, 53, "key")]
+
+
+@pytest.mark.parametrize("Lq,Lk,bias_kind", PRETRAIN_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_pretrain_shapes_match_plain(card, Lq, Lk, bias_kind, rate):
+    """Forward, and both backward kernels through autograd, against the
+    plain version at pretraining's shapes (batch 4)."""
+    args, seed = _case(card, 4, Lq, Lk, None, True, grad=True)
+    keep = torch.rand(4, Lk, generator=card, device="cuda") < 0.85
+    keep[:, 0] = True
+    bias = (1.0 - keep.float())[:, None, None, :] * -10000.0
+    if bias_kind == "graph":
+        bias = (bias + torch.randn(4, 1, Lq, Lk, generator=card,
+                                   device="cuda")).requires_grad_()
+    args = args[:8] + (bias,)
+    leaves = [a for a in args if a is not None and a.requires_grad]
+    out = fused_qkv_mha(*args, num_heads=H, dropout_rate=rate, seed=seed)
+    ref = fused_qkv_mha_plain(*args, num_heads=H, dropout_rate=rate,
+                              seed=seed)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-3)
+    dout = torch.randn(4, Lq, D, generator=card, device="cuda")
+    got = torch.autograd.grad(out, leaves, dout)
+    want = torch.autograd.grad(ref, leaves, dout)
+    _assert_grads(got[:8], want[:8])
+    if bias_kind == "graph":
+        torch.testing.assert_close(got[8], want[8],
+                                   atol=1e-4 * float(want[8].abs().max()),
+                                   rtol=1e-3)

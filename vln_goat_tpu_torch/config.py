@@ -1,8 +1,9 @@
 """Model configuration of the PyTorch port.
 
-A copy of the JAX package's `GoatConfig` and of the fields of its
-`TrainConfig` that the train step uses (vln_goat_tpu/config.py), kept here
-so the port imports nothing of that package.  Two fields differ:
+A copy of the JAX package's `GoatConfig`, of the fields of its
+`TrainConfig` that the train step uses and of its `PretrainConfig`
+(vln_goat_tpu/config.py), kept here so the port imports nothing of that
+package.  Two fields differ:
 `use_pallas_attention` is `use_fused_attention`, and the query-length gate
 that the JAX package reads from the GOAT_PALLAS_MIN_LQ environment
 variable is the field `fused_attn_min_lq`.
@@ -12,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -170,3 +171,23 @@ class TrainConfig:
     train_alg: str = "dagger"      # imitation | dagger | dagger_fused
     ml_weight: float = 0.2
     grad_clip: float = 40.0
+
+
+@dataclass
+class PretrainConfig:
+    """Pre-training recipe (the JAX package's PretrainConfig, reference:
+    pretrain_src/config/r2r_GOAT_pretrain.json)."""
+
+    tasks: Tuple[str, ...] = ("mlm", "sap", "cfp")
+    mix_ratio: Tuple[int, ...] = (1, 1, 1)
+    train_batch_size: int = 48
+    learning_rate: float = 5e-5
+    num_train_steps: int = 200_000
+    warmup_steps: int = 10_000
+    grad_norm: float = 5.0
+    optim: str = "adamw"
+    betas: Tuple[float, float] = (0.9, 0.98)
+    weight_decay: float = 0.01
+    log_steps: int = 1500
+    valid_steps: int = 3000
+    seed: int = 0

@@ -1,7 +1,8 @@
 """Text side of GOAT (counterpart of vln_goat_tpu/models/backbone.py):
-RoBERTa embeddings, the plain language encoder, and `LanguageEncoderDo`,
+RoBERTa embeddings, the plain language encoder, `LanguageEncoderDo`,
 the encoder with the BACL back-door (direction / landmark z-dictionaries)
-and FACL front-door (cluster bank) text interventions.
+and FACL front-door (cluster bank) text interventions, and the
+pretraining MLM head (`BertOnlyMLMHead`).
 
 As in the JAX package's fine-tune path, position ids are a plain arange
 (the reference's padding-offset helper exists but is not called there).
@@ -14,8 +15,8 @@ from torch import nn
 from ..config import GoatConfig
 from ..ops.dropout import Dropout
 from ..ops.masks import extend_neg_masks
-from .layers import (BertAttention, BertLayer, Embedding, LayerNorm, Linear,
-                     cast_dtype)
+from .layers import (BertAttention, BertLayer, BertPredictionHeadTransform,
+                     Embedding, LayerNorm, Linear, cast_dtype)
 
 
 class RobertaEmbeddings(nn.Module):
@@ -161,3 +162,32 @@ class LanguageEncoderDo(LanguageEncoder):
         else:
             h = self.concat_linear(torch.cat([h, zd, zl], dim=-1))
         return self.z_concat_layernorm(h)
+
+
+class BertLMPredictionHead(nn.Module):
+    """transform -> the decoder tied to the word embeddings (`h @ E.T`,
+    E the table the caller passes, as the reference's pretraining ties
+    it) -> + bias (the JAX package's backbone.py:191-207, whose callers
+    all pass the table)."""
+
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.transform = BertPredictionHeadTransform(c)
+        self.bias = nn.Parameter(torch.zeros(c.vocab_size))
+
+    def forward(self, hidden, shared_embedding):
+        h = self.transform(hidden)
+        logits = h @ shared_embedding.to(h.dtype).t()
+        return logits + self.bias.to(logits.dtype)
+
+
+class BertOnlyMLMHead(nn.Module):
+    """The MLM head under the reference's `predictions` scope (the JAX
+    package's backbone.py:173-188)."""
+
+    def __init__(self, c: GoatConfig):
+        super().__init__()
+        self.predictions = BertLMPredictionHead(c)
+
+    def forward(self, hidden, shared_embedding):
+        return self.predictions(hidden, shared_embedding)

@@ -31,13 +31,18 @@ NEG_INF = float("-inf")
 
 
 class LocalVPEncoder(nn.Module):
-    def __init__(self, c: GoatConfig):
+    """The local branch's position embedding and cross-modal encoder
+    (`cross=False` leaves the encoder out: pretraining's CFP-only task
+    sets never run it) and, in the `extract_cfp_features` mode, its tim
+    self-encoder."""
+
+    def __init__(self, c: GoatConfig, cross: bool = True):
         super().__init__()
         dt = cast_dtype(c)
         self.vp_pos_embeddings = nn.Sequential(
             Linear(2 * (c.angle_feat_size + 3), c.hidden_size, dt),
             LayerNorm(c.hidden_size, 1e-12, dt))
-        self.encoder = CrossmodalEncoder(c)
+        self.encoder = CrossmodalEncoder(c) if cross else None
         if c.mode == "extract_cfp_features":
             self.tim_self_encoder = BertAttention(c)
 
@@ -46,7 +51,13 @@ class LocalVPEncoder(nn.Module):
 
 
 class GlobalMapEncoder(nn.Module):
-    def __init__(self, c: GoatConfig):
+    """The map branch's input embeddings, cross-modal encoder and graph
+    bias (`cross=False` / `sprels=False` leave them out: pretraining's
+    task sets that never run them) and, in the `extract_cfp_features`
+    mode, its tim self-encoder."""
+
+    def __init__(self, c: GoatConfig, cross: bool = True,
+                 sprels: bool = True):
         super().__init__()
         dt = cast_dtype(c)
         self.gmap_pos_embeddings = nn.Sequential(
@@ -54,8 +65,9 @@ class GlobalMapEncoder(nn.Module):
             LayerNorm(c.hidden_size, 1e-12, dt))
         self.gmap_step_embeddings = Embedding(c.max_action_steps,
                                               c.hidden_size, dt)
-        self.encoder = CrossmodalEncoder(c)
-        self.sprel_linear = Linear(1, 1, dt) if c.graph_sprels else None
+        self.encoder = CrossmodalEncoder(c) if cross else None
+        self.sprel_linear = Linear(1, 1, dt) \
+            if c.graph_sprels and sprels else None
         if c.mode == "extract_cfp_features":
             self.tim_self_encoder = BertAttention(c)
 
@@ -72,12 +84,16 @@ class GlobalMapEncoder(nn.Module):
 
 
 def fuse_logits(global_logits, local_logits, gmap_masks, gmap_visited_masks,
-                vp_nav_masks, local_to_gmap):
+                vp_nav_masks, local_to_gmap, first_cand_slot: int = 2,
+                first_gmap_slot: int = 2):
     """Fuse the local branch's candidate scores into the global map's
     (the JAX package's `fuse_logits`).  Each local candidate adds its score
     to its gmap slot; a visited candidate's score goes to the backtrack sum
     that every unvisited slot without a direct candidate receives.  The
     scatter adds each value to zeros only, so it is exact in float32.
+    Candidates start at local slot `first_cand_slot` and map nodes at gmap
+    slot `first_gmap_slot`: 2 in fine-tuning (stop, [MEM]), 1 in
+    pretraining, whose map has no [MEM] token.
 
     Returns (fused [B, G], masked_global [B, G], masked_local [B, L])."""
     B, G = global_logits.shape
@@ -91,8 +107,8 @@ def fuse_logits(global_logits, local_logits, gmap_masks, gmap_visited_masks,
     masked_global = torch.where(gmap_masks, masked_global, ninf)
     masked_local = torch.where(vp_nav_masks, local_logits, ninf)
 
-    # local slots 0/1 are stop and MEM; gmap slots 0/1 likewise
-    is_cand = (lslot >= 2) & (local_to_gmap >= 0) & vp_nav_masks
+    is_cand = (lslot >= first_cand_slot) & (local_to_gmap >= 0) \
+        & vp_nav_masks
     zero = torch.zeros_like(local_logits)
     lv = torch.where(is_cand, local_logits, zero)
     tgt = local_to_gmap.clamp(0, G - 1).long()
@@ -103,7 +119,7 @@ def fuse_logits(global_logits, local_logits, gmap_masks, gmap_visited_masks,
     has_direct = torch.zeros_like(global_logits).scatter_add_(
         1, tgt, (is_cand & ~cand_visited).to(lv.dtype)) > 0
 
-    unvis = (slot >= 2) & ~gmap_visited_masks & gmap_masks
+    unvis = (slot >= first_gmap_slot) & ~gmap_visited_masks & gmap_masks
     fused = masked_global + torch.where(
         unvis, torch.where(has_direct, direct, bw[:, None]),
         torch.zeros_like(masked_global))

@@ -426,13 +426,14 @@ class BertPredictionHeadTransform(nn.Module):
 class ClsPrediction(nn.Module):
     """Linear -> ReLU -> LN(1e-12) -> Linear (torch names net.0/.2/.3)."""
 
-    def __init__(self, c: GoatConfig, input_size: Optional[int] = None):
+    def __init__(self, c: GoatConfig, input_size: Optional[int] = None,
+                 output_size: int = 1):
         super().__init__()
         D = c.hidden_size
         dt = cast_dtype(c)
         self.net = nn.Sequential(
             Linear(input_size or D, D, dt), nn.ReLU(),
-            LayerNorm(D, 1e-12, dt), Linear(D, 1, dt))
+            LayerNorm(D, 1e-12, dt), Linear(D, output_size, dt))
 
     def forward(self, x):
         return self.net(x)

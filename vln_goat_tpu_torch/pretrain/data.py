@@ -2,9 +2,9 @@
 vln_goat_tpu/pretrain/data.py, numpy only, on the port's `core.geometry`
 and `sim.graph_sim`): trajectory sampling + static-shape batch building.
 Given the same seed its batches equal the JAX package's bit for bit.
-CFP extraction (`tools.cfp_extract`) builds its batches here
-(`build_batch(items, task="cfp")`); the pretraining tasks' builders (MLM,
-MRC, SAP, OG) come with the module for the pretrain slice.
+Pretraining (`pretrain.cli`, every task) and CFP extraction
+(`tools.cfp_extract`, `build_batch(items, task="cfp")`) build their
+batches here.
 
 Reference: pretrain_src/data/dataset.py (R2RTextPathData :582,
 ReverieTextPathData :133) and the task collates in data/tasks.py.  One

@@ -15,6 +15,12 @@
   state_dict, counting missing and extra keys as the JAX package counts
   its leaves; `save_reference_checkpoint` writes the CLI's
   `--save_torch_ckpt` format (JAX cli.py:860-867), the exact inverse.
+- Pretraining: `pretrain_state_dict` / `save_pretrain_checkpoint` write a
+  pretrain model's weights in the reference pretrain layout (`bert.` before
+  the encoder's modules), which the fine-tune model loads; the pretrain
+  entry's key surgery from METER / LXMERT / BERT checkpoints is
+  `surgery_init_keys`, and `init_pretrain_from` overlays a checkpoint on a
+  pretrain model's state dict.
 
 Weights carried across from the JAX package in memory:
 `params_from_flax` takes the JAX package's parameters as a flat
@@ -186,6 +192,98 @@ def save_reference_checkpoint(model: torch.nn.Module, path: str,
     + `merge_loaded` give back the same tensors."""
     sd = {k: v.cpu().clone() for k, v in reference_state_dict(model).items()}
     torch.save({"vln_bert": {"epoch": epoch, "state_dict": sd}}, path)
+
+
+# encoder modules that live under the `bert.` prefix in a reference
+# PRETRAIN state dict (GlocalTextPathCMTPreTraining: self.bert holds the
+# encoder, the task heads sit on the wrapper; the JAX package's
+# _PRETRAIN_BERT_MODULES)
+PRETRAIN_BERT_MODULES = ("embeddings", "lang_encoder", "img_embeddings",
+                         "local_encoder", "global_encoder")
+
+
+def pretrain_state_dict(state_dict: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """A pretrain model's state dict in the reference pretrain layout (the
+    JAX package's flax_to_torch_pretrain): the encoder's keys under
+    `bert.`, the heads' at the top, tensors on the CPU.  `load_reference`
+    (through `strip_prefixes`) loads it into the fine-tune GoatModel, whose
+    encoder and SAP heads carry the same names."""
+    out = {}
+    for k, v in state_dict.items():
+        top = k.split(".", 1)[0]
+        out[("bert." + k) if top in PRETRAIN_BERT_MODULES else k] = \
+            v.detach().cpu()
+    return out
+
+
+def save_pretrain_checkpoint(state_dict: Mapping[str, torch.Tensor],
+                             path: str) -> None:
+    """`pretrain_state_dict(state_dict)` as a flat .pt (the reference
+    pretraining's ModelSaver format), which the fine-tune CLI's
+    `--bert_ckpt_file` takes."""
+    torch.save(pretrain_state_dict(state_dict), path)
+
+
+def surgery_init_keys(state_dict: Mapping[str, torch.Tensor], fmt: str
+                      ) -> Dict[str, torch.Tensor]:
+    """The pretrain entry's key surgery (the JAX package's
+    surgery_init_keys; train_r2r_goat.py:113-172), from a third-party key
+    space into the reference's `bert.*` pretrain namespace.  fmt: 'goat'
+    (a reference .pt, no rename), 'meter' (text_transformer.embeddings ->
+    bert.embeddings, text_transformer.encoder -> bert.lang_encoder,
+    cross_modal_image_layers -> both bert.{local,global}_encoder.encoder
+    .crossattention), 'lxmert' (bert.encoder.layer ->
+    bert.lang_encoder.layer, bert.encoder.x_layers -> both cross encoders,
+    cls.predictions -> mlm_head.predictions) or 'bert' (keys as they are:
+    only the embeddings find a module).  `module.` is dropped first."""
+    if fmt == "goat":
+        return dict(state_dict)
+    if fmt not in ("meter", "lxmert", "bert"):
+        raise ValueError(f"unknown init format {fmt!r}")
+    rules = {
+        "meter": (("text_transformer.embeddings",
+                   ("text_transformer.", "bert.")),
+                  ("text_transformer.encoder",
+                   ("text_transformer.encoder", "bert.lang_encoder")),
+                  ("cross_modal_image_layers",
+                   ("cross_modal_image_layers",
+                    "bert.local_encoder.encoder.crossattention"),
+                   ("cross_modal_image_layers",
+                    "bert.global_encoder.encoder.crossattention"))),
+        "lxmert": (("bert.encoder.layer",
+                    ("bert.encoder.layer", "bert.lang_encoder.layer")),
+                   ("bert.encoder.x_layers",
+                    ("bert.encoder.x_layers",
+                     "bert.local_encoder.encoder.x_layers"),
+                    ("bert.encoder.x_layers",
+                     "bert.global_encoder.encoder.x_layers")),
+                   ("cls.predictions",
+                    ("cls.predictions", "mlm_head.predictions"))),
+        "bert": (),
+    }[fmt]
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in state_dict.items():
+        key = key.replace("module.", "")
+        for match, *renames in rules:
+            if match in key:
+                for old, new in renames:
+                    out[key.replace(old, new)] = val
+                break
+        else:
+            out[key] = val
+    return out
+
+
+def init_pretrain_from(path: str, fmt: str,
+                       init: Mapping[str, torch.Tensor]
+                       ) -> Tuple[Dict[str, torch.Tensor], List[str],
+                                  List[str]]:
+    """A torch checkpoint through `surgery_init_keys` overlaid on a
+    pretrain model's state dict `init` -> (merged, missing, extra), as
+    `merge_loaded` counts them (the JAX package's init_pretrain_from)."""
+    sd = surgery_init_keys(load_reference_checkpoint(path), fmt)
+    return merge_loaded(init, sd)
 
 
 PARAMS_FILE = "params.pt"
