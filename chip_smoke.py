@@ -68,9 +68,9 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      dropout 0.1, timed beside the plain version, `addmm` x3 + SDPA in
      bf16 with their autograd, and the bound at 989 TFLOP/s / 3.35 TB/s;
      K1 and K2 (a), (b) and their library calls also by device time, from
-     CUDA graphs or, for an autograd backward, the profiler's kernel
-     times; K1 and K2 (a), (b) by part: the two attention cores
-     (attn_fwd_sm90, attn_bwd_sm90) beside their bytes bounds and SDPA,
+     CUDA graphs; K1 and K2 (a), (b) by part: the two attention cores
+     (attn_fwd_sm90, attn_bwd_sm90, their own C calls, also from CUDA
+     graphs) beside their bytes bounds and SDPA,
      each GEMM part's TFLOP/s, the host time of one C call); two backward
      launches bitwise equal; K2 (a)'s dq past 64 keys (Lk 130, 200, 300,
      520) within one rounding of its exact sum over all keys, and at Lk
@@ -188,6 +188,27 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      `ckpt_best_*`, whose pretrain .pt initialises the fine-tune model with
      no encoder key missing and runs 2 iterations of the fine-tune CLI
      through `--bert_ckpt_file`.
+  3 (s): K1 float32 and bf16 at the z-dict refresh's shape (64 x 64 under
+     the key mask, batch 64) under phase 3's and 3 (bf16)'s gates, timed at
+     dropout 0 as the refresh calls it;
+  5 (s): the online z-dict refresh (`tools.zdict.update_instr_zdict`) of
+     512 synthetic instructions at width 64 on the R2R model, through the
+     kernels and on the eager path from the same weights: keys and p(z)
+     equal, features within 1e-4 of their scale, K1 launched chunks x text
+     layers times; time and peak memory;
+  5 (t): the speaker at its published width (hidden 512, word 256, 4 heads
+     of 64, 3 layers, FFN 1024) over the R2R vocabulary: its deterministic
+     loss on one batch of 64 within 1e-4 of the same computation on the
+     CPU (TF32 off), 20 Adam steps at batch 64 with the loss falling, a
+     greedy decode of 64 paths to 120 tokens; ms a step, decode seconds,
+     peak memory;
+  5 (u): one back-translated dagger_fused update (two minibatches of 32
+     re-captioned by 5 (t)'s speaker in one pass under one shared noise
+     vector) through the kernels against eager under 5 (a)'s gates and
+     launch plan, every dropout 0; then the CLI: `--mode speaker` 4
+     iterations and `train --use_transpeaker --speaker_ckpt_file <its
+     speaker_best> --aug synthetic --z_instr_update --update_iter 1`, 2
+     iterations, at R2R width.
 The train steps run the vectorized teacher unless a phase says otherwise.
 Every bf16 decode and train path's launches of the bf16 GEMM core and of
 the bf16 attention cores must all have taken their TMA routes
@@ -197,9 +218,11 @@ read just after.
 The line before the last is one JSON object with every kernel's numbers
 (the bf16 builds as rows of their own); the last is {"ok": true,
 "device": {...}}.  Any failure raises, but for the comparisons of phases
-4 (bf16) and 5 (a), (c), (e)-(r): each prints its failure, the
+4 (bf16) and 5 (a), (c), (e)-(u): each prints its failure, the
 later phases run and print their numbers, and the script then prints the
-failures instead of the last two lines and exits non-zero.  There is no
+failures instead of the last two lines and exits non-zero.  An error
+raised in any phase is printed with the phase's name and its traceback,
+then the failure summary, and the script exits non-zero.  There is no
 CPU fallback, and without a card the script exits non-zero before
 printing a result.
 """
@@ -358,6 +381,25 @@ def graph_ms(fn, reps: int = 10) -> float:
     with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
+    return cuda_ms(graph.replay) / reps
+
+
+def grad_graph_ms(forward, cotangents, reps: int = 10) -> float:
+    """graph_ms of `torch.autograd.grad(out, inputs, cotangents)` for
+    (out, inputs) = forward(), built once, on the capture stream, inputs
+    leaves made there: autograd runs a backward op, and accumulates a
+    leaf's gradient, on the stream of its forward op or leaf, which must
+    be the one capturing."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out, inputs = forward()
+        torch.autograd.grad(out, inputs, cotangents, retain_graph=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            torch.autograd.grad(out, inputs, cotangents, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(side)
     return cuda_ms(graph.replay) / reps
 
 
@@ -684,17 +726,22 @@ def time_backward(row, args, det, seed, dout, batch, rate, parts):
         lq, lv, (dq.view(-1, H * DH), dk.view(-1, H * DH),
                  dv.view(-1, H * DH)), retain_graph=True))
     if parts:
-        # K2 (a) by device time (a CUDA graph), and both library calls'
-        # (under the profiler: a graph cannot hold the backward of a graph
-        # built outside it)
+        # K2 (a) by device time, and both library calls' (CUDA graphs; the
+        # projections' backward from a graph of its forward built on the
+        # capture stream)
         row["need_ds"] = need_ds
         row["attn_device_ms"] = graph_ms(lambda: attention_backward(
             *det, seed, dout, H, rate, need_ds=need_ds))
-        row["attn_library_device_ms"] = kernel_ms(attn_library)
-        row["projb_library_device_ms"] = kernel_ms(
-            lambda: torch.autograd.grad(
-                lq, lv, (dq.view(-1, H * DH), dk.view(-1, H * DH),
-                         dv.view(-1, H * DH)), retain_graph=True))
+        row["attn_library_device_ms"] = graph_ms(attn_library)
+        def projections():
+            a = [t.detach().requires_grad_() for t in args[:8]]
+            return (torch.addmm(a[3], a[0].view(-1, D), a[2]),
+                    torch.addmm(a[5], a[1].view(-1, D), a[4]),
+                    torch.addmm(a[7], a[1].view(-1, D), a[6])), a
+
+        row["projb_library_device_ms"] = grad_graph_ms(
+            projections, (dq.view(-1, H * DH), dk.view(-1, H * DH),
+                          dv.view(-1, H * DH)))
     if parts:
         # (b) by part: the dx and dy GEMMs, the split-K weight gradients,
         # the pass that adds their slices, and the head sum of ds
@@ -956,30 +1003,55 @@ def attn_cores(det, kw, dout, need_ds):
         return None if t is None else t.data_ptr()
 
     fa = (q.data_ptr(), *c.bias_args(), out.data_ptr(), c.B, c.Lq, c.Lk,
-          H, c.dh, c.scale, *c.seed_args(), c.stream())
+          H, c.dh, c.scale, *c.seed_args())
     ba = (q.data_ptr(), *cb.bias_args(), *cb.seed_args(), dout.data_ptr(),
           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(ds), ptr(stats),
-          ptr(dq_acc), c.B, c.Lq, c.Lk, H, c.dh, c.scale, c.stream())
+          ptr(dq_acc), c.B, c.Lq, c.Lk, H, c.dh, c.scale)
 
+    # the stream is the current one at each call (a CUDA graph's capture)
     def fwd():
-        if c.lib.fused_qkv_mha_attn_bf16(*fa) != 0:
+        if c.lib.fused_qkv_mha_attn_bf16(*fa, c.stream()) != 0:
             raise RuntimeError("fused_qkv_mha_attn_bf16 failed")
         return hold
 
     def bwd():
-        if cb.lib.fused_qkv_mha_bwd_core_bf16(*ba) != 0:
+        if cb.lib.fused_qkv_mha_bwd_core_bf16(*ba, c.stream()) != 0:
             raise RuntimeError("fused_qkv_mha_bwd_core_bf16 failed")
         return hold
 
     return fwd, bwd
 
 
+def named_kernel_ms(fn, name, n=20, tries=3):
+    """fn() n times under torch.profiler -> (events whose name holds
+    `name`, n, their mean device ms), the profile taken again, up to
+    `tries` in all, while it holds fewer than n such events: the mean is
+    over the events found, so a profile that lost some reads neither low
+    nor high, and the count shows the loss.  A cross-check only: no
+    number of the kernel line comes from it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e_ - s_ for k, s_, e_ in
+                 device_work(prof.profiler.kineto_results.events())
+                 if name in k]
+        if len(spans) >= n:
+            break
+    return len(spans), n, (sum(spans) / len(spans) / 1e6 if spans
+                           else float("nan"))
+
+
 def bf16_parts(row, det, kw, dout):
     """K1 bf16's device time and its library call's (each from a CUDA
     graph of ten calls, so no host work sits between them), K1 by part
     (the projection GEMM alone by device time; the attention core's own
-    C call by ms, as every row's ms, and its kernel's device time in the
-    whole forward, by name under the profiler) and K2 (a) by part (its
+    C call by ms, as every row's ms, and by device time from a CUDA graph
+    of ten of its calls) and K2 (a) by part (its
     recompute runs the projection's jobs; the attention core the same way
     as the forward's), each attention part beside its bound, the plain
     attention over the projected heads and the library's (SDPA, by device
@@ -996,14 +1068,18 @@ def bf16_parts(row, det, kw, dout):
     fwd_core, bwd_core = attn_cores(det, kw, dout, need_ds)
     row["fwd_attn_ms"] = cuda_ms(fwd_core)
     row["bwd_attn_ms"] = cuda_ms(bwd_core)
-    with torch.no_grad():
-        row["fwd_attn_device_ms"] = kernel_ms(
-            lambda: fused_qkv_mha(*det, **kw), name="attn_fwd_sm90_kernel")
-    row["bwd_attn_device_ms"] = kernel_ms(
+    row["fwd_attn_device_ms"] = graph_ms(fwd_core)
+    row["bwd_attn_device_ms"] = graph_ms(bwd_core)
+    del fwd_core, bwd_core
+
+    # the core's graph reading checked against the whole K2 (a) call (its
+    # graph reading is `attn_device_ms`; its recompute runs the forward
+    # projection's jobs): the core inside it by name under the profiler,
+    # with the count of its events
+    row["bwd_core_named"] = named_kernel_ms(
         lambda: attention_backward(*det, kw["seed"], dout, H,
                                    kw["dropout_rate"], need_ds=need_ds),
-        name="attn_bwd_sm90_kernel")
-    del fwd_core, bwd_core
+        "attn_bwd_sm90_kernel")
     for part in ("fwd", "bwd"):
         row[f"{part}_attn_bound_ms"], row[f"{part}_attn_bound_by"] = \
             part_bound(det, part, row["need_ds"])
@@ -1037,7 +1113,7 @@ def bf16_parts(row, det, kw, dout):
     row["fwd_attn_library_ms"] = cuda_ms(fwd_library)
     row["bwd_attn_library_ms"] = cuda_ms(bwd_library)
     row["fwd_attn_library_device_ms"] = graph_ms(fwd_library)
-    row["bwd_attn_library_device_ms"] = kernel_ms(bwd_library)
+    row["bwd_attn_library_device_ms"] = graph_ms(bwd_library)
     del qkv0, heads4
     flops = gemm_flops(det)
     row["tflops"] = {p: flops[p] / (row[key] * 1e-3) / 1e12
@@ -1170,8 +1246,8 @@ def bf16_part_line(train_rows, mix):
 
 
 def bf16_attn_line(train_rows, mix):
-    """The two bf16 attention cores over a launch mix: each kernel's device
-    time in its whole call (by name under the profiler) beside its bound
+    """The two bf16 attention cores over a launch mix: each core's device
+    time (its own C call, from a CUDA graph) beside its bound
     (and the share of it reached) and SDPA's device time over the same
     heads, and the ms of the core's own C call; K2 (a) and (b) whole
     beside their library calls' device time."""
@@ -1252,7 +1328,13 @@ def check_kernels_bf16():
         say(f"bf16 train {name} by part (device time): forward proj "
             f"{row['fwd_proj_ms']:.4f} ms, attention kernel "
             f"{row['fwd_attn_device_ms']:.4f}; K2 (a) attention kernel "
-            f"{row['bwd_attn_device_ms']:.4f}; projection backward "
+            f"{row['bwd_attn_device_ms']:.4f} (cross-check: the whole "
+            f"K2 (a) call {row['attn_device_ms']:.4f}, less the "
+            f"projection's jobs "
+            f"{row['attn_device_ms'] - row['fwd_proj_ms']:.4f}"
+            f"; the core by name inside it {row['bwd_core_named'][2]:.4f} "
+            f"over {row['bwd_core_named'][0]} of {row['bwd_core_named'][1]} "
+            f"events); projection backward "
             + ", ".join(f"{p} {row[f'projb_{p}_ms']:.4f}"
                         for p in PROJ_PARTS if f"projb_{p}_ms" in row)
             + "; TFLOP/s (of 989) "
@@ -1551,7 +1633,7 @@ def check_head_widths():
             f"device {b['library_device_ms']:.4f}), K2 (a) "
             f"{b['attn_ms']:.4f} (device {b['attn_device_ms']:.4f}), K2 (b) "
             f"{b['projb_ms']:.4f} (device {b['projb_device_ms']:.4f}); "
-            f"attention cores by kernel {b['fwd_attn_device_ms']:.4f} / "
+            f"attention cores by device time {b['fwd_attn_device_ms']:.4f} / "
             f"{b['bwd_attn_device_ms']:.4f} ms (bytes bounds "
             f"{b['fwd_attn_bound_ms']:.4f} / {b['bwd_attn_bound_ms']:.4f});"
             f" K3 float32 {r['mha']['ms']:.4f} ms, bf16 "
@@ -1935,21 +2017,23 @@ def compare_steps(k, e, pinned, noise=NOISE_GRAD_BIASES):
 
 
 def kernel_vs_eager(head, what, build_kw, batch_fn=None,
-                    noise=NOISE_GRAD_BIASES):
-    """One train step at batch 8, every dropout at 0, of the build
-    `build_train_flagship("cuda", batch_size=B, dropout=False,
-    **build_kw)` through the eager path and through the kernels, from the
-    same weights, batch (`batch_fn(state, batcher)`, default the batcher's
-    next one) and generator seed: the eager step first, keeping the inputs
+                    noise=NOISE_GRAD_BIASES, batch_size=B, record=None):
+    """One train step at batch `batch_size` (8), every dropout at 0, of the
+    build `build_train_flagship("cuda", batch_size=batch_size,
+    dropout=False, **build_kw)` through the eager path and through the
+    kernels, from the same weights, batch (`batch_fn(state, batcher)`,
+    default the batcher's next one) and generator seed (`record`, a dict,
+    takes the kernel step's launches as "counts"): the eager step first, keeping the inputs
     of its ClsPrediction heads' ReLUs (the model's only kinks); the kernel
     step takes its decisions where its own differ, within KINK_BAND of the
     kink; then compare_steps' gates (`noise`: the biases held at their
     weight's scale) and the launches the config gives.  Prints a line;
     returns the failure of the comparison, or None."""
-    k_state, batcher = build_train_flagship("cuda", batch_size=B,
+    k_state, batcher = build_train_flagship("cuda", batch_size=batch_size,
                                             dropout=False, remat="none",
                                             **build_kw)
-    e_state, _ = build_train_flagship("cuda", batch_size=B, dropout=False,
+    e_state, _ = build_train_flagship("cuda", batch_size=batch_size,
+                                      dropout=False,
                                       use_fused_attention=False,
                                       remat="none", **build_kw)
     e_state.model.load_state_dict(k_state.model.state_dict())
@@ -1971,6 +2055,8 @@ def kernel_vs_eager(head, what, build_kw, batch_fn=None,
         keep=True)
     torch.cuda.synchronize()
     k_counts = counts()
+    if record is not None:
+        record["counts"] = k_counts
     for h in hooks:
         h.remove()
     if pinned["calls"] != sum(len(c) for c in seen.values()):
@@ -1983,7 +2069,8 @@ def kernel_vs_eager(head, what, build_kw, batch_fn=None,
     if k_counts != (n, n, n, 0):
         raise AssertionError(f"{head}: kernel step launched {k_counts}, "
                              f"expected {(n, n, n, 0)}")
-    head_line = f"{head} batch {B}, dropout 0: kernel vs eager {what}"
+    head_line = (f"{head} batch {batch_size}, dropout 0: kernel vs eager "
+                 f"{what}")
     try:
         worst, name = compare_steps((k_m, k_grads, k_outs),
                                     (e_m, e_grads, e_outs), pinned, noise)
@@ -2584,37 +2671,6 @@ def device_work(events):
     host = {e.name() for e in events if e.device_type() != cuda}
     return [(e.name(), e.start_ns(), e.end_ns()) for e in events
             if e.device_type() == cuda and e.name() not in host]
-
-
-# profiles taken again because the first held none of the device work
-# asked for (kernel_ms), printed at the end: the profiler has dropped a
-# launched kernel's events (attn_bwd_sm90_kernel, at 3 (n)'s CFP shape)
-PROFILE_RETRIES = []
-
-
-def kernel_ms(fn, n=5, name=None, attempts=3):
-    """Device time of one call of fn, where a CUDA graph cannot hold it
-    (an autograd backward of a graph built outside) or a kernel is to be
-    read alone: the summed durations of the device work of n calls under
-    torch.profiler (with `name`, of the kernels whose name holds it), over
-    n (the gaps between the kernels not counted).  A profile without that
-    work is taken again, up to `attempts` profiles in all."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        work = [w for w in device_work(prof.profiler.kineto_results.events())
-                if name is None or name in w[0]]
-        if work:
-            return sum(e_ - s_ for _, s_, e_ in work) / n / 1e6
-        PROFILE_RETRIES.append(name)
-    raise AssertionError(f"{attempts} profiles hold no device work"
-                         f"{'' if name is None else ' named ' + name}")
 
 
 # the float32 K1 / K2 kernels by part: the 3xTF32 GEMM jobs (the q / k / v
@@ -4044,6 +4100,449 @@ def pretrain_kernel_rows(rows, timing):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 3 (s), 5 (s)-(u): GOAT's online z-dict refresh, the speaker and
+# back-translation.  The refresh encodes 512 training instructions at the
+# fixed width 64 in chunks of 64 (the JAX CLI's cli.py:815-851): every text
+# self-attention of it is K1 at 64 x 64 under the key mask, dropout 0.  The
+# speaker runs at its published width (hidden 512, word 256, 4 heads of 64,
+# 3 layers, FFN 1024, angle features 128) over the R2R model's vocabulary;
+# it reaches no TPU kernel in either package (plain PyTorch).
+REFRESH_SHAPE, REFRESH_ITEMS, REFRESH_LEN = ("refresh64", 64, 64), 512, 64
+SPK_BATCH, SPK_STEPS, SPK_LR, SPK_LEN = 64, 20, 1e-4, 60
+BT_HALF = 32          # the back-translated fused update: 2 x 32 episodes
+SPK_STEPS_MAX = 15    # the speaker's path steps: R2R's max_action_len
+# words of the synthetic instructions: the picker's direction words and
+# fallback landmarks among filler words
+REFRESH_FILLER = ("the", "and", "then", "a", "of", "walk", "go", "turn",
+                  "wait", "near", "by", "to", "at", "with")
+
+
+def worded_items(data, vocab, seed):
+    """`data` (synthetic items) with instructions of 8-40 words drawn from
+    the picker's direction words, its fallback landmarks and filler words,
+    and encodings of one id a word (a Zipf-like choice among 2000 ids)
+    between the leading and trailing specials, cut at REFRESH_LEN."""
+    from vln_goat_tpu_torch.tools.zdict import (DIRECTION_WORDS,
+                                                FALLBACK_LANDMARKS)
+    rng = np.random.default_rng(seed)
+    words = list(DIRECTION_WORDS) + list(FALLBACK_LANDMARKS) + \
+        list(REFRESH_FILLER)
+    ids = np.arange(3, 2003)
+    p = 1.0 / np.arange(1, len(ids) + 1)
+    p /= p.sum()
+    out = []
+    for it in data:
+        n = int(rng.integers(8, 41))
+        enc = [0] + [int(t) for t in rng.choice(ids, n, p=p)
+                     if t < vocab] + [2]
+        out.append(dict(it, instruction=" ".join(rng.choice(words, n)),
+                        instr_encoding=enc[:REFRESH_LEN]))
+    return out
+
+
+def refresh_shape_rows():
+    """Phase 3 (s): K1 float32 and bf16 at the refresh shape (64 x 64 under
+    the key mask, batch 64): phase 3's and 3 (bf16)'s gates (dropout 0 and
+    0.1, the backward included), then K1 timed at dropout 0 as the refresh
+    calls it, beside the plain version, the library call and the bound,
+    by device time from CUDA graphs.  {"f32": row, "bf16": row}."""
+    name, Lq, Lk = REFRESH_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(31)
+    rows = dict(f32=check_shape(g, name, Lq, Lk, "key", "linear", B_TRAIN,
+                                timed=False),
+                bf16=check_shape_bf16(g, name, Lq, Lk, "key", "linear",
+                                      B_TRAIN, timed=False))
+    args, seed = make_case(g, Lq, Lk, "key", "linear", B_TRAIN)
+    for key, det in (("f32", [None if a is None else a.detach()
+                              for a in args]),
+                     ("bf16", [None if a is None else a.detach()
+                               for a in to_bf16(args)])):
+        row, kw = rows[key], dict(num_heads=H, dropout_rate=0.0, seed=seed)
+        with torch.no_grad():
+            row["ms"] = cuda_ms(lambda: fused_qkv_mha(*det, **kw))
+            row["plain_ms"] = cuda_ms(lambda: fused_qkv_mha_plain(*det,
+                                                                  **kw))
+            row["library_ms"] = cuda_ms(lambda: library_call(det))
+            row["device_ms"] = graph_ms(lambda: fused_qkv_mha(*det, **kw))
+            row["library_device_ms"] = graph_ms(lambda: library_call(det))
+        fb = bound(det, tf32x3=key == "f32")
+        row["bound_ms"], row["bound_by"] = max(fb), \
+            "operations" if fb[0] >= fb[1] else "bytes"
+        row["err"] = row["fwd_err_0.0"] if key == "f32" else row["fwd_err"]
+    f, b = rows["f32"], rows["bf16"]
+    say(f"shape {name}: B={B_TRAIN} Lq={Lq} Lk={Lk} key mask, dropout 0 "
+        f"(the z-dict refresh's text self-attention); float32 max_abs_err "
+        f"forward {f['err']:.3e} (dropout 0.1: {f[f'fwd_err_{RATE}']:.3e}),"
+        f" attention backward {f['attn_err_0.0']:.3e}, grads "
+        f"{f['proj_err_0.0']:.3e}; bf16 against float64 forward "
+        f"{b['fwd_err']:.3e}, K2 (a) {b['attn_err']:.3e}, K2 (b) "
+        f"{b['proj_err']:.3e}; K1 ms float32 {f['ms']:.4f} (device "
+        f"{f['device_ms']:.4f}, bound {f['bound_ms']:.4f} by "
+        f"{f['bound_by']}, plain {f['plain_ms']:.4f}, library "
+        f"{f['library_ms']:.4f}, library device "
+        f"{f['library_device_ms']:.4f}), bf16 {b['ms']:.4f} (device "
+        f"{b['device_ms']:.4f}, bound {b['bound_ms']:.4f} by "
+        f"{b['bound_by']}, plain {b['plain_ms']:.4f}, library "
+        f"{b['library_ms']:.4f}, library device "
+        f"{b['library_device_ms']:.4f})")
+    return rows
+
+
+def refresh_kernel_rows(rows, launches):
+    """The kernel line's rows of the refresh shape: K1 float32 (launched
+    `launches` times by 5 (s)'s refresh) and bf16 (on no path)."""
+    src = "vln_goat_tpu_torch/ops/csrc/fused_qkv_mha.cu"
+    out = []
+    for key, sfx, n in (("f32", "", launches), ("bf16", "_bf16", 0)):
+        r = rows[key]
+        out.append(dict(
+            name=f"fused_qkv_mha{sfx}_{REFRESH_SHAPE[0]}", route="cuda",
+            source=src, replaces="vln_goat_tpu/ops/attention.py:169",
+            launches=n, launches_by_path=dict(zdict_refresh=n),
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], device_ms=r["device_ms"],
+            library_device_ms=r["library_device_ms"]))
+    return out
+
+
+def zdict_phase(card):
+    """Phase 5 (s): `tools.zdict.update_instr_zdict` over 512 synthetic
+    instructions (worded_items) on the R2R model at full width (seed
+    WEIGHT_SEED), through the kernels and on the eager path from the same
+    weights: keys in the same order, p(z) equal, every feature within 1e-4
+    of the eager features' largest magnitude; K1 launched chunks x text
+    layers times and nothing else; time and peak memory.  Returns (numbers,
+    failure or None)."""
+    from vln_goat_tpu_torch.config import GoatConfig
+    from vln_goat_tpu_torch.entry import build_model
+    from vln_goat_tpu_torch.rollout.env import make_synthetic_dataset
+    from vln_goat_tpu_torch.tools.zdict import (WordPicker,
+                                                update_instr_zdict)
+
+    cfg = GoatConfig.for_dataset("r2r", use_fused_attention=True)
+    graphs = {g.scan_id: g for g in bench_scans()}
+    data = worded_items(make_synthetic_dataset(
+        graphs, REFRESH_ITEMS, vocab_size=cfg.vocab_size, seed=5),
+        cfg.vocab_size, seed=6)
+    kmodel = build_model(cfg, "cuda", seed=WEIGHT_SEED)
+    emodel = build_model(cfg.replace(use_fused_attention=False), "cuda",
+                         seed=WEIGHT_SEED)
+    emodel.load_state_dict(kmodel.state_dict())
+    nums, res = {}, {}
+    chunks = -(-REFRESH_ITEMS // 64)
+    for tag, model in (("kernels", kmodel), ("eager", emodel)):
+        def refresh():
+            return update_instr_zdict(
+                model, data, WordPicker(), lambda d: d["instruction"].split(),
+                lambda t: False, max_len=REFRESH_LEN)
+        refresh()                                    # warm-up
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res[tag] = refresh()
+        torch.cuda.synchronize()
+        nums[f"{tag}_s"] = time.perf_counter() - t0
+        nums[f"{tag}_counts"] = counts()
+        nums[f"{tag}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = (chunks * cfg.num_l_layers, 0, 0, 0)
+    failure = None
+    try:
+        if nums["kernels_counts"] != want:
+            raise AssertionError(f"kernel refresh launched "
+                                 f"{nums['kernels_counts']}, expected {want}")
+        if nums["eager_counts"] != (0, 0, 0, 0):
+            raise AssertionError("the eager refresh launched a kernel")
+        (_, klm, kdr, klp, kdp), (_, elm, edr, elp, edp) = \
+            res["kernels"], res["eager"]
+        if not elm or not edr:
+            raise AssertionError("the refresh picked no landmark or no "
+                                 "direction")
+        worst = 0.0
+        for got, ref, gp, rp in ((klm, elm, klp, elp), (kdr, edr, kdp, edp)):
+            if list(got) != list(ref) or gp != rp:
+                raise AssertionError("keys or p(z) differ from eager's")
+            scale = max(float(np.abs(v).max()) for v in ref.values())
+            worst = max(worst, max(float(np.abs(got[k] - v).max()) / scale
+                                   for k, v in ref.items()))
+        nums["worst"], nums["keys"] = worst, (len(elm), len(edr))
+        if worst > 1e-4:
+            raise AssertionError(f"features |diff| {worst:.3e} of their "
+                                 f"scale > 1e-4")
+    except AssertionError as exc:
+        failure = f"zdict (s): {exc}"
+    del kmodel, emodel, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"zdict (s) refresh of {REFRESH_ITEMS} instructions at width "
+        f"{REFRESH_LEN}, {chunks} chunks of 64, R2R model: kernels "
+        f"{nums['kernels_s']:.3f} s (launches {nums['kernels_counts']}, "
+        f"expected {want}; peak {nums['kernels_peak_gib']:.2f} GiB), eager "
+        f"{nums['eager_s']:.3f} s (peak {nums['eager_peak_gib']:.2f} GiB); "
+        f"{nums.get('keys')} landmark / direction keys, features within "
+        f"{nums.get('worst', float('nan')):.2e} of their scale (limit 1e-4),"
+        f" keys and p(z) {'equal' if failure is None else 'see FAILED'} on "
+        f"{card}")
+    if failure is not None:
+        say(f"zdict (s): FAILED: {failure} (the script goes on, and fails at "
+            "its end)")
+    return nums, failure
+
+
+def speaker_rig(seed=8):
+    """The speaker at its published width over the R2R vocabulary, on the
+    card, with the bench's scans, seeded features and worded synthetic
+    items: (speaker, graphs, features, offsets, items, vocab)."""
+    from vln_goat_tpu_torch import cli
+    from vln_goat_tpu_torch.config import GoatConfig
+    from vln_goat_tpu_torch.rollout.env import make_synthetic_dataset
+    from vln_goat_tpu_torch.speaker.model import SpeakerConfig
+    from vln_goat_tpu_torch.speaker.speaker import Speaker
+
+    vocab = GoatConfig.for_dataset("r2r").vocab_size
+    graphs = {g.scan_id: g for g in bench_scans()}
+    offsets = cli._vp_offsets(graphs, list(graphs))
+    feats = np.random.default_rng(seed).standard_normal(
+        (sum(g.num_vps for g in graphs.values()), 36, 768)).astype(
+            np.float32)
+    items = worded_items(make_synthetic_dataset(
+        graphs, 4 * SPK_BATCH, vocab_size=vocab, path_len=(4, 7),
+        seed=seed), vocab, seed + 1)
+    sp = Speaker(SpeakerConfig(vocab_size=vocab, max_decode=120), "cuda",
+                 seed=seed)
+    return sp, graphs, feats, offsets, items, vocab
+
+
+def speaker_train_batch(sp, graphs, feats, offsets, items):
+    """The CLI's speaker training batch (`speaker_batch` at R2R's 15 path
+    steps and 60 tokens) on the speaker's device."""
+    from vln_goat_tpu_torch.speaker.speaker import speaker_batch
+
+    return speaker_batch(sp, graphs, feats, offsets, items, SPK_STEPS_MAX,
+                         SPK_LEN)
+
+
+def speaker_phase(card):
+    """Phase 5 (t): the speaker on the card at its published width: the
+    deterministic loss of one batch of 64 against the same computation on
+    the CPU (TF32 off, within 1e-4 relative); SPK_STEPS Adam steps at batch
+    64 (the loss falling: the mean of the last five under the first
+    five's); a greedy decode of 64 paths to 120 tokens; ms a step, decode
+    seconds, peak memory.  Returns (numbers, failure or None, the trained
+    speaker's rig)."""
+    from vln_goat_tpu_torch.speaker.speaker import Speaker
+
+    rig = speaker_rig()
+    sp, graphs, feats, offsets, items, vocab = rig
+    nums, failure = {}, None
+    try:
+        batch = speaker_train_batch(sp, graphs, feats, offsets,
+                                    items[:SPK_BATCH])
+        with torch.no_grad():
+            loss = float(sp.loss_fn(batch))
+            cpu = Speaker(sp.cfg, "cpu")
+            cpu.model.load_state_dict({k: v.cpu() for k, v in
+                                       sp.model.state_dict().items()})
+            ref = float(cpu.loss_fn({k: v.cpu() for k, v in batch.items()}))
+        del cpu
+        nums["loss"], nums["cpu_loss"] = loss, ref
+        if abs(loss - ref) > 1e-4 * abs(ref):
+            raise AssertionError(f"card loss {loss} vs CPU {ref}")
+        step, _ = sp.make_train_step(lr=SPK_LR)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        rng = np.random.default_rng(0)
+        batches = [speaker_train_batch(sp, graphs, feats, offsets,
+                                       [items[i] for i in rng.integers(
+                                           0, len(items), SPK_BATCH)])
+                   for _ in range(SPK_STEPS)]
+        step(batches[0], gen)                       # warm-up (one step)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        t0 = time.perf_counter()
+        for b in batches:
+            losses.append(step(b, gen))
+        torch.cuda.synchronize()
+        nums["step_ms"] = (time.perf_counter() - t0) / SPK_STEPS * 1e3
+        nums["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        nums["losses"] = [float(v) for v in losses]
+        if not all(math.isfinite(v) for v in nums["losses"]) or \
+                np.mean(nums["losses"][-5:]) >= np.mean(nums["losses"][:5]):
+            raise AssertionError(f"losses {nums['losses']} did not fall")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        toks = sp.infer(batch, max_decode=120)
+        torch.cuda.synchronize()
+        nums["decode_s"] = time.perf_counter() - t0
+        nums["decode_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        toks = toks.cpu().numpy()
+        ends = [int(np.argmax(r == sp.cfg.eos_id)) + 1
+                if (r == sp.cfg.eos_id).any() else 120 for r in toks]
+        nums["decoded_len"] = (min(ends), max(ends))
+        if toks.shape != (SPK_BATCH, 120) or toks.min() < 0 or \
+                toks.max() >= vocab:
+            raise AssertionError(f"decode {toks.shape}, ids "
+                                 f"{toks.min()}..{toks.max()}")
+    except AssertionError as exc:
+        failure = f"speaker (t): {exc}"
+    say(f"speaker (t) at hidden 512 / word 256 / 4 x 64 heads / 3 layers / "
+        f"FFN 1024, vocabulary {vocab}, batch {SPK_BATCH}: loss "
+        f"{nums.get('loss', float('nan')):.6f} vs CPU "
+        f"{nums.get('cpu_loss', float('nan')):.6f}; {SPK_STEPS} Adam steps "
+        f"(lr {SPK_LR}) {nums.get('step_ms', float('nan')):.1f} ms a step, "
+        f"peak {nums.get('train_peak_gib', float('nan')):.2f} GiB, losses "
+        f"{[round(v, 4) for v in nums.get('losses', [])]}; greedy decode of "
+        f"{SPK_BATCH} paths to 120 tokens {nums.get('decode_s', float('nan')):.3f}"
+        f" s (lengths to <EOS> {nums.get('decoded_len')}, peak "
+        f"{nums.get('decode_peak_gib', float('nan')):.2f} GiB) on {card}")
+    if failure is not None:
+        say(f"speaker (t): FAILED: {failure} (the script goes on, and fails "
+            "at its end)")
+    return nums, failure, rig
+
+
+def backtranslated_batch(rig):
+    """batch_fn for kernel_vs_eager: the CLI's fused aug batch
+    (`cli.aug_batch`): two minibatches of BT_HALF items from the train
+    batcher re-captioned by the speaker in one pass under one shared
+    noise vector at R2R's feature dropout 0.4 (the build's own dropouts
+    stay 0), fused, the noise in `feat_noise`."""
+    from vln_goat_tpu_torch import cli
+
+    sp = rig[0]
+
+    def batch_fn(state, batcher):
+        graphs = batcher.scan_graphs
+        rt = dict(graphs=graphs, banks={}, world=state.rollout.world,
+                  scan_order=sorted(batcher.scan_index,
+                                    key=batcher.scan_index.get),
+                  cfg=state.model.config.replace(feat_dropout=0.4))
+        items = batcher.next_minibatch() + batcher.next_minibatch()
+        return cli.aug_batch(rt, batcher, sp, items, 7_000_003, fused=True)
+
+    return batch_fn
+
+
+def backtranslation_phase(card, rig):
+    """Phase 5 (u): one back-translated dagger_fused update (two minibatches
+    of BT_HALF, re-captioned, the shared noise in the batch) through the
+    kernels against eager under phase 5 (a)'s gates (kernel_vs_eager,
+    dropout 0, the ReLU pinning, the launches of the plan); then the CLI:
+    `--mode speaker` for 4 iterations at R2R width and `train
+    --use_transpeaker --speaker_ckpt_file <its speaker_best> --aug
+    synthetic --z_instr_update --update_iter 1` for 2 iterations (worded
+    synthetic instructions, so the refresh picks words).  Returns
+    (numbers, failures)."""
+    from vln_goat_tpu_torch import cli
+    from vln_goat_tpu_torch.rollout import env as penv
+
+    step = {}
+    failures = [kernel_vs_eager(
+        "train (u)", "back-translated dagger_fused step (2 x "
+        f"{BT_HALF}, shared feature noise)",
+        dict(tcfg=TrainConfig(train_alg="dagger_fused", weight_decay=0.01)),
+        batch_fn=backtranslated_batch(rig), batch_size=BT_HALF,
+        record=step)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="chip_smoke_bt_")
+    orig = penv.make_synthetic_dataset
+    nums = dict(step_counts=step.get("counts", (0, 0, 0, 0)))
+
+    def worded(graphs, n, vocab_size=1000, **kw):
+        return worded_items(orig(graphs, n, vocab_size=vocab_size, **kw),
+                            vocab_size, seed=kw.get("seed", 0) + 100)
+
+    common = ["--synthetic", "--use_pallas", "--batch_size", "8",
+              "--device", "cuda", "--output_dir", out]
+    try:
+        penv.make_synthetic_dataset = worded
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(["--mode", "speaker", "--speaker_iters", "4",
+                  "--log_every", "20"] + common)
+        nums["speaker_s"] = time.perf_counter() - t0
+        nums["speaker_log"] = [line.strip() for line in
+                               open(os.path.join(out, "speaker.log"))]
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(["--mode", "train", "--iters", "2", "--log_every", "2",
+                  "--aug", "synthetic", "--use_transpeaker",
+                  "--speaker_ckpt_file", os.path.join(out, "speaker_best"),
+                  "--z_instr_update", "--update_iter", "1"] + common)
+        nums["train_s"] = time.perf_counter() - t0
+        nums["train_counts"] = counts()
+        log = open(os.path.join(out, "train.log")).read()
+        nums["log"] = [line.strip() for line in log.splitlines()
+                       if "iter" in line or "z-dict" in line]
+        losses = [json.loads(line)["train/loss"] for line in
+                  open(os.path.join(out, "metrics.jsonl"))
+                  if "train/loss" in line]
+        nums["losses"] = losses
+        if len(nums["speaker_log"]) != 2:
+            raise AssertionError(f"speaker.log {nums['speaker_log']}")
+        if not os.path.exists(os.path.join(out, "speaker_best",
+                                           "params.pt")):
+            raise AssertionError("no speaker_best")
+        if not losses or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"losses {losses}")
+        if min(nums["train_counts"][:3]) <= 0:
+            raise AssertionError(f"launches {nums['train_counts']}: K1 and "
+                                 "K2 must launch")
+        if "z-dict refreshed" not in log or \
+                "z-dict refreshed: 0 landmarks" in log or not os.path.exists(
+                    os.path.join(out, "backdoor_update_features.tsv")):
+            raise AssertionError("the z-dict refresh picked nothing")
+    except AssertionError as exc:
+        failures.append(f"train (u) CLI: {exc}")
+        say(f"train (u) CLI: FAILED: {exc} (the script goes on, and fails "
+            "at its end)")
+    finally:
+        penv.make_synthetic_dataset = orig
+        shutil.rmtree(out, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"train (u) CLI at R2R width (--synthetic --use_pallas, batch 8): "
+        f"--mode speaker 4 iterations {nums.get('speaker_s', 0):.1f} s "
+        f"({nums.get('speaker_log')}); train --use_transpeaker --aug "
+        f"synthetic --z_instr_update --update_iter 1, 2 iterations "
+        f"{nums.get('train_s', 0):.1f} s (launches "
+        f"{nums.get('train_counts')}; losses {nums.get('losses')}; "
+        f"{nums.get('log')}) on {card}")
+    return nums, [f for f in failures if f is not None]
+
+
+# the phase running now (`start_phase`), named with the error of a phase
+# that raises (`run`)
+CURRENT_PHASE = ["1 (device)"]
+
+
+def start_phase(name: str) -> float:
+    """Marks the start of phase `name`; returns its start time."""
+    CURRENT_PHASE[0] = name
+    return time.perf_counter()
+
+
+def run() -> int:
+    """main(), and an error that leaves it printed with the phase that
+    raised it (its name, the error and the traceback, on the standard
+    output) before the failure summary; exits non-zero."""
+    try:
+        return main()
+    except BaseException as exc:
+        if isinstance(exc, SystemExit):
+            raise
+        import traceback
+        say(f"phase {CURRENT_PHASE[0]} raised {type(exc).__name__}: {exc}")
+        traceback.print_exc(file=sys.stdout)
+        say(f"FAILED: phase {CURRENT_PHASE[0]}: {type(exc).__name__}: "
+            f"{exc}")
+        return 1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4054,7 +4553,7 @@ def main() -> int:
     say(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
+    t0 = start_phase("2 (build)")
     _build.load_all()
     say(f"build: {', '.join(_build.KERNELS)} in "
         f"{time.perf_counter() - t0:.1f} s (in parallel)")
@@ -4074,90 +4573,103 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 3 (float32)")
     rows, train_rows = check_kernels()
     mha_rows = check_mha()
     check_long_f32(torch.Generator(device="cuda").manual_seed(5))
     say(f"wall: phase 3 (float32) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 3 (bf16)")
     b_rows, b_train_rows = check_kernels_bf16()
     b_mha_rows = check_mha_bf16()
     say(f"wall: phase 3 (bf16) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 3 (head widths, phase B rows)")
     w_rows = check_head_widths()
     pb_bf16 = check_phase_b()
     say(f"wall: phase 3 (head widths, phase B rows) "
         f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 3 (m)")
     f6_rows = check_f6_widths()
     say(f"wall: phase 3 (m) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 3 (n)")
     wide_rows = check_f6_wide()
     say(f"wall: phase 3 (n) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 3 (new paths' shapes)")
     shape_rows = new_shape_rows()
     say(f"wall: phase 3 (new paths' shapes) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 3 (o)")
     pt_rows = pretrain_shape_rows()
     say(f"wall: phase 3 (o) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 3 (s)")
+    refresh_rows = refresh_shape_rows()
+    say(f"wall: phase 3 (s) {time.perf_counter() - t0:.1f} s")
+    t0 = start_phase("phase 4")
     decode = run_rollouts(card)
     b_decode, d_failed = run_rollouts_bf16(card)
     say(f"wall: phase 4 {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (a, b)")
     mix, train, failed, none_peak = run_train(card)
     say(f"wall: phase 5 (a, b) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (e, f)")
     e_failed = remat_gate(card)
     f_failed = bf16_gate_step(card)
     say(f"wall: phase 5 (e, f) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (h, i)")
     h_failed = vec_teacher_gate(card)
     i_failed = sampled_gates()
     say(f"wall: phase 5 (h, i) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("causal phase 4")
     c_decode = run_rollouts(card, causal=True)
     c_b_decode, cd_failed = run_rollouts_bf16(card, causal=True)
     say(f"wall: causal phase 4 {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (c, d)")
     c_mix, c_train, c_failed, c_none_peak = run_train(card, causal=True)
     say(f"wall: phase 5 (c, d) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (f causal, g causal)")
     cf_failed = bf16_gate_step(card, causal=True)
     cg_mix, cg_train, cg_failed, _ = bench_config(card, True, c_none_peak)
     say(f"wall: phase 5 (f causal, g causal) "
         f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (j)")
     j_mix, j_train, j_failed = fused_bench(card)
     say(f"wall: phase 5 (j) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (k)")
     _, k_failed = remat_policies(card)
     say(f"wall: phase 5 (k) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (l)")
     _, l_failed = cli_phase(card)
     say(f"wall: phase 5 (l) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (m)")
     m_nums, m_failed = reverie_phase(card)
     say(f"wall: phase 5 (m) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (n)")
     n_nums, n_failed = rxr_phase(card)
     say(f"wall: phase 5 (n) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (o)")
     o_nums, o_failed = cfp_phase(card)
     say(f"wall: phase 5 (o) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (p)")
     _, p_failed = cli_datasets_phase(card)
     say(f"wall: phase 5 (p) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (q)")
     _, q_failed = pretrain_gates(card)
     q_timing, qt_failed = pretrain_timing(card)
     say(f"wall: phase 5 (q) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (r)")
     _, r_failed = pretrain_cli_phase(card)
     say(f"wall: phase 5 (r) {time.perf_counter() - t0:.1f} s")
+    t0 = start_phase("phase 5 (s)")
+    s_nums, s_failed = zdict_phase(card)
+    say(f"wall: phase 5 (s) {time.perf_counter() - t0:.1f} s")
+    t0 = start_phase("phase 5 (t)")
+    _, t_failed, spk_rig = speaker_phase(card)
+    say(f"wall: phase 5 (t) {time.perf_counter() - t0:.1f} s")
+    t0 = start_phase("phase 5 (u)")
+    u_nums, u_failed = backtranslation_phase(card, spk_rig)
+    del spk_rig
+    say(f"wall: phase 5 (u) {time.perf_counter() - t0:.1f} s")
     # the plain bench build last: its profiled step comes after every timed
     # step of the script
-    t0 = time.perf_counter()
+    t0 = start_phase("phase 5 (g)")
     teacher_ab(card)
     g_mix, g_train, g_failed, _ = bench_config(card, False, none_peak)
     say(f"wall: phase 5 (g) {time.perf_counter() - t0:.1f} s")
@@ -4167,7 +4679,9 @@ def main() -> int:
     mix = add_mix(mix, c_mix)
     total = sum(mix.values())
     by_path = [dict(decode=decode, train=train[i], causal_decode=c_decode,
-                    causal_train=c_train[i]) for i in range(3)]
+                    causal_train=c_train[i],
+                    backtranslated_train=u_nums["step_counts"][i])
+               for i in range(3)]
     for i in (1, 2):
         by_path[i].update(decode=0, causal_decode=0)
 
@@ -4288,8 +4802,8 @@ def main() -> int:
              device_ms=b_avg("projb_device_ms"),
              library_device_ms=b_avg("projb_library_device_ms")),
         # the two bf16 attention cores inside K1 bf16 and K2 (a) bf16
-        # (their launches): ms of the core's own C call, device_ms of its
-        # kernel in the whole call (by name); plain: the plain attention
+        # (their launches): ms of the core's own C call and its device time
+        # (a CUDA graph of ten); plain: the plain attention
         # over projected heads (its autograd for K2 (a)); library: SDPA
         dict(name="attn_fwd_sm90", route="cuda",
              source=src + "attn_fwd_sm90.cuh",
@@ -4335,6 +4849,8 @@ def main() -> int:
     kernels += f6_kernel_rows(wide_rows)
     kernels += new_kernel_rows(shape_rows, m_nums, n_nums, o_nums)
     kernels += pretrain_kernel_rows(pt_rows, q_timing)
+    kernels += refresh_kernel_rows(refresh_rows,
+                                   s_nums["kernels_counts"][0])
     # the float32 CUDA-core bounds, beside the 3xTF32 ones
     # the kernels line carries, and the forward by part
     say(f"float32 CUDA-core bound over the train mix: forward "
@@ -4357,15 +4873,14 @@ def main() -> int:
         f"call {b_avg('projb_library_ms'):.4f} (device time "
         f"{b_avg('projb_device_ms'):.4f}); K2 (a) {b_avg('attn_ms'):.4f} "
         f"ms, {b_avg('attn_ms') / b_avg('attn_library_ms'):.2f}x")
-    say(f"profiles taken again for want of the device work asked for: "
-        f"{len(PROFILE_RETRIES)} {PROFILE_RETRIES}")
     say(f"wall: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     failures = [f for f in (d_failed, cd_failed, failed, c_failed, e_failed,
                             f_failed, cf_failed, g_failed, cg_failed,
                             h_failed, j_failed, k_failed, l_failed,
                             m_failed, n_failed, o_failed, p_failed,
-                            q_failed, qt_failed, r_failed, *i_failed)
+                            q_failed, qt_failed, r_failed, s_failed,
+                            t_failed, *i_failed, *u_failed)
                 if f is not None]
     if failures:
         say("FAILED: " + "; ".join(failures))
@@ -4378,4 +4893,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

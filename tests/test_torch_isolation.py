@@ -76,7 +76,17 @@ def test_port_and_smoke_import_without_jax():
             "vln_goat_tpu_torch.pretrain.optimizers",
             "vln_goat_tpu_torch.pretrain.cli",
             "vln_goat_tpu_torch.data.prefetch",
-            "vln_goat_tpu_torch.data.worker_pool"} <= set(mods)
+            "vln_goat_tpu_torch.data.worker_pool",
+            # the speaker, back-translation, the text metrics and the
+            # offline tools
+            "vln_goat_tpu_torch.speaker.model",
+            "vln_goat_tpu_torch.speaker.speaker",
+            "vln_goat_tpu_torch.speaker.backtranslate",
+            "vln_goat_tpu_torch.speaker.vocab",
+            "vln_goat_tpu_torch.eval.bleu",
+            "vln_goat_tpu_torch.eval.spice",
+            "vln_goat_tpu_torch.tools.efficiency",
+            "vln_goat_tpu_torch.tools.do_utils"} <= set(mods)
     code = "import importlib\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in mods) + \
         "import chip_smoke\nprint('ok')\n"
@@ -138,3 +148,15 @@ def test_entry_points_default_to_cuda(no_card):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_pretrain_model(GoatConfig(num_l_layers=1, hidden_size=32,
                                         num_attention_heads=2), ("mlm",))
+    from vln_goat_tpu_torch.speaker.model import SpeakerConfig
+    from vln_goat_tpu_torch.speaker.speaker import Speaker
+    from vln_goat_tpu_torch.tools.do_utils import make_blip_vqa
+    from vln_goat_tpu_torch.tools.efficiency import efficiency_count
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Speaker(SpeakerConfig(vocab_size=32, feature_size=24,
+                              image_feat_size=16))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        efficiency_count(GoatConfig(num_l_layers=1, hidden_size=32,
+                                    num_attention_heads=2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_blip_vqa("no-blip-here")

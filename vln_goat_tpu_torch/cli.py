@@ -10,6 +10,10 @@ of vln_goat_tpu/cli.py) for R2R, RxR, REVERIE and SOON.
   python -m vln_goat_tpu_torch.cli --mode train --dataset rxr \
       --expert_policy ndtw --synthetic
   python -m vln_goat_tpu_torch.cli --mode extract_cfp_features --synthetic
+  python -m vln_goat_tpu_torch.cli --mode speaker --synthetic
+  python -m vln_goat_tpu_torch.cli --mode train --synthetic --aug synthetic \
+      --use_transpeaker --speaker_ckpt_file out/speaker_best \
+      --z_instr_update --update_iter 3000
 
 The flags and defaults are the JAX package's; `--use_pallas` routes the
 attention through the fused kernels (`use_fused_attention`), and
@@ -37,9 +41,20 @@ own parameter file; `--resume_file` / `--bert_ckpt_file` take one of
 those, a train-state directory, or a reference .pt, through which the
 port and the JAX package exchange weights.
 
-Not ported, each raising with its ROADMAP.md Queue 1 item: `--mode
-speaker`, `--use_transpeaker` and `--z_instr_update` (item 8), and more
-than one process (item 4, DistributedDataParallel).
+GOAT's online z-dict refresh (`--z_instr_update`): at every crossed
+`--update_iter` boundary the first 512 training instructions go through
+the language tower (`tools.zdict.update_instr_zdict`), the instruction
+banks are replaced and `backdoor_update_features.tsv` is written.
+`--mode speaker` trains the speaker (BLEU-4 and SPICE on 32 items of each
+validation split, `speaker_best` kept whenever BLEU improves);
+`--use_transpeaker` re-captions every aug update's paths with the speaker
+of `--speaker_ckpt_file` (a reference Transpeaker .pt or the port's own
+`speaker_best`; a seeded one without it) under one shared feature-noise
+vector, which the navigator's panorama features take too
+(back-translation).
+
+Not ported, raising with its ROADMAP.md Queue 1 item: more than one
+process (item 4, DistributedDataParallel).
 """
 from __future__ import annotations
 
@@ -92,8 +107,11 @@ def parse_args(argv=None):
                    help="one optimizer step per GT+aug group "
                         "(--accumulateGrad, agent.py:407-445)")
     p.add_argument("--use_transpeaker", action="store_true",
-                   help="re-caption aug paths with the speaker (not ported)")
-    p.add_argument("--speaker_ckpt_file", default=None)
+                   help="re-caption aug paths with the speaker "
+                        "(back-translation, agent.py:459-474)")
+    p.add_argument("--speaker_ckpt_file", default=None,
+                   help="the speaker's weights: a reference Transpeaker .pt "
+                        "or a `--mode speaker` run's speaker_best")
     p.add_argument("--obj_ft_file", default=None)
     p.add_argument("--bbox_file", default=None)
     p.add_argument("--img_zdict_file", default=None)
@@ -187,10 +205,6 @@ def check_ported(args) -> None:
     """Raises NotImplementedError for a mode, dataset or flag the port does
     not run, naming its ROADMAP.md Queue 1 item."""
     refused = [
-        (args.mode == "speaker", "--mode speaker", 8),
-        (args.use_transpeaker, "--use_transpeaker (back-translation)", 8),
-        (args.z_instr_update, "--z_instr_update (the online z-dict "
-         "update)", 8),
         (args.num_processes > 1,
          f"--num_processes {args.num_processes} (DistributedDataParallel)",
          4),
@@ -566,7 +580,10 @@ def train(args, rt):
                 write_to_record_file(f"[eval_first] {split}: {m}",
                                      record_file)
 
-    def update(items, batch):
+    speaker = _load_speaker(args, rt) \
+        if args.use_transpeaker and aug_batcher is not None else None
+
+    def update(items, batch, noise=None):
         batch = run_batch(rt, batch, items)
         if fused:
             # the reference's two DAgger rollouts take two minibatches;
@@ -574,18 +591,18 @@ def train(args, rt):
             items2, batch2 = batcher.next_batch()
             batch = fuse_dagger_batches(batch,
                                         run_batch(rt, batch2, items2))
+        if noise is not None:
+            batch["feat_noise"] = noise
         return state.step_fn(state, batch, gen)
 
-    def aug_update():
+    def aug_update(bt_seed: int):
+        """One aug update (`aug_batch`); fused, both DAgger halves come
+        from the aug batcher."""
         items = aug_batcher.next_minibatch()
         if fused:
             items = items + aug_batcher.next_minibatch()
-            half = len(items) // 2
-            batch = fuse_dagger_batches(*(
-                run_batch(rt, aug_batcher.make_batch(part), part)
-                for part in (items[:half], items[half:])))
-            return state.step_fn(state, batch, gen)
-        return update(items, aug_batcher.make_batch(items))
+        return state.step_fn(state, aug_batch(rt, aug_batcher, speaker,
+                                              items, bt_seed, fused), gen)
 
     per = args.aug_times + 1
     # fast-forward the seeded batch iterators so that a resumed run sees
@@ -617,11 +634,12 @@ def train(args, rt):
             # group (main_nav.py:220-252), each one iteration
             groups = max(interval // per, 1)
             consumed = groups * per
-            for _ in range(groups):
+            for j in range(groups):
+                base = it + j * per
                 metrics = update(*batcher.next_batch())
                 losses.append(metrics["loss"])
-                for _ in range(args.aug_times):
-                    metrics = aug_update()
+                for k in range(args.aug_times):
+                    metrics = aug_update(7_000_003 + base + k)
                     losses.append(metrics["loss"])
         for v in losses:
             meter(float(v))
@@ -659,8 +677,141 @@ def train(args, rt):
                 write_to_record_file(f"  new best @ {step}: {score:.2f}",
                                      record_file)
         _refresh_front_dict(args, rt)    # per-cycle FACL resampling
+        # every update_iter boundary crossed within this cycle
+        if args.z_instr_update and \
+                step // args.update_iter > it // args.update_iter:
+            _update_zdict(args, rt, state.model, record_file)
         it = step
     return state
+
+
+def _update_zdict(args, rt, model, record_file):
+    """The online BACL instruction z-dict refresh (main_nav.py:192,
+    311-324, agent.update_z_dict; the JAX CLI's cli.py:815-851): the first
+    512 training items through `model`'s language tower, the instruction
+    banks replaced, `backdoor_update_features.tsv` written.  With
+    `--tokenizer_vocab` (a vocab.json, token -> id) the harvest walks the
+    encoding's subword tokens, skipping the '#'-led continuations (BERT's
+    '##'; RoBERTa's 'G'-led tokens never match, as in the reference);
+    without it, whitespace words."""
+    from .tools.zdict import (WordPicker, instr_bank_names,
+                              save_instr_zdict_tsv, subword_tokens_of,
+                              update_instr_zdict)
+    from .utils.logger import write_to_record_file
+
+    data = rt["batchers"]["train"].data
+    if not data or "instruction" not in data[0]:
+        return
+    if args.tokenizer_vocab:
+        with open(args.tokenizer_vocab, encoding="utf-8") as f:
+            id_to_token = {int(v): k for k, v in json.load(f).items()}
+
+        def tokens_of(d):
+            return subword_tokens_of(d["instr_encoding"], id_to_token)
+
+        def is_cont(t):
+            return t.startswith("#")
+    else:
+        def tokens_of(d):
+            return d["instruction"].split()
+
+        def is_cont(t):
+            return False
+    zd, lm_f, dr_f, lm_pz, dr_pz = update_instr_zdict(
+        model, data[:512], WordPicker(cat_file=args.cat_file),
+        tokens_of=tokens_of, is_continuation=is_cont,
+        max_len=min(rt["cfg"].max_instr_len, 64))
+    rt["banks"].update(instr_bank_names(
+        {k: v for k, v in zd["instr_zdict"].items() if len(v)}))
+    out = os.path.join(args.output_dir, "backdoor_update_features.tsv")
+    save_instr_zdict_tsv(out, lm_f, dr_f, lm_pz, dr_pz)
+    write_to_record_file(f"  z-dict refreshed: {len(lm_f)} landmarks, "
+                         f"{len(dr_f)} directions -> {out}", record_file)
+
+
+def speaker_config(args, cfg):
+    """The speaker's configuration for the navigator's `cfg` (the JAX
+    CLI's): the model's vocabulary, image features plus
+    `--speaker_angle_size` angle features, decodes of at most 120."""
+    from .speaker.model import SpeakerConfig
+
+    return SpeakerConfig(
+        vocab_size=cfg.vocab_size,
+        feature_size=cfg.image_feat_size + args.speaker_angle_size,
+        image_feat_size=cfg.image_feat_size,
+        max_decode=min(120, cfg.max_instr_len))
+
+
+def _load_speaker(args, rt):
+    """The speaker of back-translation (main_nav.py:194-198; the JAX
+    CLI's cli.py:545-580), seeded by `--seed` + 7 and loaded from
+    `--speaker_ckpt_file`: a reference Transpeaker .pt (every parameter
+    must be covered) or the port's own `speaker_best` directory."""
+    from .speaker.speaker import Speaker
+    from .train import checkpoint as ck
+
+    sp = Speaker(speaker_config(args, rt["cfg"]), rt["device"],
+                 seed=args.seed + 7)
+    path = args.speaker_ckpt_file
+    if path:
+        if path.endswith((".pt", ".pth")):
+            merged, missing, _ = ck.merge_loaded(
+                sp.model.state_dict(), ck.load_reference_speaker(path))
+            if missing:
+                raise ValueError(
+                    f"speaker ckpt left params uncovered: {missing[:5]}")
+        else:
+            merged = ck.load_params(path)
+        sp.model.load_state_dict(merged)
+    return sp
+
+
+def recaption(rt, speaker, items, seed: int):
+    """Back-translation of aug items: their gt paths through the speaker
+    under one shared noise vector drawn from a generator seeded by `seed`
+    -> (the items with the speaker's instructions, the noise [Df])."""
+    from .speaker.backtranslate import backtranslate, swap_instructions
+
+    graphs, cfg, sc = rt["graphs"], rt["cfg"], speaker.cfg
+    gen = torch.Generator(device=speaker.device).manual_seed(seed)
+    toks, noise = backtranslate(
+        speaker, graphs, _features(rt), _vp_offsets(graphs, rt["scan_order"]),
+        items, max_steps=cfg.max_action_len, generator=gen,
+        feat_drop=cfg.feat_dropout)
+    return swap_instructions(items, toks, eos_id=sc.eos_id,
+                             bos_id=sc.bos_id), noise
+
+
+def aug_batch(rt, batcher, speaker, items, seed: int, fused: bool):
+    """The batch of one aug update (agent.py:459-474): with a speaker the
+    items re-captioned under one shared noise vector (`recaption` with
+    `seed`), the noise in `feat_noise`; fused, the items' two halves are
+    the two DAgger halves (re-captioned in one speaker pass), each built
+    at the batcher's widest gt cap so that neither half's gt paths are
+    cut to the other's bucket."""
+    from .train.trainer import fuse_dagger_batches
+
+    noise = None
+    if speaker is not None:
+        items, noise = recaption(rt, speaker, items, seed)
+    if fused:
+        half = len(items) // 2
+        cap = batcher.bucket_caps[-1] if batcher.bucket_caps else None
+        batch = fuse_dagger_batches(*(
+            run_batch(rt, batcher.make_batch(part, gt_cap=cap), part)
+            for part in (items[:half], items[half:])))
+    else:
+        batch = run_batch(rt, batcher.make_batch(items), items)
+    if noise is not None:
+        batch["feat_noise"] = noise
+    return batch
+
+
+def _features(rt):
+    """The world's view features [V, 36, Df] as float32 numpy, read once."""
+    if "features_np" not in rt:
+        rt["features_np"] = rt["world"].feat.float().cpu().numpy()
+    return rt["features_np"]
 
 
 def valid(args, rt):
@@ -698,8 +849,7 @@ def extract_cfp(args, rt):
         max_txt_len=min(cfg.max_instr_len, 64),
         max_steps=min(cfg.max_action_len + 1, 12),
         max_cands=args.max_cands, max_gmap=args.num_nodes)
-    features = rt["world"].feat.float().cpu().numpy()
-    builder = TrajBatchBuilder(rt["graphs"], rt["scan_order"], features,
+    builder = TrajBatchBuilder(rt["graphs"], rt["scan_order"], _features(rt),
                                shapes, seed=args.seed)
     items = items_from_dataset(rt["batchers"]["train"].data, rt["graphs"])
     out_tsv = os.path.join(args.output_dir,
@@ -709,6 +859,82 @@ def extract_cfp(args, rt):
                                  out_tsv=out_tsv)
     print(f"wrote {out_tsv}: {feats['txt_feats'].shape[0]} trajectories")
     return feats
+
+
+def train_speaker(args, rt):
+    """--mode speaker: teacher-forced speaker training on the training
+    split's gt paths (batches drawn by np.random.default_rng(--seed)),
+    gated every max(log_every // 10, 1) iterations by BLEU-4 and SPICE of
+    greedy decodes of 32 items of val_seen and val_unseen; `speaker_best`
+    (the port's parameter file) written whenever BLEU improves
+    (reverie/main_nav_obj.py:258-404; the JAX CLI's cli.py:919-1024).
+    Returns the Speaker."""
+    from .eval.bleu import corpus_bleu
+    from .eval.spice import SpiceScorer, spice_from_ids
+    from .speaker.speaker import Speaker, speaker_batch
+    from .train import checkpoint as ck
+    from .utils.logger import write_to_record_file
+
+    cfg, graphs, dev = rt["cfg"], rt["graphs"], rt["device"]
+    os.makedirs(args.output_dir, exist_ok=True)
+    record = os.path.join(args.output_dir, "speaker.log")
+    scfg = speaker_config(args, cfg)
+    sp = Speaker(scfg, dev, seed=args.seed)
+    step_fn, _ = sp.make_train_step(lr=args.speaker_lr)
+    offsets = _vp_offsets(graphs, rt["scan_order"])
+
+    def make_batch(items, max_len=None):
+        return speaker_batch(sp, graphs, _features(rt), offsets, items,
+                             cfg.max_action_len, max_len)
+
+    train_items = list(rt["batchers"]["train"].data)
+    L = min(cfg.max_instr_len, 60)
+    rng = np.random.default_rng(args.seed)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    # id -> surface token for text-level SPICE (--tokenizer_vocab)
+    id2tok = None
+    if args.tokenizer_vocab:
+        with open(args.tokenizer_vocab, encoding="utf-8") as f:
+            id2tok = {v: k for k, v in json.load(f).items()}
+
+    def words(ids):
+        return "".join(id2tok.get(int(i), "").replace("\u0120", " ")
+                       for i in ids).strip()
+
+    best_bleu = -1.0
+    for it in range(args.speaker_iters):
+        idx = rng.integers(0, len(train_items), args.batch_size)
+        loss = step_fn(make_batch([train_items[i] for i in idx], L), gen)
+        if (it + 1) % max(args.log_every // 10, 1):
+            continue
+        hyps, refs = [], []
+        for split in ("val_seen", "val_unseen"):
+            if split not in rt["batchers"]:
+                continue
+            v_items = rt["batchers"][split].data[:32]
+            toks = sp.infer(make_batch(v_items)).cpu().numpy()
+            for row, item in zip(toks, v_items):
+                seq = [int(t) for t in row]
+                if scfg.eos_id in seq:
+                    seq = seq[:seq.index(scfg.eos_id)]
+                hyps.append(seq)
+                refs.append([list(item["instr_encoding"])])
+        bleu4, _ = corpus_bleu(hyps, refs, smooth=True)
+        if id2tok is not None:
+            spice, _ = SpiceScorer().compute_scores(
+                [{"Inference": [words(h)], "Ground Truth": [words(r[0])]}
+                 for h, r in zip(hyps, refs)])
+        else:
+            spice = float(np.mean([spice_from_ids(h, r)
+                                   for h, r in zip(hyps, refs)])) \
+                if hyps else 0.0
+        write_to_record_file(f"speaker iter {it + 1}: loss {float(loss):.4f}"
+                             f" bleu4 {bleu4:.4f} spice {spice:.4f}", record)
+        if bleu4 > best_bleu:
+            best_bleu = bleu4
+            ck.save_params(os.path.join(args.output_dir, "speaker_best"),
+                           sp.model)
+    return sp
 
 
 def main(argv=None):
@@ -726,6 +952,8 @@ def main(argv=None):
         return train(args, rt)
     if args.mode == "extract_cfp_features":
         return extract_cfp(args, rt)
+    if args.mode == "speaker":
+        return train_speaker(args, rt)
     valid(args, rt)
 
 

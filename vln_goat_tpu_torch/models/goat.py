@@ -223,13 +223,18 @@ class GoatModel(nn.Module):
 
     def forward_panorama(self, view_img_fts, loc_fts, nav_types, view_masks,
                          z_img_features=None, z_img_pzs=None, obj_fts=None,
-                         obj_masks=None, obj_names=None):
+                         obj_masks=None, obj_names=None,
+                         already_dropout: bool = False):
         """The per-step panorama encoding (CausalImageEmbeddings) of the
         raw view features after the env-feature dropout, which the object
-        features take too (the JAX package's goat.py:240-251)."""
-        if obj_fts is not None:
-            obj_fts = self.drop_env(obj_fts)
-        return self.img_embeddings(self.drop_env(view_img_fts), loc_fts,
+        features take too (the JAX package's goat.py:240-251); with
+        `already_dropout` (back-translation's shared noise is already in
+        the view features) neither takes it."""
+        if not already_dropout:
+            view_img_fts = self.drop_env(view_img_fts)
+            if obj_fts is not None:
+                obj_fts = self.drop_env(obj_fts)
+        return self.img_embeddings(view_img_fts, loc_fts,
                                    nav_types, view_masks, z_img_features,
                                    z_img_pzs, obj_fts, obj_masks, obj_names)
 

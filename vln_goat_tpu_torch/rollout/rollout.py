@@ -229,6 +229,18 @@ def _obj_kw(pano) -> dict:
                 obj_names=objs["name"])
 
 
+def _feat_noise(img, batch):
+    """Back-translation's shared feature noise (`batch["feat_noise"]`
+    [Df]) multiplied into the panorama's image features, which then skip
+    the model's own feature dropout (agent.py:459-474, the JAX package's
+    rollout.py:1098-1102 and :1805-1806) -> (features, forward_panorama's
+    keyword)."""
+    if "feat_noise" not in batch:
+        return img, {}
+    return img * batch["feat_noise"][None, None, :], \
+        {"already_dropout": True}
+
+
 def og_cross_entropy(obj_logits, gt_slot, at_goal):
     """The object-grounding loss per episode (the JAX package's
     rollout.py:1212-1226): -log_softmax(obj_logits)[gt_slot] where the
@@ -796,9 +808,10 @@ class NavRollout:
             torch.full_like(st["cur"], t + 1), act)}
 
         pano = self._pano_inputs(st, batch)
+        img, noise_kw = _feat_noise(pano["img"], batch)
         pano_embeds, pano_masks, pano_fused = call(
-            model.forward_panorama, pano["img"], pano["loc"],
-            pano["nav_types"], pano["mask"], **_obj_kw(pano),
+            model.forward_panorama, img, pano["loc"],
+            pano["nav_types"], pano["mask"], **_obj_kw(pano), **noise_kw,
             **{dst: batch[src] for src, dst in _PANO_BANKS if src in batch})
         if pano_fused is None:  # average fallback (agent.py:550-552)
             m = pano_masks[..., None].to(pano_embeds.dtype)
@@ -1194,9 +1207,10 @@ class NavRollout:
             use_aug=_tile(batch["use_aug"], n) if "use_aug" in batch
             else None)
         policy = vec_call_policy(remat)
+        img, noise_kw = _feat_noise(pano["img"], batch)
         pe, pm, pf = self._call(
-            model.forward_panorama, policy, pano["img"], pano["loc"],
-            pano["nav_types"], pano["mask"], **_obj_kw(pano),
+            model.forward_panorama, policy, img, pano["loc"],
+            pano["nav_types"], pano["mask"], **_obj_kw(pano), **noise_kw,
             **{dst: _tile(batch[src], n) for src, dst in _PANO_BANKS
                if src in batch})
         if pf is None:  # average fallback (agent.py:550-552)

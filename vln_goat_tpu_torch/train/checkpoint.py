@@ -393,3 +393,95 @@ def load_train_state(path: str, state,
     if generator is not None:
         generator.set_state(blob["generator"])
     return blob["iteration"]
+
+
+# ----------------------------------------------------------------------
+# Transpeaker checkpoints.  The port's speaker modules carry the reference
+# names (models/transpeaker_model.py:157-256), so a reference state dict is
+# the port's own.  Reference save format (r2r/transpeaker.py:329-344):
+# {"transpeaker": {"epoch": N, "state_dict": {...}, "optimizer": ...}};
+# its load deletes any "progress" keys and restores strict (:345-363).
+_SPK_SIDE = {"enc": ("encoder", {"self_attn": "enc_self_attn"}),
+             "dec": ("decoder", {"self_attn": "dec_self_attn",
+                                 "enc_attn": "dec_enc_attn"})}
+
+
+def speaker_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's TranspeakerModel parameters (the nested tree or
+    flat "a/b/kernel" keys, as numpy, with or without "params") -> the
+    port's speaker state dict, the inverse of the JAX package's
+    speaker_torch_to_flax (vln_goat_tpu/train/checkpoint.py:398):
+
+      encoder_down_size                -> encoder.down_size
+      encoder_image_self_attn.X        -> encoder.image_self_attn.X
+      enc_I_self_attn.X                -> encoder.layers.I.enc_self_attn.X
+      enc_I_ffn.fc_J                   -> encoder.layers.I.pos_ffn.fc.J
+      embedding (no transpose)         -> decoder.embedding
+      dec_I_self_attn.X / enc_attn.X   -> decoder.layers.I.dec_self_attn.X
+                                          / dec_enc_attn.X
+      dec_I_ffn.fc_J                   -> decoder.layers.I.pos_ffn.fc.J
+      projection                       -> projection
+    Dense kernels [in, out] become weights [out, in]."""
+    if any(isinstance(v, Mapping) for v in params.values()):
+        params = flatten(params)
+    out: Dict[str, torch.Tensor] = {}
+    for path, val in params.items():
+        parts = path.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        val = np.asarray(val, np.float32)
+        mod, leaf = parts[0], parts[-1]
+        m = re.fullmatch(r"(enc|dec)_(\d+)_(self_attn|enc_attn|ffn)", mod)
+        if m:
+            side, i, kind = m.groups()
+            top, names = _SPK_SIDE[side]
+            if kind == "ffn":
+                sub = "pos_ffn.fc." + parts[1].split("_")[1]
+            else:
+                sub = f"{names[kind]}.{parts[1]}"
+            base = f"{top}.layers.{i}.{sub}"
+        elif mod == "encoder_down_size":
+            base = "encoder.down_size"
+        elif mod == "encoder_image_self_attn":
+            base = f"encoder.image_self_attn.{parts[1]}"
+        elif mod == "embedding":
+            out["decoder.embedding.weight"] = torch.from_numpy(val.copy())
+            continue
+        elif mod == "projection":
+            base = "projection"
+        else:
+            raise KeyError(f"unrecognised speaker parameter {path}")
+        if leaf == "kernel":
+            out[base + ".weight"] = torch.from_numpy(val.T.copy())
+        elif leaf == "bias":
+            out[base + ".bias"] = torch.from_numpy(val.copy())
+        else:
+            raise KeyError(f"unrecognised speaker parameter {path}")
+    return out
+
+
+def load_reference_speaker(path: str) -> Dict[str, torch.Tensor]:
+    """A reference Transpeaker .pt (the {"transpeaker": {"state_dict"}}
+    wrapper, or a bare state dict) -> the port's speaker state dict on the
+    CPU: "module." stripped, the sinusoid buffers (`pos_emb.pe`, computed
+    here) and "progress" keys left out, as the reference's load drops
+    them."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "transpeaker" in obj:
+        obj = obj["transpeaker"]["state_dict"]
+    out = {}
+    for key, val in obj.items():
+        if key.startswith("module."):
+            key = key[len("module."):]
+        if key.endswith("pos_emb.pe") or "progress" in key:
+            continue
+        out[key] = torch.as_tensor(val)
+    return out
+
+
+def save_reference_speaker(model: torch.nn.Module, path: str,
+                           epoch: int = 0) -> None:
+    """The reference Transpeaker save format (transpeaker.py:329-344),
+    which the JAX package's load_reference_speaker reads."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save({"transpeaker": {"epoch": epoch, "state_dict": sd}}, path)
