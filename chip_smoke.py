@@ -209,6 +209,25 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      iterations and `train --use_transpeaker --speaker_ckpt_file <its
      speaker_best> --aug synthetic --z_instr_update --update_iter 1`, 2
      iterations, at R2R width.
+  5 (v): more than one process (`parallel/`) and the native library:
+     (iii) the port's native library built by g++ from nothing (timed, in
+     a directory of its own), its token blocks equal to the numpy path in
+     200 cases over the four break modes; (i) 3 DAgger updates of the
+     bench's step (R2R width, batch 64, float32, the kernels, dropout on)
+     in a process group of one over nccl, through `shard_batch`,
+     `all_reduce_grads` and `reduce_metrics`, against the same updates
+     with no group, under torch's deterministic algorithms: losses and
+     parameters bit for bit, ms per update of both, K1 / K2 launched
+     (their launches are the kernel line's `dp_train`); (ii) two spawned
+     ranks on the one card over gloo (nccl takes one rank a card): an
+     imitation update at R2R width, dropout 0, on 8 rows each of a batch
+     of 16, and the pretraining MLM (the global counts) and CFP (the
+     gathered negatives) updates on 4 rows each of a batch of 8, each
+     against one process on the whole batch from the same weights: the
+     loss within 1e-6 relative, the gradients within 5 (a)'s gate, the
+     parameters by `params_rule`, the two ranks' parameters equal, K1 / K2
+     launched on each rank; ms per update (gloo stages every collective
+     through the host: no yardstick).
 The train steps run the vectorized teacher unless a phase says otherwise.
 Every bf16 decode and train path's launches of the bf16 GEMM core and of
 the bf16 attention cores must all have taken their TMA routes
@@ -218,7 +237,7 @@ read just after.
 The line before the last is one JSON object with every kernel's numbers
 (the bf16 builds as rows of their own); the last is {"ok": true,
 "device": {...}}.  Any failure raises, but for the comparisons of phases
-4 (bf16) and 5 (a), (c), (e)-(u): each prints its failure, the
+4 (bf16) and 5 (a), (c), (e)-(v): each prints its failure, the
 later phases run and print their numbers, and the script then prints the
 failures instead of the last two lines and exits non-zero.  An error
 raised in any phase is printed with the phase's name and its traceback,
@@ -3734,9 +3753,10 @@ def pretrain_shape_rows():
     return rows
 
 
-def pretrain_rig(dataset, tasks, fused, dropout, workers=0):
+def pretrain_rig(dataset, tasks, fused, dropout, workers=0,
+                 batch=PT_BATCH):
     """(args, runtime) of the pretrain CLI's `--synthetic` build at R2R
-    width on the card: batch 48, the CLI's defaults otherwise (its
+    width on the card: batch 48 (or `batch`), the CLI's defaults otherwise (its
     weights from seed 0), the fused kernels or the eager path, every
     dropout at 0 unless `dropout`."""
     from vln_goat_tpu_torch.pretrain import cli as pcli
@@ -3751,7 +3771,7 @@ def pretrain_rig(dataset, tasks, fused, dropout, workers=0):
         args = pcli.parse_args(
             ["--synthetic", "--device", "cuda", "--dataset", dataset,
              "--tasks", *tasks, "--mix_ratio", *["1"] * len(tasks),
-             "--train_batch_size", str(PT_BATCH), "--model_config", path,
+             "--train_batch_size", str(batch), "--model_config", path,
              "--num_workers", str(workers)])
         return args, pcli.build(args)
     finally:
@@ -4515,6 +4535,452 @@ def backtranslation_phase(card, rig):
     return nums, [f for f in failures if f is not None]
 
 
+# ----------------------------------------------------------------------
+# phase 5 (v): more than one process (parallel/) and the native library
+DP_STEPS = 3           # (i): updates of each run
+DP_GLOBAL = 16         # (ii): the global batch of the two ranks, 8 each
+DP_PT_BATCH = 8        # (ii): the pretraining batch, 4 each
+DP_TIMEOUT_S = 300     # (ii): the spawned ranks' limit
+
+
+def native_phase(card):
+    """Phase 5 (v) (iii): the port's native library built with g++ here,
+    its token blocks equal to the numpy path in every break mode (random
+    sentence lengths, block sizes and parameters).  Returns (numbers,
+    failure or None)."""
+    from vln_goat_tpu_torch.data import token_block as tb
+    from vln_goat_tpu_torch.native import lib
+
+    # a build from nothing, timed, into a directory of its own; the path
+    # below loads the library of the port's build directory
+    with tempfile.TemporaryDirectory() as fresh:
+        t0 = time.perf_counter()
+        path = lib.build(fresh)
+        built = time.perf_counter() - t0
+    try:
+        if not lib.available():
+            raise AssertionError("the native library did not load")
+        rng = np.random.default_rng(0)
+        cases = 0
+        for mode in ("none", "eos", "complete", "complete_doc"):
+            for trial in range(50):
+                sizes = rng.integers(0, 40, int(rng.integers(0, 2000)))
+                mx = int(rng.integers(1, 4))
+                kw = dict(document_sep_len=int(rng.integers(1, 3)),
+                          block_multiple_min=int(rng.integers(1, 3)),
+                          block_multiple_max=mx,
+                          block_sizes=rng.integers(1, 600, len(sizes) + 2)
+                          if mx > 1 else None)
+                bs = int(rng.integers(1, 512))
+                ref = tb.token_block_slices(sizes, bs, mode,
+                                            use_native=False, **kw)
+                got = tb.token_block_slices(sizes, bs, mode,
+                                            use_native=True, **kw)
+                if not np.array_equal(got, ref):
+                    raise AssertionError(f"{mode}: token_block_slices "
+                                         f"differs (trial {trial})")
+                if not np.array_equal(
+                        tb.block_to_dataset_index(sizes, ref, True),
+                        tb.block_to_dataset_index(sizes, ref, False)):
+                    raise AssertionError(f"{mode}: block_to_dataset_index "
+                                         f"differs (trial {trial})")
+                cases += 1
+    except AssertionError as exc:
+        say(f"native (v iii): FAILED: {exc}")
+        return {}, f"native (v iii): {exc}"
+    say(f"native (v iii): {path.name} built by g++ in {built:.1f} s; "
+        f"token_block_slices and block_to_dataset_index equal to the numpy "
+        f"path in {cases} cases over the four break modes, on {card}")
+    return dict(build_s=built, cases=cases), None
+
+
+def dp_updates(state, batches, mesh):
+    """DP_STEPS updates of `state` on `batches` (each the rank's rows by
+    `shard_batch` of `mesh`), the generator seeded 0 -> (losses, ms of
+    each update by the host clock around a synchronised update)."""
+    from vln_goat_tpu_torch.parallel.mesh import shard_batch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    losses, ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = state.step_fn(state, shard_batch(batch, mesh), g)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    return losses, ms
+
+
+def world_of_one(card):
+    """Phase 5 (v) (i): DP_STEPS DAgger updates of the bench's step (R2R
+    width, batch 64, float32, the kernels, dropout on) in a process group
+    of one over nccl, through `shard_batch` and `all_reduce_grads`,
+    against the same updates with no group from the same weights, batches
+    and generator seed, under torch's deterministic algorithms: losses
+    and every parameter bit for bit.  Where they differ, a third run
+    without a group tells a change made by the group (the plain path
+    repeats itself bit for bit: a failure) from a plain path that does not
+    repeat itself (then the group's distance is held to twice the plain
+    path's own, and the line says so).  The kernels' launches of the
+    group's updates are counted.  Returns (numbers, failure or None)."""
+    import socket
+    from vln_goat_tpu_torch.parallel import distributed as pdist
+    from vln_goat_tpu_torch.parallel.mesh import make_mesh
+
+    state, batcher = build_train_flagship("cuda")
+    sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+    batches = [batcher.next_batch()[1] for _ in range(DP_STEPS)]
+
+    def run(group):
+        state.model.load_state_dict(sd)
+        fresh = init_train_state(
+            state.model, state.rollout, weight_decay=0.01,
+            teacher_horizon="auto", remat="none",
+            mesh=make_mesh("cuda") if group else None)
+        out = dp_updates(fresh, batches, fresh.mesh)
+        params = {k: v.detach().clone()
+                  for k, v in state.model.named_parameters()}
+        return out, params
+
+    # scatter_add / index_put with accumulate (the rollout's) take their
+    # deterministic CUDA algorithms, so that two runs can agree bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    (plain_l, plain_ms), plain_p = run(False)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    pdist.init_distributed(f"localhost:{port}", 1, 0, device="cuda",
+                           always=True, timeout_s=120)
+    try:
+        backend = torch.distributed.get_backend()
+        reset_counts()
+        (dp_l, dp_ms), dp_p = run(True)
+        torch.cuda.synchronize()
+        launches = counts()
+    finally:
+        pdist.shutdown()
+    failure, note = None, "bit for bit"
+    try:
+        if backend != "nccl":
+            raise AssertionError(f"backend {backend}, not nccl")
+        if min(launches[:3]) == 0:
+            raise AssertionError(f"the kernels were not launched: "
+                                 f"{launches}")
+        diff = max(float((dp_p[k] - v).abs().max())
+                   for k, v in plain_p.items())
+        if dp_l != plain_l or diff:
+            # a second run without a group: does the plain path repeat?
+            (again_l, _), again_p = run(False)
+            spread = max(float((again_p[k] - v).abs().max())
+                         for k, v in plain_p.items())
+            if again_l == plain_l and spread == 0.0:
+                raise AssertionError(
+                    f"the group of one changed the result: losses {dp_l} "
+                    f"vs {plain_l}, parameters up to {diff:.3e}")
+            l_diff = max(abs(a - b) for a, b in zip(dp_l, plain_l))
+            l_spread = max(abs(a - b) for a, b in zip(again_l, plain_l))
+            # not bit for bit on either side: the group's distance held
+            # to twice the plain path's own
+            if diff > 2 * spread or l_diff > 2 * l_spread:
+                raise AssertionError(
+                    f"beyond twice the plain path's own spread: "
+                    f"parameters {diff:.3e} vs {spread:.3e}, losses "
+                    f"{l_diff:.3e} vs {l_spread:.3e}")
+            note = (f"not bit for bit: {diff:.3e} (losses {l_diff:.3e}), "
+                    f"where the plain path differs from itself by "
+                    f"{spread:.3e} ({l_spread:.3e})")
+    except AssertionError as exc:
+        failure = f"world of one (v i): {exc}"
+        say(f"world of one (v i): FAILED: {exc}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del state, batcher, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"world of one (v i): {DP_STEPS} DAgger updates at R2R width, batch "
+        f"{B_TRAIN}, float32, kernels, dropout on: a group of one over "
+        f"{backend} (shard_batch, all_reduce_grads, reduce_metrics) against "
+        f"no group: losses {['%.6f' % x for x in dp_l]}, parameters "
+        f"{note}; ms per update (host clock, synchronised) group "
+        f"{['%.1f' % x for x in dp_ms]} / no group "
+        f"{['%.1f' % x for x in plain_ms]}; launches {launches} on {card}")
+    return dict(counts=launches, ms=dp_ms, plain_ms=plain_ms), failure
+
+
+def params_rule(got, ref, ref_grads, got_grads, lr, eps):
+    """test_torch_causal_train.py's rule for the parameters after one
+    update, its slack derived from the gradients' measured difference on
+    the card: each parameter within 1e-6 of its tensor's largest
+    magnitude, plus lr times how far that difference d (the tensor's
+    largest) can move AdamW's first step, which divides a gradient by its
+    own size plus `eps` (eps over the clip's factor where the clip acts):
+    2 where |g| <= d (the sign not fixed, the CPU rule's 2 lr), else at
+    most eps d / (|g| - d + eps)^2.  Returns None, or what fell outside:
+    the parameter, the element's distance, its tolerance, its two
+    gradients."""
+    for name, r in ref.items():
+        g = ref_grads.get(name)
+        g = torch.zeros_like(r) if g is None else g
+        gg = got_grads.get(name)
+        gg = torch.zeros_like(r) if gg is None else gg
+        d = float((gg - g).abs().max())
+        a = g.abs()
+        step = torch.where(a <= d, torch.full_like(a, 2.0),
+                           (eps * d / (a - d + eps) ** 2).clamp(max=2.0))
+        tol = 1e-6 * float(r.abs().max()) + lr * step
+        dist = (got[name].detach() - r).abs()
+        if not bool((dist <= tol).all()):
+            k = int((dist - tol).argmax())
+            return (f"{name}[{k}]: {float(dist.flatten()[k]):.3e} > "
+                    f"{float(tol.flatten()[k]):.3e}, gradients "
+                    f"{float(g.flatten()[k]):.3e} / "
+                    f"{float(gg.flatten()[k]):.3e} (d {d:.3e})")
+    return None
+
+
+def _dp_compare(ref, got, lr, clip, noise, what):
+    """The rank's update against the one-process one: the loss within 1e-6
+    relative, the gradients within phase 5 (a)'s gate (1e-3 of their
+    scale, `noise` at their weight's), the parameters by `params_rule`
+    (AdamW's eps 1e-8 over the global-norm clip's factor at `clip`).
+    Raises AssertionError; returns the worst gradient's ratio."""
+    (r_loss, r_grads, r_params), (g_loss, g_grads, g_params) = ref, got
+    if abs(g_loss - r_loss) > 1e-6 * abs(r_loss):
+        raise AssertionError(f"{what}: loss {g_loss} vs {r_loss}")
+    full = {n: g_grads.get(n, torch.zeros_like(v)) for n, v in r_grads.items()}
+    worst, name = worst_grad(full, r_grads, noise)
+    if worst > 1e-3:
+        raise AssertionError(f"{what}: grad {name} {worst:.3e} of its scale")
+    norm = math.sqrt(sum(float((g.double() ** 2).sum())
+                         for g in r_grads.values()))
+    eps = 1e-8 * max(1.0, norm / clip)
+    bad = params_rule(g_params, r_params, r_grads, g_grads, lr, eps)
+    if bad:
+        raise AssertionError(f"{what}: parameter {bad} outside the rule")
+    return worst
+
+
+def dp_rank(rank, world, port, out):
+    """Phase 5 (v) (ii), one rank of two on the one card over gloo: the
+    imitation update (R2R width, dropout 0) on its 8 rows of a batch of 16
+    and the MLM and CFP pretraining updates on its 4 rows of a batch of 8,
+    each after rank 0 ran it in one process on the whole batch from the
+    same weights; rank 0 holds its update to that one, every rank its
+    parameters to rank 0's.  Puts (rank, numbers or None, error or None)
+    on `out`."""
+    import traceback
+    from vln_goat_tpu_torch.parallel import distributed as pdist
+    from vln_goat_tpu_torch.parallel.mesh import (make_mesh, replicate_tree,
+                                                  shard_batch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        pdist.init_distributed(f"localhost:{port}", world, rank,
+                               backend="gloo", device="cuda", timeout_s=240)
+        mesh = make_mesh("cuda")
+        nums = {}
+
+        def same_as_rank0(model):
+            for p in model.parameters():
+                t = p.detach().clone()
+                pdist.broadcast_tensor(t, src=0)
+                if not torch.equal(t, p.detach()):
+                    return False
+            return True
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            return r, (time.perf_counter() - t0) * 1e3
+
+        # the fine-tune imitation update
+        state, batcher = build_train_flagship(
+            "cuda", batch_size=DP_GLOBAL, dropout=False,
+            tcfg=TrainConfig(train_alg="imitation", weight_decay=0.01))
+        replicate_tree(state.model)
+        sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+        batch = batcher.next_batch()[1]
+        lr = state.optimizer.param_groups[0]["lr"]
+        g = torch.Generator(device="cuda")
+        ref = None
+        if rank == 0:
+            (m, grads, _), ms = timed(lambda: state.step_fn(
+                state, batch, g.manual_seed(0), keep=True))
+            ref = (float(m["loss"]), grads,
+                   {k: v.detach().clone()
+                    for k, v in state.model.named_parameters()})
+            nums["ft_one_ms"] = ms
+            state.model.load_state_dict(sd)
+        state = init_train_state(
+            state.model, state.rollout, lr=lr, weight_decay=0.01,
+            train_alg="imitation", teacher_horizon="auto", remat="none",
+            mesh=mesh)
+        torch.distributed.barrier()
+        reset_counts()
+        (m, grads, _), ms = timed(lambda: state.step_fn(
+            state, shard_batch(batch, mesh), g.manual_seed(0), keep=True))
+        nums["ft_counts"] = counts()
+        nums["ft_ms"] = ms
+        nums["ft_loss"] = float(m["loss"])
+        if rank == 0:
+            nums["ft_worst"] = _dp_compare(
+                ref, (float(m["loss"]), grads,
+                      dict(state.model.named_parameters())),
+                lr, state.grad_clip,
+                NOISE_GRAD_BIASES + TEACHER_NOISE_BIASES, "fine-tune")
+        nums["ft_replicas_equal"] = same_as_rank0(state.model)
+        del state, batcher, sd, ref, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # MLM (the global counts) and CFP (the gathered negatives)
+        from vln_goat_tpu_torch.pretrain.cli import (batch_to_device,
+                                                     make_batch_np)
+        from vln_goat_tpu_torch.config import PretrainConfig
+        from vln_goat_tpu_torch.pretrain.train import (
+            PretrainState, make_pretrain_optimizer, make_pretrain_steps)
+
+        args, rt = pretrain_rig("r2r", ("mlm", "cfp"), True, False,
+                                batch=DP_PT_BATCH)
+        model = rt["model"]
+        replicate_tree(model)
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        # no warm-up: the first update at the full rate (5e-5), so that
+        # the parameters' rule sees it move them
+        pcfg = PretrainConfig(warmup_steps=0)
+        for task in ("mlm", "cfp"):
+            nb = make_batch_np(rt["builder"], rt["items"]["train"],
+                               DP_PT_BATCH, args.seed, "train", task, 0)
+            if rank == 0:
+                model.load_state_dict(sd)
+                model.mesh = None
+                st = PretrainState(model, make_pretrain_optimizer(pcfg,
+                                                                  model))
+                step = make_pretrain_steps(model, (task,))[task]
+                (m, grads), ms = timed(lambda: step(
+                    st, batch_to_device(nb, torch.device("cuda")),
+                    g.manual_seed(0), keep=True))
+                ref = (float(m["loss"]), grads,
+                       {k: v.detach().clone()
+                        for k, v in model.named_parameters()})
+                nums[f"{task}_one_ms"] = ms
+            model.load_state_dict(sd)
+            model.mesh = mesh
+            st = PretrainState(model, make_pretrain_optimizer(pcfg, model))
+            step = make_pretrain_steps(model, (task,), mesh)[task]
+            torch.distributed.barrier()
+            reset_counts()
+            (m, grads), ms = timed(lambda: step(
+                st, batch_to_device(shard_batch(nb, mesh),
+                                    torch.device("cuda")),
+                g.manual_seed(0), keep=True))
+            nums[f"{task}_counts"] = counts()
+            nums[f"{task}_ms"] = ms
+            nums[f"{task}_loss"] = float(m["loss"])
+            if rank == 0:
+                nums[f"{task}_worst"] = _dp_compare(
+                    ref, (float(m["loss"]), grads,
+                          dict(model.named_parameters())),
+                    float(pcfg.learning_rate), pcfg.grad_norm, PT_NOISE,
+                    task)
+            nums[f"{task}_replicas_equal"] = same_as_rank0(model)
+        out.put((rank, nums, None))
+    except BaseException:
+        out.put((rank, None, traceback.format_exc()))
+    finally:
+        pdist.shutdown()
+
+
+def two_ranks(card):
+    """Phase 5 (v) (ii): `dp_rank` in two spawned processes on the one
+    card over gloo (nccl takes one rank a card), joined within
+    DP_TIMEOUT_S and killed after it.  Returns (numbers, failure or
+    None)."""
+    import multiprocessing
+    import queue
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=dp_rank, args=(r, 2, port, out))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    res, errors = {}, []
+    try:
+        for _ in procs:
+            rank, nums, err = out.get(timeout=DP_TIMEOUT_S)
+            res[rank] = nums
+            if err:
+                errors.append(f"rank {rank}: {err}")
+    except queue.Empty:
+        errors.append(f"no result within {DP_TIMEOUT_S} s from ranks "
+                      f"{sorted(set(range(2)) - set(res))}")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    failure = None
+    if not errors:
+        for rank, nums in res.items():
+            for key in ("ft", "mlm", "cfp"):
+                if min(nums[f"{key}_counts"][:3]) == 0:
+                    errors.append(f"rank {rank} {key}: kernels not "
+                                  f"launched {nums[f'{key}_counts']}")
+                if not nums[f"{key}_replicas_equal"]:
+                    errors.append(f"rank {rank} {key}: parameters differ "
+                                  "from rank 0's")
+    if errors:
+        for e in errors:
+            for line in str(e).splitlines():
+                say(f"two ranks (v ii): {line}")
+        failure = "two ranks (v ii): " + str(errors[0]).splitlines()[-1]
+        say(f"two ranks (v ii): FAILED: {failure}")
+        return {}, failure
+    r0, r1 = res[0], res[1]
+    say(f"two ranks (v ii), gloo on the one card, spawned ({wall:.1f} s): "
+        f"imitation update at R2R width, dropout 0, batch {DP_GLOBAL} (8 a "
+        f"rank) against one process at {DP_GLOBAL}: loss "
+        f"{r0['ft_loss']:.6f} within 1e-6, gradients within "
+        f"{r0['ft_worst']:.2e} of their scale, parameters by the causal "
+        f"rule, replicas equal; ms per update {r0['ft_ms']:.1f} / "
+        f"{r1['ft_ms']:.1f} (ranks) vs {r0['ft_one_ms']:.1f} (one process);"
+        f" launches {r0['ft_counts']} on {card}")
+    for task in ("mlm", "cfp"):
+        say(f"two ranks (v ii): pretraining {task} at R2R width, batch "
+            f"{DP_PT_BATCH} (4 a rank) against one process: loss "
+            f"{r0[task + '_loss']:.6f} within 1e-6, gradients within "
+            f"{r0[task + '_worst']:.2e} of their scale, parameters by the "
+            f"rule, replicas equal; ms per update "
+            f"{r0[task + '_ms']:.1f} / {r1[task + '_ms']:.1f} vs "
+            f"{r0[task + '_one_ms']:.1f}; launches {r0[task + '_counts']} "
+            f"(gloo stages every collective through the host: no "
+            f"yardstick) on {card}")
+    return dict(rank0=r0, rank1=r1, wall_s=wall), None
+
+
+def multiprocess_phase(card):
+    """Phase 5 (v): (iii) the native library, (i) a group of one over nccl,
+    (ii) two ranks over gloo.  Returns (numbers, [failures])."""
+    n_nums, n_failed = native_phase(card)
+    i_nums, i_failed = world_of_one(card)
+    ii_nums, ii_failed = two_ranks(card)
+    return (dict(native=n_nums, counts=i_nums.get("counts", (0, 0, 0, 0)),
+                 one=i_nums, two=ii_nums),
+            [n_failed, i_failed, ii_failed])
+
+
 # the phase running now (`start_phase`), named with the error of a phase
 # that raises (`run`)
 CURRENT_PHASE = ["1 (device)"]
@@ -4667,6 +5133,9 @@ def main() -> int:
     u_nums, u_failed = backtranslation_phase(card, spk_rig)
     del spk_rig
     say(f"wall: phase 5 (u) {time.perf_counter() - t0:.1f} s")
+    t0 = start_phase("phase 5 (v)")
+    v_nums, v_failed = multiprocess_phase(card)
+    say(f"wall: phase 5 (v) {time.perf_counter() - t0:.1f} s")
     # the plain bench build last: its profiled step comes after every timed
     # step of the script
     t0 = start_phase("phase 5 (g)")
@@ -4680,7 +5149,8 @@ def main() -> int:
     total = sum(mix.values())
     by_path = [dict(decode=decode, train=train[i], causal_decode=c_decode,
                     causal_train=c_train[i],
-                    backtranslated_train=u_nums["step_counts"][i])
+                    backtranslated_train=u_nums["step_counts"][i],
+                    dp_train=v_nums["counts"][i])
                for i in range(3)]
     for i in (1, 2):
         by_path[i].update(decode=0, causal_decode=0)
@@ -4880,7 +5350,7 @@ def main() -> int:
                             h_failed, j_failed, k_failed, l_failed,
                             m_failed, n_failed, o_failed, p_failed,
                             q_failed, qt_failed, r_failed, s_failed,
-                            t_failed, *i_failed, *u_failed)
+                            t_failed, *i_failed, *u_failed, *v_failed)
                 if f is not None]
     if failures:
         say("FAILED: " + "; ".join(failures))

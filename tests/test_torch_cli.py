@@ -12,10 +12,9 @@ CLI-test widths (hidden 32, 2 heads, tests/test_cli.py's `_tiny`):
 - the non-synthetic path on reference-format fixture files (connectivity,
   annotations, HDF5 features with EnvEdit features, the candidate cache,
   the z-dict TSVs), train and valid;
-- the unported flag (more than one process) raises, naming its
-  ROADMAP.md item, and the ported ones (items 5, 6 and 8) pass the check;
-  `--device cuda` without a card raises.
-The validation against the JAX CLI is test_torch_cli_jax.py.
+- `--device cuda` without a card raises.
+The validation against the JAX CLI is test_torch_cli_jax.py; more than
+one process is test_torch_dist_cli.py.
 """
 import json
 import os
@@ -165,32 +164,6 @@ def test_aug_interleave_fused(tmp_path, monkeypatch):
     lines = [json.loads(line) for line in
              open(os.path.join(out, "metrics.jsonl"))]
     assert lines[0]["step"] == 2 and np.isfinite(lines[0]["train/loss"])
-
-
-@pytest.mark.parametrize("flags,item", [(["--num_processes", "2"], 4)])
-def test_unported_raise(tmp_path, flags, item):
-    argv = ["--mode", "train", "--synthetic", "--output_dir",
-            str(tmp_path), "--device", "cpu"] + flags
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item}"):
-        cli.main(argv)
-
-
-@pytest.mark.parametrize("flags", [
-    ["--mode", "extract_cfp_features"], ["--dataset", "reverie"],
-    ["--dataset", "soon"], ["--dataset", "rxr"], ["--expert_policy", "ndtw"],
-    ["--dataset", "reverie", "--obj_ft_file", "objs.h5", "--bbox_file",
-     "bbox.json", "--obj_feat_size", "768"],
-    ["--mode", "speaker"], ["--use_transpeaker"], ["--z_instr_update"]])
-def test_ported_pass_the_check(tmp_path, flags):
-    """Queue 1 items 5, 6 and 8 are ported: CFP extraction, the REVERIE /
-    SOON / RxR datasets, object features, the nDTW expert, the speaker,
-    back-translation and the online z-dict update pass `check_ported`
-    (they run in test_torch_cli_datasets.py, test_torch_cli_speaker.py and
-    test_torch_zdict_update.py)."""
-    cli.check_ported(cli.parse_args(
-        ["--mode", "train", "--synthetic", "--output_dir", str(tmp_path),
-         "--device", "cpu"] + flags))
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

@@ -86,7 +86,14 @@ def test_port_and_smoke_import_without_jax():
             "vln_goat_tpu_torch.eval.bleu",
             "vln_goat_tpu_torch.eval.spice",
             "vln_goat_tpu_torch.tools.efficiency",
-            "vln_goat_tpu_torch.tools.do_utils"} <= set(mods)
+            "vln_goat_tpu_torch.tools.do_utils",
+            # more than one process and the native token blocks
+            "vln_goat_tpu_torch.parallel",
+            "vln_goat_tpu_torch.parallel.distributed",
+            "vln_goat_tpu_torch.parallel.mesh",
+            "vln_goat_tpu_torch.data.token_block",
+            "vln_goat_tpu_torch.native",
+            "vln_goat_tpu_torch.native.lib"} <= set(mods)
     code = "import importlib\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in mods) + \
         "import chip_smoke\nprint('ok')\n"
@@ -111,7 +118,7 @@ def no_card():
         pytest.skip("a CUDA card is present")
 
 
-def test_entry_points_default_to_cuda(no_card):
+def test_entry_points_default_to_cuda(no_card, tmp_path):
     from vln_goat_tpu_torch.entry import (build_flagship, build_model,
                                           build_train_flagship,
                                           make_causal_banks)
@@ -148,6 +155,19 @@ def test_entry_points_default_to_cuda(no_card):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_pretrain_model(GoatConfig(num_l_layers=1, hidden_size=32,
                                         num_attention_heads=2), ("mlm",))
+    from vln_goat_tpu_torch.parallel.distributed import init_distributed
+    from vln_goat_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    # raised before any rendezvous is tried
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_distributed("localhost:1", 2, 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--mode", "valid", "--synthetic", "--num_processes", "2",
+                  "--output_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pretrain_cli.main(["--synthetic", "--num_processes", "2",
+                           "--output_dir", str(tmp_path)])
     from vln_goat_tpu_torch.speaker.model import SpeakerConfig
     from vln_goat_tpu_torch.speaker.speaker import Speaker
     from vln_goat_tpu_torch.tools.do_utils import make_blip_vqa

@@ -53,8 +53,26 @@ of `--speaker_ckpt_file` (a reference Transpeaker .pt or the port's own
 vector, which the navigator's panorama features take too
 (back-translation).
 
-Not ported, raising with its ROADMAP.md Queue 1 item: more than one
-process (item 4, DistributedDataParallel).
+More than one process (`--num_processes N --process_id i --coordinator
+host:port`, one process per card, `cuda:<i % cards>`; nccl on the card,
+gloo with `--device cpu`): data parallelism as the JAX CLI's, which
+shards each batch over its devices.  Every rank draws the same global
+batches from the same seeded batchers and trains on its rows of each
+(`parallel.mesh.shard_batch`; fused DAgger, its rows of each half), the
+gradients averaged over the ranks after the backward
+(`train.trainer.make_train_step`); a batch that does not divide runs
+whole on every rank.  The model starts from rank 0's weights.  Validation
+splits other than train / aug are sharded over the ranks and their
+results gathered, so every rank holds the global metrics and
+predictions.  Back-translation re-captions the same global items on every
+rank from the same seed, the noise vector broadcast from rank 0.  Rank 0
+alone writes the checkpoints, the train state, the logs, the metrics and
+the submissions.
+
+  python -m vln_goat_tpu_torch.cli --mode train --synthetic --device cpu \
+      --num_processes 2 --process_id 0 --coordinator localhost:12391 &
+  python -m vln_goat_tpu_torch.cli --mode train --synthetic --device cpu \
+      --num_processes 2 --process_id 1 --coordinator localhost:12391
 """
 from __future__ import annotations
 
@@ -201,20 +219,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    """Raises NotImplementedError for a mode, dataset or flag the port does
-    not run, naming its ROADMAP.md Queue 1 item."""
-    refused = [
-        (args.num_processes > 1,
-         f"--num_processes {args.num_processes} (DistributedDataParallel)",
-         4),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported (ROADMAP.md Queue 1 item {item})")
-
-
 # ----------------------------------------------------------------------
 def build_runtime(args):
     """The model, world, rollout, per-split batchers and object store of a
@@ -222,13 +226,14 @@ def build_runtime(args):
     from .config import GoatConfig
     from .device import resolve
     from .entry import build_model
+    from .parallel.distributed import (process_count, rank_device,
+                                       shard_data_for_process)
     from .rollout.env import EpisodeBatcher, make_synthetic_dataset
     from .rollout.rollout import NavRollout, RolloutConfig
     from .rollout.world import NavWorld
     from .train import checkpoint as ck
 
-    check_ported(args)
-    dev = resolve(args.device)
+    dev = resolve(rank_device(args.device, args.process_id))
     cfg = GoatConfig.for_dataset(
         args.dataset,
         num_l_layers=args.num_l_layers, num_pano_layers=args.num_pano_layers,
@@ -333,6 +338,12 @@ def build_runtime(args):
                                features=features, aug_features=aug_features,
                                objects=objects,
                                feat_dim=cfg.image_feat_size, device=dev)
+
+    # rank-sharded validation (sel_data_idxs, r2r/env.py:126-134)
+    if process_count() > 1:
+        for name in list(splits):
+            if name not in ("train", "aug"):
+                splits[name] = shard_data_for_process(splits[name])
 
     scan_order = list(graphs)
     model = build_model(cfg, dev, seed=args.seed)
@@ -485,10 +496,15 @@ def _refresh_front_dict(args, rt):
 # ----------------------------------------------------------------------
 def run_validation(rt, split: str, max_batches: Optional[int] = None):
     """Greedy decode of a whole split -> (metrics, per-item predictions)
-    (main_nav.py:338-391 / agent_base.py:44-67)."""
+    (main_nav.py:338-391 / agent_base.py:44-67).  With more than one
+    process each rank decodes its shard of the split, and the per-item
+    results and predictions of every rank are gathered
+    (`all_gather_objects`, `merge_dist_results`): every rank returns the
+    whole split's metrics and predictions."""
     from .entry import greedy_rollout
     from .eval.metrics import (eval_item, eval_metrics, reverie_eval_item,
                                reverie_eval_metrics)
+    from .parallel.distributed import all_gather_objects, merge_dist_results
 
     batcher = rt["batchers"][split]
     batcher.reset_epoch(shuffle=False)
@@ -525,20 +541,50 @@ def run_validation(rt, split: str, max_batches: Optional[int] = None):
             else:
                 per_item.append(eval_item(g.dist, paths[b], gt_local))
             preds.append(pred)
+    per_item, preds = (merge_dist_results(r) for r in zip(
+        *all_gather_objects((per_item, preds))))
     if objnav and per_item and "rgs" in per_item[0]:
         return reverie_eval_metrics(per_item), preds
     return eval_metrics(per_item), preds
 
 
+def _main_rank() -> bool:
+    from .parallel.distributed import process_index
+
+    return process_index() == 0
+
+
+def _record_file(args, name: str) -> Optional[str]:
+    """The run's record file `name` on rank 0; None (print only) on the
+    other ranks."""
+    return os.path.join(args.output_dir, name) if _main_rank() else None
+
+
 def train(args, rt):
+    from .parallel.distributed import (broadcast_object, process_count,
+                                       process_index, rank_seed)
+    from .parallel.mesh import make_mesh, replicate_tree, shard_batch
     from .train import checkpoint as ck
-    from .train.trainer import fuse_dagger_batches, init_train_state
+    from .train.trainer import fused_dagger_rank_batch, init_train_state
     from .utils.logger import MetricsLogger, RunningMeter, write_to_record_file
 
     os.makedirs(args.output_dir, exist_ok=True)
-    record_file = os.path.join(args.output_dir, "train.log")
-    mlog = MetricsLogger(os.path.join(args.output_dir, "metrics.jsonl"),
-                         tb_dir=os.path.join(args.output_dir, "tb"))
+    main_rank = _main_rank()
+    record_file = _record_file(args, "train.log")
+    mlog = MetricsLogger(_record_file(args, "metrics.jsonl"),
+                         tb_dir=_record_file(args, "tb"))
+    # data-parallel over the processes (the gradients averaged by `mesh`),
+    # each rank on its rows of every batch (`rows`) when the batch divides
+    mesh = rows = None
+    n_proc = process_count()
+    if n_proc > 1:
+        mesh = make_mesh(rt["device"])
+        if args.batch_size % n_proc == 0:
+            rows = mesh
+        else:
+            print(f"[train] {n_proc} devices but batch_size "
+                  f"{args.batch_size} not divisible; running on one device "
+                  "(the whole batch on every process)")
     batchers = rt["batchers"]
     batcher, aug_batcher = batchers["train"], batchers.get("aug")
     # --accumulate_grad: one optimizer step per GT+aug group
@@ -556,17 +602,22 @@ def train(args, rt):
         train_alg=args.train_alg, ml_weight=args.ml_weight,
         teacher_horizon=th, remat=args.remat, accumulate_steps=accum,
         sample_feedback="expl_sample" if args.expl_sample else "sample",
-        expl_max_ratio=args.expl_max_ratio, **sched)
+        expl_max_ratio=args.expl_max_ratio, mesh=mesh, **sched)
     fused = args.train_alg == "dagger_fused"
     # the train loop's draws (dropout, sampled actions) come from one
-    # generator, saved with the train state
-    gen = torch.Generator(device=rt["device"]).manual_seed(args.seed)
+    # generator, saved with the train state (rank 0's); the other ranks'
+    # are seeded apart (`rank_seed`)
+    gen = torch.Generator(device=rt["device"]).manual_seed(
+        rank_seed(args.seed))
 
     start_iter = 0
     if args.resume_file and ck.is_train_state_dir(args.resume_file):
         start_iter = ck.load_train_state(args.resume_file, state, gen)
+        if process_index() > 0:
+            gen.manual_seed(rank_seed(args.seed + start_iter))
         write_to_record_file(f"resumed train state from {args.resume_file} "
                              f"@ iter {start_iter}", record_file)
+    replicate_tree(state.model)
 
     meter = RunningMeter("loss")
     # model selection (main_nav.py:296-308)
@@ -583,16 +634,16 @@ def train(args, rt):
     speaker = _load_speaker(args, rt) \
         if args.use_transpeaker and aug_batcher is not None else None
 
-    def update(items, batch, noise=None):
+    def update(items, batch):
         batch = run_batch(rt, batch, items)
         if fused:
             # the reference's two DAgger rollouts take two minibatches;
             # the fused step takes both, the first half teacher-forced
             items2, batch2 = batcher.next_batch()
-            batch = fuse_dagger_batches(batch,
-                                        run_batch(rt, batch2, items2))
-        if noise is not None:
-            batch["feat_noise"] = noise
+            batch = fused_dagger_rank_batch(
+                batch, run_batch(rt, batch2, items2), rows)
+        else:
+            batch = shard_batch(batch, rows)
         return state.step_fn(state, batch, gen)
 
     def aug_update(bt_seed: int):
@@ -602,7 +653,8 @@ def train(args, rt):
         if fused:
             items = items + aug_batcher.next_minibatch()
         return state.step_fn(state, aug_batch(rt, aug_batcher, speaker,
-                                              items, bt_seed, fused), gen)
+                                              items, bt_seed, fused, rows),
+                             gen)
 
     per = args.aug_times + 1
     # fast-forward the seeded batch iterators so that a resumed run sees
@@ -662,18 +714,21 @@ def train(args, rt):
                 mlog.log_scalar_dict(m, prefix=split)
                 write_to_record_file(f"  {split}: {m}", record_file)
         out = args.output_dir
-        ck.save_params(os.path.join(out, "ckpt_latest"), state.model)
-        ck.save_train_state(os.path.join(out, "train_state_latest"), state,
-                            gen, step)
-        if args.save_torch_ckpt:
-            ck.save_reference_checkpoint(
-                state.model, os.path.join(out, "latest_dict.pt"), step)
+        if main_rank:
+            ck.save_params(os.path.join(out, "ckpt_latest"), state.model)
+            ck.save_train_state(os.path.join(out, "train_state_latest"),
+                                state, gen, step)
+            if args.save_torch_ckpt:
+                ck.save_reference_checkpoint(
+                    state.model, os.path.join(out, "latest_dict.pt"), step)
         if "val_unseen" in scores:
             score = sel(scores["val_unseen"])
-            if score > best["score"]:
+            # chosen on rank 0, so that no two ranks disagree
+            if broadcast_object(score > best["score"]):
                 best = {"score": score, "iter": step}
-                ck.save_params(os.path.join(out, "ckpt_best_val_unseen"),
-                               state.model)
+                if main_rank:
+                    ck.save_params(os.path.join(out, "ckpt_best_val_unseen"),
+                                   state.model)
                 write_to_record_file(f"  new best @ {step}: {score:.2f}",
                                      record_file)
         _refresh_front_dict(args, rt)    # per-cycle FACL resampling
@@ -724,7 +779,8 @@ def _update_zdict(args, rt, model, record_file):
     rt["banks"].update(instr_bank_names(
         {k: v for k, v in zd["instr_zdict"].items() if len(v)}))
     out = os.path.join(args.output_dir, "backdoor_update_features.tsv")
-    save_instr_zdict_tsv(out, lm_f, dr_f, lm_pz, dr_pz)
+    if _main_rank():
+        save_instr_zdict_tsv(out, lm_f, dr_f, lm_pz, dr_pz)
     write_to_record_file(f"  z-dict refreshed: {len(lm_f)} landmarks, "
                          f"{len(dr_f)} directions -> {out}", record_file)
 
@@ -782,26 +838,33 @@ def recaption(rt, speaker, items, seed: int):
                              bos_id=sc.bos_id), noise
 
 
-def aug_batch(rt, batcher, speaker, items, seed: int, fused: bool):
+def aug_batch(rt, batcher, speaker, items, seed: int, fused: bool,
+              rows=None):
     """The batch of one aug update (agent.py:459-474): with a speaker the
     items re-captioned under one shared noise vector (`recaption` with
     `seed`), the noise in `feat_noise`; fused, the items' two halves are
     the two DAgger halves (re-captioned in one speaker pass), each built
     at the batcher's widest gt cap so that neither half's gt paths are
-    cut to the other's bucket."""
-    from .train.trainer import fuse_dagger_batches
+    cut to the other's bucket.  With `rows` (a mesh), the rank's rows of
+    the batch (of each half, fused), the noise as rank 0 drew it."""
+    from .parallel.distributed import broadcast_tensor
+    from .parallel.mesh import shard_batch
+    from .train.trainer import fused_dagger_rank_batch
 
     noise = None
     if speaker is not None:
         items, noise = recaption(rt, speaker, items, seed)
+        if rows is not None:
+            noise = broadcast_tensor(noise.contiguous())
     if fused:
         half = len(items) // 2
         cap = batcher.bucket_caps[-1] if batcher.bucket_caps else None
-        batch = fuse_dagger_batches(*(
+        batch = fused_dagger_rank_batch(*(
             run_batch(rt, batcher.make_batch(part, gt_cap=cap), part)
-            for part in (items[:half], items[half:])))
+            for part in (items[:half], items[half:])), rows)
     else:
-        batch = run_batch(rt, batcher.make_batch(items), items)
+        batch = shard_batch(run_batch(rt, batcher.make_batch(items), items),
+                            rows)
     if noise is not None:
         batch["feat_noise"] = noise
     return batch
@@ -818,7 +881,7 @@ def valid(args, rt):
     from .utils.logger import write_to_record_file
 
     os.makedirs(args.output_dir, exist_ok=True)
-    record_file = os.path.join(args.output_dir, "valid.log")
+    record_file = _record_file(args, "valid.log")
     for split in ("val_train_seen", "val_seen", "val_unseen", "test"):
         if split not in rt["batchers"]:
             continue
@@ -828,7 +891,7 @@ def valid(args, rt):
         write_to_record_file(
             f"{split} ({time.time() - t0:.1f}s): "
             f"{'predictions only' if split == 'test' else m}", record_file)
-        if args.submit:
+        if args.submit and _main_rank():
             out = os.path.join(args.output_dir, f"submit_{split}.json")
             with open(out, "w") as f:
                 json.dump(preds, f)
@@ -856,7 +919,7 @@ def extract_cfp(args, rt):
                            f"{args.dataset}_cfp_features.tsv")
     os.makedirs(args.output_dir, exist_ok=True)
     feats = extract_cfp_features(rt["model"], builder, items,
-                                 out_tsv=out_tsv)
+                                 out_tsv=out_tsv if _main_rank() else None)
     print(f"wrote {out_tsv}: {feats['txt_feats'].shape[0]} trajectories")
     return feats
 
@@ -877,7 +940,7 @@ def train_speaker(args, rt):
 
     cfg, graphs, dev = rt["cfg"], rt["graphs"], rt["device"]
     os.makedirs(args.output_dir, exist_ok=True)
-    record = os.path.join(args.output_dir, "speaker.log")
+    record = _record_file(args, "speaker.log")
     scfg = speaker_config(args, cfg)
     sp = Speaker(scfg, dev, seed=args.seed)
     step_fn, _ = sp.make_train_step(lr=args.speaker_lr)
@@ -932,29 +995,41 @@ def train_speaker(args, rt):
                              f" bleu4 {bleu4:.4f} spice {spice:.4f}", record)
         if bleu4 > best_bleu:
             best_bleu = bleu4
-            ck.save_params(os.path.join(args.output_dir, "speaker_best"),
-                           sp.model)
+            if _main_rank():
+                ck.save_params(os.path.join(args.output_dir, "speaker_best"),
+                               sp.model)
     return sp
 
 
 def main(argv=None):
     args = parse_args(argv)
+    from .parallel.distributed import init_distributed, rank_device, shutdown
     from .utils.misc import set_seed
 
-    check_ported(args)
-    set_seed(args.seed)
-    os.makedirs(args.output_dir, exist_ok=True)
-    # snapshot the config like the reference run dirs (utils/save.py:12-20)
-    with open(os.path.join(args.output_dir, "args.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
-    rt = build_runtime(args)
-    if args.mode == "train":
-        return train(args, rt)
-    if args.mode == "extract_cfp_features":
-        return extract_cfp(args, rt)
-    if args.mode == "speaker":
-        return train_speaker(args, rt)
-    valid(args, rt)
+    # multi-process rendezvous (replaces the reference's file:// NCCL
+    # init, utils/distributed.py:56-61); validation splits shard per rank
+    joined = init_distributed(
+        args.coordinator, args.num_processes, args.process_id,
+        device=rank_device(args.device, args.process_id))
+    try:
+        set_seed(args.seed)
+        os.makedirs(args.output_dir, exist_ok=True)
+        # snapshot the config like the reference run dirs
+        # (utils/save.py:12-20)
+        if _main_rank():
+            with open(os.path.join(args.output_dir, "args.json"), "w") as f:
+                json.dump(vars(args), f, indent=2)
+        rt = build_runtime(args)
+        if args.mode == "train":
+            return train(args, rt)
+        if args.mode == "extract_cfp_features":
+            return extract_cfp(args, rt)
+        if args.mode == "speaker":
+            return train_speaker(args, rt)
+        valid(args, rt)
+    finally:
+        if joined:
+            shutdown()
 
 
 if __name__ == "__main__":

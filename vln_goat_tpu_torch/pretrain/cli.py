@@ -21,11 +21,27 @@ batch; validation of every task on val_seen / val_unseen every
 `valid_steps`, `ckpt_latest` and the best on val_unseen SAP fused accuracy
 (`ckpt_best_<step>`; without SAP the negative sum of the losses) as the
 port's parameter directories (`train.checkpoint.save_params`).  Each train
-step's dropout draws from `train.step_generator(seed, step)`.  The JAX
-CLI spreads a batch over every device of its host; the port runs on one
-card (more than one is ROADMAP.md Queue 1 item 4).  A pretrain directory
+step's dropout draws from `train.step_generator(seed, step)`.  A pretrain directory
 becomes the fine-tune CLI's `--bert_ckpt_file` through
 `train.checkpoint.save_pretrain_checkpoint`.
+
+More than one process: the JAX CLI spreads each batch over every device of
+its host; the port's counterpart of a device is a process, so this CLI
+takes the fine-tune CLI's `--num_processes / --process_id /
+--coordinator` (one process per card, `cuda:<process_id % cards>`; nccl
+on the card, gloo with `--device cpu`).  Every rank builds each step's
+batch (a pure function of (seed, task, step)) and keeps its rows
+(`parallel.mesh.shard_batch`); the losses are the ranks' shares of the
+global batch's (`pretrain.model`), the gradients are averaged over the
+ranks after the backward, and dropout draws differ by rank
+(`step_generator`).  A batch that does not divide over the processes runs
+whole on every rank.  Rank 0 writes the log, the metrics and the
+checkpoints; the model starts from rank 0's weights.
+
+  python -m vln_goat_tpu_torch.pretrain.cli --synthetic --device cpu \
+      --num_processes 2 --process_id 0 --coordinator localhost:12391 &
+  python -m vln_goat_tpu_torch.pretrain.cli --synthetic --device cpu \
+      --num_processes 2 --process_id 1 --coordinator localhost:12391
 """
 from __future__ import annotations
 
@@ -96,6 +112,9 @@ def parse_args(argv=None):
                         "a pure function of (seed, task, step)).")
     p.add_argument("--device", default="cuda",
                    help="where the model runs (cuda or cpu)")
+    p.add_argument("--num_processes", type=int, default=1)
+    p.add_argument("--process_id", type=int, default=0)
+    p.add_argument("--coordinator", default="localhost:12391")
     args = p.parse_args(argv)
     # JSON overlay where CLI wins (parser.py:144-155): only fill values the
     # user left at their defaults
@@ -224,10 +243,11 @@ def build(args):
     """The model (seeded random weights on `args.device`), the batch
     builder and the items of every split (the JAX CLI's build)."""
     from ..device import resolve
+    from ..parallel.distributed import rank_device
     from .data import PretrainShapes, TrajBatchBuilder, items_from_dataset
     from .model import build_pretrain_model
 
-    dev = resolve(args.device)
+    dev = resolve(rank_device(args.device, args.process_id))
     cfg = model_config(args)
     aug_feats = view_probs = None
     if args.synthetic:
@@ -337,10 +357,13 @@ def batch_pool(args, builder, items):
     return pool, close
 
 
-def batch_stream(args, builder, items, sampler, device):
+def batch_stream(args, builder, items, sampler, device, rows=None):
     """(step, task, batch on `device`) for every train step, built by
     `batch_pool`'s workers or, with --num_workers 0, by one prefetch
-    thread -> (iterator, close)."""
+    thread -> (iterator, close); with `rows` (a mesh), the rank's rows of
+    each batch (`shard_batch`)."""
+    from ..parallel.mesh import shard_batch
+
     if args.num_workers > 0:
         pool, close = batch_pool(args, builder, items)
         descs = (("train", sampler.task_at(s), s)
@@ -348,7 +371,7 @@ def batch_stream(args, builder, items, sampler, device):
 
         def stream():
             for (_, t, s), nb in pool.imap(descs):
-                yield s, t, batch_to_device(nb, device)
+                yield s, t, batch_to_device(shard_batch(nb, rows), device)
 
         return stream(), close
 
@@ -359,9 +382,9 @@ def batch_stream(args, builder, items, sampler, device):
     def produce():
         s = next(step_iter)          # StopIteration ends the stream
         t = sampler.task_at(s)
-        return s, t, batch_to_device(make_batch_np(
+        return s, t, batch_to_device(shard_batch(make_batch_np(
             builder, items["train"], args.train_batch_size, args.seed,
-            "train", t, s), device)
+            "train", t, s), rows), device)
 
     it = PrefetchIterator(produce, depth=2)
     return it, it.close
@@ -369,6 +392,8 @@ def batch_stream(args, builder, items, sampler, device):
 
 def train(args):
     from ..config import PretrainConfig
+    from ..parallel.distributed import process_count, process_index
+    from ..parallel.mesh import make_mesh, replicate_tree, shard_batch
     from ..train.checkpoint import init_pretrain_from, save_params
     from ..utils.logger import (MetricsLogger, RunningMeter,
                                 write_to_record_file)
@@ -377,21 +402,39 @@ def train(args):
                         step_generator)
 
     os.makedirs(args.output_dir, exist_ok=True)
-    record = os.path.join(args.output_dir, "pretrain.log")
-    mlog = MetricsLogger(os.path.join(args.output_dir, "metrics.jsonl"),
-                         tb_dir=os.path.join(args.output_dir, "tb"))
+    main_rank = process_index() == 0
+    # rank 0 writes the run's files; the others print only
+    record = os.path.join(args.output_dir, "pretrain.log") \
+        if main_rank else None
+    mlog = MetricsLogger(
+        os.path.join(args.output_dir, "metrics.jsonl") if main_rank
+        else None,
+        tb_dir=os.path.join(args.output_dir, "tb") if main_rank else None)
 
     rt = build(args)
     model, builder, items, dev = (rt["model"], rt["builder"], rt["items"],
                                   rt["device"])
     B = args.train_batch_size
+    # data-parallel over the processes when the batch divides them
+    # (`mesh`: the gradient all-reduce; `rows`: the rank's rows)
+    mesh = rows = None
+    n_proc = process_count()
+    if n_proc > 1:
+        mesh = make_mesh(dev)
+        if B % n_proc == 0:
+            rows = mesh
+        else:
+            print(f"[pretrain] {n_proc} processes but train_batch_size {B} "
+                  f"not divisible; every process runs the whole batch")
+    model.mesh = rows
     if len(args.mix_ratio) < len(args.tasks):   # pad to uniform
         args.mix_ratio = list(args.mix_ratio) + \
             [1] * (len(args.tasks) - len(args.mix_ratio))
 
     def sample_batch(split, task, step=0):
-        return batch_to_device(make_batch_np(
-            builder, items[split], B, args.seed, split, task, step), dev)
+        return batch_to_device(shard_batch(make_batch_np(
+            builder, items[split], B, args.seed, split, task, step), rows),
+            dev)
 
     if args.init_from:
         # the reference pretrain entry's init: load, key surgery, tolerant
@@ -407,14 +450,16 @@ def train(args):
         train_batch_size=B, learning_rate=args.learning_rate,
         num_train_steps=args.num_train_steps, warmup_steps=args.warmup_steps,
         grad_norm=args.grad_norm)
+    replicate_tree(model)
     state = PretrainState(model, make_pretrain_optimizer(pcfg, model))
-    steps = make_pretrain_steps(model, args.tasks)
-    evals = make_eval_steps(model, args.tasks)
+    steps = make_pretrain_steps(model, args.tasks, mesh)
+    evals = make_eval_steps(model, args.tasks, mesh)
     sampler = MetaTaskSampler(args.tasks, args.mix_ratio, seed=args.seed)
     meters = {t: RunningMeter(t) for t in args.tasks}
     best_facc = -1.0
 
-    batch_iter, close = batch_stream(args, builder, items, sampler, dev)
+    batch_iter, close = batch_stream(args, builder, items, sampler, dev,
+                                     rows)
     t0 = time.time()
     try:
         for step, task, batch in batch_iter:
@@ -447,12 +492,15 @@ def train(args):
                         if facc is None:
                             facc = -sum(v for k, v in scores.items()
                                         if k.endswith("_loss"))
-                save_params(os.path.join(args.output_dir, "ckpt_latest"),
-                            model)
+                if main_rank:
+                    save_params(os.path.join(args.output_dir, "ckpt_latest"),
+                                model)
                 if facc is not None and facc > best_facc:
                     best_facc = facc
-                    save_params(os.path.join(args.output_dir,
-                                             f"ckpt_best_{step+1}"), model)
+                    if main_rank:
+                        save_params(os.path.join(args.output_dir,
+                                                 f"ckpt_best_{step+1}"),
+                                    model)
                     write_to_record_file(
                         f"  best facc {facc:.4f} @ {step+1}", record)
     finally:
@@ -461,11 +509,22 @@ def train(args):
 
 
 def main(argv=None):
+    from ..parallel.distributed import (init_distributed, rank_device,
+                                        shutdown)
+
     args = parse_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "args.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
-    train(args)
+    joined = init_distributed(
+        args.coordinator, args.num_processes, args.process_id,
+        device=rank_device(args.device, args.process_id))
+    try:
+        if args.process_id == 0:
+            with open(os.path.join(args.output_dir, "args.json"), "w") as f:
+                json.dump(vars(args), f, indent=2)
+        train(args)
+    finally:
+        if joined:
+            shutdown()
 
 
 if __name__ == "__main__":

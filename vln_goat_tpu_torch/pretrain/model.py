@@ -29,10 +29,25 @@ the port repeats each example's bank over its T steps.
 
 In train() mode the dropout sites draw from the generator that
 `ops.dropout.set_generator` hands the model.
+
+Data parallelism: with `mesh` set (`parallel.mesh.Mesh`), the batch is the
+rank's rows of the global one (`mesh.shard_batch`) and each loss and
+accuracy is the rank's share of the global batch's times the world size,
+so that their mean over the ranks is the global value (the JAX package
+computes over the global batch under its sharding):
+- MLM, MRC and OG divide their sums by the global count of masked tokens,
+  masked views or valid targets (`all_reduce_sum`) over the world size;
+- SAP divides by the rank's batch, which is right with an even split (its
+  accuracies by the global counts, as above);
+- CFP scores the rank's rows against the whole global batch, gathered
+  over the ranks with a differentiable gather (`gather_rows`), its targets
+  offset by rank x B_local, and averages over its own rows.
+Without a mesh every loss is the one-process arithmetic; with a mesh of
+one, the same values bit for bit.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -47,6 +62,8 @@ from ..models.layers import BertPredictionHeadTransform, ClsPrediction
 from ..models.panorama import CausalImageEmbeddings
 from ..models.traj import aggregate_gmap_features
 from ..ops.masks import extend_neg_masks
+from ..parallel.distributed import all_reduce_sum, gather_rows
+from ..parallel.mesh import Mesh
 from ..train.params import init_goat_params
 
 NEG_INF = float("-inf")
@@ -65,15 +82,17 @@ def _ce(logits, labels):
     return torch.where(ok, nll, torch.zeros_like(nll)), ok
 
 
-def _acc(logits, labels, ok):
-    n = ok.sum().clamp(min=1)
+def _acc(logits, labels, ok, n):
     return ((logits.argmax(-1) == labels) & ok).sum() / n
 
 
 class GoatPretrainModel(nn.Module):
     """GlocalTextPathCMTPreTraining equivalent; `forward(batch, task)` ->
     (loss, metrics) for a batch of `pretrain.data.TrajBatchBuilder` as
-    tensors."""
+    tensors.  `mesh`: the data-parallel group the batch is a rank's share
+    of (None: the batch is the whole one)."""
+
+    mesh: Optional[Mesh] = None
 
     def __init__(self, config: GoatConfig,
                  tasks: Sequence[str] = ("mlm", "sap", "cfp"),
@@ -114,6 +133,17 @@ class GoatPretrainModel(nn.Module):
                     name, nn.Parameter(torch.empty(c.hidden_size, 1)))
 
     # ------------------------------------------------------------------
+    def _count(self, ok: torch.Tensor) -> torch.Tensor:
+        """The denominator of a mean over the rows where `ok` holds: their
+        count, at least 1; with a mesh the global batch's count over the
+        world size, so that a rank's sum over its rows divided by it is its
+        share of the global mean times the world size."""
+        n = ok.sum()
+        if self.mesh is None:
+            return n.clamp(min=1)
+        return all_reduce_sum(n.detach().clone()).clamp(min=1) \
+            / self.mesh.size
+
     def encode_text(self, batch):
         txt = self.embeddings(batch["txt_ids"])
         if isinstance(self.lang_encoder, LanguageEncoderDo):
@@ -240,7 +270,7 @@ class GoatPretrainModel(nn.Module):
         ok = pos >= 0
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -logp.gather(-1, tgt.clamp(min=0)[..., None])[..., 0]
-        n = ok.sum().clamp(min=1)
+        n = self._count(ok)
         loss = torch.where(ok, nll, torch.zeros_like(nll)).sum() / n
         acc = ((logits.argmax(-1) == tgt) & ok).sum() / n
         return loss, {"mlm_acc": acc}
@@ -255,7 +285,7 @@ class GoatPretrainModel(nn.Module):
         logp = torch.log_softmax(logits.float(), dim=-1)
         kl = (probs * (torch.log(probs.clamp(min=1e-12)) - logp)).sum(-1)
         loss = torch.where(m, kl, torch.zeros_like(kl)).sum() \
-            / m.sum().clamp(min=1)
+            / self._count(m)
         return loss, {"mrc_kl": loss}
 
     def sap_loss(self, batch):
@@ -282,9 +312,10 @@ class GoatPretrainModel(nn.Module):
         lll, okl = _ce(ll, lab)
         lf, _ = _ce(fused, g)
         loss = (lg + lf + lll).sum() / B
-        return loss, {"sap_facc": _acc(fused, g, okg),
-                      "sap_gacc": _acc(gl, g, okg),
-                      "sap_lacc": _acc(ll, lab, okl)}
+        ng, nl = self._count(okg), self._count(okl)
+        return loss, {"sap_facc": _acc(fused, g, okg, ng),
+                      "sap_gacc": _acc(gl, g, okg, ng),
+                      "sap_lacc": _acc(ll, lab, okl, nl)}
 
     def og_loss(self, batch):
         """Object grounding over the end viewpoint's object tokens; a row
@@ -300,9 +331,9 @@ class GoatPretrainModel(nn.Module):
                            torch.zeros_like(logits))
         nll, _ = _ce(safe, labels.clamp(min=0))
         ok = has_obj & (labels >= 0)
-        loss = torch.where(ok, nll, torch.zeros_like(nll)).sum() \
-            / ok.sum().clamp(min=1)
-        return loss, {"og_acc": _acc(logits, labels, ok)}
+        n = self._count(ok)
+        loss = torch.where(ok, nll, torch.zeros_like(nll)).sum() / n
+        return loss, {"og_acc": _acc(logits, labels, ok, n)}
 
     def forward_cfp(self, batch):
         """(gmap, vp, fused, txt) pooled outputs of the tim self-encoders,
@@ -328,17 +359,26 @@ class GoatPretrainModel(nn.Module):
 
     def cfp_loss(self, batch):
         """Contrastive feature pretraining: symmetric InfoNCE of the map,
-        viewpoint and fused vectors against the text's, in-batch
-        negatives."""
+        viewpoint and fused vectors against the text's, in-batch negatives
+        (with a mesh, the global batch's: each rank's rows against every
+        rank's, gathered)."""
         gmap_out, vp_out, fused_out, txt_out = self.forward_cfp(batch)
         B = txt_out.shape[0]
-        tgt = torch.arange(B, device=txt_out.device)
+        # a mesh of one has no other rows: its arithmetic is the plain one
+        spread = self.mesh is not None and self.mesh.size > 1
+        off = self.mesh.rank * B if spread else 0
+        tgt = torch.arange(off, off + B, device=txt_out.device)
         temp = self.config.cfp_temperature
+        txt_all = gather_rows(txt_out) if spread else txt_out
 
         def nce(a, b):
-            sim = (a @ b.t()).float() / temp
+            # the rank's rows of the global similarity (its a against every
+            # text) and of its transpose (its texts against every a)
+            sim = (a @ txt_all.t()).float() / temp
+            sim_t = ((gather_rows(a) @ b.t()).float() / temp).t() \
+                if spread else sim.t()
             l1 = F.cross_entropy(sim, tgt, reduction="none")
-            l2 = F.cross_entropy(sim.t(), tgt, reduction="none")
+            l2 = F.cross_entropy(sim_t, tgt, reduction="none")
             return (l1 + l2) / 2.0, sim
 
         lg, _ = nce(gmap_out, txt_out)

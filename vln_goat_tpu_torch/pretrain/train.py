@@ -16,7 +16,14 @@ per task, and the state they advance.
   scale is `weight` in torch, as a Linear's kernel is).
 - The train step's dropout draws come from an explicit torch.Generator,
   `step_generator(seed, step)`, in place of the JAX package's
-  PRNGKey(step).
+  PRNGKey(step); on a rank other than 0 of a process group the rank is
+  folded in, so that the ranks draw different masks.
+- Data parallelism: the steps of a `mesh` average the gradients over its
+  ranks between the backward and the update (`distributed.all_reduce_grads`)
+  and the metrics before they are returned.  Where each rank runs its
+  rows of the batch, the model's own `mesh` makes each loss the rank's
+  share of the global one (`pretrain.model`); where every rank runs the
+  whole batch (one that does not divide), the model has none.
 """
 from __future__ import annotations
 
@@ -29,6 +36,8 @@ from torch import nn
 
 from ..config import PretrainConfig
 from ..ops.dropout import set_generator
+from ..parallel.distributed import (all_reduce_grads, process_index,
+                                    reduce_metrics)
 from .optimizers import Transform, build_optimizer, chain, clip_by_global_norm
 
 
@@ -154,19 +163,28 @@ class PretrainState:
         self.step += 1
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The dropout generator of train step `step` of a run seeded `seed`."""
-    s = int(np.random.SeedSequence((seed, step)).generate_state(1)[0])
+def step_generator(seed: int, step: int, device,
+                   rank: Optional[int] = None) -> torch.Generator:
+    """The dropout generator of train step `step` of a run seeded `seed`
+    on rank `rank` (this process's by default): (seed, step) on rank 0,
+    (seed, step, rank) on the others."""
+    rank = process_index() if rank is None else rank
+    key = (seed, step) if rank == 0 else (seed, step, rank)
+    s = int(np.random.SeedSequence(key).generate_state(1)[0])
     return torch.Generator(device=device).manual_seed(s)
 
 
-def make_pretrain_steps(model: nn.Module, tasks: Sequence[str]
-                        ) -> Dict[str, Callable]:
+def make_pretrain_steps(model: nn.Module, tasks: Sequence[str],
+                        mesh=None) -> Dict[str, Callable]:
     """{task: step(state, batch, generator, keep=False) -> metrics}: one
     update of state's model on `task`'s loss (dropout on, drawn from
     `generator`), gradients zero where a task leaves a parameter unused,
     as JAX's are.  keep=True returns (metrics, {name: gradient before the
-    clip} of the parameters that got one)."""
+    clip} of the parameters that got one).  With `mesh` (a
+    `parallel.mesh.Mesh`), the gradients are averaged over its ranks before
+    they are kept and applied and the metrics averaged over them."""
+    params = [p for p in model.parameters() if p.requires_grad]
+
     def make(task):
         def step_fn(state: PretrainState, batch, generator, keep=False):
             model.train()
@@ -174,12 +192,16 @@ def make_pretrain_steps(model: nn.Module, tasks: Sequence[str]
             model.zero_grad(set_to_none=True)
             loss, metrics = model(batch, task)
             loss.backward()
+            if mesh is not None:
+                all_reduce_grads(params)
             kept = {n: p.grad.clone() for n, p in model.named_parameters()
                     if p.grad is not None} if keep else None
             state.apply(state.grads())
             model.zero_grad(set_to_none=True)
             out = {k: v.detach() for k, v in metrics.items()}
             out["loss"] = loss.detach()
+            if mesh is not None:
+                out = reduce_metrics(out)
             return (out, kept) if keep else out
 
         return step_fn
@@ -187,9 +209,10 @@ def make_pretrain_steps(model: nn.Module, tasks: Sequence[str]
     return {t: make(t) for t in tasks}
 
 
-def make_eval_steps(model: nn.Module, tasks: Sequence[str]
-                    ) -> Dict[str, Callable]:
-    """{task: eval(batch) -> metrics with "loss"}, dropout off."""
+def make_eval_steps(model: nn.Module, tasks: Sequence[str],
+                    mesh=None) -> Dict[str, Callable]:
+    """{task: eval(batch) -> metrics with "loss"}, dropout off; with
+    `mesh`, averaged over its ranks."""
     def make(task):
         @torch.no_grad()
         def eval_fn(batch):
@@ -197,6 +220,8 @@ def make_eval_steps(model: nn.Module, tasks: Sequence[str]
             loss, metrics = model(batch, task)
             out = dict(metrics)
             out["loss"] = loss
+            if mesh is not None:
+                out = reduce_metrics(out)
             return out
 
         return eval_fn

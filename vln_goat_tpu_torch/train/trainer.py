@@ -27,6 +27,16 @@ agent_base.py:154-203):
 - the rollouts' rematerialisation policy `remat` (`ops.remat.POLICIES`;
   "full" by default, as the JAX package's make_train_step).
 
+Data parallelism (`parallel.mesh`): with `TrainState.mesh` set, each rank
+runs the step on its rows of the global batch (`mesh.shard_batch`; for
+"dagger_fused" `fused_dagger_rank_batch`, the rank's rows of each half),
+and the gradients are averaged over the ranks between the backward and the
+update (`distributed.all_reduce_grads`), so the guard, the clip, the
+accumulation and AdamW see the global batch's gradient and `grad_norm` is
+its norm; the metrics are reduced over the ranks before they are returned.
+Every loss here is a mean over the rank's episodes, or over each half's,
+so with equal rows per rank the mean over ranks is the global loss.
+
 The teacher is the vectorized teacher (`NavRollout.teacher_rollout_vec`,
 `vectorized_teacher=True`, the JAX package's default), or the per-step
 rollout (`vectorized_teacher=False`); without dropout the two are
@@ -43,6 +53,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Union
 import torch
 
 from ..ops.dropout import set_generator
+from ..parallel.distributed import all_reduce_grads, reduce_metrics
+from ..parallel.mesh import Mesh, shard_batch
 from ..ops.remat import check as check_remat
 from ..rollout.rollout import NavRollout, SAMPLE_FEEDBACKS
 from ..tools.zdict import SHARED_BANKS
@@ -241,7 +253,9 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
 class TrainState:
     """The model, its optimizer and schedule, the update count, the step
     function that advances them (`make_train_step`), its train_alg (whose
-    batches `entry.train_steps` draws) and the rollout it runs."""
+    batches `entry.train_steps` draws), the rollout it runs and the
+    data-parallel group whose gradients it averages (None: no
+    collective)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
@@ -251,6 +265,7 @@ class TrainState:
     step_fn: Optional[Callable] = field(default=None, repr=False)
     train_alg: str = "dagger"
     rollout: Optional[NavRollout] = field(default=None, repr=False)
+    mesh: Optional[Mesh] = None
 
 
 def apply_update(state: TrainState) -> torch.Tensor:
@@ -308,6 +323,24 @@ def fuse_dagger_batches(batch_t: Dict[str, torch.Tensor],
         [torch.ones(b_t, dtype=torch.bool, device=dev),
          torch.zeros(b_s, dtype=torch.bool, device=dev)])
     return out
+
+
+def fused_dagger_rank_batch(batch_t: Dict[str, torch.Tensor],
+                            batch_s: Dict[str, torch.Tensor],
+                            mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
+    """The rank's fused-DAgger batch: its rows of the teacher minibatch,
+    then its rows of the sample minibatch (`shard_batch` of each half,
+    then `fuse_dagger_batches`), so that every rank holds as many teacher
+    and sampled episodes and the mean over ranks of the halves' losses is
+    the global batch's.  Without a mesh of two or more, the fused batch."""
+    return fuse_dagger_batches(shard_batch(batch_t, mesh),
+                               shard_batch(batch_s, mesh))
+
+
+# the metrics summed over the ranks (counts) and those taken at their
+# largest (the decision steps a rollout ran); the others are means
+SUMMED_METRICS = ("node_overflow", "node_spilled")
+MAX_METRICS = ("teacher_steps", "sample_steps", "fused_steps")
 
 
 def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
@@ -411,7 +444,10 @@ def make_train_step(rollout: NavRollout, train_alg: str = "dagger",
     ("teacher", "sample", "fused").  `remat`: the rollouts'
     rematerialisation policy (`ops.remat.POLICIES`, "full" by default as
     in the JAX package); vectorized_teacher, sample_feedback, expl_max_ratio: as
-    `make_loss_fn`'s."""
+    `make_loss_fn`'s.  With `state.mesh` the gradients are averaged over
+    the ranks after the backward (before `grads` is kept) and the metrics
+    reduced over them (`SUMMED_METRICS` summed, `MAX_METRICS` at their
+    largest, the rest averaged)."""
     loss_fn = make_loss_fn(rollout, train_alg, ml_weight, teacher_horizon,
                            remat, vectorized_teacher, sample_feedback,
                            expl_max_ratio)
@@ -424,14 +460,18 @@ def make_train_step(rollout: NavRollout, train_alg: str = "dagger",
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics, outs = loss_fn(batch, generator)
         loss.backward()
+        if state.mesh is not None:
+            all_reduce_grads(state.optimizer.params())
         grads = {n: p.grad.clone() for n, p in model.named_parameters()
                  if p.grad is not None} if keep else None
         norm = apply_update(state)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
-        metrics["grad_norm"] = norm.detach()
         for name, out in outs.items():
             metrics[f"{name}_steps"] = out["steps"]
+        if state.mesh is not None:
+            metrics = reduce_metrics(metrics, SUMMED_METRICS, MAX_METRICS)
+        metrics["grad_norm"] = norm.detach()
         return (metrics, grads, outs) if keep else metrics
 
     return train_step
@@ -446,11 +486,13 @@ def init_train_state(model: torch.nn.Module, rollout: NavRollout,
                      finite_guard: bool = False,
                      vectorized_teacher: bool = True,
                      sample_feedback: str = "sample",
-                     expl_max_ratio: float = 0.6, **sched) -> TrainState:
+                     expl_max_ratio: float = 0.6,
+                     mesh: Optional[Mesh] = None, **sched) -> TrainState:
     """TrainState of `model` with AdamW (make_optimizer, with its
     accumulation and finite guard) and the step function of `train_alg`
     over `rollout` under the rematerialisation policy `remat`, with
-    `make_train_step`'s teacher and sampling options."""
+    `make_train_step`'s teacher and sampling options; `mesh`: the
+    data-parallel group whose gradients each step averages."""
     opt, scheduler = make_optimizer(
         [p for p in model.parameters() if p.requires_grad], lr,
         weight_decay, accumulate_steps=accumulate_steps,
@@ -459,4 +501,5 @@ def init_train_state(model: torch.nn.Module, rollout: NavRollout,
                       make_train_step(rollout, train_alg, ml_weight,
                                       teacher_horizon, remat,
                                       vectorized_teacher, sample_feedback,
-                                      expl_max_ratio), train_alg, rollout)
+                                      expl_max_ratio), train_alg, rollout,
+                      mesh)
