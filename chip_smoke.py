@@ -116,9 +116,9 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      gives them (the text encoding once per fused step), peak memory;
   5 (g): the bench build (bf16, remat "model", batch 64, dropout on,
      the vectorized teacher), causal then plain, one warm-up per bucket
-     and 3 timed steps, and a float32 remat "model" warm-up whose peak
+     and 2 timed steps, and a float32 remat "model" warm-up whose peak
      must be under half of (b) / (d)'s; before the plain one, the
-     vectorized and the per-step teacher in one call, 3 steps each on the
+     vectorized and the per-step teacher in one call, 2 steps each on the
      same batches, alternating; then one more plain step under
      torch.profiler (the device-busy share, the ten kernels with the most
      device time, the bf16 K1 / K2 kernels' share), after every timed
@@ -139,15 +139,23 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      "model"'s;
   5 (l): the fine-tune CLI (`python -m vln_goat_tpu_torch.cli`) at full
      R2R width on `--synthetic` with `--use_pallas --compute_dtype
-     bfloat16`, batch 8, its default remat ("full"): train 4 iterations
-     (validation every 2), resume from `train_state_latest` to 6, `--mode
+     bfloat16`, batch 8, its default remat ("full"): train 2 iterations
+     (validation every 2), resume from `train_state_latest` to 4, `--mode
      valid --submit` from the saved state; K1 and K2 launched, metrics
      and submissions written, losses finite, the `--save_torch_ckpt` .pt
      read back by the port's loader bit for bit.
+  5 (w): the same CLI at head widths 256 (`--num_attention_heads 3`,
+     bf16, remat "model") and 192 (4 heads, float32), batch 8, 2
+     iterations, every dropout 0, through the kernels and on the eager
+     path (the bf16 case in float32 eager too): ms an iteration, launches
+     by route, no wide-head core launch, losses under 5 (a)'s and 5 (f)'s
+     gates.
   3 (n): F6 past 128: K1, K2 (autograd) and K3 in both builds at 3 heads
-     of 256 and 4 of 192 over D = 768 (the wide-head core as they are)
-     and 5 of 160 over D = 800 (zero-padded to 192), phase 3 (m)'s gates,
-     launches and times, beside head width 128; then K1, K2 (a), (b) at
+     of 256 and 4 of 192 over D = 768 (their tensor-core instances), 5 of
+     160 over D = 800 and 7 of 224 over D = 1568 (zero-padded to 192 and
+     256) and 5 of 320 over D = 1600 (the wide-head core), phase 3 (m)'s
+     gates, wide-head core launches only at 320, times and device times,
+     beside head width 128; then K1, K2 (a), (b) at
      the new paths' shapes (the REVERIE local branch, 74 tokens at batch
      32; the RxR instruction, 250 at batch 16; the CFP tim self-encoders,
      48 and 53 at batch 64) under phase 3's and 3 (bf16)'s gates, timed;
@@ -180,7 +188,7 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      phase 5 (a)'s ReLU pinning within KINK_BAND, K1 / K2 launches equal to
      the task's plan: every attention on the kernels); then each task's
      examples per second and peak memory with dropout on, fed by the CLI's
-     worker pool (3 warm-up and 6 timed updates), and one more update
+     worker pool (2 warm-up and 2 timed updates), and one more update
      under torch.profiler (device-busy share, the float32 K1 / K2
      kernels' device time);
   5 (r): the pretrain CLI (MLM / SAP / CFP, use_pallas_attention, batch
@@ -282,9 +290,11 @@ from vln_goat_tpu_torch.ops.attention import (_bwd_call, _bwd_lib,
                                               forward_projection,
                                               fused_qkv_mha,
                                               fused_qkv_mha_plain, mha,
-                                              mha_plain, project_plain,
+                                              mha_plain, padded_widths,
+                                              project_plain,
                                               projection_backward,
-                                              PROJ_PARTS, ProjectionBackward)
+                                              PROJ_PARTS, ProjectionBackward,
+                                              wide_core_launches)
 from vln_goat_tpu_torch.tools.gate_witness import (NOISE_GRAD_BIASES,
                                                     TEACHER_NOISE_BIASES,
                                                     pin_relus,
@@ -312,6 +322,9 @@ B_TRAIN = 64              # bench_train's default batch
 # timed steps of the float32 train paths 5 (b) and (d), cut from 3 to keep
 # the script's time with the bf16 phases; the bench build 5 (g) times 3
 EARLIER_STEPS = 2
+# timed steps of the bench build 5(g) (and its causal run), cut from 3 to
+# keep the script's time with phase 5 (w)
+BENCH_STEPS = 2
 RATE = 0.1                # attention_probs_dropout_prob of the R2R config
 # Seed of the random weights.  With seed 0 (build_flagship's default)
 # every episode of the first batch stops at its first step, which leaves
@@ -1756,6 +1769,8 @@ def reset_counts():
     mha.launches = 0
     bf16_core_routes.update(tma=0, direct=0)
     attn_core_routes.update(tma=0, direct=0)
+    for k in wide_core_launches:
+        wide_core_launches[k] = 0
 
 
 def routes_now():
@@ -2440,7 +2455,7 @@ def bench_config(card, causal, none_peak):
     """Phase 5 (g): the bench's train build, bf16 compute with remat
     "model" (`build_train_flagship(compute_dtype="bfloat16",
     remat="model")`), batch 64, dropout 0.1 / 0.1 / features 0.4: one
-    warm-up per bucket, 3 timed steps; loss and grad norm finite,
+    warm-up per bucket, BENCH_STEPS timed steps; loss and grad norm finite,
     parameters moved, launches as the config gives them (the recomputed
     rollout steps' forwards on top); then one float32 remat "model"
     warm-up, whose peak must be under half of `none_peak`, (b) / (d)'s.
@@ -2449,8 +2464,8 @@ def bench_config(card, causal, none_peak):
     None, the profile or None)."""
     what = "causal " if causal else ""
     state, metrics, got, dt, warm_peak, peak, before, left, extra = \
-        bench_steps(True, causal, compute_dtype="bfloat16", remat="model",
-                    trace=not causal)
+        bench_steps(True, causal, n=BENCH_STEPS, compute_dtype="bfloat16",
+                    remat="model", trace=not causal)
     cfg = state.model.config
     mix = train_mix(cfg, metrics)
     n = sum(mix.values())
@@ -2505,7 +2520,7 @@ def bench_config(card, causal, none_peak):
     return mix, got, failed, extra.get("trace")
 
 
-def teacher_ab(card, n=3):
+def teacher_ab(card, n=2):
     """Phase 5 (g)'s same-call comparison of the two teachers: the bench
     build (bf16, remat "model", batch 64, dropout on) with the vectorized
     teacher and with the per-step one (`vectorized_teacher=False`), from
@@ -2791,12 +2806,14 @@ def autograd_ms(fn, args, dout):
                                                retain_graph=True))
 
 
-def f6_case(g, d, dh, bf16):
-    """One (d, dh) case in float32 or bf16: gates, launches and times;
-    returns its row (K1, K2 by autograd, K3)."""
+def f6_case(g, d, dh, bf16, device=False):
+    """One (d, dh) case in float32 or bf16: gates, launches and times (with
+    `device`, device times too); returns its row (K1, K2 by autograd,
+    K3)."""
     name, Lq, Lk = F6_SHAPE
     tag = f"{name}_d{d}_dh{dh}{'_bf16' if bf16 else ''}"
     batch = B_TRAIN
+    t0 = time.perf_counter()
     with model_width(d, dh):
         args32, seed = make_case(g, Lq, Lk, "key", "linear", batch)
         args = to_bf16(args32) if bf16 else args32
@@ -2818,6 +2835,13 @@ def f6_case(g, d, dh, bf16):
             raise AssertionError(f"{tag}: launches {launched}, expected "
                                  "(2, 1, 1, 1): the padded calls must run "
                                  "the kernels")
+        # the wide-head core takes the widths past HEAD_DIMS and no other
+        wide = dict(wide_core_launches)
+        want = 2 if padded_widths(d, dh)[1] > HEAD_DIMS[-1] else 0
+        if wide != dict(fused_qkv_mha=want, attention_backward=want // 2,
+                        mha=want // 2):
+            raise AssertionError(f"{tag}: wide-head core launches {wide}, "
+                                 f"expected {want} forward")
         plain = fused_qkv_mha_plain(*det, **kw)
         pgrads = grads_of(fused_qkv_mha_plain(*args, **kw), args, dout)
         mref = mha_plain(q, k, v, bias)
@@ -2843,9 +2867,28 @@ def f6_case(g, d, dh, bf16):
             torch.testing.assert_close(mo, mref, atol=ATOL, rtol=RTOL)
             row["mha_err"] = float((mo - mref).abs().max())
         del got, pgrads
+        row["wide_launches"] = sum(wide.values())
         row["ms"] = cuda_ms(lambda: fused_qkv_mha(*det, **kw))
         row["plain_ms"] = cuda_ms(lambda: fused_qkv_mha_plain(*det, **kw))
         row["library_ms"] = cuda_ms(lambda: library_call(det))
+        if device:
+            # device times: CUDA graphs of ten calls, K2 of autograd's
+            # backward over a forward built on the capture stream
+            row["device_ms"] = graph_ms(lambda: fused_qkv_mha(*det, **kw))
+            row["library_device_ms"] = graph_ms(lambda: library_call(det))
+
+            def forward_of(fn):
+                def forward():
+                    a = [None if t is None else t.detach().requires_grad_(
+                        t.requires_grad) for t in args]
+                    return fn(*a), [t for t in a
+                                    if t is not None and t.requires_grad]
+                return forward
+
+            row["bwd_device_ms"] = grad_graph_ms(
+                forward_of(lambda *a: fused_qkv_mha(*a, **kw)), dout)
+            row["bwd_library_device_ms"] = grad_graph_ms(
+                forward_of(lambda *a: library_call(a)), dout)
         fb = bound(det, tf32x3=not bf16)
         row["bound_ms"], row["bound_by"] = max(fb), \
             "operations" if fb[0] >= fb[1] else "bytes"
@@ -2864,6 +2907,10 @@ def f6_case(g, d, dh, bf16):
         row["mha_plain_ms"] = cuda_ms(lambda: mha_plain(q, k, v, bias))
         row["mha_library_ms"] = cuda_ms(
             lambda: mha_library(q, k, v, bias.to(q.dtype)))
+        if device:
+            row["mha_device_ms"] = graph_ms(lambda: mha(q, k, v, bias))
+            row["mha_library_device_ms"] = graph_ms(
+                lambda: mha_library(q, k, v, bias.to(q.dtype)))
         ops = 4 * batch * H * Lq * 60 * DH
         mb = (ops / (PEAK_BF16_FLOP_PER_S if bf16 else
                      PEAK_TF32_FLOP_PER_S / 3) * 1e3,
@@ -2871,6 +2918,7 @@ def f6_case(g, d, dh, bf16):
               / PEAK_BYTES_PER_S * 1e3)
         row["mha_bound_ms"], row["mha_bound_by"] = max(mb), \
             "operations" if mb[0] >= mb[1] else "bytes"
+    row["s"] = time.perf_counter() - t0
     return tag, row
 
 
@@ -2883,39 +2931,36 @@ def check_f6_widths():
         for bf16 in (False, True):
             tag, r = f6_case(g, d, dh, bf16)
             rows[tag] = r
-            say(f"width {tag} ({d // dh} heads of {dh}, B={B_TRAIN}, key "
-                f"mask, dropout {RATE}; {'against float64: ' if bf16 else ''}"
-                f"err forward {r['fwd_err']:.3e}, gradients "
-                f"{r['bwd_err']:.3e}, mha {r['mha_err']:.3e}): K1 "
-                f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-                f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}), K2 by "
-                f"autograd {r['bwd_ms']:.4f} ms (plain "
-                f"{r['bwd_plain_ms']:.4f}, library {r['bwd_library_ms']:.4f}"
-                f", bound {r['bwd_bound_ms']:.4f}), K3 {r['mha_ms']:.4f} ms "
-                f"(plain {r['mha_plain_ms']:.4f}, library "
-                f"{r['mha_library_ms']:.4f}, bound {r['mha_bound_ms']:.4f})")
+            say(f6_line(tag, d, dh, r))
     return rows
 
 
-def f6_kernel_rows(rows):
-    """The kernel line's rows of phase 3 (m) (launches 0: no path of
-    either package runs these widths)."""
+def f6_kernel_rows(rows, launched=None):
+    """The kernel line's rows of phase 3 (m) or (n): launches 0 (no path of
+    either package runs these widths) but for the tags of `launched`
+    ({tag: (K1, K2) launches}: 5 (w)'s CLI runs through the kernels)."""
     src = "vln_goat_tpu_torch/ops/csrc/"
     zero = dict(decode=0, train=0, causal_decode=0, causal_train=0)
     out = []
     for tag, r in rows.items():
+        n = (launched or {}).get(tag, (0, 0))
         for name, file, line, key, err in (
                 ("fused_qkv_mha", "fused_qkv_mha.cu", 169, "", "fwd_err"),
                 ("fused_qkv_mha_bwd", "fused_qkv_mha_bwd.cu", 181, "bwd_",
                  "bwd_err"),
                 ("mha", "mha.cu", 49, "mha_", "mha_err")):
+            k = n[0] if name == "fused_qkv_mha" else \
+                n[1] if name == "fused_qkv_mha_bwd" else 0
             out.append(dict(
                 name=f"{name}_{tag}", route="cuda", source=src + file,
                 replaces=f"vln_goat_tpu/ops/attention.py:{line}",
-                launches=0, launches_by_path=zero, max_abs_err=r[err],
+                launches=k, launches_by_path=dict(zero, wide_cli=k),
+                max_abs_err=r[err],
                 ms=r[key + "ms"], plain_ms=r[key + "plain_ms"],
                 bound_ms=r[key + "bound_ms"], bound_by=r[key + "bound_by"],
-                library_ms=r[key + "library_ms"]))
+                library_ms=r[key + "library_ms"],
+                device_ms=r.get(key + "device_ms"),
+                library_device_ms=r.get(key + "library_device_ms")))
     return out
 
 
@@ -3031,12 +3076,12 @@ def cli_phase(card):
         torch.cuda.empty_cache()
         reset_counts()
         t0 = time.perf_counter()
-        cli.main(["--mode", "train", "--iters", "4"] + common)
+        cli.main(["--mode", "train", "--iters", "2"] + common)
         nums["train_s"] = time.perf_counter() - t0
         nums["train_counts"] = counts()
         reset_counts()
         t0 = time.perf_counter()
-        cli.main(["--mode", "train", "--iters", "6", "--resume_file",
+        cli.main(["--mode", "train", "--iters", "4", "--resume_file",
                   state_dir] + common)
         nums["resume_s"] = time.perf_counter() - t0
         nums["resume_counts"] = counts()
@@ -3054,9 +3099,9 @@ def cli_phase(card):
         nums["log"] = [line.strip() for line in
                        open(os.path.join(out, "train.log"))
                        if line.startswith("iter")]
-        if [d["step"] for d in train] != [2, 4, 6]:
+        if [d["step"] for d in train] != [2, 4]:
             raise AssertionError(f"train steps {[d['step'] for d in train]}"
-                                 ", expected [2, 4, 6]")
+                                 ", expected [2, 4]")
         if not all(math.isfinite(v) for v in nums["losses"]):
             raise AssertionError(f"losses {nums['losses']}")
         for key in ("train_counts", "resume_counts"):
@@ -3087,9 +3132,9 @@ def cli_phase(card):
         gc.collect()
         torch.cuda.empty_cache()
     say(f"train (l) CLI at R2R width (--synthetic --use_pallas "
-        f"--compute_dtype bfloat16, batch 8, remat full): train 4 iters "
+        f"--compute_dtype bfloat16, batch 8, remat full): train 2 iters "
         f"{nums.get('train_s', 0):.1f} s (launches "
-        f"{nums.get('train_counts')}), resume to 6 "
+        f"{nums.get('train_counts')}), resume to 4 "
         f"{nums.get('resume_s', 0):.1f} s (launches "
         f"{nums.get('resume_counts')}), valid --submit "
         f"{nums.get('valid_s', 0):.1f} s (launches "
@@ -3104,36 +3149,177 @@ def cli_phase(card):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3 (n): F6 past 128.  Head widths past 128 run on the wide-head core
-# (ops/csrc/attn_wide.cuh), a multiple of 64 as it is and 160 zero-padded
-# to 192: 3 heads of 256 and 4 of 192 over D = 768, 5 of 160 over D = 800,
-# each in both builds through f6_case (K1, K2 by autograd, K3), timed
-# beside head width 128 at D = 768 (the widest instanced core).
-F6_WIDE = ((768, 256), (768, 192), (800, 160))
+# Phase 5 (w): the fine-tune CLI at head widths 256 and 192.  R2R's hidden
+# 768 split into 3 heads of 256 (bf16, remat "model") and 4 of 192
+# (float32) through `--num_attention_heads`, batch 8, 2 iterations and one
+# validation each, every dropout probability 0 so that the kernel route
+# and the eager one (no --use_pallas) draw the same Gumbel noise: their
+# losses under phase 5's gates (float32: 5 (a)'s relative 1e-4; bf16:
+# 5 (f)'s, the kernels' error against the float32 eager run at most twice
+# the bf16 eager run's + 1e-3), every K1 / K2 (a) launch on an instanced
+# core (no wide-head core launch; in bf16 every attention core launch
+# counted by route, all TMA).
+WIDE_CLI = (("3x256_bf16", ["--num_attention_heads", "3", "--compute_dtype",
+                            "bfloat16", "--remat", "model"]),
+            ("4x192_f32", ["--num_attention_heads", "4"]))
+
+
+@contextlib.contextmanager
+def no_dropout_config():
+    """GoatConfig.for_dataset with every dropout probability 0 for the
+    body (the CLI's flags set the hidden and feature dropout only)."""
+    from vln_goat_tpu_torch.config import GoatConfig
+
+    orig = GoatConfig.for_dataset
+
+    def for_dataset(*a, **k):
+        return orig(*a, **k).replace(
+            hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+            pred_head_dropout_prob=0.0, feat_dropout=0.0)
+
+    GoatConfig.for_dataset = for_dataset
+    try:
+        yield
+    finally:
+        GoatConfig.for_dataset = orig
+
+
+def wide_cli_run(flags):
+    """One `cli.main` train run (2 iterations, one validation) in a
+    temporary directory -> {its logged loss, ms an iteration (train.log),
+    seconds, launches, routes, wide-head core launches}."""
+    from vln_goat_tpu_torch import cli
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_wide_")
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        with no_dropout_config():
+            cli.main(["--mode", "train", "--synthetic", "--batch_size", "8",
+                      "--device", "cuda", "--output_dir", out, "--iters",
+                      "2", "--log_every", "2", "--dropout", "0",
+                      "--feat_dropout", "0"] + flags)
+        secs = time.perf_counter() - t0
+        lines = [json.loads(line) for line in
+                 open(os.path.join(out, "metrics.jsonl"))]
+        log = [line.strip() for line in open(os.path.join(out, "train.log"))
+               if line.startswith("iter")]
+        return dict(loss=[d for d in lines if "train/loss" in d][-1][
+            "train/loss"], ms=float(log[-1].split("(")[1].split()[0]),
+            s=secs, counts=counts(), routes=routes_now(),
+            wide=dict(wide_core_launches))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def wide_cli_phase(card):
+    """Phase 5 (w): WIDE_CLI's two cases through the kernels and eager
+    (and the bf16 case in float32 eager, 5 (f)'s reference); returns
+    (numbers, failure or None)."""
+    nums, failure = {}, None
+    try:
+        for tag, flags in WIDE_CLI:
+            r = nums[tag] = dict(
+                kernels=wide_cli_run(["--use_pallas"] + flags),
+                eager=wide_cli_run(flags))
+            k, e = r["kernels"], r["eager"]
+            bf16 = "bfloat16" in flags
+            if bf16:
+                r["f32"] = wide_cli_run(flags[:2] + flags[4:])
+            if not all(math.isfinite(x["loss"]) for x in r.values()):
+                raise AssertionError(f"{tag}: losses "
+                                     f"{[x['loss'] for x in r.values()]}")
+            n = k["counts"]
+            if min(n[:3]) <= 0 or n[1] != n[2] or n[3] != 0:
+                raise AssertionError(f"{tag}: kernel launches {n}")
+            if any(x["counts"] != (0, 0, 0, 0) for x in r.values()
+                   if x is not k):
+                raise AssertionError(f"{tag}: an eager run launched a "
+                                     "kernel")
+            if any(sum(x["wide"].values()) for x in r.values()):
+                raise AssertionError(f"{tag}: wide-head core launches "
+                                     f"{k['wide']}")
+            if bf16:
+                check_routes(k["routes"], k["routes"]["core"]["tma"],
+                             n[0] + n[1])
+                ref = r["f32"]["loss"]
+                r["err"] = {w: abs(r[w]["loss"] - ref) / abs(ref)
+                            for w in ("kernels", "eager")}
+                if r["err"]["kernels"] > 2 * r["err"]["eager"] + 1e-3:
+                    raise AssertionError(
+                        f"{tag}: loss error {r['err']['kernels']:.3e} > 2 x "
+                        f"eager bf16 {r['err']['eager']:.3e} + 1e-3")
+            else:
+                r["err"] = {"kernels": abs(k["loss"] - e["loss"])
+                            / abs(e["loss"])}
+                if r["err"]["kernels"] > 1e-4:
+                    raise AssertionError(
+                        f"{tag}: loss {k['loss']} vs eager {e['loss']}")
+    except AssertionError as exc:
+        failure = f"train (w): {exc}"
+    for tag, r in nums.items():
+        say(f"train (w) CLI at {tag} (R2R width 768, --synthetic, batch 8, "
+            "2 iterations, dropout 0): "
+            + "; ".join(f"{w} loss {x['loss']:.6f}, {x['ms']:.0f} ms/iter, "
+                        f"{x['s']:.1f} s, launches {x['counts']}, routes "
+                        f"{x['routes']}, wide-head core {x['wide']}"
+                        for w, x in r.items() if isinstance(x, dict)
+                        and "loss" in x)
+            + f"; loss error {r.get('err')} on {card}")
+    if failure is not None:
+        say(f"train (w): FAILED: {failure} (the script goes on, and fails "
+            "at its end)")
+    return nums, failure
+
+
+# ---------------------------------------------------------------------------
+# Phase 3 (n): F6 past 128.  Head widths 192 and 256 run on tensor-core
+# instances of every attention core; 160 and 224 are zero-padded to them,
+# and only a width past 256 (320) runs on the wide-head core
+# (ops/csrc/attn_wide.cuh): 3 heads of 256 and 4 of 192 over D = 768, 5 of
+# 160 over D = 800, 5 of 320 over D = 1600 and 7 of 224 over D = 1568,
+# each in both builds through f6_case (K1, K2 by autograd, K3, by ms and
+# by device time), timed beside head width 128 at D = 768.
+F6_WIDE = ((768, 256), (768, 192), (800, 160), (1600, 320), (1568, 224))
 
 
 def f6_line(tag, d, dh, r):
+    def dev(key):
+        v = r.get(key)
+        return "not measured" if v is None else f"{v:.4f}"
+
     return (f"width {tag} ({d // dh} heads of {dh}, B={B_TRAIN}, key "
             f"mask, dropout {RATE}; {'against float64: ' if 'bf16' in tag else ''}"
             f"err forward {r['fwd_err']:.3e}, gradients "
-            f"{r['bwd_err']:.3e}, mha {r['mha_err']:.3e}): K1 "
-            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}), K2 by "
-            f"autograd {r['bwd_ms']:.4f} ms (plain "
-            f"{r['bwd_plain_ms']:.4f}, library {r['bwd_library_ms']:.4f}"
-            f", bound {r['bwd_bound_ms']:.4f}), K3 {r['mha_ms']:.4f} ms "
-            f"(plain {r['mha_plain_ms']:.4f}, library "
-            f"{r['mha_library_ms']:.4f}, bound {r['mha_bound_ms']:.4f})")
+            f"{r['bwd_err']:.3e}, mha {r['mha_err']:.3e}; wide-head core "
+            f"launches {r['wide_launches']}; {r['s']:.1f} s): K1 "
+            f"{r['ms']:.4f} ms (device {dev('device_ms')}; plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, device "
+            f"{dev('library_device_ms')}, bound {r['bound_ms']:.4f}), K2 "
+            f"by autograd {r['bwd_ms']:.4f} ms (device "
+            f"{dev('bwd_device_ms')}; plain {r['bwd_plain_ms']:.4f}, "
+            f"library {r['bwd_library_ms']:.4f}, device "
+            f"{dev('bwd_library_device_ms')}, bound "
+            f"{r['bwd_bound_ms']:.4f}), K3 {r['mha_ms']:.4f} ms (device "
+            f"{dev('mha_device_ms')}; plain {r['mha_plain_ms']:.4f}, "
+            f"library {r['mha_library_ms']:.4f}, device "
+            f"{dev('mha_library_device_ms')}, bound "
+            f"{r['mha_bound_ms']:.4f})")
 
 
 def check_f6_wide():
     """Phase 3 (n): rows {tag: row} of every F6_WIDE case and of head
-    width 128 at D = 768, float32 and bf16."""
+    width 128 at D = 768, float32 and bf16; only 320 reaches the wide-head
+    core (f6_case checks the count)."""
     rows = {}
     g = torch.Generator(device="cuda").manual_seed(19)
     for d, dh in F6_WIDE + ((768, 128),):
         for bf16 in (False, True):
-            tag, r = f6_case(g, d, dh, bf16)
+            tag, r = f6_case(g, d, dh, bf16, device=True)
             rows[tag] = r
             say(f6_line(tag, d, dh, r))
     return rows
@@ -3683,7 +3869,7 @@ def new_kernel_rows(rows, m, n, o):
 # instructions, 64 map slots ([stop] + nodes, no [MEM]), 53 viewpoint
 # tokens ([stop] + 16 candidates + 36 views; 73 with REVERIE's 20 objects
 # a viewpoint).  Every module in float32, as the JAX pretrain model.
-PT_BATCH, PT_WARM, PT_TIMED = 48, 3, 6
+PT_BATCH, PT_WARM, PT_TIMED = 48, 2, 2
 PT_TASKS, PT_OG = ("mlm", "sap", "cfp", "mrc"), ("og",)
 # (tag, Lq, Lk, bias kind) of every pretraining attention: the text's
 # self-attention (the language encoder, and MLM's cross encoders' own
@@ -5104,6 +5290,9 @@ def main() -> int:
     t0 = start_phase("phase 5 (l)")
     _, l_failed = cli_phase(card)
     say(f"wall: phase 5 (l) {time.perf_counter() - t0:.1f} s")
+    t0 = start_phase("phase 5 (w)")
+    w_nums, w_failed = wide_cli_phase(card)
+    say(f"wall: phase 5 (w) {time.perf_counter() - t0:.1f} s")
     t0 = start_phase("phase 5 (m)")
     m_nums, m_failed = reverie_phase(card)
     say(f"wall: phase 5 (m) {time.perf_counter() - t0:.1f} s")
@@ -5316,7 +5505,12 @@ def main() -> int:
                                      True)
     kernels += width_kernel_rows(f"b{PHASE_B_BATCH}", pb_bf16, None, True)
     kernels += f6_kernel_rows(f6_rows)
-    kernels += f6_kernel_rows(wide_rows)
+    # the DH 256 / 192 instances' launches: 5 (w)'s CLI runs
+    kernels += f6_kernel_rows(wide_rows, {
+        tag: w_nums[case]["kernels"]["counts"][:2]
+        for tag, case in (("local54_d768_dh256_bf16", "3x256_bf16"),
+                          ("local54_d768_dh192", "4x192_f32"))
+        if case in w_nums})
     kernels += new_kernel_rows(shape_rows, m_nums, n_nums, o_nums)
     kernels += pretrain_kernel_rows(pt_rows, q_timing)
     kernels += refresh_kernel_rows(refresh_rows,
@@ -5350,7 +5544,8 @@ def main() -> int:
                             h_failed, j_failed, k_failed, l_failed,
                             m_failed, n_failed, o_failed, p_failed,
                             q_failed, qt_failed, r_failed, s_failed,
-                            t_failed, *i_failed, *u_failed, *v_failed)
+                            t_failed, w_failed, *i_failed, *u_failed,
+                            *v_failed)
                 if f is not None]
     if failures:
         say("FAILED: " + "; ".join(failures))

@@ -12,7 +12,9 @@ the JAX package's Pallas kernels in interpret mode and to float64.
    in float32 at atol 2e-5 / rtol 1e-4 (tests/test_torch_attention.py's:
    sums in another order), at key lengths on both sides of KB, and with
    a first key block masked off for some rows (the rescale by a factor
-   of about e^-10000).
+   of about e^-10000); and at head width 256, whose instance takes key
+   blocks of KB_WIDER (64: shared memory), so that every key length past
+   64 runs the online softmax.
 
 2. The bf16 K3 (`mha_fwd_bf16` of `ops/csrc/mha.cu` on the forward core
    of `attn_fwd_sm90.cuh`): 64-key tiles, online max and sum, e =
@@ -45,6 +47,7 @@ def _header_int(name, header):
 
 
 KB, TQ = _header_int("KB", "attn_fwd.cuh"), _header_int("TQ", "attn_fwd.cuh")
+KB_WIDER = _header_int("KB_WIDER", "attn_fwd.cuh")
 TILE = _header_int("TILE", "attn_sm90.cuh")
 B, H, DH = 2, 2, 64
 D = H * DH
@@ -57,10 +60,10 @@ def bf16(a):
     return u.view(F)
 
 
-def f32_forward_model(q, k, v, bias, scale):
+def f32_forward_model(q, k, v, bias, scale, KB=KB):
     """attn_fwd.cuh over q [B, Lq, H, dh], k, v [B, Lk, H, dh], bias
-    [B, Hb, Lq, Lk], in float32."""
-    Lq, Lk = q.shape[1], k.shape[1]
+    [B, Hb, Lq, Lk], in float32, in key blocks of KB."""
+    Lq, Lk, H, DH = q.shape[1], k.shape[1], q.shape[2], q.shape[3]
     out = np.zeros(q.shape, F)
     nblk = -(-Lk // KB)
     for b in range(B):
@@ -92,7 +95,7 @@ def f32_forward_model(q, k, v, bias, scale):
     return out
 
 
-def _f32_case(rng, Lq, Lk, kind):
+def _f32_case(rng, Lq, Lk, kind, KB=KB, H=H, D=D):
     x = rng.standard_normal((B, Lq, D)).astype(F)
     y = rng.standard_normal((B, Lk, D)).astype(F)
     ws = []
@@ -114,6 +117,9 @@ def _f32_case(rng, Lq, Lk, kind):
 
 def test_model_reads_the_header():
     assert KB == 256 and TQ == 64 and TILE == 64
+    # past 128 columns the instances take the narrower key blocks
+    assert KB_WIDER == 64 and "DH > 128 ? KB_WIDER" in \
+        (CSRC / "attn_fwd.cuh").read_text()
 
 
 @pytest.mark.parametrize("Lq,Lk,kind", [
@@ -130,6 +136,24 @@ def test_f32_model_matches_pallas(rng, Lq, Lk, kind):
     out = f32_forward_model(q, k, v, bias, 1.0 / np.sqrt(DH))
     assert np.isfinite(out).all()
     np.testing.assert_allclose(out.reshape(B, Lq, D), ref, atol=2e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("Lq,Lk,kind", [
+    (70, 54, "key"), (70, 64, "heads"), (70, 65, "key"), (40, 130, "heads"),
+    (40, 200, "masked_first_block")])
+def test_f32_model_at_256_columns_matches_pallas(rng, Lq, Lk, kind):
+    """One head of 256 over D = 256, in key blocks of KB_WIDER."""
+    x, y, ws, bias = _f32_case(rng, Lq, Lk, kind, KB_WIDER, 1, 256)
+    ref = np.asarray(pallas_fused_qkv_mha(
+        *(jnp.asarray(t) for t in (x, y, *ws)), jnp.asarray(bias),
+        num_heads=1, interpret=True))
+    wq, bq, wk, bk, wv, bv = ws
+    q, k, v = (t.reshape(B, -1, 1, 256) for t in
+               (x @ wq + bq, y @ wk + bk, y @ wv + bv))
+    out = f32_forward_model(q, k, v, bias, 1.0 / 16.0, KB_WIDER)
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out.reshape(B, Lq, 256), ref, atol=2e-5,
                                rtol=1e-4)
 
 

@@ -34,6 +34,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from vln_goat_tpu.parallel.mesh import make_mesh as jax_mesh
 from vln_goat_tpu.parallel.mesh import shard_batch as jax_shard
 from vln_goat_tpu.train import trainer as jtr
+from vln_goat_tpu_torch.rollout import rollout as port_rollout
 from vln_goat_tpu_torch.tools.gate_witness import (NOISE_GRAD_BIASES,
                                                     TEACHER_NOISE_BIASES)
 from vln_goat_tpu_torch.train.checkpoint import flatten, params_from_flax
@@ -164,3 +165,35 @@ def test_params_after_update_match(runs, case):
     moved = [n for n, v in a["params"].items()
              if not np.array_equal(v, r["sd"][n])]
     assert len(moved) > len(a["params"]) // 2
+
+
+class _Stop(Exception):
+    pass
+
+
+class _FailingBatches:
+    """The batches of a case whose first step fails."""
+
+    def __iter__(self):
+        raise _Stop
+
+
+@pytest.mark.parametrize("ending", ("returns", "raises"))
+def test_train_case_puts_back_the_draw(rigs, ending):  # noqa: F811
+    """`train_case` fixes the rollout's Gumbel draw for its steps and puts
+    the module's own function back whether it returns or raises, so an
+    in-process call leaves nothing behind for the tests after it."""
+    drawn = port_rollout.gumbel_noise
+    assert drawn.__qualname__ == "gumbel_noise"
+    (_, _), (t1, t2) = _two_batches(rigs, True)
+    case = dict(alg="dagger_fused", B=B, sd=R.numpy_tree(rigs["sd"]),
+                noise=_noise(2 * B),
+                batches=[(R.numpy_tree(t1), R.numpy_tree(t2))])
+    if ending == "returns":
+        out = R.train_case(0, 1, case)
+        assert np.isfinite(out["metrics"][0]["sample_loss"])
+    else:
+        case["batches"] = _FailingBatches()
+        with pytest.raises(_Stop):
+            R.train_case(0, 1, case)
+    assert port_rollout.gumbel_noise is drawn

@@ -1,11 +1,13 @@
 """F6 past 128: head widths 160, 192 and 256 (and 165 over a D of 330, not
 a multiple of 32).
 
-On the card a head width past 128 that is a multiple of 64 runs on the
-wide-head core `ops/csrc/attn_wide.cuh` as it is; any other is zero-padded
-to the next multiple of 64 (`padded_widths`: 160 and 165 go to 192, D 330
-to 352) by `padded_call` / `mha_padded` around it, the scale the true
-width's.  Here the plain versions take both routes (the wrapper on a CPU
+On the card head widths 192 and 256 run on tensor-core instances of every
+attention core as they are; a width up to 256 that is not one of the
+instances is zero-padded to the next (`padded_widths`: 160 and 165 go to
+192, 224 to 256, D 330 to 352) by `padded_call` / `mha_padded` around it,
+the scale the true width's; past 256 a multiple of 64 runs on the
+wide-head core `ops/csrc/attn_wide.cuh` as it is, any other is padded to
+the next multiple of 64.  Here the plain versions take both routes (the wrapper on a CPU
 tensor, and `padded_call` around `fused_qkv_mha_plain`, what the card's
 route computes around the kernel) and are held to the JAX package's Pallas
 kernels in interpret mode, which take these widths unpadded:
@@ -23,6 +25,9 @@ kernels in interpret mode, which take these widths unpadded:
   scale).
 The kernels themselves at these widths run on the card (chip_smoke.py
 phase 3 (n))."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax
@@ -30,10 +35,12 @@ import jax.numpy as jnp
 import torch
 
 from vln_goat_tpu.ops.attention import pallas_fused_qkv_mha, pallas_mha
-from vln_goat_tpu_torch.ops.attention import (fused_qkv_mha,
+from vln_goat_tpu_torch.ops.attention import (HEAD_DIMS, WIDE_STEP,
+                                              fused_qkv_mha,
                                               fused_qkv_mha_plain,
                                               mha_padded, mha_plain,
-                                              padded_call, padded_widths,
+                                              on_wide_core, padded_call,
+                                              padded_widths,
                                               takes_head_dim)
 from test_torch_bf16_attention import _bf16_values, _gate
 from test_torch_gate_witness import one_thread  # noqa: F401
@@ -81,10 +88,41 @@ def _routes(heads):
 
 @pytest.mark.parametrize("D,heads", SHAPES)
 def test_widths_the_kernels_take(D, heads):
+    """Each of these widths runs on a tensor-core instance: 192 and 256 as
+    they are, 160 and 165 padded to 192; none on the wide-head core."""
     dh = D // heads
     Dp, dp = padded_widths(D, dh)
     assert takes_head_dim(dp) and Dp % 32 == 0
     assert dp == dh if dh % 64 == 0 else dp == 192
+    assert dp in HEAD_DIMS and not on_wide_core(dp)
+
+
+@pytest.mark.parametrize("dh,dp,wide", [
+    (160, 192, False), (192, 192, False), (200, 256, False),
+    (224, 256, False), (256, 256, False), (257, 320, True),
+    (320, 320, True), (384, 384, True)])
+def test_pad_and_route_of_a_width(dh, dp, wide):
+    """The width a head of dh runs at and its core: an instance up to 256
+    (the next one), the wide-head core past 256 (the next multiple of
+    64)."""
+    assert padded_widths(1600, dh)[1] == dp
+    assert takes_head_dim(dp) and takes_head_dim(dh) == (dh == dp)
+    assert on_wide_core(dp) == wide and (dp in HEAD_DIMS) != wide
+
+
+def test_head_dims_header_is_the_wrappers():
+    """`head_dims.cuh` (whose `query` every library's `*_head_dims` entry
+    reports, held to HEAD_DIMS + (WIDE_STEP,) by `_check_head_dims` at
+    load): its instances, its wide step, and `wide` past the widest."""
+    text = (Path(__file__).resolve().parent.parent / "vln_goat_tpu_torch"
+            / "ops" / "csrc" / "head_dims.cuh").read_text()
+    dims = re.search(r"DIMS\[COUNT\] = \{([^}]*)\}", text).group(1)
+    assert tuple(int(d) for d in dims.split(",")) == HEAD_DIMS
+    assert int(re.search(r"constexpr int COUNT = (\d+);", text).group(1)) \
+        == len(HEAD_DIMS)
+    assert int(re.search(r"constexpr int WIDE_STEP = (\d+);", text)
+               .group(1)) == WIDE_STEP
+    assert "return dh > DIMS[COUNT - 1] && dh % WIDE_STEP == 0;" in text
 
 
 @pytest.mark.parametrize("route", ["wrapper", "padded"])

@@ -61,12 +61,15 @@ def test_padded_widths(D, heads):
 
 def test_past_128_raises():
     """Past 128 nothing raises any more: a head width is padded to the next
-    multiple of 64, which the wide-head core takes as it is
+    width the kernels take, an instance up to 256 and past it a multiple of
+    64 that the wide-head core takes as it is
     (tests/test_torch_f6_wide.py)."""
     assert padded_widths(768, 128) == (768, 128)
     assert padded_widths(768, 192) == (768, 192)
     assert padded_widths(800, 160) == (800, 192)
     assert padded_widths(780, 130) == (800, 192)
+    assert padded_widths(1568, 224) == (1568, 256)
+    assert padded_widths(1600, 320) == (1600, 320)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])

@@ -1,6 +1,6 @@
 """Head widths 32 and 128 (F6): the attention kernels of both builds are
-templates of the head width, built for 32, 64 and 128
-(`ops/csrc/head_dims.cuh`), past 128 any multiple of 64 runs on the
+templates of the head width, built for 32, 64, 128, 192 and 256
+(`ops/csrc/head_dims.cuh`), past 256 any multiple of 64 runs on the
 wide-head core (`ops/csrc/attn_wide.cuh`), and the check refuses any other
 width, naming the set.
 
@@ -102,7 +102,9 @@ def test_shape_check_takes_the_built_widths(dh):
 @pytest.mark.parametrize("dh", [16, 48, 96, 144])
 def test_shape_check_refuses_other_widths(dh):
     """768 / 16 heads = 48: refused, with the widths the kernels take (past
-    128 any multiple of 64 is taken, 144 is not one)."""
-    with pytest.raises(ValueError, match=r"head widths \(32, 64, 128\) and "
-                                         rf"multiples of 64 past 128, got {dh}"):
+    256 any multiple of 64 is taken; 144 lies below it and is not one of
+    the instances)."""
+    with pytest.raises(ValueError,
+                       match=r"head widths \(32, 64, 128, 192, 256\) and "
+                             rf"multiples of 64 past 256, got {dh}"):
         check_head_dim(dh)

@@ -238,8 +238,9 @@ def test_fused_qkv_mha_takes_long_keys(card):
     """Both builds take any key length (the float32 attention forward past
     256 keys in key blocks); any head width and any D (768 / 16 = 48 and
     D = 784 zero-padded to the widths the kernels take, 768 / 4 = 192 on
-    the wide-head core as it is, each launching the kernels, with no
-    fallback to the plain version)."""
+    its tensor-core instance as it is, 640 / 2 = 320 on the wide-head
+    core, each launching the kernels, with no fallback to the plain
+    version)."""
     x = torch.zeros(1, 4, 768, device="cuda")
     y = torch.zeros(1, 257, 768, device="cuda")
     w, b = torch.zeros(768, 768, device="cuda"), torch.zeros(768, device="cuda")
@@ -252,10 +253,21 @@ def test_fused_qkv_mha_takes_long_keys(card):
         assert fused_qkv_mha.launches == before + 1
         assert out.dtype == dt and bool((out == 0).all())
     before = fused_qkv_mha.launches
+    wide = attention_mod.wide_core_launches["fused_qkv_mha"]
     out = fused_qkv_mha(x, y, w, b, w, b, w, b, num_heads=4)
     torch.cuda.synchronize()
     assert fused_qkv_mha.launches == before + 1
+    assert attention_mod.wide_core_launches["fused_qkv_mha"] == wide
     assert out.shape == (1, 4, 768) and bool((out == 0).all())
+    x3, y3 = torch.zeros(1, 4, 640, device="cuda"), \
+        torch.zeros(1, 40, 640, device="cuda")
+    w3, b3 = torch.zeros(640, 640, device="cuda"), \
+        torch.zeros(640, device="cuda")
+    out = fused_qkv_mha(x3, y3, w3, b3, w3, b3, w3, b3, num_heads=2)
+    torch.cuda.synchronize()
+    assert fused_qkv_mha.launches == before + 2
+    assert attention_mod.wide_core_launches["fused_qkv_mha"] == wide + 1
+    assert out.shape == (1, 4, 640) and bool((out == 0).all())
     x2, y2 = torch.zeros(1, 4, 784, device="cuda"), \
         torch.zeros(1, 40, 784, device="cuda")
     w2, b2 = torch.zeros(784, 768, device="cuda"), b
@@ -350,15 +362,17 @@ def test_mha_reads_transposed_views(card, Lk):
 
 
 def test_mha_refuses_what_it_does_not_take(card):
-    """Any head width (48 zero-padded to 64, 192 on the wide-head core,
-    160 zero-padded to 192); float16 and mixed dtypes are refused; both
-    builds take any Lk."""
+    """Any head width (48 zero-padded to 64, 192 on its tensor-core
+    instance, 160 zero-padded to 192, neither on the wide-head core);
+    float16 and mixed dtypes are refused; both builds take any Lk."""
     q = torch.zeros(1, 4, H, 48, device="cuda")
     assert mha(q, q, q).shape == (1, 4, H * 48)
+    wide = attention_mod.wide_core_launches["mha"]
     for dh in (192, 160):
         q = torch.randn(1, 4, H, dh, device="cuda")
         torch.testing.assert_close(mha(q, q, q), mha_plain(q, q, q),
                                    atol=1e-4, rtol=1e-3)
+    assert attention_mod.wide_core_launches["mha"] == wide
     q = torch.zeros(1, 4, H, 64, device="cuda")
     k = torch.zeros(1, 257, H, 64, device="cuda")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -975,3 +989,79 @@ def test_pretrain_shapes_match_plain(card, Lq, Lk, bias_kind, rate):
         torch.testing.assert_close(got[8], want[8],
                                    atol=1e-4 * float(want[8].abs().max()),
                                    rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Head widths 192 and 256 at D = 768 (4 heads of 192, 3 of 256): the four
+# tensor-core instances (float32 attn_fwd.cuh and attn_bwd_kernel, bf16
+# attn_fwd_sm90.cuh and attn_bwd_sm90.cuh) against float64, at one key
+# tile (48, 64), one key past it (65) and several key tiles (257), over
+# 70 queries (two 64-row tiles, three of the float32 backward's 32), a
+# per-head bias under a key mask and dropout 0.1.  None of them reaches
+# the wide-head core, and in bf16 every attention launch takes TMA.
+
+@pytest.mark.parametrize("heads", [4, 3])
+@pytest.mark.parametrize("Lk", [48, 64, 65, 257])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_instances_match_float64(card, heads, Lk, dtype):
+    Lq, rate = 70, 0.1
+    args, seed = (_case if dtype == torch.float32 else _bf16_case)(
+        card, 2, Lq, Lk, heads, True, grad=True)
+    keep = torch.rand(2, Lk, generator=card, device="cuda") < 0.85
+    keep[:, 0] = True
+    bias = ((1.0 - keep.float())[:, None, None, :] * -10000.0
+            + args[8].detach().float()).to(dtype).requires_grad_()
+    args = args[:8] + (bias,)
+    leaves = list(args)
+    wide = dict(attention_mod.wide_core_launches)
+    routes = dict(attention_mod.attn_core_routes)
+    out = fused_qkv_mha(*args, num_heads=heads, dropout_rate=rate, seed=seed)
+    dout = torch.randn(2, Lq, D, generator=card, device="cuda").to(dtype)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert attention_mod.wide_core_launches == wide
+    leaves64 = [a.detach().double().requires_grad_() for a in leaves]
+    ref_out = fused_qkv_mha_plain(*leaves64, num_heads=heads,
+                                  dropout_rate=rate, seed=seed)
+    ref = torch.autograd.grad(ref_out, leaves64, dout.double())
+    if dtype == torch.float32:
+        torch.testing.assert_close(out.double(), ref_out, atol=1e-4,
+                                   rtol=1e-3)
+        _assert_grads([g.double() for g in got[:8]], ref[:8])
+        torch.testing.assert_close(
+            got[8].double(), ref[8], rtol=1e-3,
+            atol=1e-4 * float(ref[8].abs().max()))
+        return
+    assert attention_mod.attn_core_routes == {
+        "tma": routes["tma"] + 2, "direct": routes["direct"]}
+    plain_out = fused_qkv_mha_plain(*args, num_heads=heads,
+                                    dropout_rate=rate, seed=seed)
+    plain = torch.autograd.grad(plain_out, leaves, dout)
+    _assert_bf16_gate(out, plain_out, ref_out)
+    for i, (g_, p_, r) in enumerate(zip(got, plain, ref)):
+        assert g_.dtype == torch.bfloat16 and g_.shape == r.shape
+        _assert_bf16_gate(g_, p_, r, ref[4] if i == 5 else None)
+
+
+@pytest.mark.parametrize("dh", [192, 256, 320])
+@pytest.mark.parametrize("Lk", [48, 65, 257])
+def test_mha_wide_widths_match_float64(card, dh, Lk):
+    """K3 at head widths 192 and 256 (the forward instances) and 320 (the
+    wide-head core, counted in `wide_core_launches`): float32 within atol
+    1e-4 / rtol 1e-3 of float64, bf16 within the bf16 gate."""
+    heads = 2
+    q, k, v = (torch.randn(2, L, heads, dh, generator=card, device="cuda")
+               for L in (40, Lk, Lk))
+    keep = torch.rand(2, Lk, generator=card, device="cuda") < 0.8
+    keep[:, 0] = True
+    bias = (1.0 - keep.float())[:, None, None, :] * -10000.0
+    wide = attention_mod.wide_core_launches["mha"]
+    out = mha(q, k, v, bias)
+    ref = mha_plain(*(t.double() for t in (q, k, v, bias)))
+    torch.testing.assert_close(out.double(), ref, atol=1e-4, rtol=1e-3)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    out = mha(qb, kb, vb, bias)
+    ref = mha_plain(*(t.double() for t in (qb, kb, vb, bias)))
+    _assert_bf16_gate(out, mha_plain(qb, kb, vb, bias), ref)
+    assert attention_mod.wide_core_launches["mha"] == \
+        wide + (2 if dh > 256 else 0)

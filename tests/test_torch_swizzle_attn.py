@@ -7,7 +7,8 @@ tests/test_torch_swizzle.py.
 A tile is 64 rows of one head (queries, keys, rows of dO) of 64 head
 columns in bf16, one TMA box, row r at 128 r bytes.  An operand of head
 width dh takes ceil(dh / 64) tiles, tile j the box at head column 64 j:
-two at 128, and at 32 one whose columns past 32 are zeros (TMA's fill of a
+two at 128, three and four at 192 and 256, and at 32 one whose columns
+past 32 are zeros (TMA's fill of a
 box past the tensor's extent, and the direct route's), which the products
 over the head dimension add as zeros and the outputs never store.  The
 cores read one tile both ways:
@@ -48,7 +49,7 @@ def _constants():
 
 A = _constants()
 T, DH = A["TILE"], A["TW"]     # a tile's rows and head columns
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 
 
 def _tile():

@@ -48,12 +48,12 @@ NO_DROP = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
 B = 8
 
 
-def _jax_rig(state_dict, dtype=jnp.float32):
+def _jax_rig(state_dict, dtype=jnp.float32, **over):
     """The JAX side of build_train_flagship(tiny=True, dropout=False), with
     the port's seeded weights moved over by the JAX package's
     `torch_to_flax` (the same tree and shapes as its own init gives); the
-    model computes in `dtype`."""
-    cfg = JaxConfig(**TINY, **NO_DROP)
+    model computes in `dtype`, its config TINY's with `over`."""
+    cfg = JaxConfig(**{**TINY, **NO_DROP, **over})
     scans = [jax_scan("s0", num_vps=12, seed=0)]
     world = JaxWorld.build(scans, feat_dim=16, seed=0)
     model = JaxModel(cfg, dtype=dtype)

@@ -206,23 +206,31 @@ def train_case(rank, world, case):
     mesh = make_mesh("cpu")
     state.mesh = mesh
     noise = case.get("noise")
-    if noise is not None:
-        # the rows of the rank's episodes: of each half when fused
-        halves = np.split(noise, 2) if alg == "dagger_fused" else [noise]
-        mine = np.concatenate([np.split(h, world)[rank] for h in halves])
-        port_rollout.gumbel_noise = \
-            lambda g, shape, device: torch.from_numpy(mine)
-    metrics, grads = [], []
-    for batch in case["batches"]:
-        if alg == "dagger_fused":
-            local = fused_dagger_rank_batch(tensors(batch[0]),
-                                            tensors(batch[1]), mesh)
-        else:
-            local = shard_batch(tensors(batch), mesh)
-        m, g, _ = state.step_fn(state, local,
-                                torch.Generator().manual_seed(0), keep=True)
-        metrics.append({k: float(v) for k, v in m.items()})
-        grads.append(numpy_tree(g))
+    # the draw fixed below is the rollout module's, so it is put back on
+    # the way out: an in-process call (the one-process reference) would
+    # otherwise leave it in place for whatever runs after it
+    drawn = port_rollout.gumbel_noise
+    try:
+        if noise is not None:
+            # the rows of the rank's episodes: of each half when fused
+            halves = np.split(noise, 2) if alg == "dagger_fused" else [noise]
+            mine = np.concatenate([np.split(h, world)[rank] for h in halves])
+            port_rollout.gumbel_noise = \
+                lambda g, shape, device: torch.from_numpy(mine)
+        metrics, grads = [], []
+        for batch in case["batches"]:
+            if alg == "dagger_fused":
+                local = fused_dagger_rank_batch(tensors(batch[0]),
+                                                tensors(batch[1]), mesh)
+            else:
+                local = shard_batch(tensors(batch), mesh)
+            m, g, _ = state.step_fn(state, local,
+                                    torch.Generator().manual_seed(0),
+                                    keep=True)
+            metrics.append({k: float(v) for k, v in m.items()})
+            grads.append(numpy_tree(g))
+    finally:
+        port_rollout.gumbel_noise = drawn
     return dict(metrics=metrics, grads=grads,
                 params=numpy_tree(dict(state.model.named_parameters())))
 

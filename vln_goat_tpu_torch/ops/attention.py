@@ -29,13 +29,15 @@ gradients in float32; q, k, v, p, ds and the projection gradients
 rounded to bf16 where the JAX kernel casts them; outputs and gradients in
 their input's dtype.  x, y, the weights and biases of one call share one
 dtype; a mix raises.  On the card both builds take any Lk (the float32
-attention forward past 256 keys in key blocks with an online softmax), the
-head widths of `HEAD_DIMS` (32, 64, 128: one kernel instance each, chosen
-at launch), any wider multiple of `WIDE_STEP` (64) on the wide-head core
-`csrc/attn_wide.cuh` (128-column pieces, float32 sums on the CUDA cores,
-forward and backward) and D % 32 == 0; the wrappers zero-pad any other
-head width to the next width the kernels take and any other D to a
-multiple of 32 (`padded_call`, `mha_padded`), so every head width runs.
+attention forward past its key blocks with an online softmax), the head
+widths of `HEAD_DIMS` (32, 64, 128, 192, 256: one tensor-core instance of
+each attention core, chosen at launch), any wider multiple of `WIDE_STEP`
+(64) on the wide-head core `csrc/attn_wide.cuh` (128-column pieces,
+float32 sums on the CUDA cores, forward and backward; its launches count
+in `wide_core_launches`) and D % 32 == 0; the wrappers zero-pad any other
+head width to the next width the kernels take (160 to 192, 224 to 256)
+and any other D to a multiple of 32 (`padded_call`, `mha_padded`), so
+every head width runs.
 
 On a CUDA tensor `fused_qkv_mha` runs `FusedQKVMHA`, an autograd Function
 whose forward launches the forward kernel and whose backward launches the
@@ -173,14 +175,21 @@ _W = [_VP, _LL, _LL]                    # weight pointer and its two strides
 # the head widths the attention kernels are built for (csrc/head_dims.cuh),
 # and the step of the wider ones that csrc/attn_wide.cuh takes (each
 # library's `*_head_dims` entry must report the same set and step)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 WIDE_STEP = 64
 
 
 def takes_head_dim(dh: int) -> bool:
     """Whether the kernels take head width dh as it is: a width of
     HEAD_DIMS, or past the widest a multiple of WIDE_STEP."""
-    return dh in HEAD_DIMS or (dh > HEAD_DIMS[-1] and dh % WIDE_STEP == 0)
+    return dh in HEAD_DIMS or on_wide_core(dh)
+
+
+def on_wide_core(dh: int) -> bool:
+    """Whether head width dh runs on the wide-head core
+    (`csrc/attn_wide.cuh`, head_dims.cuh `wide`): past the widest of
+    HEAD_DIMS, a multiple of WIDE_STEP."""
+    return dh > HEAD_DIMS[-1] and dh % WIDE_STEP == 0
 
 
 def check_head_dim(dh: int) -> None:
@@ -333,6 +342,11 @@ bf16_core_routes = {"tma": 0, "direct": 0}
 # bf16 and the bf16 `mha`, csrc/attn_bwd_sm90.cuh under K2 (a) bf16) by
 # the route their q, k, v (and dO) took, as above
 attn_core_routes = {"tma": 0, "direct": 0}
+# launches of the wide-head core (csrc/attn_wide.cuh, head widths past
+# HEAD_DIMS) under each entry, either build: a width of HEAD_DIMS never
+# reaches it
+wide_core_launches = {"fused_qkv_mha": 0, "attention_backward": 0,
+                      "mha": 0}
 
 
 def _count(routes: dict, route: int) -> None:
@@ -430,7 +444,9 @@ def _mha_kernel(q, k, v, bias=None, scale: Optional[float] = None):
     if rc != 0:
         raise RuntimeError(f"mha kernel launch failed: CUDA error {rc} "
                            f"(B={B}, Lq={Lq}, Lk={Lk}, H={H})")
-    if dtype == torch.bfloat16 and dh in HEAD_DIMS:
+    if on_wide_core(dh):
+        wide_core_launches["mha"] += 1
+    elif dtype == torch.bfloat16:
         _count(attn_core_routes, lib.mha_attn_route())
     return out
 
@@ -574,9 +590,11 @@ def forward_kernel(x, y, wq, bq, wk, bk, wv, bv, bias=None,
             c.scale, *c.seed_args(), c.stream())
     fused_qkv_mha.launches += 1
     c.check(rc, "fused_qkv_mha")
+    if on_wide_core(c.dh):
+        wide_core_launches["fused_qkv_mha"] += 1
     if c.dtype == torch.bfloat16:
         _count(bf16_core_routes, c.lib.fused_qkv_mha_bf16_route())
-        if c.dh in HEAD_DIMS:
+        if not on_wide_core(c.dh):
             _count(attn_core_routes, c.lib.fused_qkv_mha_attn_route())
     return out
 
@@ -631,10 +649,11 @@ def attention_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout,
     ds = torch.empty((c.B, c.H, c.Lq, c.Lk), **f32) if need_ds else None
     qkv = torch.empty(c.B * (c.Lq + 2 * c.Lk) * c.HD, **like)
     # softmax statistics of each row, when the keys span several chunks or
-    # the head runs on the wide core, and in bf16 dq's running sum over the
-    # chunks (rounded once, at the end) on the instanced cores
+    # the head runs on the wide core (past 256 columns), and in bf16 dq's
+    # running sum over the chunks (rounded once, at the end) on the
+    # instanced cores
     several = c.Lk > ATTN_KEY_CHUNK
-    wide = c.dh not in HEAD_DIMS
+    wide = on_wide_core(c.dh)
     stats = torch.empty(c.B * c.H * c.Lq * 3, **f32) \
         if several or wide else None
     dq_acc = torch.empty(dq.numel(), **f32) \
@@ -651,6 +670,8 @@ def attention_backward(x, y, wq, bq, wk, bk, wv, bv, bias, seed, dout,
             c.B, c.Lq, c.Lk, c.D, c.H, c.dh, c.scale, c.stream())
     attention_backward.launches += 1
     c.check(rc, "fused_qkv_mha_bwd_attn")
+    if wide:
+        wide_core_launches["attention_backward"] += 1
     if c.dtype == torch.bfloat16:
         _count(bf16_core_routes, c.lib.fused_qkv_mha_bwd_bf16_route())
         if not wide:

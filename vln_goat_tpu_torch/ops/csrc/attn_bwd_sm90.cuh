@@ -13,13 +13,22 @@
 // bf16 kernel's `_bdot(dt=bf16)` casts, :200-225), every sum float32, and
 // ds written in float32 when the bias needs a gradient.
 //
-// A template of the head width DH (head_dims.cuh: 32, 64, 128), whose
-// operands are NT = ceil(DH / 64) tiles of 64 head columns each
-// (attn_sm90.cuh): s and dp sum the NT tiles' products; dq, dk and dv are
-// NT 64 x 64 accumulators each, one per tile of k, q and dO, dk and dv
-// held through the query tiles and dq taken one tile after the other.  At
-// DH = 128 (NT = 2) that is 128 accumulator registers a thread for dk and
-// dv, and one block an SM.
+// A template of the head width DH (head_dims.cuh: 32, 64, 128, 192,
+// 256), whose operands are NT = ceil(DH / 64) tiles of 64 head columns
+// each (attn_sm90.cuh): s and dp sum the NT tiles' products; dq, dk and
+// dv are NT 64 x 64 accumulators each, one per tile of k, q and dO, dk and
+// dv held through the query tiles and dq taken one tile after the other.
+// At DH = 128 (NT = 2) that is 128 accumulator registers a thread for dk
+// and dv, and one block an SM.  Past 128 columns the block has two
+// consumer warpgroups (GROUPS), each owning half of the column tiles
+// (its dk, dv and dq: two tiles each at DH = 256, two and one at 192), so
+// a thread still holds 128 accumulator registers.  Both compute the
+// whole s and dp of a tile pair (the products over the head dimension
+// take every column tile), the first writes pd and ds to shared memory,
+// and both read them there for their tiles' dv and dk; ds k for dq takes
+// each group's own ds in registers.  At DH = 256 the pairs (64 KB) leave
+// room for one outer pair (OUTER): it is the key tile, held through all
+// the query tiles, so at Lk <= 64 the block loads it once either way.
 //
 // What bounds it on an H100: bytes.  At the train shapes a (b, h) reads
 // q, k, v and dO once (32 KB) and writes dq, dk, dv (24 KB), plus the
@@ -59,8 +68,34 @@ namespace {
 
 using namespace attn_sm90;
 
-constexpr int OUTER = 2;          // outer pairs: this one and the next
 constexpr int INNER = 2;          // inner pairs in flight
+
+// outer pairs at head width DH: this one and the next, one at 256 columns
+// (shared memory)
+template <int DH>
+__host__ __device__ constexpr int outer() {
+  return tiles_of(DH) > 3 ? 1 : 2;
+}
+// consumer warpgroups at head width DH, each owning `group_tiles` of the
+// column tiles, and the block's threads: one warpgroup and the producer
+// warp, or two and a producer warpgroup whose first warp loads (so that
+// `setmaxnreg` can move its registers to the consumers: REGS each of
+// theirs, 40 of its, at most the SM's 65536 at one block an SM)
+template <int DH>
+__host__ __device__ constexpr int groups() {
+  return tiles_of(DH) > 2 ? 2 : 1;
+}
+template <int DH>
+__host__ __device__ constexpr int group_tiles() {
+  return (tiles_of(DH) + groups<DH>() - 1) / groups<DH>();
+}
+template <int DH>
+__host__ __device__ constexpr int threads() {
+  return groups<DH>() > 1 ? (groups<DH>() + 1) * CONSUMERS : THREADS;
+}
+constexpr int REGS = 232, PRODUCER_REGS = 40;
+static_assert(2 * CONSUMERS * REGS + CONSUMERS * PRODUCER_REGS <= 65536,
+              "two consumer warpgroups' and the producer's registers");
 
 // one operand's tiles at head width DH, a pair of operands, and the
 // kernel's shared memory
@@ -70,8 +105,8 @@ __host__ __device__ constexpr int opnd_bytes() {
 }
 template <int DH>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return ALIGN + (size_t)(OUTER + INNER) * 2 * opnd_bytes<DH>() +
-         2 * TILE_BYTES + 2 * (OUTER + INNER) * sizeof(uint64_t);
+  return ALIGN + (size_t)(outer<DH>() + INNER) * 2 * opnd_bytes<DH>() +
+         2 * TILE_BYTES + 2 * (outer<DH>() + INNER) * sizeof(uint64_t);
 }
 
 struct Params {
@@ -98,7 +133,7 @@ struct Params {
 // pair and every (k, v) as inner ones (the statistics sweep); then for
 // each key tile (k, v) as an outer pair and every (q, dO) as inner ones.
 struct Ring {
-  unsigned char* outer;     // [OUTER] pairs
+  unsigned char* outer;     // [outer<DH>()] pairs
   unsigned char* inner;     // [INNER] pairs
   uint64_t *outer_full, *outer_empty, *inner_full, *inner_empty;
   int on = 0, in = 0;       // outer and inner pairs taken so far
@@ -114,7 +149,8 @@ __device__ __forceinline__ uint32_t scores_tile(float s[32], float dp[32],
                                                 int q0, int k0, int b, int h,
                                                 uint32_t seed,
                                                 const Params& P) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  // the warp within its warpgroup
+  const int lane = threadIdx.x % 32, warp = threadIdx.x % CONSUMERS / 32;
   const int g = lane >> 2, t = lane & 3;
   const int Lq = P.q.L, Lk = P.k.L;
   const float scale2 = P.scale * LOG2E;
@@ -146,10 +182,19 @@ __device__ __forceinline__ uint32_t scores_tile(float s[32], float dp[32],
   return keep;
 }
 
+// the consumers of `groups` warpgroups meet (named barrier 1; the producer
+// warp is not in it)
+template <int GROUPS>
+__device__ __forceinline__ void groups_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(GROUPS * CONSUMERS) : "memory");
+}
+
 template <int DH>
-__global__ void __launch_bounds__(THREADS, DH > 64 ? 1 : 2)
+__global__ void __launch_bounds__(threads<DH>(), DH > 64 ? 1 : 2)
     attn_bwd_sm90_kernel(const __grid_constant__ Params P) {
   constexpr int NT = tiles_of(DH), OB = opnd_bytes<DH>(), PAIR = 2 * OB;
+  constexpr int OUTER = outer<DH>(), GROUPS = groups<DH>();
+  constexpr int GT = group_tiles<DH>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       ((uintptr_t)smem_raw + ALIGN - 1) & ~(uintptr_t)(ALIGN - 1));
@@ -163,13 +208,14 @@ __global__ void __launch_bounds__(THREADS, DH > 64 ? 1 : 2)
   R.inner_full = R.outer_empty + OUTER;
   R.inner_empty = R.inner_full + INNER;
   if (threadIdx.x == 0) {
+    // a pair is free once every consumer warpgroup has released it
     for (int i = 0; i < OUTER; ++i) {
       bar_init(&R.outer_full[i], 1);
-      bar_init(&R.outer_empty[i], 1);
+      bar_init(&R.outer_empty[i], GROUPS);
     }
     for (int i = 0; i < INNER; ++i) {
       bar_init(&R.inner_full[i], 1);
-      bar_init(&R.inner_empty[i], 1);
+      bar_init(&R.inner_empty[i], GROUPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -178,8 +224,13 @@ __global__ void __launch_bounds__(THREADS, DH > 64 ? 1 : 2)
   const int Lq = P.q.L, Lk = P.k.L;
   const int nq = (Lq + TILE - 1) / TILE, nk = (Lk + TILE - 1) / TILE;
 
-  if (threadIdx.x >= CONSUMERS) {
+  if (threadIdx.x >= GROUPS * CONSUMERS) {
     // producer warp
+    if constexpr (GROUPS > 1) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          PRODUCER_REGS) : "memory");
+      if (threadIdx.x % CONSUMERS >= 32) return;
+    }
     auto push = [&](bool outer, bool qside, int l0) {
       const int i = outer ? R.on++ : R.in++;
       const int n = outer ? OUTER : INNER;
@@ -206,10 +257,16 @@ __global__ void __launch_bounds__(THREADS, DH > 64 ? 1 : 2)
     return;
   }
 
-  // consumers: warp w holds rows 16 w + g and 16 w + g + 8 of each 64 x 64
-  // accumulator (g = lane / 4), columns 8 c + 2 t, +1 (t = lane % 4)
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // consumers: warp w of a warpgroup holds rows 16 w + g and 16 w + g + 8
+  // of each 64 x 64 accumulator (g = lane / 4), columns 8 c + 2 t, +1
+  // (t = lane % 4); warpgroup wg owns column tiles [wg GT, wg GT + GT)
+  if constexpr (GROUPS > 1)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS)
+                 : "memory");
+  const int tid = threadIdx.x, wg = tid / CONSUMERS;
+  const int warp = tid % CONSUMERS / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
+  const bool first = wg == 0;   // writes what both groups compute
   const long long HD = (long long)H * DH;
   const uint32_t seed = P.seeds != nullptr ? (uint32_t)P.seeds[b] : 0u;
   const bool drop = P.seeds != nullptr;
@@ -224,7 +281,8 @@ __global__ void __launch_bounds__(THREADS, DH > 64 ? 1 : 2)
     return smem_addr((outer ? R.outer : R.inner) + slot * PAIR);
   };
   auto release = [&](bool outer, int slot) {
-    if (tid == 0) bar_arrive(&(outer ? R.outer_empty : R.inner_empty)[slot]);
+    if (tid % CONSUMERS == 0)
+      bar_arrive(&(outer ? R.outer_empty : R.inner_empty)[slot]);
   };
   // s (scaled, biased, in log2 units, -inf past Lk) and dp (dropped) of
   // this thread's elements of query tile q0 x key tile k0, from the raw
@@ -302,7 +360,7 @@ __global__ void __launch_bounds__(THREADS, DH > 64 ? 1 : 2)
       for (int r = 0; r < 2; ++r) {
         const float lr = quad_sum(l[r]), dr = quad_sum(d[r]);
         const int qi = i * TILE + 16 * warp + g + 8 * r;
-        if (t == 0 && qi < Lq) {
+        if (first && t == 0 && qi < Lq) {
           stats[qi * 3] = m[r];
           stats[qi * 3 + 1] = lr;
           stats[qi * 3 + 2] = dr / lr;
@@ -310,7 +368,7 @@ __global__ void __launch_bounds__(THREADS, DH > 64 ? 1 : 2)
       }
     }
     __threadfence_block();
-    consumers_sync();
+    groups_sync<GROUPS>();
   }
 
   uint32_t ps = smem_addr(Ps), ss = smem_addr(Ss);
@@ -318,11 +376,12 @@ __global__ void __launch_bounds__(THREADS, DH > 64 ? 1 : 2)
     const int k0 = j * TILE;
     int os;
     const uint32_t kp = take(true, os);
-    float dk[NT][32], dv[NT][32];
+    // dk and dv of this warpgroup's column tiles
+    float dk[GT][32], dv[GT][32];
 #pragma unroll
-    for (int jt = 0; jt < NT; ++jt) {
-      zero(dk[jt]);
-      zero(dv[jt]);
+    for (int jj = 0; jj < GT; ++jj) {
+      zero(dk[jj]);
+      zero(dv[jj]);
     }
     for (int i = 0; i < nq; ++i) {
       const int q0 = i * TILE;
@@ -375,7 +434,7 @@ __global__ void __launch_bounds__(THREADS, DH > 64 ? 1 : 2)
             }
         }
         const float inv_l = 1.f / l;
-        float* ds_row = P.ds != nullptr && qi < Lq
+        float* ds_row = P.ds != nullptr && qi < Lq && first
             ? P.ds + (((long long)b * H + h) * Lq + qi) * Lk : nullptr;
 #pragma unroll
         for (int c = 0; c < 8; ++c)
@@ -395,38 +454,45 @@ __global__ void __launch_bounds__(THREADS, DH > 64 ? 1 : 2)
       // swizzled layout, for dv += pd^T dO and dk += ds^T q
       uint32_t da[4][4];
       to_a(dp, da);
-      consumers_sync();   // the last pair's products are done with Ps, Ss
+      // every group's last products are done with Ps, Ss
+      groups_sync<GROUPS>();
+      if (first) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = 16 * warp + g + 8 * r;
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * warp + g + 8 * r;
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int off = row * ROW_BYTES + ((c ^ (row & 7)) << 4) + 4 * t;
-          *reinterpret_cast<uint32_t*>(Ps + off) =
-              gemm_bf16::pack2(s[4 * c + 2 * r], s[4 * c + 2 * r + 1]);
-          *reinterpret_cast<uint32_t*>(Ss + off) =
-              gemm_bf16::pack2(dp[4 * c + 2 * r], dp[4 * c + 2 * r + 1]);
+          for (int c = 0; c < 8; ++c) {
+            const int off =
+                row * ROW_BYTES + ((c ^ (row & 7)) << 4) + 4 * t;
+            *reinterpret_cast<uint32_t*>(Ps + off) =
+                gemm_bf16::pack2(s[4 * c + 2 * r], s[4 * c + 2 * r + 1]);
+            *reinterpret_cast<uint32_t*>(Ss + off) =
+                gemm_bf16::pack2(dp[4 * c + 2 * r], dp[4 * c + 2 * r + 1]);
+          }
         }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      consumers_sync();
-      // per tile jt of the head columns: dq's, and dk's and dv's sums
+      groups_sync<GROUPS>();
+      // per tile jt of the group's head columns: dq's, and dk's and dv's
+      // sums (the condition holds for a whole warpgroup)
 #pragma unroll
-      for (int jt = 0; jt < NT; ++jt) {
+      for (int jj = 0; jj < GT; ++jj) {
+        const int jt = wg * GT + jj;
+        if (jt >= NT) continue;
         float dq[32];
         zero(dq);
         fence_acc(dq);
-        fence_acc(dk[jt]);
-        fence_acc(dv[jt]);
+        fence_acc(dk[jj]);
+        fence_acc(dv[jj]);
         mma_fence();
         tile_rs<1>(dq, da, kp + jt * TILE_BYTES);
-        tile_ss<1, 1>(dv[jt], ps, qp + OB + jt * TILE_BYTES);
-        tile_ss<1, 1>(dk[jt], ss, qp + jt * TILE_BYTES);
+        tile_ss<1, 1>(dv[jj], ps, qp + OB + jt * TILE_BYTES);
+        tile_ss<1, 1>(dk[jj], ss, qp + jt * TILE_BYTES);
         mma_commit();
         mma_wait();
         fence_acc(dq);
-        fence_acc(dk[jt]);
-        fence_acc(dv[jt]);
+        fence_acc(dk[jj]);
+        fence_acc(dv[jj]);
         // dq: written, or summed over the key tiles in float32 and
         // rounded once with the last
 #pragma unroll
@@ -469,18 +535,20 @@ __global__ void __launch_bounds__(THREADS, DH > 64 ? 1 : 2)
       if (kj >= Lk) continue;
       const long long row = ((long long)b * Lk + kj) * HD + h * DH;
 #pragma unroll
-      for (int jt = 0; jt < NT; ++jt)
+      for (int jj = 0; jj < GT; ++jj) {
+        const int jt = wg * GT + jj;
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
-          if (TW * jt + 8 * c >= DH) continue;
+          if (jt >= NT || TW * jt + 8 * c >= DH) continue;
           const long long o = row + TW * jt + 8 * c + 2 * t;
           *reinterpret_cast<__nv_bfloat162*>(P.dk + o) =
-              __floats2bfloat162_rn(dk[jt][4 * c + 2 * r] * P.scale,
-                                    dk[jt][4 * c + 2 * r + 1] * P.scale);
+              __floats2bfloat162_rn(dk[jj][4 * c + 2 * r] * P.scale,
+                                    dk[jj][4 * c + 2 * r + 1] * P.scale);
           *reinterpret_cast<__nv_bfloat162*>(P.dv + o) =
-              __floats2bfloat162_rn(dv[jt][4 * c + 2 * r],
-                                    dv[jt][4 * c + 2 * r + 1]);
+              __floats2bfloat162_rn(dv[jj][4 * c + 2 * r],
+                                    dv[jj][4 * c + 2 * r + 1]);
         }
+      }
     }
   }
 }
@@ -503,6 +571,8 @@ __host__ inline int launch(Params& P, int B, int dh, cudaStream_t stream) {
   return head_dims::dispatch(dh, [&](auto w) {
     constexpr int DH = decltype(w)::value;
     constexpr int smem = (int)smem_bytes<DH>();
+    static_assert(smem <= tf32x3::SMEM_OPT_IN,
+                  "a block's shared memory on an H100");
     P.tma = encode(&P.map[0], P.q, B, P.H, DH) &&
             encode(&P.map[1], P.k, B, P.H, DH) &&
             encode(&P.map[2], P.v, B, P.H, DH) &&
@@ -510,7 +580,7 @@ __host__ inline int launch(Params& P, int B, int dh, cudaStream_t stream) {
     const cudaError_t e =
         tf32x3::smem_limit<attn_bwd_sm90_kernel<DH>>(smem);
     if (e != cudaSuccess) return (int)e;
-    attn_bwd_sm90_kernel<DH><<<B * P.H, THREADS, smem, stream>>>(P);
+    attn_bwd_sm90_kernel<DH><<<B * P.H, threads<DH>(), smem, stream>>>(P);
     last_route() = P.tma;
     return (int)cudaGetLastError();
   });

@@ -17,16 +17,21 @@
 // dimension, null for none); out is [B, Lq, H*dh] contiguous.
 //
 // One block per (batch row, head), 256 threads.  The block stages the
-// head's keys and values in blocks of up to KB = 256 (128 at DH = 128;
-// cp.async, rows past Lk zero-filled) and walks its query tiles of 64
-// rows.  Per tile and key block: s = q k^T on mma.sync m16n8k8 fragments
-// (gemm_tf32x3.cuh `warp_mma_16x32` over a depth of DH, each of 8 warps a
-// 16 x 32 piece of every 64-key chunk) into a 64 x KB score tile in shared
-// memory; four threads per row take the max, the exponentials, the sum
-// and the keep mask of dropout_hash.cuh at each (q, k); then out += p v on
-// fragments, the 64-key chunks added into one accumulator: the 64 x DH
-// output is 4 DH / 32 pieces of 16 x 32, one a warp at DH = 64, two at
-// DH = 128, one for each of warps 0-3 at DH = 32.
+// head's keys and values in blocks of up to KB = 256 (128 at DH = 128, 64
+// at DH = 192 and 256; cp.async, rows past Lk zero-filled) and walks its
+// query tiles of 64 rows.  Per tile and key block: s = q k^T on mma.sync
+// m16n8k8 fragments (gemm_tf32x3.cuh `warp_mma_16x32` over a depth of DH,
+// each of 8 warps a 16 x 32 piece of every 64-key chunk) into a 64 x KB
+// score tile in shared memory; four threads per row take the max, the
+// exponentials, the sum and the keep mask of dropout_hash.cuh at each
+// (q, k); then out += p v on fragments, the 64-key chunks added into one
+// accumulator: the 64 x DH output is 4 DH / 32 pieces of 16 x 32, one a
+// warp at DH = 64, two at DH = 128, one for each of warps 0-3 at DH = 32.
+// Past 128 columns the block has 16 warps (512 threads): one block an SM
+// fits there, and 8 warps alone would each take twice DH = 128's chain of
+// dependent products.  Warps 8-15 sum the second half of each score
+// piece's depth, added to the first half's in the score tile, and the
+// output's 24 or 32 pieces are spread over all 16.
 // - Up to KB keys (one key block: every train and decode shape) the
 //   whole score row is in the tile, so the softmax is the plain version's
 //   order of operations: p = exp(s - max) / sum, then the keep mask.  The
@@ -39,7 +44,9 @@
 // Shared memory at DH = 64: 71 KB at Lk <= 64 (every train shape), so
 // three blocks share an SM (at most 85 registers a thread), 222 KB from
 // Lk = 256 on; at DH = 32 less; at DH = 128 118 KB at Lk <= 64 and 200 KB
-// from Lk = 128 on, one block an SM.  Row strides DH + 4 for q and k (read
+// from Lk = 128 on, one block an SM; at DH = 192 and 256, 166 and 214 KB
+// with their one block of 64 keys, so every Lk past 64 takes the online
+// softmax.  Row strides DH + 4 for q and k (read
 // along rows by the fragments), DH + 8 for v (read along columns), 4 past
 // a multiple of 64 for the scores: no bank conflicts in the fragment
 // reads.
@@ -59,23 +66,32 @@ namespace {
 
 constexpr int TQ = 64;          // query rows per tile
 constexpr int KC = 64;          // keys per chunk of the products
-constexpr int THREADS = 256;     // 8 warps; four threads per query row
+constexpr int THREADS = 256;     // the softmax's: four threads per query row
 constexpr int KB = 256;          // keys per block of the score tile
 constexpr int KB_WIDE = 128;     // the same at DH = 128 (shared memory)
+constexpr int KB_WIDER = 64;     // the same at DH = 192 and 256
 static_assert(THREADS == 4 * TQ, "the softmax takes four threads a row");
 
 // The constants of head width DH: keys per block of the score tile, row
-// strides of q and k and of v in shared memory, the output's 16 x 32
-// pieces a warp holds, and the blocks an SM is to hold.
+// strides of q and k and of v in shared memory, the block's warps (8; 16
+// past 128 columns, where one block an SM would leave 8 warps a 64-row
+// tile twice as deep: there the second 8 take the second half of the
+// score products' depth and half the output's pieces), the output's
+// 16 x 32 pieces a warp holds, and the blocks an SM is to hold.
 template <int DH>
 struct Shape {
   static_assert(DH % 32 == 0, "whole 32-column pieces");
-  static constexpr int KB = DH > 64 ? KB_WIDE : attn_fwd::KB;
+  static constexpr int KB =
+      DH > 128 ? KB_WIDER : DH > 64 ? KB_WIDE : attn_fwd::KB;
   static constexpr int LDQ = DH + 4;
   static constexpr int LDV = DH + 8;
+  static constexpr int WARPS = DH > 128 ? 16 : 8;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int SPLIT = WARPS / 8;        // depth parts of q k^T
   static constexpr int PIECES = 4 * DH / 32;     // of the 64 x DH output
-  static constexpr int NP = (PIECES + 7) / 8;    // a warp's
+  static constexpr int NP = (PIECES + WARPS - 1) / WARPS;   // a warp's
   static constexpr int MIN_BLOCKS = DH > 64 ? 1 : 3;
+  static_assert(THREADS >= attn_fwd::THREADS, "the softmax's threads");
 };
 
 struct Strides {
@@ -103,7 +119,7 @@ struct Args {
 
 // keys of the staged block, padded to whole chunks: all of them up to KB
 template <int DH>
-__host__ __device__ inline int block_padded(int Lk) {
+__host__ __device__ constexpr int block_padded(int Lk) {
   constexpr int KB = Shape<DH>::KB;
   return (((Lk < KB ? Lk : KB) + KC - 1) / KC) * KC;
 }
@@ -111,7 +127,7 @@ __host__ __device__ inline int block_padded(int Lk) {
 // K, V, a query tile, the score tile, and per row the rescale factor and
 // the sum's inverse of the online softmax
 template <int DH>
-__host__ inline size_t smem_bytes(int Lk) {
+__host__ constexpr size_t smem_bytes(int Lk) {
   using S = Shape<DH>;
   const int bp = block_padded<DH>(Lk);
   return sizeof(float) * ((size_t)bp * (S::LDQ + S::LDV) +
@@ -127,7 +143,7 @@ __device__ __forceinline__ void load_rows(float* s, int ld, const float* base,
                                           int rows, int lim) {
   constexpr int V = 4;                   // floats per 16-byte copy
   const bool vec = sd == 1 && sl % V == 0 && ((uintptr_t)base & 15) == 0;
-  for (int c = threadIdx.x; c < rows * (DH / V); c += THREADS) {
+  for (int c = threadIdx.x; c < rows * (DH / V); c += Shape<DH>::THREADS) {
     const int r = c / (DH / V), k = (c % (DH / V)) * V;
     const bool ok = r0 + r < lim;
     const float* src =
@@ -144,10 +160,11 @@ __device__ __forceinline__ void load_rows(float* s, int ld, const float* base,
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS, Shape<DH>::MIN_BLOCKS)
+__global__ void __launch_bounds__(Shape<DH>::THREADS, Shape<DH>::MIN_BLOCKS)
     attn_fwd_kernel(const Args A) {
   using S = Shape<DH>;
   constexpr int KB = S::KB, LDQ = S::LDQ, LDV = S::LDV, NP = S::NP;
+  constexpr int WARPS = S::WARPS, DEPTH = DH / S::SPLIT;
   extern __shared__ __align__(16) unsigned char attn_smem[];
   const int b = blockIdx.x, h = blockIdx.y;
   const int Lq = A.Lq, Lk = A.Lk;
@@ -171,12 +188,14 @@ __global__ void __launch_bounds__(THREADS, Shape<DH>::MIN_BLOCKS)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  // the score chunk's piece (rows wm, keys wn), and the rows of every
-  // output piece of the warp; output piece i: columns wo(i), held by the
-  // warp when on(i)
-  const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
-  auto wo = [warp](int i) { return ((warp + 8 * i) / 4) * 32; };
-  auto on = [warp](int i) { return warp + 8 * i < S::PIECES; };
+  // the score chunk's piece (rows wm, keys wn) and the part of its depth
+  // (head columns d0 ..) the warp sums (with 8 warps the first, known at
+  // compile time), and the rows of every output piece of the warp; output
+  // piece i: columns wo(i), held by the warp when on(i)
+  const int part_d = S::SPLIT > 1 ? warp / 8 : 0, d0 = part_d * DEPTH;
+  const int wm = (warp % 4) * 16, wn = ((warp - 8 * part_d) / 4) * 32;
+  auto wo = [warp](int i) { return ((warp + WARPS * i) / 4) * 32; };
+  auto on = [warp](int i) { return warp + WARPS * i < S::PIECES; };
 
   if (nblk == 1) {
     load_rows<DH>(Ks, LDQ, kb, A.ks.l, A.ks.d, 0, bp, Lk);
@@ -185,7 +204,8 @@ __global__ void __launch_bounds__(THREADS, Shape<DH>::MIN_BLOCKS)
   for (int q0 = 0; q0 < Lq; q0 += TQ) {
     __syncthreads();      // the last tile's reads of Qs, Ks, Vs, Ps are done
     load_rows<DH>(Qs, LDQ, qb, A.qs.l, A.qs.d, q0, TQ, Lq);
-    // the softmax threads' row (four a row) and its running max and sum
+    // the softmax threads' row (four a row, tid < THREADS) and its running
+    // max and sum
     const int r = tid / 4, part = tid % 4, qi = q0 + r;
     float m_run = -INFINITY, l_run = 0.f;
     float acc[NP][4][4] = {};
@@ -200,22 +220,35 @@ __global__ void __launch_bounds__(THREADS, Shape<DH>::MIN_BLOCKS)
       tf32x3::cp_async_wait<0>();
       __syncthreads();
 
-      // raw scores q k^T, one 64-key chunk at a time
+      // raw scores q k^T, one 64-key chunk at a time; with two depth parts
+      // the second part's sums are added to the first's in place
       for (int c0 = 0; c0 < bp; c0 += KC) {
         float sa[4][4] = {};
         const float* kc = Ks + c0 * LDQ;
-        warp_mma_16x32<DH>(
-            sa, [Qs](int rr, int c) { return Qs[rr * LDQ + c]; },
-            [kc](int c, int n) { return kc[n * LDQ + c]; }, wm, wn);
+        const float* qd = Qs + d0;
+        warp_mma_16x32<DEPTH>(
+            sa, [qd](int rr, int c) { return qd[rr * LDQ + c]; },
+            [kc, d0](int c, int n) { return kc[n * LDQ + d0 + c]; }, wm,
+            wn);
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+        for (int p = 0; p < S::SPLIT; ++p) {
+          if (p > 0) __syncthreads();   // the first part's stores are done
+          if (part_d != p) continue;
 #pragma unroll
-          for (int e = 0; e < 4; e += 2) {
-            const int rr = wm + g + (e >= 2 ? 8 : 0);
-            const int c = c0 + wn + 8 * ni + 2 * t;
-            *reinterpret_cast<float2*>(Ps + rr * ldp + c) =
-                make_float2(sa[ni][e], sa[ni][e + 1]);
-          }
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; e += 2) {
+              const int rr = wm + g + (e >= 2 ? 8 : 0);
+              const int c = c0 + wn + 8 * ni + 2 * t;
+              float2* dst = reinterpret_cast<float2*>(Ps + rr * ldp + c);
+              float2 v = make_float2(sa[ni][e], sa[ni][e + 1]);
+              if (p > 0) {
+                v.x += dst->x;
+                v.y += dst->y;
+              }
+              *dst = v;
+            }
+        }
       }
       __syncthreads();
 
@@ -224,8 +257,8 @@ __global__ void __launch_bounds__(THREADS, Shape<DH>::MIN_BLOCKS)
       // past the block's keys and in rows past Lq, so the product below
       // adds nothing for them.  Every row of the tile at once, so the
       // latency of the loads, shuffles and exponentials of one row hides
-      // behind the others'.
-      {
+      // behind the others'.  (With 16 warps the first 8 take it.)
+      if (S::SPLIT == 1 || tid < THREADS) {
         const int nk = qi < Lq ? nb : 0;    // keys this row takes
         float* prow = Ps + r * ldp;
         const float* brow = bias_bh != nullptr
@@ -329,12 +362,14 @@ inline int launch(const Args& A, int B, int dh, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   return head_dims::dispatch(dh, [&](auto w) {
     constexpr int DH = decltype(w)::value;
+    static_assert(smem_bytes<DH>(Shape<DH>::KB) <= tf32x3::SMEM_OPT_IN,
+                  "a block's shared memory on an H100");
     // at the largest block's size, once per device
     const cudaError_t e = tf32x3::smem_limit<attn_fwd_kernel<DH>>(
         (int)smem_bytes<DH>(Shape<DH>::KB));
     if (e != cudaSuccess) return (int)e;
-    attn_fwd_kernel<DH>
-        <<<dim3(B, A.H), THREADS, smem_bytes<DH>(A.Lk), stream>>>(A);
+    attn_fwd_kernel<DH><<<dim3(B, A.H), Shape<DH>::THREADS,
+                          smem_bytes<DH>(A.Lk), stream>>>(A);
     return (int)cudaGetLastError();
   });
 }

@@ -8,10 +8,14 @@
 //   s = q k^T * scale + bias[b, h]                   (float32)
 //   out[b, :, h*dh:(h+1)*dh] = softmax(s) v          (dropout: keep mask)
 //
-// A template of the head width DH (head_dims.cuh: 32, 64, 128), whose
-// operands are NT = ceil(DH / 64) tiles of 64 head columns each
-// (attn_sm90.cuh): s sums the NT tiles' products, and o = e v is NT
-// 64 x 64 accumulators, one per tile of v.
+// A template of the head width DH (head_dims.cuh: 32, 64, 128, 192,
+// 256), whose operands are NT = ceil(DH / 64) tiles of 64 head columns
+// each (attn_sm90.cuh): s sums the NT tiles' products, and o = e v is NT
+// 64 x 64 accumulators, one per tile of v.  Past 128 columns (NT = 3, 4)
+// the accumulators take 96 or 128 registers a thread beside the score
+// tile and its A operand, so those instances ask for one block an SM
+// (MIN_BLOCKS) and its whole register file; their q buffers and k / v
+// ring (6 NT 8 KB: 144 or 192 KB) fit the 227 KB a block may have.
 //
 // What bounds it on an H100: bytes.  At the train shapes (Lq, Lk <= 64,
 // dh 64) a (b, h) reads q, k and v once (24 KB) and writes 8 KB for
@@ -58,6 +62,13 @@ using namespace attn_sm90;
 
 constexpr int KV_STAGES = 2;     // k and v tiles in flight
 constexpr int Q_BUFS = 2;        // q tiles: this unit's and the next one's
+
+// blocks an SM is to hold at head width DH: two up to 128 columns, one
+// past (the output accumulators' registers)
+template <int DH>
+__host__ __device__ constexpr int min_blocks() {
+  return DH > 128 ? 1 : 2;
+}
 
 // q, k and v of one unit or key tile at head width DH, and the kernel's
 // shared memory
@@ -142,7 +153,7 @@ __device__ __forceinline__ void softmax_tile(float s[32], float m[2],
 }
 
 template <class BiasT, bool SPLIT_P, int DH>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, min_blocks<DH>())
     attn_fwd_sm90_kernel(const __grid_constant__ Params<BiasT> P) {
   constexpr int NT = tiles_of(DH), OB = opnd_bytes<DH>();
   extern __shared__ unsigned char smem_raw[];
@@ -316,6 +327,8 @@ __host__ inline int launch(Params<BiasT>& P, int B, int dh,
   return head_dims::dispatch(dh, [&](auto w) {
     constexpr int DH = decltype(w)::value;
     constexpr int smem = (int)smem_bytes<DH>();
+    static_assert(smem <= tf32x3::SMEM_OPT_IN,
+                  "a block's shared memory on an H100");
     P.qtiles = (Lq + TILE - 1) / TILE;
     P.units = B * P.H * P.qtiles;
     P.tma = encode(&P.map[0], P.q, B, P.H, DH) &&

@@ -6,9 +6,9 @@
 //   columns (TW) of 64 bf16 = 128 bytes each, in shared memory in TMA's
 //   128-byte swizzle: row r at r * 128 bytes, its 16-byte pieces permuted
 //   by XOR with r mod 8 (gemm_bf16.cuh `sw_offset`, K-major form).  An
-//   operand of head width DH (head_dims.cuh: 32, 64 or 128) takes
-//   NT = ceil(DH / 64) tiles, tile j its columns [64 j, 64 j + 64): two at
-//   128; at 32 one tile whose columns past 32 are zeros (TMA's fill of a
+//   operand of head width DH (head_dims.cuh: 32, 64, 128, 192 or 256)
+//   takes NT = ceil(DH / 64) tiles, tile j its columns [64 j, 64 j + 64):
+//   two at 128, three and four at 192 and 256; at 32 one tile whose columns past 32 are zeros (TMA's fill of a
 //   box past the tensor's extent, or the direct route's), so the products
 //   over the head dimension add zeros and the columns past 32 of an
 //   output are never stored.  One tile is read by wgmma

@@ -1,4 +1,4 @@
-// Attention over heads wider than 128 columns, forward and backward, in
+// Attention over heads wider than 256 columns, forward and backward, in
 // float32 and in bf16: the third core under every attention entry (K1's
 // attention in fused_qkv_mha.cu, K2 (a)'s in fused_qkv_mha_bwd.cu, K3 in
 // mha.cu) for the head widths past head_dims.cuh's widest instance.  The
@@ -24,7 +24,9 @@
 // a lane) and not the whole head.  Everything sums in float32 on the CUDA
 // cores; nothing is staged in shared memory.  This is the simple kernel
 // that is right, not a fast one: a head of P pieces costs about P + 1
-// times the score products of one pass.
+// times the score products of one pass.  Since the instanced cores took
+// the widths 192 and 256 onto the tensor cores, it serves only heads past
+// 256 (320, 384, ...), which no configuration of the repo uses.
 //
 // bf16 (ROUND_P): q, k, v, dO and the bias are bf16 inputs taken exactly
 // into float32; the dropped probabilities are rounded to bf16 before p v

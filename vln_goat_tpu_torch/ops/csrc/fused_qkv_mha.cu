@@ -40,10 +40,10 @@
 //      of 256 with an online softmax past that, so any Lk), both products
 //      on 3xTF32 mma.sync fragments.
 // Head widths: the attention kernels of either build are templates of the
-// head width, one instance for each of head_dims.cuh's 32, 64 and 128,
-// chosen at launch from the `dh` argument; a wider head that is a multiple
-// of 64 runs on attn_wide.cuh (128-column pieces, float32 sums on the CUDA
-// cores); the projections only see H dh.  Any other width returns
+// head width, one instance for each of head_dims.cuh's 32, 64, 128, 192
+// and 256, chosen at launch from the `dh` argument; a head wider than 256
+// that is a multiple of 64 runs on attn_wide.cuh (128-column pieces,
+// float32 sums on the CUDA cores); the projections only see H dh.  Any other width returns
 // cudaErrorInvalidValue before a launch.
 //
 // bf16 (the JAX package's bf16 model, whose kernel takes bf16 operands and

@@ -52,11 +52,15 @@
 //      each row's running max, sum and rowsum(dp * p) online and leaves them
 //      in a small scratch [B, H, Lq, 3], and dq is added chunk after chunk
 //      by the one block that owns it; so it takes any Lk.  A template of
-//      the head width DH (head_dims.cuh: 32, 64, 128): the products over
-//      the head dimension run DH deep, and each 64 x DH result is
-//      4 DH / 32 pieces of 16 x 32 over the 8 warps.  Shared memory:
-//      105 KB at DH = 64, two blocks per SM (at DH = 128 166 KB, one).
-//      A head wider than 128 (a multiple of 64) runs, in either build, on
+//      the head width DH (head_dims.cuh: 32, 64, 128, 192, 256): the
+//      products over the head dimension run DH deep, and each 64 x DH
+//      result is 4 DH / 32 pieces of 16 x 32 over the 8 warps.  Shared
+//      memory: 105 KB at DH = 64, two blocks per SM (at DH = 128 166 KB,
+//      one).  At DH = 192 and 256 query tiles of 32 rows (164 and 212 KB,
+//      one block an SM): the s and dp pieces of a tile are then a warp
+//      each, dk and dv keep 96 and 128 registers a thread through the
+//      query tiles, and dq's 32 x DH pieces are two at most a warp.
+//      A head wider than 256 (a multiple of 64) runs, in either build, on
 //      attn_wide.cuh's backward instead: a pass over the rows (statistics
 //      in the [B, H, Lq, 3] scratch, ds, dq) and one over the keys (dk,
 //      dv), 128-column pieces, float32 sums on the CUDA cores.
@@ -117,22 +121,27 @@ using qkv_proj::launch_jobs;
 using qkv_proj::MAX_JOBS;
 
 constexpr int KC = 64;          // keys per chunk in (a)
-constexpr int TQ = 64;          // query rows per tile in (a)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int LDP = KC + 4;     // row stride of (a)'s float score tiles
 
 // (a)'s float32 build at head width DH: the row stride of the K, V, Q and
-// dO tiles, their shared memory with the two score tiles', the 16 x 32
-// pieces of a 64 x DH result a warp holds, and the blocks an SM is to hold
+// dO tiles, the query rows of a tile (64; 32 past 128 columns, where
+// 64-row Q and dO tiles would not fit beside K and V), their shared
+// memory with the two score tiles', the 16 x 32 pieces of a 64 x DH
+// result (dk, dv) and of a TQ x DH one (dq) a warp holds, and the blocks
+// an SM is to hold
 template <int DH>
 struct AttnShape {
   static_assert(DH % 32 == 0, "whole 32-column pieces");
   static constexpr int LDT = DH + 4;
+  static constexpr int TQ = DH > 128 ? 32 : 64;
   static constexpr size_t SMEM_BYTES =
-      (4 * (size_t)TQ * LDT + 2 * (size_t)TQ * LDP) * sizeof(float);
+      (2 * (size_t)(KC + TQ) * LDT + 2 * (size_t)TQ * LDP) * sizeof(float);
   static constexpr int PIECES = 4 * DH / 32;
   static constexpr int NP = (PIECES + WARPS - 1) / WARPS;
+  static constexpr int QPIECES = TQ / 16 * DH / 32;
+  static_assert(QPIECES <= PIECES, "dq's pieces within dk's");
   static constexpr int MIN_BLOCKS = DH > 64 ? 1 : 2;
 };
 
@@ -198,16 +207,16 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// s[r * (DH + 4) + c] = base[(r0 + r) * stride + c] for r < 64, c < DH;
-// rows at or past lim are zero.  Asynchronous: the caller commits and
-// waits.
-template <int DH>
+// s[r * (DH + 4) + c] = base[(r0 + r) * stride + c] for r < ROWS,
+// c < DH; rows at or past lim are zero.  Asynchronous: the caller commits
+// and waits.
+template <int DH, int ROWS>
 __device__ __forceinline__ void load_rows(float* s, const float* base,
                                           long long stride, int r0,
                                           int lim) {
   constexpr int LDT = AttnShape<DH>::LDT;
   const bool vec = ((uintptr_t)base & 15) == 0 && stride % 4 == 0;
-  for (int c = threadIdx.x; c < 64 * (DH / 4); c += THREADS) {
+  for (int c = threadIdx.x; c < ROWS * (DH / 4); c += THREADS) {
     const int r = c / (DH / 4), k = (c % (DH / 4)) * 4;
     const bool ok = r0 + r < lim;
     const float* src = ok ? base + (long long)(r0 + r) * stride + k : base;
@@ -245,7 +254,7 @@ template <int DH>
 __global__ void __launch_bounds__(THREADS, AttnShape<DH>::MIN_BLOCKS)
     attn_bwd_kernel(const AttnArgs A) {
   using S = AttnShape<DH>;
-  constexpr int L = S::LDT, NP = S::NP;
+  constexpr int L = S::LDT, NP = S::NP, TQ = S::TQ;
   extern __shared__ __align__(16) unsigned char attn_smem[];
   float* Ks = reinterpret_cast<float*>(attn_smem);   // [KC][L]  key chunk
   float* Vs = Ks + KC * L;                   // [KC][L]
@@ -271,10 +280,15 @@ __global__ void __launch_bounds__(THREADS, AttnShape<DH>::MIN_BLOCKS)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
   // a score tile's piece (rows wm, keys wn), and the rows of every piece
-  // of a 64 x DH result the warp holds: piece i, columns wo(i), when on(i)
+  // of a 64 x DH result the warp holds: piece i, columns wo(i), when on(i);
+  // of a TQ x DH result (dq): piece i at rows qm(i), columns qn(i), when
+  // qon(i) (at TQ = 64 the same pieces)
   const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
   auto wo = [warp](int i) { return ((warp + WARPS * i) / 4) * 32; };
   auto on = [warp](int i) { return warp + WARPS * i < S::PIECES; };
+  auto qm = [warp](int i) { return (warp + WARPS * i) % (TQ / 16) * 16; };
+  auto qn = [warp](int i) { return (warp + WARPS * i) / (TQ / 16) * 32; };
+  auto qon = [warp](int i) { return warp + WARPS * i < S::QPIECES; };
   const int nch = (Lk + KC - 1) / KC, ntile = (Lq + TQ - 1) / TQ;
 
   // accessors of a staged operand tile (stride L) or score tile (stride
@@ -291,20 +305,41 @@ __global__ void __launch_bounds__(THREADS, AttnShape<DH>::MIN_BLOCKS)
   auto score_cols = [](const float* s) {
     return [s](int r, int c) { return s[c * LDP + r]; };
   };
-  // Ps <- q k^T (raw), Ss <- dO v^T, for the staged tile and chunk
+  // Ps <- q k^T (raw), Ss <- dO v^T, for the staged tile and chunk: at
+  // TQ = 64 each warp a piece of both, at TQ = 32 (four pieces each) warps
+  // 0-3 one of s and warps 4-7 one of dp
   auto scores = [&]() {
-    float a1[4][4] = {}, a2[4][4] = {};
-    warp_mma_16x32<DH>(a1, rowmajor(Qs), transposed(Ks), wm, wn);
-    warp_mma_16x32<DH>(a2, rowmajor(Os), transposed(Vs), wm, wn);
+    if constexpr (TQ == KC) {
+      float a1[4][4] = {}, a2[4][4] = {};
+      warp_mma_16x32<DH>(a1, rowmajor(Qs), transposed(Ks), wm, wn);
+      warp_mma_16x32<DH>(a2, rowmajor(Os), transposed(Vs), wm, wn);
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+      for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = wm + g + (e >= 2 ? 8 : 0);
-        const int c = wn + 8 * ni + 2 * t + (e & 1);
-        Ps[r * LDP + c] = a1[ni][e];
-        Ss[r * LDP + c] = a2[ni][e];
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int r = wm + g + (e >= 2 ? 8 : 0);
+          const int c = wn + 8 * ni + 2 * t + (e & 1);
+          Ps[r * LDP + c] = a1[ni][e];
+          Ss[r * LDP + c] = a2[ni][e];
+        }
+    } else {
+      static_assert(2 * (TQ / 16) * (KC / 32) == WARPS, "a piece a warp");
+      const bool sside = warp < WARPS / 2;
+      const int pw = warp % (WARPS / 2);
+      const int pm = pw % (TQ / 16) * 16, pn = pw / (TQ / 16) * 32;
+      float a[4][4] = {};
+      warp_mma_16x32<DH>(a, rowmajor(sside ? Qs : Os),
+                         transposed(sside ? Ks : Vs), pm, pn);
+      float* dst = sside ? Ps : Ss;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = pm + g + (e >= 2 ? 8 : 0);
+          const int c = pn + 8 * ni + 2 * t + (e & 1);
+          dst[r * LDP + c] = a[ni][e];
+        }
+    }
   };
   // lane's two keys of row r at chunk c0: scaled score (-inf past Lk) and
   // dp (dropout applied), and the keep flags
@@ -345,11 +380,11 @@ __global__ void __launch_bounds__(THREADS, AttnShape<DH>::MIN_BLOCKS)
       for (int c = 0; c < nch; ++c) {
         __syncthreads();
         if (c == 0) {
-          load_rows<DH>(Qs, qb, HD, q0, Lq);
-          load_rows<DH>(Os, ob, HD, q0, Lq);
+          load_rows<DH, TQ>(Qs, qb, HD, q0, Lq);
+          load_rows<DH, TQ>(Os, ob, HD, q0, Lq);
         }
-        load_rows<DH>(Ks, kb, HD, c * KC, Lk);
-        load_rows<DH>(Vs, vb, HD, c * KC, Lk);
+        load_rows<DH, KC>(Ks, kb, HD, c * KC, Lk);
+        load_rows<DH, KC>(Vs, vb, HD, c * KC, Lk);
         tf32x3::cp_async_commit();
         tf32x3::cp_async_wait<0>();
         __syncthreads();
@@ -391,11 +426,11 @@ __global__ void __launch_bounds__(THREADS, AttnShape<DH>::MIN_BLOCKS)
       const int q0 = it * TQ;
       __syncthreads();
       if (it == 0) {
-        load_rows<DH>(Ks, kb, HD, c0, Lk);
-        load_rows<DH>(Vs, vb, HD, c0, Lk);
+        load_rows<DH, KC>(Ks, kb, HD, c0, Lk);
+        load_rows<DH, KC>(Vs, vb, HD, c0, Lk);
       }
-      load_rows<DH>(Qs, qb, HD, q0, Lq);
-      load_rows<DH>(Os, ob, HD, q0, Lq);
+      load_rows<DH, TQ>(Qs, qb, HD, q0, Lq);
+      load_rows<DH, TQ>(Os, ob, HD, q0, Lq);
       tf32x3::cp_async_commit();
       tf32x3::cp_async_wait<0>();
       __syncthreads();
@@ -440,26 +475,31 @@ __global__ void __launch_bounds__(THREADS, AttnShape<DH>::MIN_BLOCKS)
       __syncthreads();
 #pragma unroll
       for (int pi = 0; pi < NP; ++pi) {
-        if (!on(pi)) continue;
-        // dq (tile rows) = scale ds k, added over the key chunks in dq
-        float dqa[4][4] = {};
-        warp_mma_16x32(dqa, score_rows(Ss), rowmajor(Ks), wm, wo(pi));
+        if (qon(pi)) {
+          // dq (tile rows) = scale ds k, added over the key chunks in dq
+          float dqa[4][4] = {};
+          warp_mma_16x32(dqa, score_rows(Ss), rowmajor(Ks), qm(pi), qn(pi));
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+          for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qi = q0 + wm + g + (e >= 2 ? 8 : 0);
-            const int col = wo(pi) + 8 * ni + 2 * t + (e & 1);
-            if (qi < Lq) {
-              const long long i =
-                  ((long long)b * Lq + qi) * HD + col0 + col;
-              const float v = dqa[ni][e] * A.scale;
-              A.dq[i] = c == 0 ? v : A.dq[i] + v;
+            for (int e = 0; e < 4; ++e) {
+              const int qi = q0 + qm(pi) + g + (e >= 2 ? 8 : 0);
+              const int col = qn(pi) + 8 * ni + 2 * t + (e & 1);
+              if (qi < Lq) {
+                const long long i =
+                    ((long long)b * Lq + qi) * HD + col0 + col;
+                const float v = dqa[ni][e] * A.scale;
+                A.dq[i] = c == 0 ? v : A.dq[i] + v;
+              }
             }
-          }
-        // the tile's share of dv = pd^T dO and dk = ds^T q (keys x dh)
-        warp_mma_16x32(dva[pi], score_cols(Ps), rowmajor(Os), wm, wo(pi));
-        warp_mma_16x32(dka[pi], score_cols(Ss), rowmajor(Qs), wm, wo(pi));
+        }
+        if (!on(pi)) continue;
+        // the tile's share of dv = pd^T dO and dk = ds^T q (keys x dh),
+        // TQ deep
+        warp_mma_16x32<TQ>(dva[pi], score_cols(Ps), rowmajor(Os), wm,
+                           wo(pi));
+        warp_mma_16x32<TQ>(dka[pi], score_cols(Ss), rowmajor(Qs), wm,
+                           wo(pi));
       }
     }
 #pragma unroll
@@ -580,6 +620,8 @@ int bwd_core(const void* qkv, const void* bias, long long sb, long long sh,
     return head_dims::dispatch(dh, [&](auto w) {
       constexpr int DH = decltype(w)::value;
       constexpr int smem = (int)AttnShape<DH>::SMEM_BYTES;
+      static_assert(smem <= tf32x3::SMEM_OPT_IN,
+                    "a block's shared memory on an H100");
       const cudaError_t e = tf32x3::smem_limit<attn_bwd_kernel<DH>>(smem);
       if (e != cudaSuccess) return (int)e;
       attn_bwd_kernel<DH><<<dim3(B, H), THREADS, smem, st>>>(A);
@@ -787,8 +829,8 @@ extern "C" {
 // [D, H*dh]
 // through strides, biases [H*dh], additive bias through four strides (null:
 // none), seeds int32 [B] (null: no dropout), dO [B, Lq, H*dh]; scratch qkv
-// of B (Lq + 2 Lk) H*dh elements and, when Lk > 64 or dh > 128, stats of
-// B H Lq 3 floats (and for `_bf16` when Lk > 64 and dh <= 128 dq_acc of
+// of B (Lq + 2 Lk) H*dh elements and, when Lk > 64 or dh > 256, stats of
+// B H Lq 3 floats (and for `_bf16` when Lk > 64 and dh <= 256 dq_acc of
 // B Lq H*dh floats, else null); writes
 // dq [B, Lq, H*dh], dk, dv [B, Lk, H*dh] and, if ds is not null, ds
 // [B, H, Lq, Lk] (float32).  The `_bf16` entry takes every tensor but ds,

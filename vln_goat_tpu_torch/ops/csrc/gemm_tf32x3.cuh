@@ -48,6 +48,9 @@
 
 namespace tf32x3 {
 
+// The shared memory a block may opt into on an H100, bytes (227 KB)
+constexpr int SMEM_OPT_IN = 232448;
+
 // Raises Kernel's dynamic shared-memory limit to `bytes` on the current
 // device, once per device: the attribute holds per device, and setting it
 // at a device's first launch keeps the call out of the CUDA graphs

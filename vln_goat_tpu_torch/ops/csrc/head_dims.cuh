@@ -4,9 +4,10 @@
 // Every instanced attention kernel of the port (attn_fwd.cuh,
 // fused_qkv_mha_bwd.cu's attn_bwd_kernel, attn_fwd_sm90.cuh,
 // attn_bwd_sm90.cuh) is a template of its head width DH and is compiled for
-// each width of DIMS.  A head wider than the widest of DIMS whose width is
-// a multiple of WIDE_STEP runs on attn_wide.cuh, which takes the width at
-// run time as 128-column pieces (`wide`).  A call with any other width
+// each width of DIMS, on the tensor cores.  A head wider than the widest
+// of DIMS (256) whose width is a multiple of WIDE_STEP runs on
+// attn_wide.cuh, which takes the width at run time as 128-column pieces
+// on the CUDA cores (`wide`).  A call with any other width
 // launches nothing and returns cudaErrorInvalidValue.  The libraries'
 // `*_head_dims` entries report the set and the step, so the wrappers
 // (ops/attention.py) can name them when they refuse a width.
@@ -17,8 +18,8 @@
 namespace head_dims {
 namespace {
 
-constexpr int COUNT = 3;
-constexpr int DIMS[COUNT] = {32, 64, 128};
+constexpr int COUNT = 5;
+constexpr int DIMS[COUNT] = {32, 64, 128, 192, 256};
 // past DIMS[COUNT - 1], any multiple of this runs on attn_wide.cuh (64:
 // the bf16 projection backward's dy job sums H dh in 64-deep chunks)
 constexpr int WIDE_STEP = 64;
@@ -43,6 +44,10 @@ inline int dispatch(int dh, F&& f) {
       return f(Dh<64>{});
     case 128:
       return f(Dh<128>{});
+    case 192:
+      return f(Dh<192>{});
+    case 256:
+      return f(Dh<256>{});
   }
   return (int)cudaErrorInvalidValue;
 }

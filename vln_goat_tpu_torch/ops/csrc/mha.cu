@@ -37,9 +37,9 @@
 // wgmma), with p v in two bf16 terms of p so that p keeps float32's
 // precision; the bias is read in float32, the output rounded to bf16.
 //
-// Both builds take the head widths of head_dims.cuh (32, 64, 128), one
-// kernel instance each, chosen at launch from `dh`, and any wider multiple
-// of 64 on attn_wide.cuh (128-column pieces, float32 sums, p kept in
+// Both builds take the head widths of head_dims.cuh (32, 64, 128, 192,
+// 256), one kernel instance each, chosen at launch from `dh`, and any
+// wider multiple of 64 on attn_wide.cuh (128-column pieces, float32 sums, p kept in
 // float32 in bf16 too); any other width returns cudaErrorInvalidValue
 // without a launch.
 
@@ -66,7 +66,7 @@
 
 namespace {
 
-// q, k, v, out of T, the bias float32, on attn_wide.cuh (dh past 128)
+// q, k, v, out of T, the bias float32, on attn_wide.cuh (dh past 256)
 template <class T, bool ROUND_P>
 int mha_wide(MHA_BF16_ARGS) {
   attn_wide::Params<T, float> W{};
