@@ -566,7 +566,8 @@ def train(args, rt):
     from .parallel.mesh import make_mesh, replicate_tree, shard_batch
     from .train import checkpoint as ck
     from .train.trainer import fused_dagger_rank_batch, init_train_state
-    from .utils.logger import MetricsLogger, RunningMeter, write_to_record_file
+    from .utils.logger import (MetricsLogger, RunningMeter, read, records,
+                               summary, write_to_record_file)
 
     os.makedirs(args.output_dir, exist_ok=True)
     main_rank = _main_rank()
@@ -694,14 +695,18 @@ def train(args, rt):
                     metrics = aug_update(7_000_003 + base + k)
                     losses.append(metrics["loss"])
         for v in losses:
-            meter(float(v))
+            meter(read(v))
         step = it + consumed
         mlog.set_step(step)
         mlog.log_scalar_dict({"loss": meter.val,
-                              "grad_norm": float(metrics["grad_norm"]),
+                              "grad_norm": read(metrics["grad_norm"]),
                               "node_overflow":
-                                  float(metrics.get("node_overflow", 0))},
+                                  read(metrics["node_overflow"])
+                                  if "node_overflow" in metrics else 0.0},
                              prefix="train")
+        # the interval's host ms per update by span, and its reads
+        mlog.log_scalar_dict(summary(list(records())[-consumed:]),
+                             prefix="trace")
         write_to_record_file(
             f"iter {step}: loss {meter.val:.4f} "
             f"({(time.time() - t0) / max(step - start_iter, 1) * 1000:.0f} "

@@ -101,7 +101,8 @@ def fuse_logits(global_logits, local_logits, gmap_masks, gmap_visited_masks,
     dev = global_logits.device
     slot = torch.arange(G, device=dev)[None, :]
     lslot = torch.arange(L, device=dev)[None, :]
-    ninf = torch.tensor(NEG_INF, device=dev)
+    # a fill, not a copy from pageable memory (which waits for the card)
+    ninf = torch.full((), NEG_INF, device=dev)
 
     masked_global = torch.where(gmap_visited_masks, ninf, global_logits)
     masked_global = torch.where(gmap_masks, masked_global, ninf)

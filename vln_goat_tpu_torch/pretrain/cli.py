@@ -363,6 +363,7 @@ def batch_stream(args, builder, items, sampler, device, rows=None):
     thread -> (iterator, close); with `rows` (a mesh), the rank's rows of
     each batch (`shard_batch`)."""
     from ..parallel.mesh import shard_batch
+    from ..utils.logger import span
 
     if args.num_workers > 0:
         pool, close = batch_pool(args, builder, items)
@@ -371,7 +372,9 @@ def batch_stream(args, builder, items, sampler, device, rows=None):
 
         def stream():
             for (_, t, s), nb in pool.imap(descs):
-                yield s, t, batch_to_device(shard_batch(nb, rows), device)
+                with span("feed.copy"):
+                    b = batch_to_device(shard_batch(nb, rows), device)
+                yield s, t, b
 
         return stream(), close
 
@@ -382,9 +385,12 @@ def batch_stream(args, builder, items, sampler, device, rows=None):
     def produce():
         s = next(step_iter)          # StopIteration ends the stream
         t = sampler.task_at(s)
-        return s, t, batch_to_device(shard_batch(make_batch_np(
-            builder, items["train"], args.train_batch_size, args.seed,
-            "train", t, s), rows), device)
+        with span("feed.build"):
+            nb = shard_batch(make_batch_np(
+                builder, items["train"], args.train_batch_size, args.seed,
+                "train", t, s), rows)
+        with span("feed.copy"):
+            return s, t, batch_to_device(nb, device)
 
     it = PrefetchIterator(produce, depth=2)
     return it, it.close
@@ -395,8 +401,8 @@ def train(args):
     from ..parallel.distributed import process_count, process_index
     from ..parallel.mesh import make_mesh, replicate_tree, shard_batch
     from ..train.checkpoint import init_pretrain_from, save_params
-    from ..utils.logger import (MetricsLogger, RunningMeter,
-                                write_to_record_file)
+    from ..utils.logger import (MetricsLogger, RunningMeter, read, records,
+                                summary, write_to_record_file)
     from .train import (MetaTaskSampler, PretrainState, make_eval_steps,
                         make_pretrain_optimizer, make_pretrain_steps,
                         step_generator)
@@ -465,7 +471,7 @@ def train(args):
         for step, task, batch in batch_iter:
             m = steps[task](state, batch, step_generator(args.seed, step,
                                                          dev))
-            meters[task](float(m["loss"]))
+            meters[task](read(m["loss"]))
             if (step + 1) % args.log_steps == 0:
                 msg = f"step {step+1}: " + " ".join(
                     f"{t}={meters[t].val:.4f}" for t in args.tasks)
@@ -474,6 +480,10 @@ def train(args):
                 mlog.set_step(step + 1)
                 mlog.log_scalar_dict({t: meters[t].val for t in args.tasks},
                                      prefix="train")
+                # the interval's host ms per update by span, and its reads
+                mlog.log_scalar_dict(
+                    summary(list(records())[-args.log_steps:]),
+                    prefix="trace")
             if (step + 1) % args.valid_steps == 0:
                 facc = None
                 for split in ("val_seen", "val_unseen"):

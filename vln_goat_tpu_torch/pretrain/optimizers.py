@@ -29,6 +29,9 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.logger import read
+
+
 @dataclass
 class Transform:
     init: Callable
@@ -150,7 +153,7 @@ def clip_by_global_norm(max_norm: float) -> Transform:
     def update(updates, state, params=None):
         norm = torch.sqrt(sum((u.float() * u.float()).sum()
                               for u in updates))
-        if bool(norm < max_norm):
+        if read(norm < max_norm):
             return updates, state
         return [(u / norm.to(u.dtype)) * max_norm for u in updates], state
 

@@ -38,6 +38,7 @@ from ..config import PretrainConfig
 from ..ops.dropout import set_generator
 from ..parallel.distributed import (all_reduce_grads, process_index,
                                     reduce_metrics)
+from ..utils.logger import span
 from .optimizers import Transform, build_optimizer, chain, clip_by_global_norm
 
 
@@ -187,22 +188,27 @@ def make_pretrain_steps(model: nn.Module, tasks: Sequence[str],
 
     def make(task):
         def step_fn(state: PretrainState, batch, generator, keep=False):
-            model.train()
-            set_generator(model, generator)
-            model.zero_grad(set_to_none=True)
-            loss, metrics = model(batch, task)
-            loss.backward()
-            if mesh is not None:
-                all_reduce_grads(params)
-            kept = {n: p.grad.clone() for n, p in model.named_parameters()
-                    if p.grad is not None} if keep else None
-            state.apply(state.grads())
-            model.zero_grad(set_to_none=True)
-            out = {k: v.detach() for k, v in metrics.items()}
-            out["loss"] = loss.detach()
-            if mesh is not None:
-                out = reduce_metrics(out)
-            return (out, kept) if keep else out
+            with span("update"):
+                model.train()
+                set_generator(model, generator)
+                model.zero_grad(set_to_none=True)
+                with span("forward"):
+                    loss, metrics = model(batch, task)
+                with span("backward"):
+                    loss.backward()
+                if mesh is not None:
+                    all_reduce_grads(params)
+                kept = {n: p.grad.clone()
+                        for n, p in model.named_parameters()
+                        if p.grad is not None} if keep else None
+                with span("optimizer"):
+                    state.apply(state.grads())
+                model.zero_grad(set_to_none=True)
+                out = {k: v.detach() for k, v in metrics.items()}
+                out["loss"] = loss.detach()
+                if mesh is not None:
+                    out = reduce_metrics(out)
+                return (out, kept) if keep else out
 
         return step_fn
 

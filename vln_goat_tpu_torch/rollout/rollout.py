@@ -96,6 +96,7 @@ from ..models.goat import GoatModel
 from ..ops.dropout import checkpoint
 from ..ops.remat import (STEP_POLICIES, call_policy, check as check_remat,
                          ffn_region, vec_call_policy)
+from ..utils.logger import read, span
 from .world import INF_DIST, NavWorld
 
 IGNORE_ID = -100           # target of a step without supervision
@@ -275,6 +276,10 @@ class NavRollout:
         self.mcfg = model.config
         self.device = world.pos.device
         self._ang_tab = pano_angle_table(rcfg.angle_feat_size, self.device)
+        # None-token features: angle fts of (0,0), zero dists; made once,
+        # as a copy to the card from pageable memory waits for the card
+        self._null_ft = torch.tensor([0., 1., 0., 1., 0., 0., 0.],
+                                     device=self.device)
 
     # ------------------------------------------------------------------
     def init_state(self, batch, need_dtw: bool = False
@@ -427,7 +432,7 @@ class NavRollout:
         spilled = torch.zeros(B, dtype=torch.int64, device=dev)
         emb_clear = None
         need = isnew & overflow
-        if bool(need.any()):
+        if read(need.any()):
             cidx, need, spilled, edist, ehops, enext, emb_clear = \
                 self._spill(st, arr, exists, idx_exist, need, cidx)
 
@@ -498,9 +503,10 @@ class NavRollout:
         text banks ride the batch when the config uses them
         (`tools.zdict.causal_batch`)."""
         tkw = {dst: batch[src] for src, dst in _TEXT_BANKS if src in batch}
-        embeds = self.model.forward_text(batch["txt_ids"], batch["txt_masks"],
-                                         **tkw)
-        return dict(embeds=embeds, kv=self.model.forward_text_kv(embeds))
+        with span("text"):
+            embeds = self.model.forward_text(batch["txt_ids"],
+                                             batch["txt_masks"], **tkw)
+            return dict(embeds=embeds, kv=self.model.forward_text_kv(embeds))
 
     # ------------------------------------------------------------------
     def _pano_inputs(self, st, batch, cur_vp=None, view_ix=None,
@@ -599,9 +605,7 @@ class NavRollout:
         node_pos_fts = G.pos_features_t(
             cpos[:, None, :], npos, cam_h[:, None], cam_e[:, None],
             ed_row[:, :N], eh_row[:, :N], A)
-        # None-token features: angle fts of (0,0), zero dists
-        null_ft = torch.tensor([0., 1., 0., 1., 0., 0., 0.],
-                               device=dev).expand(B, 2, 7)
+        null_ft = self._null_ft.expand(B, 2, 7)
         gmap_pos_fts = torch.cat([null_ft, node_pos_fts], dim=1)
 
         zl = torch.zeros(B, 2, dtype=torch.int64, device=dev)
@@ -1000,18 +1004,19 @@ class NavRollout:
         t = 0
         st = self.init_state(batch, need_dtw=feedback not in ("argmax",
                                                               "teacher"))
-        while t < T and not bool(st["ended"].all()):
-            if remat == "ffn" and feedback != "argmax":
-                with ffn_region():
+        while t < T and not read(st["ended"].all()):
+            with span("step"):
+                if remat == "ffn" and feedback != "argmax":
+                    with ffn_region():
+                        st, rec = self._step(st, batch, txt, t, feedback, T,
+                                             noise_key, "none", **sampling)
+                elif remat in STEP_POLICIES and feedback != "argmax":
+                    st, rec = checkpoint(self.model, self._step, st, batch,
+                                         txt, t, feedback, T, noise_key,
+                                         "none", policy=remat, **sampling)
+                else:
                     st, rec = self._step(st, batch, txt, t, feedback, T,
-                                         noise_key, "none", **sampling)
-            elif remat in STEP_POLICIES and feedback != "argmax":
-                st, rec = checkpoint(self.model, self._step, st, batch, txt,
-                                     t, feedback, T, noise_key, "none",
-                                     policy=remat, **sampling)
-            else:
-                st, rec = self._step(st, batch, txt, t, feedback, T,
-                                     noise_key, remat, **sampling)
+                                         noise_key, remat, **sampling)
             losses.append(rec.pop("loss"))
             for k, v in rec.items():
                 recs[k][t] = v
@@ -1051,8 +1056,8 @@ class NavRollout:
     @staticmethod
     def _noise_key(generator: torch.Generator) -> int:
         """The rollout's key of its action draws, from `generator`."""
-        return int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                                 device=generator.device))
+        return read(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                  device=generator.device))
 
     def train_rollout(self, batch, feedback: str,
                       generator: torch.Generator,
@@ -1183,7 +1188,7 @@ class NavRollout:
             st.pop(k)
         recs = []
         with torch.no_grad():
-            while len(recs) < T and not bool(st["ended"].all()):
+            while len(recs) < T and not read(st["ended"].all()):
                 st, rec = self._geo_step(st, batch, len(recs), T)
                 recs.append(rec)
         n = len(recs)

@@ -59,6 +59,7 @@ from ..ops.remat import check as check_remat
 from ..rollout.rollout import NavRollout, SAMPLE_FEEDBACKS
 from ..tools.zdict import SHARED_BANKS
 from ..utils.guard import FiniteGuard
+from ..utils.logger import read, span
 
 TRAIN_ALGS = ("imitation", "dagger", "dagger_fused")
 
@@ -244,7 +245,7 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
                         norm: torch.Tensor) -> None:
     """optax.clip_by_global_norm in place: g * (max / |g|) when |g| > max
     (torch's clip_grad_norm_ adds 1e-6 to the norm; optax does not)."""
-    if float(norm) > max_norm:
+    if read(norm) > max_norm:
         for g in grads:
             g.copy_((g / norm) * max_norm)
 
@@ -371,12 +372,14 @@ def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
                     expl_max_ratio=expl_max_ratio)
 
     def teacher(batch, generator, txt=None):
-        if vectorized_teacher:
-            return rollout.teacher_rollout_vec(
-                batch, generator, txt=txt, horizon=teacher_h(batch),
-                remat=remat)
-        return rollout.train_rollout(batch, "teacher", generator, txt=txt,
-                                     horizon=teacher_h(batch), remat=remat)
+        with span("teacher"):
+            if vectorized_teacher:
+                return rollout.teacher_rollout_vec(
+                    batch, generator, txt=txt, horizon=teacher_h(batch),
+                    remat=remat)
+            return rollout.train_rollout(batch, "teacher", generator,
+                                         txt=txt, horizon=teacher_h(batch),
+                                         remat=remat)
 
     def teacher_h(batch) -> int:
         h = teacher_horizon
@@ -394,8 +397,10 @@ def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
             metrics["node_overflow"] = out["overflow_n"].sum()
             outs["teacher"] = out
         elif train_alg == "dagger_fused":
-            out = rollout.train_rollout(batch, "fused_dagger", generator,
-                                        remat=remat, **sampling)
+            with span("sample"):
+                out = rollout.train_rollout(batch, "fused_dagger",
+                                            generator, remat=remat,
+                                            **sampling)
             is_t = batch["is_teacher"]
             n_t = is_t.sum().clamp(min=1)
             n_s = (~is_t).sum().clamp(min=1)
@@ -415,8 +420,10 @@ def make_loss_fn(rollout: NavRollout, train_alg: str = "dagger",
                 loss = loss + ml_weight * out_t["ml_loss"]
                 metrics["il_loss"] = out_t["ml_loss"]
                 outs["teacher"] = out_t
-            out_s = rollout.train_rollout(batch, sample_feedback, generator,
-                                          txt=txt, remat=remat, **sampling)
+            with span("sample"):
+                out_s = rollout.train_rollout(batch, sample_feedback,
+                                              generator, txt=txt,
+                                              remat=remat, **sampling)
             loss = loss + out_s["ml_loss"]
             metrics["sample_loss"] = out_s["ml_loss"]
             metrics["node_overflow"] = out_s["overflow_n"].sum()
@@ -454,25 +461,29 @@ def make_train_step(rollout: NavRollout, train_alg: str = "dagger",
 
     def train_step(state: TrainState, batch, generator: torch.Generator,
                    keep: bool = False):
-        model = state.model
-        model.train()
-        set_generator(model, generator)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics, outs = loss_fn(batch, generator)
-        loss.backward()
-        if state.mesh is not None:
-            all_reduce_grads(state.optimizer.params())
-        grads = {n: p.grad.clone() for n, p in model.named_parameters()
-                 if p.grad is not None} if keep else None
-        norm = apply_update(state)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
-        for name, out in outs.items():
-            metrics[f"{name}_steps"] = out["steps"]
-        if state.mesh is not None:
-            metrics = reduce_metrics(metrics, SUMMED_METRICS, MAX_METRICS)
-        metrics["grad_norm"] = norm.detach()
-        return (metrics, grads, outs) if keep else metrics
+        with span("update"):
+            model = state.model
+            model.train()
+            set_generator(model, generator)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, metrics, outs = loss_fn(batch, generator)
+            with span("backward"):
+                loss.backward()
+            if state.mesh is not None:
+                all_reduce_grads(state.optimizer.params())
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                     if p.grad is not None} if keep else None
+            with span("optimizer"):
+                norm = apply_update(state)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["loss"] = loss.detach()
+            for name, out in outs.items():
+                metrics[f"{name}_steps"] = out["steps"]
+            if state.mesh is not None:
+                metrics = reduce_metrics(metrics, SUMMED_METRICS,
+                                         MAX_METRICS)
+            metrics["grad_norm"] = norm.detach()
+            return (metrics, grads, outs) if keep else metrics
 
     return train_step
 

@@ -13,6 +13,8 @@ from typing import List
 
 import torch
 
+from .logger import read
+
 
 class FiniteGuard:
     """optax.apply_if_finite's state: `notfinite_count` (consecutive
@@ -30,7 +32,7 @@ class FiniteGuard:
         consecutive updates non-finite."""
         finite = True
         if grads:
-            finite = bool(torch.stack(
+            finite = read(torch.stack(
                 [torch.isfinite(g).all() for g in grads]).all())
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         self.last_finite = finite

@@ -1,21 +1,45 @@
 """Logging / observability.
 
-Reference: map_nav_src/utils/logger.py (write_to_record_file :8, Timer
-:28-57) and pretrain_src/utils/logger.py (RunningMeter EMA :70-95,
-TB_LOGGER tensorboardX wrapper :27-65).  tensorboardX isn't in this image;
+Reference: map_nav_src/utils/logger.py (write_to_record_file :8) and
+pretrain_src/utils/logger.py (RunningMeter EMA :70-95, TB_LOGGER
+tensorboardX wrapper :27-65).  tensorboardX isn't in this image;
 MetricsLogger writes JSON-lines instead (same scalars, greppable, and
-convertible to TB offline).  `torch.profiler` hooks replace line_profiler
-(counterpart of vln_goat_tpu/utils/logger.py, whose hooks are
-`jax.profiler`'s).
+convertible to TB offline).
+
+Spans and reads inside the port (`Tracer`; the module's `span`, `read`,
+`records` and `summary` act on the process's tracer, `TRACER`):
+
+- `span(name)` times host code with `time.perf_counter_ns` under its path:
+  the names of the spans open on its thread joined by "/", e.g.
+  `update/sample/step`.  While a `torch.profiler` records, it also opens
+  `torch.profiler.record_function("goat.<name>")`, which puts the span on
+  the profiler's clock beside the kernels it launched; otherwise it makes
+  no `RecordFunction`.
+- `read(tensor)` is the one way the port turns a device tensor into a
+  Python bool, int or float inside an update: a span named `read`, so that
+  every read is timed and counted where it happens.  Under
+  `torch.cuda.set_sync_debug_mode` it lifts the mode around its own copy,
+  so that any other synchronisation of an update shows.
+- The span `update`, opened with no span open on its thread (the train
+  steps open it), collects one record, {path: [host ns, calls]}: every span
+  that closes while it is open, on any thread (the pretrain feed's
+  prefetch thread, autograd's), and every span that closed since the
+  previous record (a CLI's loss fetch).  `records()` is a deque of the
+  last `RECORDS` records.  A span's self time is its ns less those of the
+  paths one level below it.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
-import sys
-import time
-from typing import Dict, Optional
+import threading
+from collections import deque
+from time import perf_counter_ns
+from typing import Deque, Dict, Iterable, List, Optional
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 def write_to_record_file(data: str, file_path: Optional[str],
@@ -25,31 +49,6 @@ def write_to_record_file(data: str, file_path: Optional[str],
     if file_path:
         with open(file_path, "a") as f:
             f.write(data + "\n")
-
-
-class Timer:
-    def __init__(self):
-        self.cul = 0.0
-        self.start_t = 0.0
-        self.iter = 0
-
-    def reset(self):
-        self.cul = 0.0
-        self.iter = 0
-
-    def tic(self):
-        self.start_t = time.time()
-
-    def toc(self):
-        delta = time.time() - self.start_t
-        self.cul += delta
-        self.iter += 1
-        return delta
-
-    def show(self, total: Optional[float] = None) -> str:
-        if total:
-            return f"{self.cul:.2f}s ({self.cul / total * 100:.1f}%)"
-        return f"{self.cul:.2f}s / {self.iter} iters"
 
 
 class RunningMeter:
@@ -112,27 +111,134 @@ class MetricsLogger:
             self.tb.flush()
 
 
-_profiler = None
+RECORDS = 4096
+# spans kept unfolded while no update closes (a decode-only process)
+_FOLD_AT = 1 << 16
 
 
-def start_profiler_trace(log_dir: str):
-    """A torch.profiler trace of the host and the card (replaces the
-    commented line_profiler hook on rollout, r2r/agent.py:9,447), written
-    to `log_dir` as a TensorBoard trace when stopped."""
-    import torch
-
-    global _profiler
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    _profiler = torch.profiler.profile(
-        activities=acts,
-        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir))
-    _profiler.start()
+class _Stack(threading.local):
+    def __init__(self):
+        self.paths: List[str] = []     # of the spans open on the thread
 
 
-def stop_profiler_trace():
-    global _profiler
-    if _profiler is not None:
-        _profiler.stop()
-        _profiler = None
+class _Span:
+    __slots__ = ("tracer", "name", "stack", "path", "t0", "rf")
+
+    def __init__(self, tracer: "Tracer", name: str):
+        self.tracer, self.name = tracer, name
+
+    def __enter__(self):
+        self.stack = stack = self.tracer._stack.paths
+        self.path = path = \
+            f"{stack[-1]}/{self.name}" if stack else self.name
+        stack.append(path)
+        # whether a torch.profiler records: one attribute read
+        if _autograd_profiler._is_profiler_enabled:
+            self.rf = _autograd_profiler.record_function(
+                "goat." + self.name)
+            self.rf.__enter__()
+        else:
+            self.rf = None
+        self.t0 = perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        ns = perf_counter_ns() - self.t0
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        self.stack.pop()
+        tracer = self.tracer
+        tracer._closed.append((self.path, ns))
+        if not self.stack:
+            if self.path == "update":
+                tracer._records.append(tracer._take())
+            elif len(tracer._closed) > _FOLD_AT:
+                tracer._fold()
+        return False
+
+
+class Tracer:
+    """Spans, reads and the records of updates (the module docstring).
+
+    A closing span appends (path, ns) to one list (an atomic append: any
+    thread, no lock); the update that closes next sums what the list holds
+    into its record.  A span that another thread closes after that goes
+    into the next record."""
+
+    def __init__(self, maxlen: int = RECORDS):
+        self._records: Deque[Dict[str, List[int]]] = deque(maxlen=maxlen)
+        self._stack = _Stack()
+        self._closed: List[tuple] = []
+        self._folded: Dict[str, List[int]] = {}
+        self._lock = threading.Lock()
+
+    def span(self, name: str) -> _Span:
+        return _Span(self, name)
+
+    def read(self, t: torch.Tensor):
+        """t.item() inside a span `read`."""
+        with _Span(self, "read"):
+            mode = torch.cuda.get_sync_debug_mode() if t.is_cuda else 0
+            if not mode:
+                return t.item()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return t.item()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+    def records(self) -> Deque[Dict[str, List[int]]]:
+        return self._records
+
+    def _take(self) -> Dict[str, List[int]]:
+        """{path: [ns, calls]} of the spans closed since the last take."""
+        with self._lock:
+            closed = self._closed
+            n = len(closed)
+            chunk = closed[:n]
+            del closed[:n]     # what another thread appends meanwhile stays
+            rec, self._folded = self._folded, {}
+        for path, ns in chunk:
+            e = rec.get(path)
+            if e is None:
+                rec[path] = [ns, 1]
+            else:
+                e[0] += ns
+                e[1] += 1
+        return rec
+
+    def _fold(self) -> None:
+        """Sums the closed spans into the next record's start, so that a
+        process that runs no update keeps a bounded list."""
+        rec = self._take()
+        with self._lock:
+            for path, (ns, n) in self._folded.items():
+                e = rec.setdefault(path, [0, 0])
+                e[0] += ns
+                e[1] += n
+            self._folded = rec
+
+
+def is_read(path: str) -> bool:
+    return path == "read" or path.endswith("/read")
+
+
+def summary(recs: Iterable[Dict[str, List[int]]]) -> Dict[str, float]:
+    """Per update, over `recs`: the host ms of each span path but the
+    reads (`<path>_ms`, inclusive), and the reads' count (`reads`) and ms
+    (`read_ms`)."""
+    recs = list(recs)
+    out: Dict[str, float] = {"reads": 0.0, "read_ms": 0.0}
+    for rec in recs:
+        for path, (ns, n) in rec.items():
+            if is_read(path):
+                out["reads"] += n
+                out["read_ms"] += ns / 1e6
+            else:
+                key = f"{path}_ms"
+                out[key] = out.get(key, 0.0) + ns / 1e6
+    return {k: v / max(len(recs), 1) for k, v in out.items()}
+
+
+TRACER = Tracer()
+span, read, records = TRACER.span, TRACER.read, TRACER.records
