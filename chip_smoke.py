@@ -235,7 +235,15 @@ bf16 (the JAX package's bench trains its model in bf16 with remat
      loss within 1e-6 relative, the gradients within 5 (a)'s gate, the
      parameters by `params_rule`, the two ranks' parameters equal, K1 / K2
      launched on each rank; ms per update (gloo stages every collective
-     through the host: no yardstick).
+     through the host: no yardstick);
+  5 (x): the fused AdamW (`ops/csrc/adamw.cu`) at the benchmark's two
+     leaf sets (the goat-r2r fine-tune and pretraining models): its two
+     launches' device ms against the bytes bound, the call's host us and
+     synchronised ms, the plain loop's ms, and torch's fused AdamW after
+     a foreach clip as the library's yardstick; the kernels held against
+     the plain version there, clip engaged and not (bit-equal, the norm
+     within 1.5e-7 of float64); 5 (g), (q) and (t) check that each of
+     their updates launched them.
 The train steps run the vectorized teacher unless a phase says otherwise.
 Every bf16 decode and train path's launches of the bf16 GEMM core and of
 the bf16 attention cores must all have taken their TMA routes
@@ -257,6 +265,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import json
 import math
@@ -279,7 +288,7 @@ from vln_goat_tpu_torch.ops.dropout import set_generator
 from vln_goat_tpu_torch.train.trainer import (fuse_dagger_batches,
                                               init_train_state, make_loss_fn)
 from vln_goat_tpu_torch.models.layers import AttentionCore
-from vln_goat_tpu_torch.ops import _build
+from vln_goat_tpu_torch.ops import _build, optim
 from vln_goat_tpu_torch.ops.attention import (_bwd_call, _bwd_lib,
                                               _fwd_call, _mha_lib,
                                               ATTN_KEY_CHUNK, HEAD_DIMS,
@@ -1771,6 +1780,26 @@ def reset_counts():
     attn_core_routes.update(tma=0, direct=0)
     for k in wide_core_launches:
         wide_core_launches[k] = 0
+    optim.launches.update(norm=0, update=0)
+
+
+# the fused AdamW's launches on the main train paths, by path: 5 (g)'s
+# timed steps ("train", "causal_train"), 5 (q)'s updates
+# ("pretrain_<task>") and 5 (t)'s speaker steps ("speaker_train"); the
+# kernel line's `adamw_*` rows
+ADAMW_LAUNCHES = {}
+
+
+def adamw_check(path, got, updates, clipped=True):
+    """Records `got`, the fused AdamW's launches (`optim.launches`) since
+    the last `reset_counts`, under `path`; raises AssertionError unless
+    each of `updates` updates made one norm launch (none without a clip)
+    and one update launch."""
+    ADAMW_LAUNCHES[path] = dict(got)
+    want = dict(norm=updates if clipped else 0, update=updates)
+    if got != want:
+        raise AssertionError(f"fused AdamW launches {got} over {updates} "
+                             f"updates, expected {want}")
 
 
 def routes_now():
@@ -2477,6 +2506,8 @@ def bench_config(card, causal, none_peak):
             raise AssertionError(f"launched {got}, expected "
                                  f"{(n + rec, n, n, 0)}")
         check_routes(extra["routes"], sum(got[:3]), got[0] + got[1])
+        adamw_check("causal_train" if causal else "train", extra["adamw"],
+                    len(metrics))
         for m in metrics:
             if not (math.isfinite(float(m["loss"]))
                     and math.isfinite(float(m["grad_norm"]))):
@@ -2498,7 +2529,7 @@ def bench_config(card, causal, none_peak):
         f"{[round(float(m['grad_norm']), 3) for m in metrics]}, "
         f"{moved}/{len(before)} parameters moved, launches {got} "
         f"({mix_text(mix)}; {rec} recomputed; bf16 core launches by route "
-        f"{extra['routes']}), peak memory "
+        f"{extra['routes']}; fused AdamW {extra['adamw']}), peak memory "
         f"{warm_peak:.2f} GiB in the warm-up, {peak:.2f} GiB in the timed "
         f"steps ({left:.2f} GiB left by earlier phases, freed first); "
         f"{B_TRAIN * 3 / dt:.2f} episodes/s ({dt / 3 * 1e3:.1f} ms per "
@@ -2680,7 +2711,7 @@ def bench_steps(fused: bool, causal: bool = False, n: int = 3,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     got = counts()
-    extra = dict(routes=routes_now())
+    extra = dict(routes=routes_now(), adamw=dict(optim.launches))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if trace:
         extra["trace"] = trace_step(state, batcher, g)
@@ -4138,9 +4169,11 @@ def pretrain_timing(card):
                         ms=dt / PT_TIMED * 1e3, loss=loss,
                         peak=torch.cuda.max_memory_allocated() / 2 ** 30,
                         counts=counts(), plan=n, steps=len(descs),
-                        first_batch_s=t_first, trace=trace)
+                        first_batch_s=t_first, trace=trace,
+                        adamw=dict(optim.launches))
                     if not math.isfinite(loss):
                         raise AssertionError(f"{task}: loss {loss}")
+                    adamw_check(f"pretrain_{task}", r["adamw"], len(descs))
                     if r["counts"] != (n, n, n, 0):
                         raise AssertionError(f"{task}: launched "
                                              f"{r['counts']}, the plan {n}")
@@ -4158,7 +4191,8 @@ def pretrain_timing(card):
         "task: "
         + "; ".join(f"{t} {r['ex_s']:.1f} examples/s ({r['ms']:.1f} ms an "
                     f"update, peak {r['peak']:.2f} GiB, launches "
-                    f"{r['counts'][:3]} over {r['steps']} updates, first "
+                    f"{r['counts'][:3]} over {r['steps']} updates, fused "
+                    f"AdamW {r['adamw']}, first "
                     f"batch after {r['first_batch_s']:.1f} s)"
                     for t, r in nums.items())
         + "; rig builds " + ", ".join(f"{k} {v:.1f} s"
@@ -4567,12 +4601,16 @@ def speaker_phase(card):
         step(batches[0], gen)                       # warm-up (one step)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reset_counts()
         losses = []
         t0 = time.perf_counter()
         for b in batches:
             losses.append(step(b, gen))
         torch.cuda.synchronize()
         nums["step_ms"] = (time.perf_counter() - t0) / SPK_STEPS * 1e3
+        # optax.adam: no clip, so the update's launch alone
+        adamw_check("speaker_train", optim.launches, SPK_STEPS,
+                    clipped=False)
         nums["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         nums["losses"] = [float(v) for v in losses]
         if not all(math.isfinite(v) for v in nums["losses"]) or \
@@ -5167,6 +5205,241 @@ def multiprocess_phase(card):
             [n_failed, i_failed, ii_failed])
 
 
+def goat_r2r_models(dev):
+    """(fine-tune model, pretraining model) of the benchmark's goat-r2r
+    configuration (`perfbench/configs/goat-r2r.json`), weights N(0, 0.05)."""
+    from vln_goat_tpu_torch.config import GoatConfig
+    from vln_goat_tpu_torch.models.goat import GoatModel
+    from vln_goat_tpu_torch.pretrain.model import GoatPretrainModel
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "perfbench", "configs", "goat-r2r.json")) as f:
+        cfg = json.load(f)
+    pt = cfg["pretrain"]
+    with torch.device("meta"):
+        ft = GoatModel(GoatConfig.for_dataset(
+            cfg["dataset"], **cfg["model"], **cfg["finetune_flags"]))
+        pm = GoatPretrainModel(
+            GoatConfig.for_dataset(cfg["dataset"], **cfg["model"]),
+            tuple(pt["tasks"]), pt["mrc_prob_dim"])
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = []
+    for model in (ft, pm):
+        model = model.to_empty(device=dev)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(0.05 * torch.randn(p.shape, generator=g,
+                                           device=dev))
+        out.append(model)
+    return out, cfg
+
+
+def adamw_rows(card):
+    """Phase 5 (x): the fused AdamW (`ops/csrc/adamw.cu`, `ops.optim`) at
+    both cells' leaf sets: the fine-tune AdamW over the causal R2R model's
+    trainable parameters (clip 40) and the pretraining adamw chain over
+    the pretraining model's leaves (in_proj split, decay mask, clip 5),
+    every leaf with a gradient.  Per update: the two launches' device ms
+    (CUDA events over 20 updates of one table), the call's host us (20
+    calls, one synchronise after them) and its ms with a synchronise;
+    the bytes bound (32 bytes an element at 3.35 TB/s); the plain loop on
+    the card (`clip_adamw_plain`, the loops the kernels replaced): ms with
+    its read of the norm, and device ms without the clip, from a CUDA graph
+    (no host gaps); torch.optim.AdamW(fused=True) after
+    clip_grad_norm_(foreach=True) as the library's yardstick (events over
+    20 updates), which the port never calls.  Before that yardstick, the
+    kernels held against the plain version (`adamw_held`) with the clip
+    engaged (the seeded gradients as they are) and not (scaled by 1e-6).
+    Returns
+    ({set: numbers}, [failures])."""
+    from vln_goat_tpu_torch.config import PretrainConfig
+    from vln_goat_tpu_torch.pretrain.train import (PretrainState,
+                                                   make_pretrain_optimizer)
+    from vln_goat_tpu_torch.train.trainer import make_optimizer
+    dev = "cuda"
+    (ft, pm), cfg = goat_r2r_models(dev)
+    pt = cfg["pretrain"]
+    g = torch.Generator(device=dev).manual_seed(1)
+    nums, failures = {}, []
+    for name, model in (("finetune", ft), ("pretrain", pm)):
+        params = [p for p in model.parameters() if p.requires_grad]
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=g, device=dev)
+        if name == "finetune":
+            opt, _ = make_optimizer(params, lr=2e-5, weight_decay=0.01)
+            step = lambda: opt.step(max_norm=40.0)  # noqa: E731
+        else:
+            state = PretrainState(model, make_pretrain_optimizer(
+                PretrainConfig(tasks=tuple(pt["tasks"]),
+                               learning_rate=pt["learning_rate"],
+                               warmup_steps=0, grad_norm=pt["grad_norm"],
+                               optim=pt["optim"], betas=tuple(pt["betas"]),
+                               weight_decay=pt["weight_decay"]), model))
+            step = lambda: state.apply(state.leaf_grads())  # noqa: E731
+        # the groups as the call builds them, for the raw launches and the
+        # plain loop
+        seen = []
+        real = optim.clip_adamw_
+        optim.clip_adamw_ = lambda groups, *a, **k: seen.append(
+            (groups, a, k))
+        step()
+        optim.clip_adamw_ = real
+        groups, a, k = seen[0]
+        max_norm = a[0] if a else k.get("max_norm")
+        at_max = k.get("clip_at_max", False)
+        n = sum(p.numel() for grp in groups for p in grp.params)
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        lib = optim._lib()
+        rows, spans, gitems = optim.table_rows(groups)
+        tab = torch.tensor(rows, dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        norm = torch.empty((), device=dev)
+
+        def launches():
+            parts = optim._norm_launch(lib, tab, len(rows) // optim.COLS,
+                                       gitems, dev, stream)
+            for grp, sp in zip(groups, spans):
+                optim._update_launch(lib, grp.params[0].dtype, tab, sp, parts,
+                                     norm, grp, 2 if at_max else 1, max_norm,
+                                     stream)
+
+        dev_ms = cuda_ms(launches)
+        before = dict(optim.launches)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            step()
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        per = {k: (optim.launches[k] - before[k]) / 20 for k in before}
+
+        def synced():
+            step()
+            torch.cuda.synchronize()
+
+        call_ms = cuda_ms(synced, iters=10)
+        plain_ms = cuda_ms(lambda: optim.clip_adamw_plain(
+            groups, max_norm, at_max), iters=3, warmup=1)
+        plain_dev_ms = graph_ms(lambda: optim.clip_adamw_plain(groups),
+                                reps=2)
+        # before the library's clip, which scales the gradients in place
+        held = {}
+        for scale in (1.0, 1e-6):
+            if scale != 1.0:
+                with torch.no_grad():
+                    for gr in (gr for grp in groups for gr in grp.grads):
+                        gr.mul_(scale)
+            h = held[scale] = adamw_held(groups, max_norm, at_max)
+            if h["clipped"] != (scale == 1.0) and not h["failure"]:
+                h["failure"] = ("the clip " + ("did not engage" if scale
+                                               == 1.0 else "engaged")
+                                + f" at norm {h['norm']}")
+            if h["failure"]:
+                failures.append(f"adamw (x) {name} x{scale}: {h['failure']}")
+        lib_opt = torch.optim.AdamW(params, lr=2e-5, weight_decay=0.01,
+                                    fused=True)
+
+        def library():
+            torch.nn.utils.clip_grad_norm_(params, 40.0, foreach=True)
+            lib_opt.step()
+
+        lib_ms = cuda_ms(library)
+        bound_ms = 32 * n / 3.35e12 * 1e3
+        nums[name] = dict(leaves=sum(len(grp.params) for grp in groups),
+                          elements=n, device_ms=dev_ms, host_us=host_us,
+                          call_ms=call_ms, bound_ms=bound_ms,
+                          plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
+                          library_ms=lib_ms, launches=per,
+                          max_abs_err=max(max(h["err"].values())
+                                          for h in held.values()),
+                          norm_rel=max(h["norm_rel"] for h in held.values()),
+                          held=held)
+        say(f"adamw {name}: {nums[name]['leaves']} leaves, {n} elements; "
+            f"kernel device {dev_ms:.4f} ms (bound {bound_ms:.4f}, bytes, "
+            f"{100 * bound_ms / dev_ms:.1f}%), call {call_ms:.3f} ms "
+            f"synchronised, host {host_us:.0f} us, launches {per}; plain "
+            f"{plain_ms:.2f} ms, its device {plain_dev_ms:.3f} ms without "
+            f"the clip; library (clip_grad_norm_ foreach + AdamW fused) "
+            f"{lib_ms:.4f} ms; against the plain version: "
+            + "; ".join(f"x{sc} norm {h['norm']:.6g} (clip "
+                        f"{'engaged' if h['clipped'] else 'not engaged'}, "
+                        f"{h['norm_rel']:.3e} from float64), max abs err "
+                        + ", ".join(f"{k} {v:.3e}"
+                                    for k, v in h["err"].items())
+                        for sc, h in held.items()) + f" on {card}")
+        del lib_opt, groups, seen
+        for p in params:
+            p.grad = None
+    del ft, pm
+    torch.cuda.empty_cache()
+    for f in failures:
+        say(f"{f} (the script goes on, and fails at its end)")
+    return nums, failures
+
+
+@torch.no_grad()
+def adamw_held(groups, max_norm, at_max):
+    """One update of `groups` by the kernels (`optim.clip_adamw_`) and one
+    by the plain version (`clip_adamw_plain`, clipping by the kernels'
+    norm) on copies of the same leaves and moments: {"err": the largest
+    abs difference of p / mu / nu (0: bit-equal, as the kernels are built
+    to be), "norm", "norm_rel": its distance from the float64 norm of the
+    same gradients over that norm, "clipped", "failure": None, or what
+    failed: an error above 0, or norm_rel above 1.5e-7 (the bound
+    tests/test_torch_fused_adamw_cuda.py derives)}."""
+    twins = [dataclasses.replace(
+        grp, params=[p.clone() for p in grp.params],
+        mus=[m.clone() for m in grp.mus], nus=[v.clone() for v in grp.nus])
+        for grp in groups]
+    norm = optim.clip_adamw_(groups, max_norm, at_max)
+    optim.clip_adamw_plain(twins, max_norm, at_max, norm)
+    err = {k: max(float((a.double() - b.double()).abs().max())
+                  for grp, tw in zip(groups, twins)
+                  for a, b in zip(getattr(grp, key), getattr(tw, key)))
+           for k, key in (("p", "params"), ("mu", "mus"), ("nu", "nus"))}
+    exact = float(torch.sqrt(sum(gr.double().square().sum()
+                                 for grp in groups for gr in grp.grads
+                                 if gr is not None)))
+    nf = float(norm)
+    out = dict(err=err, norm=nf, norm_rel=abs(nf - exact) / exact,
+               clipped=(not nf < max_norm) if at_max else nf > max_norm,
+               failure=None)
+    if any(not v == 0 for v in err.values()):
+        out["failure"] = f"kernels differ from the plain version: {err}"
+    elif not out["norm_rel"] <= 1.5e-7:
+        out["failure"] = (f"norm {nf} is {out['norm_rel']:.3e} from the "
+                          f"float64 norm {exact}")
+    return out
+
+
+def adamw_kernel_rows(nums):
+    """The kernel line's rows of the fused AdamW (`PERF.md` row A1), one a
+    leaf set: the launches the main train paths made (`ADAMW_LAUNCHES`:
+    fine-tuning and the speaker at the fine-tune row, pretraining's tasks
+    at the pretraining row), the largest error against the plain version,
+    and 5 (x)'s times: ms the two launches' device time (CUDA events),
+    plain the loop with its read of the norm, library clip_grad_norm_ +
+    AdamW(fused=True), bound 32 bytes an element at 3.35 TB/s."""
+    rows = []
+    for name, r in nums.items():
+        by_path = {k: sum(v.values()) for k, v in ADAMW_LAUNCHES.items()
+                   if k.startswith("pretrain_") == (name == "pretrain")}
+        rows.append(dict(
+            name=f"adamw_{name}", route="cuda",
+            source="vln_goat_tpu_torch/ops/csrc/adamw.cu",
+            replaces=("vln_goat_tpu/pretrain/train.py:57 "
+                      "make_pretrain_optimizer" if name == "pretrain" else
+                      "vln_goat_tpu/train/trainer.py:74 make_optimizer")
+            + " (optax clip_by_global_norm + adamw, left to XLA)",
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=r["max_abs_err"], norm_rel_err=r["norm_rel"],
+            ms=r["device_ms"], call_ms=r["call_ms"], plain_ms=r["plain_ms"],
+            plain_device_ms=r["plain_device_ms"], bound_ms=r["bound_ms"],
+            bound_by="bytes", library_ms=r["library_ms"],
+            leaves=r["leaves"], elements=r["elements"]))
+    return rows
+
+
 # the phase running now (`start_phase`), named with the error of a phase
 # that raises (`run`)
 CURRENT_PHASE = ["1 (device)"]
@@ -5325,6 +5598,9 @@ def main() -> int:
     t0 = start_phase("phase 5 (v)")
     v_nums, v_failed = multiprocess_phase(card)
     say(f"wall: phase 5 (v) {time.perf_counter() - t0:.1f} s")
+    t0 = start_phase("phase 5 (x)")
+    x_nums, x_failed = adamw_rows(card)
+    say(f"wall: phase 5 (x) {time.perf_counter() - t0:.1f} s")
     # the plain bench build last: its profiled step comes after every timed
     # step of the script
     t0 = start_phase("phase 5 (g)")
@@ -5515,6 +5791,7 @@ def main() -> int:
     kernels += pretrain_kernel_rows(pt_rows, q_timing)
     kernels += refresh_kernel_rows(refresh_rows,
                                    s_nums["kernels_counts"][0])
+    kernels += adamw_kernel_rows(x_nums)
     # the float32 CUDA-core bounds, beside the 3xTF32 ones
     # the kernels line carries, and the forward by part
     say(f"float32 CUDA-core bound over the train mix: forward "
@@ -5545,7 +5822,7 @@ def main() -> int:
                             m_failed, n_failed, o_failed, p_failed,
                             q_failed, qt_failed, r_failed, s_failed,
                             t_failed, w_failed, *i_failed, *u_failed,
-                            *v_failed)
+                            *v_failed, *x_failed)
                 if f is not None]
     if failures:
         say("FAILED: " + "; ".join(failures))

@@ -24,18 +24,24 @@ each schedule value is a float32 number, as the JAX package computes it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..ops import optim
 from ..utils.logger import read
 
 
 @dataclass
 class Transform:
+    """`fused`: what `apply_updates` needs of a transformation the fused
+    update takes ({"kind": "clip" | "adam" | "decay" | "lr", ...}); `parts`:
+    a chain's transformations."""
     init: Callable
     update: Callable
+    fused: Optional[dict] = None
+    parts: tuple = ()
 
 
 def chain(*ts: Transform) -> Transform:
@@ -49,7 +55,7 @@ def chain(*ts: Transform) -> Transform:
             new.append(s)
         return updates, new
 
-    return Transform(init, update)
+    return Transform(init, update, parts=ts)
 
 
 def _zeros(params):
@@ -78,7 +84,7 @@ def scale_by_adam(b1=0.9, b2=0.999, eps=1e-8) -> Transform:
             out.append(m_hat / (torch.sqrt(v_hat) + eps))
         return out, dict(count=n, mu=mu, nu=nu)
 
-    return Transform(init, update)
+    return Transform(init, update, dict(kind="adam", b1=b1, b2=b2, eps=eps))
 
 
 def scale_by_adamax(b1=0.9, b2=0.999, eps=1e-8) -> Transform:
@@ -135,7 +141,8 @@ def add_decayed_weights(weight_decay: float,
         return [u + weight_decay * p if d else u
                 for u, p, d in zip(updates, params, keep)], state
 
-    return Transform(lambda params: None, update)
+    return Transform(lambda params: None, update,
+                     dict(kind="decay", weight_decay=weight_decay, mask=mask))
 
 
 def scale_by_learning_rate(lr: Callable[[int], float]) -> Transform:
@@ -144,7 +151,7 @@ def scale_by_learning_rate(lr: Callable[[int], float]) -> Transform:
         step = float(-np.float32(lr(state)))
         return [step * u for u in updates], state + 1
 
-    return Transform(lambda params: 0, update)
+    return Transform(lambda params: 0, update, dict(kind="lr", lr=lr))
 
 
 def clip_by_global_norm(max_norm: float) -> Transform:
@@ -157,7 +164,8 @@ def clip_by_global_norm(max_norm: float) -> Transform:
             return updates, state
         return [(u / norm.to(u.dtype)) * max_norm for u in updates], state
 
-    return Transform(lambda params: None, update)
+    return Transform(lambda params: None, update,
+                     dict(kind="clip", max_norm=max_norm))
 
 
 def lars_trust(base: Transform, clamp: float = 10.0) -> Transform:
@@ -247,3 +255,75 @@ def build_optimizer(name: str, lr, b1=0.9, b2=0.999, eps=1e-8,
     if name == "rangerlars":
         return rangerlars(lr, b1, b2, eps, weight_decay)
     raise ValueError(f"invalid optimizer {name}")
+
+
+# the chains the fused update takes: [clip], adam, [decay], lr
+_FUSED = {("adam", "lr"), ("adam", "decay", "lr"), ("clip", "adam", "lr"),
+          ("clip", "adam", "decay", "lr")}
+
+
+def _flat(tx: Transform) -> list:
+    """The transformations of a chain in order, nested chains flattened."""
+    return [x for t in tx.parts for x in _flat(t)] if tx.parts else [tx]
+
+
+def _flat_states(tx: Transform, state) -> list:
+    """The states of `_flat(tx)`'s transformations, in the same order."""
+    if not tx.parts:
+        return [state]
+    return [x for t, s in zip(tx.parts, state) for x in _flat_states(t, s)]
+
+
+def fused_parts(tx: Transform) -> Optional[dict]:
+    """{kind: its `fused` dict} of the transformations of `tx` when it is a
+    chain the fused update takes (adam or adamw, with or without the clip
+    first); None for any other."""
+    ts = _flat(tx)
+    if tuple(t.fused["kind"] if t.fused else None for t in ts) not in _FUSED:
+        return None
+    return {t.fused["kind"]: t.fused for t in ts}
+
+
+def _advance(tx: Transform, state):
+    """`tx`'s state after one fused update: the Adam and learning-rate
+    counts one up, the moments (updated in place) kept."""
+    if tx.parts:
+        return [_advance(t, s) for t, s in zip(tx.parts, state)]
+    kind = tx.fused["kind"] if tx.fused else None
+    if kind == "adam":
+        return dict(state, count=state["count"] + 1)
+    return state + 1 if kind == "lr" else state
+
+
+@torch.no_grad()
+def apply_updates(tx: Transform, state, params: List[torch.Tensor],
+                  grads: List[Optional[torch.Tensor]]):
+    """One update of `params` in place by `tx` from `grads` (None: a leaf
+    without a gradient, which steps with a zero one) -> tx's new state
+    (optax's update, then apply_updates).  A chain of `fused_parts` takes
+    `ops.optim.clip_adamw_` (on the card two launches, no read of the
+    norm), bit-equal to its loop; any other runs its transformations'
+    loops."""
+    parts = fused_parts(tx)
+    if parts is None:
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        updates, state = tx.update(grads, state, params)
+        for p, u in zip(params, updates):
+            p.add_(u)
+        return state
+    states = {t.fused["kind"]: s for t, s in zip(_flat(tx),
+                                                  _flat_states(tx, state))}
+    adam, count = states["adam"], states["lr"]
+    a, n = parts["adam"], adam["count"] + 1
+    decay = parts.get("decay")
+    clip = parts.get("clip")
+    optim.clip_adamw_([optim.Group(
+        params, grads, adam["mu"], adam["nu"], a["b1"], a["b2"], a["eps"],
+        decay["weight_decay"] if decay else 0.0,
+        float(-np.float32(parts["lr"]["lr"](count))),
+        _bias_correction(a["b1"], n), _bias_correction(a["b2"], n),
+        (decay["mask"] or [True] * len(params)) if decay
+        else [False] * len(params))],
+        clip["max_norm"] if clip else None, clip_at_max=True)
+    return _advance(tx, state)

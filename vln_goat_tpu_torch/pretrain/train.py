@@ -39,7 +39,8 @@ from ..ops.dropout import set_generator
 from ..parallel.distributed import (all_reduce_grads, process_index,
                                     reduce_metrics)
 from ..utils.logger import span
-from .optimizers import Transform, build_optimizer, chain, clip_by_global_norm
+from .optimizers import (Transform, apply_updates, build_optimizer, chain,
+                         clip_by_global_norm)
 
 
 class MetaTaskSampler:
@@ -148,19 +149,24 @@ class PretrainState:
     def grads(self) -> List[torch.Tensor]:
         """The leaves' gradients, zero where a parameter has none (a task
         that leaves it unused: JAX's gradient there is zero)."""
-        return [torch.zeros_like(leaf.view(leaf.param))
-                if leaf.param.grad is None else leaf.view(leaf.param.grad)
-                for leaf in self.leaves]
+        return [torch.zeros_like(leaf.view(leaf.param)) if g is None else g
+                for leaf, g in zip(self.leaves, self.leaf_grads())]
+
+    def leaf_grads(self) -> List[Optional[torch.Tensor]]:
+        """The leaves' gradients, None where a parameter has none."""
+        return [None if leaf.param.grad is None
+                else leaf.view(leaf.param.grad) for leaf in self.leaves]
 
     @torch.no_grad()
-    def apply(self, grads: List[torch.Tensor]) -> None:
-        """One optimizer update from the leaves' gradients, added to the
-        parameters in place (optax.apply_updates)."""
-        params = self.params()
-        updates, self.opt_state = self.tx.update(grads, self.opt_state,
-                                                 params)
-        for p, u in zip(params, updates):
-            p.add_(u)
+    def apply(self, grads: List[Optional[torch.Tensor]]) -> None:
+        """One optimizer update from the leaves' gradients (None: a leaf
+        without one, which steps with a zero gradient), added to the
+        parameters in place (optax.apply_updates; `optimizers.
+        apply_updates`, which takes the fused update for an adam / adamw
+        chain)."""
+        self.opt_state = apply_updates(
+            self.tx, self.opt_state,
+            [leaf.view(leaf.param) for leaf in self.leaves], grads)
         self.step += 1
 
 
@@ -202,7 +208,7 @@ def make_pretrain_steps(model: nn.Module, tasks: Sequence[str],
                         for n, p in model.named_parameters()
                         if p.grad is not None} if keep else None
                 with span("optimizer"):
-                    state.apply(state.grads())
+                    state.apply(state.leaf_grads())
                 model.zero_grad(set_to_none=True)
                 out = {k: v.detach() for k, v in metrics.items()}
                 out["loss"] = loss.detach()

@@ -26,7 +26,8 @@ import torch
 from ..core import geometry as G
 from ..device import resolve
 from ..ops.dropout import set_generator
-from ..pretrain.optimizers import chain, scale_by_adam, scale_by_learning_rate
+from ..pretrain.optimizers import (apply_updates, chain, scale_by_adam,
+                                   scale_by_learning_rate)
 from ..rollout.rollout import gumbel_noise
 from ..sim.graph_sim import ScanGraph
 from ..train.params import _lecun_
@@ -168,13 +169,12 @@ class Speaker:
         def step(batch, generator: torch.Generator) -> torch.Tensor:
             loss = self.loss_fn(batch, generator)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
-            grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(params, grads)]
-            updates, holder[0] = tx.update(grads, holder[0],
-                                           [p.detach() for p in params])
-            with torch.no_grad():
-                for p, u in zip(params, updates):
-                    p.add_(u)
+            # autograd.grad keeps the layout of a gradient's last operation
+            # (a transposed view, say); the fused update takes contiguous
+            # gradients, as `.grad` would hold them
+            holder[0] = apply_updates(
+                tx, holder[0], [p.detach() for p in params],
+                [None if g is None else g.contiguous() for g in grads])
             return loss.detach()
 
         return step, holder

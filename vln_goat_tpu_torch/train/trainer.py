@@ -52,6 +52,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Union
 
 import torch
 
+from ..ops import optim
 from ..ops.dropout import set_generator
 from ..parallel.distributed import all_reduce_grads, reduce_metrics
 from ..parallel.mesh import Mesh, shard_batch
@@ -59,7 +60,7 @@ from ..ops.remat import check as check_remat
 from ..rollout.rollout import NavRollout, SAMPLE_FEEDBACKS
 from ..tools.zdict import SHARED_BANKS
 from ..utils.guard import FiniteGuard
-from ..utils.logger import read, span
+from ..utils.logger import span
 
 TRAIN_ALGS = ("imitation", "dagger", "dagger_fused")
 
@@ -136,6 +137,9 @@ class AdamW(torch.optim.Optimizer):
     zero: its moments decay and the weight decay shrinks it.
     torch.optim.AdamW would skip it.
 
+    The update is `ops.optim.clip_adamw_`: on the card two launches over
+    a table of the parameters, on the CPU the loop over them.
+
     `accumulator` and `guard` (None unless `make_optimizer` asks for them)
     are the accumulation and the finite guard that `apply_update` runs
     before the clip and this step."""
@@ -152,10 +156,19 @@ class AdamW(torch.optim.Optimizer):
         return [p for group in self.param_groups for p in group["params"]]
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, max_norm: Optional[float] = None
+             ) -> Optional[torch.Tensor]:
+        """One update of every parameter (`ops.optim.clip_adamw_`: on the
+        card two launches, on the CPU the loop), the gradients first
+        clipped by their global norm where it exceeds `max_norm` (optax's
+        clip_by_global_norm; torch's clip_grad_norm_ adds 1e-6 to the norm,
+        optax does not) -> that norm (None without `max_norm`).  `p.grad`
+        is left as it was.  The bias corrections 1 - b^n are computed on
+        the device once for each update count and dtype."""
+        groups = []
         for group in self.param_groups:
-            lr, b1, b2 = group["lr"], group["b1"], group["b2"]
-            eps, wd = group["eps"], group["weight_decay"]
+            b1, b2 = group["b1"], group["b2"]
+            by_count = {}
             for p in group["params"]:
                 st = self.state[p]
                 if not st:
@@ -163,14 +176,17 @@ class AdamW(torch.optim.Optimizer):
                     st["mu"] = torch.zeros_like(p)
                     st["nu"] = torch.zeros_like(p)
                 st["step"] += 1
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                st["mu"] = (1 - b1) * g + b1 * st["mu"]
-                st["nu"] = (1 - b2) * (g * g) + b2 * st["nu"]
-                one = torch.ones((), dtype=p.dtype, device=p.device)
-                bc1 = one - (one * b1) ** st["step"]
-                bc2 = one - (one * b2) ** st["step"]
-                u = (st["mu"] / bc1) / (torch.sqrt(st["nu"] / bc2) + eps)
-                p.add_((-lr) * (u + wd * p))
+                by_count.setdefault((st["step"], p.dtype), []).append(
+                    (p, st))
+            for (n, dtype), leaves in by_count.items():
+                one = torch.ones((), dtype=dtype, device=leaves[0][0].device)
+                groups.append(optim.Group(
+                    [p for p, _ in leaves], [p.grad for p, _ in leaves],
+                    [st["mu"] for _, st in leaves],
+                    [st["nu"] for _, st in leaves], b1, b2, group["eps"],
+                    group["weight_decay"], -group["lr"],
+                    one - (one * b1) ** n, one - (one * b2) ** n))
+        return optim.clip_adamw_(groups, max_norm)
 
 
 class GradAccumulator:
@@ -214,7 +230,8 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 2e-5,
     `warmup_cosine_schedule` when both warmup_steps and total_steps are
     given, else at the constant `lr` (the JAX package's make_optimizer,
     trainer.py:74-100).  Counted in updates as optax counts them.  The
-    global-norm clip is the train step's (`clip_by_global_norm`).
+    global-norm clip is `AdamW.step`'s (`max_norm`, the train step's
+    `grad_clip`).
     accumulate_steps > 1: the mean of that many mini-batch gradients makes
     one update (`GradAccumulator`, MultiSteps); finite_guard: an update
     with a non-finite gradient is skipped (`FiniteGuard`,
@@ -233,21 +250,6 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 2e-5,
         sched = lambda count: lr  # noqa: E731
     return opt, torch.optim.lr_scheduler.LambdaLR(
         opt, lambda count: sched(count) / lr)
-
-
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
-
-
-@torch.no_grad()
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
-                        norm: torch.Tensor) -> None:
-    """optax.clip_by_global_norm in place: g * (max / |g|) when |g| > max
-    (torch's clip_grad_norm_ adds 1e-6 to the norm; optax does not)."""
-    if read(norm) > max_norm:
-        for g in grads:
-            g.copy_((g / norm) * max_norm)
 
 
 @dataclass
@@ -270,29 +272,31 @@ class TrainState:
 
 
 def apply_update(state: TrainState) -> torch.Tensor:
-    """Clip the gradients in `state.model`'s .grad by their global norm,
-    take one optimizer and schedule step, count it; returns the norm of
-    the gradients before clipping.  With the optimizer's accumulator the
+    """One optimizer step clipped by the global norm of the gradients in
+    `state.model`'s .grad (`AdamW.step(max_norm=state.grad_clip)`, which
+    leaves .grad as it was), one schedule step, counted; returns the norm
+    of the gradients before clipping.  With the optimizer's accumulator the
     gradients join the mean, and the update (of the mean, clipped by its
     own norm) comes at every k-th call only; with its guard a non-finite
     update is skipped.  Skipped or not yet due, the parameters, the
     optimizer, the schedule and `state.step` stay as they were."""
     opt = state.optimizer
-    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-    norm = global_norm(grads)
-    clip_norm = norm
-    if opt.accumulator is not None:
-        if not opt.accumulator.add(opt.params()):
-            return norm
-        grads = [p.grad for p in opt.params()]
-        clip_norm = global_norm(grads)
-    if opt.guard is not None and not opt.guard.allow(grads):
-        return norm
-    clip_by_global_norm(grads, state.grad_clip, clip_norm)
-    opt.step()
+    norm = None
+    if opt.accumulator is not None or opt.guard is not None:
+        grads = [p.grad for p in state.model.parameters()
+                 if p.grad is not None]
+        if opt.accumulator is not None:
+            norm = optim.global_norm_plain(grads)
+            if not opt.accumulator.add(opt.params()):
+                return norm
+            grads = [p.grad for p in opt.params()]
+        if opt.guard is not None and not opt.guard.allow(grads):
+            return optim.global_norm_plain(grads) if norm is None \
+                else norm
+    clip_norm = opt.step(max_norm=state.grad_clip)
     state.scheduler.step()
     state.step += 1
-    return norm
+    return clip_norm if norm is None else norm
 
 
 def fuse_dagger_batches(batch_t: Dict[str, torch.Tensor],
